@@ -1,0 +1,18 @@
+"""lightgbm_tpu_torch: the PyTorch/CUDA port of lightgbm_tpu.
+
+A second package beside the JAX one, which stays the reference it is
+tested against; it imports torch and numpy and nothing of JAX or of
+`lightgbm_tpu`. Its device kernels are written by hand in CUDA C++ for
+Hopper (`csrc/`). This slice serves: model text -> `Booster` ->
+`Booster.predict` (value, raw_score, pred_leaf, num_iteration) and the
+`serving.Predictor` front end. Entry points run on the CUDA card unless
+the caller passes `device="cpu"`, which runs the plain PyTorch versions
+of the kernels.
+"""
+from . import log, serving
+from .basic import Booster
+from .log import LightGBMError
+from .serving import Predictor
+
+__all__ = ["Booster", "LightGBMError", "Predictor", "log", "serving"]
+__version__ = "0.1.0"

@@ -1,0 +1,107 @@
+"""Build the port's CUDA kernels and bind them through ctypes.
+
+Each library is one `.cu` file of `lightgbm_tpu_torch/csrc/` with a
+plain C interface, compiled by `nvcc` for Hopper (`sm_90a`) into
+`build/lightgbm_tpu_torch/lib<name>.so` under the checkout's root, and
+loaded with `ctypes`. No PyTorch header is compiled, which keeps a build
+to seconds. The build runs at first use, is redone when the source or
+the flags change (a SHA-256 stamp beside the library), and is serialised
+between threads by a lock and between processes by an exclusive file
+lock. A failed build raises with `nvcc`'s stderr; nothing falls back.
+"""
+from __future__ import annotations
+
+import ctypes
+import fcntl
+import hashlib
+import os
+import subprocess
+import threading
+import time
+from dataclasses import dataclass
+from pathlib import Path
+from typing import Dict
+
+from ..log import LightGBMError
+
+CSRC = Path(__file__).resolve().parent.parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "lightgbm_tpu_torch"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+_p, _i, _f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+# the forest-walk pointer block shared by both entry points: x, n, F,
+# the nine Forest arrays, then T, M, L, C+2, W
+_WALK_HEAD = [_p, _i, _i] + [_p] * 9 + [_i] * 5
+
+# library name -> (source file, {C entry point: argtypes})
+LIBRARIES = {
+    "forest": ("forest_walk.cu", {
+        "lgbt_forest_value_walk": _WALK_HEAD + [_i, _f, _f, _f, _p, _p],
+        "lgbt_forest_leaf_walk": _WALK_HEAD + [_p, _p],
+    }),
+}
+
+
+@dataclass
+class BuildRecord:
+    path: Path
+    seconds: float        # nvcc wall time, 0.0 when the stamp matched
+    compiled: bool
+    log: str              # nvcc/ptxas stderr (registers, spills)
+
+
+_lock = threading.Lock()
+_loaded: Dict[str, ctypes.CDLL] = {}
+
+
+def _nvcc() -> str:
+    from torch.utils.cpp_extension import CUDA_HOME
+    if CUDA_HOME is None:
+        raise LightGBMError("nvcc not found: the kernels of "
+                            "lightgbm_tpu_torch need the CUDA toolkit")
+    return os.path.join(CUDA_HOME, "bin", "nvcc")
+
+
+def build(name: str) -> BuildRecord:
+    """Compile library `name` unless its stamp matches; returns what
+    was done. Safe to call from several processes at once."""
+    source, _ = LIBRARIES[name]
+    src = CSRC / source
+    digest = hashlib.sha256(src.read_bytes()
+                            + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    out = BUILD_DIR / f"lib{name}.so"
+    stamp = BUILD_DIR / f"lib{name}.so.sha256"
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    with open(BUILD_DIR / f"lib{name}.lock", "w") as lock_file:
+        fcntl.flock(lock_file, fcntl.LOCK_EX)
+        if (out.exists() and stamp.exists()
+                and stamp.read_text() == digest):
+            return BuildRecord(out, 0.0, False, "")
+        tmp = BUILD_DIR / f"lib{name}.{os.getpid()}.tmp.so"
+        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)]
+        t0 = time.perf_counter()
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        seconds = time.perf_counter() - t0
+        if proc.returncode != 0:
+            raise LightGBMError("nvcc failed (exit %d) building %s:\n%s"
+                                % (proc.returncode, src, proc.stderr))
+        os.replace(tmp, out)
+        stamp.write_text(digest)
+    return BuildRecord(out, seconds, True, proc.stderr)
+
+
+def load_library(name: str) -> ctypes.CDLL:
+    """The bound library `name`, built on first use in this process."""
+    with _lock:
+        lib = _loaded.get(name)
+        if lib is None:
+            lib = ctypes.CDLL(str(build(name).path))
+            for entry, argtypes in LIBRARIES[name][1].items():
+                fn = getattr(lib, entry)
+                fn.argtypes = argtypes
+                fn.restype = ctypes.c_int
+            lib.lgbt_error_string.argtypes = [ctypes.c_int]
+            lib.lgbt_error_string.restype = ctypes.c_char_p
+            _loaded[name] = lib
+        return lib

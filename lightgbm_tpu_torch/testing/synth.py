@@ -1,0 +1,221 @@
+"""Seeded synthetic forests and rows.
+
+A machine without JAX cannot train a model to serve, so the card's smoke
+run and the tests make one from a seed instead:
+
+- `synthetic_rows` draws HIGGS-shaped rows (standard-normal numeric
+  features with a share of NaN and exact zeros, integer categories);
+- `synthetic_forest_text` grows leaf-wise trees over such rows and writes
+  them as model text in the format `GBDT.save_model_to_string` writes:
+  thresholds are quantiles of the rows that reach the node (so every
+  region is reached), numeric nodes mix the three missing types and both
+  default directions, categorical nodes carry bitsets, and the objective
+  is `binary sigmoid:1`;
+- `edge_case_rows` builds rows that reach chosen nodes with the values a
+  walk is easiest to get wrong there: the node's f32 threshold and one
+  ulp either side, NaN, exact and signed zero, +-1e-36 and 1e-35, and
+  negative, non-member and beyond-the-bitset categories.
+
+`edge_case_rows` reads only `num_leaves`, `split_feature`, `threshold`,
+`decision_type`, `left_child`, `right_child`, `cat_boundaries` and
+`cat_threshold`, so it takes the trees of either package.
+"""
+from __future__ import annotations
+
+from typing import Dict, List
+
+import numpy as np
+
+from ..binning import MISSING_NAN, MISSING_NONE, MISSING_ZERO
+from ..convert import booster_from_numpy
+from ..tree import Tree
+
+CARDINALITY = 40          # categories 0..39: bitsets of one or two words
+_SAMPLE_ROWS = 4096       # rows a synthetic tree is grown over
+_MIN_SPLIT_ROWS = 4
+
+
+def synthetic_rows(seed: int, n: int, num_features: int,
+                   cat_features: int = 0) -> np.ndarray:
+    """[n, num_features] f32; the last `cat_features` columns hold
+    integer categories, the others N(0, 1) with 2% NaN and 2% zeros."""
+    rng = np.random.RandomState(seed)
+    x = rng.standard_normal((n, num_features)).astype(np.float32)
+    numeric = num_features - cat_features
+    u = rng.random_sample((n, numeric))
+    block = x[:, :numeric]
+    block[u < 0.02] = np.nan
+    block[(u >= 0.02) & (u < 0.04)] = 0.0
+    x[:, numeric:] = rng.randint(0, CARDINALITY, (n, cat_features))
+    return x
+
+
+def _numeric_left(vals, thr, missing, default_left):
+    nan = np.isnan(vals)
+    is_missing = ((missing == MISSING_NAN) & nan) | (
+        (missing == MISSING_ZERO) & (nan | (np.abs(vals) <= 1e-35)))
+    return np.where(is_missing, default_left,
+                    np.where(nan, 0.0, vals) <= thr)
+
+
+def _grow_tree(rng, sample, num_leaves, num_features, cat_features):
+    """One leaf-wise tree as a dict of Tree attribute arrays: the leaf
+    to split is drawn in proportion to its rows, as a best-first grower
+    keeps splitting where the data is."""
+    first_cat = num_features - cat_features
+    leaves = [np.arange(sample.shape[0])]
+    parent = [None]                       # leaf -> (node, is_left)
+    node_arrays: Dict[str, list] = {k: [] for k in (
+        "split_feature", "threshold", "decision_type", "left_child",
+        "right_child", "split_gain", "internal_value", "internal_count")}
+    cat_boundaries, cat_words = [0], []
+    while len(leaves) < num_leaves:
+        counts = np.array([len(r) for r in leaves], np.float64)
+        counts[counts < _MIN_SPLIT_ROWS] = 0
+        if not counts.any():
+            break
+        leaf = rng.choice(len(leaves), p=counts / counts.sum())
+        rows = leaves[leaf]
+        feat = rng.randint(num_features)
+        vals = sample[rows, feat]
+        if feat >= first_cat:
+            present = np.unique(vals)
+            members = present[rng.random_sample(len(present)) < 0.5]
+            words = Tree._bitset(members.astype(np.int64))
+            threshold = float(len(cat_boundaries) - 1)    # the cat_idx
+            cat_words.extend(int(w) for w in words)
+            cat_boundaries.append(cat_boundaries[-1] + len(words))
+            decision = 1 | (MISSING_NAN << 2)
+            go_left = np.isin(vals, members)
+        else:
+            missing = rng.choice([MISSING_NONE, MISSING_ZERO, MISSING_NAN])
+            default_left = bool(rng.randint(2))
+            finite = vals[~np.isnan(vals)]
+            if finite.size == 0:
+                continue
+            threshold = float(np.quantile(finite, rng.uniform(0.2, 0.8),
+                                          method="lower"))
+            decision = (2 if default_left else 0) | (int(missing) << 2)
+            go_left = _numeric_left(vals, threshold, missing, default_left)
+        node = len(node_arrays["split_feature"])
+        if parent[leaf] is not None:
+            p, is_left = parent[leaf]
+            node_arrays["left_child" if is_left else "right_child"][p] = node
+        right = len(leaves)
+        for key, value in (("split_feature", feat), ("threshold", threshold),
+                           ("decision_type", decision),
+                           ("left_child", ~leaf), ("right_child", ~right),
+                           ("split_gain", rng.exponential(10.0)),
+                           ("internal_value", rng.normal(0.0, 0.05)),
+                           ("internal_count", len(rows))):
+            node_arrays[key].append(value)
+        leaves[leaf], parent[leaf] = rows[go_left], (node, True)
+        leaves.append(rows[~go_left])
+        parent.append((node, False))
+    nl = len(leaves)
+    tree = {k: np.asarray(v) for k, v in node_arrays.items()}
+    tree["split_feature_inner"] = tree["split_feature"]
+    tree.update(
+        num_leaves=nl, shrinkage=1.0,
+        leaf_value=rng.normal(0.0, 0.05, nl),
+        leaf_count=np.array([len(r) for r in leaves]),
+        num_cat=len(cat_boundaries) - 1,
+        cat_boundaries=np.asarray(cat_boundaries),
+        cat_threshold=np.asarray(cat_words, np.uint32))
+    return tree
+
+
+def synthetic_forest_text(seed: int, num_trees: int, num_leaves: int,
+                          num_features: int, cat_features: int = 0) -> str:
+    """Model text of a seeded binary forest (see the module docstring)."""
+    rng = np.random.RandomState(seed)
+    sample = synthetic_rows(seed + 1, _SAMPLE_ROWS, num_features,
+                            cat_features)
+    trees = [_grow_tree(rng, sample, num_leaves, num_features, cat_features)
+             for _ in range(num_trees)]
+    header = {"num_class": 1, "num_tree_per_iteration": 1,
+              "max_feature_idx": num_features - 1,
+              "objective": "binary sigmoid:1"}
+    return booster_from_numpy(header, trees, device="cpu").model_to_string()
+
+
+# ----------------------------------------------------------------------
+def _parents(tree) -> Dict[int, tuple]:
+    out = {}
+    for node in range(tree.num_leaves - 1):
+        for child, left in ((tree.left_child[node], True),
+                            (tree.right_child[node], False)):
+            if child >= 0:
+                out[int(child)] = (node, left)
+    return out
+
+
+def _cat_words(tree, node) -> np.ndarray:
+    idx = int(tree.threshold[node])
+    lo, hi = tree.cat_boundaries[idx], tree.cat_boundaries[idx + 1]
+    return np.asarray(tree.cat_threshold[lo:hi], np.uint32)
+
+
+def _members(words) -> List[int]:
+    return [w * 32 + b for w in range(len(words)) for b in range(32)
+            if (int(words[w]) >> b) & 1]
+
+
+def _f32_threshold(tree, node) -> np.float32:
+    fmax = np.finfo(np.float32).max
+    return np.float32(np.clip(tree.threshold[node], -fmax, fmax))
+
+
+def _steer(row, tree, node, left: bool) -> None:
+    """Set the row's value at `node`'s feature so the node sends it
+    `left` (best effort: a later ancestor on the same feature wins)."""
+    f = int(tree.split_feature[node])
+    if tree.decision_type[node] & 1:
+        members = _members(_cat_words(tree, node))
+        row[f] = float(members[0]) if left and members else -1.0
+    else:
+        thr = _f32_threshold(tree, node)
+        row[f] = thr if left else np.nextafter(thr, np.float32(np.inf))
+
+
+def _special_values(tree, node) -> List[float]:
+    if tree.decision_type[node] & 1:
+        words = _cat_words(tree, node)
+        members = _members(words)
+        outside = [c for c in range(len(words) * 32) if c not in members]
+        nbits = float(len(words) * 32)
+        return ([float(members[0])] if members else []) + (
+            [float(outside[0])] if outside else []) + [
+            -1.0, -0.5, nbits, nbits + 5.0, 1000.0, np.nan]
+    thr = _f32_threshold(tree, node)
+    return [thr, np.nextafter(thr, np.float32(np.inf)),
+            np.nextafter(thr, np.float32(-np.inf)), np.nan, 0.0, -0.0,
+            1e-36, -1e-36, 1e-35]
+
+
+def edge_case_rows(trees, num_features: int, seed: int, n: int,
+                   cat_features: int = 0) -> np.ndarray:
+    """[n, num_features] f32 rows, each steered down to a randomly
+    chosen internal node and given one of its special values there."""
+    rng = np.random.RandomState(seed)
+    rows = synthetic_rows(seed + 1, n, num_features, cat_features)
+    split_trees = [t for t in trees if t.num_leaves > 1]
+    if not split_trees:
+        return rows
+    parents = {}
+    for r in range(n):
+        ti = rng.randint(len(split_trees))
+        tree = split_trees[ti]
+        if ti not in parents:
+            parents[ti] = _parents(tree)
+        node = rng.randint(tree.num_leaves - 1)
+        path, cur = [], node
+        while cur in parents[ti]:
+            cur, left = parents[ti][cur]
+            path.append((cur, left))
+        for anc, left in reversed(path):
+            _steer(rows[r], tree, anc, left)
+        values = _special_values(tree, node)
+        rows[r, int(tree.split_feature[node])] = values[
+            rng.randint(len(values))]
+    return rows

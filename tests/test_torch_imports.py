@@ -1,0 +1,78 @@
+"""lightgbm_tpu_torch imports nothing of JAX or of the JAX package.
+
+A child process with `jax` and `lightgbm_tpu` import-blocked (the
+meta-path blocker pattern of tests/test_export.py) loads model text and
+predicts on the CPU; an AST scan finds no such import in the package or
+in chip_smoke.py.
+"""
+import ast
+import json
+import os
+import pathlib
+import subprocess
+import sys
+import textwrap
+
+REPO = pathlib.Path(__file__).resolve().parent.parent
+
+_CHILD = textwrap.dedent("""
+    import json, sys
+
+    def blocked(name):
+        return (name == "jax" or name.startswith("jax.")
+                or name == "jaxlib" or name.startswith("jaxlib.")
+                or name == "lightgbm_tpu" or name.startswith("lightgbm_tpu."))
+
+    class Blocker:
+        def find_spec(self, name, path=None, target=None):
+            if blocked(name):
+                raise ImportError("blocked: " + name)
+            return None
+
+    sys.meta_path.insert(0, Blocker())
+    import numpy as np
+    import lightgbm_tpu_torch as lgb
+    from lightgbm_tpu_torch.testing.synth import (synthetic_forest_text,
+                                                  synthetic_rows)
+    text = synthetic_forest_text(0, 5, 15, 6, cat_features=1)
+    booster = lgb.Booster(model_str=text, device="cpu")
+    rows = synthetic_rows(1, 16, 6, 1)
+    pred = booster.predict(rows)
+    leaf = booster.predict(rows, pred_leaf=True)
+    print(json.dumps({"pred": [float(v) for v in pred],
+                      "leaf_shape": list(leaf.shape),
+                      "round_trip": booster.model_to_string() == text,
+                      "loaded": sorted(m for m in sys.modules if blocked(m))}))
+""")
+
+
+def test_port_runs_with_jax_and_the_jax_package_blocked():
+    env = dict(os.environ, PYTHONPATH=str(REPO))
+    res = subprocess.run([sys.executable, "-c", _CHILD], cwd=str(REPO),
+                         env=env, capture_output=True, text=True,
+                         timeout=300)
+    assert res.returncode == 0, res.stderr[-3000:]
+    out = json.loads(res.stdout.strip().splitlines()[-1])
+    assert out["loaded"] == []
+    assert out["round_trip"] and out["leaf_shape"] == [16, 5]
+    assert all(0.0 < p < 1.0 for p in out["pred"])
+
+
+def _imported_modules(path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for alias in node.names:
+                yield alias.name
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module or ""
+
+
+def test_no_source_of_the_port_imports_jax_or_the_jax_package():
+    files = sorted((REPO / "lightgbm_tpu_torch").rglob("*.py"))
+    files.append(REPO / "chip_smoke.py")
+    assert len(files) > 15
+    bad = [(str(f.relative_to(REPO)), m) for f in files
+           for m in _imported_modules(f)
+           if m.split(".")[0] in ("jax", "jaxlib", "lightgbm_tpu")]
+    assert bad == []
