@@ -39,7 +39,7 @@ TREES, LEAVES, FEATURES = 500, 255, 28
 BULK_ROWS = 262_144
 CHECK_ROWS = 16_384
 REPS = 12
-# published H100 SXM peaks (on-chip-measurement guide, 700 W): HBM rate,
+# published H100 SXM peaks (NVIDIA H100 datasheet, 700 W): HBM rate,
 # and the f32 rate outside the tensor cores, 67 TFLOP/s = 132 SMs x 128
 # lanes x 2 (FMA) x 1.98 GHz, i.e. 33.5e12 instructions a second
 HBM_BYTES_PER_S = 3.35e12
