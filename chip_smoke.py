@@ -17,8 +17,13 @@ Phases, any failure raises and the script exits non-zero:
 3. main path: Booster(model_str=...) on the default device, predict on
    262,144 rows (value, raw_score, pred_leaf), the serving Predictor
    (warmup, 32 predict_one, 256 submit from 8 threads, stats), the model
-   text round trip, and every kernel's launch count over that run;
-4. times: CUDA events around each kernel and its plain version at
+   text round trip, and every kernel's launch count over that run; the
+   whole bulk raw_score and pred_leaf output (launched in the engine's
+   row chunks) must equal the plain versions on the same rows, and the
+   value output must be within 2e-7 of the plain epilogue;
+4. times: K1 and K2 on all 262,144 rows, in one launch and in the
+   engine's row chunks, must equal their plain versions (K1 bitwise);
+   then CUDA events around each kernel and its plain version at
    262,144 rows (median of 12 after warm-up), Booster.predict end to end,
    a torch.profiler breakdown of one Booster.predict (device busy time
    by kind against host wall time), Predictor latency percentiles.
@@ -266,6 +271,23 @@ def main():
           "value != sigmoid(raw_score)")
     check(np.array_equal(ones, value[:32]), "predict_one != predict")
     check(np.array_equal(submitted, value[:256]), "submit != predict")
+    # the whole bulk output, as GBDT._chunks launched it in chunks of
+    # 131,072 rows, against the plain versions on the card at full size
+    trees = host["full"]
+    forest = stack_trees(trees, dev)
+    x = torch.from_numpy(bulk).to(dev)
+    leaf_p = forest_leaf_walk_plain(forest, x)
+    raw_p = forest_value_walk_plain(forest, x)
+    check(np.array_equal(leaf, leaf_p.cpu().numpy()),
+          "main path pred_leaf != plain at %d rows" % BULK_ROWS)
+    raw_host = raw_p.cpu().numpy().astype(np.float64)
+    raw_host += booster._inner.init_score_bias
+    check(np.array_equal(raw, raw_host),
+          "main path raw_score not bitwise equal to plain at %d rows"
+          % BULK_ROWS)
+    epi = float(np.abs(value - apply_output_plain(
+        raw_p, OutputTransform("sigmoid")).cpu().numpy()).max())
+    check(epi <= 2e-7, "main path value: epilogue off by %g" % epi)
     cpu = lgb.Booster(model_str=text, device="cpu")
     small = bulk[:2048]
     check(np.array_equal(cpu.predict(small, pred_leaf=True), leaf[:2048]),
@@ -275,13 +297,37 @@ def main():
     check(np.abs(cpu.predict(small[:1024], num_iteration=5)
                  - capped[:1024]).max() <= 1e-6, "num_iteration=5 != CPU")
     print("main path: %d rows value/raw_score/pred_leaf/num_iteration, "
-          "32 predict_one, 256 submit from 8 threads: checked" % BULK_ROWS)
+          "32 predict_one, 256 submit from 8 threads: checked, bulk "
+          "outputs equal the plain versions (epilogue %.3g)"
+          % (BULK_ROWS, epi))
 
     # ---------------------------------------------------------------- 4
-    trees = host["full"]
-    forest = stack_trees(trees, dev)
-    x = torch.from_numpy(bulk).to(dev)
+    # the kernels at the timed shape: all rows in one launch and in the
+    # main path's chunks, each against the plain version on the same rows
+    chunk = booster._inner._predict_chunk_rows()
     leaf_d = forest_leaf_walk(forest, x)
+    raw_d = forest_value_walk(forest, x)
+    leaf_c = torch.cat([forest_leaf_walk(forest, x[i:i + chunk])
+                        for i in range(0, BULK_ROWS, chunk)])
+    raw_c = torch.cat([forest_value_walk(forest, x[i:i + chunk])
+                       for i in range(0, BULK_ROWS, chunk)])
+    torch.cuda.synchronize()
+    for got, label in ((leaf_d, "one launch"), (leaf_c, "chunks")):
+        check(torch.equal(got, leaf_p),
+              "K2 != plain at %d rows (%s)" % (BULK_ROWS, label))
+    for got, label in ((raw_d, "one launch"), (raw_c, "chunks")):
+        check(torch.equal(got.view(torch.int32), raw_p.view(torch.int32)),
+              "K1 not bitwise equal to plain at %d rows (%s)"
+              % (BULK_ROWS, label))
+    errs["forest_value_walk"] = max(errs["forest_value_walk"], float(
+        torch.maximum((raw_d - raw_p).abs().max(),
+                      (raw_c - raw_p).abs().max())))
+    errs["forest_leaf_walk"] = max(errs["forest_leaf_walk"], int(
+        torch.maximum((leaf_d - leaf_p).abs().max(),
+                      (leaf_c - leaf_p).abs().max())))
+    print("kernels vs plain [full, %d rows, one launch and chunks of %d]: "
+          "K2 equal, K1 bitwise equal" % (BULK_ROWS, chunk))
+    del leaf_p, raw_p, leaf_c, raw_c, raw_d
     depth = torch.from_numpy(leaf_depths(trees)).to(dev)
     visits = int(depth.gather(1, leaf_d.t().long()).sum())
     in_bytes = x.numel() * 4 + forest.nbytes()

@@ -143,7 +143,7 @@ class GBDT:
             data = np.ascontiguousarray(data, np.float32)
             if total == 0 or data.shape[0] == 0:
                 return np.zeros((data.shape[0], total), np.int32)
-            forest = self._forest_cache().leaf_stacks(self.models, total)
+            forest = self._forest_cache().value_stacks(self.models, total)
             return self._chunks(data, lambda x: forest_leaf_walk(forest, x),
                                 np.zeros((data.shape[0], total), np.int32))
         if not raw_score and self.objective is not None and total > 0:

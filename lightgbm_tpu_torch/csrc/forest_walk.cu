@@ -15,15 +15,17 @@
 // every run (and the same as the plain version's).
 //
 // What bounds it on an H100 SXM, at the chip_smoke shape (262,144 rows x
-// 500 trees x 255 leaves x 28 features): bytes are the rows (29 MB) plus
-// the outputs (1 MB for K1, 524 MB for K2) plus the 3 MB forest, about
-// 10 us (K1) or 0.17 ms (K2) at 3.35 TB/s. Instruction issue is larger:
-// rows x trees x mean depth node visits (about 1.6e9 here) at >= 8
-// instructions a visit (load feature id, threshold, decision byte and
-// feature value, compare, select, load child, loop test), over 132 SMs x
-// 4 schedulers x 32 lanes x the clock, is of order 0.5 ms. So both are
-// bound by operations, and by the latency of each level's dependent
-// loads before that: the design keeps the node arrays read-only
+// 500 trees x 255 leaves x 28 features, seed-0 synthetic forest): bytes
+// are the rows (29 MB) plus the outputs (1 MB for K1, 524 MB for K2)
+// plus the 3 MB forest, 0.010 ms (K1) or 0.17 ms (K2) at 3.35 TB/s.
+// Instruction issue is larger: the run's rows x trees x depth came to
+// 1,095,422,768 node visits (mean depth 8.4) at >= 8 instructions a
+// visit (load feature id, threshold, decision byte and feature value,
+// compare, select, load child, loop test), over 33.5e12 instructions/s
+// (132 SMs x 128 lanes x 1.98 GHz), 0.262 ms (chip_smoke.py on an NVIDIA
+// H100 80GB HBM3, 700 W; PERF.md). So both kernels are bound by
+// operations, and by the latency of each level's dependent loads
+// before that: the design keeps the node arrays read-only
 // (__ldg) so a tree's ~6 KB stays in L1 while a block walks it (all
 // threads of a block visit the trees in the same order), and keeps
 // 128 threads a block so many warps hide each other's load latency.

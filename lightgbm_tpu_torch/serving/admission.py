@@ -9,8 +9,8 @@ cannot answer in time IMMEDIATELY, with a structured, retriable
 `ServingOverload` / `DeadlineExceeded`. Shedding changes whether a
 request is answered, never what is answered. The registry's per-model
 pieces (`TokenBucket`, `CircuitBreaker`) and the run-log overload event
-wait for the registry and telemetry slices; the counters are mirrored
-into `tracing` counters as in the JAX package.
+wait for the registry and telemetry slices, and so does the JAX
+package's mirror of the counters into `tracing` counters.
 """
 from __future__ import annotations
 
@@ -18,7 +18,7 @@ import threading
 import time
 from typing import Any, Dict, Optional
 
-from .. import log, tracing
+from .. import log
 
 
 class ServingOverload(log.LightGBMError):
@@ -125,8 +125,6 @@ class AdmissionController:
         with self._lock:
             self.counts[kind] += 1
             self.counts["rejected"] += 1
-        tracing.counter("serving/" + kind, 1)
-        tracing.counter("serving/rejected", 1)
         return exc
 
     # ------------------------------------------------------------------
@@ -159,7 +157,6 @@ class AdmissionController:
                     reason="shed", retry_after_s=max(est, 0.001)))
         with self._lock:
             self.counts["admitted"] += 1
-        tracing.counter("serving/admitted", 1)
 
     def admit_sync(self, deadline_abs: Optional[float]) -> None:
         """Admission for one synchronous predict(): in-flight cap plus
@@ -199,7 +196,6 @@ class AdmissionController:
         if refusal is not None:
             # _reject re-takes the lock, so it must run OUTSIDE it
             raise self._reject(*refusal)
-        tracing.counter("serving/admitted", 1)
 
     def release_sync(self) -> None:
         with self._lock:
@@ -212,8 +208,6 @@ class AdmissionController:
         with self._lock:
             self.counts["deadline_expired"] += 1
             self.counts["rejected"] += 1
-        tracing.counter("serving/deadline_expired", 1)
-        tracing.counter("serving/rejected", 1)
         over_ms = (time.perf_counter() - deadline_abs) * 1e3
         return DeadlineExceeded(
             "Request deadline expired in the serving queue (waited "

@@ -24,7 +24,6 @@ from typing import Any, Callable, Dict, Tuple
 
 import torch
 
-from .. import tracing
 from ..ops.predict import Forest, stack_trees
 
 # stacks kept per model version: one per distinct num_iteration cap seen
@@ -87,11 +86,9 @@ class CompiledForest:
                 if hit is not None:
                     self._cache.move_to_end(key)
                     self.stats["hits"] += 1
-                    tracing.counter("predict/stack_cache_hit", 1)
                     return hit
             value = build()
             self.stats["restacks"] += 1
-            tracing.counter("predict/restack", 1)
             if self.enabled:
                 self._cache[key] = value
                 self._entry_bytes[key] = value.nbytes()
@@ -102,9 +99,7 @@ class CompiledForest:
             return value
 
     def value_stacks(self, models, total: int) -> Forest:
-        """The Forest over the first `total` trees."""
+        """The Forest over the first `total` trees (pred_leaf walks the
+        same layout, so one entry serves both routes)."""
         return self._get(("walk", total),
                          lambda: stack_trees(models[:total], self.device))
-
-    # pred_leaf walks the same layout: one cache entry serves both routes
-    leaf_stacks = value_stacks

@@ -94,7 +94,7 @@ class Predictor:
             max_queue=int(io.tpu_serving_max_queue),
             max_inflight=int(io.tpu_serving_max_inflight),
             deadline_s=max(0.0, float(io.tpu_serving_deadline_ms)) / 1e3)
-        # always-on local instruments: stats() works with tracing off
+        # always-on local instruments, read by stats()
         self._latency_hist = tracing.Histogram(_LATENCY_BOUNDS)
         self._batch_hist = tracing.Histogram(_BATCH_BOUNDS)
         self._counts = {"requests": 0, "rows": 0,
@@ -127,7 +127,6 @@ class Predictor:
         self._predict_timed(np.zeros((1, self.num_features()), np.float32),
                             count=False)
         self._warmup_seconds = time.perf_counter() - t0
-        tracing.counter("serving/warmups", 1)
         log.debug("Predictor warmup in %.3fs", self._warmup_seconds)
         return {"seconds": self._warmup_seconds}
 
@@ -149,8 +148,6 @@ class Predictor:
                 self._counts["requests"] += 1
                 self._counts["rows"] += int(arr.shape[0])
             self._latency_hist.observe(dt)
-            tracing.counter("serving/requests", 1)
-            tracing.counter("serving/rows", int(arr.shape[0]))
         return out
 
     def predict(self, data, deadline_ms: Optional[float] = None,
@@ -266,7 +263,6 @@ class Predictor:
                 self._counts["micro_batches"] += 1
                 self._counts["micro_rows"] += len(live)
             self._batch_hist.observe(len(live))
-            tracing.counter("serving/micro_batches", 1)
             for i, item in enumerate(live):
                 _resolve(item.fut, res[i])
 
@@ -283,7 +279,6 @@ class Predictor:
         if len(live) == 1:
             _fail(live[0].fut, exc)
             return
-        tracing.counter("serving/batch_isolated", 1)
         with self._lock:
             self._counts["batch_isolated_rows"] += len(live)
         for item in live:
@@ -330,7 +325,6 @@ class Predictor:
         for item in leftovers:
             if item.fut.set_running_or_notify_cancel():
                 _fail(item.fut, PredictorShutdown())
-                tracing.counter("serving/shutdown_failed_futures", 1)
 
     # ------------------------------------------------------------------
     def stats(self) -> Dict[str, Any]:

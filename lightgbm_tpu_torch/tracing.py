@@ -1,84 +1,18 @@
-"""Counters, span timers and a latency histogram in a local store.
+"""The fixed-bound latency histogram the serving front end keeps its
+always-on distributions in (`Predictor.stats()` reads it).
 
-The port's counterpart of `lightgbm_tpu/tracing.py` with the same entry
-points (`counter`, `counters`, `phase`, `totals`, `enable`, `enabled`,
-`reset`): counters and spans cost one flag test while disabled (the
-default; `LGBM_TPU_TIMETAG=1` enables at import, as in the JAX package).
-The Prometheus export and the run log (`lightgbm_tpu/telemetry/`) are
-not ported yet. `Histogram` is the fixed-bound histogram the serving
-front end keeps its always-on latency distribution in.
-
-A span times host wall clock. Device work is asynchronous, so a span
-around a CUDA launch measures the enqueue unless the code inside it
-synchronises (the predict path does: it copies its result to the host).
+The port's counterpart of `Histogram` in
+`lightgbm_tpu/telemetry/metrics.py`. The JAX package's `tracing`
+counters and spans, their `LGBM_TPU_TIMETAG` switch and their export
+(`lightgbm_tpu/telemetry/`) come with the slice that ports the export:
+until something reads them, the port keeps its counts in the local
+`stats()` of each serving component.
 """
 from __future__ import annotations
 
 import bisect
-import contextlib
-import os
 import threading
-import time
-from typing import Dict, Iterable, Optional, Tuple
-
-_lock = threading.Lock()
-_enabled = os.environ.get("LGBM_TPU_TIMETAG", "0") not in ("", "0")
-_counters: Dict[str, list] = {}   # name -> [total, events]
-_phases: Dict[str, list] = {}     # name -> [seconds, count]
-
-
-def enable(on: bool = True) -> None:
-    global _enabled
-    _enabled = bool(on)
-
-
-def enabled() -> bool:
-    return _enabled
-
-
-def reset() -> None:
-    with _lock:
-        _counters.clear()
-        _phases.clear()
-
-
-def counter(name: str, value: float) -> None:
-    """Accumulate a numeric event counter; free when disabled."""
-    if not _enabled:
-        return
-    with _lock:
-        acc = _counters.setdefault(name, [0.0, 0])
-        acc[0] += value
-        acc[1] += 1
-
-
-def counters() -> Dict[str, Tuple[float, int]]:
-    with _lock:
-        return {k: (v[0], v[1]) for k, v in _counters.items()}
-
-
-def totals() -> Dict[str, Tuple[float, int]]:
-    """`{phase: (seconds, count)}`."""
-    with _lock:
-        return {k: (v[0], v[1]) for k, v in _phases.items()}
-
-
-@contextlib.contextmanager
-def _span(name: str):
-    t0 = time.perf_counter()
-    try:
-        yield
-    finally:
-        dt = time.perf_counter() - t0
-        with _lock:
-            acc = _phases.setdefault(name, [0.0, 0])
-            acc[0] += dt
-            acc[1] += 1
-
-
-def phase(name: str):
-    """Accumulate host wall time under `name` while enabled."""
-    return _span(name) if _enabled else contextlib.nullcontext()
+from typing import Dict, Iterable, Optional
 
 
 class Histogram:

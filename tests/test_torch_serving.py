@@ -114,6 +114,25 @@ def test_predictor_paths_answer_as_predict(models):
                                   booster.predict(rows[:4], pred_leaf=True))
 
 
+def test_stack_cache_evicts_and_restacks_the_same_forest(models):
+    text, rows = models["binary"]
+    booster = tlgb.Booster(model_str=text, device="cpu")
+    cache = booster._inner._compiled_forest
+    ref = booster.predict(rows)
+    leaf = booster.predict(rows, pred_leaf=True)
+    assert cache.stats["restacks"] == 1 and cache.stats["hits"] == 1
+    held = cache.device_bytes()
+    assert held > 0
+    version = cache.version
+    assert cache.evict_entries() == held
+    assert cache.device_bytes() == 0 and cache.stats["evictions"] == 1
+    assert cache.version == version
+    np.testing.assert_array_equal(booster.predict(rows), ref)
+    np.testing.assert_array_equal(booster.predict(rows, pred_leaf=True),
+                                  leaf)
+    assert cache.stats["restacks"] == 2 and cache.device_bytes() == held
+
+
 def test_synthetic_forest_predicts_the_same_in_both_packages():
     text = synthetic_forest_text(11, 12, 31, 8, cat_features=2)
     jax_booster = jlgb.Booster(model_str=text)
