@@ -5,28 +5,65 @@
 Phases, any failure raises and the script exits non-zero:
 
 0. device: requires CUDA; prints the card and its power limit;
-1. build: compiles the kernels from lightgbm_tpu_torch/csrc with nvcc;
-2. kernels vs plain: K1 forest_value_walk and K2 forest_leaf_walk against
-   their plain PyTorch versions on the card, on a full-width synthetic
-   HIGGS forest (500 trees x 255 leaves x 28 features, seed 0) and a
-   50 x 63 forest with categorical nodes, over 16,384 rows half of which
-   are edge cases: K2 must equal its plain version, K1 must equal it
-   bitwise and its epilogue within 2e-7, a second run must repeat the
-   bits, and 64 rows must match the f64 host oracle Tree.predict_row
-   within 1e-4 relative;
-3. main path: Booster(model_str=...) on the default device, predict on
-   262,144 rows (value, raw_score, pred_leaf), the serving Predictor
-   (warmup, 32 predict_one, 256 submit from 8 threads, stats), the model
-   text round trip, and every kernel's launch count over that run; the
-   whole bulk raw_score and pred_leaf output (launched in the engine's
-   row chunks) must equal the plain versions on the same rows, and the
-   value output must be within 2e-7 of the plain epilogue;
-4. times: K1 and K2 on all 262,144 rows, in one launch and in the
-   engine's row chunks, must equal their plain versions (K1 bitwise);
-   then CUDA events around each kernel and its plain version at
-   262,144 rows (median of 12 after warm-up), Booster.predict end to end,
-   a torch.profiler breakdown of one Booster.predict (device busy time
-   by kind against host wall time), Predictor latency percentiles.
+1. build: compiles every kernel library of lightgbm_tpu_torch/csrc with
+   nvcc, one process per source, all started together, and prints the
+   ptxas register and spill lines;
+2. kernels vs plain (serving): K1 forest_value_walk and K2
+   forest_leaf_walk against their plain PyTorch versions on the card, on
+   a full-width synthetic HIGGS forest (500 trees x 255 leaves x 28
+   features, seed 0) and a 50 x 63 forest with categorical nodes, over
+   16,384 rows half of which are edge cases: K2 must equal its plain
+   version, K1 must equal it bitwise and its epilogue within 2e-7, a
+   second run must repeat the bits, and 64 rows must match the f64 host
+   oracle Tree.predict_row within 1e-4 relative;
+3. serving main path: Booster(model_str=...) on the default device,
+   predict on 262,144 rows (value, raw_score, pred_leaf), the serving
+   Predictor (warmup, 32 predict_one, 256 submit from 8 threads, stats),
+   the model text round trip, and every serving kernel's launch count
+   over that run; the whole bulk raw_score and pred_leaf output
+   (launched in the engine's row chunks) must equal the plain versions
+   on the same rows, and the value output must be within 2e-7 of the
+   plain epilogue;
+4. serving times: K1 and K2 on all 262,144 rows, in one launch and in
+   the engine's row chunks, must equal their plain versions (K1
+   bitwise); then CUDA events around each kernel and its plain version
+   at 262,144 rows (median of 12 after warm-up), Booster.predict end to
+   end, a torch.profiler breakdown of one Booster.predict (device busy
+   time against host wall time), Predictor latency percentiles;
+5. training main path: the HIGGS protocol of bench.py at full width,
+   synth_higgs(2,000,000, 28, seed 0) with a 262,144-row valid set
+   (seed 1) built with reference=, binary, max_bin 63, 255 leaves,
+   learning rate 0.1, min_data_in_leaf 1, min_sum_hessian_in_leaf 100,
+   metric auc and binary_logloss, 10 rounds through lightgbm_tpu_torch
+   .train on the default device; the training kernels' launch counts
+   are set to 0 before the run and read after it; the run is made twice
+   and the two model texts must be byte-identical; the valid AUC must be
+   finite and well above chance;
+6. training kernels vs plain at the main path's shapes, on the first
+   tree's inputs: H (leaf_histogram) on the root in all-rows mode and
+   on the root split's smaller child in row-list mode, S (split_scan)
+   on the root and on the two children, each of them again on the
+   gradients after the 10 rounds (whose sums are not exact in f32) at
+   the same row sets, R
+   (route_partition and its score update) on the root split, W
+   (tree_value_walk_binned) with the trained first tree on the valid
+   set. Counts, leaf ids, the partition, the split choices and W's
+   scores must equal the plain versions exactly (S bitwise), the g/h
+   sums must be within 1e-5 * max(1, |plain|) of the plain version and
+   of an f64 oracle, and each kernel launched twice on the same inputs
+   must repeat its bits;
+7. the card against the CPU: the same protocol at 131,072 rows, 63
+   leaves and 5 rounds on the card and with device="cpu" (the plain
+   versions): the same tree structure, leaf values within 1e-5
+   relative, valid AUC within 2e-3;
+8. training times: seconds per boosting round (median of rounds 2-10)
+   and million row-iterations per second as bench.py reports them; per
+   kernel its device time per call (torch.profiler, which leaves out the
+   Python wrapper's host time), launches per tree, the plain version's
+   CUDA-event ms and the bound, and for H the torch.bincount library
+   time, every timing after 0.3 s of back-to-back calls that take the
+   card off its idle clocks (printed from nvidia-smi); the device's idle
+   share over one profiled round with the top operations.
 
 The line before the last is the kernels' JSON summary, the last line
 `{"ok": true, "device": {...}}`.
@@ -53,6 +90,13 @@ INSTR_PER_S = 67e12 / 2
 # decision byte, the threshold and the feature value, compare, select
 # the child, load it, test the loop
 INSTR_PER_VISIT = 8
+# the training protocol (bench.py run_amortized, at its 2,000,000 rows)
+TRAIN_ROWS, VALID_ROWS, TRAIN_ROUNDS = 2_000_000, 262_144, 10
+CPU_ROWS, CPU_VALID_ROWS, CPU_LEAVES, CPU_ROUNDS = 131_072, 32_768, 63, 5
+TRAIN_PARAMS = {"objective": "binary", "metric": "auc,binary_logloss",
+                "max_bin": 63, "num_leaves": 255, "learning_rate": 0.1,
+                "min_data_in_leaf": 1, "min_sum_hessian_in_leaf": 100.0,
+                "verbose": -1}
 
 
 def check(ok, what):
@@ -68,10 +112,30 @@ def card_line():
     return out.stdout.strip().splitlines()[0]
 
 
-def median_ms(fn, reps=REPS):
-    """Median of `reps` CUDA-event timings of fn() after two warm-ups."""
-    for _ in range(2):
+def spin_up(fn, seconds=0.3):
+    """Call fn() back to back for `seconds` (at least twice), so the card
+    leaves its idle clocks before a timing: a card that sat idle (the
+    CPU phases) runs a lone millisecond kernel several times slower."""
+    t0 = time.perf_counter()
+    for i in range(1_000_000):
         fn()
+        if i >= 1 and time.perf_counter() - t0 >= seconds:
+            break
+    torch.cuda.synchronize()
+
+
+def clocks():
+    """The SM clock now and its maximum, as nvidia-smi reads them."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.sm,clocks.max.sm",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60)
+    return out.stdout.strip().splitlines()[0]
+
+
+def median_ms(fn, reps=REPS):
+    """Median of `reps` CUDA-event timings of fn() after a spin-up."""
+    spin_up(fn)
     times = []
     for _ in range(reps):
         start = torch.cuda.Event(enable_timing=True)
@@ -82,6 +146,19 @@ def median_ms(fn, reps=REPS):
         end.synchronize()
         times.append(start.elapsed_time(end))
     return float(np.median(times))
+
+
+def device_busy(prof):
+    """(device events, busy us): the CUDA events of a torch.profiler run
+    and the union of their intervals."""
+    from torch.autograd import DeviceType
+    events = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    spans = sorted((e.time_range.start, e.time_range.end) for e in events)
+    busy, end = 0.0, float("-inf")
+    for lo, hi in spans:
+        busy += max(0.0, hi - max(lo, end))
+        end = max(end, hi)
+    return events, busy
 
 
 def leaf_depths(trees):
@@ -104,7 +181,6 @@ def where_time_goes(booster, rows, name, card):
     """torch.profiler over one Booster.predict: device busy time (the
     union of the device events' intervals) by kind, against the host
     wall clock of the call; the rest is the device's idle share."""
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     booster.predict(rows)
     with profile(activities=[ProfilerActivity.CPU,
@@ -112,12 +188,7 @@ def where_time_goes(booster, rows, name, card):
         t0 = time.perf_counter()
         booster.predict(rows)
         wall_us = (time.perf_counter() - t0) * 1e6
-    events = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
-    spans = sorted((e.time_range.start, e.time_range.end) for e in events)
-    busy, end = 0.0, float("-inf")
-    for lo, hi in spans:
-        busy += max(0.0, hi - max(lo, end))
-        end = max(end, hi)
+    events, busy = device_busy(prof)
     by_kind = {}
     for e in events:
         kind = e.name.split(" (")[0]
@@ -145,6 +216,492 @@ def where_time_goes(booster, rows, name, card):
               % (name, card, label, float(np.median(walls))))
 
 
+# ---------------------------------------------------------------------
+# training (phases 5-8)
+def device_ms(fn, names, reps=REPS):
+    """Device time of one fn() call: torch.profiler (CUPTI) over `reps`
+    calls after a warm-up, summing the device events whose names contain
+    one of `names` (the kernel's launches and copies), divided by reps.
+    Unlike CUDA events around the call, this leaves out the Python
+    wrapper's host time, which exceeds a small kernel's own."""
+    from torch.profiler import ProfilerActivity, profile
+    spin_up(fn)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    total = sum(e.time_range.elapsed_us() for e in device_busy(prof)[0]
+                if any(n in e.name for n in names))
+    check(total > 0, "the profiler saw no device time for %s" % (names,))
+    return total / reps / 1e3
+
+
+def bound(bytes_moved, ops=0.0):
+    """(bound ms, bound_by): the larger of bytes over the HBM rate and
+    operations over the non-tensor-core instruction rate."""
+    bytes_ms = bytes_moved / HBM_BYTES_PER_S * 1e3
+    ops_ms = ops / INSTR_PER_S * 1e3
+    return max(bytes_ms, ops_ms), ("operations" if ops_ms > bytes_ms
+                                   else "bytes")
+
+
+def sums_err(got, ref, oracle, label):
+    """Counts exact; g/h within 1e-5 * max(1, |ref|) of the plain
+    version and of the f64 oracle. Returns the max abs error."""
+    check(torch.equal(got[..., 2], ref[..., 2]),
+          label + ": counts differ from the plain version")
+    check(torch.equal(got[..., 2].double(), oracle[..., 2]),
+          label + ": counts differ from the f64 oracle")
+    d = (got[..., :2] - ref[..., :2]).abs()
+    check(bool((d <= 1e-5 * ref[..., :2].abs().clamp(min=1.0)).all()),
+          label + ": g/h sums off the plain version by %g" % d.max())
+    d64 = (got[..., :2].double() - oracle[..., :2]).abs()
+    check(bool((d64 <= 1e-5 * oracle[..., :2].abs().clamp(min=1.0)).all()),
+          label + ": g/h sums off the f64 oracle by %g" % d64.max())
+    return float(d.max())
+
+
+def hist_oracle(binned, w3, num_bins, rows=None):
+    """The histogram in float64 torch ops on the card."""
+    g_cnt = binned.shape[1]
+    sel = torch.arange(binned.shape[0], device=binned.device) \
+        if rows is None else rows.long()
+    w = w3[sel].double()
+    vals = torch.stack([w[:, 0], w[:, 1], (w[:, 2] > 0).double()], 1)
+    flat = (torch.arange(g_cnt, device=binned.device) * num_bins)[None] \
+        + binned[sel].long()
+    out = torch.zeros(g_cnt * num_bins, 3, dtype=torch.float64,
+                      device=binned.device)
+    out.index_add_(0, flat.reshape(-1), vals[:, None, :].expand(
+        -1, g_cnt, 3).reshape(-1, 3))
+    return out.view(g_cnt, num_bins, 3)
+
+
+def leaf_totals(hist):
+    """(g, h, count) of a leaf: its histogram's group-0 bins added in
+    f32 in bin order, as the grower adds the root's."""
+    acc = np.zeros(3, np.float32)
+    for row in hist[0].cpu().numpy():
+        acc = acc + row
+    return acc
+
+
+def train_run(lgb, x, y, xv, yv, params, rounds, device=None):
+    """One lightgbm_tpu_torch.train run with a valid set; returns the
+    booster, the recorded metrics and each round's boosting seconds
+    (train_one_iter, synchronised; the metrics' host time excluded)."""
+    # the binning params go to the Dataset, as bench.py passes them: a
+    # Dataset constructed before train() sees max_bin keeps its own
+    ds = lgb.Dataset(x, y, params=dict(params))
+    valid = ds.create_valid(xv, yv)
+    ds.construct()
+    valid.construct()
+    update_s = []
+
+    def time_updates(env):
+        inner = env.model._inner
+        if getattr(inner, "_timed", False):
+            return
+        step = inner.train_one_iter
+
+        def timed():
+            t0 = time.perf_counter()
+            out = step()
+            if inner.device.type == "cuda":
+                torch.cuda.synchronize()
+            update_s.append(time.perf_counter() - t0)
+            return out
+        inner.train_one_iter = timed
+        inner._timed = True
+    time_updates.before_iteration = True
+    evals = {}
+    booster = lgb.train(dict(params), ds, rounds, valid_sets=[valid],
+                        valid_names=["valid"], evals_result=evals,
+                        verbose_eval=False, callbacks=[time_updates],
+                        device=device)
+    return booster, evals, update_s, ds, valid
+
+
+def training(name, card, dev):
+    """Phases 5-8; returns the four training kernels' JSON rows."""
+    import lightgbm_tpu_torch as lgb
+    from lightgbm_tpu_torch.ops import histogram, predict, route, split
+    from lightgbm_tpu_torch.testing.synth import synth_higgs
+
+    kernels = {"leaf_histogram": histogram.leaf_histogram,
+               "split_scan": split.split_scan,
+               "route_partition": route.route_partition,
+               "tree_value_walk_binned": predict.tree_value_walk_binned}
+    counted = dict(kernels, score_update=route.score_update)
+
+    # ---------------------------------------------------------------- 5
+    t0 = time.perf_counter()
+    x, y = synth_higgs(TRAIN_ROWS, FEATURES, seed=0)
+    xv, yv = synth_higgs(VALID_ROWS, FEATURES, seed=1)
+    print("training data: synth_higgs %d + %d rows x %d features in %.1f s"
+          % (TRAIN_ROWS, VALID_ROWS, FEATURES, time.perf_counter() - t0))
+    for fn in counted.values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    booster, evals, update_s, ds, valid = train_run(
+        lgb, x, y, xv, yv, TRAIN_PARAMS, TRAIN_ROUNDS)
+    wall = time.perf_counter() - t0
+    launches = {k: fn.launches for k, fn in counted.items()}
+    print("training main path launches:", launches)
+    check(all(v > 0 for v in launches.values()),
+          "a training kernel of the main path was never launched")
+    check(booster.device.type == "cuda", "training did not run on cuda")
+    check(booster.num_trees() == TRAIN_ROUNDS, "trained %d trees, not %d"
+          % (booster.num_trees(), TRAIN_ROUNDS))
+    auc = evals["valid"]["auc"]
+    loss = evals["valid"]["binary_logloss"]
+    check(len(auc) == TRAIN_ROUNDS and all(np.isfinite(auc + loss)),
+          "valid metrics missing or not finite")
+    check(auc[-1] > 0.7 and loss[-1] < loss[0], "valid AUC %.4f / logloss "
+          "%.4f -> %.4f: the model did not learn" % (auc[-1], loss[0],
+                                                     loss[-1]))
+    text = booster.model_to_string()
+    grower = booster._inner._grower
+    check(grower.feature_bins <= TRAIN_PARAMS["max_bin"],
+          "features have %d bins, above max_bin %d"
+          % (grower.feature_bins, TRAIN_PARAMS["max_bin"]))
+    print("training main path: %d rounds, %d trees of %s leaves, %d "
+          "groups of at most %d bins, valid auc %.5f binary_logloss %.5f, "
+          "%.1f s with dataset construction"
+          % (TRAIN_ROUNDS, booster.num_trees(),
+             sorted({t.num_leaves for t in booster._inner.models}),
+             grower.binned.shape[1], grower.num_bins, auc[-1], loss[-1],
+             wall))
+    again = train_run(lgb, x, y, xv, yv, TRAIN_PARAMS, TRAIN_ROUNDS)[0]
+    check(again.model_to_string() == text,
+          "two training runs gave different model texts")
+    print("training main path: a second run gave a byte-identical model "
+          "text (%d bytes)" % len(text))
+    pred = booster.predict(xv[:4096])
+    check(np.isfinite(pred).all() and ((pred > 0) & (pred < 1)).all(),
+          "predictions of the trained model")
+
+    # ---------------------------------------------------------------- 6
+    errs = {}
+    fresh = lgb.Booster(dict(TRAIN_PARAMS), train_set=ds)
+    gb = fresh._inner
+    grower = gb._grower
+    grad, hess = gb.objective.get_gradients(gb._score[0])
+    w3 = torch.stack([grad, hess, torch.ones_like(grad)], 1).contiguous()
+    binned = gb._binned
+    nb, fb = grower.num_bins, grower.feature_bins
+    fmeta, prm = grower.fmeta_dev, grower.params
+    mask = torch.ones(ds._inner.num_features, dtype=torch.uint8, device=dev)
+    h_root = histogram.leaf_histogram(binned, w3, nb)
+    check(torch.equal(h_root, histogram.leaf_histogram(binned, w3, nb)),
+          "H root: a second launch gave other bits")
+    errs["leaf_histogram"] = sums_err(
+        h_root, histogram.leaf_histogram_plain(binned, w3, nb),
+        hist_oracle(binned, w3, nb), "H all rows (root)")
+    acc = leaf_totals(h_root)
+    sums = torch.from_numpy(acc[None]).to(dev)
+    depth0 = torch.zeros(1, dtype=torch.int32, device=dev)
+    root1 = h_root[None]
+    s_root = split.split_scan(root1, sums, depth0, fmeta, mask, prm, fb)
+    for got in (split.split_scan(root1, sums, depth0, fmeta, mask, prm, fb),
+                split.split_scan_plain(root1, sums, depth0, fmeta, mask,
+                                       prm, fb)):
+        check(all(torch.equal(a, b) for a, b in zip(s_root, got)),
+              "S root: not bitwise equal to its repeat and plain version")
+    out_f = s_root[0][0].cpu().numpy()
+    out_i = s_root[1][0].cpu().numpy()
+    feat = int(out_i[0])
+    fm = grower.fmeta
+    rule = route.SplitRule(
+        int(fm["group"][feat]), int(fm["offset"][feat]),
+        int(fm["num_bin"][feat]), int(fm["default_bin"][feat]),
+        int(fm["missing_type"][feat]), bool(fm["is_bundled"][feat]),
+        int(out_i[1]), bool(out_i[2]), bool(out_i[3]), 0, 1)
+    perm0 = torch.arange(TRAIN_ROWS, dtype=torch.int32, device=dev)
+    lid0 = torch.zeros(TRAIN_ROWS, dtype=torch.int32, device=dev)
+    res = []
+    for fn in (route.route_partition, route.route_partition,
+               route.route_partition_plain):
+        perm, lid = perm0.clone(), lid0.clone()
+        n_left = int(fn(binned, perm, 0, TRAIN_ROWS, rule, lid))
+        res.append((perm, lid, n_left))
+    check(all(torch.equal(res[0][0], r[0]) and torch.equal(res[0][1], r[1])
+              and res[0][2] == r[2] for r in res[1:]),
+          "R: partition or leaf ids differ between launches or from plain")
+    perm, lid, n_left = res[0]
+    check(n_left == int(round(float(out_f[3]))),
+          "R sent %d rows left, the scan counted %s" % (n_left, out_f[3]))
+    errs["route_partition"] = 0
+    small_left = np.float32(out_f[3]) * np.float32(2.0) <= acc[2]
+    small, large = (0, 1) if small_left else (1, 0)
+    seg = {0: (0, n_left), 1: (n_left, TRAIN_ROWS - n_left)}
+    b0, cnt = seg[small]
+    depth1 = torch.ones(2, dtype=torch.int32, device=dev)
+
+    def children(w, parent, child_sums, label):
+        """H's row list on the smaller child of the root split (against
+        plain and the f64 oracle, and its own repeat), the larger child
+        as parent - smaller, and S on both (bitwise against its repeat
+        and plain). Returns H's max abs error and (pair, sums)."""
+        h_list = histogram.leaf_histogram(binned, w, nb, rows=perm[b0:],
+                                          n_rows=cnt)
+        check(torch.equal(h_list, histogram.leaf_histogram(
+            binned, w, nb, rows=perm[b0:], n_rows=cnt)),
+            "H row list (%s): a second launch gave other bits" % label)
+        err = sums_err(
+            h_list, histogram.leaf_histogram_plain(
+                binned, w, nb, rows=perm[b0:], n_rows=cnt),
+            hist_oracle(binned, w, nb, rows=perm[b0:b0 + cnt]),
+            "H row list (%s, smaller child, %d rows)" % (label, cnt))
+        pair = torch.empty((2,) + tuple(parent.shape), device=dev)
+        pair[small] = h_list
+        pair[large] = histogram.subtract(parent, h_list)
+        if child_sums is None:
+            child_sums = np.stack([leaf_totals(pair[0]),
+                                   leaf_totals(pair[1])])
+        csums = torch.from_numpy(child_sums).to(dev)
+        s_kids = split.split_scan(pair, csums, depth1, fmeta, mask, prm, fb)
+        for got in (split.split_scan(pair, csums, depth1, fmeta, mask, prm,
+                                     fb),
+                    split.split_scan_plain(pair, csums, depth1, fmeta, mask,
+                                           prm, fb)):
+            check(all(torch.equal(a, b) for a, b in zip(s_kids, got)),
+                  "S children (%s): not bitwise equal to repeat and plain "
+                  "version" % label)
+        return err, pair, csums
+
+    # the children's totals as the grower takes them: the left from the
+    # root scan, the right as root - left
+    lg, lh, lc = out_f[1:4]
+    left = np.array([lg, lh, lc], np.float32)
+    err, pair, csums = children(w3, h_root, np.stack([left, acc - left]),
+                                "first tree")
+    errs["leaf_histogram"] = max(errs["leaf_histogram"], err)
+    # the first tree's gradients are multiples of 1/4, whose sums are
+    # exact in any order; hold H and S also to the trained model's
+    # gradients, at the same row sets (the children's totals then from
+    # their histograms)
+    g10, h10 = booster._inner.objective.get_gradients(
+        booster._inner._score[0])
+    w10 = torch.stack([g10, h10, torch.ones_like(g10)], 1).contiguous()
+    h_late = histogram.leaf_histogram(binned, w10, nb)
+    check(torch.equal(h_late, histogram.leaf_histogram(binned, w10, nb)),
+          "H after %d rounds: a second launch gave other bits"
+          % TRAIN_ROUNDS)
+    errs["leaf_histogram"] = max(errs["leaf_histogram"], sums_err(
+        h_late, histogram.leaf_histogram_plain(binned, w10, nb),
+        hist_oracle(binned, w10, nb),
+        "H all rows (gradients after %d rounds)" % TRAIN_ROUNDS))
+    late = "gradients after %d rounds" % TRAIN_ROUNDS
+    errs["leaf_histogram"] = max(errs["leaf_histogram"],
+                                 children(w10, h_late, None, late)[0])
+    del w10, g10, h10, h_late
+    errs["split_scan"] = 0.0
+    values = torch.tensor([0.05, -0.07], dtype=torch.float32, device=dev)
+    scores = []
+    for fn in (route.score_update, route.score_update,
+               route.score_update_plain):
+        sc = gb._score[0].clone()
+        fn(sc, lid, values)
+        scores.append(sc)
+    check(all(torch.equal(scores[0], sc) for sc in scores[1:]),
+          "R score update differs between launches or from plain")
+    tree0 = booster._inner.models[0]
+    bt = predict.binned_tree(tree0, dev)
+    vb = booster._inner._valid_binned[0]
+    walked = []
+    for fn in (predict.tree_value_walk_binned, predict.tree_value_walk_binned,
+               predict.tree_value_walk_binned_plain):
+        sc = torch.zeros(VALID_ROWS, dtype=torch.float32, device=dev)
+        fn(bt, vb, sc)
+        walked.append(sc)
+    check(all(torch.equal(walked[0], sc) for sc in walked[1:]),
+          "W differs between launches or from plain")
+    errs["tree_value_walk_binned"] = 0.0
+    print("training kernels vs plain [first tree, %d rows]: H all rows "
+          "and row list (%d rows), on the first tree's gradients and on "
+          "those after %d rounds, within 1e-5 of plain and f64 (max abs "
+          "err %.3g), counts exact; S root and children (both gradients) "
+          "bitwise; R partition, leaf ids and score update exact; W exact "
+          "on %d valid rows; every kernel repeated its bits"
+          % (TRAIN_ROWS, cnt, TRAIN_ROUNDS, errs["leaf_histogram"],
+             VALID_ROWS))
+
+    # ---------------------------------------------------------------- 7
+    cpu_params = dict(TRAIN_PARAMS, num_leaves=CPU_LEAVES)
+    xs, ys = x[:CPU_ROWS], y[:CPU_ROWS]
+    xvs, yvs = xv[:CPU_VALID_ROWS], yv[:CPU_VALID_ROWS]
+    t0 = time.perf_counter()
+    on_card, ev_card = train_run(lgb, xs, ys, xvs, yvs, cpu_params,
+                                 CPU_ROUNDS)[:2]
+    on_cpu, ev_cpu = train_run(lgb, xs, ys, xvs, yvs, cpu_params,
+                               CPU_ROUNDS, device="cpu")[:2]
+    worst = 0.0
+    for i, (a, b) in enumerate(zip(on_card._inner.models,
+                                   on_cpu._inner.models)):
+        m = a.num_leaves - 1
+        same = (a.num_leaves == b.num_leaves
+                and np.array_equal(a.split_feature[:m], b.split_feature[:m])
+                and np.array_equal(a.threshold_in_bin[:m],
+                                   b.threshold_in_bin[:m])
+                and np.array_equal(a.decision_type[:m], b.decision_type[:m])
+                and np.array_equal(a.left_child[:m], b.left_child[:m])
+                and np.array_equal(a.right_child[:m], b.right_child[:m]))
+        check(same, "card and CPU grew different structures in tree %d" % i)
+        rel = np.abs(a.leaf_value - b.leaf_value) / np.maximum(
+            1.0, np.abs(b.leaf_value))
+        worst = max(worst, float(rel.max()))
+    check(len(on_card._inner.models) == len(on_cpu._inner.models)
+          == CPU_ROUNDS, "card/CPU tree counts")
+    check(worst <= 1e-5, "card/CPU leaf values differ by %g" % worst)
+    d_auc = abs(ev_card["valid"]["auc"][-1] - ev_cpu["valid"]["auc"][-1])
+    check(d_auc <= 2e-3, "card/CPU valid AUC differ by %g" % d_auc)
+    print("card vs CPU [%d rows, %d leaves, %d rounds]: same structure, "
+          "leaf values within %.3g relative, valid auc %.5f vs %.5f (%.2f s)"
+          % (CPU_ROWS, CPU_LEAVES, CPU_ROUNDS, worst,
+             ev_card["valid"]["auc"][-1], ev_cpu["valid"]["auc"][-1],
+             time.perf_counter() - t0))
+
+    # ---------------------------------------------------------------- 8
+    print("clocks [%s]: SM clock, max SM clock: %s (idle after the CPU "
+          "phase)" % (card, clocks()))
+    med = float(np.median(update_s[1:TRAIN_ROUNDS]))
+    print("time [%s | %s]: boosting round %.4f s (median of rounds 2-%d), "
+          "%.3f million row-iterations/s, rounds %s"
+          % (name, card, med, TRAIN_ROUNDS, TRAIN_ROWS / med / 1e6,
+             " ".join("%.4f" % v for v in update_s)))
+    n, g_cnt = binned.shape
+    times = {}
+    # H: the root pass, all rows
+    flat = ((torch.arange(g_cnt, device=dev) * nb)[None]
+            + binned.long()).reshape(-1)
+    chans = [w3[:, c, None].expand(n, g_cnt).reshape(-1) for c in (0, 1)]
+    ones = (w3[:, 2, None] > 0).float().expand(n, g_cnt).reshape(-1)
+
+    def library():
+        for c in (chans[0], chans[1], ones):
+            torch.bincount(flat, weights=c, minlength=g_cnt * nb)
+    h_names = ("hist_tile_kernel", "hist_reduce_kernel")
+    times["leaf_histogram"] = (
+        device_ms(lambda: histogram.leaf_histogram(binned, w3, nb), h_names),
+        median_ms(lambda: histogram.leaf_histogram_plain(binned, w3, nb),
+                 reps=5),
+        bound(n * g_cnt + n * 12 + g_cnt * nb * 12, 3.0 * n * g_cnt),
+        median_ms(library, reps=5))
+    del flat, chans, ones
+    # H's row-list mode, on the root split's smaller child: row ids,
+    # then the taken rows' bins and channels
+    b_ms, b_by = bound(cnt * (4 + g_cnt + 12) + g_cnt * nb * 12,
+                       3.0 * cnt * g_cnt)
+    print("time [%s | %s]: leaf_histogram row list (%d of %d rows) %.4f ms "
+          "device time, plain %.3f ms, bound %.5f ms (%s)"
+          % (name, card, cnt, n, device_ms(
+              lambda: histogram.leaf_histogram(binned, w3, nb, rows=perm[b0:],
+                                               n_rows=cnt), h_names),
+             median_ms(lambda: histogram.leaf_histogram_plain(
+                 binned, w3, nb, rows=perm[b0:], n_rows=cnt), reps=5),
+             b_ms, b_by))
+    print("time [%s | %s]: leaf_histogram root, CUDA events around the "
+          "call %.4f ms" % (name, card, median_ms(
+              lambda: histogram.leaf_histogram(binned, w3, nb))))
+    # S: the two children of the root split
+    s_ops = 2 * fmeta["num_bin"].shape[0] * fb * 50
+    times["split_scan"] = (
+        device_ms(lambda: split.split_scan(pair, csums, depth1, fmeta, mask,
+                                           prm, fb), ("split_scan_kernel",)),
+        median_ms(lambda: split.split_scan_plain(pair, csums, depth1, fmeta,
+                                                mask, prm, fb), reps=5),
+        bound(pair.numel() * 4 + 64, s_ops), None)
+    # R: the root split of all rows; routing a routed segment again
+    # repeats the same work and leaves it as it is
+    rperm, rlid = perm0.clone(), lid0.clone()
+    times["route_partition"] = (
+        device_ms(lambda: route.route_partition(binned, rperm, 0, n, rule,
+                                                rlid),
+                  ("route_kernel", "scan_tiles_kernel", "scatter_kernel",
+                   "Memcpy DtoD")),
+        median_ms(lambda: route.route_partition_plain(binned, rperm, 0, n,
+                                                     rule, rlid), reps=5),
+        bound(13 * n), None)
+    check(torch.equal(rperm, perm) and torch.equal(rlid, lid),
+          "R: routing the routed rows again changed them")
+    sc = gb._score[0].clone()
+    print("time [%s | %s]: R score update (%d rows) %.4f ms device time"
+          % (name, card, n, device_ms(lambda: route.score_update(
+              sc, lid, values), ("score_kernel",))))
+    # W: the first tree on the valid set; a row reads one bin a node it
+    # visits
+    leaf = predict.tree_leaf_binned_plain(bt, vb)
+    depth = torch.from_numpy(leaf_depths([tree0])[0]).to(dev)
+    visits = int(depth[leaf].sum())
+    sc = torch.zeros(VALID_ROWS, dtype=torch.float32, device=dev)
+    times["tree_value_walk_binned"] = (
+        device_ms(lambda: predict.tree_value_walk_binned(bt, vb, sc),
+                  ("walk_kernel",)),
+        median_ms(lambda: predict.tree_value_walk_binned_plain(bt, vb, sc),
+                 reps=5),
+        bound(visits + 8 * VALID_ROWS + bt.nodes.numel() * 4,
+              visits * INSTR_PER_VISIT), None)
+    for k, (ms, plain_ms, (b_ms, b_by), lib_ms) in times.items():
+        print("time [%s | %s]: %s %.4f ms, plain %.3f ms, bound %.5f ms "
+              "(%s), %.1f launches per tree%s"
+              % (name, card, k, ms, plain_ms, b_ms, b_by,
+                 launches[k] / TRAIN_ROUNDS,
+                 "" if lib_ms is None else
+                 ", torch.bincount x3 %.4f ms" % lib_ms))
+    print("clocks [%s]: SM clock, max SM clock: %s (after the timings)"
+          % (card, clocks()))
+    profile_round(booster, name, card)
+
+    replaces = {
+        "leaf_histogram": "lightgbm_tpu/ops/histogram.py:474",
+        "split_scan": "lightgbm_tpu/ops/split.py:80",
+        "route_partition": "lightgbm_tpu/learner/grow.py:1037",
+        "tree_value_walk_binned": "lightgbm_tpu/ops/predict.py:182"}
+    sources = {
+        "leaf_histogram": "lightgbm_tpu_torch/csrc/histogram.cu",
+        "split_scan": "lightgbm_tpu_torch/csrc/split_scan.cu",
+        "route_partition": "lightgbm_tpu_torch/csrc/route_partition.cu",
+        "tree_value_walk_binned": "lightgbm_tpu_torch/csrc/binned_walk.cu"}
+    rows = []
+    for k in kernels:
+        ms, plain_ms, (b_ms, b_by), lib_ms = times[k]
+        row = {"name": k, "route": "cuda", "source": sources[k],
+               "replaces": replaces[k], "launches": launches[k],
+               "max_abs_err": errs[k], "ms": ms, "plain_ms": plain_ms,
+               "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms}
+        if k == "route_partition":
+            row["score_update_launches"] = launches["score_update"]
+        rows.append(row)
+    return rows
+
+
+def profile_round(booster, name, card):
+    """torch.profiler over one more boosting round of the trained
+    booster: device busy time (the union of its events' intervals)
+    against the host wall clock, and the top operations."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        booster.update()
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    events, busy = device_busy(prof)
+    by_kind = {}
+    for e in events:
+        kind = e.name.replace("(anonymous namespace)::", "").split("(")[0]
+        kind = kind[:48]
+        by_kind[kind] = by_kind.get(kind, 0.0) + e.time_range.elapsed_us()
+    top = sorted(by_kind.items(), key=lambda kv: -kv[1])[:8]
+    print("where the time goes [%s | %s]: one boosting round wall %.2f ms, "
+          "device busy %.2f ms (idle share %.3f), %d device events: %s"
+          % (name, card, wall_us / 1e3, busy / 1e3, 1.0 - busy / wall_us,
+             len(events),
+             "; ".join("%s %.3f ms" % (k, v / 1e3) for k, v in top)))
+
+
 def main():
     # ---------------------------------------------------------------- 0
     if not torch.cuda.is_available():
@@ -168,14 +725,17 @@ def main():
 
     # ---------------------------------------------------------------- 1
     t0 = time.perf_counter()
-    record = _build.build("forest")
-    print("build: libforest.so %s in %.1f s (nvcc %.1f s)" % (
-        "compiled" if record.compiled else "up to date",
-        time.perf_counter() - t0, record.seconds))
-    for line in record.log.splitlines():
-        if "registers" in line or "spill" in line:
-            print("  ptxas:", line.strip())
-    _build.load_library("forest")
+    records = _build.build_all()
+    print("build: %d libraries, one nvcc each, in %.1f s" % (
+        len(records), time.perf_counter() - t0))
+    for lib_name, record in records.items():
+        print("build: lib%s.so %s (nvcc %.1f s)" % (
+            lib_name, "compiled" if record.compiled else "up to date",
+            record.seconds))
+        for line in record.log.splitlines():
+            if "registers" in line or "spill" in line:
+                print("  ptxas:", line.strip())
+        _build.load_library(lib_name)
 
     # ---------------------------------------------------------------- 2
     t0 = time.perf_counter()
@@ -377,14 +937,16 @@ def main():
 
     replaces = {"forest_value_walk": "lightgbm_tpu/ops/predict.py:305",
                 "forest_leaf_walk": "lightgbm_tpu/ops/predict.py:656"}
-    print(json.dumps({"kernels": [
+    rows = [
         {"name": k, "route": "cuda",
          "source": "lightgbm_tpu_torch/csrc/forest_walk.cu",
          "replaces": replaces[k], "launches": launches[k],
          "max_abs_err": errs[k], "ms": times[k]["ms"],
          "plain_ms": times[k]["plain_ms"], "bound_ms": times[k]["bound_ms"],
          "bound_by": times[k]["bound_by"], "library_ms": None}
-        for k in ("forest_value_walk", "forest_leaf_walk")]}))
+        for k in ("forest_value_walk", "forest_leaf_walk")]
+    rows.extend(training(name, card, dev))
+    print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,
         "count": torch.cuda.device_count()}}))

@@ -3,16 +3,21 @@
 A second package beside the JAX one, which stays the reference it is
 tested against; it imports torch and numpy and nothing of JAX or of
 `lightgbm_tpu`. Its device kernels are written by hand in CUDA C++ for
-Hopper (`csrc/`). This slice serves: model text -> `Booster` ->
-`Booster.predict` (value, raw_score, pred_leaf, num_iteration) and the
-`serving.Predictor` front end. Entry points run on the CUDA card unless
-the caller passes `device="cpu"`, which runs the plain PyTorch versions
-of the kernels.
+Hopper (`csrc/`). It trains, `train(params, Dataset(X, y), ...)` for the
+regression and binary objectives on numeric features, and serves: model
+text -> `Booster` -> `Booster.predict` (value, raw_score, pred_leaf,
+num_iteration) and the `serving.Predictor` front end. Entry points run
+on the CUDA card unless the caller passes `device="cpu"`, which runs the
+plain PyTorch versions of the kernels.
 """
 from . import log, serving
-from .basic import Booster
+from .basic import Booster, Dataset
+from .callback import early_stopping, print_evaluation, record_evaluation
+from .engine import train
 from .log import LightGBMError
 from .serving import Predictor
 
-__all__ = ["Booster", "LightGBMError", "Predictor", "log", "serving"]
+__all__ = ["Booster", "Dataset", "LightGBMError", "Predictor",
+           "early_stopping", "log", "print_evaluation", "record_evaluation",
+           "serving", "train"]
 __version__ = "0.1.0"

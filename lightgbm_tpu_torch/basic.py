@@ -1,23 +1,28 @@
-"""Public Booster API (the serving half).
+"""Public Dataset / Booster API.
 
-Counterpart of `lightgbm_tpu/basic.py` `Booster` (reference
-python-package basic.py:1223): a model loaded from text, predicted on
-the CUDA card through the port's kernels. The one argument the JAX
-Booster does not have is `device`: None means "cuda" and raises where
-there is no card; `device="cpu"` runs the plain versions of the kernels.
-Training (`train_set=`) arrives with the training slice.
+Counterpart of `lightgbm_tpu/basic.py` (reference python-package
+basic.py: the lazy `Dataset` at :548, `Booster` at :1223) for numpy
+input: a `Dataset` bins its matrix on the host when first needed (a
+valid set through its `reference`); `Booster(params, train_set=)`
+trains on the CUDA card through the port's kernels (`update`,
+`add_valid`, `eval_train`, `eval_valid`, `rollback_one_iter`), and a
+Booster from model text serves. The one argument the JAX Booster does
+not have is `device`: None means "cuda" and raises where there is no
+card; `device="cpu"` runs the plain versions of the kernels.
 """
 from __future__ import annotations
 
-from typing import Callable, Dict, Optional, Union
+from typing import Any, Callable, Dict, List, Optional, Sequence, Union
 
 import numpy as np
 import torch
 
 from . import log
 from .boosting import create_boosting
-from .config import Config
+from .config import Config, _parse_value, key_alias_transform
+from .dataset import Dataset as _InnerDataset
 from .device import resolve_device
+from .metrics import default_metric_for_objective
 from .objectives import create_objective
 
 LightGBMError = log.LightGBMError
@@ -59,26 +64,133 @@ def objective_params(objective: Optional[str]) -> Dict[str, str]:
     return params
 
 
+class Dataset:
+    """Lazy dataset (reference: basic.py:548-1222), numpy input only."""
+
+    def __init__(self, data, label=None, max_bin: int = 255,
+                 reference: Optional["Dataset"] = None, weight=None,
+                 init_score=None, silent: bool = False,
+                 feature_name: Union[str, Sequence[str]] = "auto",
+                 categorical_feature: Union[str, Sequence] = "auto",
+                 params: Optional[Dict[str, Any]] = None):
+        if isinstance(data, str):
+            raise LightGBMError("training from a data file is not ported "
+                                "to lightgbm_tpu_torch yet; pass an array")
+        self.data = data
+        self.label = label
+        self.max_bin = max_bin
+        self.reference = reference
+        self.weight = weight
+        self.init_score = init_score
+        self.params = dict(params or {})
+        self.feature_name = feature_name
+        self.categorical_feature = categorical_feature
+        self._inner: Optional[_InnerDataset] = None
+
+    def _update_params(self, params: Dict[str, Any]) -> "Dataset":
+        """Training params reach a dataset not yet constructed; a
+        constructed one keeps its bins, and says so when max_bin differs
+        (lightgbm_tpu/basic.py:141)."""
+        if not params:
+            return self
+        if self._inner is None:
+            self.params.update(params)
+            return self
+        new_bin = key_alias_transform(dict(params)).get("max_bin")
+        built = self._inner.max_bin
+        if new_bin is not None and int(new_bin) != built:
+            log.warning("Dataset already constructed with max_bin=%d; "
+                        "ignoring max_bin=%s from training params",
+                        built, new_bin)
+        return self
+
+    def _lazy_init(self) -> _InnerDataset:
+        if self._inner is not None:
+            return self._inner
+        params = key_alias_transform(self.params)
+        if self.categorical_feature not in ("auto", None, []) \
+                or params.get("categorical_column"):
+            raise LightGBMError("categorical features are not ported to "
+                                "lightgbm_tpu_torch training yet")
+        data = _data_to_2d(self.data)
+        names = None if self.feature_name in ("auto", None) \
+            else list(self.feature_name)
+        ref = self.reference._lazy_init() if self.reference is not None \
+            else None
+        self._inner = _InnerDataset.from_numpy(
+            data, label=None if self.label is None else np.asarray(
+                self.label, np.float32).ravel(),
+            max_bin=int(params.get("max_bin", self.max_bin)),
+            min_data_in_bin=int(params.get("min_data_in_bin", 3)),
+            bin_construct_sample_cnt=int(params.get(
+                "bin_construct_sample_cnt", 200000)),
+            data_random_seed=int(params.get("data_random_seed", 1)),
+            use_missing=_parse_value(params.get("use_missing", True), bool),
+            zero_as_missing=_parse_value(
+                params.get("zero_as_missing", False), bool),
+            feature_names=names, weight=self.weight,
+            init_score=self.init_score, reference=ref,
+            enable_bundle=_parse_value(params.get("enable_bundle", True),
+                                       bool),
+            max_conflict_rate=float(params.get("max_conflict_rate", 0.0)),
+            sparse_threshold=float(params.get("sparse_threshold", 0.8)),
+            chunk_rows=int(params.get("tpu_ingest_chunk_rows", 65536)))
+        return self._inner
+
+    def construct(self) -> "Dataset":
+        self._lazy_init()
+        return self
+
+    def create_valid(self, data, label=None, weight=None, init_score=None,
+                     silent: bool = False,
+                     params: Optional[dict] = None) -> "Dataset":
+        """Reference: basic.py Dataset.create_valid."""
+        return Dataset(data, label=label, reference=self, weight=weight,
+                       init_score=init_score, silent=silent,
+                       params=params or self.params)
+
+
 class Booster:
     """Reference: basic.py:1223+ over c_api Booster (c_api.cpp:28-308)."""
 
-    def __init__(self, params: Optional[dict] = None, train_set=None,
+    def __init__(self, params: Optional[dict] = None,
+                 train_set: Optional[Dataset] = None,
                  model_file: Optional[str] = None,
                  model_str: Optional[str] = None, silent: bool = False,
                  device: Optional[Union[str, torch.device]] = None):
-        if train_set is not None:
-            raise LightGBMError("training is not ported to "
-                                "lightgbm_tpu_torch yet (train_set=)")
         self.params = dict(params or {})
         self.device = resolve_device(device)
-        if model_file is not None:
+        self.train_set = train_set
+        self._valid_sets: List[Dataset] = []
+        self.name_valid_sets: List[str] = []
+        self.best_iteration = -1
+        self.best_score: Dict = {}
+        self._train_data_name = "training"
+        self._serving_default = None
+        if train_set is not None:
+            if not isinstance(train_set, Dataset):
+                raise LightGBMError(
+                    "training is not ported to lightgbm_tpu_torch for a "
+                    "train_set of type %s; pass a lightgbm_tpu_torch.Dataset"
+                    % type(train_set).__name__)
+            cfg = Config.from_params(self.params)
+            self.config = cfg
+            inner = train_set._lazy_init()
+            objective = create_objective(cfg)
+            self._inner = create_boosting(cfg.boosting_type, cfg,
+                                          self.device)
+            self._metric_names = cfg.metric.metric_types or \
+                [default_metric_for_objective(cfg.objective)]
+            self._inner.init(inner, objective, self._metric_names)
+        elif model_file is not None:
             with open(model_file) as fh:
                 text = fh.read()
             self._from_string(text)
         elif model_str is not None:
             self._from_string(model_str)
         else:
-            raise LightGBMError("Booster needs model_file or model_str")
+            raise LightGBMError("Booster needs train_set, model_file or "
+                                "model_str")
 
     @classmethod
     def _assemble(cls, boosting_type: str, objective: Optional[str],
@@ -123,6 +235,60 @@ class Booster:
         self._serving_default = None
 
     # ------------------------------------------------------------------
+    # training (reference: basic.py Booster.update / add_valid / eval)
+    def add_valid(self, data: Dataset, name: str) -> "Booster":
+        if data.reference is None and self.train_set is not None:
+            data.reference = self.train_set
+        inner = data._lazy_init()
+        self._valid_sets.append(data)
+        self.name_valid_sets.append(name)
+        self._inner.add_valid(inner, name, self._metric_names)
+        return self
+
+    def update(self, train_set=None, fobj=None) -> bool:
+        """One boosting iteration; True when no tree could split."""
+        if fobj is not None or train_set is not None:
+            raise LightGBMError("custom objectives (fobj) and a new "
+                                "train_set in update() are not ported to "
+                                "lightgbm_tpu_torch yet")
+        self._serving_default = None
+        return self._inner.train_one_iter()
+
+    def rollback_one_iter(self) -> "Booster":
+        self._inner.rollback_one_iter()
+        self._serving_default = None
+        return self
+
+    def current_iteration(self) -> int:
+        return self._inner.current_iteration()
+
+    def set_train_data_name(self, name: str) -> "Booster":
+        self._train_data_name = name
+        return self
+
+    def eval_train(self, feval=None) -> List:
+        self._refuse_feval(feval)
+        score = self._inner._train_score_unpadded()
+        return [(self._train_data_name, name, val, m.is_bigger_better)
+                for m in self._inner.metrics
+                for name, val in m.eval(score, self._inner.objective)]
+
+    def eval_valid(self, feval=None) -> List:
+        self._refuse_feval(feval)
+        out = []
+        for i, name in enumerate(self.name_valid_sets):
+            score = self._inner.valid_score(i)
+            for m in self._inner.valid_metrics[i]:
+                for mname, val in m.eval(score, self._inner.objective):
+                    out.append((name, mname, val, m.is_bigger_better))
+        return out
+
+    @staticmethod
+    def _refuse_feval(feval) -> None:
+        if feval is not None:
+            raise LightGBMError("custom metrics (feval) are not ported to "
+                                "lightgbm_tpu_torch yet")
+
     def num_trees(self) -> int:
         return self._inner.num_trees()
 

@@ -1,4 +1,4 @@
-"""Carry a model across as arrays instead of model text.
+"""Carry a model or a binned dataset across as arrays.
 
 `trees_from_numpy` takes one dict of numpy arrays per tree, keyed by the
 attribute names of the JAX package's `Tree` (lightgbm_tpu/tree.py:38-80:
@@ -8,7 +8,9 @@ attribute names of the JAX package's `Tree` (lightgbm_tpu/tree.py:38-80:
 `num_cat`, `cat_boundaries`, `cat_threshold`, ...), i.e. `vars()` of a
 JAX Tree with its arrays as numpy. `booster_from_numpy` builds a port
 Booster from such trees and a header. Both give the same Booster as
-loading the model's text does.
+loading the model's text does. `dataset_from_numpy` builds the port's
+binned Dataset from a JAX Dataset's arrays, so both packages can be fed
+the very same bins.
 """
 from __future__ import annotations
 
@@ -18,6 +20,9 @@ import numpy as np
 import torch
 
 from .basic import Booster
+from .binning import BinMapper
+from .dataset import Dataset, Metadata
+from .efb import FeatureGroups
 from .log import LightGBMError
 from .tree import Tree
 
@@ -68,3 +73,42 @@ def booster_from_numpy(header: dict, trees: List[Dict[str, np.ndarray]],
                              header.get("objective"),
                              lambda gbdt: gbdt.set_model(header, models),
                              device=device)
+
+
+def dataset_from_numpy(d: dict) -> Dataset:
+    """The port's Dataset from a JAX `lightgbm_tpu.dataset.Dataset` given
+    as plain arrays: `binned` [N, G], `mappers` (each mapper's
+    `to_dict()`, one per original column), `groups` (`groups.to_dict()`),
+    `label` and optionally `weight`, `feature_meta` (its
+    `feature_meta_arrays()`, checked against the rebuilt one),
+    `feature_names` and `max_bin`."""
+    ds = Dataset()
+    ds.mappers = [BinMapper.from_dict(m) for m in d["mappers"]]
+    ds.num_total_features = len(ds.mappers)
+    ds.used_features = [j for j, m in enumerate(ds.mappers)
+                        if not m.is_trivial]
+    ds.feature_names = list(d.get("feature_names") or [
+        f"Column_{i}" for i in range(ds.num_total_features)])
+    ds.max_bin = int(d.get("max_bin", 255))
+    num_bins = np.asarray([ds.mappers[j].num_bin for j in ds.used_features],
+                          np.int32)
+    ds.groups = FeatureGroups([[int(j) for j in g]
+                               for g in d["groups"]["groups"]], num_bins)
+    ds.binned = np.ascontiguousarray(d["binned"])
+    if ds.binned.ndim != 2 or ds.binned.shape[1] != ds.groups.num_groups:
+        raise LightGBMError("binned has %s columns for %d groups"
+                            % (ds.binned.shape[1:], ds.groups.num_groups))
+    ds.metadata = Metadata(ds.binned.shape[0])
+    if d.get("label") is not None:
+        ds.metadata.set_label(d["label"])
+    if d.get("weight") is not None:
+        ds.metadata.set_weights(d["weight"])
+    meta = d.get("feature_meta")
+    if meta is not None:
+        mine = ds.feature_meta_arrays()
+        bad = [k for k in mine if not np.array_equal(mine[k],
+                                                     np.asarray(meta[k]))]
+        if bad:
+            raise LightGBMError("feature_meta disagrees with the mappers "
+                                "and groups on %s" % ", ".join(bad))
+    return ds

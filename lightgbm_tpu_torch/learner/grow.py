@@ -1,0 +1,294 @@
+"""Serial leaf-wise tree growth on the card: best-first, one split at a
+time, the reference's SerialTreeLearner
+(`src/treelearner/serial_tree_learner.cpp:152-583`) over kernels H, S
+and R.
+
+Counterpart of `lightgbm_tpu/learner/grow.py` `grow_tree` with
+`data_axis` and `feature_axis` None and f32 histograms. The JAX grower
+runs the split loop as one jitted program and expands a speculative
+node table in batches to fill the TPU's matrix unit; its docstring
+(:46-52) states that the trees it commits are those of a sequential
+best-first grower, which is what this one is:
+
+- rows live in a DataPartition (`perm`, each leaf a contiguous
+  segment, data_partition.hpp:94-170) and carry their leaf slot in
+  `leaf_id`;
+- the root histogram is one all-rows pass of H; the root totals are
+  the sum over the bins of group 0 (grow.py:849);
+- each commit pops the leaf of largest cached gain (ties: the lowest
+  leaf slot, where the JAX grower breaks them by node-table slot,
+  grow.py:1209-1210), routes its segment with R (left child keeps the
+  slot, right child takes `num_leaves_used`, grow.py:1218-1254), builds
+  the SMALLER child's histogram with H from its row segment and the
+  larger as parent - smaller, and scans both children with one S
+  launch;
+- a child's (sum_g, sum_h, count) come from the parent's scan, the
+  right child's as parent - left (grow.py:1134-1140), never re-summed.
+
+The host reads the two children's best splits back after each split
+(one small device-to-host copy); leaf values and the tree arrays are
+f32 numpy on the host, in the JAX grower's operation order.
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Dict
+
+import numpy as np
+import torch
+
+from ..log import LightGBMError
+from ..ops.histogram import leaf_histogram, subtract
+from ..ops.route import SplitRule, route_partition
+from ..ops.split import SplitParams, device_fmeta, leaf_output, split_scan
+
+_F32 = np.float32
+
+
+@dataclass(frozen=True)
+class GrowerConfig:
+    num_leaves: int
+    lambda_l1: float = 0.0
+    lambda_l2: float = 0.0
+    min_gain_to_split: float = 0.0
+    min_data_in_leaf: int = 20
+    min_sum_hessian_in_leaf: float = 1e-3
+    max_depth: int = -1
+
+    def split_params(self) -> SplitParams:
+        return SplitParams(self.lambda_l1, self.lambda_l2,
+                           self.min_gain_to_split, self.min_data_in_leaf,
+                           self.min_sum_hessian_in_leaf, self.max_depth)
+
+
+@dataclass
+class GrowerState:
+    """What one tree growth returns: the TreeGrowerState fields the
+    boosting layer reads (lightgbm_tpu/boosting/gbdt.py:156-160), host
+    numpy, and `leaf_id` [N] i32 (leaf slot of each row) on the device:
+    the grower's own buffer, valid until its next `grow`."""
+    leaf_id: torch.Tensor
+    num_leaves_used: int
+    sum_g: np.ndarray
+    sum_h: np.ndarray
+    count: np.ndarray
+    leaf_value: np.ndarray
+    leaf_depth: np.ndarray
+    leaf_parent: np.ndarray
+    node_feature: np.ndarray
+    node_threshold: np.ndarray
+    node_default_left: np.ndarray
+    node_is_cat: np.ndarray
+    node_left: np.ndarray
+    node_right: np.ndarray
+    node_gain: np.ndarray
+    node_value: np.ndarray
+    node_count: np.ndarray
+
+
+class _LeafTable:
+    """Per leaf slot: its totals, depth and cached best split."""
+
+    def __init__(self, L: int):
+        self.sum = np.zeros((L, 3), _F32)     # g, h, count
+        self.depth = np.zeros(L, np.int32)
+        self.gain = np.full(L, -np.inf, _F32)
+        self.feature = np.zeros(L, np.int32)
+        self.threshold = np.zeros(L, np.int32)
+        self.default_left = np.zeros(L, bool)
+        self.is_cat = np.zeros(L, bool)
+        self.left = np.zeros((L, 3), _F32)    # left g, h, count
+
+    def take(self, slot: int, out_f: np.ndarray, out_i: np.ndarray) -> None:
+        self.gain[slot] = out_f[0]
+        self.left[slot] = out_f[1:4]
+        self.feature[slot] = out_i[0]
+        self.threshold[slot] = out_i[1]
+        self.default_left[slot] = bool(out_i[2])
+        self.is_cat[slot] = bool(out_i[3])
+
+
+class SerialGrower:
+    """Grows trees over one device-resident binned matrix.
+
+    binned: [N, G] uint8 stored-group bins on the device; fmeta:
+    Dataset.feature_meta_arrays(); num_bins: the histogram width
+    (widest group); feature_bins: the per-feature scan width."""
+
+    def __init__(self, binned: torch.Tensor, fmeta: Dict[str, np.ndarray],
+                 cfg: GrowerConfig, num_bins: int, feature_bins: int):
+        if cfg.num_leaves < 2:
+            raise LightGBMError("num_leaves must be >= 2")
+        self.binned = binned
+        self.device = binned.device
+        self.cfg = cfg
+        self.params = cfg.split_params()
+        self.num_bins = int(num_bins)
+        self.feature_bins = int(feature_bins)
+        self.fmeta = {k: np.asarray(v) for k, v in fmeta.items()}
+        self.fmeta_dev = device_fmeta(fmeta, self.device)
+        n = binned.shape[0]
+        self.n = n
+        self.perm = torch.empty(n, dtype=torch.int32, device=self.device)
+        self.leaf_id = torch.empty(n, dtype=torch.int32, device=self.device)
+        L = cfg.num_leaves
+        dev = self.device
+        # per-split buffers, reused: S's outputs for two leaves in one
+        # int32 block (one device-to-host copy a split), the children's
+        # depths as a device table, their totals through a pinned host
+        # buffer (an asynchronous copy), and R's left counts, read back
+        # once a tree
+        self._res = torch.empty(16, dtype=torch.int32, device=dev)
+        self._out = (self._res[:8].view(torch.float32).view(2, 4),
+                     self._res[8:].view(2, 4),
+                     torch.empty((2, len(self.fmeta["num_bin"])),
+                                 dtype=torch.float32, device=dev))
+        depths = np.repeat(np.arange(L + 1, dtype=np.int32)[:, None], 2, 1)
+        self._depths = torch.from_numpy(depths).to(dev)
+        self._sums_host = torch.empty((2, 3), dtype=torch.float32,
+                                      pin_memory=dev.type == "cuda")
+        self._sums_dev = torch.empty((2, 3), dtype=torch.float32, device=dev)
+        self._left_dev = torch.empty(L, dtype=torch.int32, device=dev)
+
+    # ------------------------------------------------------------------
+    def _scan(self, hists, sums, depth, mask_dev) -> np.ndarray:
+        """S on C = len(sums) leaves at one depth; returns the host copy
+        of the result block (out_f as f32 in [:4C], out_i in [8:8+4C])."""
+        c = len(sums)
+        self._sums_host[:c].numpy()[:] = sums
+        self._sums_dev[:c].copy_(self._sums_host[:c], non_blocking=True)
+        split_scan(hists, self._sums_dev[:c], self._depths[depth, :c],
+                   self.fmeta_dev, mask_dev, self.params, self.feature_bins,
+                   out=tuple(t[:c] for t in self._out))
+        return self._res.cpu().numpy()
+
+    def grow(self, w3: torch.Tensor, feature_mask: np.ndarray) -> GrowerState:
+        """One tree from the channels w3 [N, 3] = (g*w, h*w, w) and the
+        per-tree feature mask [F] bool."""
+        cfg, L, n = self.cfg, self.cfg.num_leaves, self.n
+        l1, l2 = cfg.lambda_l1, cfg.lambda_l2
+        mask_dev = torch.from_numpy(
+            np.asarray(feature_mask, np.uint8)).to(self.device)
+        self.perm.copy_(torch.arange(n, dtype=torch.int32,
+                                     device=self.device))
+        self.leaf_id.zero_()
+        begin = np.zeros(L, np.int64)
+        rows = np.zeros(L, np.int64)
+        rows[0] = n
+        t = _LeafTable(L)
+        st = GrowerState(
+            leaf_id=self.leaf_id, num_leaves_used=1,
+            sum_g=np.zeros(L, _F32), sum_h=np.zeros(L, _F32),
+            count=np.zeros(L, _F32), leaf_value=np.zeros(L, _F32),
+            leaf_depth=np.zeros(L, np.int32),
+            leaf_parent=np.full(L, -1, np.int32),
+            node_feature=np.zeros(L - 1, np.int32),
+            node_threshold=np.zeros(L - 1, np.int32),
+            node_default_left=np.zeros(L - 1, bool),
+            node_is_cat=np.zeros(L - 1, bool),
+            node_left=np.zeros(L - 1, np.int32),
+            node_right=np.zeros(L - 1, np.int32),
+            node_gain=np.zeros(L - 1, _F32),
+            node_value=np.zeros(L - 1, _F32),
+            node_count=np.zeros(L - 1, _F32))
+        hist = [None] * L
+
+        # ---- root (BeforeTrain, serial_tree_learner.cpp:234-323)
+        root = leaf_histogram(self.binned, w3, self.num_bins)
+        tot = root[0].cpu().numpy()                          # [B, 3]
+        acc = np.zeros(3, _F32)
+        for b in range(tot.shape[0]):
+            acc = acc + tot[b]
+        t.sum[0] = acc
+        st.sum_g[0], st.sum_h[0], st.count[0] = acc
+        st.leaf_value[0] = leaf_output(acc[0], acc[1], l1, l2)
+        hist[0] = root
+        host = self._scan(root[None], acc[None, :], 0, mask_dev)
+        t.take(0, host[:4].view(np.float32), host[8:12])
+        expected_left = np.zeros(L, np.int32)
+
+        used = 1
+        while used < L:
+            live = t.gain[:used]
+            slot = int(np.argmax(live))
+            if not live[slot] > 0.0:
+                break
+            node, new = used - 1, used
+            pg, ph, pc = t.sum[slot]
+            lg, lh, lc = t.left[slot]
+            rg, rh, rc = pg - lg, ph - lh, pc - lc
+            # tree bookkeeping (Tree::Split, tree.cpp:50-69)
+            parent = st.leaf_parent[slot]
+            if parent >= 0:
+                if st.node_left[parent] == ~slot:
+                    st.node_left[parent] = node
+                else:
+                    st.node_right[parent] = node
+            st.node_left[node], st.node_right[node] = ~slot, ~new
+            f = int(t.feature[slot])
+            st.node_feature[node] = f
+            st.node_threshold[node] = t.threshold[slot]
+            st.node_default_left[node] = t.default_left[slot]
+            st.node_is_cat[node] = t.is_cat[slot]
+            st.node_gain[node] = t.gain[slot]
+            st.node_value[node] = leaf_output(pg, ph, l1, l2)
+            st.node_count[node] = pc
+            depth = int(t.depth[slot]) + 1
+            for s, (g, h, c) in ((slot, (lg, lh, lc)), (new, (rg, rh, rc))):
+                st.sum_g[s], st.sum_h[s], st.count[s] = g, h, c
+                st.leaf_value[s] = leaf_output(g, h, l1, l2)
+                st.leaf_depth[s] = depth
+                st.leaf_parent[s] = node
+                t.sum[s] = (g, h, c)
+                t.depth[s] = depth
+            used += 1
+
+            # route the parent's rows (R) and split its segment
+            fm = self.fmeta
+            rule = SplitRule(
+                group=int(fm["group"][f]), offset=int(fm["offset"][f]),
+                num_bin=int(fm["num_bin"][f]),
+                default_bin=int(fm["default_bin"][f]),
+                missing_type=int(fm["missing_type"][f]),
+                bundled=bool(fm["is_bundled"][f]),
+                threshold=int(t.threshold[slot]),
+                default_left=bool(t.default_left[slot]),
+                is_cat=bool(t.is_cat[slot]), left_slot=slot, right_slot=new)
+            b0, m = int(begin[slot]), int(rows[slot])
+            route_partition(self.binned, self.perm, b0, m, rule,
+                            self.leaf_id,
+                            count_out=self._left_dev[node:node + 1])
+            n_left = int(round(float(lc)))
+            expected_left[node] = n_left
+            begin[new], rows[new] = b0 + n_left, m - n_left
+            rows[slot] = n_left
+            t.gain[slot] = t.gain[new] = -np.inf
+            if used == L:
+                break
+
+            # the smaller child's histogram (H), the larger by subtraction
+            small_left = lc * _F32(2.0) <= pc
+            small = slot if small_left else new
+            i_small = 0 if small_left else 1
+            pair = torch.empty((2,) + tuple(hist[slot].shape),
+                               dtype=torch.float32, device=self.device)
+            leaf_histogram(self.binned, w3, self.num_bins,
+                           rows=self.perm[int(begin[small]):],
+                           n_rows=int(rows[small]), out=pair[i_small])
+            subtract(hist[slot], pair[i_small], out=pair[1 - i_small])
+            hist[slot], hist[new] = pair[0], pair[1]
+            host = self._scan(pair, t.sum[[slot, new]], depth, mask_dev)
+            hf = host[:8].view(np.float32).reshape(2, 4)
+            hi = host[8:16].reshape(2, 4)
+            t.take(slot, hf[0], hi[0])
+            t.take(new, hf[1], hi[1])
+
+        st.num_leaves_used = used
+        got = self._left_dev[:used - 1].cpu().numpy()
+        bad = np.flatnonzero(got != expected_left[:used - 1])
+        if len(bad):
+            raise LightGBMError(
+                "route_partition sent %d rows left at node %d where the "
+                "split scan counted %d" % (got[bad[0]], bad[0],
+                                           expected_left[bad[0]]))
+        return st

@@ -1,16 +1,20 @@
-"""Objective functions: the output half this slice serves.
+"""Objective functions: gradients for training, outputs for serving.
 
-Counterpart of `lightgbm_tpu/objectives.py` for prediction: each
-objective knows its model-text name (`to_string`) and its output
-transform (`convert_output`, on torch tensors). `OUTPUT_KIND` tells the
-forest-walk kernel which transform it fuses into its epilogue
-(`ops/predict.OutputTransform`). The gradient half arrives with
-training; every other objective is refused by name until its slice.
+Counterpart of `lightgbm_tpu/objectives.py` for `regression` (L2) and
+`binary`: each objective knows its model-text name (`to_string`), its
+output transform (`convert_output`, on torch tensors; `OUTPUT_KIND`
+tells the forest-walk kernel which transform it fuses into its
+epilogue, `ops/predict.OutputTransform`), and, once `init` has seen the
+training labels, its gradients (`get_gradients`): elementwise f32 torch
+ops on the score's device, in the JAX package's operation order, and
+the boost-from-average `bias`. Every other objective is refused by name
+until its slice.
 """
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Tuple
 
+import numpy as np
 import torch
 
 from . import log
@@ -21,17 +25,68 @@ class ObjectiveFunction:
     name = "base"
     OUTPUT_KIND = "identity"
     sigmoid = 1.0
+    label: Optional[torch.Tensor] = None
+    weights: Optional[torch.Tensor] = None
+
+    def init(self, metadata, num_data: int,
+             device: torch.device = torch.device("cpu")) -> None:
+        """Capture the labels and weights (as f32 tensors on `device`)
+        and their statistics (lightgbm_tpu/objectives.py:37-44)."""
+        self.num_data = num_data
+        self.label = torch.from_numpy(np.asarray(
+            metadata.label, np.float32)).to(device)
+        self.weights = None if metadata.weights is None else \
+            torch.from_numpy(np.asarray(metadata.weights,
+                                        np.float32)).to(device)
+
+    def get_gradients(self, score: torch.Tensor
+                      ) -> Tuple[torch.Tensor, torch.Tensor]:
+        raise NotImplementedError
+
+    def _apply_weights(self, grad, hess):
+        if self.weights is not None:
+            return grad * self.weights, hess * self.weights
+        return grad, hess
 
     def convert_output(self, raw: torch.Tensor) -> torch.Tensor:
         return raw
+
+    def boost_from_average(self) -> bool:
+        return False
+
+    def bias(self) -> float:
+        """Initial score when boosting from the average (gbdt.cpp:358-378)."""
+        return 0.0
 
     def to_string(self) -> str:
         return self.name
 
 
 class RegressionL2(ObjectiveFunction):
-    """reference: regression_objective.hpp:13-79 (identity output)."""
+    """reference: regression_objective.hpp:13-79 (grad = score - label,
+    identity output)."""
     name = "regression"
+
+    def init(self, metadata, num_data, device=torch.device("cpu")):
+        super().init(metadata, num_data, device)
+        lab = np.asarray(metadata.label)
+        if metadata.weights is not None:
+            w = np.asarray(metadata.weights)
+            sums = np.array([np.sum(lab * w), np.sum(w)])
+        else:
+            sums = np.array([lab.sum(), float(len(lab))])
+        self._bias = float(sums[0] / sums[1])
+
+    def get_gradients(self, score):
+        grad = score - self.label
+        hess = torch.ones_like(score)
+        return self._apply_weights(grad, hess)
+
+    def boost_from_average(self):
+        return True
+
+    def bias(self):
+        return self._bias
 
 
 class BinaryLogloss(ObjectiveFunction):
@@ -44,6 +99,46 @@ class BinaryLogloss(ObjectiveFunction):
         if self.sigmoid <= 0:
             log.fatal("Sigmoid parameter %f should be greater than zero"
                       % self.sigmoid)
+        self.is_unbalance = config.objective_config.is_unbalance
+        self.scale_pos_weight = config.objective_config.scale_pos_weight
+        if self.is_unbalance and abs(self.scale_pos_weight - 1.0) > 1e-6:
+            log.fatal("Cannot set is_unbalance and scale_pos_weight at "
+                      "the same time")
+        self.label_weights = (1.0, 1.0)
+
+    def init(self, metadata, num_data, device=torch.device("cpu")):
+        super().init(metadata, num_data, device)
+        lab = np.asarray(metadata.label)
+        cnt_pos = int((lab > 0).sum())
+        cnt_neg = num_data - cnt_pos
+        if cnt_pos == 0 or cnt_neg == 0:
+            log.warning("Only one class present in label")
+        log.info("Number of positive: %d, number of negative: %d",
+                 cnt_pos, cnt_neg)
+        w_neg, w_pos = 1.0, 1.0
+        if self.is_unbalance and cnt_pos > 0 and cnt_neg > 0:
+            if cnt_pos > cnt_neg:
+                w_neg = cnt_pos / cnt_neg
+            else:
+                w_pos = cnt_neg / cnt_pos
+        w_pos *= self.scale_pos_weight
+        self.label_weights = (w_neg, w_pos)
+        self._cnt_pos, self._cnt_neg = cnt_pos, cnt_neg
+
+    def get_gradients(self, score):
+        """lightgbm_tpu/objectives.py:258-267, the same f32 operations in
+        the same order."""
+        is_pos = self.label > 0
+        one = torch.ones((), dtype=torch.float32, device=score.device)
+        lv = torch.where(is_pos, one, -one)
+        lw = torch.where(is_pos, one * self.label_weights[1],
+                         one * self.label_weights[0])
+        s = self.sigmoid
+        response = -lv * s / (1.0 + torch.exp(lv * s * score))
+        abs_r = torch.abs(response)
+        grad = response * lw
+        hess = abs_r * (s - abs_r) * lw
+        return self._apply_weights(grad, hess)
 
     def to_string(self):
         # the reference loader REQUIRES the sigmoid token

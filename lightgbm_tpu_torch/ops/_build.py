@@ -8,6 +8,7 @@ to seconds. The build runs at first use, is redone when the source or
 the flags change (a SHA-256 stamp beside the library), and is serialised
 between threads by a lock and between processes by an exclusive file
 lock. A failed build raises with `nvcc`'s stderr; nothing falls back.
+`build_all` starts one nvcc per library at once.
 """
 from __future__ import annotations
 
@@ -20,6 +21,7 @@ import threading
 import time
 from dataclasses import dataclass
 from pathlib import Path
+from concurrent.futures import ThreadPoolExecutor
 from typing import Dict
 
 from ..log import LightGBMError
@@ -34,12 +36,34 @@ _p, _i, _f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # the nine Forest arrays, then T, M, L, C+2, W
 _WALK_HEAD = [_p, _i, _i] + [_p] * 9 + [_i] * 5
 
-# library name -> (source file, {C entry point: argtypes})
+# the training kernels hold bitwise to plain versions that round every
+# f32 multiply and add separately: no fused multiply-add
+_NO_FMA = ("-fmad=false",)
+
+# library name -> (source file, {C entry point: argtypes}, extra flags)
 LIBRARIES = {
     "forest": ("forest_walk.cu", {
         "lgbt_forest_value_walk": _WALK_HEAD + [_i, _f, _f, _f, _p, _p],
         "lgbt_forest_leaf_walk": _WALK_HEAD + [_p, _p],
-    }),
+    }, ()),
+    "histogram": ("histogram.cu", {
+        "lgbt_hist_tiles": [_i],
+        "lgbt_leaf_histogram": [_p, _i, _p, _p, _i, _i, _p, _p, _p],
+    }, _NO_FMA),
+    "split": ("split_scan.cu", {
+        "lgbt_split_scan": [_p] + [_i] * 5 + [_p] * 10 + [_f] * 3
+        + [_i, _f, _i] + [_p] * 4,
+    }, _NO_FMA),
+    "route": ("route_partition.cu", {
+        "lgbt_route_tiles": [_i],
+        "lgbt_route_partition": [_p, _i, _p, _i, _i] + [_i] * 11
+        + [_p, _p, _p, _p],
+        "lgbt_score_update": [_p, _p, _p, _i, _p],
+    }, _NO_FMA),
+    "walk": ("binned_walk.cu", {
+        "lgbt_tree_value_walk_binned": [_p, _i, _i, _p, _i, _p, _p, _i, _p,
+                                        _p, _p],
+    }, _NO_FMA),
 }
 
 
@@ -66,10 +90,11 @@ def _nvcc() -> str:
 def build(name: str) -> BuildRecord:
     """Compile library `name` unless its stamp matches; returns what
     was done. Safe to call from several processes at once."""
-    source, _ = LIBRARIES[name]
+    source, _, extra = LIBRARIES[name]
+    flags = NVCC_FLAGS + tuple(extra)
     src = CSRC / source
     digest = hashlib.sha256(src.read_bytes()
-                            + " ".join(NVCC_FLAGS).encode()).hexdigest()
+                            + " ".join(flags).encode()).hexdigest()
     out = BUILD_DIR / f"lib{name}.so"
     stamp = BUILD_DIR / f"lib{name}.so.sha256"
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
@@ -79,7 +104,7 @@ def build(name: str) -> BuildRecord:
                 and stamp.read_text() == digest):
             return BuildRecord(out, 0.0, False, "")
         tmp = BUILD_DIR / f"lib{name}.{os.getpid()}.tmp.so"
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)]
+        cmd = [_nvcc(), *flags, "-o", str(tmp), str(src)]
         t0 = time.perf_counter()
         proc = subprocess.run(cmd, capture_output=True, text=True)
         seconds = time.perf_counter() - t0
@@ -89,6 +114,13 @@ def build(name: str) -> BuildRecord:
         os.replace(tmp, out)
         stamp.write_text(digest)
     return BuildRecord(out, seconds, True, proc.stderr)
+
+
+def build_all() -> Dict[str, BuildRecord]:
+    """Build every library, one nvcc process each, all started together."""
+    with ThreadPoolExecutor(max_workers=len(LIBRARIES)) as pool:
+        records = dict(zip(LIBRARIES, pool.map(build, LIBRARIES)))
+    return records
 
 
 def load_library(name: str) -> ctypes.CDLL:

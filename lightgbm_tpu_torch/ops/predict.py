@@ -1,5 +1,6 @@
 """Forest prediction: the stacked layout, the two walk kernels' wrappers
-and their plain PyTorch versions.
+and their plain PyTorch versions; and the bin-space walk of one tree
+(kernel W) that training uses to score its valid sets.
 
 Counterpart of `lightgbm_tpu/ops/predict.py` on the raw-feature path:
 `predict_forest_raw` (:305) over `stack_trees_raw` (:277), the leaf walk
@@ -15,6 +16,12 @@ on a CPU tensor it runs the plain version beside it. Nothing switches
 from one to the other on failure. Each wrapper counts its launches in
 a plain integer attribute (`forest_value_walk.launches`), so a run can
 show that its main path went through the kernels.
+
+W, `tree_value_walk_binned`, is the counterpart of `predict_value_binned`
+(:182) with `predict_leaf_binned` (:87) and `_decide_binned` (:75): one
+tree walked in the stored-group bin space of a binned matrix (EFB
+decode, bin thresholds), its leaf value added to each row's score
+(`csrc/binned_walk.cu`).
 """
 from __future__ import annotations
 
@@ -333,3 +340,147 @@ def forest_leaf_walk(forest: Forest, x: torch.Tensor) -> torch.Tensor:
 
 forest_value_walk.launches = 0
 forest_leaf_walk.launches = 0
+
+
+# ----------------------------------------------------------------------
+# W: one tree in bin space
+# node record fields of csrc/binned_walk.cu, int32 each
+_NODE_FIELDS = ("node_group", "node_offset", "node_num_bin", "node_bundled",
+                "node_default_bin", "node_nan_bin", "node_missing",
+                "threshold_in_bin", "flags", "left_child", "right_child")
+
+
+@dataclass
+class BinnedTree:
+    """One tree as the bin-space walk reads it: node records [M, 11]
+    int32 (see _NODE_FIELDS; flags = default_left | categorical << 1),
+    bin-space categorical bitsets and f32 leaf values."""
+    nodes: torch.Tensor         # [max(L-1, 1), 11] i32
+    cat_bounds: torch.Tensor    # [C+2] i32
+    cat_bits: torch.Tensor      # [W] i32 holding u32 words
+    leaf_value: torch.Tensor    # [L] f32
+    num_leaves: int
+    max_depth: int
+
+
+def binned_tree(tree, device: torch.device,
+                leaf_value: Optional[np.ndarray] = None) -> BinnedTree:
+    """A host Tree (with bin metadata) laid out for W; `leaf_value`
+    overrides the tree's own (rollback adds the negated values)."""
+    if tree.is_linear:
+        raise LightGBMError("linear_tree models are not ported to "
+                            "lightgbm_tpu_torch yet")
+    if not tree.has_bin_metadata:
+        raise LightGBMError("the binned walk needs a tree with bin "
+                            "metadata (Tree.attach_bin_metadata)")
+    m = max(tree.num_leaves - 1, 1)
+    rec = np.zeros((m, len(_NODE_FIELDS)), np.int32)
+    nodes = max(tree.num_leaves - 1, 0)
+    for j, name in enumerate(_NODE_FIELDS):
+        if name == "flags":
+            col = [(1 if tree.default_left_node(i) else 0)
+                   | (2 if tree.is_categorical_node(i) else 0)
+                   for i in range(nodes)]
+        elif name == "node_missing":
+            col = [tree.missing_type_node(i) for i in range(nodes)]
+        else:
+            col = np.asarray(getattr(tree, name))[:nodes]
+        rec[:nodes, j] = np.asarray(col, np.int64)
+    values = tree.leaf_value if leaf_value is None else leaf_value
+    bounds = np.asarray(tree.cat_boundaries_inner, np.int32)
+    bounds = np.concatenate([bounds, np.full(2, bounds[-1], np.int32)])
+    bits = np.asarray(tree.cat_threshold_inner, np.uint32)
+    if bits.size == 0:
+        bits = np.zeros(1, np.uint32)
+    return BinnedTree(
+        nodes=torch.from_numpy(rec).to(device),
+        cat_bounds=torch.from_numpy(bounds).to(device),
+        cat_bits=torch.from_numpy(bits.view(np.int32)).to(device),
+        leaf_value=torch.from_numpy(
+            np.asarray(values, np.float32).copy()).to(device),
+        num_leaves=int(tree.num_leaves), max_depth=_tree_depth(tree))
+
+
+def tree_leaf_binned_plain(tree: BinnedTree,
+                           binned: torch.Tensor) -> torch.Tensor:
+    """[N] int64 leaf of each row: every row descends one level a step,
+    for the tree's depth (`predict_leaf_binned`)."""
+    n = binned.shape[0]
+    node = torch.full((n,), 0 if tree.num_leaves > 1 else -1,
+                      dtype=torch.long, device=binned.device)
+    rec = tree.nodes.long()
+    f = {name: rec[:, j] for j, name in enumerate(_NODE_FIELDS)}
+    rows = torch.arange(n, device=binned.device)
+    for _ in range(tree.max_depth):
+        nd = node.clamp(min=0)
+        b = binned[rows, f["node_group"][nd]].long()
+        off, nb = f["node_offset"][nd], f["node_num_bin"][nd]
+        dbin = f["node_default_bin"][nd]
+        in_slice = (b >= off) & (b < off + nb)
+        b = torch.where(f["node_bundled"][nd] != 0,
+                        torch.where(in_slice, b - off, dbin), b)
+        miss = f["node_missing"][nd]
+        is_missing = (((miss == MISSING_NAN) & (b == f["node_nan_bin"][nd]))
+                      | ((miss == MISSING_ZERO) & (b == dbin)))
+        flags = f["flags"][nd]
+        thr = f["threshold_in_bin"][nd]
+        numeric = torch.where(is_missing, (flags & 1) != 0, b <= thr)
+        is_cat = (flags & 2) != 0
+        idx = torch.where(is_cat, thr, 0).clamp(
+            0, tree.cat_bounds.shape[0] - 2)
+        lo = tree.cat_bounds.long()[idx]
+        words = tree.cat_bounds.long()[idx + 1] - lo
+        at = (lo + (b >> 5)).clamp(0, tree.cat_bits.shape[0] - 1)
+        word = tree.cat_bits.long()[at] & 0xFFFFFFFF
+        cat = ((b >> 5) < words) & (((word >> (b & 31)) & 1) == 1)
+        left = torch.where(is_cat, cat, numeric)
+        nxt = torch.where(left, f["left_child"][nd], f["right_child"][nd])
+        node = torch.where(node >= 0, nxt, node)
+    return ~node
+
+
+def tree_value_walk_binned_plain(tree: BinnedTree, binned: torch.Tensor,
+                                 score: torch.Tensor) -> None:
+    score += tree.leaf_value[tree_leaf_binned_plain(tree, binned)]
+
+
+def tree_value_walk_binned(tree: BinnedTree, binned: torch.Tensor,
+                           score: torch.Tensor) -> None:
+    """W: score[r] += leaf_value[leaf of row r] for the binned rows
+    [N, G], in place."""
+    if binned.dim() != 2 or score.shape != (binned.shape[0],) \
+            or score.dtype != torch.float32:
+        raise LightGBMError("tree_value_walk_binned takes binned [N, G] and "
+                            "an f32 score [N]")
+    if any(t.device != binned.device for t in (
+            score, tree.nodes, tree.leaf_value)):
+        raise LightGBMError("tree_value_walk_binned: inputs on different "
+                            "devices")
+    if binned.device.type == "cpu":
+        return tree_value_walk_binned_plain(tree, binned, score)
+    if binned.device.type != "cuda":
+        raise LightGBMError("tree_value_walk_binned runs on cpu or cuda, "
+                            "not %s" % binned.device)
+    if binned.dtype != torch.uint8 or not (binned.is_contiguous()
+                                           and score.is_contiguous()):
+        raise LightGBMError("tree_value_walk_binned takes contiguous uint8 "
+                            "bins and score")
+    lib = _build.load_library("walk")
+    p = ctypes.c_void_p
+    with torch.cuda.device(binned.device):
+        stream = torch.cuda.current_stream(binned.device).cuda_stream
+        rc = lib.lgbt_tree_value_walk_binned(
+            p(binned.data_ptr()), binned.shape[1], binned.shape[0],
+            p(tree.nodes.data_ptr()), tree.num_leaves,
+            p(tree.cat_bounds.data_ptr()), p(tree.cat_bits.data_ptr()),
+            tree.cat_bits.shape[0], p(tree.leaf_value.data_ptr()),
+            p(score.data_ptr()), p(stream))
+    if rc != 0:
+        raise LightGBMError("tree_value_walk_binned launch failed: CUDA "
+                            "error %d (%s)"
+                            % (rc, lib.lgbt_error_string(rc).decode()))
+    with _launch_lock:
+        tree_value_walk_binned.launches += 1
+
+
+tree_value_walk_binned.launches = 0

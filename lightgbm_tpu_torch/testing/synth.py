@@ -19,6 +19,9 @@ run and the tests make one from a seed instead:
 `edge_case_rows` reads only `num_leaves`, `split_feature`, `threshold`,
 `decision_type`, `left_child`, `right_child`, `cat_boundaries` and
 `cat_threshold`, so it takes the trees of either package.
+
+`synth_higgs` draws labelled HIGGS-shaped training data with the
+generator of the repo's bench.py, for training runs.
 """
 from __future__ import annotations
 
@@ -219,3 +222,15 @@ def edge_case_rows(trees, num_features: int, seed: int, n: int,
         rows[r, int(tree.split_feature[node])] = values[
             rng.randint(len(values))]
     return rows
+
+
+def synth_higgs(n: int, f: int = 28, seed: int = 0):
+    """HIGGS-shaped training data, the generator of the repo's bench.py
+    (`synth_higgs`): dense N(0, 1) f32 features and a binary label from a
+    nonlinear score plus logistic noise. Returns (X [n, f] f32, y [n] f32)."""
+    rng = np.random.RandomState(seed)
+    x = rng.randn(n, f).astype(np.float32)
+    score = (x[:, 0] * 1.2 - x[:, 1] + 0.8 * x[:, 2] * x[:, 3]
+             + 0.5 * np.abs(x[:, 4]) + 0.3 * x[:, 5] ** 2)
+    y = (score + rng.logistic(size=n) > 0.5).astype(np.float32)
+    return x, y

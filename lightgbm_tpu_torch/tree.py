@@ -7,17 +7,31 @@ as parallel arrays over internal nodes (children encode leaves as
 The text format, the attribute names and the scalar oracle `predict_row`
 are the JAX package's, so both packages read and write the same bytes.
 The bin-space metadata (`tpu_*` lines) is parsed and written back
-unchanged; the grower-side constructors arrive with training.
+unchanged. `from_grower_state` builds a tree from the grower's arrays
+(learner/grow.py), and `attach_bin_metadata` rebuilds the bin-space
+fields of a tree loaded from reference model text.
 """
 from __future__ import annotations
 
 import numpy as np
 
-from .binning import MISSING_NAN, MISSING_ZERO
+from . import log
+from .binning import MISSING_NAN, MISSING_NONE, MISSING_ZERO
 
 # decision_type bit layout (reference: tree.h:268-284)
 _CAT_MASK = 1
 _DEFAULT_LEFT_MASK = 2
+
+
+def _avoid_inf(x: float) -> float:
+    """Reference: Common::AvoidInf (clamps +-inf thresholds for text IO)."""
+    if np.isnan(x):
+        return 0.0
+    if x >= 1e300:
+        return 1e300
+    if x <= -1e300:
+        return -1e300
+    return float(x)
 
 
 class Tree:
@@ -92,6 +106,142 @@ class Tree:
         return bool((int(words[w]) >> (val % 32)) & 1)
 
     # ------------------------------------------------------------------
+    def _push_cat(self, raw_values, bin_values) -> int:
+        """Append one categorical node's bitsets; returns its cat_idx."""
+        idx = self.num_cat
+        raw_words = self._bitset(raw_values)
+        bin_words = self._bitset(bin_values)
+        self.cat_threshold = np.concatenate([self.cat_threshold, raw_words])
+        self.cat_boundaries = np.append(
+            self.cat_boundaries, self.cat_boundaries[-1] + len(raw_words)
+        ).astype(np.int32)
+        self.cat_threshold_inner = np.concatenate(
+            [self.cat_threshold_inner, bin_words])
+        self.cat_boundaries_inner = np.append(
+            self.cat_boundaries_inner,
+            self.cat_boundaries_inner[-1] + len(bin_words)).astype(np.int32)
+        self.num_cat += 1
+        return idx
+
+    # ------------------------------------------------------------------
+    @classmethod
+    def from_grower_state(cls, state, dataset) -> "Tree":
+        """A host Tree from the grower's arrays (learner/grow.py
+        GrowerState, or any object with the same attributes), with bin
+        thresholds resolved to raw values through the BinMappers
+        (lightgbm_tpu/tree.py:131; reference: SerialTreeLearner::Split,
+        serial_tree_learner.cpp:519-560)."""
+        nl = int(state.num_leaves_used)
+        t = cls(nl)
+        m = nl - 1
+        if m <= 0:
+            t.leaf_value[0] = float(np.asarray(state.leaf_value)[0])
+            t.leaf_count[0] = int(np.asarray(state.count)[0])
+            return t
+        feat = np.asarray(state.node_feature)[:m]
+        thr = np.asarray(state.node_threshold)[:m]
+        dl = np.asarray(state.node_default_left)[:m]
+        cat = np.asarray(state.node_is_cat)[:m]
+        t.split_feature_inner = feat.astype(np.int32)
+        t.split_feature = np.asarray(
+            [dataset.real_feature_index(int(j)) for j in feat], np.int32)
+        t.threshold_in_bin = thr.astype(np.int32)
+        t.split_gain = np.asarray(state.node_gain)[:m].astype(np.float64)
+        t.left_child = np.asarray(state.node_left)[:m].astype(np.int32)
+        t.right_child = np.asarray(state.node_right)[:m].astype(np.int32)
+        t.internal_value = np.asarray(state.node_value)[:m].astype(np.float64)
+        t.internal_count = np.asarray(state.node_count)[:m].astype(np.int64)
+        t.leaf_value = np.asarray(state.leaf_value)[:nl].astype(np.float64)
+        t.leaf_count = np.asarray(state.count)[:nl].astype(np.int64)
+        fm = dataset.feature_meta_arrays()
+        for i in range(m):
+            mapper = dataset.feature_mapper(int(feat[i]))
+            t.node_missing[i] = mapper.missing_type
+            t.node_nan_bin[i] = mapper.num_bin - 1
+            t.node_default_bin[i] = mapper.default_bin
+            t.node_group[i] = fm["group"][feat[i]]
+            t.node_offset[i] = fm["offset"][feat[i]]
+            t.node_bundled[i] = fm["is_bundled"][feat[i]]
+            t.node_num_bin[i] = mapper.num_bin
+            dt = 0
+            if cat[i]:
+                dt |= _CAT_MASK
+                # one-vs-rest: the bin in thr goes left; serialised as a
+                # cat_idx into single-category bitsets (tree.cpp:71-97)
+                raw_val = int(mapper.bin_to_value(int(thr[i])))
+                cat_idx = t._push_cat([raw_val], [int(thr[i])])
+                t.threshold[i] = float(cat_idx)
+                t.threshold_in_bin[i] = cat_idx
+            else:
+                if dl[i]:
+                    dt |= _DEFAULT_LEFT_MASK
+                t.threshold[i] = _avoid_inf(mapper.bin_to_value(int(thr[i])))
+            # missing type bits 2-3 (tree.h:268-284)
+            dt |= {MISSING_NONE: 0, MISSING_ZERO: 1 << 2,
+                   MISSING_NAN: 2 << 2}[mapper.missing_type]
+            t.decision_type[i] = dt
+        return t
+
+    def attach_bin_metadata(self, dataset) -> None:
+        """Rebuild the bin-space walk fields from a Dataset's BinMappers
+        for a tree loaded from reference model text (raw thresholds
+        only; lightgbm_tpu/tree.py:207). The bin threshold is the bin of
+        the raw threshold, matching `left = value <= threshold`."""
+        if self.is_linear:
+            log.fatal("linear_tree models are not ported to "
+                      "lightgbm_tpu_torch yet")
+        inner_of = {real: inner for inner, real
+                    in enumerate(dataset.used_features)}
+        inner_sets = {}
+        fm = dataset.feature_meta_arrays()
+        for i in range(self.num_leaves - 1):
+            real = int(self.split_feature[i])
+            if real not in inner_of:
+                log.fatal("Loaded model splits on feature %d which is "
+                          "trivial/absent in the dataset" % real)
+            inner = inner_of[real]
+            mapper = dataset.feature_mapper(inner)
+            self.split_feature_inner[i] = inner
+            self.node_missing[i] = mapper.missing_type
+            self.node_nan_bin[i] = mapper.num_bin - 1
+            self.node_default_bin[i] = mapper.default_bin
+            self.node_group[i] = fm["group"][inner]
+            self.node_offset[i] = fm["offset"][inner]
+            self.node_bundled[i] = fm["is_bundled"][inner]
+            self.node_num_bin[i] = mapper.num_bin
+            if self.is_categorical_node(i):
+                idx = int(self.threshold[i])
+                lo, hi = self.cat_boundaries[idx], self.cat_boundaries[idx + 1]
+                words = self.cat_threshold[lo:hi]
+                raw = [w * 32 + b for w in range(len(words))
+                       for b in range(32) if (int(words[w]) >> b) & 1]
+                inner_sets[idx] = self._bitset(
+                    [mapper.categorical_2_bin[c] for c in raw
+                     if c in mapper.categorical_2_bin])
+                self.threshold_in_bin[i] = idx
+            else:
+                self.threshold_in_bin[i] = mapper.value_to_bin(
+                    float(self.threshold[i]))
+        if self.num_cat > 0:
+            sets = [inner_sets.get(i, np.zeros(1, np.uint32))
+                    for i in range(self.num_cat)]
+            self.cat_boundaries_inner = np.concatenate(
+                [[0], np.cumsum([len(w) for w in sets])]).astype(np.int32)
+            self.cat_threshold_inner = np.concatenate(sets)
+        self.has_bin_metadata = True
+
+    def apply_shrinkage(self, rate: float) -> None:
+        """Reference: Tree::Shrinkage (tree.h:166-173)."""
+        self.leaf_value *= rate
+        self.internal_value *= rate
+        self.leaf_coeff *= rate
+        self.shrinkage *= rate
+
+    def add_bias(self, val: float) -> None:
+        """Reference: Tree::AddBias (the boost_from_average fold)."""
+        self.leaf_value += val
+        self.internal_value += val
+
     @property
     def is_linear(self) -> bool:
         """True when this tree carries piecewise-linear leaf models."""

@@ -2,8 +2,10 @@
 
 A child process with `jax` and `lightgbm_tpu` import-blocked (the
 meta-path blocker pattern of tests/test_export.py) loads model text and
-predicts on the CPU; an AST scan finds no such import in the package or
-in chip_smoke.py.
+predicts on the CPU, and trains a small model through every training
+module (dataset, ingest, binning, EFB, objectives, metrics, callbacks,
+the grower and kernels H, S, R and W in their plain versions); an AST
+scan finds no such import in the package or in chip_smoke.py.
 """
 import ast
 import json
@@ -39,9 +41,29 @@ _CHILD = textwrap.dedent("""
     rows = synthetic_rows(1, 16, 6, 1)
     pred = booster.predict(rows)
     leaf = booster.predict(rows, pred_leaf=True)
+    rng = np.random.RandomState(0)
+    x = rng.randn(400, 5)
+    x[rng.rand(400) < 0.2, 1] = np.nan
+    y = (x[:, 0] + np.nan_to_num(x[:, 1]) > 0).astype(float)
+    train = lgb.Dataset(x[:300], y[:300])
+    valid = train.create_valid(x[300:], y[300:])
+    evals = {}
+    trained = lgb.train({"objective": "binary", "num_leaves": 7,
+                         "max_bin": 31, "metric": "auc", "verbose": -1},
+                        train, 3, valid_sets=[valid], evals_result=evals,
+                        early_stopping_rounds=2, verbose_eval=False,
+                        device="cpu")
+    from lightgbm_tpu_torch.convert import dataset_from_numpy
+    modules = ["lightgbm_tpu_torch." + m for m in (
+        "engine", "callback", "metrics", "dataset", "efb", "binning",
+        "ingest.build", "learner.grow", "ops.histogram", "ops.split",
+        "ops.route", "convert")]
     print(json.dumps({"pred": [float(v) for v in pred],
                       "leaf_shape": list(leaf.shape),
                       "round_trip": booster.model_to_string() == text,
+                      "trained": trained.num_trees(),
+                      "auc": evals["valid_0"]["auc"],
+                      "modules": all(m in sys.modules for m in modules),
                       "loaded": sorted(m for m in sys.modules if blocked(m))}))
 """)
 
@@ -56,6 +78,8 @@ def test_port_runs_with_jax_and_the_jax_package_blocked():
     assert out["loaded"] == []
     assert out["round_trip"] and out["leaf_shape"] == [16, 5]
     assert all(0.0 < p < 1.0 for p in out["pred"])
+    assert out["trained"] == 3 and out["modules"]
+    assert len(out["auc"]) == 3 and out["auc"][-1] > 0.8
 
 
 def _imported_modules(path):
