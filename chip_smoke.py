@@ -30,7 +30,38 @@ Phases, any failure raises and the script exits non-zero:
    at 262,144 rows (median of 12 after warm-up), Booster.predict end to
    end, a torch.profiler breakdown of one Booster.predict (device busy
    time against host wall time), Predictor latency percentiles;
-5. training main path: the HIGGS protocol of bench.py at full width,
+5. ranking main path: the repo's ranking protocol
+   (scripts/measure_accuracy.py _ranking_task) at full width,
+   rank_data(600,000, seed 17) as 500,000 training rows (5,000 queries
+   of 100 docs) and 100,000 valid rows, lambdarank, metric ndcg@10,
+   max_bin 63, 255 leaves, learning rate 0.1, min_data_in_leaf 1,
+   min_sum_hessian_in_leaf 100, 10 rounds through lightgbm_tpu_torch
+   .train on the default device: L launched once a round, H, S, R and W
+   launched; a second run's model text byte-identical; valid ndcg@10
+   rising from round 1 to 10; the saved model reloaded into a Booster
+   and served through K1, its raw scores within 1e-5 * max(1, |ref|) of
+   the valid scores W kept; LGBMRanker fitting 2 rounds on the card to
+   the model text train gives with the same params;
+6. L (lambdarank_grads) against its plain version on the card: on the
+   ranking protocol's 5,000 x 100-doc layout (its objective's labels,
+   gains and inverse max DCGs) at all-zero scores (the first round),
+   seeded scores and the scores after 10 rounds, on an MSLR-WEB30K-
+   shaped layout (31,531 queries, 3,758,505 docs, up to 1,251 a query,
+   empty and one-doc queries) and on queries longer than L stages in
+   shared memory: grad and hess within 1e-5 * max(1, A) of the plain
+   version and of a float64 oracle on the card, A a doc's sum of
+   absolute pair terms; a float64 oracle on the host for a sample of
+   queries (the 1,251-doc one among them); a second launch must repeat
+   the bits;
+7. the card against the CPU: the protocol at 50,000 rows (500
+   queries), 63 leaves, 3 rounds: the same tree structure, leaf values
+   within 1e-5 relative, valid ndcg@10 within 1e-5;
+8. ranking times: L and its plain version (CUDA events, median of 12
+   after 0.3 s of back-to-back calls) and its bound at the protocol's
+   and the MSLR-shaped layout, seconds per ranking round (median of
+   rounds 2-10) and million row-iterations/s, and one profiled round's
+   device busy and idle share with L's part of it;
+9. training main path: the HIGGS protocol of bench.py at full width,
    synth_higgs(2,000,000, 28, seed 0) with a 262,144-row valid set
    (seed 1) built with reference=, binary, max_bin 63, 255 leaves,
    learning rate 0.1, min_data_in_leaf 1, min_sum_hessian_in_leaf 100,
@@ -39,31 +70,30 @@ Phases, any failure raises and the script exits non-zero:
    are set to 0 before the run and read after it; the run is made twice
    and the two model texts must be byte-identical; the valid AUC must be
    finite and well above chance;
-6. training kernels vs plain at the main path's shapes, on the first
-   tree's inputs: H (leaf_histogram) on the root in all-rows mode and
-   on the root split's smaller child in row-list mode, S (split_scan)
-   on the root and on the two children, each of them again on the
-   gradients after the 10 rounds (whose sums are not exact in f32) at
-   the same row sets, R
-   (route_partition and its score update) on the root split, W
-   (tree_value_walk_binned) with the trained first tree on the valid
-   set. Counts, leaf ids, the partition, the split choices and W's
-   scores must equal the plain versions exactly (S bitwise), the g/h
-   sums must be within 1e-5 * max(1, |plain|) of the plain version and
-   of an f64 oracle, and each kernel launched twice on the same inputs
-   must repeat its bits;
-7. the card against the CPU: the same protocol at 131,072 rows, 63
-   leaves and 5 rounds on the card and with device="cpu" (the plain
-   versions): the same tree structure, leaf values within 1e-5
-   relative, valid AUC within 2e-3;
-8. training times: seconds per boosting round (median of rounds 2-10)
-   and million row-iterations per second as bench.py reports them; per
-   kernel its device time per call (torch.profiler, which leaves out the
-   Python wrapper's host time), launches per tree, the plain version's
-   CUDA-event ms and the bound, and for H the torch.bincount library
-   time, every timing after 0.3 s of back-to-back calls that take the
-   card off its idle clocks (printed from nvidia-smi); the device's idle
-   share over one profiled round with the top operations.
+10. training kernels vs plain at the main path's shapes, on the first
+    tree's inputs: H (leaf_histogram) on the root in all-rows mode and
+    on the root split's smaller child in row-list mode, S (split_scan)
+    on the root and on the two children, each of them again on the
+    gradients after the 10 rounds (whose sums are not exact in f32) at
+    the same row sets, R (route_partition and its score update) on the
+    root split, W (tree_value_walk_binned) with the trained first tree
+    on the valid set. Counts, leaf ids, the partition, the split choices and W's
+    scores must equal the plain versions exactly (S bitwise), the g/h
+    sums must be within 1e-5 * max(1, |plain|) of the plain version and
+    of an f64 oracle, and each kernel launched twice on the same inputs
+    must repeat its bits;
+11. the card against the CPU: the same protocol at 131,072 rows, 63
+    leaves and 5 rounds on the card and with device="cpu" (the plain
+    versions): the same tree structure, leaf values within 1e-5
+    relative, valid AUC within 2e-3;
+12. training times: seconds per boosting round (median of rounds 2-10)
+    and million row-iterations per second as bench.py reports them; per
+    kernel its device time per call (torch.profiler, which leaves out the
+    Python wrapper's host time), launches per tree, the plain version's
+    CUDA-event ms and the bound, and for H the torch.bincount library
+    time, every timing after 0.3 s of back-to-back calls that take the
+    card off its idle clocks (printed from nvidia-smi); the device's idle
+    share over one profiled round with the top operations.
 
 The line before the last is the kernels' JSON summary, the last line
 `{"ok": true, "device": {...}}`.
@@ -97,6 +127,17 @@ TRAIN_PARAMS = {"objective": "binary", "metric": "auc,binary_logloss",
                 "max_bin": 63, "num_leaves": 255, "learning_rate": 0.1,
                 "min_data_in_leaf": 1, "min_sum_hessian_in_leaf": 100.0,
                 "verbose": -1}
+# the ranking protocol (scripts/measure_accuracy.py _ranking_task at its
+# 500,000 rows; ndcg_eval_at=[10] reports the metric that record gives)
+RANK_ROWS, RANK_VALID_ROWS, RANK_QLEN, RANK_SEED = 500_000, 100_000, 100, 17
+RANK_CPU_ROWS, RANK_CPU_VALID_ROWS, RANK_CPU_ROUNDS = 50_000, 10_000, 3
+RANK_PARAMS = dict(TRAIN_PARAMS, objective="lambdarank", metric="ndcg",
+                   ndcg_eval_at=[10])
+# L's least work: a rank compare is a shared-memory load, two compares
+# and an add; a (high, low) pair three loads, the subtractions, the
+# division, exp, the products and two adds
+INSTR_PER_COMPARE = 4
+INSTR_PER_PAIR = 24
 
 
 def check(ok, what):
@@ -217,7 +258,7 @@ def where_time_goes(booster, rows, name, card):
 
 
 # ---------------------------------------------------------------------
-# training (phases 5-8)
+# training (phases 9-12)
 def device_ms(fn, names, reps=REPS):
     """Device time of one fn() call: torch.profiler (CUPTI) over `reps`
     calls after a warm-up, summing the device events whose names contain
@@ -287,14 +328,16 @@ def leaf_totals(hist):
     return acc
 
 
-def train_run(lgb, x, y, xv, yv, params, rounds, device=None):
-    """One lightgbm_tpu_torch.train run with a valid set; returns the
-    booster, the recorded metrics and each round's boosting seconds
-    (train_one_iter, synchronised; the metrics' host time excluded)."""
+def train_run(lgb, x, y, xv, yv, params, rounds, device=None, group=None,
+              group_v=None):
+    """One lightgbm_tpu_torch.train run with a valid set (query groups
+    for ranking); returns the booster, the recorded metrics and each
+    round's boosting seconds (train_one_iter, synchronised; the metrics'
+    host time excluded)."""
     # the binning params go to the Dataset, as bench.py passes them: a
     # Dataset constructed before train() sees max_bin keeps its own
-    ds = lgb.Dataset(x, y, params=dict(params))
-    valid = ds.create_valid(xv, yv)
+    ds = lgb.Dataset(x, y, group=group, params=dict(params))
+    valid = ds.create_valid(xv, yv, group=group_v)
     ds.construct()
     valid.construct()
     update_s = []
@@ -323,8 +366,33 @@ def train_run(lgb, x, y, xv, yv, params, rounds, device=None):
     return booster, evals, update_s, ds, valid
 
 
+def same_trees(on_card, on_cpu, rounds):
+    """Card and CPU boosters grew `rounds` trees of the same structure
+    with leaf values within 1e-5 relative; returns the worst relative
+    leaf difference."""
+    worst = 0.0
+    for i, (a, b) in enumerate(zip(on_card._inner.models,
+                                   on_cpu._inner.models)):
+        m = a.num_leaves - 1
+        same = (a.num_leaves == b.num_leaves
+                and np.array_equal(a.split_feature[:m], b.split_feature[:m])
+                and np.array_equal(a.threshold_in_bin[:m],
+                                   b.threshold_in_bin[:m])
+                and np.array_equal(a.decision_type[:m], b.decision_type[:m])
+                and np.array_equal(a.left_child[:m], b.left_child[:m])
+                and np.array_equal(a.right_child[:m], b.right_child[:m]))
+        check(same, "card and CPU grew different structures in tree %d" % i)
+        rel = np.abs(a.leaf_value - b.leaf_value) / np.maximum(
+            1.0, np.abs(b.leaf_value))
+        worst = max(worst, float(rel.max()))
+    check(len(on_card._inner.models) == len(on_cpu._inner.models)
+          == rounds, "card/CPU tree counts")
+    check(worst <= 1e-5, "card/CPU leaf values differ by %g" % worst)
+    return worst
+
+
 def training(name, card, dev):
-    """Phases 5-8; returns the four training kernels' JSON rows."""
+    """Phases 9-12; returns the four training kernels' JSON rows."""
     import lightgbm_tpu_torch as lgb
     from lightgbm_tpu_torch.ops import histogram, predict, route, split
     from lightgbm_tpu_torch.testing.synth import synth_higgs
@@ -335,7 +403,7 @@ def training(name, card, dev):
                "tree_value_walk_binned": predict.tree_value_walk_binned}
     counted = dict(kernels, score_update=route.score_update)
 
-    # ---------------------------------------------------------------- 5
+    # ---------------------------------------------------------------- 9
     t0 = time.perf_counter()
     x, y = synth_higgs(TRAIN_ROWS, FEATURES, seed=0)
     xv, yv = synth_higgs(VALID_ROWS, FEATURES, seed=1)
@@ -382,7 +450,7 @@ def training(name, card, dev):
     check(np.isfinite(pred).all() and ((pred > 0) & (pred < 1)).all(),
           "predictions of the trained model")
 
-    # ---------------------------------------------------------------- 6
+    # --------------------------------------------------------------- 10
     errs = {}
     fresh = lgb.Booster(dict(TRAIN_PARAMS), train_set=ds)
     gb = fresh._inner
@@ -528,7 +596,7 @@ def training(name, card, dev):
           % (TRAIN_ROWS, cnt, TRAIN_ROUNDS, errs["leaf_histogram"],
              VALID_ROWS))
 
-    # ---------------------------------------------------------------- 7
+    # --------------------------------------------------------------- 11
     cpu_params = dict(TRAIN_PARAMS, num_leaves=CPU_LEAVES)
     xs, ys = x[:CPU_ROWS], y[:CPU_ROWS]
     xvs, yvs = xv[:CPU_VALID_ROWS], yv[:CPU_VALID_ROWS]
@@ -537,24 +605,7 @@ def training(name, card, dev):
                                  CPU_ROUNDS)[:2]
     on_cpu, ev_cpu = train_run(lgb, xs, ys, xvs, yvs, cpu_params,
                                CPU_ROUNDS, device="cpu")[:2]
-    worst = 0.0
-    for i, (a, b) in enumerate(zip(on_card._inner.models,
-                                   on_cpu._inner.models)):
-        m = a.num_leaves - 1
-        same = (a.num_leaves == b.num_leaves
-                and np.array_equal(a.split_feature[:m], b.split_feature[:m])
-                and np.array_equal(a.threshold_in_bin[:m],
-                                   b.threshold_in_bin[:m])
-                and np.array_equal(a.decision_type[:m], b.decision_type[:m])
-                and np.array_equal(a.left_child[:m], b.left_child[:m])
-                and np.array_equal(a.right_child[:m], b.right_child[:m]))
-        check(same, "card and CPU grew different structures in tree %d" % i)
-        rel = np.abs(a.leaf_value - b.leaf_value) / np.maximum(
-            1.0, np.abs(b.leaf_value))
-        worst = max(worst, float(rel.max()))
-    check(len(on_card._inner.models) == len(on_cpu._inner.models)
-          == CPU_ROUNDS, "card/CPU tree counts")
-    check(worst <= 1e-5, "card/CPU leaf values differ by %g" % worst)
+    worst = same_trees(on_card, on_cpu, CPU_ROUNDS)
     d_auc = abs(ev_card["valid"]["auc"][-1] - ev_cpu["valid"]["auc"][-1])
     check(d_auc <= 2e-3, "card/CPU valid AUC differ by %g" % d_auc)
     print("card vs CPU [%d rows, %d leaves, %d rounds]: same structure, "
@@ -563,7 +614,7 @@ def training(name, card, dev):
              ev_card["valid"]["auc"][-1], ev_cpu["valid"]["auc"][-1],
              time.perf_counter() - t0))
 
-    # ---------------------------------------------------------------- 8
+    # --------------------------------------------------------------- 12
     print("clocks [%s]: SM clock, max SM clock: %s (idle after the CPU "
           "phase)" % (card, clocks()))
     med = float(np.median(update_s[1:TRAIN_ROUNDS]))
@@ -680,7 +731,8 @@ def training(name, card, dev):
 def profile_round(booster, name, card):
     """torch.profiler over one more boosting round of the trained
     booster: device busy time (the union of its events' intervals)
-    against the host wall clock, and the top operations."""
+    against the host wall clock, and the top operations. Returns (wall
+    us, busy us, device us by kernel name)."""
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -700,6 +752,358 @@ def profile_round(booster, name, card):
           % (name, card, wall_us / 1e3, busy / 1e3, 1.0 - busy / wall_us,
              len(events),
              "; ".join("%s %.3f ms" % (k, v / 1e3) for k, v in top)))
+    return wall_us, busy, by_kind
+
+
+# ---------------------------------------------------------------------
+# ranking (phases 5-8)
+def rank_oracle(score, qb, label, gain, inv, sigmoid):
+    """The lambdarank gradients in float64 torch ops on the inputs'
+    device, over padded query batches with ranks counted from their
+    definition, and each doc's sums of absolute pair terms (the scale of
+    the f32 tolerance). Returns f64 [4, n]: grad, hess, and the two
+    absolute sums."""
+    dev = score.device
+    bounds = qb.cpu().numpy().astype(np.int64)
+    sizes = np.diff(bounds)
+    out = torch.zeros(4, score.shape[0], dtype=torch.float64, device=dev)
+    width = 2 ** np.ceil(np.log2(np.maximum(sizes, 1))).astype(np.int64)
+    for d in sorted(set(width[sizes > 1].tolist())):
+        qs = np.nonzero((width == d) & (sizes > 1))[0]
+        offs = np.arange(d)
+        per = max(1, (1 << 22) // (d * d))
+        earlier = (torch.arange(d, device=dev)[None, :]
+                   < torch.arange(d, device=dev)[:, None])
+        for lo in range(0, len(qs), per):
+            batch = qs[lo:lo + per]
+            m_np = offs[None] < sizes[batch][:, None]
+            idx = torch.from_numpy(np.where(
+                m_np, bounds[batch][:, None] + offs[None], 0)).to(dev)
+            m = torch.from_numpy(m_np).to(dev)
+            s = torch.where(m, score[idx].double(), 0.0)
+            lab, g = label[idx], gain[idx].double()
+            iq = inv[torch.from_numpy(batch).to(dev)].double()
+            # rank_d: the docs above d, and those tied with d before it
+            ahead = (s[:, None, :] > s[:, :, None]) | (
+                (s[:, None, :] == s[:, :, None]) & earlier)
+            rank = (ahead & m[:, None, :]).sum(2).double()
+            disc = 1.0 / torch.log2(rank + 2.0)
+            norm = ((s != s[:, :1]) & m).any(1)[:, None, None]
+            ds = s[:, :, None] - s[:, None, :]
+            delta = ((g[:, :, None] - g[:, None, :])
+                     * (disc[:, :, None] - disc[:, None, :]).abs()
+                     * iq[:, None, None])
+            delta = torch.where(norm, delta / (0.01 + ds.abs()), delta)
+            p = 2.0 / (1.0 + torch.exp(2.0 * sigmoid * ds))
+            valid = (m[:, :, None] & m[:, None, :]
+                     & (lab[:, :, None] > lab[:, None, :]))
+            lam = torch.where(valid, -delta * p, 0.0)
+            hp = torch.where(valid, 2.0 * delta * p * (2.0 - p), 0.0)
+            rows = idx[m]
+            out[0, rows] = (lam.sum(2) - lam.sum(1))[m]
+            out[1, rows] = (hp.sum(2) + hp.sum(1))[m]
+            out[2, rows] = (lam.abs().sum(2) + lam.abs().sum(1))[m]
+            out[3, rows] = (hp.abs().sum(2) + hp.abs().sum(1))[m]
+    return out
+
+
+def rank_err(got, ref, scale, label):
+    """grad and hess within 1e-5 * max(1, scale) of ref; returns the
+    max abs error."""
+    worst = 0.0
+    for k, what in ((0, "grad"), (1, "hess")):
+        d = (got[k].double() - ref[k].double()).abs()
+        lim = 1e-5 * scale[k].double().clamp(min=1.0)
+        check(bool((d <= lim).all()), "%s: %s off by %g where %g is allowed"
+              % (label, what, float(d.max()), float(lim[d.argmax()])))
+        worst = max(worst, float(d.max()))
+    return worst
+
+
+def rank_work(obj):
+    """(bytes, operations) L's least work needs on an objective's
+    layout: score, label and gain in and grad, hess out a doc, the
+    boundaries and inverse max DCGs; cnt^2 rank compares a query and
+    the (high, low) pairs with differing labels."""
+    qb = obj.query_boundaries.cpu().numpy().astype(np.int64)
+    sizes = np.diff(qb)
+    lab = obj.label_int.cpu().numpy().astype(np.int64)
+    lab = lab - lab.min() if len(lab) else lab
+    qid = np.repeat(np.arange(len(sizes)), sizes)
+    width = int(lab.max()) + 1 if len(lab) else 1
+    per_label = np.bincount(qid * width + lab,
+                            minlength=len(sizes) * width).astype(np.float64)
+    same = per_label.reshape(len(sizes), width) ** 2
+    squares = float((sizes.astype(np.float64) ** 2).sum())
+    pairs = (squares - float(same.sum())) / 2.0
+    n, nq = len(lab), len(sizes)
+    return (20.0 * n + 8.0 * nq + 4.0,
+            squares * INSTR_PER_COMPARE + pairs * INSTR_PER_PAIR)
+
+
+def rank_layout(sizes, labels, dev):
+    """The port's lambdarank objective initialised on a query layout."""
+    from lightgbm_tpu_torch.config import Config
+    from lightgbm_tpu_torch.dataset import Metadata
+    from lightgbm_tpu_torch.objectives import LambdarankNDCG
+    md = Metadata(int(sizes.sum()))
+    md.set_label(labels.astype(np.float32))
+    md.set_group(sizes)
+    obj = LambdarankNDCG(Config.from_params({"objective": "lambdarank"}))
+    obj.init(md, int(sizes.sum()), dev)
+    return obj
+
+
+def check_rank_kernel(obj, score, label, sample):
+    """Phase 9 on one layout and score: L twice (same bits), against its
+    plain version and the f64 oracle on the card, then the queries of
+    `sample` against the f64 oracle on the host. Returns L's max abs
+    error against the plain version."""
+    from lightgbm_tpu_torch.ops import rank
+    args = (score, obj.query_boundaries, obj.label_int, obj.gain,
+            obj.inv_max_dcg, obj.sigmoid)
+    got = rank.lambdarank_grads(*args)
+    again = rank.lambdarank_grads(*args)
+    check(all(torch.equal(a, b) for a, b in zip(got, again)),
+          label + ": a second launch of L gave other bits")
+    plain = rank.lambdarank_grads_plain(*args)
+    oracle = rank_oracle(*args)
+    err = rank_err(got, plain, oracle[2:], label + " (L vs plain)")
+    rank_err(got, oracle[:2], oracle[2:], label + " (L vs f64 oracle)")
+    qb = obj.query_boundaries.cpu().numpy().astype(np.int64)
+    sizes = np.diff(qb)[sample]
+    docs = torch.from_numpy(np.concatenate(
+        [np.arange(qb[q], qb[q + 1]) for q in sample])).to(score.device)
+    sub_qb = torch.from_numpy(np.concatenate([[0], np.cumsum(sizes)]))
+    host = rank_oracle(score[docs].cpu(), sub_qb, obj.label_int[docs].cpu(),
+                       obj.gain[docs].cpu(),
+                       obj.inv_max_dcg[torch.from_numpy(sample).to(
+                           score.device)].cpu(), obj.sigmoid)
+    rank_err([t[docs].cpu() for t in got], host[:2], host[2:],
+             label + " (L vs the host f64 oracle, %d queries of %s docs)"
+             % (len(sample), sorted(set(sizes.tolist()))))
+    return err
+
+
+def ranking(name, card, dev):
+    """Phases 5-8; returns L's JSON row."""
+    import os
+    import lightgbm_tpu_torch as lgb
+    from lightgbm_tpu_torch.ops import histogram, predict, rank, route, split
+    from lightgbm_tpu_torch.testing.synth import mslr_like_groups, rank_data
+
+    counted = {"lambdarank_grads": rank.lambdarank_grads,
+               "leaf_histogram": histogram.leaf_histogram,
+               "split_scan": split.split_scan,
+               "route_partition": route.route_partition,
+               "score_update": route.score_update,
+               "tree_value_walk_binned": predict.tree_value_walk_binned}
+
+    # ---------------------------------------------------------------- 5
+    t0 = time.perf_counter()
+    x, y, nq, qlen = rank_data(RANK_ROWS + RANK_VALID_ROWS, qlen=RANK_QLEN,
+                               seed=RANK_SEED)
+    check(nq * qlen == RANK_ROWS + RANK_VALID_ROWS, "rank_data queries")
+    xt, yt, xv, yv = x[:RANK_ROWS], y[:RANK_ROWS], x[RANK_ROWS:], \
+        y[RANK_ROWS:]
+    gt = [RANK_QLEN] * (RANK_ROWS // RANK_QLEN)
+    gv = [RANK_QLEN] * (RANK_VALID_ROWS // RANK_QLEN)
+    print("ranking data: rank_data %d + %d rows x %d features, queries of "
+          "%d docs, labels %s, in %.1f s"
+          % (RANK_ROWS, RANK_VALID_ROWS, x.shape[1], RANK_QLEN,
+             sorted(set(y.astype(int).tolist())), time.perf_counter() - t0))
+    for fn in counted.values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    booster, evals, update_s, ds, valid = train_run(
+        lgb, xt, yt, xv, yv, RANK_PARAMS, TRAIN_ROUNDS, group=gt, group_v=gv)
+    wall = time.perf_counter() - t0
+    launches = {k: fn.launches for k, fn in counted.items()}
+    print("ranking main path launches:", launches)
+    check(launches["lambdarank_grads"] == TRAIN_ROUNDS,
+          "L launched %d times in %d rounds" % (launches["lambdarank_grads"],
+                                                TRAIN_ROUNDS))
+    check(all(v > 0 for v in launches.values()),
+          "a kernel of the ranking main path was never launched")
+    check(booster.device.type == "cuda" and booster.num_trees()
+          == TRAIN_ROUNDS, "ranking: %d trees on %s"
+          % (booster.num_trees(), booster.device))
+    ndcg = evals["valid"]["ndcg@10"]
+    check(len(ndcg) == TRAIN_ROUNDS and all(np.isfinite(ndcg))
+          and ndcg[-1] > ndcg[0], "valid ndcg@10 %s did not rise" % ndcg)
+    text = booster.model_to_string()
+    check("objective=lambdarank" in text, "model text objective")
+    print("ranking main path: %d rounds, %d trees of %s leaves, valid "
+          "ndcg@10 %.5f (round 1) -> %.5f, %.1f s with dataset "
+          "construction" % (TRAIN_ROUNDS, booster.num_trees(),
+                            sorted({t.num_leaves
+                                    for t in booster._inner.models}),
+                            ndcg[0], ndcg[-1], wall))
+    again = train_run(lgb, xt, yt, xv, yv, RANK_PARAMS, TRAIN_ROUNDS,
+                      group=gt, group_v=gv)[0]
+    check(again.model_to_string() == text,
+          "two ranking runs gave different model texts")
+    del again
+    out_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                           "build", "chip_smoke")
+    os.makedirs(out_dir, exist_ok=True)
+    path = os.path.join(out_dir, "ranker.txt")
+    booster.save_model(path)
+    predict.forest_value_walk.launches = 0
+    served = lgb.Booster(model_file=path)
+    check(served.device.type == "cuda", "served ranker not on cuda")
+    raw = served.predict(xv, raw_score=True)
+    value = served.predict(xv)
+    check(predict.forest_value_walk.launches > 0,
+          "serving the ranker did not launch K1")
+    ref = booster._inner.valid_score(0)
+    rel = float(np.max(np.abs(raw - ref) / np.maximum(1.0, np.abs(ref))))
+    check(rel <= 1e-5, "served raw scores off W's valid scores by %g" % rel)
+    check(float(np.max(np.abs(value - raw))) <= 1e-6 * max(
+        1.0, float(np.abs(raw).max())), "identity output != raw score")
+    served_ndcg = dict((k, v) for k, v in (
+        booster._inner.valid_metrics[0][0].eval(raw, None)))["ndcg@10"]
+    check(abs(served_ndcg - ndcg[-1]) <= 1e-3,
+          "served ndcg@10 %.6f vs %.6f in training" % (served_ndcg, ndcg[-1]))
+    print("ranking main path: a second run gave a byte-identical model text "
+          "(%d bytes); the saved model served through K1 (%d launches) on "
+          "%d valid rows: raw within %.3g of W's scores, ndcg@10 %.5f"
+          % (len(text), predict.forest_value_walk.launches, RANK_VALID_ROWS,
+             rel, served_ndcg))
+    ranker = lgb.LGBMRanker(
+        n_estimators=2, num_leaves=RANK_PARAMS["num_leaves"],
+        learning_rate=RANK_PARAMS["learning_rate"],
+        max_bin=RANK_PARAMS["max_bin"],
+        min_child_samples=RANK_PARAMS["min_data_in_leaf"],
+        min_child_weight=RANK_PARAMS["min_sum_hessian_in_leaf"])
+    ranker.fit(xt, yt, group=gt, eval_set=[(xv, yv)], eval_group=[gv],
+               eval_at=[10])
+    check(ranker.booster_.device.type == "cuda", "LGBMRanker not on cuda")
+    two = lgb.train(dict(RANK_PARAMS),
+                    lgb.Dataset(xt, yt, group=gt, params=dict(RANK_PARAMS)),
+                    2, verbose_eval=False)
+    check(ranker.booster_.model_to_string() == two.model_to_string(),
+          "LGBMRanker and train gave different model texts")
+    print("ranking main path: LGBMRanker fit 2 rounds on the card, the "
+          "model text of train with the same params; its valid ndcg@10 %s"
+          % ranker.evals_result_["valid_0"]["ndcg@10"])
+
+    # ---------------------------------------------------------------- 6
+    errs = []
+    obj = booster._inner.objective
+    n = RANK_ROWS
+    proto_sample = np.array([0, 1, len(gt) // 2, len(gt) - 1])
+    gen = torch.Generator(device=dev).manual_seed(3)
+    scores = {"zero": torch.zeros(n, device=dev),
+              "seeded": torch.randn(n, generator=gen, device=dev),
+              "after %d rounds" % TRAIN_ROUNDS: booster._inner._score[0]}
+    for label, score in scores.items():
+        errs.append(check_rank_kernel(obj, score.contiguous(),
+                                      "L protocol, %s scores" % label,
+                                      proto_sample))
+    sizes, labels = mslr_like_groups(0)
+    mslr = rank_layout(sizes, labels, dev)
+    n_mslr = int(sizes.sum())
+    mslr_score = torch.randn(n_mslr, generator=gen, device=dev)
+    mslr_sample = np.array([0, 1, 4, 5] + list(np.random.RandomState(
+        0).choice(np.arange(8, len(sizes)), 4, replace=False)))
+    errs.append(check_rank_kernel(mslr, mslr_score, "L MSLR-shaped",
+                                  mslr_sample))
+    cap = rank.stage_cap()
+    long_sizes = np.array([cap + 1000, 7, cap + 1])
+    long_labels = np.random.RandomState(1).randint(0, 5, long_sizes.sum())
+    long = rank_layout(long_sizes, long_labels, dev)
+    errs.append(check_rank_kernel(
+        long, torch.randn(int(long_sizes.sum()), generator=gen, device=dev),
+        "L above the %d-doc stage cap" % cap, np.arange(3)))
+    print("L vs plain [protocol %d x %d at zero, seeded and trained scores; "
+          "MSLR-shaped %d queries, %d docs, up to %d a query; queries of %s "
+          "docs above the stage cap]: grad and hess within 1e-5 * max(1, A) "
+          "of plain (max abs err %.3g), of the f64 oracle on the card and of "
+          "the f64 host oracle on sampled queries; every launch repeated "
+          "its bits" % (len(gt), RANK_QLEN, len(sizes), n_mslr,
+                        int(sizes.max()), long_sizes.tolist(), max(errs)))
+
+    # ---------------------------------------------------------------- 7
+    cpu_params = dict(RANK_PARAMS, num_leaves=CPU_LEAVES)
+    cs, cv = RANK_CPU_ROWS, RANK_CPU_VALID_ROWS
+    cg, cgv = gt[:cs // RANK_QLEN], gv[:cv // RANK_QLEN]
+    t0 = time.perf_counter()
+    on_card, ev_card = train_run(lgb, xt[:cs], yt[:cs], xv[:cv], yv[:cv],
+                                 cpu_params, RANK_CPU_ROUNDS, group=cg,
+                                 group_v=cgv)[:2]
+    on_cpu, ev_cpu = train_run(lgb, xt[:cs], yt[:cs], xv[:cv], yv[:cv],
+                               cpu_params, RANK_CPU_ROUNDS, device="cpu",
+                               group=cg, group_v=cgv)[:2]
+    worst = same_trees(on_card, on_cpu, RANK_CPU_ROUNDS)
+    d_ndcg = max(abs(a - b) for a, b in zip(ev_card["valid"]["ndcg@10"],
+                                            ev_cpu["valid"]["ndcg@10"]))
+    check(d_ndcg <= 1e-5, "card/CPU valid ndcg@10 differ by %g" % d_ndcg)
+    print("ranking card vs CPU [%d rows, %d leaves, %d rounds]: same "
+          "structure, leaf values within %.3g relative, valid ndcg@10 %.6f "
+          "vs %.6f (%.2f s)" % (cs, CPU_LEAVES, RANK_CPU_ROUNDS, worst,
+                               ev_card["valid"]["ndcg@10"][-1],
+                               ev_cpu["valid"]["ndcg@10"][-1],
+                               time.perf_counter() - t0))
+
+    # ---------------------------------------------------------------- 8
+    med = float(np.median(update_s[1:TRAIN_ROUNDS]))
+    print("time [%s | %s]: ranking boosting round %.4f s (median of rounds "
+          "2-%d), %.3f million row-iterations/s, rounds %s"
+          % (name, card, med, TRAIN_ROUNDS, RANK_ROWS / med / 1e6,
+             " ".join("%.4f" % v for v in update_s)))
+    times = {}
+    for label, o, score, reps in (
+            ("protocol", obj, booster._inner._score[0].contiguous(), 3),
+            ("MSLR-shaped", mslr, mslr_score, 3)):
+        args = (score, o.query_boundaries, o.label_int, o.gain,
+                o.inv_max_dcg, o.sigmoid)
+        b_ms, b_by = bound(*rank_work(o))
+        times[label] = (median_ms(lambda: rank.lambdarank_grads(*args)),
+                        median_ms(lambda: rank.lambdarank_grads_plain(*args),
+                                  reps=reps), b_ms, b_by)
+        print("time [%s | %s]: lambdarank_grads %s (%d docs, %d queries) "
+              "%.4f ms, plain %.3f ms, bound %.5f ms (%s)"
+              % (name, card, label, score.shape[0],
+                 o.inv_max_dcg.shape[0], *times[label]))
+    # L's part of the profiled round from CUDA events around its call:
+    # torch.profiler left L's kernel out of some rounds (PERF.md)
+    obj_grads = obj.get_gradients
+    spans = []
+
+    def timed_grads(score):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = obj_grads(score)
+        end.record()
+        spans.append((start, end))
+        return out
+    before = rank.lambdarank_grads.launches
+    obj.get_gradients = timed_grads
+    try:
+        wall_us, busy, by_kind = profile_round(booster, name, card)
+    finally:
+        del obj.get_gradients
+    check(rank.lambdarank_grads.launches == before + 1 and len(spans) == 1,
+          "the profiled round launched L %d times"
+          % (rank.lambdarank_grads.launches - before))
+    l_us = spans[0][0].elapsed_time(spans[0][1]) * 1e3
+    listed = sum(v for k, v in by_kind.items() if "lambdarank_kernel" in k)
+    busy_all = busy + (0.0 if listed else l_us)
+    print("where the time goes [%s | %s]: lambdarank_grads %.3f ms of the "
+          "round (CUDA events around its call; the profiler %s), share %.3f "
+          "of %.2f ms device busy, idle share %.3f"
+          % (name, card, l_us / 1e3, "listed %.3f ms" % (listed / 1e3)
+             if listed else "did not list it", l_us / busy_all,
+             busy_all / 1e3, 1.0 - busy_all / wall_us))
+    ms, plain_ms, b_ms, b_by = times["protocol"]
+    return {"name": "lambdarank_grads", "route": "cuda",
+            "source": "lightgbm_tpu_torch/csrc/lambdarank.cu",
+            "replaces": "lightgbm_tpu/objectives.py:438",
+            "launches": launches["lambdarank_grads"],
+            "max_abs_err": max(errs), "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}
 
 
 def main():
@@ -945,7 +1349,9 @@ def main():
          "plain_ms": times[k]["plain_ms"], "bound_ms": times[k]["bound_ms"],
          "bound_by": times[k]["bound_by"], "library_ms": None}
         for k in ("forest_value_walk", "forest_leaf_walk")]
+    rank_row = ranking(name, card, dev)
     rows.extend(training(name, card, dev))
+    rows.append(rank_row)
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

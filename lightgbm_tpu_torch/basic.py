@@ -69,7 +69,7 @@ class Dataset:
 
     def __init__(self, data, label=None, max_bin: int = 255,
                  reference: Optional["Dataset"] = None, weight=None,
-                 init_score=None, silent: bool = False,
+                 group=None, init_score=None, silent: bool = False,
                  feature_name: Union[str, Sequence[str]] = "auto",
                  categorical_feature: Union[str, Sequence] = "auto",
                  params: Optional[Dict[str, Any]] = None):
@@ -81,6 +81,7 @@ class Dataset:
         self.max_bin = max_bin
         self.reference = reference
         self.weight = weight
+        self.group = group
         self.init_score = init_score
         self.params = dict(params or {})
         self.feature_name = feature_name
@@ -128,7 +129,7 @@ class Dataset:
             use_missing=_parse_value(params.get("use_missing", True), bool),
             zero_as_missing=_parse_value(
                 params.get("zero_as_missing", False), bool),
-            feature_names=names, weight=self.weight,
+            feature_names=names, weight=self.weight, group=self.group,
             init_score=self.init_score, reference=ref,
             enable_bundle=_parse_value(params.get("enable_bundle", True),
                                        bool),
@@ -141,13 +142,51 @@ class Dataset:
         self._lazy_init()
         return self
 
-    def create_valid(self, data, label=None, weight=None, init_score=None,
-                     silent: bool = False,
+    def create_valid(self, data, label=None, weight=None, group=None,
+                     init_score=None, silent: bool = False,
                      params: Optional[dict] = None) -> "Dataset":
         """Reference: basic.py Dataset.create_valid."""
         return Dataset(data, label=label, reference=self, weight=weight,
-                       init_score=init_score, silent=silent,
+                       group=group, init_score=init_score, silent=silent,
                        params=params or self.params)
+
+    def set_group(self, group) -> "Dataset":
+        """Per-query sizes (lightgbm_tpu/basic.py:377-381)."""
+        self.group = group
+        if self._inner is not None:
+            self._inner.metadata.set_group(group)
+        return self
+
+    def get_group(self):
+        return self.group
+
+    def get_field(self, name: str):
+        """lightgbm_tpu/basic.py:413-423; "group" gives per-query sizes."""
+        meta = self._lazy_init().metadata
+        if name == "label":
+            return meta.label
+        if name == "weight":
+            return meta.weights
+        if name == "group":
+            qb = meta.query_boundaries
+            return None if qb is None else np.diff(qb)
+        if name == "init_score":
+            return meta.init_score
+        raise LightGBMError(f"Unknown field {name}")
+
+    def set_field(self, name: str, data) -> None:
+        """lightgbm_tpu/basic.py:425-436."""
+        meta = self._lazy_init().metadata
+        if name == "label":
+            meta.set_label(data)
+        elif name == "weight":
+            meta.set_weights(data)
+        elif name == "group":
+            meta.set_group(data)
+        elif name == "init_score":
+            meta.set_init_score(data)
+        else:
+            raise LightGBMError(f"Unknown field {name}")
 
 
 class Booster:
@@ -294,6 +333,10 @@ class Booster:
 
     def num_feature(self) -> int:
         return self._inner.max_feature_idx + 1
+
+    def feature_importance(self, importance_type: str = "split",
+                           iteration: int = -1) -> np.ndarray:
+        return self._inner.feature_importance(importance_type, iteration)
 
     def model_to_string(self, num_iteration: int = -1) -> str:
         return self._inner.save_model_to_string(num_iteration)

@@ -6,10 +6,10 @@ bookkeeping that keeps device-resident stacks fresh, and `predict` over
 the forest-walk kernels of `ops/predict.py`. Training, the synchronous
 serial path (`init`, `train_one_iter`, `add_valid`, `eval_once`,
 `rollback_one_iter`): the binned matrix and the scores live on the
-device; each iteration takes the objective's gradients, grows one tree
-with `learner/grow.py` (kernels H, S, R), adds its shrunk leaf values to
-the train scores (R's score update) and to every valid set's scores
-(kernel W), and keeps the tree on the host.
+device; each iteration takes the objective's gradients (kernel L for
+lambdarank), grows one tree with `learner/grow.py` (kernels H, S, R),
+adds its shrunk leaf values to the train scores (R's score update) and
+to every valid set's scores (kernel W), and keeps the tree on the host.
 
 Every option this slice does not carry raises a named LightGBMError
 instead of answering with something else: in serving `pred_contrib`,

@@ -9,8 +9,8 @@ attribute names of the JAX package's `Tree` (lightgbm_tpu/tree.py:38-80:
 JAX Tree with its arrays as numpy. `booster_from_numpy` builds a port
 Booster from such trees and a header. Both give the same Booster as
 loading the model's text does. `dataset_from_numpy` builds the port's
-binned Dataset from a JAX Dataset's arrays, so both packages can be fed
-the very same bins.
+binned Dataset from a JAX Dataset's arrays (with its query groups), so
+both packages can be fed the very same bins.
 """
 from __future__ import annotations
 
@@ -79,7 +79,8 @@ def dataset_from_numpy(d: dict) -> Dataset:
     """The port's Dataset from a JAX `lightgbm_tpu.dataset.Dataset` given
     as plain arrays: `binned` [N, G], `mappers` (each mapper's
     `to_dict()`, one per original column), `groups` (`groups.to_dict()`),
-    `label` and optionally `weight`, `feature_meta` (its
+    `label` and optionally `weight`, `query_boundaries` and
+    `query_weights` (its metadata's, for ranking), `feature_meta` (its
     `feature_meta_arrays()`, checked against the rebuilt one),
     `feature_names` and `max_bin`."""
     ds = Dataset()
@@ -103,6 +104,13 @@ def dataset_from_numpy(d: dict) -> Dataset:
         ds.metadata.set_label(d["label"])
     if d.get("weight") is not None:
         ds.metadata.set_weights(d["weight"])
+    if d.get("query_boundaries") is not None:
+        qb = np.asarray(d["query_boundaries"], np.int64)
+        if qb[0] != 0:
+            raise LightGBMError("query_boundaries must start at 0")
+        ds.metadata.set_group(np.diff(qb))
+    if d.get("query_weights") is not None:
+        ds.metadata.query_weights = np.asarray(d["query_weights"], np.float32)
     meta = d.get("feature_meta")
     if meta is not None:
         mine = ds.feature_meta_arrays()

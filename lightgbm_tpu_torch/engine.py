@@ -6,8 +6,9 @@ after each iteration) and the EarlyStopException unwinding. It takes
 `valid_sets`, `valid_names`, `early_stopping_rounds`, `evals_result`,
 `verbose_eval`, `learning_rates` and `callbacks`; custom objectives and
 metrics (`fobj`, `feval`) and continued training (`init_model`) are
-refused by name, and checkpointing, `cv`, `train_sweep` and the sklearn
-wrapper wait for a later slice. `device` picks the card (None: CUDA) or
+refused by name, and checkpointing, `cv` and `train_sweep` wait for a
+later slice (the scikit-learn estimators over `train` are in
+`sklearn.py`). `device` picks the card (None: CUDA) or
 the plain CPU versions ("cpu").
 """
 from __future__ import annotations

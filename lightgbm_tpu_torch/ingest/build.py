@@ -33,7 +33,7 @@ def build_inner(data: np.ndarray, *,
                 categorical_features: Optional[Sequence[int]] = None,
                 use_missing: bool = True, zero_as_missing: bool = False,
                 feature_names: Optional[Sequence[str]] = None,
-                label=None, weight=None, init_score=None,
+                label=None, weight=None, group=None, init_score=None,
                 reference=None, mappers=None,
                 enable_bundle: bool = True,
                 max_conflict_rate: float = 0.0,
@@ -136,4 +136,6 @@ def build_inner(data: np.ndarray, *,
         ds.metadata.set_weights(weight)
     if init_score is not None:
         ds.metadata.set_init_score(init_score)
+    if group is not None:
+        ds.metadata.set_group(group)
     return ds

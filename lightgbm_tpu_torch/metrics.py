@@ -1,12 +1,12 @@
-"""Evaluation metrics for the training slice (host numpy, float64).
+"""Evaluation metrics (host numpy, float64).
 
-The port's copy of the regression and binary metrics of
+The port's copy of the regression, binary and ranking metrics of
 `lightgbm_tpu/metrics.py` (reference: `src/metric/metric.cpp:11-46`,
-regression_metric.hpp, binary_metric.hpp): `l2`, `rmse`,
-`binary_logloss`, `binary_error` and `auc`. Scores arrive on the host;
-the output transform runs through the port's objective in f32, as the
-JAX package runs it through its own. Other metric names are refused by
-name until their slice.
+regression_metric.hpp, binary_metric.hpp, rank_metric.hpp,
+map_metric.hpp): `l2`, `rmse`, `binary_logloss`, `binary_error`, `auc`,
+`ndcg` and `map`. Scores arrive on the host; the output transform runs
+through the port's objective in f32, as the JAX package runs it through
+its own. Other metric names are refused by name until their slice.
 """
 from __future__ import annotations
 
@@ -124,6 +124,127 @@ class AUCMetric(Metric):
         return [(self.name[0], float(auc / (total_pos * total_neg)))]
 
 
+def query_layout(qb: np.ndarray):
+    """(qid, pos) row layout for query-contiguous arrays: qid[r] = query of
+    row r, pos[r] = row r's offset inside its query. Tolerates zero-size
+    queries (np.repeat skips them)."""
+    sizes = np.diff(qb)
+    qid = np.repeat(np.arange(len(sizes)), sizes)
+    pos = np.arange(int(qb[-1])) - np.repeat(qb[:-1], sizes)
+    return qid, pos
+
+
+def segment_sum(arr: np.ndarray, qb: np.ndarray) -> np.ndarray:
+    """Per-query sums of a query-contiguous array via exclusive-cumsum
+    differences: unlike np.add.reduceat this is right for zero-size
+    queries (their sum is 0) and for qb entries equal to len(arr)."""
+    csum = np.concatenate([[0], np.cumsum(arr, dtype=np.float64)])
+    return csum[qb[1:]] - csum[qb[:-1]]
+
+
+class _RankMetric(Metric):
+    """The query layout the ranking metrics share; `eval_at` from
+    `ndcg_eval_at`."""
+    is_bigger_better = True
+    prefix = ""
+
+    def __init__(self, config: Config):
+        self.eval_at = list(config.metric.ndcg_eval_at) or [1, 2, 3, 4, 5]
+        self.name = [f"{self.prefix}@{k}" for k in self.eval_at]
+
+    def init(self, metadata, num_data):
+        super().init(metadata, num_data)
+        if metadata.query_boundaries is None:
+            log.fatal("metric %s requires query information (a Dataset "
+                      "with group=)" % self.prefix)
+        self.query_boundaries = np.asarray(metadata.query_boundaries)
+        self.query_weights = metadata.query_weights
+        self._qid, self._pos = query_layout(self.query_boundaries)
+
+    def _weighted_mean(self, results: np.ndarray) -> List[Tuple[str, float]]:
+        nq = len(self.query_boundaries) - 1
+        qw = self.query_weights if self.query_weights is not None \
+            else np.ones(nq)
+        sum_w = qw.sum()
+        return [(self.name[ki], float(np.sum(results[ki] * qw) / sum_w))
+                for ki in range(len(self.eval_at))]
+
+
+class NDCGMetric(_RankMetric):
+    """reference: rank_metric.hpp + dcg_calculator.cpp (NDCG at eval_at;
+    lightgbm_tpu/metrics.py:263-320)."""
+    prefix = "ndcg"
+
+    def __init__(self, config: Config):
+        super().__init__(config)
+        gains = config.objective_config.label_gain or \
+            [float((1 << i) - 1) for i in range(31)]
+        self.label_gain = np.asarray(gains, np.float64)
+
+    def init(self, metadata, num_data):
+        super().init(metadata, num_data)
+        qb = self.query_boundaries
+        # everything score-independent once: per-row gains and
+        # discounts, and the per-k max DCG (the label order is fixed)
+        lab = np.asarray(metadata.label).astype(int)
+        self._gain = self.label_gain[
+            np.clip(lab, 0, len(self.label_gain) - 1)]
+        self._disc = 1.0 / np.log2(self._pos + 2.0)
+        by_label = np.lexsort((-lab, self._qid))
+        self._max_dcg = {
+            k: segment_sum(self._gain[by_label] * self._disc
+                           * (self._pos < k), qb)
+            for k in self.eval_at}
+
+    def eval(self, score, objective):
+        score = np.asarray(score, np.float64)
+        qb = self.query_boundaries
+        # rows sorted by (query, -score) stay query-contiguous, so DCG@k
+        # is a per-query segment sum of masked discounted gains
+        by_score = np.lexsort((-score, self._qid))
+        gain_sorted = self._gain[by_score] * self._disc
+        results = np.zeros((len(self.eval_at), len(qb) - 1))
+        for ki, k in enumerate(self.eval_at):
+            dcg = segment_sum(gain_sorted * (self._pos < k), qb)
+            max_dcg = self._max_dcg[k]
+            # a query with no positive doc counts as 1 (the reference's)
+            results[ki] = np.where(max_dcg > 0,
+                                   dcg / np.maximum(max_dcg, 1e-300), 1.0)
+        return self._weighted_mean(results)
+
+
+class MAPMetric(_RankMetric):
+    """reference: map_metric.hpp (mean average precision at k;
+    lightgbm_tpu/metrics.py:323-365)."""
+    prefix = "map"
+
+    def init(self, metadata, num_data):
+        super().init(metadata, num_data)
+        qb = self.query_boundaries
+        self._rel_raw = (np.asarray(metadata.label) > 0).astype(np.float64)
+        self._row_start = np.repeat(qb[:-1], np.diff(qb))
+
+    def eval(self, score, objective):
+        score = np.asarray(score, np.float64)
+        qb = self.query_boundaries
+        by_score = np.lexsort((-score, self._qid))
+        rel = self._rel_raw[by_score]
+        # the within-query running hit count: the inclusive cumsum less
+        # the exclusive cumsum at the query's start
+        excl = np.concatenate([[0.0], np.cumsum(rel)])
+        hits = excl[1:] - excl[self._row_start]
+        prec_rel = (hits / (self._pos + 1.0)) * rel
+        results = np.zeros((len(self.eval_at), len(qb) - 1))
+        for ki, k in enumerate(self.eval_at):
+            at_k = self._pos < k
+            ap_sum = segment_sum(prec_rel * at_k, qb)
+            num_rel = segment_sum(rel * at_k, qb)
+            # a query with no relevant doc in its top k counts as 0
+            results[ki] = np.where(num_rel > 0,
+                                   ap_sum / np.maximum(num_rel, 1e-300), 0.0)
+        return self._weighted_mean(results)
+
+
 _METRICS = {
     "l2": L2Metric, "mse": L2Metric, "mean_squared_error": L2Metric,
     "regression": L2Metric, "regression_l2": L2Metric,
@@ -132,6 +253,8 @@ _METRICS = {
     "binary_logloss": BinaryLoglossMetric, "binary": BinaryLoglossMetric,
     "binary_error": BinaryErrorMetric,
     "auc": AUCMetric,
+    "ndcg": NDCGMetric, "lambdarank": NDCGMetric,
+    "map": MAPMetric, "mean_average_precision": MAPMetric,
 }
 
 
@@ -150,4 +273,4 @@ def create_metric(name: str, config: Optional[Config] = None
 def default_metric_for_objective(objective: str) -> str:
     """The metric an unset `metric` implies (config.cpp)."""
     return {"binary": "binary_logloss", "rmse": "rmse",
-            "l2_root": "rmse"}.get(objective, "l2")
+            "l2_root": "rmse", "lambdarank": "ndcg"}.get(objective, "l2")

@@ -1,14 +1,15 @@
 """Objective functions: gradients for training, outputs for serving.
 
-Counterpart of `lightgbm_tpu/objectives.py` for `regression` (L2) and
-`binary`: each objective knows its model-text name (`to_string`), its
-output transform (`convert_output`, on torch tensors; `OUTPUT_KIND`
-tells the forest-walk kernel which transform it fuses into its
-epilogue, `ops/predict.OutputTransform`), and, once `init` has seen the
-training labels, its gradients (`get_gradients`): elementwise f32 torch
-ops on the score's device, in the JAX package's operation order, and
-the boost-from-average `bias`. Every other objective is refused by name
-until its slice.
+Counterpart of `lightgbm_tpu/objectives.py` for `regression` (L2),
+`binary` and `lambdarank`: each objective knows its model-text name
+(`to_string`), its output transform (`convert_output`, on torch
+tensors; `OUTPUT_KIND` tells the forest-walk kernel which transform it
+fuses into its epilogue, `ops/predict.OutputTransform`), and, once
+`init` has seen the training labels, its gradients (`get_gradients`):
+elementwise f32 torch ops on the score's device in the JAX package's
+operation order, or, for lambdarank, kernel L (`ops/rank.py`), and the
+boost-from-average `bias`. The JAX package's other objectives are
+refused by name until their slice.
 """
 from __future__ import annotations
 
@@ -19,6 +20,8 @@ import torch
 
 from . import log
 from .config import Config
+from .metrics import query_layout, segment_sum
+from .ops.rank import lambdarank_grads
 
 
 class ObjectiveFunction:
@@ -27,6 +30,9 @@ class ObjectiveFunction:
     sigmoid = 1.0
     label: Optional[torch.Tensor] = None
     weights: Optional[torch.Tensor] = None
+
+    def __init__(self, config: Optional[Config] = None):
+        pass
 
     def init(self, metadata, num_data: int,
              device: torch.device = torch.device("cpu")) -> None:
@@ -149,6 +155,56 @@ class BinaryLogloss(ObjectiveFunction):
         return 1.0 / (1.0 + torch.exp(-self.sigmoid * raw))
 
 
+class LambdarankNDCG(ObjectiveFunction):
+    """reference: rank_objective.hpp:19-245; lightgbm_tpu/objectives.py
+    :493-581. Per-query pairwise lambdas weighted by the change in NDCG,
+    through kernel L over unpadded queries (no length buckets, no pair
+    budget: those give the TPU fixed shapes)."""
+    name = "lambdarank"
+
+    def __init__(self, config: Config):
+        self.sigmoid = config.objective_config.sigmoid
+        self.optimize_pos_at = config.objective_config.max_position
+        gains = config.objective_config.label_gain or \
+            [float((1 << i) - 1) for i in range(31)]
+        self.label_gain = np.asarray(gains, np.float64)
+
+    def init(self, metadata, num_data, device=torch.device("cpu")):
+        """The inverse max DCG at max_position of each query (f64 on the
+        host, as dcg_calculator.cpp CalMaxDCGAtK and the JAX package
+        compute it, then f32) and each doc's gain, on `device` once."""
+        super().init(metadata, num_data, device)
+        if metadata.query_boundaries is None:
+            log.fatal("Lambdarank tasks require query information")
+        qb = np.asarray(metadata.query_boundaries, np.int64)
+        if qb[0] != 0 or qb[-1] != num_data or np.any(np.diff(qb) < 0):
+            log.fatal("query boundaries must rise from 0 to num_data (%d)"
+                      % num_data)
+        lab = np.asarray(metadata.label).astype(int)
+        top = len(self.label_gain) - 1
+        # rows sorted by (query, -label) stay query-contiguous, so each
+        # query's max DCG is a segment sum of masked discounted gains
+        qid, pos = query_layout(qb)
+        by_label = np.lexsort((-lab, qid))
+        contrib = np.where(
+            pos < self.optimize_pos_at,
+            self.label_gain[np.clip(lab[by_label], 0, top)]
+            / np.log2(pos + 2.0), 0.0)
+        dcg = segment_sum(contrib, qb)
+        inv = np.where(dcg > 0, 1.0 / np.maximum(dcg, 1e-300), 0.0)
+        self.inv_max_dcg = torch.from_numpy(inv.astype(np.float32)).to(device)
+        self.query_boundaries = torch.from_numpy(qb.astype(np.int32)).to(
+            device)
+        self.label_int = torch.from_numpy(lab.astype(np.int32)).to(device)
+        self.gain = torch.from_numpy(self.label_gain.astype(np.float32)[
+            np.clip(lab, 0, top)]).to(device)
+
+    def get_gradients(self, score):
+        return lambdarank_grads(score, self.query_boundaries, self.label_int,
+                                self.gain, self.inv_max_dcg, self.sigmoid,
+                                self.weights)
+
+
 _PORTED = {
     "regression": RegressionL2,
     "regression_l2": RegressionL2,
@@ -158,6 +214,7 @@ _PORTED = {
     "l2_root": RegressionL2,
     "rmse": RegressionL2,
     "binary": BinaryLogloss,
+    "lambdarank": LambdarankNDCG,
 }
 
 # the JAX package's other objectives (lightgbm_tpu/objectives.py
@@ -166,7 +223,7 @@ _NOT_PORTED = (
     "regression_l1", "l1", "mean_absolute_error", "mae", "huber", "fair",
     "poisson", "multiclass", "softmax", "multiclassova", "multiclass_ova",
     "ova", "ovr", "xentropy", "cross_entropy", "xentlambda",
-    "cross_entropy_lambda", "lambdarank")
+    "cross_entropy_lambda")
 
 
 def create_objective(config: Config) -> Optional[ObjectiveFunction]:
@@ -177,8 +234,7 @@ def create_objective(config: Config) -> Optional[ObjectiveFunction]:
         return None
     if name in _NOT_PORTED:
         log.fatal("objective %s is not ported to lightgbm_tpu_torch yet "
-                  "(ported: regression, binary)" % name)
+                  "(ported: %s)" % (name, ", ".join(sorted(_PORTED))))
     if name not in _PORTED:
         log.fatal("Unknown objective type name: %s" % name)
-    cls = _PORTED[name]
-    return cls(config) if cls is BinaryLogloss else cls()
+    return _PORTED[name](config)

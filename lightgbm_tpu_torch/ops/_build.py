@@ -60,6 +60,10 @@ LIBRARIES = {
         + [_p, _p, _p, _p],
         "lgbt_score_update": [_p, _p, _p, _i, _p],
     }, _NO_FMA),
+    "rank": ("lambdarank.cu", {
+        "lgbt_lambdarank_grads": [_p, _p, _i, _p, _p, _p, _f] + [_p] * 5,
+        "lgbt_lambdarank_stage_cap": [],
+    }, _NO_FMA),
     "walk": ("binned_walk.cu", {
         "lgbt_tree_value_walk_binned": [_p, _i, _i, _p, _i, _p, _p, _i, _p,
                                         _p, _p],

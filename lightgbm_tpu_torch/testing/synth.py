@@ -21,7 +21,10 @@ run and the tests make one from a seed instead:
 `cat_threshold`, so it takes the trees of either package.
 
 `synth_higgs` draws labelled HIGGS-shaped training data with the
-generator of the repo's bench.py, for training runs.
+generator of the repo's bench.py, for training runs. `rank_data` draws
+the repo's ranking protocol (fixed-length queries, graded labels), and
+`mslr_like_groups` the query layout of MSLR-WEB30K (ragged lengths up
+to 1,251 docs, labels 0-4 mostly 0 and 1) from its published shape.
 """
 from __future__ import annotations
 
@@ -234,3 +237,45 @@ def synth_higgs(n: int, f: int = 28, seed: int = 0):
              + 0.5 * np.abs(x[:, 4]) + 0.3 * x[:, 5] ** 2)
     y = (score + rng.logistic(size=n) > 0.5).astype(np.float32)
     return x, y
+
+
+def rank_data(n: int, f: int = 28, qlen: int = 100, seed: int = 0):
+    """The ranking protocol's data, the generator of the repo's
+    scripts/measure_parity_sweep.py (`_rank_data`): dense N(0, 1) f32
+    features, queries of `qlen` docs, and labels 1-4 from each query's
+    rank of a noisy score. Returns (X [n, f] f32, y [n] f32, number of
+    queries, qlen); rows past the last whole query keep label 0."""
+    rng = np.random.RandomState(seed)
+    x = rng.randn(n, f).astype(np.float32)
+    score = x[:, 0] * 1.5 + x[:, 1] - 0.5 * x[:, 2] * x[:, 3]
+    nq = n // qlen
+    y = np.zeros(n, np.float32)
+    for q in range(nq):
+        s = slice(q * qlen, (q + 1) * qlen)
+        ranks = np.argsort(np.argsort(-(score[s] + rng.randn(qlen))))
+        y[s] = np.clip(4 - ranks // 25, 0, 4)
+    return x, y, nq, qlen
+
+
+# MSLR-WEB30K: 31,531 queries, 3,771,125 docs (mean 119.6 a query, the
+# longest 1,251), relevance 0-4 in about these shares
+MSLR_QUERIES = 31_531
+MSLR_MAX_DOCS = 1_251
+_MSLR_LABEL_SHARE = (0.515, 0.325, 0.134, 0.018, 0.008)
+
+
+def mslr_like_groups(seed: int = 0):
+    """An MSLR-WEB30K-shaped query layout: 31,531 queries of log-normal
+    lengths, mean about 120, clipped to 1-1,251; the first query exactly
+    1,251 docs, then three empty queries and four of one doc. Returns
+    (sizes int64 [31,531], labels int32 [sum of sizes] in 0-4)."""
+    rng = np.random.RandomState(seed)
+    sizes = np.clip(np.rint(rng.lognormal(np.log(100.0), 0.6,
+                                          MSLR_QUERIES)),
+                    1, MSLR_MAX_DOCS).astype(np.int64)
+    sizes[0] = MSLR_MAX_DOCS
+    sizes[1:4] = 0
+    sizes[4:8] = 1
+    labels = rng.choice(5, size=int(sizes.sum()),
+                        p=_MSLR_LABEL_SHARE).astype(np.int32)
+    return sizes, labels

@@ -2,10 +2,12 @@
 
 A child process with `jax` and `lightgbm_tpu` import-blocked (the
 meta-path blocker pattern of tests/test_export.py) loads model text and
-predicts on the CPU, and trains a small model through every training
+predicts on the CPU, trains a small model through every training
 module (dataset, ingest, binning, EFB, objectives, metrics, callbacks,
-the grower and kernels H, S, R and W in their plain versions); an AST
-scan finds no such import in the package or in chip_smoke.py.
+the grower and kernels H, S, R and W in their plain versions), and a
+small ranker through the ranking modules (query groups, NDCG and MAP,
+kernel L's plain version, the scikit-learn wrappers); an AST scan finds
+no such import in the package or in chip_smoke.py.
 """
 import ast
 import json
@@ -53,16 +55,36 @@ _CHILD = textwrap.dedent("""
                         train, 3, valid_sets=[valid], evals_result=evals,
                         early_stopping_rounds=2, verbose_eval=False,
                         device="cpu")
+    xr = rng.randn(600, 5)
+    yr = np.clip(np.rint(xr[:, 0] + 1.5), 0, 4)
+    ranked = lgb.Dataset(xr[:400], yr[:400], group=[50] * 8)
+    rank_evals = {}
+    ranker = lgb.train({"objective": "lambdarank", "metric": "ndcg,map",
+                        "ndcg_eval_at": [5], "num_leaves": 7,
+                        "verbose": -1}, ranked, 3,
+                       valid_sets=[ranked.create_valid(
+                           xr[400:], yr[400:], group=[100, 100])],
+                       evals_result=rank_evals, verbose_eval=False,
+                       device="cpu")
+    served = lgb.Booster(model_str=ranker.model_to_string(), device="cpu")
+    sk = lgb.LGBMRanker(n_estimators=2, num_leaves=7, device="cpu").fit(
+        xr[:400], yr[:400], group=[50] * 8)
     from lightgbm_tpu_torch.convert import dataset_from_numpy
     modules = ["lightgbm_tpu_torch." + m for m in (
         "engine", "callback", "metrics", "dataset", "efb", "binning",
         "ingest.build", "learner.grow", "ops.histogram", "ops.split",
-        "ops.route", "convert")]
+        "ops.route", "ops.rank", "objectives", "sklearn", "convert")]
     print(json.dumps({"pred": [float(v) for v in pred],
                       "leaf_shape": list(leaf.shape),
                       "round_trip": booster.model_to_string() == text,
                       "trained": trained.num_trees(),
                       "auc": evals["valid_0"]["auc"],
+                      "ndcg": rank_evals["valid_0"]["ndcg@5"],
+                      "map": rank_evals["valid_0"]["map@5"],
+                      "served": bool(np.array_equal(
+                          served.predict(xr[400:]),
+                          ranker.predict(xr[400:]))),
+                      "sk_trees": sk.booster_.num_trees(),
                       "modules": all(m in sys.modules for m in modules),
                       "loaded": sorted(m for m in sys.modules if blocked(m))}))
 """)
@@ -80,6 +102,8 @@ def test_port_runs_with_jax_and_the_jax_package_blocked():
     assert all(0.0 < p < 1.0 for p in out["pred"])
     assert out["trained"] == 3 and out["modules"]
     assert len(out["auc"]) == 3 and out["auc"][-1] > 0.8
+    assert len(out["ndcg"]) == len(out["map"]) == 3
+    assert out["ndcg"][-1] > 0.5 and out["served"] and out["sk_trees"] == 2
 
 
 def _imported_modules(path):
