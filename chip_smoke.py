@@ -93,7 +93,33 @@ Phases, any failure raises and the script exits non-zero:
     CUDA-event ms and the bound, and for H the torch.bincount library
     time, every timing after 0.3 s of back-to-back calls that take the
     card off its idle clocks (printed from nvidia-smi); the device's idle
-    share over one profiled round with the top operations.
+    share over one profiled round with the top operations;
+13. quantized and bagged main paths, on the phase-9 Datasets: 10 rounds
+    with tpu_hist_quantize=int8, twice (byte-identical model texts), then
+    int16 (qmax 817 at 2,000,000 rows) and int8 with bagging_fraction 0.8,
+    bagging_freq 1 (bench.py:970-975), each with every count set to 0
+    before it: Q launched once a round and once for the quantize gate, HQ
+    once a split, H only for the gate's f32 tree, M once a round when
+    bagging; the gate's delta within tpu_hist_quantize_tol; valid AUC
+    rising from round 1 to 10 and within 0.02 of phase 9's f32 run
+    (QUANTGRAD_r01.json's accuracy_delta_ceiling);
+14. M, Q and HQ against their plain versions on the card at the main
+    path's shapes: M bitwise on 2,000,000 rows at three refresh indices;
+    Q's codes, in-bag weights and scales bitwise on the round-1 and
+    round-10 binary gradients, a constant-hessian L2 vector and a bag
+    mask; HQ exactly at the root (all rows, and bagged) and on the root
+    split's smaller child as a row list; parent == left + right in int32;
+    each kernel launched twice repeating its bits;
+15. the card against the CPU at 131,072 rows, 63 leaves and 5 rounds for
+    int8, int16, int8 + bagging and f32 + bagging: the same tree
+    structure, leaf values within 1e-5 relative, valid AUC within 2e-3;
+    Q on the card and on the CPU from the same gradients gives the same
+    codes (and how many differ from each side's own gradients);
+16. times: M, Q and HQ (root and row list) with their plain versions
+    (CUDA events, median of 12 after 0.3 s of back-to-back calls) and
+    bounds, torch.bincount x3 with the codes as weights as HQ's library
+    yardstick, seconds per quantized and bagged round, and HQ's and Q's
+    share of one profiled int8 round.
 
 The line before the last is the kernels' JSON summary, the last line
 `{"ok": true, "device": {...}}`.
@@ -138,6 +164,9 @@ RANK_PARAMS = dict(TRAIN_PARAMS, objective="lambdarank", metric="ndcg",
 # division, exp, the products and two adds
 INSTR_PER_COMPARE = 4
 INSTR_PER_PAIR = 24
+# one threefry2x32 draw: 20 rounds of add, rotate and xor, five key
+# injections of three adds, and the float conversion and compare
+INSTR_PER_DRAW = 80
 
 
 def check(ok, what):
@@ -259,12 +288,13 @@ def where_time_goes(booster, rows, name, card):
 
 # ---------------------------------------------------------------------
 # training (phases 9-12)
-def device_ms(fn, names, reps=REPS):
+def device_ms(fn, names, reps=REPS, required=True):
     """Device time of one fn() call: torch.profiler (CUPTI) over `reps`
     calls after a warm-up, summing the device events whose names contain
     one of `names` (the kernel's launches and copies), divided by reps.
     Unlike CUDA events around the call, this leaves out the Python
-    wrapper's host time, which exceeds a small kernel's own."""
+    wrapper's host time, which exceeds a small kernel's own. None when
+    not `required` and the profiler listed no such event."""
     from torch.profiler import ProfilerActivity, profile
     spin_up(fn)
     with profile(activities=[ProfilerActivity.CPU,
@@ -274,6 +304,8 @@ def device_ms(fn, names, reps=REPS):
         torch.cuda.synchronize()
     total = sum(e.time_range.elapsed_us() for e in device_busy(prof)[0]
                 if any(n in e.name for n in names))
+    if not required and total == 0:
+        return None
     check(total > 0, "the profiler saw no device time for %s" % (names,))
     return total / reps / 1e3
 
@@ -329,17 +361,21 @@ def leaf_totals(hist):
 
 
 def train_run(lgb, x, y, xv, yv, params, rounds, device=None, group=None,
-              group_v=None):
+              group_v=None, data=None):
     """One lightgbm_tpu_torch.train run with a valid set (query groups
-    for ranking); returns the booster, the recorded metrics and each
-    round's boosting seconds (train_one_iter, synchronised; the metrics'
-    host time excluded)."""
-    # the binning params go to the Dataset, as bench.py passes them: a
-    # Dataset constructed before train() sees max_bin keeps its own
-    ds = lgb.Dataset(x, y, group=group, params=dict(params))
-    valid = ds.create_valid(xv, yv, group=group_v)
-    ds.construct()
-    valid.construct()
+    for ranking), on the constructed (train, valid) Datasets `data` when
+    given; returns the booster, the recorded metrics, each round's
+    boosting seconds (train_one_iter, synchronised; the metrics' host
+    time excluded) and the two Datasets."""
+    if data is None:
+        # the binning params go to the Dataset, as bench.py passes them:
+        # a Dataset constructed before train() sees max_bin keeps its own
+        ds = lgb.Dataset(x, y, group=group, params=dict(params))
+        valid = ds.create_valid(xv, yv, group=group_v)
+        ds.construct()
+        valid.construct()
+    else:
+        ds, valid = data
     update_s = []
 
     def time_updates(env):
@@ -725,6 +761,343 @@ def training(name, card, dev):
         if k == "route_partition":
             row["score_update_launches"] = launches["score_update"]
         rows.append(row)
+    ctx = {"x": x, "y": y, "xv": xv, "yv": yv, "data": (ds, valid),
+           "auc": auc, "perm": perm, "n_left": n_left, "rounds_s": med}
+    return rows, ctx
+
+
+# ---------------------------------------------------------------------
+# quantized and bagged training (phases 13-16)
+def hist_launches(trees, num_leaves):
+    """Histogram launches growing `trees`: the root's, and one a split
+    but the split that fills the tree."""
+    return sum(t.num_leaves - (t.num_leaves == num_leaves) for t in trees)
+
+
+def q_equal(a, b):
+    """Q's outputs (codes, w01, qscale) bit for bit."""
+    return (torch.equal(a.codes, b.codes) and torch.equal(a.w01, b.w01)
+            and torch.equal(a.qscale.view(torch.int32),
+                            b.qscale.view(torch.int32)))
+
+
+def quantized(name, card, dev, ctx):
+    """Phases 13-16; returns the JSON rows of M, Q and HQ."""
+    import lightgbm_tpu_torch as lgb
+    from lightgbm_tpu_torch.ops import histogram, predict, rng, route, split
+
+    counted = {"bagging_mask": rng.bagging_mask,
+               "quantize_gradients": histogram.quantize_gradients,
+               "leaf_histogram_i32": histogram.leaf_histogram_i32,
+               "leaf_histogram": histogram.leaf_histogram,
+               "split_scan": split.split_scan,
+               "route_partition": route.route_partition,
+               "score_update": route.score_update,
+               "tree_value_walk_binned": predict.tree_value_walk_binned}
+    x, y, xv, yv = ctx["x"], ctx["y"], ctx["xv"], ctx["yv"]
+    data = ctx["data"]
+    leaves = TRAIN_PARAMS["num_leaves"]
+
+    def path(label, params):
+        """One 10-round run of the HIGGS protocol on the phase-9 Dataset
+        with every count set to 0 before it; returns the booster, its
+        valid AUCs, its round seconds and the counts."""
+        for fn in counted.values():
+            fn.launches = 0
+        booster, evals, update_s = train_run(
+            lgb, x, y, xv, yv, params, TRAIN_ROUNDS, data=data)[:3]
+        launches = {k: fn.launches for k, fn in counted.items()}
+        gb = booster._inner
+        auc = evals["valid"]["auc"]
+        trees = gb.models
+        gq, gf = gb.quant_gate_leaves
+        print("%s path launches: %s" % (label, launches))
+        check(booster.device.type == "cuda" and len(trees) == TRAIN_ROUNDS,
+              label + ": %d trees on %s" % (len(trees), booster.device))
+        check(launches["quantize_gradients"] == TRAIN_ROUNDS + 1,
+              label + ": Q launched %d times, not once a round and once for "
+              "the gate" % launches["quantize_gradients"])
+        want = hist_launches(trees, leaves) + gq - (gq == 31)
+        check(launches["leaf_histogram_i32"] == want,
+              label + ": HQ launched %d times, not once a split (%d)"
+              % (launches["leaf_histogram_i32"], want))
+        check(launches["leaf_histogram"] == gf - (gf == 31),
+              label + ": H launched %d times beyond the gate's f32 tree"
+              % launches["leaf_histogram"])
+        check(all(launches[k] > 0 for k in ("split_scan", "route_partition",
+                                             "score_update",
+                                             "tree_value_walk_binned")),
+              label + ": a kernel of the path was never launched")
+        tol = float(params.get("tpu_hist_quantize_tol", 0.5))
+        check(gb.quant_gate_delta <= tol, label + ": gate delta %g > %g"
+              % (gb.quant_gate_delta, tol))
+        check(len(auc) == TRAIN_ROUNDS and np.isfinite(auc).all()
+              and auc[-1] > auc[0], label + ": valid AUC %s did not rise"
+              % auc)
+        check(abs(auc[-1] - ctx["auc"][-1]) <= 0.02,
+              label + ": valid AUC %.5f vs %.5f in f32" % (auc[-1],
+                                                          ctx["auc"][-1]))
+        med = float(np.median(update_s[1:TRAIN_ROUNDS]))
+        print("%s path: qmax %d, gate delta %.4g (trees of %d and %d "
+              "leaves), valid auc %.5f (round 1) -> %.5f (f32 %.5f), trees "
+              "of %s leaves" % (label, gb._quant_qmax, gb.quant_gate_delta,
+                                gq, gf, auc[0], auc[-1], ctx["auc"][-1],
+                                sorted({t.num_leaves for t in trees})))
+        print("time [%s | %s]: %s boosting round %.4f s (median of rounds "
+              "2-%d), %.3f million row-iterations/s, rounds %s"
+              % (name, card, label, med, TRAIN_ROUNDS, TRAIN_ROWS / med / 1e6,
+                 " ".join("%.4f" % v for v in update_s)))
+        return booster, auc, med, launches
+
+    # --------------------------------------------------------------- 13
+    int8 = dict(TRAIN_PARAMS, tpu_hist_quantize="int8")
+    bagged = dict(int8, bagging_fraction=0.8, bagging_freq=1)
+    b8, auc8, med8, launches = path("int8", int8)
+    check(launches["bagging_mask"] == 0, "int8: M launched without bagging")
+    text = b8.model_to_string()
+    again = train_run(lgb, x, y, xv, yv, int8, TRAIN_ROUNDS, data=data)[0]
+    check(again.model_to_string() == text,
+          "two int8 runs gave different model texts")
+    del again
+    print("int8 path: a second run gave a byte-identical model text (%d "
+          "bytes)" % len(text))
+    b16 = path("int16", dict(TRAIN_PARAMS, tpu_hist_quantize="int16"))[0]
+    check(b16._inner._quant_qmax == 817, "int16 qmax %d at %d rows, not 817"
+          % (b16._inner._quant_qmax, TRAIN_ROWS))
+    del b16
+    bb, _, med_bag, bag_launches = path("int8 + bagging", bagged)
+    check(bag_launches["bagging_mask"] == TRAIN_ROUNDS,
+          "bagging: M launched %d times in %d rounds"
+          % (bag_launches["bagging_mask"], TRAIN_ROUNDS))
+    del bb
+
+    # --------------------------------------------------------------- 14
+    n = TRAIN_ROWS
+    gb8 = b8._inner
+    qmax = gb8._quant_qmax
+    binned, nb = gb8._binned, gb8._grower.num_bins
+    seed = int(gb8.config.boosting.bagging_seed)
+    masks = {}
+    for ridx in (0, 1, TRAIN_ROUNDS - 1):
+        key = rng.fold_in(rng.prng_key(seed), ridx)
+        got = rng.bagging_mask(key, 0.8, torch.empty(n, device=dev))
+        again = rng.bagging_mask(key, 0.8, torch.empty(n, device=dev))
+        plain = rng.bagging_mask_plain(key, 0.8, torch.empty(n, device=dev))
+        check(torch.equal(got, again) and torch.equal(got, plain),
+              "M refresh %d: not bitwise equal to its repeat and plain"
+              % ridx)
+        masks[ridx] = got
+    fresh = lgb.Booster(dict(int8), train_set=data[0])._inner
+    g1, h1 = fresh.objective.get_gradients(fresh._score[0])
+    g10, h10 = gb8.objective.get_gradients(gb8._score[0])
+    l2_g = gb8._score[0] - torch.from_numpy(y.astype(np.float32)).to(dev)
+    ones = torch.ones(n, device=dev)
+    keys = [rng.fold_in(rng.fold_in(rng.fold_in(rng.prng_key(
+        gb8._quant_seed), it), 0), c) for it in (0, TRAIN_ROUNDS - 1)
+        for c in (0, 1)]
+    cases = {"round 1": (g1, h1, ones, keys[0], keys[1], False),
+             "round %d" % TRAIN_ROUNDS: (g10, h10, ones, keys[2], keys[3],
+                                         False),
+             "constant-hessian L2": (l2_g, ones, ones, keys[0], keys[1],
+                                     True),
+             "bag mask": (g1, h1, masks[0], keys[0], keys[1], False)}
+    qs = {}
+    for label, (g, h, w, kg, kh, hc) in cases.items():
+        got = histogram.quantize_gradients(g, h, w, qmax=qmax, key_g=kg,
+                                           key_h=kh, hess_const=hc)
+        again = histogram.quantize_gradients(g, h, w, qmax=qmax, key_g=kg,
+                                             key_h=kh, hess_const=hc)
+        plain = histogram.quantize_gradients_plain(g, h, w, qmax, kg, kh, hc)
+        check(q_equal(got, again) and q_equal(got, plain),
+              "Q (%s): codes, w01 or scale not bitwise equal to its repeat "
+              "and plain" % label)
+        qs[label] = got
+    q10 = qs["round %d" % TRAIN_ROUNDS]
+    perm, n_left = ctx["perm"], ctx["n_left"]
+    small = (0, n_left) if n_left <= n - n_left else (n_left, n - n_left)
+    hq = {}
+    for label, q, rows in (
+            ("root", q10, None),
+            ("root, bag mask", qs["bag mask"], None),
+            ("row list", q10, small),
+            ("left", q10, (0, n_left)), ("right", q10, (n_left, n - n_left))):
+        kw = {} if rows is None else {"rows": perm[rows[0]:],
+                                      "n_rows": rows[1]}
+        got = histogram.leaf_histogram_i32(binned, q.codes, q.w01, nb, **kw)
+        again = histogram.leaf_histogram_i32(binned, q.codes, q.w01, nb,
+                                             **kw)
+        plain = histogram.leaf_histogram_i32_plain(binned, q.codes, q.w01,
+                                                   nb, **kw)
+        check(torch.equal(got, again) and torch.equal(got, plain),
+              "HQ (%s): not equal to its repeat and plain" % label)
+        hq[label] = got
+    check(torch.equal(hq["left"] + hq["right"], hq["root"])
+          and torch.equal(histogram.subtract(hq["root"], hq["left"]),
+                          hq["right"]),
+          "HQ: parent != left + right in int32")
+    print("M, Q, HQ vs plain [%d rows]: M bitwise at refresh 0, 1 and %d; Q "
+          "codes, w01 and scales bitwise on the round-1 and round-%d "
+          "gradients, a constant-hessian L2 vector and a bag mask; HQ equal "
+          "at the root (all rows and bagged) and on a %d-row list segment; "
+          "parent == left + right in int32; every kernel repeated its bits"
+          % (n, TRAIN_ROUNDS - 1, TRAIN_ROUNDS, small[1]))
+
+    # --------------------------------------------------------------- 15
+    cpu_data = {}
+    xs, ys = x[:CPU_ROWS], y[:CPU_ROWS]
+    xvs, yvs = xv[:CPU_VALID_ROWS], yv[:CPU_VALID_ROWS]
+    base = dict(TRAIN_PARAMS, num_leaves=CPU_LEAVES)
+    for label, extra in (
+            ("int8", {"tpu_hist_quantize": "int8"}),
+            ("int16", {"tpu_hist_quantize": "int16"}),
+            ("int8 + bagging", {"tpu_hist_quantize": "int8",
+                                "bagging_fraction": 0.8, "bagging_freq": 1}),
+            ("f32 + bagging", {"bagging_fraction": 0.8, "bagging_freq": 1})):
+        t0 = time.perf_counter()
+        params = dict(base, **extra)
+        on_card, ev_card, _, ds, vs = train_run(
+            lgb, xs, ys, xvs, yvs, params, CPU_ROUNDS,
+            data=cpu_data.get("data"))
+        cpu_data["data"] = (ds, vs)
+        on_cpu, ev_cpu = train_run(lgb, xs, ys, xvs, yvs, params, CPU_ROUNDS,
+                                   device="cpu", data=(ds, vs))[:2]
+        worst = same_trees(on_card, on_cpu, CPU_ROUNDS)
+        d_auc = abs(ev_card["valid"]["auc"][-1] - ev_cpu["valid"]["auc"][-1])
+        check(d_auc <= 2e-3, "%s card/CPU valid AUC differ by %g"
+              % (label, d_auc))
+        codes = ""
+        if "tpu_hist_quantize" in extra:
+            gc, gcpu = on_card._inner, on_cpu._inner
+            kg, kh = (rng.fold_in(rng.fold_in(rng.fold_in(rng.prng_key(
+                gc._quant_seed), CPU_ROUNDS), 0), c) for c in (0, 1))
+            g_c, h_c = gc.objective.get_gradients(gc._score[0])
+            g_h, h_h = gcpu.objective.get_gradients(gcpu._score[0])
+            w = torch.ones(CPU_ROWS, device=dev)
+            q_card = histogram.quantize_gradients(
+                g_c, h_c, w, qmax=gc._quant_qmax, key_g=kg, key_h=kh)
+            q_same = histogram.quantize_gradients(
+                g_c.cpu(), h_c.cpu(), w.cpu(), qmax=gc._quant_qmax, key_g=kg,
+                key_h=kh)
+            q_own = histogram.quantize_gradients(
+                g_h, h_h, w.cpu(), qmax=gc._quant_qmax, key_g=kg, key_h=kh)
+            same = int((q_card.codes.cpu() != q_same.codes).sum())
+            own = int((q_card.codes.cpu() != q_own.codes).sum())
+            check(same == 0, "%s: Q on the card and on the CPU give %d "
+                  "different codes from the same gradients" % (label, same))
+            codes = ("; round-%d codes: card vs CPU from the same gradients "
+                     "%d differ, from each side's own gradients %d differ "
+                     "(%d gradient and %d hessian words differ)"
+                     % (CPU_ROUNDS + 1, same, own,
+                        int((g_c.cpu().view(torch.int32)
+                             != g_h.view(torch.int32)).sum()),
+                        int((h_c.cpu().view(torch.int32)
+                             != h_h.view(torch.int32)).sum())))
+        print("card vs CPU [%s, %d rows, %d leaves, %d rounds]: same "
+              "structure, leaf values within %.3g relative, valid auc %.5f "
+              "vs %.5f (%.2f s)%s"
+              % (label, CPU_ROWS, CPU_LEAVES, CPU_ROUNDS, worst,
+                 ev_card["valid"]["auc"][-1], ev_cpu["valid"]["auc"][-1],
+                 time.perf_counter() - t0, codes))
+
+    # --------------------------------------------------------------- 16
+    g_cnt = binned.shape[1]
+    mask = masks[0]
+    key = rng.fold_in(rng.prng_key(seed), 0)
+    m_bound = bound(4 * n, INSTR_PER_DRAW * n)
+    kg, kh = keys[2], keys[3]
+    q_bound = bound(20 * n, 2 * INSTR_PER_DRAW * n)
+    # HQ: the bins of every row (G bytes), its codes and w01 (8 bytes)
+    # and the int32 output; three shared-memory adds a (row, group)
+    out_b = g_cnt * nb * 12
+    hq_root_bound = bound(n * (g_cnt + 8) + out_b, 3.0 * n * g_cnt)
+    cnt = small[1]
+    hq_list_bound = bound(cnt * (4 + g_cnt + 8) + out_b, 3.0 * cnt * g_cnt)
+    flat = ((torch.arange(g_cnt, device=dev) * nb)[None]
+            + binned.long()).reshape(-1)
+    chans = [q10.codes[:, c, None].expand(n, g_cnt).reshape(-1).float()
+             for c in (0, 1)]
+    w01 = q10.w01[:, None].expand(n, g_cnt).reshape(-1)
+
+    def library():
+        for c in (chans[0], chans[1], w01):
+            torch.bincount(flat, weights=c, minlength=g_cnt * nb)
+    rows_arg = {"rows": perm[small[0]:], "n_rows": cnt}
+    times = {
+        "bagging_mask": (
+            median_ms(lambda: rng.bagging_mask(key, 0.8, mask)),
+            median_ms(lambda: rng.bagging_mask_plain(key, 0.8, mask),
+                      reps=5), m_bound, None),
+        "quantize_gradients": (
+            median_ms(lambda: histogram.quantize_gradients(
+                g10, h10, ones, qmax=qmax, key_g=kg, key_h=kh)),
+            median_ms(lambda: histogram.quantize_gradients_plain(
+                g10, h10, ones, qmax, kg, kh), reps=5), q_bound, None),
+        "leaf_histogram_i32": (
+            median_ms(lambda: histogram.leaf_histogram_i32(
+                binned, q10.codes, q10.w01, nb)),
+            median_ms(lambda: histogram.leaf_histogram_i32_plain(
+                binned, q10.codes, q10.w01, nb), reps=5), hq_root_bound,
+            median_ms(library, reps=5))}
+    del flat, chans, w01
+    # the same calls' device time (torch.profiler, as phase 12 times H),
+    # printed only: the profiler leaves some kernels out of some runs
+    device = {
+        "bagging_mask": device_ms(lambda: rng.bagging_mask(key, 0.8, mask),
+                                  ("bag_kernel",), required=False),
+        "quantize_gradients": device_ms(
+            lambda: histogram.quantize_gradients(g10, h10, ones, qmax=qmax,
+                                                 key_g=kg, key_h=kh),
+            ("absmax_kernel", "quantize_kernel", "Memset"), required=False),
+        "leaf_histogram_i32": device_ms(
+            lambda: histogram.leaf_histogram_i32(binned, q10.codes, q10.w01,
+                                                 nb),
+            ("hist_i32_kernel", "Memset"), required=False)}
+    for k, (ms, plain_ms, (b_ms, b_by), lib_ms) in times.items():
+        print("time [%s | %s]: %s %.4f ms (CUDA events around the call; "
+              "device time %s), plain %.3f ms, bound %.5f ms (%s)%s"
+              % (name, card, k, ms, "not listed" if device[k] is None
+                 else "%.4f ms" % device[k], plain_ms, b_ms, b_by,
+                 "" if lib_ms is None else
+                 ", torch.bincount x3 %.4f ms" % lib_ms))
+    list_dev = device_ms(lambda: histogram.leaf_histogram_i32(
+        binned, q10.codes, q10.w01, nb, **rows_arg),
+        ("hist_i32_kernel", "Memset"), required=False)
+    print("time [%s | %s]: leaf_histogram_i32 row list (%d of %d rows) "
+          "%.4f ms (device time %s), plain %.3f ms, bound %.5f ms (%s)"
+          % (name, card, cnt, n, median_ms(
+              lambda: histogram.leaf_histogram_i32(
+                  binned, q10.codes, q10.w01, nb, **rows_arg)),
+             "not listed" if list_dev is None else "%.4f ms" % list_dev,
+             median_ms(lambda: histogram.leaf_histogram_i32_plain(
+                 binned, q10.codes, q10.w01, nb, **rows_arg), reps=5),
+             *hq_list_bound))
+    print("time [%s | %s]: rounds int8 %.4f s, int8 + bagging %.4f s, f32 "
+          "(phase 12) %.4f s (medians of rounds 2-%d)"
+          % (name, card, med8, med_bag, ctx["rounds_s"], TRAIN_ROUNDS))
+    wall_us, busy, by_kind = profile_round(b8, name, card)
+    hq_us = sum(v for k, v in by_kind.items() if "hist_i32_kernel" in k)
+    q_us = sum(v for k, v in by_kind.items()
+               if "absmax_kernel" in k or "quantize_kernel" in k)
+    print("where the time goes [%s | %s]: int8 round: HQ %.3f ms (share "
+          "%.3f of device busy), Q %.3f ms%s, idle share %.3f"
+          % (name, card, hq_us / 1e3, hq_us / busy, q_us / 1e3,
+             "" if q_us else " (the profiler did not list Q)",
+             1.0 - busy / wall_us))
+
+    replaces = {
+        "bagging_mask": "lightgbm_tpu/boosting/gbdt.py:311",
+        "quantize_gradients": "lightgbm_tpu/ops/histogram.py:127",
+        "leaf_histogram_i32": "lightgbm_tpu/ops/histogram.py:291"}
+    sources = {"bagging_mask": "lightgbm_tpu_torch/csrc/quantize.cu",
+               "quantize_gradients": "lightgbm_tpu_torch/csrc/quantize.cu",
+               "leaf_histogram_i32": "lightgbm_tpu_torch/csrc/histogram.cu"}
+    main_launches = dict(launches, bagging_mask=bag_launches["bagging_mask"])
+    rows = []
+    for k, (ms, plain_ms, (b_ms, b_by), lib_ms) in times.items():
+        rows.append({"name": k, "route": "cuda", "source": sources[k],
+                     "replaces": replaces[k], "launches": main_launches[k],
+                     "max_abs_err": 0.0, "ms": ms, "plain_ms": plain_ms,
+                     "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms})
     return rows
 
 
@@ -1350,8 +1723,10 @@ def main():
          "bound_by": times[k]["bound_by"], "library_ms": None}
         for k in ("forest_value_walk", "forest_leaf_walk")]
     rank_row = ranking(name, card, dev)
-    rows.extend(training(name, card, dev))
+    train_rows, ctx = training(name, card, dev)
+    rows.extend(train_rows)
     rows.append(rank_row)
+    rows.extend(quantized(name, card, dev, ctx))
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

@@ -7,22 +7,32 @@ the forest-walk kernels of `ops/predict.py`. Training, the synchronous
 serial path (`init`, `train_one_iter`, `add_valid`, `eval_once`,
 `rollback_one_iter`): the binned matrix and the scores live on the
 device; each iteration takes the objective's gradients (kernel L for
-lambdarank), grows one tree with `learner/grow.py` (kernels H, S, R),
-adds its shrunk leaf values to the train scores (R's score update) and
-to every valid set's scores (kernel W), and keeps the tree on the host.
+lambdarank), draws the bagging mask when `bagging_freq > 0` and
+`bagging_fraction < 1` (kernel M, JAX's threefry stream, `ops/rng.py`),
+under `tpu_hist_quantize=int8|int16` quantizes the gradients (kernel Q)
+and grows on int32 histograms (kernel HQ), else on f32 ones (kernel H),
+grows one tree with `learner/grow.py` (kernels S and R), adds its shrunk
+leaf values to the train scores (R's score update) and to every valid
+set's scores (kernel W), and keeps the tree on the host. A quantized
+run first passes the JAX package's train-time gate
+(`_hist_quant_gate`): one small tree grown quantized and one in f32 on
+the leading `tpu_hist_chunk` rows must agree within
+`tpu_hist_quantize_tol`.
 
 Every option this slice does not carry raises a named LightGBMError
 instead of answering with something else: in serving `pred_contrib`,
 `pred_early_stop`, `tpu_predict_quantize` other than "none", linear-leaf
-and multiclass models; in training bagging, GOSS, DART, RF, quantized
-histograms, linear trees, multiclass, categorical features and the
-distributed tree learners. The JAX package's schedule keys
-(`tpu_hist_bf16`, `tpu_batch_k`, `tpu_hist_subtract`, `tpu_hist_compact`,
-`tpu_compact_threshold`, `tpu_hist_chunk`) choose how its TPU programs
-run, not which trees grow; the port takes them and ignores them.
+and multiclass models; in training GOSS, DART, RF, linear trees,
+multiclass, categorical features and the distributed tree learners.
+The JAX package's schedule keys (`tpu_hist_bf16`, `tpu_batch_k`,
+`tpu_hist_subtract`, `tpu_hist_compact`, `tpu_compact_threshold`)
+choose how its TPU programs run, not which trees grow; the port takes
+them and ignores them. `tpu_hist_chunk` does the same, except that it
+sizes the quantize gate's calibration slice, as in the JAX package.
 """
 from __future__ import annotations
 
+import dataclasses
 import os
 from typing import Dict, List, Optional
 
@@ -32,11 +42,15 @@ import torch
 from .. import log
 from ..binning import BIN_CATEGORICAL
 from ..config import Config
+from ..ingest.landing import hist_chunk
 from ..learner.grow import GrowerConfig, SerialGrower
 from ..metrics import create_metric
 from ..objectives import ObjectiveFunction
+from ..ops.histogram import (TRAIN_QUANTIZE_MODES, quantize_gradients,
+                             train_qmax)
 from ..ops.predict import (OutputTransform, binned_tree, forest_leaf_walk,
                            forest_value_walk, tree_value_walk_binned)
+from ..ops.rng import bagging_mask, fold_in, prng_key
 from ..ops.route import score_update
 from ..serving.forest import CompiledForest
 from ..tree import Tree
@@ -59,18 +73,14 @@ def feature_fraction_mask(rng: np.random.RandomState, frac: float,
 
 
 def refuse_unported_training(config: Config) -> None:
-    """Raise by name for what the training slice does not carry."""
+    """Raise by name for what the training slice does not carry: it
+    trains boosting=gbdt, with or without bagging (`bagging_freq=0` is no
+    bagging, as in the JAX package) and with f32 or quantized
+    (`tpu_hist_quantize=int8|int16`) histograms."""
     cfg = config
     if cfg.boosting_type != "gbdt":
         log.fatal("boosting=%s training is not ported to lightgbm_tpu_torch "
                   "yet (train with boosting=gbdt)" % cfg.boosting_type)
-    if cfg.boosting.bagging_fraction < 1.0:
-        log.fatal("bagging (bagging_fraction=%g) is not ported to "
-                  "lightgbm_tpu_torch yet" % cfg.boosting.bagging_fraction)
-    quant = str(cfg.tree.tpu_hist_quantize or "none").lower()
-    if quant != "none":
-        log.fatal("tpu_hist_quantize=%s is not ported to lightgbm_tpu_torch "
-                  "yet (train with tpu_hist_quantize=none)" % quant)
     if cfg.tree.linear_tree:
         log.fatal("linear_tree training is not ported to lightgbm_tpu_torch "
                   "yet")
@@ -168,20 +178,44 @@ class GBDT:
                 m.init(train_data.metadata, n)
                 self.metrics.append(m)
         tc = self.config.tree
-        fm = train_data.feature_meta_arrays()
-        self._grower = SerialGrower(
-            self._binned, fm,
+        # quantized training (lightgbm_tpu/boosting/gbdt.py:792-841): the
+        # clip magnitude adapts to the row count so no int32 bin sum can
+        # overflow; a constant hessian is coded exactly
+        quant = str(tc.tpu_hist_quantize or "none").lower()
+        if quant not in TRAIN_QUANTIZE_MODES:
+            log.fatal("tpu_hist_quantize must be one of %s (got %r)"
+                      % (TRAIN_QUANTIZE_MODES, quant))
+        self._quant_mode = quant
+        self._quant_qmax = train_qmax(quant, n) if quant != "none" else 0
+        self._quant_hess_const = bool(
+            quant != "none" and objective.is_constant_hessian()
+            and self.config.boosting_type == "gbdt")
+        self._quant_seed = int(self.config.io.data_random_seed)
+        self._chunk = hist_chunk(n, train_data.num_groups,
+                                 train_data.max_num_bin(), tc.tpu_hist_chunk)
+        self._grower_args = (
+            train_data.feature_meta_arrays(),
             GrowerConfig(
                 num_leaves=tc.num_leaves, lambda_l1=tc.lambda_l1,
                 lambda_l2=tc.lambda_l2,
                 min_gain_to_split=tc.min_gain_to_split,
                 min_data_in_leaf=tc.min_data_in_leaf,
                 min_sum_hessian_in_leaf=tc.min_sum_hessian_in_leaf,
-                max_depth=tc.max_depth),
-            num_bins=train_data.max_num_bin(),
-            feature_bins=int(train_data.num_bins_per_feature().max()))
+                max_depth=tc.max_depth, hist_quantize=quant,
+                hist_qmax=self._quant_qmax),
+            train_data.max_num_bin(),
+            int(train_data.num_bins_per_feature().max()))
+        fm, gcfg, num_bins, feature_bins = self._grower_args
+        self._grower = SerialGrower(self._binned, fm, gcfg, num_bins,
+                                    feature_bins)
         self._feature_rng = np.random.RandomState(tc.feature_fraction_seed)
         self._ones = torch.ones(n, dtype=torch.float32, device=self.device)
+        bc = self.config.boosting
+        self._bag = None
+        if bc.bagging_fraction < 1.0 and bc.bagging_freq > 0:
+            self._bag = torch.empty(n, dtype=torch.float32,
+                                    device=self.device)
+        self._bag_drawn = False
         # boost from average (gbdt.cpp:358-378): the scores move now, and
         # the bias is folded into the first tree that splits (AddBias,
         # gbdt.cpp:446) so the saved model stands alone
@@ -193,6 +227,73 @@ class GBDT:
                 self._score += self.init_score_bias
                 log.info("Start training from score %f", self.init_score_bias)
         self._pending_bias = self.init_score_bias
+        # after boost-from-average, so the calibration gradients are the
+        # first iteration's (gbdt.py:975-981)
+        if quant != "none":
+            self._hist_quant_gate()
+
+    def _quantize(self, grad, hess, row_weight, iteration: int, n: int,
+                  qmax: int):
+        """Q with the JAX package's key chain (gbdt.py:363-405):
+        fold_in(fold_in(fold_in(PRNGKey(data_random_seed), iteration),
+        class 0), 0 for the gradients | 1 for the hessians), folded on
+        the host."""
+        kc = fold_in(fold_in(prng_key(self._quant_seed), iteration), 0)
+        return quantize_gradients(
+            grad[:n], hess[:n], row_weight[:n], qmax=qmax,
+            key_g=fold_in(kc, 0), key_h=fold_in(kc, 1),
+            hess_const=self._quant_hess_const)
+
+    def _hist_quant_gate(self) -> None:
+        """The train-time gate of tpu_hist_quantize (gbdt.py:983-1051):
+        one tree of min(31, num_leaves) leaves grown quantized and one in
+        f32 on the leading min(n, chunk) rows from the first iteration's
+        gradients; refuses the config when the largest per-row leaf-value
+        difference, relative to the f32 tree's largest leaf value
+        (floored at 1), exceeds tpu_hist_quantize_tol. The delta is kept
+        in `quant_gate_delta`, the two trees' leaf counts in
+        `quant_gate_leaves`."""
+        mode = self._quant_mode
+        n_cal = min(self._n, self._chunk)
+        grad, hess = self.objective.get_gradients(self._score[0])
+        fm, gcfg, num_bins, feature_bins = self._grower_args
+        cfg = dataclasses.replace(
+            gcfg, num_leaves=min(31, self.config.tree.num_leaves))
+        qmax = train_qmax(mode, n_cal)
+        ones = self._ones[:n_cal]
+        q = self._quantize(grad, hess, ones, 0, n_cal, qmax)
+        binned = self._binned[:n_cal]
+        mask = np.ones(self.train_data.num_features, bool)
+        values = []
+        for chans, qscale, gc in (
+                ((q.codes, q.w01), q.qscale,
+                 dataclasses.replace(cfg, hist_qmax=qmax)),
+                (torch.stack([grad[:n_cal], hess[:n_cal], ones], 1)
+                 .contiguous(), None,
+                 dataclasses.replace(cfg, hist_quantize="none",
+                                     hist_qmax=0))):
+            st = SerialGrower(binned, fm, gc, num_bins, feature_bins).grow(
+                chans, mask, qscale)
+            table = torch.from_numpy(st.leaf_value).to(self.device)
+            values.append((table[st.leaf_id.long()], st.leaf_value,
+                           st.num_leaves_used))
+        (vq, _, used_q), (vf, lv_f, used_f) = values
+        self.quant_gate_leaves = (used_q, used_f)
+        scale = max(float(np.max(np.abs(lv_f))), 1.0)
+        delta = float((vq - vf).abs().max()) / scale
+        self.quant_gate_delta = delta
+        log.debug("Hist-quantize gate (%s, qmax=%d): relative leaf-value "
+                  "delta %.3g on %d calibration rows", mode, qmax, delta,
+                  n_cal)
+        tol = float(self.config.tree.tpu_hist_quantize_tol)
+        if delta > tol:
+            raise log.LightGBMError(
+                "tpu_hist_quantize=%s refused: max calibration leaf-value "
+                "delta %.3g vs the f32 grower exceeds "
+                "tpu_hist_quantize_tol=%.3g (relative to the f32 tree's "
+                "leaf-value scale, %d calibration rows). Raise the "
+                "tolerance or train with tpu_hist_quantize=none."
+                % (mode, delta, tol, n_cal))
 
     def add_valid(self, valid_data, name: str, metric_names=()) -> None:
         """Reference: GBDT::AddValidDataset, gbdt.cpp:204-224
@@ -226,6 +327,22 @@ class GBDT:
                                      self.config.tree.feature_fraction,
                                      self.train_data.num_features)
 
+    def _bagging_weights(self, iter_idx: int) -> Optional[torch.Tensor]:
+        """The [n] f32 0/1 in-bag mask (lightgbm_tpu/boosting/gbdt.py
+        `_bagging_weights`, :1111-1142): per-row Bernoulli(
+        bagging_fraction) from JAX's threefry stream keyed by
+        fold_in(PRNGKey(bagging_seed), iter // bagging_freq), redrawn when
+        iter % bagging_freq == 0 (kernel M); None without bagging."""
+        if self._bag is None:
+            return None
+        bc = self.config.boosting
+        if iter_idx % bc.bagging_freq == 0 or not self._bag_drawn:
+            bagging_mask(fold_in(prng_key(bc.bagging_seed),
+                                 iter_idx // bc.bagging_freq),
+                         bc.bagging_fraction, self._bag)
+            self._bag_drawn = True
+        return self._bag
+
     def train_one_iter(self) -> bool:
         """One boosting iteration (reference: GBDT::TrainOneIter,
         gbdt.cpp:380-474; the synchronous serial branch of
@@ -238,9 +355,20 @@ class GBDT:
                 "Objective '%s' produced non-finite gradients/hessians at "
                 "iteration %d; set tpu_guard_nonfinite=false to disable "
                 "this check." % (self.objective.name, self.iter_))
-        # (g*w, h*w, w) with the all-ones row weight of unbagged training
-        w3 = torch.stack([grad, hess, self._ones], dim=1).contiguous()
-        state = self._grower.grow(w3, self._feature_mask())
+        bag = self._bagging_weights(self.iter_)
+        mask = self._feature_mask()
+        if self._quant_mode != "none":
+            q = self._quantize(grad, hess, self._ones if bag is None else bag,
+                               self.iter_, self._n, self._quant_qmax)
+            state = self._grower.grow((q.codes, q.w01), mask, q.qscale,
+                                      bagged=bag is not None)
+        else:
+            # (g*w, h*w, w): the all-ones weight of unbagged training, or
+            # the 0/1 bag mask
+            w3 = torch.stack([grad, hess, self._ones] if bag is None else
+                             [grad * bag, hess * bag, bag],
+                             dim=1).contiguous()
+            state = self._grower.grow(w3, mask, bagged=bag is not None)
         tree = Tree.from_grower_state(state, self.train_data)
         if tree.num_leaves > 1:
             # the train-score update of gbdt.py:185-190: f32 leaf values

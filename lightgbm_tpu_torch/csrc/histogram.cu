@@ -34,6 +34,27 @@
 // 80 MB, 0.024 ms; chip_smoke.py computes the bound of each measured
 // call from its own shape. The per-row work is a handful of
 // instructions a (row, group), so bytes bound it.
+//
+// Kernel HQ, leaf_histogram_i32, the quantized-training mode
+// (tpu_hist_quantize=int8|int16): per (group, bin) the int32 sums
+// (q_g*w01, q_h*w01, w01) of the quantizer's int16 codes over a set of
+// rows. Replaces, in lightgbm_tpu/ops/histogram.py, the quantized
+// channels of leaf_histogram (:333) and gathered_leaves_histogram
+// (:474): _quant_u (:291) splits int16 codes into base-256 bf16 digits
+// so the TPU's matrix unit sums them exactly, and _quant_merge (:316)
+// recombines the digits in int32. Hopper adds int32 natively, so HQ adds
+// the codes themselves.
+//
+// Design: the same grid as H (row tiles of the row sequence x blocks of
+// groups); each block keeps an int32 [groups, B, 3] histogram in shared
+// memory, its threads add their rows into it with integer atomicAdd,
+// and the block adds its nonzero words into the zeroed output with
+// atomicAdd. Integer addition is associative, so the result has the
+// same bits on every run without H's fixed-order reduction trees; the
+// caller keeps qmax * rows below 2^31 (train_qmax), so nothing
+// overflows. Bound on an H100 SXM: G bytes of bins, 4 bytes of codes and
+// 4 of w01 a row (4 more for a row list) and the [G, B, 3] output; at
+// the root of the main path 72 MB, 0.021 ms.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -157,6 +178,46 @@ __global__ void hist_reduce_kernel(const float* __restrict__ part_g,
   }
 }
 
+constexpr int kTileRowsI32 = 4096;
+constexpr int kThreadsI32 = 512;
+constexpr int kSmemI32 = 96 * 1024;  // the shared histogram's budget
+
+// gpb groups from blockIdx.y * gpb; out [G, B, 3] int32, zeroed
+__global__ void hist_i32_kernel(const uint8_t* __restrict__ binned, int G,
+                                const short2* __restrict__ codes,
+                                const float* __restrict__ w01,
+                                const int* __restrict__ rows, int n, int B,
+                                int gpb, int* __restrict__ out) {
+  extern __shared__ int sh[];  // [gc, B, 3]
+  const int g0 = blockIdx.y * gpb;
+  const int gc = min(gpb, G - g0);
+  const int words = gc * B * 3;
+  for (int e = threadIdx.x; e < words; e += blockDim.x) sh[e] = 0;
+  __syncthreads();
+  const int begin = blockIdx.x * kTileRowsI32;
+  const int end = min(n, begin + kTileRowsI32);
+  for (int i = begin + threadIdx.x; i < end; i += blockDim.x) {
+    const int r = rows ? __ldg(rows + i) : i;
+    if (!(__ldg(w01 + r) > 0.f)) continue;
+    const short2 q = codes[r];
+    const uint8_t* b = binned + (size_t)r * G + g0;
+    for (int g = 0; g < gc; ++g) {
+      const int bin = __ldg(b + g);
+      if (bin >= B) continue;
+      int* cell = sh + (g * B + bin) * 3;
+      atomicAdd(cell, (int)q.x);
+      atomicAdd(cell + 1, (int)q.y);
+      atomicAdd(cell + 2, 1);
+    }
+  }
+  __syncthreads();
+  int* o = out + (size_t)g0 * B * 3;
+  for (int e = threadIdx.x; e < words; e += blockDim.x) {
+    const int v = sh[e];
+    if (v != 0) atomicAdd(o + e, v);
+  }
+}
+
 }  // namespace
 
 extern "C" int lgbt_hist_tiles(int n) {
@@ -194,6 +255,32 @@ extern "C" int lgbt_leaf_histogram(const uint8_t* binned, int G,
   hist_reduce_kernel<<<(int)((elems + per_block - 1) / per_block),
                        per_block * kLanes, 0, s>>>(part_g, part_h, part_c,
                                                    tiles, (int)elems, out);
+  return (int)cudaGetLastError();
+}
+
+// binned [N, G] u8 row-major; codes [N] short2 (q_g, q_h); w01 [N] f32;
+// rows: a row list of n entries or NULL for rows 0..n-1; out [G, B, 3]
+// int32. Returns cudaGetLastError().
+extern "C" int lgbt_leaf_histogram_i32(const uint8_t* binned, int G,
+                                       const short2* codes,
+                                       const float* w01, const int* rows,
+                                       int n, int B, int* out,
+                                       void* stream) {
+  cudaStream_t s = (cudaStream_t)stream;
+  cudaError_t err =
+      cudaMemsetAsync(out, 0, (size_t)G * B * 3 * sizeof(int), s);
+  if (err != cudaSuccess) return (int)err;
+  if (n <= 0 || G <= 0) return 0;
+  int gpb = kSmemI32 / (B * 3 * (int)sizeof(int));
+  gpb = gpb < 1 ? 1 : (gpb > G ? G : gpb);
+  const size_t smem = (size_t)gpb * B * 3 * sizeof(int);
+  err = cudaFuncSetAttribute(hist_i32_kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  dim3 grid((n + kTileRowsI32 - 1) / kTileRowsI32, (G + gpb - 1) / gpb);
+  hist_i32_kernel<<<grid, kThreadsI32, smem, s>>>(binned, G, codes, w01,
+                                                  rows, n, B, gpb, out);
   return (int)cudaGetLastError();
 }
 

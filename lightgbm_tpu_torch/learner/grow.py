@@ -28,19 +28,28 @@ best-first grower, which is what this one is:
 The host reads the two children's best splits back after each split
 (one small device-to-host copy); leaf values and the tree arrays are
 f32 numpy on the host, in the JAX grower's operation order.
+
+Quantized training (`hist_quantize` int8 or int16, grow.py:212-227):
+the rows carry the quantizer's integer codes and 0/1 in-bag weight
+(`ops/histogram.quantize_gradients`), histograms are int32 (kernel HQ)
+and the cache holds them, so parent - smaller child is exact; the root
+totals are the int32 sum over group 0's bins (grow.py:849-852), and
+both they and each histogram S scans are dequantized (`hist * qscale`,
+`ops/split.dequantize_hist`) right before use (grow.py:1143-1145).
 """
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Dict
+from typing import Dict, Optional
 
 import numpy as np
 import torch
 
 from ..log import LightGBMError
-from ..ops.histogram import leaf_histogram, subtract
+from ..ops.histogram import leaf_histogram, leaf_histogram_i32, subtract
 from ..ops.route import SplitRule, route_partition
-from ..ops.split import SplitParams, device_fmeta, leaf_output, split_scan
+from ..ops.split import (SplitParams, dequantize_hist, device_fmeta,
+                         leaf_output, split_scan)
 
 _F32 = np.float32
 
@@ -54,6 +63,10 @@ class GrowerConfig:
     min_data_in_leaf: int = 20
     min_sum_hessian_in_leaf: float = 1e-3
     max_depth: int = -1
+    # quantized training: "none" | "int16" | "int8", and the quantizer's
+    # clip magnitude (ops/histogram.train_qmax)
+    hist_quantize: str = "none"
+    hist_qmax: int = 0
 
     def split_params(self) -> SplitParams:
         return SplitParams(self.lambda_l1, self.lambda_l2,
@@ -129,6 +142,13 @@ class SerialGrower:
         self.fmeta_dev = device_fmeta(fmeta, self.device)
         n = binned.shape[0]
         self.n = n
+        self.quantized = cfg.hist_quantize != "none"
+        if self.quantized and not 1 <= cfg.hist_qmax <= (2 ** 31 - 1) // \
+                max(1, n):
+            raise LightGBMError(
+                "hist_quantize=%s: qmax %d at %d rows can overflow the int32 "
+                "histograms (ops/histogram.train_qmax caps it)"
+                % (cfg.hist_quantize, cfg.hist_qmax, n))
         self.perm = torch.empty(n, dtype=torch.int32, device=self.device)
         self.leaf_id = torch.empty(n, dtype=torch.int32, device=self.device)
         L = cfg.num_leaves
@@ -162,9 +182,29 @@ class SerialGrower:
                    out=tuple(t[:c] for t in self._out))
         return self._res.cpu().numpy()
 
-    def grow(self, w3: torch.Tensor, feature_mask: np.ndarray) -> GrowerState:
-        """One tree from the channels w3 [N, 3] = (g*w, h*w, w) and the
-        per-tree feature mask [F] bool."""
+    def _histogram(self, chans, rows=None, n_rows=None, out=None):
+        """H on f32 channels, or HQ on (codes, w01) when quantized."""
+        if self.quantized:
+            codes, w01 = chans
+            return leaf_histogram_i32(self.binned, codes, w01, self.num_bins,
+                                      rows=rows, n_rows=n_rows, out=out)
+        return leaf_histogram(self.binned, chans, self.num_bins, rows=rows,
+                              n_rows=n_rows, out=out)
+
+    def grow(self, chans, feature_mask: np.ndarray,
+             qscale: Optional[torch.Tensor] = None,
+             bagged: bool = False) -> GrowerState:
+        """One tree under the per-tree feature mask [F] bool, from the
+        channels w3 [N, 3] = (g*w, h*w, w) or, when quantized, from the
+        quantizer's (codes [N, 2] int16, w01 [N] f32) and its [3] scale
+        `qscale` on the device. `bagged`: some rows weigh 0, so a leaf
+        holds more rows than its count channel says and each split reads
+        R's count of the rows it sent left back to the host (one more
+        blocking copy a split); otherwise that count is the scan's, and
+        R's counts are checked against it once a tree."""
+        if self.quantized != (qscale is not None):
+            raise LightGBMError("grow: quantized growth takes (codes, w01) "
+                                "and qscale, f32 growth w3 and no qscale")
         cfg, L, n = self.cfg, self.cfg.num_leaves, self.n
         l1, l2 = cfg.lambda_l1, cfg.lambda_l2
         mask_dev = torch.from_numpy(
@@ -194,16 +234,22 @@ class SerialGrower:
         hist = [None] * L
 
         # ---- root (BeforeTrain, serial_tree_learner.cpp:234-323)
-        root = leaf_histogram(self.binned, w3, self.num_bins)
-        tot = root[0].cpu().numpy()                          # [B, 3]
-        acc = np.zeros(3, _F32)
-        for b in range(tot.shape[0]):
-            acc = acc + tot[b]
+        root = self._histogram(chans)
+        if self.quantized:
+            # the exact int32 total, dequantized (grow.py:849-852)
+            acc = dequantize_hist(root[0].sum(0, dtype=torch.int32),
+                                  qscale).cpu().numpy()
+        else:
+            tot = root[0].cpu().numpy()                      # [B, 3]
+            acc = np.zeros(3, _F32)
+            for b in range(tot.shape[0]):
+                acc = acc + tot[b]
         t.sum[0] = acc
         st.sum_g[0], st.sum_h[0], st.count[0] = acc
         st.leaf_value[0] = leaf_output(acc[0], acc[1], l1, l2)
         hist[0] = root
-        host = self._scan(root[None], acc[None, :], 0, mask_dev)
+        host = self._scan(dequantize_hist(root[None], qscale), acc[None, :],
+                          0, mask_dev)
         t.take(0, host[:4].view(np.float32), host[8:12])
         expected_left = np.zeros(L, np.int32)
 
@@ -258,8 +304,11 @@ class SerialGrower:
             route_partition(self.binned, self.perm, b0, m, rule,
                             self.leaf_id,
                             count_out=self._left_dev[node:node + 1])
-            n_left = int(round(float(lc)))
-            expected_left[node] = n_left
+            if bagged:
+                n_left = int(self._left_dev[node])
+            else:
+                n_left = int(round(float(lc)))
+                expected_left[node] = n_left
             begin[new], rows[new] = b0 + n_left, m - n_left
             rows[slot] = n_left
             t.gain[slot] = t.gain[new] = -np.inf
@@ -271,19 +320,26 @@ class SerialGrower:
             small = slot if small_left else new
             i_small = 0 if small_left else 1
             pair = torch.empty((2,) + tuple(hist[slot].shape),
-                               dtype=torch.float32, device=self.device)
-            leaf_histogram(self.binned, w3, self.num_bins,
-                           rows=self.perm[int(begin[small]):],
-                           n_rows=int(rows[small]), out=pair[i_small])
+                               dtype=hist[slot].dtype, device=self.device)
+            self._histogram(chans, rows=self.perm[int(begin[small]):],
+                            n_rows=int(rows[small]), out=pair[i_small])
             subtract(hist[slot], pair[i_small], out=pair[1 - i_small])
+            if not self.quantized:
+                # a bin no row of the larger child reaches holds no
+                # gradient; f32 subtraction leaves round-off there
+                big = pair[1 - i_small]
+                big[..., :2].masked_fill_(big[..., 2:] == 0, 0.0)
             hist[slot], hist[new] = pair[0], pair[1]
-            host = self._scan(pair, t.sum[[slot, new]], depth, mask_dev)
+            host = self._scan(dequantize_hist(pair, qscale),
+                              t.sum[[slot, new]], depth, mask_dev)
             hf = host[:8].view(np.float32).reshape(2, 4)
             hi = host[8:16].reshape(2, 4)
             t.take(slot, hf[0], hi[0])
             t.take(new, hf[1], hi[1])
 
         st.num_leaves_used = used
+        if bagged:
+            return st
         got = self._left_dev[:used - 1].cpu().numpy()
         bad = np.flatnonzero(got != expected_left[:used - 1])
         if len(bad):

@@ -57,6 +57,11 @@ class ObjectiveFunction:
     def convert_output(self, raw: torch.Tensor) -> torch.Tensor:
         return raw
 
+    def is_constant_hessian(self) -> bool:
+        """Every row's hessian is the same (lightgbm_tpu/objectives.py:68):
+        quantized training then codes it exactly (`hess_const`)."""
+        return False
+
     def boost_from_average(self) -> bool:
         return False
 
@@ -87,6 +92,9 @@ class RegressionL2(ObjectiveFunction):
         grad = score - self.label
         hess = torch.ones_like(score)
         return self._apply_weights(grad, hess)
+
+    def is_constant_hessian(self):
+        return self.weights is None
 
     def boost_from_average(self):
         return True

@@ -31,7 +31,8 @@ BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "lightgbm_tpu_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
-_p, _i, _f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_p, _i, _f, _u = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, \
+    ctypes.c_uint32
 # the forest-walk pointer block shared by both entry points: x, n, F,
 # the nine Forest arrays, then T, M, L, C+2, W
 _WALK_HEAD = [_p, _i, _i] + [_p] * 9 + [_i] * 5
@@ -49,6 +50,12 @@ LIBRARIES = {
     "histogram": ("histogram.cu", {
         "lgbt_hist_tiles": [_i],
         "lgbt_leaf_histogram": [_p, _i, _p, _p, _i, _i, _p, _p, _p],
+        "lgbt_leaf_histogram_i32": [_p, _i, _p, _p, _p, _i, _i, _p, _p],
+    }, _NO_FMA),
+    "quantize": ("quantize.cu", {
+        "lgbt_bagging_mask": [_u, _u, _f, _i, _p, _p],
+        "lgbt_quantize_gradients": [_p, _p, _p, _i, _i] + [_u] * 4
+        + [_i] + [_p] * 5,
     }, _NO_FMA),
     "split": ("split_scan.cu", {
         "lgbt_split_scan": [_p] + [_i] * 5 + [_p] * 10 + [_f] * 3

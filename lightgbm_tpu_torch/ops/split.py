@@ -45,6 +45,17 @@ FMETA_KEYS = ("num_bin", "missing_type", "default_bin", "is_categorical",
               "group", "offset", "is_bundled")
 
 
+def dequantize_hist(hist: torch.Tensor,
+                    qscale: Optional[torch.Tensor]) -> torch.Tensor:
+    """Quantized training's seam (lightgbm_tpu/ops/split.py:50): an int32
+    histogram or total [..., 3] back in real units, `hist.float() *
+    qscale` with the [3] scale (g_scale, h_scale, 1.0) of the quantizer;
+    None (the f32 path) returns `hist` as it is."""
+    if qscale is None:
+        return hist
+    return hist.to(torch.float32) * qscale
+
+
 def leaf_split_gain(sum_g, sum_h, l1, l2):
     """Reference GetLeafSplitGain (feature_histogram.hpp:206-212), on
     tensors."""
