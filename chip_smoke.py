@@ -119,7 +119,40 @@ Phases, any failure raises and the script exits non-zero:
     (CUDA events, median of 12 after 0.3 s of back-to-back calls) and
     bounds, torch.bincount x3 with the codes as weights as HQ's library
     yardstick, seconds per quantized and bagged round, and HQ's and Q's
-    share of one profiled int8 round.
+    share of one profiled int8 round;
+17. linear main path: the phase-9 HIGGS protocol with linear_tree=true,
+    linear_lambda 0.01 (bench.py:1595) and tpu_linear_max_features 5, on
+    Datasets that keep the raw values, 10 rounds with every count set to
+    0 before it: LF and LS once a tree, LA once a tree for the train
+    scores and once for the valid set, W's leaf mode once a tree, no
+    constant-leaf score update; a second run's model text byte-identical;
+    valid AUC rising; the saved model reloaded and served through K1 on
+    the 262,144 valid rows within 1e-5 * max(1, |ref|) of the valid
+    scores W + LA kept, 32 Predictor.predict_one equal to predict; the
+    diagnostics leaf_feature_moments (LM) on the last tree's leaves;
+    then int8 and int8 + bagging for 10 rounds each;
+18. LF, LS, LA, LM, K1 on a linear forest and W's leaf mode against their
+    plain versions at the main path's shapes: LF on the first tree's
+    leaves (2,000,000 rows, k 5) with counts exact and A, b within 1e-5 *
+    max(1, sum of |terms|) of the plain version and of an f64 oracle; LS
+    on those systems (fitted exact, beta within 1e-5 * max(1, |plain|))
+    and on a batch with a singular, an under-populated and a padded-slot
+    leaf at linear_lambda 0; LA bitwise on 2,000,000 rows with NaN and
+    inf rows; K1 on the trained linear forest bitwise on 262,144 rows; W's
+    leaf mode equal; LM at the root and on a row list within 1e-5 * max(1,
+    sum of |terms|) of the plain version and an f64 oracle, its bin-summed
+    sum w g x equal to LF's b; each launched twice repeating its bits;
+19. the card against the CPU at 131,072 rows, 63 leaves and 5 rounds,
+    linear f32 and linear int8: the same tree structure and leaf
+    features, leaf values and coefficients within 1e-5 relative, valid
+    AUC within 2e-3;
+20. times: each new kernel's device time (torch.profiler; CUDA events
+    for LS and K1), its plain version, bound and library yardstick
+    (index_add_ for LF, torch.linalg.solve for LS, torch.bincount x4 for
+    LM); seconds per linear round against phase 12's constant round; one
+    profiled linear round; the BENCH_SHAPE=linear gate (bench.py:1562-
+    1620: 20,000 x 10 rows, regression, 31 leaves, 60 rounds) on the
+    card, its ratio at most 0.7.
 
 The line before the last is the kernels' JSON summary, the last line
 `{"ok": true, "device": {...}}`.
@@ -607,7 +640,7 @@ def training(name, card, dev):
     for fn in (route.score_update, route.score_update,
                route.score_update_plain):
         sc = gb._score[0].clone()
-        fn(sc, lid, values)
+        fn(sc, lid, values, 0.1)
         scores.append(sc)
     check(all(torch.equal(scores[0], sc) for sc in scores[1:]),
           "R score update differs between launches or from plain")
@@ -716,7 +749,7 @@ def training(name, card, dev):
     sc = gb._score[0].clone()
     print("time [%s | %s]: R score update (%d rows) %.4f ms device time"
           % (name, card, n, device_ms(lambda: route.score_update(
-              sc, lid, values), ("score_kernel",))))
+              sc, lid, values, 0.1), ("score_kernel",))))
     # W: the first tree on the valid set; a row reads one bin a node it
     # visits
     leaf = predict.tree_leaf_binned_plain(bt, vb)
@@ -1098,6 +1131,575 @@ def quantized(name, card, dev, ctx):
                      "replaces": replaces[k], "launches": main_launches[k],
                      "max_abs_err": 0.0, "ms": ms, "plain_ms": plain_ms,
                      "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms})
+    return rows
+
+
+# ---------------------------------------------------------------------
+# linear trees (phases 17-20)
+LINEAR_PARAMS = dict(TRAIN_PARAMS, linear_tree=True, linear_lambda=0.01,
+                     tpu_linear_max_features=5)
+# the BENCH_SHAPE=linear gate (bench.py:1562-1620): iterations a linear
+# run needs to reach the constant run's final holdout l2, over 60
+LINEAR_GATE_ROWS, LINEAR_GATE_ITERS, LINEAR_GATE_CEILING = 20_000, 60, 0.7
+
+
+def linear_oracle(x, grad, hess, weight, perm, begin, rows, feats):
+    """LF's sums in f64 on the card, with the sums of the terms'
+    absolute values (the tolerance's scale)."""
+    from lightgbm_tpu_torch.ops.linear import gather_values
+    num_leaves, k = feats.shape
+    d = k + 1
+    pos = torch.full((perm.shape[0],), -1, dtype=torch.long,
+                     device=x.device)
+    for leaf in range(num_leaves):
+        if rows[leaf]:
+            pos[int(begin[leaf]):int(begin[leaf] + rows[leaf])] = leaf
+    sel = pos >= 0
+    r, lid = perm[sel].long(), pos[sel]
+    xv, ok = gather_values(x, r, feats[lid])
+    z = torch.cat([xv, torch.ones_like(xv[:, :1])], 1).double()
+    w = torch.where(ok, weight[r], torch.zeros_like(weight[r])).double()
+    wh, wg = w * hess[r].double(), w * grad[r].double()
+    out = []
+    for vals in (wh[:, None] * (z[:, :, None] * z[:, None, :]).reshape(
+            -1, d * d), wg[:, None] * z):
+        for v in (vals, vals.abs()):
+            acc = torch.zeros((num_leaves, v.shape[1]), dtype=torch.float64,
+                              device=x.device)
+            out.append(acc.index_add_(0, lid, v))
+    cnt = torch.zeros(num_leaves, dtype=torch.float64, device=x.device)
+    cnt.index_add_(0, lid, (w > 0).double())
+    a, a_abs, b, b_abs = out
+    return (a.view(num_leaves, d, d), a_abs.view(num_leaves, d, d), b,
+            b_abs, cnt)
+
+
+def moment_oracle(binned, x, w3, num_bins, rows=None, n_rows=None):
+    """LM's per-bin moments and the sums of their terms' absolute values,
+    in f64 on the card."""
+    sel = torch.arange(binned.shape[0], device=binned.device) \
+        if rows is None else rows[:n_rows].long()
+    f_cnt = binned.shape[1]
+    xv = x[sel].double()
+    xv = torch.where(torch.isfinite(xv), xv, torch.zeros_like(xv))
+    w = w3[sel].double()
+    terms = torch.stack([xv * w[:, 2:3], xv * xv * w[:, 2:3],
+                         xv * w[:, 0:1], xv * w[:, 1:2]], -1)
+    flat = (torch.arange(f_cnt, device=binned.device)[None] * num_bins
+            + binned[sel].long()).reshape(-1)
+    out = []
+    for t in (terms, terms.abs()):
+        acc = torch.zeros((f_cnt * num_bins, 4), dtype=torch.float64,
+                          device=binned.device)
+        out.append(acc.index_add_(0, flat, t.reshape(-1, 4)).view(
+            1, f_cnt, num_bins, 4))
+    return out
+
+
+def within(got, ref, scale, label):
+    """|got - ref| <= 1e-5 * max(1, scale) everywhere; returns the max
+    abs error."""
+    d = (got.double() - ref.double()).abs()
+    ok = bool((d <= 1e-5 * scale.double().clamp(min=1.0)).all())
+    check(ok, "%s: off by %g" % (label, float(d.max())))
+    return float(d.max())
+
+
+def same_linear_trees(on_card, on_cpu, rounds):
+    """same_trees, plus the same leaf features and coefficients within
+    1e-5 relative; returns the worst relative coefficient difference."""
+    same_trees(on_card, on_cpu, rounds)
+    worst = 0.0
+    for i, (a, b) in enumerate(zip(on_card._inner.models,
+                                   on_cpu._inner.models)):
+        check(np.array_equal(a.leaf_features, b.leaf_features),
+              "card and CPU fitted on different features in tree %d" % i)
+        rel = np.abs(a.leaf_coeff - b.leaf_coeff) / np.maximum(
+            1.0, np.abs(b.leaf_coeff))
+        worst = max(worst, float(rel.max()))
+    check(worst <= 1e-5, "card/CPU coefficients differ by %g" % worst)
+    return worst
+
+
+def linear_gate(lgb, name, card):
+    """bench.py run_linear on the card: the iteration at which a
+    linear_tree booster first reaches the constant booster's final
+    holdout l2, over the 60 iterations."""
+    rng = np.random.RandomState(11)
+    x = rng.uniform(-1.0, 1.0, (LINEAR_GATE_ROWS, 10))
+    region = (x[:, 0] > 0).astype(int) * 2 + (x[:, 1] > 0).astype(int)
+    planes = rng.randn(4, 10)
+    bias = 2.0 * rng.randn(4)
+    y = (planes[region] * x).sum(axis=1) + bias[region] \
+        + 0.05 * rng.randn(LINEAR_GATE_ROWS)
+    n_tr = int(LINEAR_GATE_ROWS * 0.8)
+    boosters = {}
+    for linear in (False, True):
+        params = {"objective": "regression", "num_leaves": 31,
+                  "learning_rate": 0.1, "min_data_in_leaf": 20,
+                  "verbose": -1, "max_bin": 63, "linear_tree": linear,
+                  "linear_lambda": 0.01}
+        t0 = time.perf_counter()
+        boosters[linear] = lgb.train(
+            params, lgb.Dataset(x[:n_tr], y[:n_tr], params=dict(params)),
+            LINEAR_GATE_ITERS, verbose_eval=False)
+        boosters[linear, "s"] = time.perf_counter() - t0
+
+    def l2(bst, i):
+        pred = bst.predict(x[n_tr:], num_iteration=i)
+        return float(np.mean((pred - y[n_tr:]) ** 2))
+    target = l2(boosters[False], LINEAR_GATE_ITERS)
+    final = l2(boosters[True], LINEAR_GATE_ITERS)
+    hit = next((i for i in range(1, LINEAR_GATE_ITERS + 1)
+                if l2(boosters[True], i) <= target), None)
+    ratio = hit / LINEAR_GATE_ITERS if hit else float("inf")
+    print("linear gate [%s | %s]: BENCH_SHAPE=linear protocol, %d rows x "
+          "10, 60 rounds: constant final holdout l2 %.6f, linear %.6f, "
+          "linear reaches it at iteration %s, ratio %.4f (ceiling %.1f); "
+          "train seconds constant %.2f, linear %.2f"
+          % (name, card, LINEAR_GATE_ROWS, target, final, hit, ratio,
+             LINEAR_GATE_CEILING, boosters[False, "s"], boosters[True, "s"]))
+    check(ratio <= LINEAR_GATE_CEILING, "linear gate ratio %.4f > %.1f"
+          % (ratio, LINEAR_GATE_CEILING))
+
+
+def linear(name, card, dev, ctx):
+    """Phases 17-20; returns the JSON rows of LF, LS, LA, LM, K1 on a
+    linear forest and W's leaf mode."""
+    import lightgbm_tpu_torch as lgb
+    from lightgbm_tpu_torch.learner.grow import leaf_path_features
+    from lightgbm_tpu_torch.linear import leaf_feature_moments
+    from lightgbm_tpu_torch.ops import (histogram, linear as lin, predict,
+                                        rng, route, split)
+
+    counted = {"linear_normal_eq": lin.linear_normal_eq,
+               "linear_solve": lin.linear_solve,
+               "linear_addend": lin.linear_addend,
+               "tree_leaf_walk_binned": predict.tree_leaf_walk_binned,
+               "leaf_histogram": histogram.leaf_histogram,
+               "split_scan": split.split_scan,
+               "route_partition": route.route_partition,
+               "score_update": route.score_update,
+               "tree_value_walk_binned": predict.tree_value_walk_binned,
+               "forest_value_walk": predict.forest_value_walk,
+               "quantize_gradients": histogram.quantize_gradients,
+               "leaf_histogram_i32": histogram.leaf_histogram_i32,
+               "bagging_mask": rng.bagging_mask}
+    x, y, xv, yv = ctx["x"], ctx["y"], ctx["xv"], ctx["yv"]
+    k = LINEAR_PARAMS["tpu_linear_max_features"]
+
+    # --------------------------------------------------------------- 17
+    t0 = time.perf_counter()
+    ds = lgb.Dataset(x, y, params=dict(LINEAR_PARAMS))
+    valid = ds.create_valid(xv, yv)
+    ds.construct()
+    valid.construct()
+    check(ds._inner.raw is not None and valid._inner.raw is not None
+          and not ds._inner.has_bundles,
+          "the linear Datasets keep no raw values, or bundle features")
+    print("linear datasets: %d + %d rows with raw values, %.1f s"
+          % (TRAIN_ROWS, VALID_ROWS, time.perf_counter() - t0))
+    data = (ds, valid)
+
+    def path(label, params):
+        for fn in counted.values():
+            fn.launches = 0
+        booster, evals, update_s = train_run(
+            lgb, x, y, xv, yv, params, TRAIN_ROUNDS, data=data)[:3]
+        launches = {kk: fn.launches for kk, fn in counted.items()}
+        gb = booster._inner
+        trees = gb.models
+        auc = evals["valid"]["auc"]
+        print("%s path launches: %s" % (label, launches))
+        check(booster.device.type == "cuda" and len(trees) == TRAIN_ROUNDS
+              and all(t.is_linear for t in trees),
+              label + ": %d linear trees on %s"
+              % (sum(t.is_linear for t in trees), booster.device))
+        check(launches["linear_normal_eq"] == launches["linear_solve"]
+              == TRAIN_ROUNDS, label + ": LF/LS launched %d/%d times, not "
+              "once a tree" % (launches["linear_normal_eq"],
+                               launches["linear_solve"]))
+        check(launches["linear_addend"] == 2 * TRAIN_ROUNDS
+              and launches["tree_leaf_walk_binned"] == TRAIN_ROUNDS,
+              label + ": LA %d / W leaf mode %d launches, not once a tree "
+              "for the train scores and once for the valid set"
+              % (launches["linear_addend"],
+                 launches["tree_leaf_walk_binned"]))
+        check(launches["score_update"] == 0
+              and launches["tree_value_walk_binned"] == 0,
+              label + ": a constant-leaf score update ran on linear trees")
+        check(all(launches[kk] > 0 for kk in ("split_scan",
+                                               "route_partition")),
+              label + ": S or R was never launched")
+        check(len(auc) == TRAIN_ROUNDS and np.isfinite(auc).all()
+              and auc[-1] > auc[0], label + ": valid AUC %s did not rise"
+              % auc)
+        med = float(np.median(update_s[1:TRAIN_ROUNDS]))
+        print("%s path: valid auc %.5f (round 1) -> %.5f (constant f32 "
+              "%.5f), trees of %s leaves, fitted leaves %d of %d"
+              % (label, auc[0], auc[-1], ctx["auc"][-1],
+                 sorted({t.num_leaves for t in trees}),
+                 sum(int(np.any(t.leaf_coeff != 0, axis=1).sum())
+                     for t in trees), sum(t.num_leaves for t in trees)))
+        print("time [%s | %s]: %s boosting round %.4f s (median of rounds "
+              "2-%d), %.3f million row-iterations/s, rounds %s"
+              % (name, card, label, med, TRAIN_ROUNDS, TRAIN_ROWS / med / 1e6,
+                 " ".join("%.4f" % v for v in update_s)))
+        return booster, launches, med
+
+    booster, launches, med = path("linear", LINEAR_PARAMS)
+    text = booster.model_to_string()
+    again = train_run(lgb, x, y, xv, yv, LINEAR_PARAMS, TRAIN_ROUNDS,
+                      data=data)[0]
+    check(again.model_to_string() == text,
+          "two linear runs gave different model texts")
+    del again
+    print("linear path: a second run gave a byte-identical model text (%d "
+          "bytes)" % len(text))
+    predict.forest_value_walk.launches = 0
+    served = lgb.Booster(model_str=text)
+    check(served.device.type == "cuda", "the served model is not on cuda")
+    raw = served.predict(xv, raw_score=True)
+    kept = booster._inner.valid_score(0)
+    rel = float(np.max(np.abs(raw - kept) / np.maximum(1.0, np.abs(kept))))
+    check(rel <= 1e-5, "served raw scores off the kept valid scores by %g"
+          % rel)
+    predictor = served.serving_predictor()
+    predictor.warmup()
+    ones = np.array([predictor.predict_one(r) for r in xv[:32]])
+    predictor.close()
+    check(np.array_equal(ones, served.predict(xv[:32])),
+          "predict_one != predict on the linear model")
+    k1_launches = predict.forest_value_walk.launches
+    check(k1_launches > 0, "K1 never launched serving the linear model")
+    print("linear serving: the reloaded model through K1 on %d valid rows "
+          "within %.3g of the kept valid scores; 32 predict_one equal to "
+          "predict (%d K1 launches)" % (VALID_ROWS, rel, k1_launches))
+    # the diagnostics on the trained model: every leaf's marginal moments
+    # of the last tree (LM over all rows, one leaf id a grid layer)
+    gbt = booster._inner
+    last = gbt.models[-1]
+    leaf_of = predict.tree_leaf_walk_binned(
+        predict.binned_tree(last, dev), gbt._binned)
+    g_l, h_l = gbt.objective.get_gradients(gbt._score[0])
+    w_l = torch.stack([g_l, h_l, torch.ones_like(g_l)], 1).contiguous()
+    histogram.leaf_moments.launches = 0
+    moments = leaf_feature_moments(gbt._binned, gbt._raw, w_l, leaf_of,
+                                   list(range(last.num_leaves)),
+                                   gbt._grower.num_bins)
+    lm_launches = histogram.leaf_moments.launches
+    check(lm_launches > 0, "LM never launched on the trained model")
+    check(tuple(moments.shape) == (last.num_leaves, FEATURES, 4)
+          and bool(torch.isfinite(moments).all()),
+          "leaf_feature_moments: shape %s or non-finite values"
+          % (tuple(moments.shape),))
+    total = moments[:, :, 0].sum(0).double()
+    check(bool(((total - gbt._raw.double().sum(0)).abs()
+                <= 1e-4 * gbt._raw.double().abs().sum(0)).all()),
+          "leaf_feature_moments: the leaves' sum w x is not the column sum")
+    print("linear diagnostics: leaf_feature_moments of the last tree's %d "
+          "leaves x %d features over %d rows (%d LM launches)"
+          % (last.num_leaves, FEATURES, TRAIN_ROWS, lm_launches))
+    del leaf_of, w_l, g_l, h_l, moments
+    int8 = dict(LINEAR_PARAMS, tpu_hist_quantize="int8")
+    b8, q_launches, med8 = path("linear int8", int8)
+    check(q_launches["quantize_gradients"] == TRAIN_ROUNDS + 1
+          and q_launches["leaf_histogram_i32"] > 0,
+          "linear int8: Q or HQ not launched")
+    del b8
+    bb, bag_launches, med_bag = path(
+        "linear int8 + bagging", dict(int8, bagging_fraction=0.8,
+                                      bagging_freq=1))
+    check(bag_launches["bagging_mask"] == TRAIN_ROUNDS,
+          "linear bagging: M launched %d times"
+          % bag_launches["bagging_mask"])
+    del bb
+
+    # --------------------------------------------------------------- 18
+    errs = {}
+    fresh = lgb.Booster(dict(LINEAR_PARAMS), train_set=ds)
+    gb = fresh._inner
+    raw_x = gb._raw
+    grad, hess = gb.objective.get_gradients(gb._score[0])
+    ones = torch.ones_like(grad)
+    w3 = torch.stack([grad, hess, ones], 1).contiguous()
+    st = gb._grower.grow(w3, np.ones(ds._inner.num_features, bool))
+    feats = torch.from_numpy(leaf_path_features(
+        st.leaf_parent, st.node_feature, st.node_left, st.node_right,
+        st.num_leaves_used, k)).to(dev)
+    seg = (st.perm, st.leaf_begin, st.leaf_rows)
+    lf_args = (raw_x, grad, hess, ones) + seg + (feats,)
+    a_k, b_k, c_k = lin.linear_normal_eq(*lf_args)
+    a_r, b_r, c_r = lin.linear_normal_eq(*lf_args)
+    a_p, b_p, c_p = lin.linear_normal_eq_plain(*lf_args)
+    a64, a_abs, b64, b_abs, c64 = linear_oracle(*lf_args)
+    check(torch.equal(a_k, a_r) and torch.equal(b_k, b_r)
+          and torch.equal(c_k, c_r), "LF: a second launch gave other bits")
+    check(torch.equal(c_k, c_p) and torch.equal(c_k.double(), c64),
+          "LF: counts differ from the plain version or the oracle")
+    errs["linear_normal_eq"] = max(
+        within(a_k, a_p, a_abs, "LF A vs plain"),
+        within(b_k, b_p, b_abs, "LF b vs plain"))
+    within(a_k, a64, a_abs, "LF A vs f64 oracle")
+    within(b_k, b64, b_abs, "LF b vs f64 oracle")
+    const = torch.from_numpy(st.leaf_value).to(dev)
+    lam = LINEAR_PARAMS["linear_lambda"]
+    ls = [fn(a_k, b_k, c_k, feats, const, lam) for fn in (
+        lin.linear_solve, lin.linear_solve, lin.linear_solve_plain)]
+    check(all(torch.equal(x1, x2) for x1, x2 in zip(ls[0], ls[1])),
+          "LS: a second launch gave other bits")
+    check(torch.equal(ls[0][2], ls[2][2]), "LS: fitted differs from plain")
+    ls_err = max(within(ls[0][i], ls[2][i], ls[2][i].abs(), "LS vs plain")
+                 for i in (0, 1))
+    # singular (a slope column equal to the intercept's), under-populated
+    # and padded-slot leaves, at linear_lambda 0
+    a_s, c_s, f_s = a_k.clone(), c_k.clone(), feats.clone()
+    a_s[0, 0, :] = a_s[0, k, :]
+    a_s[0, :, 0] = a_s[0, :, k]
+    c_s[1] = 5.0
+    f_s[2, 3:] = -1
+    odd = [fn(a_s, b_k, c_s, f_s, const, 0.0) for fn in (
+        lin.linear_solve, lin.linear_solve_plain)]
+    check(torch.equal(odd[0][2], odd[1][2]) and not bool(odd[0][2][0])
+          and not bool(odd[0][2][1]) and bool(odd[0][2][2]),
+          "LS: singular / under-populated / padded leaves: fitted %s, "
+          "plain %s" % (odd[0][2][:3].tolist(), odd[1][2][:3].tolist()))
+    check(bool((odd[0][1][2, 3:] == 0).all()), "LS: a padded slot got a "
+          "coefficient")
+    errs["linear_solve"] = max(ls_err, max(
+        within(odd[0][i], odd[1][i], odd[1][i].abs(), "LS odd vs plain")
+        for i in (0, 1)))
+    value, coeff = ls[0][0], ls[0][1]
+    x_nan = raw_x.clone()
+    x_nan[::97, int(feats[0, 0])] = float("nan")
+    x_nan[5::131, :] = float("inf")
+    scores = []
+    for fn in (lin.linear_addend, lin.linear_addend,
+               lin.linear_addend_plain):
+        sc = gb._score[0].clone()
+        fn(x_nan, st.leaf_id, value, coeff, feats, sc, 0.1)
+        scores.append(sc)
+    check(all(torch.equal(scores[0].view(torch.int32), s.view(torch.int32))
+              for s in scores[1:]),
+          "LA: not bitwise equal to its repeat and plain (%d rows with NaN "
+          "or inf)" % TRAIN_ROWS)
+    errs["linear_addend"] = 0.0
+    forest = predict.stack_trees(booster._inner.models, dev)
+    xvd = torch.from_numpy(xv).to(dev)
+    walks = [fn(forest, xvd) for fn in (predict.forest_value_walk,
+                                        predict.forest_value_walk,
+                                        predict.forest_value_walk_plain)]
+    check(all(torch.equal(walks[0].view(torch.int32), w.view(torch.int32))
+              for w in walks[1:]),
+          "K1 (linear forest, %d rows): not bitwise equal to its repeat and "
+          "plain" % VALID_ROWS)
+    errs["forest_value_walk_linear"] = 0.0
+    bt = predict.binned_tree(booster._inner.models[0], dev)
+    vb = booster._inner._valid_binned[0]
+    leaves = [fn(bt, vb) for fn in (predict.tree_leaf_walk_binned,
+                                    predict.tree_leaf_walk_binned,
+                                    predict.tree_leaf_walk_binned_plain)]
+    check(all(torch.equal(leaves[0], lv) for lv in leaves[1:]),
+          "W leaf mode: not equal to its repeat and plain")
+    errs["tree_leaf_walk_binned"] = 0
+    binned, nb = gb._binned, gb._grower.num_bins
+    big = int(np.argmax(st.leaf_rows))
+    rows_arg = {"rows": st.perm[int(st.leaf_begin[big]):],
+                "n_rows": int(st.leaf_rows[big])}
+    lm_err = 0.0
+    for label, kw in (("root", {}), ("row list", rows_arg)):
+        got = histogram.leaf_moments(binned, raw_x, w3, nb, **kw)
+        check(torch.equal(got, histogram.leaf_moments(binned, raw_x, w3,
+                                                      nb, **kw)),
+              "LM (%s): a second launch gave other bits" % label)
+        ref, scale = moment_oracle(binned, raw_x, w3, nb, **kw)
+        lm_err = max(lm_err, within(got, histogram.leaf_moments_plain(
+            binned, raw_x, w3, nb, **kw), scale, "LM (%s) vs plain" % label))
+        within(got, ref, scale, "LM (%s) vs f64 oracle" % label)
+    errs["leaf_moments"] = lm_err
+    # LM's bin-summed sum w g x over the leaf is LF's b of each feature
+    sums = got.sum(dim=2)[0]
+    b_scale = b_abs[big]
+    for j in range(k):
+        f = int(feats[big, j])
+        if f >= 0:
+            within(sums[f, 2], b_k[big, j], b_scale[j],
+                   "LM sum w g x vs LF b (leaf %d, feature %d)" % (big, f))
+    print("linear kernels vs plain [%d rows, %d leaves, k %d]: LF A/b within "
+          "%.3g (counts exact), LS fitted exact (singular, under-populated "
+          "and padded leaves fall back or pin as plain), LA bitwise with "
+          "NaN/inf rows, K1 linear bitwise on %d rows, W leaf mode equal, "
+          "LM within %.3g at the root and on a %d-row list and equal to LF's "
+          "b; every kernel repeated its bits"
+          % (TRAIN_ROWS, st.num_leaves_used, k, errs["linear_normal_eq"],
+             VALID_ROWS, lm_err, rows_arg["n_rows"]))
+
+    # --------------------------------------------------------------- 19
+    xs, ys = x[:CPU_ROWS], y[:CPU_ROWS]
+    xvs, yvs = xv[:CPU_VALID_ROWS], yv[:CPU_VALID_ROWS]
+    cpu_data = None
+    for label, extra in (("linear f32", {}),
+                         ("linear int8", {"tpu_hist_quantize": "int8"})):
+        t0 = time.perf_counter()
+        params = dict(LINEAR_PARAMS, num_leaves=CPU_LEAVES, **extra)
+        on_card, ev_card, _, dsc, vsc = train_run(
+            lgb, xs, ys, xvs, yvs, params, CPU_ROUNDS, data=cpu_data)
+        cpu_data = (dsc, vsc)
+        on_cpu, ev_cpu = train_run(lgb, xs, ys, xvs, yvs, params,
+                                   CPU_ROUNDS, device="cpu",
+                                   data=cpu_data)[:2]
+        worst = same_linear_trees(on_card, on_cpu, CPU_ROUNDS)
+        d_auc = abs(ev_card["valid"]["auc"][-1] - ev_cpu["valid"]["auc"][-1])
+        check(d_auc <= 2e-3, "%s card/CPU valid AUC differ by %g"
+              % (label, d_auc))
+        print("card vs CPU [%s, %d rows, %d leaves, %d rounds]: same "
+              "structure and leaf features, coefficients within %.3g "
+              "relative, valid auc %.5f vs %.5f (%.2f s)"
+              % (label, CPU_ROWS, CPU_LEAVES, CPU_ROUNDS, worst,
+                 ev_card["valid"]["auc"][-1], ev_cpu["valid"]["auc"][-1],
+                 time.perf_counter() - t0))
+
+    # --------------------------------------------------------------- 20
+    n, nf = raw_x.shape
+    d = k + 1
+    leaves = int(st.num_leaves_used)
+    entries = d * (d + 1) // 2 + d + 1
+    times = {}
+    # LF: a row's perm entry, g, h, w and k gathered values; the tile
+    # sums out and the [L] systems. Its yardstick adds the rows' weighted
+    # outer products into their leaves with one index_add_
+    xg, _ = lin.gather_values(raw_x, torch.arange(n, device=dev),
+                              feats[st.leaf_id.long()])
+    z = torch.cat([xg, torch.ones_like(xg[:, :1])], 1)
+    zz = (hess[:, None] * (z[:, :, None] * z[:, None, :]).reshape(n, d * d))
+    del xg, z
+
+    def lf_library():
+        acc = torch.zeros((gb.config.tree.num_leaves, d * d),
+                          dtype=torch.float32, device=dev)
+        acc.index_add_(0, st.leaf_id.long(), zz)
+    lf_names = ("normal_eq_tile_kernel", "normal_eq_reduce_kernel")
+    times["linear_normal_eq"] = (
+        device_ms(lambda: lin.linear_normal_eq(*lf_args), lf_names),
+        median_ms(lambda: lin.linear_normal_eq(*lf_args)),
+        median_ms(lambda: lin.linear_normal_eq_plain(*lf_args), reps=5),
+        bound(n * (16 + 4 * k) + leaves * (d * d + d + 1) * 4,
+              n * entries * 3.0), median_ms(lf_library, reps=5))
+    del zz
+    ls_args = (a_k, b_k, c_k, feats, const, lam)
+    eye = torch.eye(d, device=dev)
+    a_lib = torch.where((c_k >= 2.0 * d)[:, None, None], a_k + eye * lam,
+                        eye)
+    times["linear_solve"] = (
+        None, median_ms(lambda: lin.linear_solve(*ls_args)),
+        median_ms(lambda: lin.linear_solve_plain(*ls_args), reps=5),
+        bound(a_k.numel() * 4 + b_k.numel() * 8,
+              leaves * d ** 3 / 3.0 * 2),
+        median_ms(lambda: torch.linalg.solve_ex(a_lib, -b_k), reps=5))
+    sc = gb._score[0].clone()
+    la_args = (raw_x, st.leaf_id, value, coeff, feats, sc, 0.1)
+    times["linear_addend"] = (
+        device_ms(lambda: lin.linear_addend(*la_args), ("addend_kernel",)),
+        median_ms(lambda: lin.linear_addend(*la_args)),
+        median_ms(lambda: lin.linear_addend_plain(*la_args), reps=5),
+        bound(n * (12 + 4 * k), n * (3.0 * k + 4)), None)
+    # LM at the root: a row's F bins and F values, 12 bytes of channels
+    flat = ((torch.arange(nf, device=dev) * nb)[None]
+            + binned.long()).reshape(-1)
+    xw = torch.where(torch.isfinite(raw_x), raw_x, torch.zeros_like(raw_x))
+    chans = [(xw * w3[:, c, None]).reshape(-1) for c in (2, 0, 1)]
+    chans.insert(1, (xw * xw).reshape(-1))
+
+    def lm_library():
+        for c in chans:
+            torch.bincount(flat, weights=c, minlength=nf * nb)
+    lm_names = ("moment_tile_kernel", "moment_reduce_kernel")
+    times["leaf_moments"] = (
+        device_ms(lambda: histogram.leaf_moments(binned, raw_x, w3, nb),
+                  lm_names),
+        median_ms(lambda: histogram.leaf_moments(binned, raw_x, w3, nb)),
+        median_ms(lambda: histogram.leaf_moments_plain(binned, raw_x, w3,
+                                                       nb), reps=5),
+        bound(n * (5 * nf + 12) + nf * nb * 16, 8.0 * n * nf),
+        median_ms(lm_library, reps=5))
+    del flat, xw, chans
+    list_ms = device_ms(lambda: histogram.leaf_moments(
+        binned, raw_x, w3, nb, **rows_arg), lm_names)
+    cnt = rows_arg["n_rows"]
+    print("time [%s | %s]: leaf_moments row list (%d of %d rows) %.4f ms "
+          "device time, bound %.5f ms (%s)" % (
+              name, card, cnt, n, list_ms,
+              *bound(cnt * (4 + 5 * nf + 12) + nf * nb * 16, 8.0 * cnt * nf)))
+    # K1 on the linear forest: node visits, and k loads and multiply-adds
+    # a (row, tree)
+    leaf = predict.forest_leaf_walk_plain(forest, xvd)
+    depth = torch.from_numpy(leaf_depths(booster._inner.models)).to(dev)
+    visits = int(depth.gather(1, leaf.t().long()).sum())
+    walk_ops = visits * INSTR_PER_VISIT + VALID_ROWS * TRAIN_ROUNDS * k * 4
+    times["forest_value_walk_linear"] = (
+        None, median_ms(lambda: predict.forest_value_walk(forest, xvd)),
+        median_ms(lambda: predict.forest_value_walk_plain(forest, xvd),
+                  reps=5),
+        bound(xvd.numel() * 4 + VALID_ROWS * 4 + forest.nbytes(), walk_ops),
+        None)
+    vleaf = predict.tree_leaf_binned_plain(bt, vb)
+    dep0 = torch.from_numpy(leaf_depths(booster._inner.models[:1])[0]).to(dev)
+    v0 = int(dep0[vleaf].sum())
+    times["tree_leaf_walk_binned"] = (
+        device_ms(lambda: predict.tree_leaf_walk_binned(bt, vb),
+                  ("walk_kernel",)),
+        median_ms(lambda: predict.tree_leaf_walk_binned(bt, vb)),
+        median_ms(lambda: predict.tree_leaf_walk_binned_plain(bt, vb),
+                  reps=5),
+        bound(v0 + 4 * VALID_ROWS + bt.nodes.numel() * 4,
+              v0 * INSTR_PER_VISIT), None)
+    for kk, (dev_ms, ev_ms, plain_ms, (b_ms, b_by), lib_ms) in times.items():
+        print("time [%s | %s]: %s %.4f ms (CUDA events around the call; "
+              "device time %s), plain %.3f ms, bound %.5f ms (%s), library "
+              "%s, %s launches on the main path"
+              % (name, card, kk, ev_ms, "not measured" if dev_ms is None
+                 else "%.4f ms" % dev_ms, plain_ms, b_ms, b_by,
+                 "none" if lib_ms is None else "%.4f ms" % lib_ms,
+                 {"forest_value_walk_linear": k1_launches,
+                  "leaf_moments": lm_launches}.get(kk, launches.get(kk))))
+    print("time [%s | %s]: rounds linear %.4f s, linear int8 %.4f s, linear "
+          "int8 + bagging %.4f s, constant f32 (phase 12) %.4f s (medians of "
+          "rounds 2-%d)" % (name, card, med, med8, med_bag, ctx["rounds_s"],
+                            TRAIN_ROUNDS))
+    wall_us, busy, by_kind = profile_round(booster, name, card)
+    lin_us = {kk: sum(v for n_, v in by_kind.items() if kk in n_)
+              for kk in ("normal_eq", "solve_kernel", "addend_kernel")}
+    print("where the time goes [%s | %s]: linear round: LF %.3f ms, LS %.3f "
+          "ms, LA %.3f ms of %.3f ms device busy, idle share %.3f"
+          % (name, card, lin_us["normal_eq"] / 1e3,
+             lin_us["solve_kernel"] / 1e3, lin_us["addend_kernel"] / 1e3,
+             busy / 1e3, 1.0 - busy / wall_us))
+    linear_gate(lgb, name, card)
+
+    replaces = {
+        "linear_normal_eq": "lightgbm_tpu/linear/solver.py:54",
+        "linear_solve": "lightgbm_tpu/linear/solver.py:54",
+        "linear_addend": "lightgbm_tpu/linear/solver.py:143",
+        "leaf_moments": "lightgbm_tpu/ops/histogram.py:622",
+        "forest_value_walk_linear": "lightgbm_tpu/ops/predict.py:163",
+        "tree_leaf_walk_binned": "lightgbm_tpu/ops/predict.py:87"}
+    sources = {
+        "linear_normal_eq": "lightgbm_tpu_torch/csrc/linear.cu",
+        "linear_solve": "lightgbm_tpu_torch/csrc/linear.cu",
+        "linear_addend": "lightgbm_tpu_torch/csrc/linear.cu",
+        "leaf_moments": "lightgbm_tpu_torch/csrc/moments.cu",
+        "forest_value_walk_linear": "lightgbm_tpu_torch/csrc/forest_walk.cu",
+        "tree_leaf_walk_binned": "lightgbm_tpu_torch/csrc/binned_walk.cu"}
+    main = dict(launches, forest_value_walk_linear=k1_launches,
+                leaf_moments=lm_launches)
+    rows = []
+    for kk, (dev_ms, ev_ms, plain_ms, (b_ms, b_by), lib_ms) in times.items():
+        rows.append({"name": kk, "route": "cuda", "source": sources[kk],
+                     "replaces": replaces[kk],
+                     "launches": main.get(kk, 0), "max_abs_err": errs[kk],
+                     "ms": ev_ms if dev_ms is None else dev_ms,
+                     "plain_ms": plain_ms, "bound_ms": b_ms,
+                     "bound_by": b_by, "library_ms": lib_ms})
     return rows
 
 
@@ -1727,6 +2329,7 @@ def main():
     rows.extend(train_rows)
     rows.append(rank_row)
     rows.extend(quantized(name, card, dev, ctx))
+    rows.extend(linear(name, card, dev, ctx))
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

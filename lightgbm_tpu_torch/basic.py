@@ -19,6 +19,7 @@ import torch
 
 from . import log
 from .boosting import create_boosting
+from .boosting.gbdt import refuse_unported_training
 from .config import Config, _parse_value, key_alias_transform
 from .dataset import Dataset as _InnerDataset
 from .device import resolve_device
@@ -135,7 +136,10 @@ class Dataset:
                                        bool),
             max_conflict_rate=float(params.get("max_conflict_rate", 0.0)),
             sparse_threshold=float(params.get("sparse_threshold", 0.8)),
-            chunk_rows=int(params.get("tpu_ingest_chunk_rows", 65536)))
+            chunk_rows=int(params.get("tpu_ingest_chunk_rows", 65536)),
+            # linear trees regress on raw values: linear_tree in the
+            # params keeps them (lightgbm_tpu/basic.py:307-320)
+            keep_raw=_parse_value(params.get("linear_tree", False), bool))
         return self._inner
 
     def construct(self) -> "Dataset":
@@ -214,6 +218,7 @@ class Booster:
                     % type(train_set).__name__)
             cfg = Config.from_params(self.params)
             self.config = cfg
+            refuse_unported_training(cfg)
             inner = train_set._lazy_init()
             objective = create_objective(cfg)
             self._inner = create_boosting(cfg.boosting_type, cfg,

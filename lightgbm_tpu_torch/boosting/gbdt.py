@@ -13,7 +13,11 @@ under `tpu_hist_quantize=int8|int16` quantizes the gradients (kernel Q)
 and grows on int32 histograms (kernel HQ), else on f32 ones (kernel H),
 grows one tree with `learner/grow.py` (kernels S and R), adds its shrunk
 leaf values to the train scores (R's score update) and to every valid
-set's scores (kernel W), and keeps the tree on the host. A quantized
+set's scores (kernel W), and keeps the tree on the host. With
+`linear_tree` each grown tree's leaves get linear models fitted on the
+raw values of their path features (`linear/solver.py`: kernels LF and
+LS), and the scores get each row's leaf value plus its linear term
+(kernel LA; valid sets find the leaves with W's leaf mode). A quantized
 run first passes the JAX package's train-time gate
 (`_hist_quant_gate`): one small tree grown quantized and one in f32 on
 the leading `tpu_hist_chunk` rows must agree within
@@ -21,9 +25,11 @@ the leading `tpu_hist_chunk` rows must agree within
 
 Every option this slice does not carry raises a named LightGBMError
 instead of answering with something else: in serving `pred_contrib`,
-`pred_early_stop`, `tpu_predict_quantize` other than "none", linear-leaf
-and multiclass models; in training GOSS, DART, RF, linear trees,
-multiclass, categorical features and the distributed tree learners.
+`pred_early_stop`, `tpu_predict_quantize` other than "none" and
+multiclass models; in training GOSS, DART, RF, multiclass, categorical
+features and the distributed tree learners. Linear trees keep the JAX
+package's own refusals (with dart or rf, multiclass, more than one
+machine, `pred_contrib`, quantized serving layouts).
 The JAX package's schedule keys (`tpu_hist_bf16`, `tpu_batch_k`,
 `tpu_hist_subtract`, `tpu_hist_compact`, `tpu_compact_threshold`)
 choose how its TPU programs run, not which trees grow; the port takes
@@ -43,13 +49,16 @@ from .. import log
 from ..binning import BIN_CATEGORICAL
 from ..config import Config
 from ..ingest.landing import hist_chunk
-from ..learner.grow import GrowerConfig, SerialGrower
+from ..learner.grow import GrowerConfig, SerialGrower, leaf_path_features
+from ..linear.solver import fit_leaves
 from ..metrics import create_metric
 from ..objectives import ObjectiveFunction
 from ..ops.histogram import (TRAIN_QUANTIZE_MODES, quantize_gradients,
                              train_qmax)
+from ..ops.linear import check_linear_features, linear_addend
 from ..ops.predict import (OutputTransform, binned_tree, forest_leaf_walk,
-                           forest_value_walk, tree_value_walk_binned)
+                           forest_value_walk, tree_leaf_walk_binned,
+                           tree_value_walk_binned)
 from ..ops.rng import bagging_mask, fold_in, prng_key
 from ..ops.route import score_update
 from ..serving.forest import CompiledForest
@@ -75,15 +84,29 @@ def feature_fraction_mask(rng: np.random.RandomState, frac: float,
 def refuse_unported_training(config: Config) -> None:
     """Raise by name for what the training slice does not carry: it
     trains boosting=gbdt, with or without bagging (`bagging_freq=0` is no
-    bagging, as in the JAX package) and with f32 or quantized
-    (`tpu_hist_quantize=int8|int16`) histograms."""
+    bagging, as in the JAX package), with f32 or quantized
+    (`tpu_hist_quantize=int8|int16`) histograms, with constant or linear
+    leaves. Linear trees keep the JAX package's refusals
+    (lightgbm_tpu/boosting/gbdt.py:656-672)."""
     cfg = config
+    if cfg.tree.linear_tree:
+        if cfg.boosting_type not in ("gbdt", "goss"):
+            log.fatal("linear_tree supports boosting=gbdt/goss only (got "
+                      "%s): dart re-normalization and RF averaging replay "
+                      "trees through the binned-only path"
+                      % cfg.boosting_type)
+        if cfg.objective_config.num_class > 1:
+            log.fatal("linear_tree does not support multiclass training "
+                      "(num_tree_per_iteration=%d); train one-vs-all "
+                      "boosters or set linear_tree=false"
+                      % cfg.objective_config.num_class)
+        if cfg.network.num_machines > 1:
+            log.fatal("linear_tree does not support multi-host training "
+                      "(the leaf regression needs the global raw matrix "
+                      "resident on every process); set linear_tree=false")
     if cfg.boosting_type != "gbdt":
         log.fatal("boosting=%s training is not ported to lightgbm_tpu_torch "
                   "yet (train with boosting=gbdt)" % cfg.boosting_type)
-    if cfg.tree.linear_tree:
-        log.fatal("linear_tree training is not ported to lightgbm_tpu_torch "
-                  "yet")
     if cfg.objective_config.num_class > 1:
         log.fatal("multiclass training (num_class=%d) is not ported to "
                   "lightgbm_tpu_torch yet" % cfg.objective_config.num_class)
@@ -115,6 +138,7 @@ class GBDT:
         self.valid_names: List[str] = []
         self.valid_metrics: list = []
         self._valid_binned: List[torch.Tensor] = []
+        self._valid_raw: List[Optional[torch.Tensor]] = []
         self._valid_score: List[torch.Tensor] = []
         # device-resident stacked-forest cache (serving/forest.py):
         # every ensemble mutation goes through _bump_model_version() so
@@ -216,6 +240,20 @@ class GBDT:
             self._bag = torch.empty(n, dtype=torch.float32,
                                     device=self.device)
         self._bag_drawn = False
+        # linear leaves (lightgbm_tpu/boosting/gbdt.py:646-688): the fit
+        # after each tree regresses on the raw values of the used
+        # features, kept on the device once
+        self._linear = bool(tc.linear_tree)
+        self._raw = None
+        if self._linear:
+            self._linear_k = int(tc.tpu_linear_max_features)
+            check_linear_features(self._linear_k)
+            if train_data.raw is None:
+                log.fatal("linear_tree requires raw feature values: "
+                          "construct the training Dataset with keep_raw="
+                          "true (params routed through engine.train/sklearn "
+                          "arm this automatically)")
+            self._raw = torch.from_numpy(train_data.raw).to(self.device)
         # boost from average (gbdt.cpp:358-378): the scores move now, and
         # the bias is folded into the first tree that splits (AddBias,
         # gbdt.cpp:446) so the saved model stands alone
@@ -311,6 +349,16 @@ class GBDT:
         self.valid_metrics.append(ms)
         vb = self._device_bins(valid_data.binned)
         self._valid_binned.append(vb)
+        # linear trees score a valid set from its raw values (inner space,
+        # gbdt.py:1074-1085)
+        vraw = None
+        if getattr(self, "_linear", False) or any(t.is_linear
+                                                  for t in self.models):
+            if valid_data.raw is None:
+                log.fatal("linear_tree validation needs raw feature values: "
+                          "construct the valid Dataset with keep_raw=true")
+            vraw = torch.from_numpy(valid_data.raw).to(self.device)
+        self._valid_raw.append(vraw)
         nv = valid_data.num_data
         vs = torch.zeros(nv, dtype=torch.float32, device=self.device)
         if valid_data.metadata.init_score is not None:
@@ -319,7 +367,7 @@ class GBDT:
         if self.init_score_bias != 0.0:
             vs += self.init_score_bias
         for tree in self.models:
-            tree_value_walk_binned(binned_tree(tree, self.device), vb, vs)
+            self._add_tree_values(tree, vb, vraw, vs)
         self._valid_score.append(vs.reshape(1, nv))
 
     def _feature_mask(self) -> np.ndarray:
@@ -369,14 +417,18 @@ class GBDT:
                              [grad * bag, hess * bag, bag],
                              dim=1).contiguous()
             state = self._grower.grow(w3, mask, bagged=bag is not None)
-        tree = Tree.from_grower_state(state, self.train_data)
+        if self._linear and state.num_leaves_used > 1:
+            tree = self._fit_linear(state, grad, hess, bag)
+        else:
+            tree = Tree.from_grower_state(state, self.train_data)
+            if tree.num_leaves > 1:
+                # the train-score update of gbdt.py:185-190: f32 leaf
+                # values gathered by leaf id times the f32 shrinkage, fused
+                score_update(self._score[0], state.leaf_id,
+                             torch.from_numpy(
+                                 state.leaf_value[:tree.num_leaves]).to(
+                                     self.device), self.shrinkage_rate)
         if tree.num_leaves > 1:
-            # the train-score update of gbdt.py:185-190: f32 leaf values
-            # times the f32 shrinkage, gathered by leaf id
-            shrunk = state.leaf_value[:tree.num_leaves] \
-                * np.float32(self.shrinkage_rate)
-            score_update(self._score[0], state.leaf_id,
-                         torch.from_numpy(shrunk).to(self.device))
             tree.apply_shrinkage(self.shrinkage_rate)
             self._update_valid_scores(tree)
             # fold boost-from-average into the first tree AFTER the score
@@ -388,12 +440,57 @@ class GBDT:
         self.models.append(tree)
         return self._finish_iter(tree.num_leaves > 1)
 
-    def _update_valid_scores(self, tree: Tree) -> None:
-        if not self.valid_sets:
+    def _fit_linear(self, state, grad, hess, bag) -> Tree:
+        """The linear leaves of a grown tree (gbdt.py:1269-1301): the fit
+        (LF + LS) on the f32 gradients before any quantization and the
+        row weight, then the train scores get f32(shrinkage) * (value +
+        row_ok * coeff . x) from the unshrunk fit (LA). Returns the tree
+        with the fitted tables."""
+        dev = self.device
+        L = self.config.tree.num_leaves
+        feats = leaf_path_features(state.leaf_parent, state.node_feature,
+                                   state.node_left, state.node_right,
+                                   state.num_leaves_used, self._linear_k)
+        feats_dev = torch.from_numpy(feats).to(dev)
+        value, coeff, _ = fit_leaves(
+            self._raw, grad, hess, self._ones if bag is None else bag, None,
+            feats_dev, torch.from_numpy(state.leaf_value).to(dev),
+            self.config.tree.linear_lambda, L, perm=state.perm,
+            leaf_begin=state.leaf_begin, leaf_rows=state.leaf_rows)
+        linear_addend(self._raw, state.leaf_id, value, coeff, feats_dev,
+                      self._score[0], float(np.float32(self.shrinkage_rate)))
+        fitted = dataclasses.replace(state, leaf_value=value.cpu().numpy())
+        fitted.leaf_coeff = coeff.cpu().numpy()
+        fitted.leaf_features_inner = feats
+        return Tree.from_grower_state(fitted, self.train_data)
+
+    def _add_tree_values(self, tree: Tree, binned: torch.Tensor,
+                         raw: Optional[torch.Tensor], score: torch.Tensor,
+                         sign: float = 1.0) -> None:
+        """score += sign * the tree's values on a binned matrix: W adds a
+        constant tree's leaf values; a linear tree's leaves come from W's
+        leaf mode and LA adds value + row_ok * coeff . x from the raw
+        matrix (gbdt.py:1563-1581). sign -1 rolls the tree back."""
+        if not tree.is_linear:
+            values = tree.leaf_value if sign > 0 else -tree.leaf_value
+            tree_value_walk_binned(binned_tree(tree, self.device, values),
+                                   binned, score)
             return
-        dtree = binned_tree(tree, self.device)
+        if raw is None:
+            log.fatal("linear_tree score replay needs raw feature values "
+                      "for this dataset: construct it with keep_raw=true")
+        dev = self.device
+        leaf = tree_leaf_walk_binned(binned_tree(tree, dev), binned)
+        linear_addend(
+            raw, leaf,
+            torch.from_numpy(tree.leaf_value.astype(np.float32)).to(dev),
+            torch.from_numpy(tree.leaf_coeff.astype(np.float32)).to(dev),
+            torch.from_numpy(tree.leaf_features_inner).to(dev), score, sign)
+
+    def _update_valid_scores(self, tree: Tree) -> None:
         for vi, vb in enumerate(self._valid_binned):
-            tree_value_walk_binned(dtree, vb, self._valid_score[vi][0])
+            self._add_tree_values(tree, vb, self._valid_raw[vi],
+                                  self._valid_score[vi][0])
 
     def _finish_iter(self, could_split: bool) -> bool:
         """Advance the iteration, or roll it back when no tree could
@@ -410,15 +507,18 @@ class GBDT:
 
     def rollback_one_iter(self) -> None:
         """Reference: GBDT::RollbackOneIter, gbdt.cpp:476-492: the last
-        tree's values come off every score (W with negated values)."""
+        tree's values come off every score (W with negated values; for a
+        linear tree LA with sign -1 on its values and coefficients,
+        gbdt.py:1645-1660)."""
         if self.iter_ <= 0:
             return
         tree = self.models.pop()
         if tree.num_leaves > 1:
-            neg = binned_tree(tree, self.device, -tree.leaf_value)
-            tree_value_walk_binned(neg, self._binned, self._score[0])
+            self._add_tree_values(tree, self._binned, self._raw,
+                                  self._score[0], -1.0)
             for vi, vb in enumerate(self._valid_binned):
-                tree_value_walk_binned(neg, vb, self._valid_score[vi][0])
+                self._add_tree_values(tree, vb, self._valid_raw[vi],
+                                      self._valid_score[vi][0], -1.0)
         self.iter_ -= 1
         self._bump_model_version()
 
@@ -478,8 +578,15 @@ class GBDT:
 
     def _check_supported(self, pred_contrib: bool,
                          pred_early_stop: bool) -> None:
-        """Refuse what this slice does not carry (linear-leaf trees are
-        refused where the forest is stacked, ops/predict.stack_trees)."""
+        """Refuse what the port does not carry, linear trees' refusals
+        first, worded as the JAX package words them."""
+        linear = any(t.is_linear for t in self.models)
+        if pred_contrib and linear:
+            log.fatal("predict_contrib does not support linear_tree models: "
+                      "the TreeSHAP recursion attributes constant leaf "
+                      "outputs only and would silently drop the per-leaf "
+                      "linear terms; use predict() or retrain with "
+                      "linear_tree=false")
         if pred_contrib:
             log.fatal("pred_contrib (SHAP values) is not ported to "
                       "lightgbm_tpu_torch yet")
@@ -487,6 +594,11 @@ class GBDT:
             log.fatal("pred_early_stop is not ported to lightgbm_tpu_torch "
                       "yet (its kernel is still to be written)")
         mode = str(self.config.io.tpu_predict_quantize).lower()
+        if mode != "none" and linear:
+            # lightgbm_tpu/serving/forest.py:440-450
+            log.fatal("linear_tree leaf coefficients have no %s layout; "
+                      "predict linear forests with tpu_predict_quantize=none "
+                      "(f32)" % mode)
         if mode != "none":
             log.fatal("tpu_predict_quantize=%s is not ported to "
                       "lightgbm_tpu_torch yet; serve with "

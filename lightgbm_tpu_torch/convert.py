@@ -6,7 +6,8 @@ attribute names of the JAX package's `Tree` (lightgbm_tpu/tree.py:38-80:
 `left_child`, `right_child`, `leaf_value`, `leaf_count`,
 `internal_value`, `internal_count`, `split_gain`, `shrinkage`,
 `num_cat`, `cat_boundaries`, `cat_threshold`, ...), i.e. `vars()` of a
-JAX Tree with its arrays as numpy. `booster_from_numpy` builds a port
+JAX Tree with its arrays as numpy; a linear tree's `leaf_coeff`,
+`leaf_features` and `leaf_features_inner` [L, k] come across with them. `booster_from_numpy` builds a port
 Booster from such trees and a header. Both give the same Booster as
 loading the model's text does. `dataset_from_numpy` builds the port's
 binned Dataset from a JAX Dataset's arrays (with its query groups), so

@@ -19,6 +19,12 @@
 // the f32 score; the tree itself (a few KB) stays in L1. For the
 // 262,144-row valid set of the main path: 262,144 x (28 + 8) bytes,
 // 9.4 MB, 0.003 ms.
+//
+// Leaf mode (leaf_out not NULL): the same walk writes each row's leaf
+// index instead of adding a value, for linear trees, whose valid-set
+// value LA then computes from the leaf and the row's raw values
+// (lightgbm_tpu/boosting/gbdt.py:1563-1581: predict_leaf_binned, then
+// linear_leaf_addend). Bound: G bytes of bins read, 4 written a row.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -42,7 +48,8 @@ __global__ void walk_kernel(const uint8_t* __restrict__ binned, int G, int n,
                             const uint32_t* __restrict__ cat_bits,
                             int cat_words,
                             const float* __restrict__ leaf_value,
-                            float* __restrict__ score) {
+                            float* __restrict__ score,
+                            int* __restrict__ leaf_out) {
   const int r = blockIdx.x * kBlock + threadIdx.x;
   if (r >= n) return;
   const uint8_t* row = binned + (size_t)r * G;
@@ -79,23 +86,29 @@ __global__ void walk_kernel(const uint8_t* __restrict__ binned, int G, int n,
     }
     node = left ? __ldg(nd + kLeft) : __ldg(nd + kRight);
   }
-  score[r] += __ldg(leaf_value + ~node);
+  if (leaf_out) {
+    leaf_out[r] = ~node;
+  } else {
+    score[r] += __ldg(leaf_value + ~node);
+  }
 }
 
 }  // namespace
 
 // binned [n, G] u8; nodes [max(num_leaves-1, 1), 11] int32 records;
 // cat_bounds [C+2] / cat_bits [W] the bin-space bitsets; leaf_value
-// [num_leaves] f32; score [n] f32, added to in place.
+// [num_leaves] f32; score [n] f32, added to in place; or, when
+// leaf_out [n] i32 is not NULL, the rows' leaves written there and
+// score untouched.
 extern "C" int lgbt_tree_value_walk_binned(
     const uint8_t* binned, int G, int n, const int* nodes, int num_leaves,
     const int* cat_bounds, const uint32_t* cat_bits, int cat_words,
-    const float* leaf_value, float* score, void* stream) {
+    const float* leaf_value, float* score, int* leaf_out, void* stream) {
   if (n <= 0) return 0;
   walk_kernel<<<(n + kBlock - 1) / kBlock, kBlock, 0,
                 (cudaStream_t)stream>>>(binned, G, n, nodes, num_leaves,
                                         cat_bounds, cat_bits, cat_words,
-                                        leaf_value, score);
+                                        leaf_value, score, leaf_out);
   return (int)cudaGetLastError();
 }
 

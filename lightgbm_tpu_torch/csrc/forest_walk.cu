@@ -31,9 +31,18 @@
 // 128 threads a block so many warps hide each other's load latency.
 // Divergence is the other cost: a warp walks a tree for as many levels
 // as its deepest row needs. wgmma and TMA have no part in a walk.
+//
+// Linear forests (linear_tree=true, k > 0 coefficient slots a leaf):
+// K1 adds, at the leaf each tree's walk reaches, the leaf's linear term
+// (linear_term.cuh; the value of lightgbm_tpu/ops/predict.py
+// predict_value_raw :193 with linear_leaf_addend :163): the row's k
+// values at the leaf's real feature columns times its coefficients, or
+// nothing when one of them is not finite. k more loads a (row, tree).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "linear_term.cuh"
 
 namespace {
 
@@ -43,7 +52,6 @@ constexpr unsigned kDefaultLeftBit = 2u;
 constexpr int kMissingZero = 1;
 constexpr int kMissingNan = 2;
 constexpr float kZeroThreshold = 1e-35f;
-constexpr float kF32Tiny = 1.17549435e-38f;  // smallest normal float
 
 enum Epilogue { kRaw = 0, kIdentity = 1, kSigmoid = 2 };
 
@@ -57,7 +65,10 @@ struct Forest {
   const int* cat_boundaries;     // [T, C]
   const uint32_t* cat_bitset;    // [T, W]
   const float* leaf_value;       // [T, L]
-  int num_trees, max_nodes, max_leaves, cat_stride, bitset_stride;
+  const float* leaf_coeff;       // [T, L, K] (K = 0: constant leaves)
+  const int* leaf_feat;          // [T, L, K] real columns, -1 padded
+  int num_trees, max_nodes, max_leaves, cat_stride, bitset_stride,
+      linear_k;
 };
 
 // _in_bitset on a raw category: floor(x) in the node's bitset words.
@@ -94,9 +105,7 @@ __device__ __forceinline__ bool numeric_left(unsigned decision,
 // A subnormal value compares as a signed zero, as in the JAX package,
 // whose backends flush subnormals (the stacked thresholds are flushed on
 // the host). Explicit, so it holds whatever the floating-point mode.
-__device__ __forceinline__ float flush_subnormal(float x) {
-  return fabsf(x) < kF32Tiny ? copysignf(0.f, x) : x;
-}
+using lgbt_linear::flush_subnormal;
 
 // The leaf of tree t that the row reaches. A one-leaf tree starts at
 // node -1, i.e. leaf 0; children hold ~leaf for leaves.
@@ -129,7 +138,16 @@ value_walk_kernel(Forest f, const float* __restrict__ x, int n, int nf,
   const float* row = x + (size_t)r * nf;
   float acc = 0.f;
   for (int t = 0; t < f.num_trees; ++t) {
-    acc += __ldg(f.leaf_value + (size_t)t * f.max_leaves + leaf_of(f, t, row));
+    const size_t leaf = (size_t)t * f.max_leaves + leaf_of(f, t, row);
+    float v = __ldg(f.leaf_value + leaf);
+    if (f.linear_k > 0) {
+      bool ok;
+      const float lin = lgbt_linear::linear_term(
+          row, f.leaf_coeff + leaf * f.linear_k,
+          f.leaf_feat + leaf * f.linear_k, f.linear_k, ok);
+      v = __fadd_rn(v, ok ? lin : 0.f);
+    }
+    acc = __fadd_rn(acc, v);
   }
   if (epilogue != kRaw) {
     acc = acc / denom + bias;
@@ -153,12 +171,15 @@ Forest make_forest(const int* num_leaves, const int* split_feature,
                    const float* threshold, const uint8_t* decision,
                    const int* left_child, const int* right_child,
                    const int* cat_boundaries, const uint32_t* cat_bitset,
-                   const float* leaf_value, int num_trees, int max_nodes,
-                   int max_leaves, int cat_stride, int bitset_stride) {
+                   const float* leaf_value, const float* leaf_coeff,
+                   const int* leaf_feat, int num_trees, int max_nodes,
+                   int max_leaves, int cat_stride, int bitset_stride,
+                   int linear_k) {
   return Forest{num_leaves,  split_feature,  threshold,  decision,
                 left_child,  right_child,    cat_boundaries, cat_bitset,
-                leaf_value,  num_trees,      max_nodes,  max_leaves,
-                cat_stride,  bitset_stride};
+                leaf_value,  leaf_coeff,     leaf_feat,  num_trees,
+                max_nodes,   max_leaves,     cat_stride, bitset_stride,
+                linear_k};
 }
 
 }  // namespace
@@ -171,14 +192,16 @@ extern "C" int lgbt_forest_value_walk(
     const int* split_feature, const float* threshold,
     const uint8_t* decision, const int* left_child, const int* right_child,
     const int* cat_boundaries, const uint32_t* cat_bitset,
-    const float* leaf_value, int num_trees, int max_nodes, int max_leaves,
-    int cat_stride, int bitset_stride, int epilogue, float denom,
+    const float* leaf_value, const float* leaf_coeff, const int* leaf_feat,
+    int num_trees, int max_nodes, int max_leaves, int cat_stride,
+    int bitset_stride, int linear_k, int epilogue, float denom,
     float bias, float sigmoid, float* out, void* stream) {
   const Forest f = make_forest(num_leaves, split_feature, threshold,
                                decision, left_child, right_child,
                                cat_boundaries, cat_bitset, leaf_value,
-                               num_trees, max_nodes, max_leaves, cat_stride,
-                               bitset_stride);
+                               leaf_coeff, leaf_feat, num_trees, max_nodes,
+                               max_leaves, cat_stride, bitset_stride,
+                               linear_k);
   const int blocks = (n + kBlock - 1) / kBlock;
   value_walk_kernel<<<blocks, kBlock, 0, (cudaStream_t)stream>>>(
       f, x, n, nf, epilogue, denom, bias, sigmoid, out);
@@ -190,13 +213,15 @@ extern "C" int lgbt_forest_leaf_walk(
     const int* split_feature, const float* threshold,
     const uint8_t* decision, const int* left_child, const int* right_child,
     const int* cat_boundaries, const uint32_t* cat_bitset,
-    const float* leaf_value, int num_trees, int max_nodes, int max_leaves,
-    int cat_stride, int bitset_stride, int* leaf, void* stream) {
+    const float* leaf_value, const float* leaf_coeff, const int* leaf_feat,
+    int num_trees, int max_nodes, int max_leaves, int cat_stride,
+    int bitset_stride, int linear_k, int* leaf, void* stream) {
   const Forest f = make_forest(num_leaves, split_feature, threshold,
                                decision, left_child, right_child,
                                cat_boundaries, cat_bitset, leaf_value,
-                               num_trees, max_nodes, max_leaves, cat_stride,
-                               bitset_stride);
+                               leaf_coeff, leaf_feat, num_trees, max_nodes,
+                               max_leaves, cat_stride, bitset_stride,
+                               linear_k);
   const int blocks = (n + kBlock - 1) / kBlock;
   leaf_walk_kernel<<<blocks, kBlock, 0, (cudaStream_t)stream>>>(f, x, n, nf,
                                                                 leaf);

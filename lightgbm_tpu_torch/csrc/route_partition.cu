@@ -20,8 +20,11 @@
 //    first, into a scratch segment, which is then copied back.
 // Everything is integer, so the result is exact and the same every run.
 //
-// The score update adds shrink_leaf[leaf_id[r]] to score[r]: one f32
-// add a row, the same add the plain version makes.
+// The score update adds leaf_value[leaf_id[r]] * shrinkage to score[r]
+// as one fused multiply-add, rounded once: the JAX package computes it
+// inside one XLA program (gbdt.py:185-190), whose CPU backend contracts
+// the multiply and the add. The plain version rounds the same way
+// (ops/route.py fma_f32).
 //
 // Bound on an H100 (3.35 TB/s), per split of an m-row segment: read m
 // row ids, m group bins and m leaf ids, write m leaf ids and 2m row ids,
@@ -141,9 +144,13 @@ __global__ void scatter_kernel(const int* __restrict__ perm, int begin,
 
 __global__ void score_kernel(float* __restrict__ score,
                              const int* __restrict__ leaf_id,
-                             const float* __restrict__ value, int n) {
+                             const float* __restrict__ value,
+                             float shrinkage, int n) {
   const int r = blockIdx.x * blockDim.x + threadIdx.x;
-  if (r < n) score[r] += __ldg(value + __ldg(leaf_id + r));
+  if (r < n) {
+    score[r] = __fmaf_rn(__ldg(value + __ldg(leaf_id + r)), shrinkage,
+                         score[r]);
+  }
 }
 
 }  // namespace
@@ -189,13 +196,15 @@ extern "C" int lgbt_route_partition(
   return (int)cudaGetLastError();
 }
 
-// score[r] += value[leaf_id[r]] for r < n (value: the tree's shrunken
-// leaf values, f32).
+// score[r] = fma(value[leaf_id[r]], shrinkage, score[r]) for r < n
+// (value: the tree's f32 leaf values before shrinkage).
 extern "C" int lgbt_score_update(float* score, const int* leaf_id,
-                                 const float* value, int n, void* stream) {
+                                 const float* value, float shrinkage, int n,
+                                 void* stream) {
   if (n <= 0) return 0;
   score_kernel<<<(n + kThreads - 1) / kThreads, kThreads, 0,
-                 (cudaStream_t)stream>>>(score, leaf_id, value, n);
+                 (cudaStream_t)stream>>>(score, leaf_id, value, shrinkage,
+                                         n);
   return (int)cudaGetLastError();
 }
 

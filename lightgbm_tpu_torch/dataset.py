@@ -98,10 +98,14 @@ class Dataset:
       mappers: per-feature BinMapper, in ORIGINAL column order
       used_features: original indices of the non-trivial features
       groups: efb.FeatureGroups over the used features
+      raw:     `[num_data, num_features]` f32 values of the used features
+        (the inner space), kept when built with `keep_raw` (linear trees
+        regress on them; lightgbm_tpu/basic.py:307-320)
     """
 
     def __init__(self):
         self.binned: Optional[np.ndarray] = None
+        self.raw: Optional[np.ndarray] = None
         self.mappers: List[BinMapper] = []
         self.metadata = Metadata()
         self.feature_names: List[str] = []
@@ -128,11 +132,13 @@ class Dataset:
                    max_conflict_rate: float = 0.0,
                    sparse_threshold: float = 0.8,
                    mappers: Optional[List[BinMapper]] = None,
-                   chunk_rows: int = 65536) -> "Dataset":
+                   chunk_rows: int = 65536,
+                   keep_raw: bool = False) -> "Dataset":
         """Build from a dense float matrix through the two-pass ingest
         (lightgbm_tpu/dataset.py:159-176). With `reference`, its mappers
         and groups are reused, so a validation set lands in the training
-        set's bin space (reference: Dataset::CreateValid)."""
+        set's bin space (reference: Dataset::CreateValid). `keep_raw`
+        keeps the used features' f32 values as `raw`."""
         data = np.asarray(data)
         if data.ndim != 2:
             log.fatal("Dataset data must be 2-dimensional")
@@ -150,7 +156,7 @@ class Dataset:
             mappers=mappers,
             enable_bundle=enable_bundle,
             max_conflict_rate=max_conflict_rate,
-            sparse_threshold=sparse_threshold)
+            sparse_threshold=sparse_threshold, keep_raw=keep_raw)
 
     # ------------------------------------------------------------------
     @property

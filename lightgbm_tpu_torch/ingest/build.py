@@ -37,12 +37,13 @@ def build_inner(data: np.ndarray, *,
                 reference=None, mappers=None,
                 enable_bundle: bool = True,
                 max_conflict_rate: float = 0.0,
-                sparse_threshold: float = 0.8):
+                sparse_threshold: float = 0.8, keep_raw: bool = False):
     """Build a `dataset.Dataset` by streaming the `[n, f]` matrix twice
     in chunks of `chunk_rows` rows.
 
     `reference`: reuse a training set's mappers and groups (a validation
-    set). `mappers`: preset BinMappers."""
+    set). `mappers`: preset BinMappers. `keep_raw`: also keep the f32
+    values of the used features (`Dataset.raw`, linear trees)."""
     from ..dataset import Dataset, Metadata
     from ..efb import find_groups_sampled
 
@@ -127,6 +128,8 @@ def build_inner(data: np.ndarray, *,
         if pool is not None:
             pool.shutdown()
     ds.binned = binned
+    if keep_raw:
+        ds.raw = np.ascontiguousarray(data[:, used], np.float32)
 
     # ----------------------------------------------------------- metadata
     ds.metadata = Metadata(n)

@@ -71,7 +71,8 @@ class GrowerConfig:
     def split_params(self) -> SplitParams:
         return SplitParams(self.lambda_l1, self.lambda_l2,
                            self.min_gain_to_split, self.min_data_in_leaf,
-                           self.min_sum_hessian_in_leaf, self.max_depth)
+                           self.min_sum_hessian_in_leaf, self.max_depth,
+                           xla_scan_order=self.hist_quantize != "none")
 
 
 @dataclass
@@ -97,6 +98,12 @@ class GrowerState:
     node_gain: np.ndarray
     node_value: np.ndarray
     node_count: np.ndarray
+    # the DataPartition: perm [N] i32 on the device (the grower's own
+    # buffer, like leaf_id) and each leaf slot's segment of it, host
+    # int64 [L] (leaf_rows 0 for an unused slot)
+    perm: Optional[torch.Tensor] = None
+    leaf_begin: Optional[np.ndarray] = None
+    leaf_rows: Optional[np.ndarray] = None
 
 
 class _LeafTable:
@@ -338,6 +345,7 @@ class SerialGrower:
             t.take(new, hf[1], hi[1])
 
         st.num_leaves_used = used
+        st.perm, st.leaf_begin, st.leaf_rows = self.perm, begin, rows
         if bagged:
             return st
         got = self._left_dev[:used - 1].cpu().numpy()
@@ -348,3 +356,33 @@ class SerialGrower:
                 "split scan counted %d" % (got[bad[0]], bad[0],
                                            expected_left[bad[0]]))
         return st
+
+
+def leaf_path_features(leaf_parent: np.ndarray, node_feature: np.ndarray,
+                       node_left: np.ndarray, node_right: np.ndarray,
+                       num_leaves_used: int, k: int) -> np.ndarray:
+    """Per leaf slot, the first `k` DISTINCT split features on its path
+    from the leaf up to the root, nearest the leaf first: the candidate
+    regressors of a linear leaf (lightgbm_tpu/learner/grow.py:1358).
+
+    Host numpy over the grower's node arrays: `leaf_parent[l]` is the
+    node whose split made leaf slot l (-1 for unused slots and the
+    one-leaf tree), children encode leaves as `~slot`, features are in
+    the inner space. Returns [L, k] int32, -1-padded."""
+    m = len(node_left)
+    node_parent = np.full(m, -1, np.int64)
+    for node in range(max(int(num_leaves_used) - 1, 0)):
+        for child in (node_left[node], node_right[node]):
+            if child >= 0:
+                node_parent[child] = node
+    out = np.full((len(leaf_parent), k), -1, np.int32)
+    for leaf, node in enumerate(leaf_parent):
+        cnt = 0
+        node = int(node)
+        while node >= 0 and cnt < k:
+            f = int(node_feature[node])
+            if f not in out[leaf, :cnt]:
+                out[leaf, cnt] = f
+                cnt += 1
+            node = int(node_parent[node])
+    return out

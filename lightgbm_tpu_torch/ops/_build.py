@@ -34,8 +34,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 _p, _i, _f, _u = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, \
     ctypes.c_uint32
 # the forest-walk pointer block shared by both entry points: x, n, F,
-# the nine Forest arrays, then T, M, L, C+2, W
-_WALK_HEAD = [_p, _i, _i] + [_p] * 9 + [_i] * 5
+# the eleven Forest arrays, then T, M, L, C+2, W, K
+_WALK_HEAD = [_p, _i, _i] + [_p] * 11 + [_i] * 6
 
 # the training kernels hold bitwise to plain versions that round every
 # f32 multiply and add separately: no fused multiply-add
@@ -59,13 +59,13 @@ LIBRARIES = {
     }, _NO_FMA),
     "split": ("split_scan.cu", {
         "lgbt_split_scan": [_p] + [_i] * 5 + [_p] * 10 + [_f] * 3
-        + [_i, _f, _i] + [_p] * 4,
+        + [_i, _f, _i, _i] + [_p] * 4,
     }, _NO_FMA),
     "route": ("route_partition.cu", {
         "lgbt_route_tiles": [_i],
         "lgbt_route_partition": [_p, _i, _p, _i, _i] + [_i] * 11
         + [_p, _p, _p, _p],
-        "lgbt_score_update": [_p, _p, _p, _i, _p],
+        "lgbt_score_update": [_p, _p, _p, _f, _i, _p],
     }, _NO_FMA),
     "rank": ("lambdarank.cu", {
         "lgbt_lambdarank_grads": [_p, _p, _i, _p, _p, _p, _f] + [_p] * 5,
@@ -73,7 +73,20 @@ LIBRARIES = {
     }, _NO_FMA),
     "walk": ("binned_walk.cu", {
         "lgbt_tree_value_walk_binned": [_p, _i, _i, _p, _i, _p, _p, _i, _p,
-                                        _p, _p],
+                                        _p, _p, _p],
+    }, _NO_FMA),
+    "linear": ("linear.cu", {
+        "lgbt_linear_tile_rows": [],
+        "lgbt_linear_max_entries": [],
+        "lgbt_linear_normal_eq": [_p, _i] + [_p] * 5 + [_i, _p, _p, _i, _p,
+                                                        _i] + [_p] * 5,
+        "lgbt_linear_solve": [_p] * 5 + [_f, _i, _i] + [_p] * 4,
+        "lgbt_linear_addend": [_p, _i, _i] + [_p] * 4 + [_i, _f, _p, _p],
+    }, _NO_FMA),
+    "moments": ("moments.cu", {
+        "lgbt_moment_tiles": [_i, _i, _i, _i],
+        "lgbt_leaf_moments": [_p, _i, _p, _p, _p, _p, _p, _i, _i, _i, _p,
+                              _p, _p],
     }, _NO_FMA),
 }
 
@@ -104,7 +117,9 @@ def build(name: str) -> BuildRecord:
     source, _, extra = LIBRARIES[name]
     flags = NVCC_FLAGS + tuple(extra)
     src = CSRC / source
-    digest = hashlib.sha256(src.read_bytes()
+    # the shared headers count too: a source may include any of them
+    headers = b"".join(h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
+    digest = hashlib.sha256(src.read_bytes() + headers
                             + " ".join(flags).encode()).hexdigest()
     out = BUILD_DIR / f"lib{name}.so"
     stamp = BUILD_DIR / f"lib{name}.so.sha256"

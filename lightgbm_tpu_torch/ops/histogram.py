@@ -33,6 +33,12 @@ Quantized training (`tpu_hist_quantize=int8|int16`, the JAX section at
   them exactly and merges the digits in int32; integer sums do not
   depend on their order, so the port's histogram equals the merged JAX
   one bitwise. Siblings subtract in int32 through `subtract`.
+
+Linear trees add kernel LM, `leaf_moments` (`csrc/moments.cu`): per
+(leaf id, feature, bin) the raw-value moments (sum x*m, sum x^2*m, sum
+x*g*m, sum x*h*m) of the JAX package's `leaf_moments` (:622),
+`batched_leaves_moments` (:679) and `gathered_leaves_moments` (:726),
+which `linear/stats.py` sums over bins.
 """
 from __future__ import annotations
 
@@ -375,3 +381,116 @@ def leaf_histogram_i32(binned: torch.Tensor, codes: torch.Tensor,
 
 
 leaf_histogram_i32.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# per-bin raw-feature moments (linear trees; lightgbm_tpu/linear/stats.py)
+# ---------------------------------------------------------------------------
+
+def leaf_moments_plain(binned: torch.Tensor, x: torch.Tensor,
+                       w3: torch.Tensor, num_bins: int,
+                       rows: Optional[torch.Tensor] = None,
+                       n_rows: Optional[int] = None,
+                       leaf_id: Optional[torch.Tensor] = None,
+                       ids: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """[C, F, B, 4] by an f64 index_add over the flattened (id, feature,
+    bin) axis of the f32 terms (x*m, (x*x)*m, x*(g*m), x*(h*m)), rounded
+    to f32 once."""
+    f_cnt = binned.shape[1]
+    sel = rows[:n_rows].long() if rows is not None else \
+        torch.arange(binned.shape[0], device=binned.device)
+    c_cnt = 1 if ids is None else ids.shape[0]
+    if leaf_id is None:
+        slot = torch.zeros(sel.shape[0], dtype=torch.long,
+                           device=binned.device)
+    else:
+        match = leaf_id[sel].long()[:, None] == ids.long()[None, :]
+        hit = match.any(dim=1)
+        sel, slot = sel[hit], match[hit].int().argmax(dim=1)
+    xv = x[sel]
+    xv = torch.where(torch.isfinite(xv), xv, torch.zeros_like(xv))
+    w = w3[sel]
+    gm, hm, m = w[:, 0:1], w[:, 1:2], w[:, 2:3]
+    terms = torch.stack([xv * m, (xv * xv) * m, xv * gm, xv * hm], dim=-1)
+    flat = (slot[:, None] * f_cnt
+            + torch.arange(f_cnt, device=binned.device)[None, :]) \
+        * num_bins + binned[sel].long()
+    keep = binned[sel].long() < num_bins
+    out = torch.zeros((c_cnt * f_cnt * num_bins, 4), dtype=torch.float64,
+                      device=binned.device)
+    out.index_add_(0, flat[keep], terms[keep].to(torch.float64))
+    return out.float().view(c_cnt, f_cnt, num_bins, 4)
+
+
+def leaf_moments(binned: torch.Tensor, x: torch.Tensor, w3: torch.Tensor,
+                 num_bins: int, rows: Optional[torch.Tensor] = None,
+                 n_rows: Optional[int] = None,
+                 leaf_id: Optional[torch.Tensor] = None,
+                 ids: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """LM: the [C, F, B, 4] f32 moments (sum x*m, sum x^2*m, sum x*g*m,
+    sum x*h*m) per (leaf id, feature, bin) of the rows 0..N-1 or
+    rows[:n_rows], and with `leaf_id` [N] / `ids` [C] only of the rows
+    whose leaf id is ids[c] (C = 1 without them). binned [N, F] holds
+    per-feature bins and x [N, F] the raw values aligned with them (the
+    caller resolves EFB); w3 [N, 3] = (g*m, h*m, m); a non-finite x adds
+    nothing. Counterpart of lightgbm_tpu/ops/histogram.py leaf_moments
+    (:622), batched_leaves_moments (:679) and gathered_leaves_moments
+    (:726)."""
+    n, f_cnt = binned.shape
+    if x.shape != (n, f_cnt) or w3.shape != (n, 3) \
+            or (leaf_id is None) != (ids is None) \
+            or (leaf_id is not None and leaf_id.shape != (n,)):
+        raise LightGBMError("leaf_moments takes binned and x [N, F], w3 "
+                            "[N, 3], and leaf_id [N] with ids [C] or "
+                            "neither")
+    if rows is not None and (n_rows is None or n_rows > rows.shape[0]):
+        raise LightGBMError("leaf_moments: a row list needs n_rows <= its "
+                            "length")
+    tensors = [t for t in (binned, x, w3, rows, leaf_id, ids)
+               if t is not None]
+    if any(t.device != binned.device for t in tensors):
+        raise LightGBMError("leaf_moments: inputs on different devices")
+    if binned.device.type == "cpu":
+        return leaf_moments_plain(binned, x, w3, num_bins, rows, n_rows,
+                                  leaf_id, ids)
+    if binned.device.type != "cuda":
+        raise LightGBMError("leaf_moments runs on cpu or cuda, not %s"
+                            % binned.device)
+    if binned.dtype != torch.uint8 or not 1 <= num_bins <= 256 \
+            or x.dtype != torch.float32 or w3.dtype != torch.float32:
+        raise LightGBMError("the leaf_moments kernel takes uint8 bins (at "
+                            "most 256), f32 x and f32 w3")
+    for t in tensors:
+        if not t.is_contiguous():
+            raise LightGBMError("leaf_moments takes contiguous tensors")
+    if any(t is not None and t.dtype != torch.int32
+           for t in (rows, leaf_id, ids)):
+        raise LightGBMError("leaf_moments takes int32 rows, leaf ids and "
+                            "ids")
+    cnt = binned.shape[0] if rows is None else int(n_rows)
+    c_cnt = 1 if ids is None else int(ids.shape[0])
+    lib = _build.load_library("moments")
+    tiles = lib.lgbt_moment_tiles(cnt, c_cnt, f_cnt, num_bins)
+    scratch = torch.empty(tiles * c_cnt * f_cnt * num_bins * 4,
+                          dtype=torch.float32, device=binned.device)
+    out = torch.empty((c_cnt, f_cnt, num_bins, 4), dtype=torch.float32,
+                      device=binned.device)
+
+    def ptr(t):
+        return ctypes.c_void_p(None if t is None else t.data_ptr())
+
+    with torch.cuda.device(binned.device):
+        stream = torch.cuda.current_stream(binned.device).cuda_stream
+        rc = lib.lgbt_leaf_moments(
+            ptr(binned), f_cnt, ptr(x), ptr(w3), ptr(rows), ptr(leaf_id),
+            ptr(ids), cnt, c_cnt, num_bins, ptr(scratch), ptr(out),
+            ctypes.c_void_p(stream))
+    if rc != 0:
+        raise LightGBMError("leaf_moments launch failed: CUDA error %d (%s)"
+                            % (rc, lib.lgbt_error_string(rc).decode()))
+    with _launch_lock:
+        leaf_moments.launches += 1
+    return out
+
+
+leaf_moments.launches = 0

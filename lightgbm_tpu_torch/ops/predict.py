@@ -21,7 +21,13 @@ W, `tree_value_walk_binned`, is the counterpart of `predict_value_binned`
 (:182) with `predict_leaf_binned` (:87) and `_decide_binned` (:75): one
 tree walked in the stored-group bin space of a binned matrix (EFB
 decode, bin thresholds), its leaf value added to each row's score
-(`csrc/binned_walk.cu`).
+(`csrc/binned_walk.cu`); its leaf mode, `tree_leaf_walk_binned`, returns
+the rows' leaves instead (a linear tree's valid-set scoring).
+
+Linear forests (`linear_tree`): the stack carries each leaf's
+coefficients and real feature columns, and K1 adds the leaf's linear
+term at the leaf it reaches (`predict_value_raw` :193 with
+`linear_leaf_addend` :163; `csrc/linear_term.cuh`, `ops/linear.py`).
 """
 from __future__ import annotations
 
@@ -68,12 +74,18 @@ class Forest:
     cat_boundaries: torch.Tensor  # [T, C+2] i32 word offsets, last-padded
     cat_bitset: torch.Tensor      # [T, W] i32 holding u32 bitset words
     leaf_value: torch.Tensor      # [T, L] f32
+    leaf_coeff: torch.Tensor      # [T, L, K] f32 (K = 0: constant leaves)
+    leaf_feat: torch.Tensor       # [T, L, K] i32 real columns, -1 padded
     max_depth: int                # deepest leaf: the plain walk's steps
-    num_features: int             # 1 + the largest split feature
+    num_features: int             # 1 + the largest feature read
 
     @property
     def num_trees(self) -> int:
         return int(self.num_leaves.shape[0])
+
+    @property
+    def linear_k(self) -> int:
+        return int(self.leaf_coeff.shape[2])
 
     @property
     def device(self) -> torch.device:
@@ -108,13 +120,11 @@ def stack_trees(trees, device: torch.device) -> Forest:
     offset so an out-of-range category index finds an empty slice.
     Thresholds are clipped to the f32 range and rounded to f32 exactly
     as the JAX package does, so rows on a threshold go the same way
-    (and subnormal ones flushed to zero, see _F32_TINY)."""
+    (and subnormal ones flushed to zero, see _F32_TINY). Linear leaves'
+    coefficients and real feature columns are padded to the widest k
+    with zero coefficients and column -1."""
     if not trees:
         raise LightGBMError("cannot stack an empty forest")
-    if any(t.is_linear for t in trees):
-        raise LightGBMError(
-            "linear_tree models are not ported to lightgbm_tpu_torch yet "
-            "(the forest-walk kernels carry constant leaves only)")
     max_m = max(max(t.num_leaves - 1, 1) for t in trees)
     max_l = max(t.num_leaves for t in trees)
     max_cat = max(t.num_cat for t in trees)
@@ -137,6 +147,13 @@ def stack_trees(trees, device: torch.device) -> Forest:
     def split_features(t):
         return t.split_feature[:max(t.num_leaves - 1, 0)]
 
+    max_k = max(t.leaf_coeff.shape[1] for t in trees)
+    coeff = np.zeros((len(trees), max_l, max_k), np.float32)
+    feat = np.full((len(trees), max_l, max_k), -1, np.int32)
+    for i, t in enumerate(trees):
+        lk = t.leaf_coeff.shape[1]
+        coeff[i, :t.num_leaves, :lk] = t.leaf_coeff
+        feat[i, :t.num_leaves, :lk] = t.leaf_features
     threshold = pad(lambda t: np.clip(t.threshold, -fmax, fmax),
                     max_m, np.float32)
     threshold[np.abs(threshold) < _F32_TINY] = 0.0
@@ -156,9 +173,10 @@ def stack_trees(trees, device: torch.device) -> Forest:
         cat_bitset=pad(lambda t: t.cat_threshold, max_w,
                        np.uint32).view(np.int32),
         leaf_value=pad(lambda t: t.leaf_value, max_l, np.float32),
+        leaf_coeff=coeff, leaf_feat=feat,
     )
     used = [int(np.max(split_features(t))) + 1 for t in trees
-            if t.num_leaves > 1]
+            if t.num_leaves > 1] + [int(feat.max()) + 1 if feat.size else 0]
     return Forest(
         **{k: torch.from_numpy(v).to(device) for k, v in arrays.items()},
         max_depth=max(_tree_depth(t) for t in trees),
@@ -245,12 +263,20 @@ def forest_value_walk_plain(forest: Forest, x: torch.Tensor,
                             transform: Optional[OutputTransform] = None
                             ) -> torch.Tensor:
     """[N] f32: sum over trees 0..T-1, in that order, of each tree's leaf
-    value (the order K1 sums in, so the two agree bitwise)."""
+    value, plus its linear term in a linear forest (the order K1 sums
+    in, so the two agree bitwise)."""
+    from .linear import gather_values, linear_dot_plain
     leaf = _leaves_plain(forest, x)
     vals = forest.leaf_value.gather(1, leaf)
     out = torch.zeros(x.shape[0], dtype=torch.float32, device=x.device)
+    rows = torch.arange(x.shape[0], device=x.device)
     for t in range(forest.num_trees):
-        out += vals[t]
+        v = vals[t]
+        if forest.linear_k:
+            xv, ok = gather_values(x, rows, forest.leaf_feat[t][leaf[t]])
+            lin = linear_dot_plain(forest.leaf_coeff[t][leaf[t]], xv)
+            v = v + torch.where(ok, lin, torch.zeros_like(lin))
+        out += v
     return out if transform is None else apply_output_plain(out, transform)
 
 
@@ -291,14 +317,15 @@ def _launch(wrapper, entry: str, forest: Forest, x: torch.Tensor,
     ptr = [ctypes.c_void_p(t.data_ptr()) for t in (
         forest.num_leaves, forest.split_feature, forest.threshold,
         forest.decision, forest.left_child, forest.right_child,
-        forest.cat_boundaries, forest.cat_bitset, forest.leaf_value)]
+        forest.cat_boundaries, forest.cat_bitset, forest.leaf_value,
+        forest.leaf_coeff, forest.leaf_feat)]
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         rc = getattr(lib, entry)(
             ctypes.c_void_p(x.data_ptr()), x.shape[0], x.shape[1], *ptr,
             forest.num_trees, forest.split_feature.shape[1],
             forest.leaf_value.shape[1], forest.cat_boundaries.shape[1],
-            forest.cat_bitset.shape[1], *extra,
+            forest.cat_bitset.shape[1], forest.linear_k, *extra,
             ctypes.c_void_p(out.data_ptr()), ctypes.c_void_p(stream))
     if rc != 0:
         raise LightGBMError("%s launch failed: CUDA error %d (%s)" % (
@@ -366,10 +393,8 @@ class BinnedTree:
 def binned_tree(tree, device: torch.device,
                 leaf_value: Optional[np.ndarray] = None) -> BinnedTree:
     """A host Tree (with bin metadata) laid out for W; `leaf_value`
-    overrides the tree's own (rollback adds the negated values)."""
-    if tree.is_linear:
-        raise LightGBMError("linear_tree models are not ported to "
-                            "lightgbm_tpu_torch yet")
+    overrides the tree's own (rollback adds the negated values). A
+    linear tree's values are its intercepts: W's leaf mode serves it."""
     if not tree.has_bin_metadata:
         raise LightGBMError("the binned walk needs a tree with bin "
                             "metadata (Tree.attach_bin_metadata)")
@@ -444,6 +469,11 @@ def tree_value_walk_binned_plain(tree: BinnedTree, binned: torch.Tensor,
     score += tree.leaf_value[tree_leaf_binned_plain(tree, binned)]
 
 
+def tree_leaf_walk_binned_plain(tree: BinnedTree,
+                                binned: torch.Tensor) -> torch.Tensor:
+    return tree_leaf_binned_plain(tree, binned).to(torch.int32)
+
+
 def tree_value_walk_binned(tree: BinnedTree, binned: torch.Tensor,
                            score: torch.Tensor) -> None:
     """W: score[r] += leaf_value[leaf of row r] for the binned rows
@@ -452,17 +482,39 @@ def tree_value_walk_binned(tree: BinnedTree, binned: torch.Tensor,
             or score.dtype != torch.float32:
         raise LightGBMError("tree_value_walk_binned takes binned [N, G] and "
                             "an f32 score [N]")
+    _walk_binned(tree, binned, score, None)
+
+
+def tree_leaf_walk_binned(tree: BinnedTree,
+                          binned: torch.Tensor) -> torch.Tensor:
+    """W's leaf mode: the [N] int32 leaf of each binned row [N, G]."""
+    if binned.dim() != 2:
+        raise LightGBMError("tree_leaf_walk_binned takes binned [N, G]")
+    leaf = torch.empty(binned.shape[0], dtype=torch.int32,
+                       device=binned.device)
+    _walk_binned(tree, binned, None, leaf)
+    return leaf
+
+
+def _walk_binned(tree: BinnedTree, binned: torch.Tensor,
+                 score: Optional[torch.Tensor],
+                 leaf: Optional[torch.Tensor]) -> None:
+    """Launch W adding values to `score`, or writing leaves to `leaf`."""
+    out = score if leaf is None else leaf
     if any(t.device != binned.device for t in (
-            score, tree.nodes, tree.leaf_value)):
+            out, tree.nodes, tree.leaf_value)):
         raise LightGBMError("tree_value_walk_binned: inputs on different "
                             "devices")
     if binned.device.type == "cpu":
+        if leaf is not None:
+            leaf.copy_(tree_leaf_walk_binned_plain(tree, binned))
+            return None
         return tree_value_walk_binned_plain(tree, binned, score)
     if binned.device.type != "cuda":
         raise LightGBMError("tree_value_walk_binned runs on cpu or cuda, "
                             "not %s" % binned.device)
     if binned.dtype != torch.uint8 or not (binned.is_contiguous()
-                                           and score.is_contiguous()):
+                                           and out.is_contiguous()):
         raise LightGBMError("tree_value_walk_binned takes contiguous uint8 "
                             "bins and score")
     lib = _build.load_library("walk")
@@ -474,13 +526,17 @@ def tree_value_walk_binned(tree: BinnedTree, binned: torch.Tensor,
             p(tree.nodes.data_ptr()), tree.num_leaves,
             p(tree.cat_bounds.data_ptr()), p(tree.cat_bits.data_ptr()),
             tree.cat_bits.shape[0], p(tree.leaf_value.data_ptr()),
-            p(score.data_ptr()), p(stream))
+            p(None if score is None else score.data_ptr()),
+            p(None if leaf is None else leaf.data_ptr()), p(stream))
     if rc != 0:
         raise LightGBMError("tree_value_walk_binned launch failed: CUDA "
                             "error %d (%s)"
                             % (rc, lib.lgbt_error_string(rc).decode()))
+    counter = tree_value_walk_binned if leaf is None \
+        else tree_leaf_walk_binned
     with _launch_lock:
-        tree_value_walk_binned.launches += 1
+        counter.launches += 1
 
 
 tree_value_walk_binned.launches = 0
+tree_leaf_walk_binned.launches = 0

@@ -10,8 +10,10 @@ go_left for each row of a leaf's segment exactly as the JAX grower does
 (EFB decode, NaN / zero missing to default_left, categorical equality,
 else bin <= threshold), writes the rows' new leaf slot and reorders the
 segment stably, left rows first. `score_update` adds each row's leaf
-value to its score. All outputs but the score are integers and equal
-the plain versions exactly; the score gets one f32 add a row either way.
+value times the shrinkage to its score as one fused multiply-add, as
+the JAX package's fused grow-and-update program does. All outputs but
+the score are integers and equal the plain versions exactly; the score
+is rounded once a row either way (`fma_f32`).
 
 On CUDA tensors both launch `csrc/route_partition.cu` or raise; on CPU
 tensors they run the plain versions. Launches are counted in
@@ -151,15 +153,34 @@ def route_partition(binned: torch.Tensor, perm: torch.Tensor, begin: int,
     return scratch[tiles]
 
 
+def fma_f32(a: torch.Tensor, b: torch.Tensor,
+            c: torch.Tensor) -> torch.Tensor:
+    """a * b + c for f32 tensors, rounded once to f32 as a fused
+    multiply-add rounds it. The product is exact in f64; the f64 sum is
+    rounded to odd (its TwoSum error decides the last bit), which makes
+    the final rounding to f32 the correctly rounded one."""
+    p = a.double() * b.double()
+    cd = c.double()
+    t = p + cd
+    bv = t - p
+    err = (p - (t - bv)) + (cd - bv)
+    even = (t.view(torch.int64) & 1) == 0
+    toward = torch.where(err > 0, float("inf"), float("-inf")).to(t)
+    t = torch.where((err != 0) & even, torch.nextafter(t, toward), t)
+    return t.float()
+
+
 def score_update_plain(score: torch.Tensor, leaf_id: torch.Tensor,
-                       value: torch.Tensor) -> None:
-    score += value[leaf_id.long()]
+                       value: torch.Tensor, shrinkage: float) -> None:
+    s = torch.tensor(shrinkage, dtype=torch.float32, device=score.device)
+    score.copy_(fma_f32(value[leaf_id.long()], s, score))
 
 
 def score_update(score: torch.Tensor, leaf_id: torch.Tensor,
-                 value: torch.Tensor) -> None:
-    """R's second entry: score[r] += value[leaf_id[r]] in place (value:
-    the tree's f32 leaf values, already shrunk)."""
+                 value: torch.Tensor, shrinkage: float) -> None:
+    """R's second entry: score[r] = fma(value[leaf_id[r]], shrinkage,
+    score[r]) in place (value: the tree's f32 leaf values before
+    shrinkage; shrinkage rounded to f32)."""
     if score.shape != leaf_id.shape or score.dtype != torch.float32 \
             or value.dtype != torch.float32:
         raise LightGBMError("score_update takes f32 score [N], leaf_id [N] "
@@ -167,7 +188,7 @@ def score_update(score: torch.Tensor, leaf_id: torch.Tensor,
     if any(t.device != score.device for t in (leaf_id, value)):
         raise LightGBMError("score_update: inputs on different devices")
     if score.device.type == "cpu":
-        return score_update_plain(score, leaf_id, value)
+        return score_update_plain(score, leaf_id, value, shrinkage)
     if score.device.type != "cuda":
         raise LightGBMError("score_update runs on cpu or cuda, not %s"
                             % score.device)
@@ -181,8 +202,8 @@ def score_update(score: torch.Tensor, leaf_id: torch.Tensor,
     with torch.cuda.device(score.device):
         stream = torch.cuda.current_stream(score.device).cuda_stream
         rc = lib.lgbt_score_update(p(score.data_ptr()), p(leaf_id.data_ptr()),
-                                   p(value.data_ptr()), score.shape[0],
-                                   p(stream))
+                                   p(value.data_ptr()), float(shrinkage),
+                                   score.shape[0], p(stream))
     if rc != 0:
         raise LightGBMError("score_update launch failed: CUDA error %d (%s)"
                             % (rc, lib.lgbt_error_string(rc).decode()))

@@ -12,12 +12,16 @@ CalculateSplittedLeafOutput (feature_histogram.hpp:206-225).
 
 Every gain is f32 arithmetic in the JAX package's operation order. The
 plain version walks the bins in order like the kernel
-(`csrc/split_scan.cu`), so the two agree bitwise. Both carry the g and h
-scans as compensated (Kahan) sums: a plain running f32 sum over the
-bins strays from the exact scan several times further than the JAX
-package's cumsum does, a compensated one stays closer than it. Against
-the JAX package the choice agrees wherever the top two gains are apart
-by more than f32 round-off.
+(`csrc/split_scan.cu`), so the two agree bitwise. On f32 histograms
+both carry the g and h scans as compensated (Kahan) sums: a plain
+running f32 sum over the bins strays from the exact scan several times
+further than the JAX package's cumsum does, a compensated one stays
+closer than it. Against the JAX package the choice agrees wherever the
+top two gains are apart by more than f32 round-off. On dequantized
+histograms (`SplitParams.xla_scan_order`, quantized training), whose
+bins equal the JAX package's bitwise, both add in the order of XLA's
+CPU cumsum instead (`xla_cumsum`), so the scans, and the child totals
+taken from them, equal the JAX package's bitwise.
 
 `split_scan` launches the kernel for CUDA tensors (or raises) and runs
 the plain version for CPU tensors; it counts launches in
@@ -80,6 +84,8 @@ class SplitParams:
     min_data_in_leaf: int
     min_sum_hessian_in_leaf: float
     max_depth: int
+    # scan in XLA's cumsum order (dequantized histograms), not Kahan
+    xla_scan_order: bool = False
 
 
 def device_fmeta(fm: Dict[str, np.ndarray], device) -> Dict[str, torch.Tensor]:
@@ -102,6 +108,41 @@ def _kahan(total, comp, v):
     y = v - comp
     t = total + y
     return t, (t - total) - y
+
+
+# XLA's CPU backend rewrites the reduce_window that `jnp.cumsum` lowers
+# to (ReduceWindowRewriter) into blocks of this many elements
+XLA_SCAN_BASE = 16
+
+
+def _sequential_cumsum(x: torch.Tensor) -> torch.Tensor:
+    """Inclusive running sum along the last axis, one add at a time."""
+    out = torch.empty_like(x)
+    acc = torch.zeros_like(x[..., 0])
+    for i in range(x.shape[-1]):
+        acc = acc + x[..., i]
+        out[..., i] = acc
+    return out
+
+
+def xla_cumsum(x: torch.Tensor) -> torch.Tensor:
+    """`jnp.cumsum(x, axis=-1)` as XLA's CPU backend adds it, bit for
+    bit: up to XLA_SCAN_BASE elements a running sum; past that the axis
+    is zero-padded to blocks of XLA_SCAN_BASE, each block gets its own
+    running sum, and each element then adds the running sum of the
+    totals of the blocks before its own (an exclusive scan that is
+    itself this function's order, for more than XLA_SCAN_BASE blocks)."""
+    n = x.shape[-1]
+    base = XLA_SCAN_BASE
+    if n <= base:
+        return _sequential_cumsum(x)
+    nb = -(-n // base)
+    xp = torch.nn.functional.pad(x, (0, nb * base - n))
+    within = _sequential_cumsum(xp.reshape(*x.shape[:-1], nb, base))
+    before = torch.nn.functional.pad(
+        xla_cumsum(within[..., -1])[..., :-1], (1, 0))
+    return (within + before[..., None]).reshape(
+        *x.shape[:-1], nb * base)[..., :n]
 
 
 def split_scan_plain(hist: torch.Tensor, sums: torch.Tensor,
@@ -168,19 +209,22 @@ def split_scan_plain(hist: torch.Tensor, sums: torch.Tensor,
     used_bin = nb - 1 + (mt == MISSING_NONE).long()
 
     # the inclusive scans, bin by bin as the kernel carries them
-    kg = torch.zeros((c_cnt, f_cnt), dtype=dt, device=dev)
-    kh, cg, ch, cc = (torch.zeros_like(kg) for _ in range(4))
-    scans = []
     t_all = torch.arange(fb, device=dev).view(1, 1, fb)
     zero_all = ((skip_default.unsqueeze(-1) & (dbin.unsqueeze(-1) == t_all))
                 | (use_na.unsqueeze(-1) & (nan_bin.unsqueeze(-1) == t_all)))
     adj = torch.where(zero_all.unsqueeze(-1), zero, fh)        # [C,F,fb,3]
-    for t in range(fb):
-        cg, kg = _kahan(cg, kg, adj[:, :, t, 0])
-        ch, kh = _kahan(ch, kh, adj[:, :, t, 1])
-        cc = cc + adj[:, :, t, 2]
-        scans.append(torch.stack([cg, ch, cc], dim=-1))
-    scan = torch.stack(scans, dim=2)                          # [C,F,fb,3]
+    if params.xla_scan_order:
+        scan = xla_cumsum(adj.transpose(2, 3)).transpose(2, 3)
+    else:
+        kg = torch.zeros((c_cnt, f_cnt), dtype=dt, device=dev)
+        kh, cg, ch, cc = (torch.zeros_like(kg) for _ in range(4))
+        scans = []
+        for t in range(fb):
+            cg, kg = _kahan(cg, kg, adj[:, :, t, 0])
+            ch, kh = _kahan(ch, kh, adj[:, :, t, 1])
+            cc = cc + adj[:, :, t, 2]
+            scans.append(torch.stack([cg, ch, cc], dim=-1))
+        scan = torch.stack(scans, dim=2)                      # [C,F,fb,3]
 
     # every threshold of every variant at once (elementwise, so the same
     # bits as the kernel's per-threshold evaluation)
@@ -290,6 +334,10 @@ def split_scan(hist: torch.Tensor, sums: torch.Tensor, depth: torch.Tensor,
                             "and a uint8 mask")
     if any(not t.is_contiguous() for t in tensors):
         raise LightGBMError("split_scan takes contiguous tensors")
+    if params.xla_scan_order and feature_bins > XLA_SCAN_BASE ** 2:
+        raise LightGBMError("split_scan: the XLA scan order takes at most "
+                            "%d bins a feature (got %d)"
+                            % (XLA_SCAN_BASE ** 2, feature_bins))
     lib = _build.load_library("split")
     dev = hist.device
     if out is None:
@@ -308,7 +356,7 @@ def split_scan(hist: torch.Tensor, sums: torch.Tensor, depth: torch.Tensor,
             float(params.lambda_l2), float(params.min_gain_to_split),
             int(params.min_data_in_leaf),
             float(params.min_sum_hessian_in_leaf), int(params.max_depth),
-            p(feat_gain.data_ptr()), p(out_f.data_ptr()),
+            int(params.xla_scan_order), p(feat_gain.data_ptr()), p(out_f.data_ptr()),
             p(out_i.data_ptr()), p(stream))
     if rc != 0:
         raise LightGBMError("split_scan launch failed: CUDA error %d (%s)"

@@ -14,7 +14,9 @@ row padding (XLA compiles one program per input shape; a CUDA kernel
 takes any row count), a compile single-flight and a compile cache (there
 is one kernel build per process, under its own lock in ops/_build.py),
 and the quantized layouts (`tpu_predict_quantize` is refused until
-their kernels are ported).
+their kernels are ported; for linear forests with the JAX package's
+own refusal). Linear forests stack and serve like constant ones: the
+stack carries each leaf's coefficients and feature columns.
 """
 from __future__ import annotations
 

@@ -180,16 +180,30 @@ class Tree:
             dt |= {MISSING_NONE: 0, MISSING_ZERO: 1 << 2,
                    MISSING_NAN: 2 << 2}[mapper.missing_type]
             t.decision_type[i] = dt
+        t._take_linear(state, dataset, nl)
         return t
+
+    def _take_linear(self, state, dataset, nl: int) -> None:
+        """Adopt the linear-leaf tables of a grower state, mapping the
+        inner feature slots to real columns (lightgbm_tpu/tree.py:
+        191-203); a constant-leaf state has no `leaf_coeff`."""
+        coeff = getattr(state, "leaf_coeff", None)
+        if coeff is None:
+            return
+        inner = np.asarray(state.leaf_features_inner)[:nl].astype(np.int32)
+        self.leaf_coeff = np.asarray(coeff)[:nl].astype(np.float64)
+        self.leaf_features_inner = inner
+        self.leaf_features = np.asarray(
+            [[dataset.real_feature_index(int(j)) if j >= 0 else -1
+              for j in row] for row in inner], np.int32).reshape(inner.shape)
 
     def attach_bin_metadata(self, dataset) -> None:
         """Rebuild the bin-space walk fields from a Dataset's BinMappers
         for a tree loaded from reference model text (raw thresholds
         only; lightgbm_tpu/tree.py:207). The bin threshold is the bin of
-        the raw threshold, matching `left = value <= threshold`."""
-        if self.is_linear:
-            log.fatal("linear_tree models are not ported to "
-                      "lightgbm_tpu_torch yet")
+        the raw threshold, matching `left = value <= threshold`. Linear
+        leaves' features are remapped to the dataset's inner space
+        (lightgbm_tpu/tree.py:253-267)."""
         inner_of = {real: inner for inner, real
                     in enumerate(dataset.used_features)}
         inner_sets = {}
@@ -228,6 +242,17 @@ class Tree:
             self.cat_boundaries_inner = np.concatenate(
                 [[0], np.cumsum([len(w) for w in sets])]).astype(np.int32)
             self.cat_threshold_inner = np.concatenate(sets)
+        if self.is_linear:
+            remap = np.full(self.leaf_features.shape, -1, np.int32)
+            for (r, c), real in np.ndenumerate(self.leaf_features):
+                if real < 0:
+                    continue
+                if int(real) not in inner_of:
+                    log.fatal("Loaded linear_tree model regresses on "
+                              "feature %d which is trivial/absent in "
+                              "the dataset" % int(real))
+                remap[r, c] = inner_of[int(real)]
+            self.leaf_features_inner = remap
         self.has_bin_metadata = True
 
     def apply_shrinkage(self, rate: float) -> None:

@@ -6,7 +6,9 @@ predicts on the CPU, trains a small model through every training
 module (dataset, ingest, binning, EFB, objectives, metrics, callbacks,
 the grower and kernels H, S, R and W in their plain versions), and a
 small ranker through the ranking modules (query groups, NDCG and MAP,
-kernel L's plain version, the scikit-learn wrappers); an AST scan finds
+kernel L's plain version, the scikit-learn wrappers), and a small
+linear-tree model through the linear modules (kernels LF, LS, LA and
+LM's plain versions, rollback); an AST scan finds
 no such import in the package or in chip_smoke.py.
 """
 import ast
@@ -70,10 +72,24 @@ _CHILD = textwrap.dedent("""
     sk = lgb.LGBMRanker(n_estimators=2, num_leaves=7, device="cpu").fit(
         xr[:400], yr[:400], group=[50] * 8)
     from lightgbm_tpu_torch.convert import dataset_from_numpy
+    linear = lgb.train({"objective": "regression", "num_leaves": 7,
+                        "linear_tree": True, "linear_lambda": 0.01,
+                        "tpu_hist_quantize": "int8", "verbose": -1},
+                       lgb.Dataset(x[:300], x[:300, 0]), 3,
+                       valid_sets=[lgb.Dataset(x[:300], x[:300, 0]).
+                                   create_valid(x[300:], x[300:, 0])],
+                       verbose_eval=False, device="cpu")
+    linear.rollback_one_iter()
+    import torch
+    from lightgbm_tpu_torch.linear import leaf_feature_moments
+    moments = leaf_feature_moments(
+        torch.zeros((8, 2), dtype=torch.uint8), torch.ones(8, 2),
+        torch.ones(8, 3), torch.zeros(8, dtype=torch.int32), [0], 4)
     modules = ["lightgbm_tpu_torch." + m for m in (
         "engine", "callback", "metrics", "dataset", "efb", "binning",
         "ingest.build", "learner.grow", "ops.histogram", "ops.split",
-        "ops.route", "ops.rank", "objectives", "sklearn", "convert")]
+        "ops.route", "ops.rank", "ops.linear", "linear.solver",
+        "linear.stats", "objectives", "sklearn", "convert")]
     print(json.dumps({"pred": [float(v) for v in pred],
                       "leaf_shape": list(leaf.shape),
                       "round_trip": booster.model_to_string() == text,
@@ -85,6 +101,11 @@ _CHILD = textwrap.dedent("""
                           served.predict(xr[400:]),
                           ranker.predict(xr[400:]))),
                       "sk_trees": sk.booster_.num_trees(),
+                      "linear": [linear.num_trees(),
+                                 all(t.is_linear
+                                     for t in linear._inner.models),
+                                 bool(np.isfinite(linear.predict(x)).all()),
+                                 float(moments[0, 0, 0])],
                       "modules": all(m in sys.modules for m in modules),
                       "loaded": sorted(m for m in sys.modules if blocked(m))}))
 """)
@@ -104,6 +125,7 @@ def test_port_runs_with_jax_and_the_jax_package_blocked():
     assert len(out["auc"]) == 3 and out["auc"][-1] > 0.8
     assert len(out["ndcg"]) == len(out["map"]) == 3
     assert out["ndcg"][-1] > 0.5 and out["served"] and out["sk_trees"] == 2
+    assert out["linear"] == [2, True, True, 8.0]
 
 
 def _imported_modules(path):

@@ -190,6 +190,9 @@ def test_unsupported_options_raise_named_errors(models, case, match):
         else:
             params = {"tpu_predict_quantize": case[len("quantize_"):]} \
                 if case.startswith("quantize") else {}
+            if case == "linear":
+                # linear models serve; the quantized layouts refuse them
+                params = {"tpu_predict_quantize": "int8"}
             model = {"linear": _linear_text,
                      "multiclass": _multiclass_text}.get(case, str)(text)
             booster = tlgb.Booster(params, model_str=model, device="cpu")
@@ -204,6 +207,25 @@ def test_linear_text_helper_makes_a_linear_model(models):
     text, _ = models["binary"]
     jax_booster = jlgb.Booster(model_str=_linear_text(text))
     assert jax_booster._inner.models[0].is_linear
+
+
+def test_a_linear_forest_serves_as_the_jax_package_does(models):
+    """A forest of one linear tree among constant ones (K1's plain
+    version adds the linear term where a tree has one), with NaN rows
+    that take the intercept alone."""
+    text, rows = models["binary"]
+    model = _linear_text(text)
+    rows = np.array(rows[:64], np.float64)
+    rows[::7, 0] = np.nan
+    port = tlgb.Booster(model_str=model, device="cpu")
+    jax_booster = jlgb.Booster(model_str=model)
+    assert port.model_to_string() == model
+    _close(port.predict(rows, raw_score=True),
+           jax_booster.predict(rows, raw_score=True), "raw")
+    _close(port.predict(rows), jax_booster.predict(rows), "sigmoid")
+    assert not np.array_equal(port.predict(rows, raw_score=True),
+                              tlgb.Booster(model_str=text, device="cpu")
+                              .predict(rows, raw_score=True))
 
 
 def test_no_device_means_cuda_and_never_falls_back(models, monkeypatch):

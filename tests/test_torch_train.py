@@ -172,15 +172,17 @@ def test_valid_set_holding_the_train_set_reports_a_train_metric():
 # histograms train now; with what is still refused they raise by the
 # refused thing's name
 REFUSED = [
-    ({"linear_tree": True, "bagging_fraction": 0.5, "bagging_freq": 1},
-     "linear_tree", "bagging"),
+    ({"linear_tree": True, "boosting": "rf", "bagging_fraction": 0.5,
+      "bagging_freq": 1}, "linear_tree supports boosting=gbdt/goss",
+     "bagging"),
     ({"boosting": "goss"}, "goss", "goss"),
     ({"boosting": "dart"}, "dart", "dart"),
     ({"boosting": "rf", "bagging_fraction": 0.5, "bagging_freq": 1}, "rf",
      "rf"),
     ({"boosting": "goss", "tpu_hist_quantize": "int8"}, "goss",
      "tpu_hist_quantize"),
-    ({"linear_tree": True}, "linear_tree", "linear_tree"),
+    ({"linear_tree": True, "boosting": "dart"}, "linear_tree",
+     "linear_tree"),
     ({"objective": "multiclass", "num_class": 3}, "multiclass",
      "multiclass"),
     ({"tree_learner": "data"}, "tree_learner", "tree_learner"),
