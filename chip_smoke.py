@@ -89,7 +89,8 @@ Phases, any failure raises and the script exits non-zero:
 12. training times: seconds per boosting round (median of rounds 2-10)
     and million row-iterations per second as bench.py reports them; per
     kernel its device time per call (torch.profiler, which leaves out the
-    Python wrapper's host time), launches per tree, the plain version's
+    Python wrapper's host time; CUDA events around the call when the
+    profiler lists other than the calls' kernels), launches per tree, the plain version's
     CUDA-event ms and the bound, and for H the torch.bincount library
     time, every timing after 0.3 s of back-to-back calls that take the
     card off its idle clocks (printed from nvidia-smi); the device's idle
@@ -109,7 +110,10 @@ Phases, any failure raises and the script exits non-zero:
     round-10 binary gradients, a constant-hessian L2 vector and a bag
     mask; HQ exactly at the root (all rows, and bagged) and on the root
     split's smaller child as a row list; parent == left + right in int32;
-    each kernel launched twice repeating its bits;
+    S in XLA's cumsum order (the order quantized growth scans in) with
+    the int8 grower's params on the dequantized root and on its two
+    children, bitwise against its plain version; each kernel launched
+    twice repeating its bits;
 15. the card against the CPU at 131,072 rows, 63 leaves and 5 rounds for
     int8, int16, int8 + bagging and f32 + bagging: the same tree
     structure, leaf values within 1e-5 relative, valid AUC within 2e-3;
@@ -139,15 +143,18 @@ Phases, any failure raises and the script exits non-zero:
     and on a batch with a singular, an under-populated and a padded-slot
     leaf at linear_lambda 0; LA bitwise on 2,000,000 rows with NaN and
     inf rows; K1 on the trained linear forest bitwise on 262,144 rows; W's
-    leaf mode equal; LM at the root and on a row list within 1e-5 * max(1,
-    sum of |terms|) of the plain version and an f64 oracle, its bin-summed
-    sum w g x equal to LF's b; each launched twice repeating its bits;
+    leaf mode equal; LM as the main path calls it (leaf_feature_moments
+    over the last tree's 255 leaf ids and the trained model's gradients)
+    and on the first tree's leaves, all four channels per bin within
+    1e-5 * max(1, sum of |terms|) of the plain version and an f64
+    oracle, the bin-summed sum w g x of the first tree's largest leaf
+    equal to LF's b; each launched twice repeating its bits;
 19. the card against the CPU at 131,072 rows, 63 leaves and 5 rounds,
     linear f32 and linear int8: the same tree structure and leaf
     features, leaf values and coefficients within 1e-5 relative, valid
     AUC within 2e-3;
 20. times: each new kernel's device time (torch.profiler; CUDA events
-    for LS and K1), its plain version, bound and library yardstick
+    for LS and K1; LM on the main path's call), its plain version, bound and library yardstick
     (index_add_ for LF, torch.linalg.solve for LS, torch.bincount x4 for
     LM); seconds per linear round against phase 12's constant round; one
     profiled linear round; the BENCH_SHAPE=linear gate (bench.py:1562-
@@ -321,13 +328,17 @@ def where_time_goes(booster, rows, name, card):
 
 # ---------------------------------------------------------------------
 # training (phases 9-12)
-def device_ms(fn, names, reps=REPS, required=True):
+def device_ms(fn, names, reps=REPS):
     """Device time of one fn() call: torch.profiler (CUPTI) over `reps`
-    calls after a warm-up, summing the device events whose names contain
-    one of `names` (the kernel's launches and copies), divided by reps.
-    Unlike CUDA events around the call, this leaves out the Python
-    wrapper's host time, which exceeds a small kernel's own. None when
-    not `required` and the profiler listed no such event."""
+    calls after a warm-up. Each of `names` names one device event of a
+    call (a kernel or a copy); the time is the sum over them of the mean
+    length of that event's listings. Unlike CUDA events around the call,
+    this leaves out the Python wrapper's host time, which exceeds a small
+    kernel's own. The profiler leaves some events out of some runs; a
+    mean over those it listed does not count the others as zero, and a
+    line says how many it listed. When it lists an event none or more
+    than `reps` times, the time is the median of CUDA events around the
+    call instead, and a line says so."""
     from torch.profiler import ProfilerActivity, profile
     spin_up(fn)
     with profile(activities=[ProfilerActivity.CPU,
@@ -335,12 +346,19 @@ def device_ms(fn, names, reps=REPS, required=True):
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
-    total = sum(e.time_range.elapsed_us() for e in device_busy(prof)[0]
-                if any(n in e.name for n in names))
-    if not required and total == 0:
-        return None
-    check(total > 0, "the profiler saw no device time for %s" % (names,))
-    return total / reps / 1e3
+    events = device_busy(prof)[0]
+    listed = {n: [e.time_range.elapsed_us() for e in events if n in e.name]
+              for n in names}
+    counts = "/".join("%s %d" % (n, len(v)) for n, v in listed.items())
+    if not all(0 < len(v) <= reps for v in listed.values()):
+        ms = median_ms(fn)
+        print("device time: the profiler listed %s of %d calls; CUDA events "
+              "around the call instead, %.4f ms" % (counts, reps, ms))
+        return ms
+    if any(len(v) < reps for v in listed.values()):
+        print("device time: the profiler listed %s of %d calls; the mean of "
+              "the listed" % (counts, reps))
+    return sum(float(np.mean(v)) for v in listed.values()) / 1e3
 
 
 def bound(bytes_moved, ops=0.0):
@@ -968,11 +986,36 @@ def quantized(name, card, dev, ctx):
           and torch.equal(histogram.subtract(hq["root"], hq["left"]),
                           hq["right"]),
           "HQ: parent != left + right in int32")
+    # S in XLA's cumsum order (quantized growth scans dequantized bins) on
+    # the dequantized root and its children, with the int8 grower's
+    # params, against its repeat and plain version
+    grower8 = gb8._grower
+    prm8 = grower8.params
+    check(prm8.xla_scan_order, "int8: the grower does not scan in XLA's "
+          "order")
+    mask8 = torch.ones(grower8.fmeta_dev["num_bin"].shape[0],
+                       dtype=torch.uint8, device=dev)
+    for label, parts, depth in (("root", ("root",), 0),
+                                ("children", ("left", "right"), 1)):
+        hists = torch.stack([hq[p] for p in parts])
+        tot = split.dequantize_hist(hists[:, 0].sum(1, dtype=torch.int32),
+                                    q10.qscale).contiguous()
+        deq = split.dequantize_hist(hists, q10.qscale).contiguous()
+        dep = torch.full((len(parts),), depth, dtype=torch.int32,
+                         device=dev)
+        args = (deq, tot, dep, grower8.fmeta_dev, mask8, prm8,
+                grower8.feature_bins)
+        got = split.split_scan(*args)
+        for again in (split.split_scan(*args), split.split_scan_plain(*args)):
+            check(all(torch.equal(u, v) for u, v in zip(got, again)),
+                  "S in XLA's order (%s, int8): not bitwise equal to its "
+                  "repeat and plain version" % label)
     print("M, Q, HQ vs plain [%d rows]: M bitwise at refresh 0, 1 and %d; Q "
           "codes, w01 and scales bitwise on the round-1 and round-%d "
           "gradients, a constant-hessian L2 vector and a bag mask; HQ equal "
           "at the root (all rows and bagged) and on a %d-row list segment; "
-          "parent == left + right in int32; every kernel repeated its bits"
+          "parent == left + right in int32; S in XLA's order bitwise on the "
+          "dequantized root and children; every kernel repeated its bits"
           % (n, TRAIN_ROUNDS - 1, TRAIN_ROUNDS, small[1]))
 
     # --------------------------------------------------------------- 15
@@ -1072,35 +1115,34 @@ def quantized(name, card, dev, ctx):
                 binned, q10.codes, q10.w01, nb), reps=5), hq_root_bound,
             median_ms(library, reps=5))}
     del flat, chans, w01
-    # the same calls' device time (torch.profiler, as phase 12 times H),
-    # printed only: the profiler leaves some kernels out of some runs
+    # the same calls' device time (device_ms, as phase 12 times H),
+    # printed only
     device = {
         "bagging_mask": device_ms(lambda: rng.bagging_mask(key, 0.8, mask),
-                                  ("bag_kernel",), required=False),
+                                  ("bag_kernel",)),
         "quantize_gradients": device_ms(
             lambda: histogram.quantize_gradients(g10, h10, ones, qmax=qmax,
                                                  key_g=kg, key_h=kh),
-            ("absmax_kernel", "quantize_kernel", "Memset"), required=False),
+            ("absmax_kernel", "quantize_kernel", "Memset")),
         "leaf_histogram_i32": device_ms(
             lambda: histogram.leaf_histogram_i32(binned, q10.codes, q10.w01,
                                                  nb),
-            ("hist_i32_kernel", "Memset"), required=False)}
+            ("hist_i32_kernel", "Memset"))}
     for k, (ms, plain_ms, (b_ms, b_by), lib_ms) in times.items():
         print("time [%s | %s]: %s %.4f ms (CUDA events around the call; "
-              "device time %s), plain %.3f ms, bound %.5f ms (%s)%s"
-              % (name, card, k, ms, "not listed" if device[k] is None
-                 else "%.4f ms" % device[k], plain_ms, b_ms, b_by,
+              "device time %.4f ms), plain %.3f ms, bound %.5f ms (%s)%s"
+              % (name, card, k, ms, device[k], plain_ms, b_ms, b_by,
                  "" if lib_ms is None else
                  ", torch.bincount x3 %.4f ms" % lib_ms))
     list_dev = device_ms(lambda: histogram.leaf_histogram_i32(
         binned, q10.codes, q10.w01, nb, **rows_arg),
-        ("hist_i32_kernel", "Memset"), required=False)
+        ("hist_i32_kernel", "Memset"))
     print("time [%s | %s]: leaf_histogram_i32 row list (%d of %d rows) "
-          "%.4f ms (device time %s), plain %.3f ms, bound %.5f ms (%s)"
+          "%.4f ms (device time %.4f ms), plain %.3f ms, bound %.5f ms (%s)"
           % (name, card, cnt, n, median_ms(
               lambda: histogram.leaf_histogram_i32(
                   binned, q10.codes, q10.w01, nb, **rows_arg)),
-             "not listed" if list_dev is None else "%.4f ms" % list_dev,
+             list_dev,
              median_ms(lambda: histogram.leaf_histogram_i32_plain(
                  binned, q10.codes, q10.w01, nb, **rows_arg), reps=5),
              *hq_list_bound))
@@ -1174,25 +1216,29 @@ def linear_oracle(x, grad, hess, weight, perm, begin, rows, feats):
             b_abs, cnt)
 
 
-def moment_oracle(binned, x, w3, num_bins, rows=None, n_rows=None):
-    """LM's per-bin moments and the sums of their terms' absolute values,
-    in f64 on the card."""
-    sel = torch.arange(binned.shape[0], device=binned.device) \
-        if rows is None else rows[:n_rows].long()
-    f_cnt = binned.shape[1]
+def moment_oracle(binned, x, w3, num_bins, leaf_id, ids):
+    """LM's per-bin moments of the rows of each leaf id and the sums of
+    their terms' absolute values, in f64 on the card."""
+    match = leaf_id.long()[:, None] == ids.long()[None, :]
+    hit = match.any(dim=1)
+    sel = torch.nonzero(hit)[:, 0]
+    slot = match[hit].int().argmax(dim=1)
+    del match, hit
+    f_cnt, c_cnt = binned.shape[1], ids.shape[0]
     xv = x[sel].double()
     xv = torch.where(torch.isfinite(xv), xv, torch.zeros_like(xv))
     w = w3[sel].double()
     terms = torch.stack([xv * w[:, 2:3], xv * xv * w[:, 2:3],
                          xv * w[:, 0:1], xv * w[:, 1:2]], -1)
-    flat = (torch.arange(f_cnt, device=binned.device)[None] * num_bins
+    flat = ((slot[:, None] * f_cnt
+             + torch.arange(f_cnt, device=binned.device)[None]) * num_bins
             + binned[sel].long()).reshape(-1)
     out = []
     for t in (terms, terms.abs()):
-        acc = torch.zeros((f_cnt * num_bins, 4), dtype=torch.float64,
+        acc = torch.zeros((c_cnt * f_cnt * num_bins, 4), dtype=torch.float64,
                           device=binned.device)
         out.append(acc.index_add_(0, flat, t.reshape(-1, 4)).view(
-            1, f_cnt, num_bins, 4))
+            c_cnt, f_cnt, num_bins, 4))
     return out
 
 
@@ -1380,13 +1426,14 @@ def linear(name, card, dev, ctx):
     gbt = booster._inner
     last = gbt.models[-1]
     leaf_of = predict.tree_leaf_walk_binned(
-        predict.binned_tree(last, dev), gbt._binned)
+        predict.binned_tree(last, dev), gbt._binned).to(torch.int32)
     g_l, h_l = gbt.objective.get_gradients(gbt._score[0])
     w_l = torch.stack([g_l, h_l, torch.ones_like(g_l)], 1).contiguous()
+    del g_l, h_l
+    lm_ids = list(range(last.num_leaves))
     histogram.leaf_moments.launches = 0
     moments = leaf_feature_moments(gbt._binned, gbt._raw, w_l, leaf_of,
-                                   list(range(last.num_leaves)),
-                                   gbt._grower.num_bins)
+                                   lm_ids, gbt._grower.num_bins)
     lm_launches = histogram.leaf_moments.launches
     check(lm_launches > 0, "LM never launched on the trained model")
     check(tuple(moments.shape) == (last.num_leaves, FEATURES, 4)
@@ -1400,7 +1447,6 @@ def linear(name, card, dev, ctx):
     print("linear diagnostics: leaf_feature_moments of the last tree's %d "
           "leaves x %d features over %d rows (%d LM launches)"
           % (last.num_leaves, FEATURES, TRAIN_ROWS, lm_launches))
-    del leaf_of, w_l, g_l, h_l, moments
     int8 = dict(LINEAR_PARAMS, tpu_hist_quantize="int8")
     b8, q_launches, med8 = path("linear int8", int8)
     check(q_launches["quantize_gradients"] == TRAIN_ROUNDS + 1
@@ -1503,22 +1549,35 @@ def linear(name, card, dev, ctx):
           "W leaf mode: not equal to its repeat and plain")
     errs["tree_leaf_walk_binned"] = 0
     binned, nb = gb._binned, gb._grower.num_bins
-    big = int(np.argmax(st.leaf_rows))
-    rows_arg = {"rows": st.perm[int(st.leaf_begin[big]):],
-                "n_rows": int(st.leaf_rows[big])}
+    # LM as the main path called it (the last tree's leaf ids, the trained
+    # model's gradients), then on the first tree's leaves, whose largest
+    # one's bin-summed sum w g x is LF's b
+    lm_args = {
+        "main path: last tree, trained gradients": (
+            w_l, leaf_of, torch.tensor(lm_ids, dtype=torch.int32,
+                                       device=dev)),
+        "first tree": (w3, st.leaf_id, torch.arange(
+            st.num_leaves_used, dtype=torch.int32, device=dev))}
     lm_err = 0.0
-    for label, kw in (("root", {}), ("row list", rows_arg)):
-        got = histogram.leaf_moments(binned, raw_x, w3, nb, **kw)
-        check(torch.equal(got, histogram.leaf_moments(binned, raw_x, w3,
-                                                      nb, **kw)),
+    for label, (w, lid, ids) in lm_args.items():
+        got = histogram.leaf_moments(binned, raw_x, w, nb, lid, ids)
+        check(torch.equal(got, histogram.leaf_moments(binned, raw_x, w, nb,
+                                                      lid, ids)),
               "LM (%s): a second launch gave other bits" % label)
-        ref, scale = moment_oracle(binned, raw_x, w3, nb, **kw)
+        ref, scale = moment_oracle(binned, raw_x, w, nb, lid, ids)
         lm_err = max(lm_err, within(got, histogram.leaf_moments_plain(
-            binned, raw_x, w3, nb, **kw), scale, "LM (%s) vs plain" % label))
+            binned, raw_x, w, nb, lid, ids), scale, "LM (%s) vs plain"
+            % label))
         within(got, ref, scale, "LM (%s) vs f64 oracle" % label)
+        if label.startswith("main path"):
+            check(torch.equal(moments, got.sum(dim=2)),
+                  "leaf_feature_moments is not LM summed over bins")
+            within(moments, ref.sum(dim=2), scale.sum(dim=2),
+                   "leaf_feature_moments vs f64 oracle")
+        del ref, scale
     errs["leaf_moments"] = lm_err
-    # LM's bin-summed sum w g x over the leaf is LF's b of each feature
-    sums = got.sum(dim=2)[0]
+    big = int(np.argmax(st.leaf_rows))
+    sums = got.sum(dim=2)[big]
     b_scale = b_abs[big]
     for j in range(k):
         f = int(feats[big, j])
@@ -1529,10 +1588,11 @@ def linear(name, card, dev, ctx):
           "%.3g (counts exact), LS fitted exact (singular, under-populated "
           "and padded leaves fall back or pin as plain), LA bitwise with "
           "NaN/inf rows, K1 linear bitwise on %d rows, W leaf mode equal, "
-          "LM within %.3g at the root and on a %d-row list and equal to LF's "
-          "b; every kernel repeated its bits"
+          "LM's four channels within %.3g on the main path's call (%d leaf "
+          "ids) and on the first tree's leaves, leaf_feature_moments its sum "
+          "over bins, equal to LF's b; every kernel repeated its bits"
           % (TRAIN_ROWS, st.num_leaves_used, k, errs["linear_normal_eq"],
-             VALID_ROWS, lm_err, rows_arg["n_rows"]))
+             VALID_ROWS, lm_err, len(lm_ids)))
 
     # --------------------------------------------------------------- 19
     xs, ys = x[:CPU_ROWS], y[:CPU_ROWS]
@@ -1603,33 +1663,35 @@ def linear(name, card, dev, ctx):
         median_ms(lambda: lin.linear_addend(*la_args)),
         median_ms(lambda: lin.linear_addend_plain(*la_args), reps=5),
         bound(n * (12 + 4 * k), n * (3.0 * k + 4)), None)
-    # LM at the root: a row's F bins and F values, 12 bytes of channels
-    flat = ((torch.arange(nf, device=dev) * nb)[None]
+    # LM as the main path calls it: leaf_feature_moments over the last
+    # tree's leaf ids; a row's F bins and F values, 12 bytes of channels
+    # and its leaf id, and the [C, F, B, 4] output. Its yardstick adds the
+    # four channels into (leaf, feature, bin) with torch.bincount
+    c_lm = len(lm_ids)
+    flat = (((leaf_of.long() * nf)[:, None]
+             + torch.arange(nf, device=dev)[None]) * nb
             + binned.long()).reshape(-1)
     xw = torch.where(torch.isfinite(raw_x), raw_x, torch.zeros_like(raw_x))
-    chans = [(xw * w3[:, c, None]).reshape(-1) for c in (2, 0, 1)]
+    chans = [(xw * w_l[:, c, None]).reshape(-1) for c in (2, 0, 1)]
     chans.insert(1, (xw * xw).reshape(-1))
 
     def lm_library():
         for c in chans:
-            torch.bincount(flat, weights=c, minlength=nf * nb)
-    lm_names = ("moment_tile_kernel", "moment_reduce_kernel")
+            torch.bincount(flat, weights=c, minlength=c_lm * nf * nb)
+
+    def lm_call():
+        return leaf_feature_moments(binned, raw_x, w_l, leaf_of, lm_ids, nb)
+    ids_dev = torch.tensor(lm_ids, dtype=torch.int32, device=dev)
     times["leaf_moments"] = (
-        device_ms(lambda: histogram.leaf_moments(binned, raw_x, w3, nb),
-                  lm_names),
-        median_ms(lambda: histogram.leaf_moments(binned, raw_x, w3, nb)),
-        median_ms(lambda: histogram.leaf_moments_plain(binned, raw_x, w3,
-                                                       nb), reps=5),
-        bound(n * (5 * nf + 12) + nf * nb * 16, 8.0 * n * nf),
+        device_ms(lm_call, ("moment_count_kernel", "moment_scan_kernel",
+                            "moment_scatter_kernel", "moment_tile_kernel",
+                            "moment_reduce_kernel")),
+        median_ms(lm_call),
+        median_ms(lambda: histogram.leaf_moments_plain(
+            binned, raw_x, w_l, nb, leaf_of, ids_dev), reps=5),
+        bound(n * (5 * nf + 16) + c_lm * nf * nb * 16, 8.0 * n * nf),
         median_ms(lm_library, reps=5))
     del flat, xw, chans
-    list_ms = device_ms(lambda: histogram.leaf_moments(
-        binned, raw_x, w3, nb, **rows_arg), lm_names)
-    cnt = rows_arg["n_rows"]
-    print("time [%s | %s]: leaf_moments row list (%d of %d rows) %.4f ms "
-          "device time, bound %.5f ms (%s)" % (
-              name, card, cnt, n, list_ms,
-              *bound(cnt * (4 + 5 * nf + 12) + nf * nb * 16, 8.0 * cnt * nf)))
     # K1 on the linear forest: node visits, and k loads and multiply-adds
     # a (row, tree)
     leaf = predict.forest_leaf_walk_plain(forest, xvd)
@@ -1680,7 +1742,7 @@ def linear(name, card, dev, ctx):
         "linear_normal_eq": "lightgbm_tpu/linear/solver.py:54",
         "linear_solve": "lightgbm_tpu/linear/solver.py:54",
         "linear_addend": "lightgbm_tpu/linear/solver.py:143",
-        "leaf_moments": "lightgbm_tpu/ops/histogram.py:622",
+        "leaf_moments": "lightgbm_tpu/ops/histogram.py:679",
         "forest_value_walk_linear": "lightgbm_tpu/ops/predict.py:163",
         "tree_leaf_walk_binned": "lightgbm_tpu/ops/predict.py:87"}
     sources = {

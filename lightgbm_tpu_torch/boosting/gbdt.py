@@ -164,8 +164,9 @@ class GBDT:
     def init(self, train_data, objective: Optional[ObjectiveFunction],
              metric_names=()) -> None:
         """Reference: GBDT::Init, gbdt.cpp:65-193
-        (lightgbm_tpu/boosting/gbdt.py:481)."""
-        refuse_unported_training(self.config)
+        (lightgbm_tpu/boosting/gbdt.py:481); Booster has refused what is
+        not ported (refuse_unported_training) before building the
+        objective."""
         if objective is None:
             log.fatal("training with a custom objective (objective=none, "
                       "fobj) is not ported to lightgbm_tpu_torch yet")

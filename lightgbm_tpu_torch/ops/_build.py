@@ -84,9 +84,11 @@ LIBRARIES = {
         "lgbt_linear_addend": [_p, _i, _i] + [_p] * 4 + [_i, _f, _p, _p],
     }, _NO_FMA),
     "moments": ("moments.cu", {
-        "lgbt_moment_tiles": [_i, _i, _i, _i],
-        "lgbt_leaf_moments": [_p, _i, _p, _p, _p, _p, _p, _i, _i, _i, _p,
-                              _p, _p],
+        "lgbt_moment_sort_tiles": [_i, _i],
+        "lgbt_moment_tile_rows": [],
+        "lgbt_moment_sort": [_p, _i, _p, _p, _i, _i] + [_p] * 5,
+        "lgbt_leaf_moments": [_p, _i, _p, _p, _p, _p, _i, _p, _p, _i, _i,
+                              _p, _p, _p],
     }, _NO_FMA),
 }
 

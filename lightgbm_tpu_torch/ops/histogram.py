@@ -36,9 +36,11 @@ Quantized training (`tpu_hist_quantize=int8|int16`, the JAX section at
 
 Linear trees add kernel LM, `leaf_moments` (`csrc/moments.cu`): per
 (leaf id, feature, bin) the raw-value moments (sum x*m, sum x^2*m, sum
-x*g*m, sum x*h*m) of the JAX package's `leaf_moments` (:622),
-`batched_leaves_moments` (:679) and `gathered_leaves_moments` (:726),
-which `linear/stats.py` sums over bins.
+x*g*m, sum x*h*m) of the rows whose leaf id is one of C ids: the JAX
+package's `batched_leaves_moments` (:679), the mode `linear/stats.py`
+runs and sums over bins. Its all-rows `leaf_moments` (:622) is one id
+over a constant leaf_id; its row-list `gathered_leaves_moments` (:726)
+has no caller there.
 """
 from __future__ import annotations
 
@@ -46,6 +48,7 @@ import ctypes
 import threading
 from typing import NamedTuple, Optional
 
+import numpy as np
 import torch
 
 from ..log import LightGBMError
@@ -389,24 +392,17 @@ leaf_histogram_i32.launches = 0
 
 def leaf_moments_plain(binned: torch.Tensor, x: torch.Tensor,
                        w3: torch.Tensor, num_bins: int,
-                       rows: Optional[torch.Tensor] = None,
-                       n_rows: Optional[int] = None,
-                       leaf_id: Optional[torch.Tensor] = None,
-                       ids: Optional[torch.Tensor] = None) -> torch.Tensor:
+                       leaf_id: torch.Tensor,
+                       ids: torch.Tensor) -> torch.Tensor:
     """[C, F, B, 4] by an f64 index_add over the flattened (id, feature,
     bin) axis of the f32 terms (x*m, (x*x)*m, x*(g*m), x*(h*m)), rounded
     to f32 once."""
     f_cnt = binned.shape[1]
-    sel = rows[:n_rows].long() if rows is not None else \
-        torch.arange(binned.shape[0], device=binned.device)
-    c_cnt = 1 if ids is None else ids.shape[0]
-    if leaf_id is None:
-        slot = torch.zeros(sel.shape[0], dtype=torch.long,
-                           device=binned.device)
-    else:
-        match = leaf_id[sel].long()[:, None] == ids.long()[None, :]
-        hit = match.any(dim=1)
-        sel, slot = sel[hit], match[hit].int().argmax(dim=1)
+    c_cnt = ids.shape[0]
+    match = leaf_id.long()[:, None] == ids.long()[None, :]
+    hit = match.any(dim=1)
+    sel = torch.nonzero(hit)[:, 0]
+    slot = match[hit].int().argmax(dim=1)
     xv = x[sel]
     xv = torch.where(torch.isfinite(xv), xv, torch.zeros_like(xv))
     w = w3[sel]
@@ -423,36 +419,28 @@ def leaf_moments_plain(binned: torch.Tensor, x: torch.Tensor,
 
 
 def leaf_moments(binned: torch.Tensor, x: torch.Tensor, w3: torch.Tensor,
-                 num_bins: int, rows: Optional[torch.Tensor] = None,
-                 n_rows: Optional[int] = None,
-                 leaf_id: Optional[torch.Tensor] = None,
-                 ids: Optional[torch.Tensor] = None) -> torch.Tensor:
+                 num_bins: int, leaf_id: torch.Tensor,
+                 ids: torch.Tensor) -> torch.Tensor:
     """LM: the [C, F, B, 4] f32 moments (sum x*m, sum x^2*m, sum x*g*m,
-    sum x*h*m) per (leaf id, feature, bin) of the rows 0..N-1 or
-    rows[:n_rows], and with `leaf_id` [N] / `ids` [C] only of the rows
-    whose leaf id is ids[c] (C = 1 without them). binned [N, F] holds
-    per-feature bins and x [N, F] the raw values aligned with them (the
-    caller resolves EFB); w3 [N, 3] = (g*m, h*m, m); a non-finite x adds
-    nothing. Counterpart of lightgbm_tpu/ops/histogram.py leaf_moments
-    (:622), batched_leaves_moments (:679) and gathered_leaves_moments
-    (:726)."""
+    sum x*h*m) per (leaf id, feature, bin) of the rows whose leaf_id [N]
+    is ids[c]. binned [N, F] holds per-feature bins and x [N, F] the raw
+    values aligned with them (the caller resolves EFB); w3 [N, 3] =
+    (g*m, h*m, m); a non-finite x adds nothing; the ids are distinct.
+    All rows are one id over a constant leaf_id. Counterpart of lightgbm_tpu/ops/histogram.py
+    batched_leaves_moments (:679)."""
     n, f_cnt = binned.shape
     if x.shape != (n, f_cnt) or w3.shape != (n, 3) \
-            or (leaf_id is None) != (ids is None) \
-            or (leaf_id is not None and leaf_id.shape != (n,)):
+            or leaf_id.shape != (n,) or ids.dim() != 1:
         raise LightGBMError("leaf_moments takes binned and x [N, F], w3 "
-                            "[N, 3], and leaf_id [N] with ids [C] or "
-                            "neither")
-    if rows is not None and (n_rows is None or n_rows > rows.shape[0]):
-        raise LightGBMError("leaf_moments: a row list needs n_rows <= its "
-                            "length")
-    tensors = [t for t in (binned, x, w3, rows, leaf_id, ids)
-               if t is not None]
+                            "[N, 3], leaf_id [N] and ids [C]")
+    tensors = (binned, x, w3, leaf_id, ids)
     if any(t.device != binned.device for t in tensors):
         raise LightGBMError("leaf_moments: inputs on different devices")
+    ids_host = ids.cpu().numpy()
+    if len(np.unique(ids_host)) != len(ids_host):
+        raise LightGBMError("leaf_moments takes distinct ids")
     if binned.device.type == "cpu":
-        return leaf_moments_plain(binned, x, w3, num_bins, rows, n_rows,
-                                  leaf_id, ids)
+        return leaf_moments_plain(binned, x, w3, num_bins, leaf_id, ids)
     if binned.device.type != "cuda":
         raise LightGBMError("leaf_moments runs on cpu or cuda, not %s"
                             % binned.device)
@@ -460,37 +448,73 @@ def leaf_moments(binned: torch.Tensor, x: torch.Tensor, w3: torch.Tensor,
             or x.dtype != torch.float32 or w3.dtype != torch.float32:
         raise LightGBMError("the leaf_moments kernel takes uint8 bins (at "
                             "most 256), f32 x and f32 w3")
-    for t in tensors:
-        if not t.is_contiguous():
-            raise LightGBMError("leaf_moments takes contiguous tensors")
-    if any(t is not None and t.dtype != torch.int32
-           for t in (rows, leaf_id, ids)):
-        raise LightGBMError("leaf_moments takes int32 rows, leaf ids and "
-                            "ids")
-    cnt = binned.shape[0] if rows is None else int(n_rows)
-    c_cnt = 1 if ids is None else int(ids.shape[0])
+    if not all(t.is_contiguous() for t in tensors):
+        raise LightGBMError("leaf_moments takes contiguous tensors")
+    if leaf_id.dtype != torch.int32 or ids.dtype != torch.int32:
+        raise LightGBMError("leaf_moments takes int32 leaf ids and ids")
+    c_cnt = len(ids_host)
+    dev = binned.device
     lib = _build.load_library("moments")
-    tiles = lib.lgbt_moment_tiles(cnt, c_cnt, f_cnt, num_bins)
-    scratch = torch.empty(tiles * c_cnt * f_cnt * num_bins * 4,
-                          dtype=torch.float32, device=binned.device)
     out = torch.empty((c_cnt, f_cnt, num_bins, 4), dtype=torch.float32,
-                      device=binned.device)
-
-    def ptr(t):
-        return ctypes.c_void_p(None if t is None else t.data_ptr())
-
-    with torch.cuda.device(binned.device):
-        stream = torch.cuda.current_stream(binned.device).cuda_stream
-        rc = lib.lgbt_leaf_moments(
-            ptr(binned), f_cnt, ptr(x), ptr(w3), ptr(rows), ptr(leaf_id),
-            ptr(ids), cnt, c_cnt, num_bins, ptr(scratch), ptr(out),
-            ctypes.c_void_p(stream))
-    if rc != 0:
-        raise LightGBMError("leaf_moments launch failed: CUDA error %d (%s)"
-                            % (rc, lib.lgbt_error_string(rc).decode()))
+                      device=dev)
+    # the rows sorted by slot (the c with ids[c] == leaf_id[r]), then each
+    # slot's segment cut into tiles
+    begin = np.zeros(c_cnt + 1, np.int64)
+    order = torch.empty(max(n, 1), dtype=torch.int32, device=dev)
+    with torch.cuda.device(dev):
+        stream = ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream)
+        sort_t = lib.lgbt_moment_sort_tiles(n, c_cnt)
+        if sort_t and c_cnt:
+            by_id = np.argsort(ids_host, kind="stable")
+            keys = torch.from_numpy(np.concatenate(
+                [ids_host[by_id], by_id]).astype(np.int32)).to(dev)
+            work = torch.empty(n + c_cnt * sort_t + c_cnt + 1,
+                               dtype=torch.int32, device=dev)
+            starts = work[n + c_cnt * sort_t:]
+            _moments_ok(lib.lgbt_moment_sort(
+                _ptr(leaf_id), n, _ptr(keys), _ptr(keys[c_cnt:]), c_cnt,
+                sort_t, _ptr(work), _ptr(work[n:]), _ptr(starts),
+                _ptr(order), stream), lib)
+            begin = starts.cpu().numpy().astype(np.int64)
+        meta, n_tiles = segment_tiles(begin[:-1], np.diff(begin),
+                                      lib.lgbt_moment_tile_rows())
+        meta = torch.from_numpy(meta).to(dev)
+        part = torch.empty(max(n_tiles, 1) * f_cnt * num_bins * 4,
+                           dtype=torch.float32, device=dev)
+        _moments_ok(lib.lgbt_leaf_moments(
+            _ptr(binned), f_cnt, _ptr(x), _ptr(w3), _ptr(order), _ptr(meta),
+            n_tiles, _ptr(meta[3 * n_tiles:]),
+            _ptr(meta[3 * n_tiles + c_cnt:]), c_cnt, num_bins, _ptr(part),
+            _ptr(out), stream), lib)
     with _launch_lock:
         leaf_moments.launches += 1
     return out
+
+
+def segment_tiles(begin: np.ndarray, rows: np.ndarray, tile: int):
+    """Cut each of the C segments (begin[c], rows[c]) of a row sequence
+    into tiles of at most `tile` rows, segment by segment. Returns the
+    int32 array [(segment, first position, rows) per tile..., each
+    segment's first tile [C], its tile count [C]] and the tile count."""
+    rows = np.asarray(rows, np.int64)
+    count = (rows + tile - 1) // tile
+    first = np.concatenate([[0], np.cumsum(count)[:-1]]).astype(np.int64)
+    of = np.repeat(np.arange(len(rows)), count)
+    step = (np.arange(len(of)) - first[of]) * tile
+    tiles = np.stack([of, np.asarray(begin, np.int64)[of] + step,
+                      np.minimum(tile, rows[of] - step)], 1)
+    return (np.concatenate([tiles.reshape(-1), first, count]).astype(
+        np.int32), len(of))
+
+
+def _ptr(t: torch.Tensor) -> ctypes.c_void_p:
+    return ctypes.c_void_p(t.data_ptr())
+
+
+def _moments_ok(rc: int, lib) -> None:
+    if rc != 0:
+        raise LightGBMError("leaf_moments launch failed: CUDA error %d (%s)"
+                            % (rc, lib.lgbt_error_string(rc).decode()))
 
 
 leaf_moments.launches = 0

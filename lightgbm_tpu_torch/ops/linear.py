@@ -43,6 +43,7 @@ import torch
 
 from ..log import LightGBMError
 from . import _build
+from .histogram import segment_tiles
 
 _launch_lock = threading.Lock()
 _F32_TINY = float(np.finfo(np.float32).tiny)
@@ -192,17 +193,9 @@ def linear_normal_eq(x: torch.Tensor, grad: torch.Tensor,
     entries = d * (d + 1) // 2 + d + 1
     # each leaf's segment cut into tiles of `tile` rows, leaf by leaf:
     # (leaf, first position, rows) a tile, and each leaf's tile range
-    rows = np.asarray(leaf_rows, np.int64)
-    count = (rows + tile - 1) // tile
-    first = np.concatenate([[0], np.cumsum(count)[:-1]])
-    of = np.repeat(np.arange(num_leaves), count)
-    step = (np.arange(len(of)) - first[of]) * tile
-    tiles = np.stack([of, np.asarray(leaf_begin, np.int64)[of] + step,
-                      np.minimum(tile, rows[of] - step)], 1)
+    meta, n_tiles = segment_tiles(leaf_begin, leaf_rows, tile)
     dev = x.device
-    meta = torch.from_numpy(np.concatenate([
-        tiles.reshape(-1), first, count]).astype(np.int32)).to(dev)
-    n_tiles = len(of)
+    meta = torch.from_numpy(meta).to(dev)
     part = torch.empty(max(n_tiles, 1) * entries, dtype=torch.float64,
                        device=dev)
     a = torch.empty((num_leaves, d, d), dtype=torch.float32, device=dev)

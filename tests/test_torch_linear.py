@@ -246,7 +246,8 @@ def test_leaf_feature_moments_match_numpy_and_jax():
 
 
 def test_moments_row_list_equals_leaf_ids_and_b_of_the_solver():
-    """LM over a leaf's rows as a row list equals LM by leaf id, and its
+    """LM by leaf id over every leaf equals LM over one leaf's row list
+    (its rows taken out, one id over a constant leaf_id), and its
     bin-summed sum w g x is the solver's b entry of that feature."""
     x, g, h, w, lid, feats, const = problem(5)
     x = np.nan_to_num(x)
@@ -255,17 +256,51 @@ def test_moments_row_list_equals_leaf_ids_and_b_of_the_solver():
     w3 = torch.stack([t[1] * t[3], t[2] * t[3], t[3]], 1).contiguous()
     perm, begin, rows = linear.segments_of(t[4], L)
     leaf = 6
+    sel = perm[int(begin[leaf]):int(begin[leaf] + rows[leaf])].long()
     by_rows = histogram.leaf_moments(
-        torch.from_numpy(binned), t[0], w3, 32, rows=perm[int(begin[leaf]):],
-        n_rows=int(rows[leaf]))
+        torch.from_numpy(binned)[sel], t[0][sel], w3[sel], 32,
+        leaf_id=torch.zeros(len(sel), dtype=torch.int32),
+        ids=torch.zeros(1, dtype=torch.int32))
     by_id = histogram.leaf_moments(
         torch.from_numpy(binned), t[0], w3, 32, leaf_id=t[4],
-        ids=torch.tensor([leaf], dtype=torch.int32))
-    assert torch.equal(by_rows, by_id)
+        ids=torch.arange(L, dtype=torch.int32))
+    assert torch.equal(by_rows[0], by_id[leaf])
     _, b_sum, _ = linear.linear_normal_eq(t[0], t[1], t[2], t[3], perm,
                                           begin, rows, t[5])
-    sums = by_rows.sum(dim=2)[0]
+    sums = by_id.sum(dim=2)[leaf]
     for j in range(K):
         f = int(feats[leaf, j])
         assert abs(float(sums[f, 2] - b_sum[leaf, j])) <= 1e-5 * max(
             1.0, float(b_sum[leaf, j].abs()))
+
+
+def test_moments_refuse_repeated_ids_by_name():
+    """LM sorts the rows into one segment an id, so an id may appear
+    once."""
+    n = 16
+    binned = torch.zeros((n, 2), dtype=torch.uint8)
+    with pytest.raises(LightGBMError, match="distinct ids"):
+        histogram.leaf_moments(binned, torch.ones(n, 2), torch.ones(n, 3), 4,
+                               torch.zeros(n, dtype=torch.int32),
+                               torch.tensor([0, 0], dtype=torch.int32))
+
+
+@pytest.mark.parametrize("tile", [1, 3, 2048])
+def test_segment_tiles_cover_each_segment_in_order(tile):
+    """The tile table LF and LM launch over: each segment cut into runs
+    of at most `tile` rows, in order, empty segments holding none."""
+    rng = np.random.RandomState(tile)
+    rows = rng.randint(0, 7000, 9)
+    rows[[2, 5]] = 0
+    begin = np.concatenate([[0], np.cumsum(rows)[:-1]])
+    meta, n_tiles = histogram.segment_tiles(begin, rows, tile)
+    tiles = meta[:3 * n_tiles].reshape(-1, 3)
+    first, count = meta[3 * n_tiles:].reshape(2, -1)
+    assert n_tiles == int(((rows + tile - 1) // tile).sum())
+    for c in range(len(rows)):
+        own = tiles[first[c]:first[c] + count[c]]
+        assert (own[:, 0] == c).all() and (own[:, 2] <= tile).all()
+        covered = np.concatenate([np.arange(s, s + r) for _, s, r in own]) \
+            if len(own) else np.zeros(0, int)
+        assert np.array_equal(covered, np.arange(begin[c],
+                                                 begin[c] + rows[c]))
