@@ -148,7 +148,10 @@ Phases, any failure raises and the script exits non-zero:
     and on the first tree's leaves, all four channels per bin within
     1e-5 * max(1, sum of |terms|) of the plain version and an f64
     oracle, the bin-summed sum w g x of the first tree's largest leaf
-    equal to LF's b; each launched twice repeating its bits;
+    equal to LF's b; LF and LS at k = 64 (65,536 rows x 70 columns, 16
+    leaves, LF's sums split over three blocks a leaf) against their
+    plain versions and LF's f64 oracle; each launched twice repeating
+    its bits;
 19. the card against the CPU at 131,072 rows, 63 leaves and 5 rounds,
     linear f32 and linear int8: the same tree structure and leaf
     features, leaf values and coefficients within 1e-5 relative, valid
@@ -159,12 +162,50 @@ Phases, any failure raises and the script exits non-zero:
     LM); seconds per linear round against phase 12's constant round; one
     profiled linear round; the BENCH_SHAPE=linear gate (bench.py:1562-
     1620: 20,000 x 10 rows, regression, 31 leaves, 60 rounds) on the
-    card, its ratio at most 0.7.
+    card, its ratio at most 0.7;
+21. serving-extras kernels vs plain: the phase-2 forests with binned
+    thresholds (`synthetic_forest_text(..., max_bin=255)`: at most 254
+    bounds and one missing type a feature, as a model trained at
+    max_bin 255 has; the unbinned phase-2 forest must be refused an
+    int8 layout by name), on phase 2's check rows plus 4,096 rows of
+    grid-bound edge values (`grid_edge_rows`: every bound and its
+    nextafter neighbours, +-0, subnormals, +-inf, NaN): QC's codes
+    exact; QW and K1's f16 mode bitwise against their plain versions,
+    their repeats and each other; ES bitwise (iterations too) at freq 1
+    and 10, margins 0, 1e30 and the median 2|raw| at half the
+    iterations, with the freeze histogram (some rows freeze at the
+    first check, some never); ES on a K = 3 stack of three synthetic
+    class forests and on phase 17's linear forest;
+22. serving-extras main path: Booster(model_str=...) of the binned
+    500 x 255 x 28 forest on the default device, 262,144 rows through
+    predict with pred_early_stop (freq 10, phase 21's margin) and with
+    tpu_predict_quantize=f16 and int8; the gate's delta within
+    tpu_predict_quantize_tol; through Predictor the gate waits out
+    warmup and measures the first real request; every count of ES, QC,
+    QW and K1-f16 set to 0 before and read after; the bulk raw scores
+    equal to the plain versions on the same rows; pred_early_stop
+    ignored by a regression model; pred_contrib on 2,048 rows of phase
+    9's model (row sums within 1e-5 * max(1, |raw|)); dump_model as
+    JSON; predict from a 4,096-row TSV of the valid set equal to the
+    array call;
+23. continued training: phase 9's saved model continues through
+    train(..., init_model=path) on phase 9's Datasets: the 0-round
+    replay (W once a tree) within 1e-5 * max(1, |ref|) of phase 9's
+    final train score; 10 more rounds twice, byte-identical, H, S, R
+    and W launched, valid AUC not below phase 9's; card against CPU on
+    the phase-11 protocol, 3 + 3 rounds: the same structure, leaves
+    within 1e-5 relative;
+24. times: ES, QC, QW and K1-f16 at 262,144 rows (CUDA events, median
+    of 12 after 0.3 s of calls), their plain versions (median of 5),
+    bounds (ES over the node visits of the trees each row walked), QC's
+    yardstick torch.searchsorted over the [F, K] grid; Booster.predict
+    end to end for f32, f16, int8 and early stop.
 
 The line before the last is the kernels' JSON summary, the last line
 `{"ok": true, "device": {...}}`.
 """
 import json
+import pathlib
 import subprocess
 import sys
 import threading
@@ -176,6 +217,9 @@ import torch
 TREES, LEAVES, FEATURES = 500, 255, 28
 BULK_ROWS = 262_144
 CHECK_ROWS = 16_384
+# rows of the k = 64 linear design (phase 18): its f64 oracle holds
+# [rows, 65 x 65] products
+WIDE_ROWS = 65_536
 REPS = 12
 # published H100 SXM peaks (NVIDIA H100 datasheet, 700 W): HBM rate,
 # and the f32 rate outside the tensor cores, 67 TFLOP/s = 132 SMs x 128
@@ -536,6 +580,8 @@ def training(name, card, dev):
     pred = booster.predict(xv[:4096])
     check(np.isfinite(pred).all() and ((pred > 0) & (pred < 1)).all(),
           "predictions of the trained model")
+    # phase 23 continues this model from its saved text
+    train_score = booster._inner._train_score_unpadded()
 
     # --------------------------------------------------------------- 10
     errs = {}
@@ -813,7 +859,8 @@ def training(name, card, dev):
             row["score_update_launches"] = launches["score_update"]
         rows.append(row)
     ctx = {"x": x, "y": y, "xv": xv, "yv": yv, "data": (ds, valid),
-           "auc": auc, "perm": perm, "n_left": n_left, "rounds_s": med}
+           "auc": auc, "perm": perm, "n_left": n_left, "rounds_s": med,
+           "text": text, "train_score": train_score}
     return rows, ctx
 
 
@@ -1402,6 +1449,7 @@ def linear(name, card, dev, ctx):
     del again
     print("linear path: a second run gave a byte-identical model text (%d "
           "bytes)" % len(text))
+    ctx["linear_text"] = text   # phase 21 early-stops this forest
     predict.forest_value_walk.launches = 0
     served = lgb.Booster(model_str=text)
     check(served.device.type == "cuda", "the served model is not on cuda")
@@ -1515,6 +1563,62 @@ def linear(name, card, dev, ctx):
     errs["linear_solve"] = max(ls_err, max(
         within(odd[0][i], odd[1][i], odd[1][i].abs(), "LS odd vs plain")
         for i in (0, 1)))
+    # a wide design, k = 64 of 70 columns (LF's sums split over 3 blocks
+    # a leaf; LS's 65 x 65 system in shared memory), 65,536 rows in 16
+    # leaves with NaN rows left out and padded slots
+    gen = torch.Generator(device=dev).manual_seed(64)
+    x64 = torch.randn((WIDE_ROWS, 70), device=dev, generator=gen)
+    x64[::53, 3] = float("nan")
+    lid64 = torch.randint(0, 16, (WIDE_ROWS,), device=dev, generator=gen,
+                          dtype=torch.int32)
+    feats64 = torch.stack([torch.randperm(70, device=dev, generator=gen)[:64]
+                       for _ in range(16)]).to(torch.int32)
+    feats64[5, 60:] = -1
+    g64 = x64[:, 0].nan_to_num() - x64[:, 1] + 0.1 * torch.randn(
+        WIDE_ROWS, device=dev, generator=gen)
+    h64 = torch.rand(WIDE_ROWS, device=dev, generator=gen) + 0.5
+    w64 = torch.ones(WIDE_ROWS, device=dev)
+    lf64 = (x64, g64, h64, w64) + lin.segments_of(lid64, 16) + (feats64,)
+    wide = [lin.linear_normal_eq(*lf64), lin.linear_normal_eq(*lf64),
+            lin.linear_normal_eq_plain(*lf64)]
+    wa64, wa_abs, wb64, wb_abs, wc64 = linear_oracle(*lf64)
+    check(all(torch.equal(p1, p2) for p1, p2 in zip(wide[0], wide[1])),
+          "LF k=64: a second launch gave other bits")
+    check(torch.equal(wide[0][2], wide[2][2]), "LF k=64: counts differ")
+    errs["linear_normal_eq"] = max(
+        errs["linear_normal_eq"],
+        within(wide[0][0], wide[2][0], wa_abs, "LF k=64 A vs plain"),
+        within(wide[0][1], wide[2][1], wb_abs, "LF k=64 b vs plain"))
+    within(wide[0][0], wa64, wa_abs, "LF k=64 A vs feats64 oracle")
+    within(wide[0][1], wb64, wb_abs, "LF k=64 b vs feats64 oracle")
+    c64k = torch.zeros(16, device=dev)
+    ls64 = [fn(*wide[0], feats64, c64k, lam) for fn in (
+        lin.linear_solve, lin.linear_solve, lin.linear_solve_plain)]
+    check(all(torch.equal(p1, p2) for p1, p2 in zip(ls64[0], ls64[1]))
+          and torch.equal(ls64[0][2], ls64[2][2]) and bool(ls64[0][2].all()),
+          "LS k=64: repeat or fitted flags differ")
+    errs["linear_solve"] = max(errs["linear_solve"], max(
+        within(ls64[0][i], ls64[2][i], ls64[2][i].abs(), "LS k=64 vs plain")
+        for i in (0, 1)))
+    print("LF/LS at k=64 (%d rows x 70 columns, 16 leaves): equal to the "
+          "plain versions as stated, repeat equal" % WIDE_ROWS)
+    d64 = 65
+    e64 = d64 * (d64 + 1) // 2 + d64 + 1
+    for kname, kernel, plain_fn, (b_ms, b_by) in (
+            ("linear_normal_eq", lambda: lin.linear_normal_eq(*lf64),
+             lambda: lin.linear_normal_eq_plain(*lf64),
+             bound(WIDE_ROWS * (16 + 4 * 64) + 16 * (d64 * d64 + d64 + 1)
+                   * 4, WIDE_ROWS * e64 * 3.0)),
+            ("linear_solve", lambda: lin.linear_solve(*wide[0], feats64,
+                                                      c64k, lam),
+             lambda: lin.linear_solve_plain(*wide[0], feats64, c64k, lam),
+             bound(wide[0][0].numel() * 4 + wide[0][1].numel() * 8,
+                   16 * d64 ** 3 / 3.0 * 2))):
+        print("time [%s | %s]: %s at k=64 (%d rows, 16 leaves) %.4f ms "
+              "(CUDA events around the call), plain %.3f ms, bound %.5f ms "
+              "(%s)" % (name, card, kname, WIDE_ROWS, median_ms(kernel),
+                        median_ms(plain_fn, reps=5), b_ms, b_by))
+    del x64, wide, ls64
     value, coeff = ls[0][0], ls[0][1]
     x_nan = raw_x.clone()
     x_nan[::97, int(feats[0, 0])] = float("nan")
@@ -2143,6 +2247,458 @@ def ranking(name, card, dev):
             "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}
 
 
+# the serving extras (phases 21-24)
+ES_FREQ = 10              # pred_early_stop_freq of the main path
+CONTRIB_ROWS, FILE_ROWS = 2_048, 4_096
+CONT_ROUNDS, CONT_CPU_ROUNDS = 10, 3
+OUT_DIR = pathlib.Path(__file__).resolve().parent / "build" / "chip_smoke"
+# QC's least work a cell: load, NaN and flush tests, the missing test,
+# and per binary-search step a load, a flush, a compare and an add
+INSTR_PER_CODE, INSTR_PER_STEP = 10, 4
+
+
+def bitwise(a, b):
+    return a.shape == b.shape and torch.equal(a.view(torch.int32),
+                                              b.view(torch.int32))
+
+
+def walked_visits(depth, leaf_t, iters):
+    """Node visits of the trees each row walked: depth [T, L] of a
+    K = 1 stack, leaf_t [T, N] its rows' leaves, iters [N]."""
+    d = depth.gather(1, leaf_t.long())
+    walked = (torch.arange(depth.shape[0], device=depth.device)[:, None]
+              < iters[None, :].long())
+    return int((d * walked).sum())
+
+
+def margin_median(raw, k):
+    """The median margin of [K, N] raw scores (2|raw| for K = 1)."""
+    if k == 1:
+        return float((2.0 * raw[0].abs()).median())
+    top = torch.topk(raw.t(), 2, dim=1).values
+    return float((top[:, 0] - top[:, 1]).median())
+
+
+def check_early_stop(label, P, stack, x, margins, freqs, errs):
+    """ES against its plain version, bitwise, at each margin and freq,
+    and launched twice repeating its bits; returns {(margin, freq):
+    iters} of the kernel."""
+    out = {}
+    for m in margins:
+        for freq in freqs:
+            got, it = P.forest_early_stop_walk(stack, x, m, freq,
+                                               return_iters=True)
+            again, it2 = P.forest_early_stop_walk(stack, x, m, freq,
+                                                  return_iters=True)
+            ref, it_p = P.forest_early_stop_walk_plain(stack, x, m, freq)
+            check(bitwise(got, ref) and torch.equal(it, it_p),
+                  "ES [%s, margin %g, freq %d] not bitwise equal to plain"
+                  % (label, m, freq))
+            check(bitwise(got, again) and torch.equal(it, it2),
+                  "ES [%s]: a second launch gave other bits" % label)
+            errs["forest_early_stop_walk"] = max(
+                errs["forest_early_stop_walk"],
+                float((got - ref).abs().max()))
+            out[(m, freq)] = it
+    return out
+
+
+def serving_extras(name, card, dev, ctx, phase2_text):
+    """Phases 21-24; returns the JSON rows of ES, QC, QW and K1's f16
+    mode. `phase2_text` is phase 2's (unbinned) synthetic forest."""
+    import lightgbm_tpu_torch as lgb
+    from lightgbm_tpu_torch.ops import predict as P
+    from lightgbm_tpu_torch.ops import histogram, route, split
+    from lightgbm_tpu_torch.testing.synth import (
+        edge_case_rows, grid_edge_rows, synthetic_forest_text,
+        synthetic_rows)
+
+    kernels = {"forest_early_stop_walk": P.forest_early_stop_walk,
+               "quant_codes": P.quant_codes,
+               "forest_quant_walk": P.forest_quant_walk,
+               "forest_value_walk_f16": P.forest_value_walk_f16}
+    errs = dict.fromkeys(kernels, 0.0)
+    OUT_DIR.mkdir(parents=True, exist_ok=True)
+
+    # --------------------------------------------------------------- 21
+    # phase 2's forests, binned: thresholds from <= 254 bounds a feature
+    # and one missing type a feature, as a model trained at max_bin 255
+    # has them (the phase-2 forest's thousands of distinct thresholds a
+    # feature have no int8 layout)
+    t0 = time.perf_counter()
+    texts = {"full": synthetic_forest_text(0, TREES, LEAVES, FEATURES,
+                                           max_bin=255),
+             "categorical": synthetic_forest_text(1, 50, 63, FEATURES,
+                                                  cat_features=4,
+                                                  max_bin=255)}
+    phase2 = lgb.Booster(model_str=phase2_text, device="cpu")._inner.models
+    print("binned synthetic forests: %.1f s" % (time.perf_counter() - t0))
+    try:
+        P.stack_trees_quant(phase2, dev)
+        refused = ""
+    except P.QuantRefused as exc:
+        refused = str(exc)
+    check("distinct split thresholds" in refused,
+          "the unbinned phase-2 forest was not refused an int8 layout")
+    margin = None
+    es_rows = None
+    for label, cats in (("full", 0), ("categorical", 4)):
+        trees = lgb.Booster(model_str=texts[label],
+                            device="cpu")._inner.models
+        half = CHECK_ROWS // 2
+        rows = np.concatenate([
+            synthetic_rows(2, half, FEATURES, cats),
+            edge_case_rows(trees, FEATURES, 3, half, cats),
+            grid_edge_rows(trees, FEATURES, 5, 4096)])
+        x = torch.from_numpy(rows).to(dev)
+        qf = P.stack_trees_quant(trees, dev)
+        f16 = P.to_f16(P.stack_trees(trees, dev))
+        codes = P.quant_codes(qf, x)
+        codes_p = P.quant_codes_plain(qf, x)
+        check(torch.equal(codes, codes_p)
+              and torch.equal(codes, P.quant_codes(qf, x)),
+              label + ": QC codes differ from plain or from a repeat")
+        qw = [P.forest_quant_walk(qf, codes, x),
+              P.forest_quant_walk(qf, codes, x),
+              P.forest_quant_walk_plain(qf, codes_p, x)]
+        hw = [P.forest_value_walk_f16(f16, x),
+              P.forest_value_walk_f16(f16, x),
+              P.forest_value_walk_plain(f16, x)]
+        torch.cuda.synchronize()
+        check(bitwise(qw[0], qw[2]) and bitwise(qw[0], qw[1]),
+              label + ": QW not bitwise equal to plain and its repeat")
+        check(bitwise(hw[0], hw[2]) and bitwise(hw[0], hw[1]),
+              label + ": K1-f16 not bitwise equal to plain and its repeat")
+        check(bitwise(qw[0], hw[0]),
+              label + ": QW and K1-f16 not bitwise equal")
+        errs["quant_codes"] = max(errs["quant_codes"], float(
+            (codes.int() - codes_p.int()).abs().max()))
+        errs["forest_quant_walk"] = max(errs["forest_quant_walk"], float(
+            (qw[0] - qw[2]).abs().max()))
+        errs["forest_value_walk_f16"] = max(
+            errs["forest_value_walk_f16"], float((hw[0] - hw[2]).abs().max()))
+        print("kernels vs plain [%s, %d trees, %d rows, grid %s]: QC "
+              "codes equal (%d to %d), QW and K1-f16 bitwise equal to "
+              "plain, to their repeats and to each other"
+              % (label, len(trees), len(rows), tuple(qf.grid.shape),
+                 int(codes.min()), int(codes.max())))
+        t_half = len(trees) // 2
+        raw_half = P.forest_value_walk(P.stack_trees(trees[:t_half], dev), x)
+        med = margin_median(raw_half[None], 1)
+        stack = P.stack_trees_early_stop(trees, 1, len(trees), dev)
+        iters = check_early_stop(label, P, stack, x, (0.0, med, 1e30),
+                                 (1, 10), errs)
+        it = iters[(med, 10)]
+        # rows frozen at each check (iterations 10, 20, ...; the last
+        # count holds the rows that never froze)
+        hist = np.bincount(it.cpu().numpy() // 10,
+                           minlength=len(trees) // 10 + 1)[1:]
+        check(bool((it == 10).any()) and bool((it == len(trees)).any()),
+              label + ": at the median margin no row froze at the first "
+              "check, or every row froze")
+        print("ES [%s]: bitwise equal to plain at freq 1 and 10, margins 0, "
+              "%.6g (median 2|raw| at iteration %d) and 1e30; rows frozen "
+              "at checks 10, 20, ... at the median, freq 10: %s" % (label, med, t_half,
+                                   " ".join(str(int(c)) for c in hist)))
+        if label == "full":
+            margin, es_rows = med, x
+    # K = 3: three class forests, stored iteration-major
+    t0 = time.perf_counter()
+    per_class = [lgb.Booster(model_str=synthetic_forest_text(
+        20 + c, 100, 63, FEATURES), device="cpu")._inner.models
+                 for c in range(3)]
+    models = [per_class[c][t] for t in range(100) for c in range(3)]
+    stack3 = P.stack_trees_early_stop(models, 3, 100, dev)
+    full3 = P.forest_early_stop_walk(stack3, es_rows, 1e30, 1)
+    med3 = margin_median(full3, 3)
+    iters = check_early_stop("K=3", P, stack3, es_rows, (0.0, med3, 1e30),
+                             (1, 10), errs)
+    print("ES [K=3, 3 x 100 trees x 63 leaves]: bitwise equal to plain, "
+          "margins 0, %.6g (median top-1 minus top-2) and 1e30, freq 1 "
+          "and 10; rows frozen at the first check %d, never %d (%.1f s)"
+          % (med3, int((iters[(med3, 10)] == 10).sum()),
+             int((iters[(med3, 10)] == 100).sum()),
+             time.perf_counter() - t0))
+    # phase 17's linear forest, on the valid rows with NaN and inf cells
+    lin_trees = lgb.Booster(model_str=ctx["linear_text"],
+                            device="cpu")._inner.models
+    xl = torch.from_numpy(ctx["xv"][:CHECK_ROWS].copy()).to(dev)
+    xl[::97, 0] = float("nan")
+    xl[5::131, 1] = float("inf")
+    stack_l = P.stack_trees_early_stop(lin_trees, 1, len(lin_trees), dev)
+    check(stack_l.linear_k > 0, "the phase-17 stack has no linear leaves")
+    med_l = margin_median(P.forest_early_stop_walk(stack_l, xl, 1e30, 1), 1)
+    check_early_stop("linear", P, stack_l, xl, (0.0, med_l, 1e30), (1, 3),
+                     errs)
+    print("ES [phase-17 linear forest, %d trees, k %d]: bitwise equal to "
+          "plain, margins 0, %.6g and 1e30, freq 1 and 3"
+          % (len(lin_trees), stack_l.linear_k, med_l))
+
+    # --------------------------------------------------------------- 22
+    text = texts["full"]
+    trees = lgb.Booster(model_str=text, device="cpu")._inner.models
+    bulk = synthetic_rows(4, BULK_ROWS, FEATURES)
+    xb = torch.from_numpy(bulk).to(dev)
+    for fn in kernels.values():
+        fn.launches = 0
+    booster = lgb.Booster(model_str=text)
+    check(booster.device.type == "cuda", "default device is not cuda")
+    bias = booster._inner.init_score_bias
+    es_kw = dict(pred_early_stop=True, pred_early_stop_freq=ES_FREQ,
+                 pred_early_stop_margin=margin)
+    es_value = booster.predict(bulk, **es_kw)
+    es_raw = booster.predict(bulk, raw_score=True, **es_kw)
+    quant = {}
+    for mode in ("f16", "int8"):
+        params = {"tpu_predict_quantize": mode}
+        qb = lgb.Booster(model_str=text, params=params)
+        value = qb.predict(bulk)
+        raw = qb.predict(bulk, raw_score=True)
+        key = ("value", TREES, 1, mode)
+        delta = qb._inner._compiled_forest.gate_delta(key)
+        tol = float(qb._inner.config.io.tpu_predict_quantize_tol)
+        check(delta is not None and delta <= tol,
+              "%s: gate delta %s past tpu_predict_quantize_tol %g"
+              % (mode, delta, tol))
+        fresh = lgb.Booster(model_str=text, params=params)
+        predictor = fresh.serving_predictor()
+        predictor.warmup()
+        gate = fresh._inner._compiled_forest
+        check(gate.gate_delta(key) is None,
+              mode + ": the gate measured Predictor.warmup's rows")
+        ones = np.array([predictor.predict_one(r) for r in bulk[:32]])
+        first = gate.gate_delta(key)
+        stats = predictor.stats()
+        predictor.close()
+        check(first is not None and first <= tol and stats["quantize"]
+              == mode, mode + ": the first real batch was not gated")
+        check(np.array_equal(ones, value[:32]),
+              mode + ": predict_one != predict")
+        quant[mode] = (value, raw)
+        print("%s main path: gate delta %.6g on %d calibration rows "
+              "(tolerance %g); Predictor: none after warmup, %.6g on the "
+              "first real request (1 row)" % (
+                  mode, delta, booster._inner._QUANT_CALIB_ROWS, tol,
+                  first))
+    launches = {k: fn.launches for k, fn in kernels.items()}
+    print("serving extras main path launches:", launches)
+    check(all(v > 0 for v in launches.values()),
+          "a serving-extras kernel of the main path was never launched")
+    plain = {
+        "early stop": P.forest_early_stop_walk_plain(
+            P.stack_trees_early_stop(trees, 1, TREES, dev), xb, margin,
+            ES_FREQ)[0][0],
+        "f16": P.forest_value_walk_plain(P.to_f16(P.stack_trees(trees, dev)),
+                                         xb)}
+    qf = P.stack_trees_quant(trees, dev)
+    plain["int8"] = P.forest_quant_walk_plain(
+        qf, P.quant_codes_plain(qf, xb), xb)
+    sig = P.OutputTransform("sigmoid", bias=bias)
+    for label, raw, value in (("early stop", es_raw, es_value),
+                              ("f16",) + quant["f16"][::-1],
+                              ("int8",) + quant["int8"][::-1]):
+        ref = plain[label].cpu().numpy().astype(np.float64) + bias
+        check(np.array_equal(raw, ref), "%s raw_score not bitwise equal to "
+              "plain at %d rows" % (label, BULK_ROWS))
+        epi = float(np.abs(value - P.apply_output_plain(
+            plain[label], sig).cpu().numpy()).max())
+        check(epi <= 1e-6 and np.isfinite(value).all(),
+              "%s value off the plain epilogue by %g" % (label, epi))
+    f32_raw = booster.predict(bulk, raw_score=True)
+    rel = {m: float(np.abs(quant[m][1] - f32_raw).max()
+                    / max(1.0, np.abs(f32_raw).max())) for m in quant}
+    frozen = float(np.mean(es_raw != f32_raw))
+    print("serving extras main path: %d rows; raw scores of early stop, "
+          "f16 and int8 equal to their plain versions; relative raw delta "
+          "to f32 f16 %.3g, int8 %.3g; early stop changed %.1f%% of rows"
+          % (BULK_ROWS, rel["f16"], rel["int8"], 100 * frozen))
+    reg = lgb.Booster(model_str=text.replace("objective=binary sigmoid:1",
+                                             "objective=regression"))
+    part = bulk[:65_536]
+    check(np.array_equal(reg.predict(part, **es_kw), reg.predict(part)),
+          "pred_early_stop changed a regression model's predictions")
+    b9 = lgb.Booster(model_str=ctx["text"])
+    xv, yv = ctx["xv"], ctx["yv"]
+    t0 = time.perf_counter()
+    contrib = b9.predict(xv[:CONTRIB_ROWS], pred_contrib=True)
+    contrib_s = time.perf_counter() - t0
+    raw9 = b9.predict(xv[:CONTRIB_ROWS], raw_score=True)
+    gap = float(np.max(np.abs(contrib.sum(axis=1) - raw9)
+                       / np.maximum(1.0, np.abs(raw9))))
+    check(contrib.shape == (CONTRIB_ROWS, FEATURES + 1) and gap <= 1e-5,
+          "pred_contrib: shape %s, row sums off the raw score by %g"
+          % (contrib.shape, gap))
+    dumped = json.loads(json.dumps(b9.dump_model()))
+    check(len(dumped["tree_info"]) == TRAIN_ROUNDS
+          and dumped["tree_info"][0]["num_leaves"] > 1,
+          "dump_model of phase 9's model")
+    path = OUT_DIR / "valid_rows.tsv"
+    np.savetxt(path, np.column_stack([yv[:FILE_ROWS], xv[:FILE_ROWS]]),
+               delimiter="\t", fmt="%.9g")
+    check(np.array_equal(b9.predict(str(path)), b9.predict(xv[:FILE_ROWS])),
+          "predict(path) != predict(array)")
+    print("model API: pred_contrib on %d rows of phase 9's model (%.2f s), "
+          "row sums within %.3g of the raw score; dump_model %d trees as "
+          "JSON; predict from a %d-row TSV equal to the array call; "
+          "pred_early_stop ignored by a regression model"
+          % (CONTRIB_ROWS, contrib_s, gap, len(dumped["tree_info"]),
+             FILE_ROWS))
+
+    # --------------------------------------------------------------- 23
+    ds, valid = ctx["data"]
+    model_path = OUT_DIR / ("higgs_%d_rounds.txt" % TRAIN_ROUNDS)
+    model_path.write_text(ctx["text"])
+    counted = {"tree_value_walk_binned": P.tree_value_walk_binned,
+               "leaf_histogram": histogram.leaf_histogram,
+               "split_scan": split.split_scan,
+               "route_partition": route.route_partition}
+    for fn in counted.values():
+        fn.launches = 0
+    replay = lgb.train(dict(TRAIN_PARAMS), ds, 0, init_model=str(model_path),
+                       verbose_eval=False)
+    w_replay = P.tree_value_walk_binned.launches
+    score = replay._inner._train_score_unpadded()
+    ref = ctx["train_score"]
+    rel = float(np.max(np.abs(score - ref) / np.maximum(1.0, np.abs(ref))))
+    split_trees = sum(t.num_leaves > 1 for t in replay._inner.models)
+    check(w_replay == split_trees, "the replay launched W %d times for %d "
+          "trees" % (w_replay, split_trees))
+    check(rel <= 1e-5, "replayed train score off phase 9's by %g" % rel)
+    del replay
+    for fn in counted.values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    runs = []
+    for _ in range(2):
+        evals = {}
+        cont = lgb.train(dict(TRAIN_PARAMS), ds, CONT_ROUNDS,
+                         valid_sets=[valid], valid_names=["valid"],
+                         init_model=str(model_path), evals_result=evals,
+                         verbose_eval=False)
+        runs.append((cont.model_to_string(), evals["valid"]["auc"],
+                     cont.num_trees()))
+        if len(runs) == 1:
+            cont_launches = {k: fn.launches for k, fn in counted.items()}
+            cont_s = time.perf_counter() - t0
+        del cont
+    check(runs[0][0] == runs[1][0], "two continued runs gave different "
+          "model texts")
+    auc = runs[0][1]
+    check(runs[0][2] == TRAIN_ROUNDS + CONT_ROUNDS,
+          "continued model has %d trees" % runs[0][2])
+    check(all(v > 0 for v in cont_launches.values()),
+          "continued training: a kernel was never launched: %s"
+          % cont_launches)
+    check(auc[-1] >= ctx["auc"][-1], "continued valid AUC %.5f fell below "
+          "phase 9's %.5f" % (auc[-1], ctx["auc"][-1]))
+    print("continued training: replay of %d trees (%d W launches) within "
+          "%.3g of phase 9's train score; %d more rounds (launches %s, "
+          "%.1f s), twice byte-identical, valid auc %.5f -> %.5f (phase 9 "
+          "%.5f)" % (split_trees, w_replay, rel, CONT_ROUNDS, cont_launches,
+                     cont_s, auc[0], auc[-1], ctx["auc"][-1]))
+    cpu_params = dict(TRAIN_PARAMS, num_leaves=CPU_LEAVES)
+    xs, ys = ctx["x"][:CPU_ROWS], ctx["y"][:CPU_ROWS]
+    first = train_run(lgb, xs, ys, xv[:CPU_VALID_ROWS], yv[:CPU_VALID_ROWS],
+                      cpu_params, CONT_CPU_ROUNDS)[0]
+    small_path = OUT_DIR / "cpu_protocol.txt"
+    first.save_model(str(small_path))
+    pair = [lgb.train(dict(cpu_params), lgb.Dataset(
+        xs, ys, params=dict(cpu_params)), CONT_CPU_ROUNDS,
+        init_model=str(small_path), verbose_eval=False, device=device)
+        for device in (None, "cpu")]
+    worst = same_trees(pair[0], pair[1], 2 * CONT_CPU_ROUNDS)
+    print("continued training, card vs CPU [%d rows, %d leaves, %d + %d "
+          "rounds]: same structure, leaf values within %.3g relative"
+          % (CPU_ROWS, CPU_LEAVES, CONT_CPU_ROUNDS, CONT_CPU_ROUNDS, worst))
+    del pair, first
+
+    # --------------------------------------------------------------- 24
+    forest = P.stack_trees(trees, dev)
+    f16 = P.to_f16(forest)
+    stack = P.stack_trees_early_stop(trees, 1, TREES, dev)
+    codes = P.quant_codes(qf, xb)
+    depth = torch.from_numpy(leaf_depths(trees)).to(dev)
+    leaf_t = P.forest_leaf_walk(forest, xb).t().contiguous()
+    _, iters = P.forest_early_stop_walk(stack, xb, margin, ES_FREQ,
+                                        return_iters=True)
+    visits = walked_visits(depth, leaf_t, torch.full_like(iters, TREES))
+    es_visits = walked_visits(depth, leaf_t, iters)
+    del leaf_t
+    x_bytes, out_bytes = xb.numel() * 4, BULK_ROWS * 4
+    code_bytes = codes.numel() * 2
+    steps = int(np.ceil(np.log2(qf.grid.shape[1] + 1)))
+    cells = BULK_ROWS * FEATURES
+    xt = xb[:, :qf.grid.shape[0]].t().contiguous()
+    specs = {
+        "forest_early_stop_walk": (
+            lambda: P.forest_early_stop_walk(stack, xb, margin, ES_FREQ),
+            lambda: P.forest_early_stop_walk_plain(stack, xb, margin,
+                                                   ES_FREQ),
+            x_bytes + stack.nbytes() + out_bytes,
+            es_visits * INSTR_PER_VISIT, None),
+        "quant_codes": (
+            lambda: P.quant_codes(qf, xb),
+            lambda: P.quant_codes_plain(qf, xb),
+            x_bytes + code_bytes + qf.grid.numel() * 4,
+            cells * (INSTR_PER_CODE + INSTR_PER_STEP * steps),
+            lambda: torch.searchsorted(qf.grid, xt)),
+        "forest_quant_walk": (
+            lambda: P.forest_quant_walk(qf, codes, xb),
+            lambda: P.forest_quant_walk_plain(qf, codes, xb),
+            x_bytes + code_bytes + qf.nbytes() + out_bytes,
+            visits * INSTR_PER_VISIT, None),
+        "forest_value_walk_f16": (
+            lambda: P.forest_value_walk_f16(f16, xb),
+            lambda: P.forest_value_walk_plain(f16, xb),
+            x_bytes + f16.nbytes() + out_bytes,
+            visits * INSTR_PER_VISIT, None)}
+    rows = []
+    sources = {"forest_early_stop_walk": "forest_walk.cu",
+               "quant_codes": "forest_quant.cu",
+               "forest_quant_walk": "forest_quant.cu",
+               "forest_value_walk_f16": "forest_walk.cu"}
+    replaces = {"forest_early_stop_walk": "lightgbm_tpu/ops/predict.py:957",
+                "quant_codes": "lightgbm_tpu/ops/predict.py:820",
+                "forest_quant_walk": "lightgbm_tpu/ops/predict.py:882",
+                "forest_value_walk_f16": "lightgbm_tpu/ops/predict.py:934"}
+    for kname, (kernel, plain_fn, nbytes, ops, library) in specs.items():
+        ms = median_ms(kernel)
+        plain_ms = median_ms(plain_fn, reps=5)
+        b_ms, b_by = bound(nbytes, ops)
+        lib_ms = median_ms(library, reps=REPS) if library else None
+        print("time [%s | %s]: %s %.4f ms, plain %.2f ms, bound %.4f ms "
+              "(%s)%s" % (name, card, kname, ms, plain_ms, b_ms, b_by,
+                          "" if lib_ms is None else
+                          ", torch.searchsorted %.4f ms" % lib_ms))
+        rows.append({"name": kname, "route": "cuda",
+                     "source": "lightgbm_tpu_torch/csrc/" + sources[kname],
+                     "replaces": replaces[kname],
+                     "launches": launches[kname],
+                     "max_abs_err": errs[kname], "ms": ms,
+                     "plain_ms": plain_ms, "bound_ms": b_ms,
+                     "bound_by": b_by, "library_ms": lib_ms})
+    print("ES work at margin %.6g, freq %d: %d of %d node visits (%.1f%%), "
+          "mean iterations a row %.1f of %d"
+          % (margin, ES_FREQ, es_visits, visits, 100.0 * es_visits / visits,
+             float(iters.float().mean()), TREES))
+    ends = {"f32": (booster, {}), "early stop": (booster, es_kw)}
+    for mode in ("f16", "int8"):
+        ends[mode] = (lgb.Booster(model_str=text, params={
+            "tpu_predict_quantize": mode}), {})
+    for label, (b, kw) in ends.items():
+        b.predict(bulk, **kw)
+        e2e = []
+        for _ in range(REPS):
+            t0 = time.perf_counter()
+            b.predict(bulk, **kw)
+            e2e.append((time.perf_counter() - t0) * 1e3)
+        e2e_ms = float(np.median(e2e))
+        print("time [%s | %s]: Booster.predict %s %d rows %.2f ms, %.0f "
+              "rows/s" % (name, card, label, BULK_ROWS, e2e_ms,
+                          BULK_ROWS / e2e_ms * 1e3))
+    return rows
+
+
 def main():
     # ---------------------------------------------------------------- 0
     if not torch.cuda.is_available():
@@ -2392,6 +2948,7 @@ def main():
     rows.append(rank_row)
     rows.extend(quantized(name, card, dev, ctx))
     rows.extend(linear(name, card, dev, ctx))
+    rows.extend(serving_extras(name, card, dev, ctx, text))
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

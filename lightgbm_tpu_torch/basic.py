@@ -31,8 +31,11 @@ LightGBMError = log.LightGBMError
 
 def _data_to_2d(data) -> np.ndarray:
     if isinstance(data, str):
-        raise LightGBMError("predicting from a data file is not ported to "
-                            "lightgbm_tpu_torch yet; pass an array")
+        # a data file's features, its label column dropped
+        # (lightgbm_tpu/basic.py:31-35)
+        from .io.parser import load_data_file
+        arr, _ = load_data_file(data)
+        return arr
     try:
         import pandas as pd
         if isinstance(data, pd.DataFrame):
@@ -73,7 +76,8 @@ class Dataset:
                  group=None, init_score=None, silent: bool = False,
                  feature_name: Union[str, Sequence[str]] = "auto",
                  categorical_feature: Union[str, Sequence] = "auto",
-                 params: Optional[Dict[str, Any]] = None):
+                 params: Optional[Dict[str, Any]] = None,
+                 free_raw_data: bool = False):
         if isinstance(data, str):
             raise LightGBMError("training from a data file is not ported "
                                 "to lightgbm_tpu_torch yet; pass an array")
@@ -87,6 +91,10 @@ class Dataset:
         self.params = dict(params or {})
         self.feature_name = feature_name
         self.categorical_feature = categorical_feature
+        # taken as the JAX package takes it (lightgbm_tpu/basic.py:99);
+        # the port keeps a Dataset's raw values when its params say
+        # linear_tree, whatever this says
+        self.free_raw_data = free_raw_data
         self._inner: Optional[_InnerDataset] = None
 
     def _update_params(self, params: Dict[str, Any]) -> "Dataset":
@@ -349,6 +357,10 @@ class Booster:
     def save_model(self, filename: str, num_iteration: int = -1) -> "Booster":
         self._inner.save_model(filename, num_iteration)
         return self
+
+    def dump_model(self, num_iteration: int = -1) -> dict:
+        """The model as JSON (lightgbm_tpu/basic.py:763)."""
+        return self._inner.dump_model(num_iteration)
 
     # ------------------------------------------------------------------
     def serving_predictor(self, **kwargs):

@@ -23,13 +23,18 @@ run first passes the JAX package's train-time gate
 the leading `tpu_hist_chunk` rows must agree within
 `tpu_hist_quantize_tol`.
 
-Every option this slice does not carry raises a named LightGBMError
-instead of answering with something else: in serving `pred_contrib`,
-`pred_early_stop`, `tpu_predict_quantize` other than "none" and
-multiclass models; in training GOSS, DART, RF, multiclass, categorical
-features and the distributed tree learners. Linear trees keep the JAX
-package's own refusals (with dart or rf, multiclass, more than one
-machine, `pred_contrib`, quantized serving layouts).
+Serving takes the JAX package's options: `pred_leaf`, `pred_contrib`
+(TreeSHAP on the host, `shap.py`), `pred_early_stop` (kernel ES, for a
+binary objective; ignored for any other, as in the JAX package, and it
+turns quantize off) and `tpu_predict_quantize=f16|int8` (K1's f16 mode,
+kernels QC and QW) behind the JAX package's accuracy gate
+(`_quant_gate`); `dump_model` gives the JSON dump. Every option the
+port does not carry raises a named LightGBMError instead of answering
+with something else: in serving multiclass models; in training GOSS,
+DART, RF, multiclass, categorical features and the distributed tree
+learners. Linear trees keep the JAX package's own refusals (with dart
+or rf, multiclass, more than one machine, `pred_contrib`, quantized
+serving layouts).
 The JAX package's schedule keys (`tpu_hist_bf16`, `tpu_batch_k`,
 `tpu_hist_subtract`, `tpu_hist_compact`, `tpu_compact_threshold`)
 choose how its TPU programs run, not which trees grow; the port takes
@@ -56,12 +61,14 @@ from ..objectives import ObjectiveFunction
 from ..ops.histogram import (TRAIN_QUANTIZE_MODES, quantize_gradients,
                              train_qmax)
 from ..ops.linear import check_linear_features, linear_addend
-from ..ops.predict import (OutputTransform, binned_tree, forest_leaf_walk,
-                           forest_value_walk, tree_leaf_walk_binned,
-                           tree_value_walk_binned)
+from ..ops.predict import (OutputTransform, QuantRefused, binned_tree,
+                           forest_early_stop_walk, forest_leaf_walk,
+                           forest_quant_walk, forest_value_walk,
+                           forest_value_walk_f16, quant_codes,
+                           tree_leaf_walk_binned, tree_value_walk_binned)
 from ..ops.rng import bagging_mask, fold_in, prng_key
 from ..ops.route import score_update
-from ..serving.forest import CompiledForest
+from ..serving.forest import QUANTIZE_MODES, CompiledForest
 from ..tree import Tree
 
 _K_EPSILON = 1e-15
@@ -144,6 +151,9 @@ class GBDT:
         # every ensemble mutation goes through _bump_model_version() so
         # a cached stack can never outlive the model it was built from
         self._compiled_forest = CompiledForest(device)
+        # set while Predictor.warmup runs: the quantize gate waits for
+        # the first real batch (_quant_gate)
+        self._quant_gate_defer = False
 
     # ------------------------------------------------------------------
     # model-version bookkeeping: the version only ever increases
@@ -577,37 +587,21 @@ class GBDT:
         c = int(self.config.io.tpu_predict_chunk)
         return c if c > 0 else self._PREDICT_ROW_CHUNK
 
-    def _check_supported(self, pred_contrib: bool,
-                         pred_early_stop: bool) -> None:
-        """Refuse what the port does not carry, linear trees' refusals
-        first, worded as the JAX package words them."""
-        linear = any(t.is_linear for t in self.models)
-        if pred_contrib and linear:
+    def _check_supported(self, pred_contrib: bool) -> None:
+        """Refuse what the port does not carry, worded as the JAX package
+        words it: multiclass models, and pred_contrib of a linear forest
+        (quantized layouts of a linear forest are refused where they are
+        stacked, `_predict_raw_matrix`)."""
+        if self.num_tree_per_iteration > 1:
+            log.fatal("multiclass models (num_tree_per_iteration=%d) are "
+                      "not ported to lightgbm_tpu_torch yet"
+                      % self.num_tree_per_iteration)
+        if pred_contrib and any(t.is_linear for t in self.models):
             log.fatal("predict_contrib does not support linear_tree models: "
                       "the TreeSHAP recursion attributes constant leaf "
                       "outputs only and would silently drop the per-leaf "
                       "linear terms; use predict() or retrain with "
                       "linear_tree=false")
-        if pred_contrib:
-            log.fatal("pred_contrib (SHAP values) is not ported to "
-                      "lightgbm_tpu_torch yet")
-        if pred_early_stop:
-            log.fatal("pred_early_stop is not ported to lightgbm_tpu_torch "
-                      "yet (its kernel is still to be written)")
-        mode = str(self.config.io.tpu_predict_quantize).lower()
-        if mode != "none" and linear:
-            # lightgbm_tpu/serving/forest.py:440-450
-            log.fatal("linear_tree leaf coefficients have no %s layout; "
-                      "predict linear forests with tpu_predict_quantize=none "
-                      "(f32)" % mode)
-        if mode != "none":
-            log.fatal("tpu_predict_quantize=%s is not ported to "
-                      "lightgbm_tpu_torch yet; serve with "
-                      "tpu_predict_quantize=none" % mode)
-        if self.num_tree_per_iteration > 1:
-            log.fatal("multiclass models (num_tree_per_iteration=%d) are "
-                      "not ported to lightgbm_tpu_torch yet"
-                      % self.num_tree_per_iteration)
 
     def _chunks(self, data: np.ndarray, walk, out: np.ndarray) -> np.ndarray:
         """Run `walk(rows_on_device)` over row chunks of `data` into the
@@ -618,24 +612,116 @@ class GBDT:
             out[i:i + c] = walk(rows).cpu().numpy()
         return out
 
+    # ------------------------------------------------------------------
+    # quantized serving layouts (tpu_predict_quantize,
+    # lightgbm_tpu/boosting/gbdt.py:1740-1824)
+
+    # calibration rows of the accuracy gate
+    _QUANT_CALIB_ROWS = 256
+
+    def _quantize_mode(self) -> str:
+        mode = str(self.config.io.tpu_predict_quantize or "none").lower()
+        if mode not in QUANTIZE_MODES:  # config validates; double belt
+            raise log.LightGBMError(
+                "tpu_predict_quantize must be one of %s (got %r)"
+                % (QUANTIZE_MODES, mode))
+        return mode
+
+    @staticmethod
+    def _value_walker(mode: str, stack, transform=None):
+        """The value walk of a layout: K1 (f32), K1's f16 mode, or QC then
+        QW (int8), each with the fused f32 epilogue when `transform`."""
+        if mode == "f16":
+            return lambda x: forest_value_walk_f16(stack, x, transform)
+        if mode == "int8":
+            return lambda x: forest_quant_walk(stack, quant_codes(stack, x),
+                                               x, transform)
+        return lambda x: forest_value_walk(stack, x, transform)
+
+    def _quant_gate(self, cache: CompiledForest, mode: str, total: int,
+                    q_stack, data: np.ndarray) -> None:
+        """The build-time accuracy gate: on the first predict of a
+        quantized layout, its raw scores and the f32 stack's on the
+        leading _QUANT_CALIB_ROWS rows of the call; the worst difference,
+        relative to the f32 scores' largest magnitude floored at 1, is
+        kept per (layout, model version), and a layout past
+        tpu_predict_quantize_tol is refused. A later call re-judges the
+        kept delta against the tolerance it finds. While
+        Predictor.warmup runs (`_quant_gate_defer`) nothing is measured:
+        its all-zero rows would make a useless calibration."""
+        key = ("value", total, 1, mode)
+        delta = cache.gate_delta(key)
+        if delta is None and self._quant_gate_defer:
+            return
+        if delta is None:
+            n_cal = min(data.shape[0], self._QUANT_CALIB_ROWS)
+            calib = torch.from_numpy(np.ascontiguousarray(
+                data[:n_cal], np.float32)).to(self.device)
+            f32 = cache.value_stacks(self.models, total)
+            fr = self._value_walker("none", f32)(calib).cpu().numpy()
+            qr = self._value_walker(mode, q_stack)(calib).cpu().numpy()
+            fr, qr = fr.astype(np.float64), qr.astype(np.float64)
+            delta = float(np.max(np.abs(fr - qr))) if n_cal else 0.0
+            scale = max(1.0, float(np.max(np.abs(fr))) if n_cal else 1.0)
+            delta = delta / scale
+            cache.record_gate(key, delta)
+            log.debug("Quantize gate (%s, %d trees): relative raw-score "
+                      "delta %.3g on %d calibration rows", mode, total,
+                      delta, n_cal)
+        tol = float(self.config.io.tpu_predict_quantize_tol)
+        if delta > tol:
+            raise log.LightGBMError(
+                "tpu_predict_quantize=%s refused: max raw-score delta "
+                "%.3g vs the f32 stack exceeds tpu_predict_quantize_tol"
+                "=%.3g (relative to the calibration batch's score "
+                "scale). Raise the tolerance or serve with "
+                "tpu_predict_quantize=none." % (mode, delta, tol))
+
     def _predict_raw_matrix(self, data: np.ndarray, num_iteration: int = -1,
+                            pred_early_stop: bool = False,
+                            pred_early_stop_freq: int = 10,
+                            pred_early_stop_margin: float = 10.0,
                             transform: Optional[OutputTransform] = None
                             ) -> np.ndarray:
         """[num_data] raw scores of the single-class model (or, with
         `transform`, the converted output computed in the kernel's
         epilogue). Without a transform the f32 raws are averaged and
-        biased on the host in f64, as the JAX package does."""
+        biased on the host in f64, as the JAX package does. Early stop
+        (ES) runs for a binary objective only (predictor.hpp:34-60) and
+        keeps the f32 layout; otherwise tpu_predict_quantize picks the
+        layout, behind the accuracy gate."""
         data = np.ascontiguousarray(data, np.float32)
         n = data.shape[0]
+        k = self.num_tree_per_iteration
         total = self._capped_total(num_iteration)
         out = np.zeros(n, np.float64)
-        if total > 0 and n > 0:
-            forest = self._forest_cache().value_stacks(self.models, total)
-            self._chunks(data, lambda x: forest_value_walk(
-                forest, x, transform), out)
+        use_es = (pred_early_stop and total > 0
+                  and (k > 1 or (self.objective is not None
+                                 and self.objective.name == "binary")))
+        mode = self._quantize_mode() if not use_es else "none"
+        cache = self._forest_cache()
+        walk = None
+        if use_es:
+            forest = cache.early_stop_stacks(self.models, k, total // k)
+            margin = float(pred_early_stop_margin)
+            freq = int(pred_early_stop_freq)
+            walk = lambda x: forest_early_stop_walk(  # noqa: E731
+                forest, x, margin, freq)[0]
+        elif total > 0:
+            try:
+                stack = cache.value_stacks(self.models, total, quantize=mode)
+            except QuantRefused as exc:
+                raise log.LightGBMError(
+                    "tpu_predict_quantize=%s refused for this model: %s"
+                    % (mode, exc)) from exc
+            if mode != "none" and n > 0:
+                self._quant_gate(cache, mode, total, stack, data)
+            walk = self._value_walker(mode, stack, transform)
+        if walk is not None and n > 0:
+            self._chunks(data, walk, out)
         if transform is None:
             if self.average_output and total > 0:
-                out /= max(total // self.num_tree_per_iteration, 1)
+                out /= max(total // k, 1)
             out += self.init_score_bias
         return out
 
@@ -645,7 +731,7 @@ class GBDT:
                 pred_early_stop: bool = False,
                 pred_early_stop_freq: int = 10,
                 pred_early_stop_margin: float = 10.0) -> np.ndarray:
-        self._check_supported(pred_contrib, pred_early_stop)
+        self._check_supported(pred_contrib)
         total = self._capped_total(num_iteration)
         if pred_leaf:
             data = np.ascontiguousarray(data, np.float32)
@@ -654,7 +740,12 @@ class GBDT:
             forest = self._forest_cache().value_stacks(self.models, total)
             return self._chunks(data, lambda x: forest_leaf_walk(forest, x),
                                 np.zeros((data.shape[0], total), np.int32))
-        if not raw_score and self.objective is not None and total > 0:
+        if pred_contrib:
+            from ..shap import predict_contrib
+            return predict_contrib(self, np.asarray(data, np.float64),
+                                   num_iteration)
+        if (not raw_score and self.objective is not None and total > 0
+                and not pred_early_stop):
             # single-class fast path: averaging, bias and the output
             # transform run in the kernel's epilogue (f32) before the copy
             obj = self.objective
@@ -664,13 +755,29 @@ class GBDT:
                 bias=float(self.init_score_bias), sigmoid=float(obj.sigmoid))
             return self._predict_raw_matrix(data, num_iteration,
                                             transform=tr)
-        raw = self._predict_raw_matrix(data, num_iteration)
+        raw = self._predict_raw_matrix(
+            data, num_iteration, pred_early_stop=pred_early_stop,
+            pred_early_stop_freq=pred_early_stop_freq,
+            pred_early_stop_margin=pred_early_stop_margin)
         if raw_score or self.objective is None:
             return raw
-        # zero-tree model: the transformed bias prior
         conv = self.objective.convert_output(
             torch.from_numpy(raw.astype(np.float32)))
         return conv.numpy().astype(np.float64)
+
+    def dump_model(self, num_iteration: int = -1) -> dict:
+        """The model as JSON (lightgbm_tpu/boosting/gbdt.py:2293)."""
+        total = self._capped_total(num_iteration)
+        return {
+            "name": "tree",
+            "version": "v2_tpu",
+            "num_class": self.num_class,
+            "num_tree_per_iteration": self.num_tree_per_iteration,
+            "label_index": 0,
+            "max_feature_idx": self.max_feature_idx,
+            "feature_names": self.feature_names,
+            "tree_info": [t.to_json() for t in self.models[:total]],
+        }
 
     # ------------------------------------------------------------------
     # model text IO (reference: gbdt_model.cpp:170-370)

@@ -1,6 +1,7 @@
-// Forest-walk kernels of lightgbm_tpu_torch (K1 forest_value_walk,
-// K2 forest_leaf_walk), built for sm_90a by ops/_build.py and called
-// through ctypes from ops/predict.py.
+// Forest-walk kernels of lightgbm_tpu_torch (K1 forest_value_walk and
+// its f16-leaf mode, K2 forest_leaf_walk, ES forest_early_stop_walk),
+// built for sm_90a by ops/_build.py and called through ctypes from
+// ops/predict.py. The walk itself is forest_node.cuh's.
 //
 // Replaces, in lightgbm_tpu/ops/predict.py: the walk predict_forest_raw
 // (:305) / predict_value_raw (:193) / predict_leaf_raw (:135) /
@@ -39,96 +40,51 @@
 // values at the leaf's real feature columns times its coefficients, or
 // nothing when one of them is not finite. k more loads a (row, tree).
 
+// K1's f16-leaf mode (tpu_predict_quantize=f16): the same walk over a
+// stack whose leaf values are stored as f16 (rounded f64 -> f32 -> f16 on
+// the host, as the JAX package rounds them), widened with __half2float.
+// Replaces predict_forest_f16 (:934) / _one_tree_match_f16 (:905). The
+// sum follows the JAX function's order: trees in batches of tree_batch
+// (10), each batch summed from 0 in tree order and then added to the
+// row's total (`acc + vmap(one)(batch).sum(axis=0)`, a sequential reduce
+// for batches of up to 32 on XLA's CPU backend). Bound as K1, with 2-byte
+// leaf loads.
+//
+// ES forest_early_stop_walk: margin-based per-row early stop over a
+// [K, T] stack (K classes, T iterations; tree (c, t) at c * T + t).
+// Replaces predict_forest_raw_early_stop (:957), a lax.while_loop that
+// walks iteration t's K trees for all rows in lockstep, freezes a row
+// whose margin exceeds `margin` after every freq-th iteration (2|raw|
+// for K = 1, top-1 minus top-2 of the K sums for K >= 2) and stops when
+// every row is frozen. Here each thread keeps its row's K sums in
+// registers (local memory past a few classes), adds iteration t's K tree
+// values in class order, checks the margin after iterations freq,
+// 2 freq, ... and returns as soon as its row is frozen: each row exits on
+// its own, and there is no global loop. A frozen row's sums are exactly
+// the JAX function's (it adds 0.0 to a frozen row, which leaves an f32
+// sum that cannot be -0 unchanged), so the two agree bitwise. Linear
+// forests add the leaf's linear term (linear_term.cuh), as
+// predict_value_raw (:193) does. Bound as K1 over the trees each row
+// actually walks (data dependent): the row's iterations until it froze
+// times K.
+
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include "linear_term.cuh"
+#include "forest_node.cuh"
 
 namespace {
 
+using namespace lgbt_forest;
+
 constexpr int kBlock = 128;
-constexpr unsigned kCategoricalBit = 1u;
-constexpr unsigned kDefaultLeftBit = 2u;
-constexpr int kMissingZero = 1;
-constexpr int kMissingNan = 2;
-constexpr float kZeroThreshold = 1e-35f;
+// the widest [K, T] stack ES takes (its per-row class sums;
+// ops/predict.py MAX_EARLY_STOP_CLASSES)
+constexpr int kMaxClasses = 32;
 
-enum Epilogue { kRaw = 0, kIdentity = 1, kSigmoid = 2 };
-
-struct Forest {
-  const int* num_leaves;         // [T]
-  const int* split_feature;      // [T, M]
-  const float* threshold;        // [T, M]
-  const uint8_t* decision;       // [T, M] bit0 cat, bit1 default_left, bits2-3 missing
-  const int* left_child;         // [T, M]
-  const int* right_child;        // [T, M]
-  const int* cat_boundaries;     // [T, C]
-  const uint32_t* cat_bitset;    // [T, W]
-  const float* leaf_value;       // [T, L]
-  const float* leaf_coeff;       // [T, L, K] (K = 0: constant leaves)
-  const int* leaf_feat;          // [T, L, K] real columns, -1 padded
-  int num_trees, max_nodes, max_leaves, cat_stride, bitset_stride,
-      linear_k;
-};
-
-// _in_bitset on a raw category: floor(x) in the node's bitset words.
-// NaN, negative values and categories beyond the bitset go right.
-__device__ __forceinline__ bool category_left(const Forest& f, int t,
-                                              float threshold, float x) {
-  if (isnan(x)) return false;
-  const float cat = floorf(x);
-  const int* bounds = f.cat_boundaries + (size_t)t * f.cat_stride;
-  const int idx = (int)threshold;  // a categorical node stores its cat_idx
-  const int lo = __ldg(bounds + idx);
-  const int words = __ldg(bounds + idx + 1) - lo;
-  if (!(cat >= 0.f) || cat >= 32.f * (float)words) return false;
-  const int v = (int)cat;
-  const uint32_t word =
-      __ldg(f.cat_bitset + (size_t)t * f.bitset_stride + lo + (v >> 5));
-  return (word >> (v & 31)) & 1u;
-}
-
-// _decide_raw on a numeric node: a missing value (NaN under MISSING_NAN;
-// NaN or |x| <= 1e-35 under MISSING_ZERO) takes default_left; otherwise
-// NaN counts as 0 and the row goes left when x <= threshold (f32).
-__device__ __forceinline__ bool numeric_left(unsigned decision,
-                                             float threshold, float x) {
-  const bool nan = isnan(x);
-  const int missing = (decision >> 2) & 3;
-  const bool is_missing = (missing == kMissingNan && nan) ||
-                          (missing == kMissingZero &&
-                           (nan || fabsf(x) <= kZeroThreshold));
-  if (is_missing) return decision & kDefaultLeftBit;
-  return (nan ? 0.f : x) <= threshold;
-}
-
-// A subnormal value compares as a signed zero, as in the JAX package,
-// whose backends flush subnormals (the stacked thresholds are flushed on
-// the host). Explicit, so it holds whatever the floating-point mode.
-using lgbt_linear::flush_subnormal;
-
-// The leaf of tree t that the row reaches. A one-leaf tree starts at
-// node -1, i.e. leaf 0; children hold ~leaf for leaves.
-__device__ __forceinline__ int leaf_of(const Forest& f, int t,
-                                       const float* __restrict__ row) {
-  if (__ldg(f.num_leaves + t) <= 1) return 0;
-  const size_t base = (size_t)t * f.max_nodes;
-  int node = 0;
-  while (node >= 0) {
-    const size_t i = base + node;
-    const float x = flush_subnormal(__ldg(row + __ldg(f.split_feature + i)));
-    const unsigned decision = __ldg(f.decision + i);
-    const float threshold = __ldg(f.threshold + i);
-    const bool left = (decision & kCategoricalBit)
-                          ? category_left(f, t, threshold, x)
-                          : numeric_left(decision, threshold, x);
-    node = left ? __ldg(f.left_child + i) : __ldg(f.right_child + i);
-  }
-  return ~node;
-}
-
-// K1: out[r] = sum over t = 0..T-1 of leaf_value[t, leaf_t(row r)], in
-// f32 and in tree order; with an epilogue, convert(out / denom + bias).
+// K1: out[r] = sum over t = 0..T-1 of tree t's value for row r, in f32
+// and in tree order; with an epilogue, convert(out / denom + bias).
 __global__ void __launch_bounds__(kBlock)
 value_walk_kernel(Forest f, const float* __restrict__ x, int n, int nf,
                   int epilogue, float denom, float bias, float sigmoid,
@@ -138,22 +94,32 @@ value_walk_kernel(Forest f, const float* __restrict__ x, int n, int nf,
   const float* row = x + (size_t)r * nf;
   float acc = 0.f;
   for (int t = 0; t < f.num_trees; ++t) {
-    const size_t leaf = (size_t)t * f.max_leaves + leaf_of(f, t, row);
-    float v = __ldg(f.leaf_value + leaf);
-    if (f.linear_k > 0) {
-      bool ok;
-      const float lin = lgbt_linear::linear_term(
-          row, f.leaf_coeff + leaf * f.linear_k,
-          f.leaf_feat + leaf * f.linear_k, f.linear_k, ok);
-      v = __fadd_rn(v, ok ? lin : 0.f);
+    acc = __fadd_rn(acc, tree_value(f, t, leaf_of(f, t, row), row));
+  }
+  out[r] = epilogue_of(acc, epilogue, denom, bias, sigmoid);
+}
+
+// K1's f16-leaf mode: f16 leaves widened, summed in batches of
+// tree_batch trees (see the note at the top).
+__global__ void __launch_bounds__(kBlock)
+value_walk_f16_kernel(Forest f, const float* __restrict__ x, int n, int nf,
+                      int tree_batch, int epilogue, float denom, float bias,
+                      float sigmoid, float* __restrict__ out) {
+  const int r = blockIdx.x * kBlock + threadIdx.x;
+  if (r >= n) return;
+  const float* row = x + (size_t)r * nf;
+  const __half* leaf_value = static_cast<const __half*>(f.leaf_value);
+  float acc = 0.f, part = 0.f;
+  for (int t = 0; t < f.num_trees; ++t) {
+    const int leaf = leaf_of(f, t, row);
+    part = __fadd_rn(
+        part, __half2float(leaf_value[(size_t)t * f.max_leaves + leaf]));
+    if ((t + 1) % tree_batch == 0 || t + 1 == f.num_trees) {
+      acc = __fadd_rn(acc, part);
+      part = 0.f;
     }
-    acc = __fadd_rn(acc, v);
   }
-  if (epilogue != kRaw) {
-    acc = acc / denom + bias;
-    if (epilogue == kSigmoid) acc = 1.f / (1.f + expf(-sigmoid * acc));
-  }
-  out[r] = acc;
+  out[r] = epilogue_of(acc, epilogue, denom, bias, sigmoid);
 }
 
 // K2: leaf[r, t] = leaf_t(row r), int32, [N, T] row-major.
@@ -167,64 +133,109 @@ leaf_walk_kernel(Forest f, const float* __restrict__ x, int n, int nf,
   for (int t = 0; t < f.num_trees; ++t) out[t] = leaf_of(f, t, row);
 }
 
-Forest make_forest(const int* num_leaves, const int* split_feature,
-                   const float* threshold, const uint8_t* decision,
-                   const int* left_child, const int* right_child,
-                   const int* cat_boundaries, const uint32_t* cat_bitset,
-                   const float* leaf_value, const float* leaf_coeff,
-                   const int* leaf_feat, int num_trees, int max_nodes,
-                   int max_leaves, int cat_stride, int bitset_stride,
-                   int linear_k) {
-  return Forest{num_leaves,  split_feature,  threshold,  decision,
-                left_child,  right_child,    cat_boundaries, cat_bitset,
-                leaf_value,  leaf_coeff,     leaf_feat,  num_trees,
-                max_nodes,   max_leaves,     cat_stride, bitset_stride,
-                linear_k};
+// ES: out [K, N] f32, the row's class sums when it froze or after all T
+// iterations; `iters` [N] i32, the iterations the row walked.
+__global__ void __launch_bounds__(kBlock)
+early_stop_kernel(Forest f, const float* __restrict__ x, int n, int nf,
+                  int k, int t_iters, float margin, int freq,
+                  float* __restrict__ out, int* __restrict__ iters) {
+  const int r = blockIdx.x * kBlock + threadIdx.x;
+  if (r >= n) return;
+  const float* row = x + (size_t)r * nf;
+  float acc[kMaxClasses];
+  for (int c = 0; c < k; ++c) acc[c] = 0.f;
+  int t = 0;
+  while (t < t_iters) {
+    for (int c = 0; c < k; ++c) {
+      const int tree = c * t_iters + t;
+      acc[c] = __fadd_rn(acc[c], tree_value(f, tree, leaf_of(f, tree, row),
+                                            row));
+    }
+    ++t;
+    if (t % freq == 0) {
+      float m;
+      if (k == 1) {
+        m = 2.f * fabsf(acc[0]);
+      } else {
+        float top1 = -INFINITY, top2 = -INFINITY;
+        for (int c = 0; c < k; ++c) {
+          if (acc[c] > top1) {
+            top2 = top1;
+            top1 = acc[c];
+          } else if (acc[c] > top2) {
+            top2 = acc[c];
+          }
+        }
+        m = __fsub_rn(top1, top2);
+      }
+      if (!(m <= margin)) break;
+    }
+  }
+  for (int c = 0; c < k; ++c) out[(size_t)c * n + r] = acc[c];
+  iters[r] = t;
 }
 
 }  // namespace
 
+#define LGBT_FOREST_ARGS                                                    \
+  const float *x, int n, int nf, const int *num_leaves,                    \
+      const int *split_feature, const float *threshold,                    \
+      const uint8_t *decision, const int *left_child,                      \
+      const int *right_child, const int *cat_boundaries,                   \
+      const uint32_t *cat_bitset, const void *leaf_value,                  \
+      const float *leaf_coeff, const int *leaf_feat, int num_trees,        \
+      int max_nodes, int max_leaves, int cat_stride, int bitset_stride,    \
+      int linear_k
+#define LGBT_MAKE_FOREST                                                    \
+  make_forest(num_leaves, split_feature, threshold, decision, left_child,  \
+              right_child, cat_boundaries, cat_bitset, leaf_value,         \
+              leaf_coeff, leaf_feat, num_trees, max_nodes, max_leaves,     \
+              cat_stride, bitset_stride, linear_k)
+
 // C interface. Pointers are device pointers; `stream` is the caller's
 // cudaStream_t. Each returns cudaGetLastError() after its launch (0 on
 // success); nothing synchronises and nothing is allocated here.
-extern "C" int lgbt_forest_value_walk(
-    const float* x, int n, int nf, const int* num_leaves,
-    const int* split_feature, const float* threshold,
-    const uint8_t* decision, const int* left_child, const int* right_child,
-    const int* cat_boundaries, const uint32_t* cat_bitset,
-    const float* leaf_value, const float* leaf_coeff, const int* leaf_feat,
-    int num_trees, int max_nodes, int max_leaves, int cat_stride,
-    int bitset_stride, int linear_k, int epilogue, float denom,
-    float bias, float sigmoid, float* out, void* stream) {
-  const Forest f = make_forest(num_leaves, split_feature, threshold,
-                               decision, left_child, right_child,
-                               cat_boundaries, cat_bitset, leaf_value,
-                               leaf_coeff, leaf_feat, num_trees, max_nodes,
-                               max_leaves, cat_stride, bitset_stride,
-                               linear_k);
+extern "C" int lgbt_forest_value_walk(LGBT_FOREST_ARGS, int epilogue,
+                                      float denom, float bias,
+                                      float sigmoid, float* out,
+                                      void* stream) {
   const int blocks = (n + kBlock - 1) / kBlock;
   value_walk_kernel<<<blocks, kBlock, 0, (cudaStream_t)stream>>>(
-      f, x, n, nf, epilogue, denom, bias, sigmoid, out);
+      LGBT_MAKE_FOREST, x, n, nf, epilogue, denom, bias, sigmoid, out);
   return (int)cudaGetLastError();
 }
 
-extern "C" int lgbt_forest_leaf_walk(
-    const float* x, int n, int nf, const int* num_leaves,
-    const int* split_feature, const float* threshold,
-    const uint8_t* decision, const int* left_child, const int* right_child,
-    const int* cat_boundaries, const uint32_t* cat_bitset,
-    const float* leaf_value, const float* leaf_coeff, const int* leaf_feat,
-    int num_trees, int max_nodes, int max_leaves, int cat_stride,
-    int bitset_stride, int linear_k, int* leaf, void* stream) {
-  const Forest f = make_forest(num_leaves, split_feature, threshold,
-                               decision, left_child, right_child,
-                               cat_boundaries, cat_bitset, leaf_value,
-                               leaf_coeff, leaf_feat, num_trees, max_nodes,
-                               max_leaves, cat_stride, bitset_stride,
-                               linear_k);
+extern "C" int lgbt_forest_value_walk_f16(LGBT_FOREST_ARGS, int tree_batch,
+                                          int epilogue, float denom,
+                                          float bias, float sigmoid,
+                                          float* out, void* stream) {
+  if (tree_batch < 1) return (int)cudaErrorInvalidValue;
   const int blocks = (n + kBlock - 1) / kBlock;
-  leaf_walk_kernel<<<blocks, kBlock, 0, (cudaStream_t)stream>>>(f, x, n, nf,
-                                                                leaf);
+  value_walk_f16_kernel<<<blocks, kBlock, 0, (cudaStream_t)stream>>>(
+      LGBT_MAKE_FOREST, x, n, nf, tree_batch, epilogue, denom, bias, sigmoid,
+      out);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int lgbt_forest_leaf_walk(LGBT_FOREST_ARGS, int* leaf,
+                                     void* stream) {
+  const int blocks = (n + kBlock - 1) / kBlock;
+  leaf_walk_kernel<<<blocks, kBlock, 0, (cudaStream_t)stream>>>(
+      LGBT_MAKE_FOREST, x, n, nf, leaf);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int lgbt_forest_early_stop_walk(LGBT_FOREST_ARGS, int k,
+                                           float margin, int freq,
+                                           float* out, int* iters,
+                                           void* stream) {
+  if (k < 1 || k > kMaxClasses || freq < 1 || num_trees % k != 0) {
+    return (int)cudaErrorInvalidValue;
+  }
+  const int blocks = (n + kBlock - 1) / kBlock;
+  early_stop_kernel<<<blocks, kBlock, 0, (cudaStream_t)stream>>>(
+      LGBT_MAKE_FOREST, x, n, nf, k, num_trees / k, margin, freq, out,
+      iters);
   return (int)cudaGetLastError();
 }
 

@@ -13,11 +13,15 @@
 // The port's grower keeps each leaf's rows as one contiguous segment of
 // its permutation (DataPartition), so here a leaf's segment is cut into
 // tiles of kTileRows rows (a tile never spans two leaves). A block takes
-// one tile: its threads first gather a chunk of rows' z, w*h, w*g and
-// live flag into shared memory (one row a thread), then each thread
-// owns up to kEntriesPerThread of the E = d(d+1)/2 + d + 1 sums (the
-// upper triangle of A, then b, then cnt) and adds the chunk's rows into
-// them in row order. Each term is formed in f32 as the JAX package forms
+// one tile and one slice of kEntriesPerBlock of the E = d(d+1)/2 + d + 1
+// sums (the upper triangle of A, then b, then cnt): its threads first
+// gather a chunk of rows' z, w*h, w*g and live flag into shared memory
+// (one row a thread), then each thread owns up to kEntriesPerThread
+// sums of its slice and adds the chunk's rows into them in row order.
+// A leaf needs ceil(E / kEntriesPerBlock) slices (1 up to k = 42, 3 at
+// k = 64), the grid's second dimension; every slice gathers the same
+// rows again, and each sum keeps its own row order, so its bits do not
+// depend on how the sums are sliced. Each term is formed in f32 as the JAX package forms
 // it (z_i * z_j, then times w*h) and added exactly in f64; a second
 // kernel adds each leaf's tile sums in tile order and rounds once to
 // f32. Fixed order throughout: the same bits every launch, no atomics.
@@ -64,9 +68,11 @@ using lgbt_linear::linear_term;
 constexpr int kTileRows = 1024;
 constexpr int kThreadsLF = 256;
 constexpr int kEntriesPerThread = 4;
-constexpr int kChunkRows = kThreadsLF;  // rows gathered per chunk
+constexpr int kEntriesPerBlock = kThreadsLF * kEntriesPerThread;
+// shared memory a tile block may take for its gathered chunk: it holds
+// chunk x (d + 3) floats, 256 rows up to k = 92, fewer beyond
+constexpr int kChunkBytes = 96 * 1024;
 constexpr int kThreadsLA = 256;
-
 // Entry e of the E sums: (i, j) of A's upper triangle for e < d(d+1)/2,
 // then b's d entries, then cnt.
 __device__ __forceinline__ void entry_of(int e, int d, int& i, int& j) {
@@ -85,16 +91,18 @@ __global__ void __launch_bounds__(kThreadsLF) normal_eq_tile_kernel(
     const float* __restrict__ x, int F, const float* __restrict__ grad,
     const float* __restrict__ hess, const float* __restrict__ weight,
     const int* __restrict__ perm, const int* __restrict__ tiles,
-    const int* __restrict__ feats, int k, double* __restrict__ part) {
+    const int* __restrict__ feats, int k, int chunk_rows,
+    double* __restrict__ part) {
   extern __shared__ float smem[];
   const int d = k + 1;
   const int n_a = d * (d + 1) / 2;
   const int E = n_a + d + 1;
-  float* z = smem;                          // [kChunkRows, d]
-  float* wh = z + kChunkRows * d;           // [kChunkRows]
-  float* wg = wh + kChunkRows;
-  float* live = wg + kChunkRows;
+  float* z = smem;                          // [chunk_rows, d]
+  float* wh = z + chunk_rows * d;           // [chunk_rows]
+  float* wg = wh + chunk_rows;
+  float* live = wg + chunk_rows;
   const int t = blockIdx.x;
+  const int e0 = blockIdx.y * kEntriesPerBlock;  // this block's slice
   const int leaf = tiles[t * 3], first = tiles[t * 3 + 1],
             rows = tiles[t * 3 + 2];
   const int* lf = feats + (size_t)leaf * k;
@@ -104,12 +112,12 @@ __global__ void __launch_bounds__(kThreadsLF) normal_eq_tile_kernel(
 #pragma unroll
   for (int u = 0; u < kEntriesPerThread; ++u) {
     acc[u] = 0.0;
-    const int e = threadIdx.x + u * kThreadsLF;
+    const int e = e0 + threadIdx.x + u * kThreadsLF;
     ei[u] = ej[u] = -1;
     if (e < n_a) entry_of(e, d, ei[u], ej[u]);
   }
-  for (int c0 = 0; c0 < rows; c0 += kChunkRows) {
-    const int m = min(kChunkRows, rows - c0);
+  for (int c0 = 0; c0 < rows; c0 += chunk_rows) {
+    const int m = min(chunk_rows, rows - c0);
     if (threadIdx.x < m) {
       const int i = threadIdx.x;
       const int r = __ldg(perm + first + c0 + i);
@@ -137,7 +145,7 @@ __global__ void __launch_bounds__(kThreadsLF) normal_eq_tile_kernel(
     __syncthreads();
 #pragma unroll
     for (int u = 0; u < kEntriesPerThread; ++u) {
-      const int e = threadIdx.x + u * kThreadsLF;
+      const int e = e0 + threadIdx.x + u * kThreadsLF;
       if (e >= E) continue;
       double s = acc[u];
       if (e < n_a) {
@@ -158,7 +166,7 @@ __global__ void __launch_bounds__(kThreadsLF) normal_eq_tile_kernel(
   }
 #pragma unroll
   for (int u = 0; u < kEntriesPerThread; ++u) {
-    const int e = threadIdx.x + u * kThreadsLF;
+    const int e = e0 + threadIdx.x + u * kThreadsLF;
     if (e < E) part[(size_t)t * E + e] = acc[u];
   }
 }
@@ -297,9 +305,6 @@ __global__ void __launch_bounds__(kThreadsLA) addend_kernel(
 
 // The entry counts and shared-memory sizes the wrapper allocates for.
 extern "C" int lgbt_linear_tile_rows() { return kTileRows; }
-extern "C" int lgbt_linear_max_entries() {
-  return kThreadsLF * kEntriesPerThread;
-}
 
 // x [N, F] f32; grad/hess/weight [N] f32; perm [N] i32; tiles [T, 3] i32
 // (leaf, first perm position, rows); tile_first/tile_count [L] i32;
@@ -312,16 +317,22 @@ extern "C" int lgbt_linear_normal_eq(
     int k, void* part, float* A, float* b, float* cnt, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
   const int d = k + 1;
+  const int E = d * (d + 1) / 2 + d + 1;
+  const int chunk_rows =
+      min(kThreadsLF, kChunkBytes / ((d + 3) * (int)sizeof(float)));
+  if (chunk_rows < 1) return (int)cudaErrorInvalidValue;
   if (T > 0) {
-    const size_t smem = ((size_t)kChunkRows * (d + 3)) * sizeof(float);
+    const size_t smem = ((size_t)chunk_rows * (d + 3)) * sizeof(float);
     if (smem > 48 * 1024) {
       cudaError_t err = cudaFuncSetAttribute(
           normal_eq_tile_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
           (int)smem);
       if (err != cudaSuccess) return (int)err;
     }
-    normal_eq_tile_kernel<<<T, kThreadsLF, smem, s>>>(
-        x, F, grad, hess, weight, perm, tiles, feats, k, (double*)part);
+    const dim3 grid(T, (E + kEntriesPerBlock - 1) / kEntriesPerBlock);
+    normal_eq_tile_kernel<<<grid, kThreadsLF, smem, s>>>(
+        x, F, grad, hess, weight, perm, tiles, feats, k, chunk_rows,
+        (double*)part);
     cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
   }
@@ -340,6 +351,11 @@ extern "C" int lgbt_linear_solve(const float* A, const float* b,
   if (L <= 0) return 0;
   const int d = k + 1;
   const size_t smem = (size_t)(d * d + d) * sizeof(float);
+  if (smem > 48 * 1024) {  // k > 109
+    cudaError_t err = cudaFuncSetAttribute(
+        solve_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return (int)err;
+  }
   solve_kernel<<<L, 32, smem, (cudaStream_t)stream>>>(
       A, b, cnt, feats, leaf_const, lam, k, value, coeff, fitted);
   return (int)cudaGetLastError();

@@ -5,8 +5,10 @@
 // order XLA's CPU backend adds jnp.einsum("nk,nk->n", ...) at
 // precision HIGHEST (lightgbm_tpu/ops/predict.py:163 and
 // linear/solver.py:143): for k == 2 the second product is fused with
-// the first, fma(c1, x1, c0 * x0); otherwise the products are added one
-// at a time from 0 (probed bitwise for k <= 8; ops/linear.py
+// the first, fma(c1, x1, c0 * x0); otherwise the first eight products
+// are rounded and added one at a time from 0, and each later one is
+// fused into the sum, acc = fma(c_j, x_j, acc) for j >= 8 (probed
+// bitwise for k = 1..100 against jnp.einsum; ops/linear.py
 // linear_dot_plain is the same order in torch ops). A padded slot
 // (feat < 0) contributes 0 * 0. `ok` is false when a live slot's value
 // is not finite: the caller then takes the intercept alone. A
@@ -20,6 +22,8 @@
 namespace lgbt_linear {
 
 constexpr float kF32Tiny = 1.17549435e-38f;  // smallest normal float
+// slots XLA's dot adds unfused before it fuses the rest (k != 2)
+constexpr int kUnfusedSlots = 8;
 
 __device__ __forceinline__ float flush_subnormal(float x) {
   return fabsf(x) < kF32Tiny ? copysignf(0.f, x) : x;
@@ -49,8 +53,10 @@ __device__ __forceinline__ float linear_term(const float* __restrict__ row,
       } else {
         acc = __fmaf_rn(c, x, first);
       }
-    } else {
+    } else if (j < kUnfusedSlots) {
       acc = __fadd_rn(acc, __fmul_rn(c, x));
+    } else {
+      acc = __fmaf_rn(c, x, acc);
     }
   }
   return acc;

@@ -22,6 +22,40 @@ from . import log
 from .config import Config
 from .metrics import query_layout, segment_sum
 from .ops.rank import lambdarank_grads
+from .ops.route import fma_f32
+
+# XLA's f32 exp on its CPU backend (the Cephes polynomial of XLA's
+# elemental emitter, every multiply-add fused): clamp, n = floor(x log2(e)
+# + 1/2) clamped to [-127, 127], x - n ln2 in two fused steps, a degree-5
+# polynomial in Horner form, times 2^n, a subnormal result flushed to
+# zero as XLA flushes it
+_EXP_CLAMP = (-87.8, 88.8)
+_EXP_LOG2E = 1.44269504088896341
+_EXP_LN2 = (0.693359375, -2.12194440e-4)
+_EXP_POLY = (1.9875691500e-4, 1.3981999507e-3, 8.3334519073e-3,
+             4.1665795894e-2, 1.6666665459e-1, 5.0000001201e-1)
+_F32_TINY = float(np.finfo(np.float32).tiny)
+
+
+def xla_exp_f32(x: torch.Tensor) -> torch.Tensor:
+    """`jnp.exp` on an f32 tensor as XLA's CPU backend computes it, bit
+    for bit (probed on 2^24 inputs over [-104, 89] and the special
+    values, tests/test_torch_xla_order.py), in plain f32 torch ops on
+    x's device. torch.exp differs from it by an ulp on some inputs."""
+    def const(v):
+        return torch.full_like(x, v)
+    r = x.clamp(*_EXP_CLAMP)
+    n = torch.floor(fma_f32(r, const(_EXP_LOG2E), const(0.5))).clamp(
+        -127.0, 127.0)
+    r = fma_f32(const(-_EXP_LN2[0]), n, r)
+    r = fma_f32(const(-_EXP_LN2[1]), n, r)
+    z = fma_f32(r, const(_EXP_POLY[0]), const(_EXP_POLY[1]))
+    for c in _EXP_POLY[2:]:
+        z = fma_f32(z, r, const(c))
+    z = fma_f32(z, r * r, r) + 1.0
+    pow2 = ((n.to(torch.int32) + 127) << 23).view(torch.float32)
+    out = z * pow2
+    return torch.where(out.abs() < _F32_TINY, out * 0.0, out)
 
 
 class ObjectiveFunction:
@@ -141,14 +175,15 @@ class BinaryLogloss(ObjectiveFunction):
 
     def get_gradients(self, score):
         """lightgbm_tpu/objectives.py:258-267, the same f32 operations in
-        the same order."""
+        the same order, with XLA's exp (`xla_exp_f32`), so the gradients
+        equal the JAX package's bitwise."""
         is_pos = self.label > 0
         one = torch.ones((), dtype=torch.float32, device=score.device)
         lv = torch.where(is_pos, one, -one)
         lw = torch.where(is_pos, one * self.label_weights[1],
                          one * self.label_weights[0])
         s = self.sigmoid
-        response = -lv * s / (1.0 + torch.exp(lv * s * score))
+        response = -lv * s / (1.0 + xla_exp_f32(lv * s * score))
         abs_r = torch.abs(response)
         grad = response * lw
         hess = abs_r * (s - abs_r) * lw

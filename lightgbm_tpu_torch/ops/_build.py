@@ -45,7 +45,15 @@ _NO_FMA = ("-fmad=false",)
 LIBRARIES = {
     "forest": ("forest_walk.cu", {
         "lgbt_forest_value_walk": _WALK_HEAD + [_i, _f, _f, _f, _p, _p],
+        "lgbt_forest_value_walk_f16": _WALK_HEAD
+        + [_i, _i, _f, _f, _f, _p, _p],
         "lgbt_forest_leaf_walk": _WALK_HEAD + [_p, _p],
+        "lgbt_forest_early_stop_walk": _WALK_HEAD + [_i, _f, _i, _p, _p, _p],
+    }, ()),
+    "quant": ("forest_quant.cu", {
+        "lgbt_quant_codes": [_p, _i, _i, _p, _i, _i, _p, _p, _p],
+        "lgbt_forest_quant_walk": _WALK_HEAD + [_p, _p, _p, _i, _i, _f, _f,
+                                                _f, _p, _p],
     }, ()),
     "histogram": ("histogram.cu", {
         "lgbt_hist_tiles": [_i],
@@ -77,7 +85,6 @@ LIBRARIES = {
     }, _NO_FMA),
     "linear": ("linear.cu", {
         "lgbt_linear_tile_rows": [],
-        "lgbt_linear_max_entries": [],
         "lgbt_linear_normal_eq": [_p, _i] + [_p] * 5 + [_i, _p, _p, _i, _p,
                                                         _i] + [_p] * 5,
         "lgbt_linear_solve": [_p] * 5 + [_f, _i, _i] + [_p] * 4,

@@ -47,18 +47,19 @@ from .histogram import segment_tiles
 
 _launch_lock = threading.Lock()
 _F32_TINY = float(np.finfo(np.float32).tiny)
-
-#: the widest design LF takes: its 256 threads keep at most 4 of the
-#: d(d+1)/2 + d + 1 sums each (d = k + 1), so k <= 42; LS's shared
-#: matrix (d*d + d floats) is far below a block's shared memory there
-MAX_LINEAR_FEATURES = 42
-
+#: XLA's CPU dot rounds and adds the first 8 products of a row one at a
+#: time, then fuses each later product into the sum (probed bitwise for
+#: k = 1..100, tests/test_torch_xla_order.py)
+XLA_UNFUSED_SLOTS = 8
 
 def check_linear_features(k: int) -> None:
-    if not 1 <= k <= MAX_LINEAR_FEATURES:
+    """LF splits a leaf's d(d+1)/2 + d + 1 sums (d = k + 1) over as many
+    blocks as they need and LS keeps the d x d system in shared memory,
+    so any k >= 1 is taken, as the JAX package takes it."""
+    if k < 1:
         raise LightGBMError(
-            "tpu_linear_max_features=%d: the linear-leaf kernels take 1 to "
-            "%d features a leaf" % (k, MAX_LINEAR_FEATURES))
+            "tpu_linear_max_features=%d: the linear-leaf kernels take 1 or "
+            "more features a leaf" % k)
 
 
 def flush_subnormal(x: torch.Tensor) -> torch.Tensor:
@@ -81,16 +82,20 @@ def gather_values(x: torch.Tensor, rows: torch.Tensor,
 def linear_dot_plain(coeff: torch.Tensor, xv: torch.Tensor) -> torch.Tensor:
     """sum_j coeff[:, j] * xv[:, j] in the order XLA's CPU backend adds
     jnp.einsum("nk,nk->n", ..., precision=HIGHEST): for k == 2 the second
-    product fused with the first (one rounding), else the products added
-    one at a time from 0 (csrc/linear_term.cuh)."""
+    product fused with the first (one rounding); else the first
+    XLA_UNFUSED_SLOTS products rounded and added one at a time from 0,
+    and each later one fused into the sum (csrc/linear_term.cuh)."""
+    from .route import fma_f32
     k = coeff.shape[1]
     if k == 2:
-        from .route import fma_f32
         return fma_f32(coeff[:, 1], xv[:, 1], coeff[:, 0] * xv[:, 0])
     acc = torch.zeros(coeff.shape[0], dtype=torch.float32,
                       device=coeff.device)
     for j in range(k):
-        acc = acc + coeff[:, j] * xv[:, j]
+        if j < XLA_UNFUSED_SLOTS:
+            acc = acc + coeff[:, j] * xv[:, j]
+        else:
+            acc = fma_f32(coeff[:, j], xv[:, j], acc)
     return acc
 
 

@@ -28,18 +28,34 @@ Linear forests (`linear_tree`): the stack carries each leaf's
 coefficients and real feature columns, and K1 adds the leaf's linear
 term at the leaf it reaches (`predict_value_raw` :193 with
 `linear_leaf_addend` :163; `csrc/linear_term.cuh`, `ops/linear.py`).
+
+The serving extras:
+
+- ES, `forest_early_stop_walk`: margin-based per-row early stop over a
+  [K, T] stack (`predict_forest_raw_early_stop` :957;
+  `csrc/forest_walk.cu`);
+- K1's f16-leaf mode, `forest_value_walk_f16` (`tpu_predict_quantize=
+  f16`; `predict_forest_f16` :934): the walk over f16 leaves, summed in
+  batches of QUANT_TREE_BATCH trees as the JAX function sums them;
+- the fixed-point layout of `tpu_predict_quantize=int8`
+  (`stack_trees_quant` :760): QC, `quant_codes` (:820), codes each row's
+  values against per-feature grids of the split thresholds, and QW,
+  `forest_quant_walk` (`predict_forest_quant` :882), walks the forest on
+  the codes (`csrc/forest_quant.cu`). QW and K1's f16 mode make the same
+  decisions over the same f16 leaves and agree bitwise.
 """
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import threading
 from dataclasses import dataclass, fields
-from typing import Optional
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
 
-from ..binning import MISSING_NAN, MISSING_ZERO
+from ..binning import MISSING_NAN, MISSING_NONE, MISSING_ZERO
 from ..log import LightGBMError
 from . import _build
 
@@ -78,6 +94,7 @@ class Forest:
     leaf_feat: torch.Tensor       # [T, L, K] i32 real columns, -1 padded
     max_depth: int                # deepest leaf: the plain walk's steps
     num_features: int             # 1 + the largest feature read
+    num_classes: int = 1          # K of an early-stop [K, T] stack
 
     @property
     def num_trees(self) -> int:
@@ -183,6 +200,131 @@ def stack_trees(trees, device: torch.device) -> Forest:
         num_features=max(used, default=0))
 
 
+def stack_trees_early_stop(models, k: int, t_iters: int,
+                           device: torch.device) -> Forest:
+    """The [K, T] stack of ES (`early_stop_stacks`, lightgbm_tpu/serving/
+    forest.py:278-289): the first t_iters iterations of a model whose
+    trees are stored iteration-major, class-minor, laid out class-major,
+    tree (c, t) at c * t_iters + t."""
+    trees = [models[t * k + c] for c in range(k) for t in range(t_iters)]
+    return dataclasses.replace(stack_trees(trees, device), num_classes=k)
+
+
+def _refuse_linear(linear: bool, layout: str) -> None:
+    """The JAX package's refusal of quantized linear layouts
+    (lightgbm_tpu/serving/forest.py:440-450, ops/predict.py:771-774)."""
+    if linear:
+        raise QuantRefused(
+            "linear_tree leaf coefficients have no %s layout; predict "
+            "linear forests with tpu_predict_quantize=none (f32)" % layout)
+
+
+def to_f16(forest: Forest) -> Forest:
+    """The f16 layout of `_stacks_to_f16` (lightgbm_tpu/serving/
+    forest.py:429): the same stack with its f32 leaf values rounded to
+    f16 (so f64 -> f32 -> f16, as the JAX package rounds them)."""
+    _refuse_linear(forest.linear_k > 0, "f16")
+    return dataclasses.replace(
+        forest, leaf_value=forest.leaf_value.to(torch.float16))
+
+
+# max distinct thresholds per feature in the fixed-point layout: codes
+# 1..K+1 plus the -1 missing sentinel (lightgbm_tpu/ops/predict.py:724)
+QUANT_MAX_CODES = 255
+# trees a batch of the quantized layouts' sums (predict_forest_quant and
+# predict_forest_f16 `tree_batch`)
+QUANT_TREE_BATCH = 10
+_MISS_NAN_BIT, _MISS_ZERO_BIT = 1, 2
+
+
+class QuantRefused(ValueError):
+    """A forest that has no quantized layout: more distinct thresholds
+    per feature than the code space holds (models binned past max_bin
+    256), or linear leaves."""
+
+
+@dataclass
+class QuantForest:
+    """The fixed-point layout of one class's trees (`QuantForest`,
+    lightgbm_tpu/ops/predict.py:700): the walk stack with f16 leaves
+    (categorical nodes keep their bitsets), per node the threshold's
+    code and the lower code bound, and per feature the sorted grid of
+    the forest's distinct f32 thresholds and its missing type."""
+    walk: Forest                  # node arrays, f16 leaf values
+    thr_code: torch.Tensor        # [T, M] i16: 1 + the threshold's grid index
+    lo: torch.Tensor              # [T, M] i16: -2 default-left, else 0
+    grid: torch.Tensor            # [F, K] f32 sorted bounds, +inf padded
+    miss: Optional[torch.Tensor]  # [F] u8 bit0 NaN, bit1 zero; None: no
+    #                               missing-typed numeric split
+
+    def nbytes(self) -> int:
+        extra = [self.thr_code, self.lo, self.grid] + (
+            [] if self.miss is None else [self.miss])
+        return self.walk.nbytes() + sum(
+            t.numel() * t.element_size() for t in extra)
+
+
+def stack_trees_quant(trees, device: torch.device) -> QuantForest:
+    """`stack_trees_quant` (lightgbm_tpu/ops/predict.py:760): per-feature
+    sorted grids of the numeric nodes' f32 thresholds (each clipped to
+    +-f32 max), thr_code = 1 + the threshold's index in its grid, lo = -2
+    for a default-left node (so the -1 missing sentinel goes left) else
+    0; categorical nodes are parked at thr_code 0 and decided by the
+    bitset. The missing flags are kept only when a numeric split's
+    feature carries a missing type. Raises QuantRefused past
+    QUANT_MAX_CODES thresholds a feature and for linear leaves. The TPU
+    layout's [T, M, L] path tensor and its memory budget are matmul
+    matters; the port walks the trees."""
+    _refuse_linear(any(t.is_linear for t in trees), "int8")
+    fmax = np.finfo(np.float32).max
+    grids: dict = {}
+    miss: dict = {}
+    n_feat = 1
+    for t in trees:
+        for i in range(max(t.num_leaves - 1, 0)):
+            f = int(t.split_feature[i])
+            n_feat = max(n_feat, f + 1)
+            miss.setdefault(f, t.missing_type_node(i))
+            if t.is_categorical_node(i):
+                continue
+            thr = np.float32(np.clip(t.threshold[i], -fmax, fmax))
+            grids.setdefault(f, set()).add(float(thr))
+    k_grid = max([len(v) for v in grids.values()] or [1])
+    if k_grid > QUANT_MAX_CODES:
+        raise QuantRefused(
+            "int8 layout needs <= %d distinct split thresholds per "
+            "feature; this forest uses %d (trained with max_bin > 256?)"
+            % (QUANT_MAX_CODES, k_grid))
+    grid = np.full((n_feat, k_grid), np.inf, np.float32)
+    sorted_grids = {}
+    for f, vals in grids.items():
+        sv = np.sort(np.asarray(list(vals), np.float32))
+        sorted_grids[f] = sv
+        grid[f, :len(sv)] = sv
+    walk = to_f16(stack_trees(trees, device))
+    thr_code = np.zeros(tuple(walk.split_feature.shape), np.int16)
+    lo = np.zeros_like(thr_code)
+    for ti, t in enumerate(trees):
+        for i in range(max(t.num_leaves - 1, 0)):
+            if t.is_categorical_node(i):
+                continue
+            sv = sorted_grids[int(t.split_feature[i])]
+            thr = np.float32(np.clip(t.threshold[i], -fmax, fmax))
+            thr_code[ti, i] = 1 + int(np.searchsorted(sv, thr))
+            lo[ti, i] = -2 if t.default_left_node(i) else 0
+    has_special = any(mt != MISSING_NONE for f, mt in miss.items()
+                      if f in grids)
+    flags = np.zeros(n_feat, np.uint8)
+    for f, mt in miss.items():
+        flags[f] = (_MISS_NAN_BIT if mt == MISSING_NAN else 0) \
+            | (_MISS_ZERO_BIT if mt == MISSING_ZERO else 0)
+    return QuantForest(
+        walk=walk, thr_code=torch.from_numpy(thr_code).to(device),
+        lo=torch.from_numpy(lo).to(device),
+        grid=torch.from_numpy(grid).to(device),
+        miss=torch.from_numpy(flags).to(device) if has_special else None)
+
+
 @dataclass(frozen=True)
 class OutputTransform:
     """The single-class output epilogue of `GBDT.predict`
@@ -201,19 +343,21 @@ _EPILOGUE = {"identity": 1, "sigmoid": 2}
 
 # ----------------------------------------------------------------------
 # plain versions: the same walk in torch ops, lockstep over [T, N]
-def _go_left_plain(forest: Forest, node, fval):
-    """`_decide_raw` over [T, N] node/value pairs."""
+def _go_left_plain(forest: Forest, node, fval, numeric=None):
+    """`_decide_raw` over [T, N] node/value pairs; `numeric` [T, N], when
+    given, decides the numeric nodes instead (QW's code compare)."""
     dec = forest.decision.gather(1, node)
     thr = forest.threshold.gather(1, node)
     fval = torch.where(fval.abs() < _F32_TINY, fval * 0.0, fval)
     is_nan = torch.isnan(fval)
-    miss = (dec >> 2) & 3
-    is_missing = (((miss == MISSING_NAN) & is_nan)
-                  | ((miss == MISSING_ZERO)
-                     & (is_nan | (fval.abs() <= K_ZERO_THRESHOLD))))
     fsafe = torch.where(is_nan, 0.0, fval)
-    numeric_left = torch.where(is_missing, (dec & _DEFAULT_LEFT_BIT) != 0,
-                               fsafe <= thr)
+    if numeric is None:
+        miss = (dec >> 2) & 3
+        is_missing = (((miss == MISSING_NAN) & is_nan)
+                      | ((miss == MISSING_ZERO)
+                         & (is_nan | (fval.abs() <= K_ZERO_THRESHOLD))))
+        numeric = torch.where(is_missing, (dec & _DEFAULT_LEFT_BIT) != 0,
+                              fsafe <= thr)
     # categorical: floor(x) in the node's bitset; NaN, negative and
     # beyond-the-bitset categories go right
     is_cat = (dec & _CAT_BIT) != 0
@@ -226,12 +370,16 @@ def _go_left_plain(forest: Forest, node, fval):
     word = forest.cat_bitset.gather(
         1, torch.where(valid, lo + value // 32, 0)).long()
     cat_left = valid & (((word >> (value % 32)) & 1) == 1)
-    return torch.where(is_cat, cat_left, numeric_left)
+    return torch.where(is_cat, cat_left, numeric)
 
 
-def _leaves_plain(forest: Forest, x: torch.Tensor) -> torch.Tensor:
+def _leaves_plain(forest: Forest, x: torch.Tensor,
+                  quant: Optional[Tuple[torch.Tensor, ...]] = None
+                  ) -> torch.Tensor:
     """[T, N] int64 leaf index per (tree, row): every row descends every
-    tree one level per step, for the forest's max depth."""
+    tree one level per step, for the forest's max depth. With `quant` =
+    (thr_code, lo, codes), a numeric node goes left iff lo <= code <=
+    thr_code."""
     n = x.shape[0]
     xt = x.t()
     node = torch.where(forest.num_leaves > 1, 0, -1).long()
@@ -239,13 +387,52 @@ def _leaves_plain(forest: Forest, x: torch.Tensor) -> torch.Tensor:
     split = forest.split_feature.long()
     left = forest.left_child.long()
     right = forest.right_child.long()
+    codes_t = None if quant is None else quant[2].t()
     for _ in range(forest.max_depth):
         nd = node.clamp(min=0)
-        fval = xt.gather(0, split.gather(1, nd))
-        nxt = torch.where(_go_left_plain(forest, nd, fval),
+        feat = split.gather(1, nd)
+        fval = xt.gather(0, feat)
+        numeric = None
+        if quant is not None:
+            code = codes_t.gather(0, feat)
+            numeric = ((quant[1].gather(1, nd) <= code)
+                       & (code <= quant[0].gather(1, nd)))
+        nxt = torch.where(_go_left_plain(forest, nd, fval, numeric),
                           left.gather(1, nd), right.gather(1, nd))
         node = torch.where(node >= 0, nxt, node)
     return ~node
+
+
+def _tree_values_plain(forest: Forest, x: torch.Tensor,
+                       leaf: torch.Tensor) -> torch.Tensor:
+    """[T, N] f32: each tree's value for each row at its leaf (f16
+    leaves widened), plus the leaf's linear term in a linear forest."""
+    from .linear import gather_values, linear_dot_plain
+    vals = forest.leaf_value.gather(1, leaf).float()
+    if forest.linear_k:
+        rows = torch.arange(x.shape[0], device=x.device)
+        for t in range(forest.num_trees):
+            xv, ok = gather_values(x, rows, forest.leaf_feat[t][leaf[t]])
+            lin = linear_dot_plain(forest.leaf_coeff[t][leaf[t]], xv)
+            vals[t] = vals[t] + torch.where(ok, lin, torch.zeros_like(lin))
+    return vals
+
+
+def _sum_trees_plain(vals: torch.Tensor, batch: int = 0) -> torch.Tensor:
+    """[N] f32 sum over the tree axis of vals [T, N]: in tree order, or
+    with `batch`, each batch of trees summed from 0 and then added."""
+    out = torch.zeros(vals.shape[1], dtype=torch.float32,
+                      device=vals.device)
+    if not batch:
+        for v in vals:
+            out += v
+        return out
+    for b in range(0, vals.shape[0], batch):
+        part = torch.zeros_like(out)
+        for v in vals[b:b + batch]:
+            part += v
+        out += part
+    return out
 
 
 def apply_output_plain(raw: torch.Tensor,
@@ -264,25 +451,86 @@ def forest_value_walk_plain(forest: Forest, x: torch.Tensor,
                             ) -> torch.Tensor:
     """[N] f32: sum over trees 0..T-1, in that order, of each tree's leaf
     value, plus its linear term in a linear forest (the order K1 sums
-    in, so the two agree bitwise)."""
-    from .linear import gather_values, linear_dot_plain
-    leaf = _leaves_plain(forest, x)
-    vals = forest.leaf_value.gather(1, leaf)
-    out = torch.zeros(x.shape[0], dtype=torch.float32, device=x.device)
-    rows = torch.arange(x.shape[0], device=x.device)
-    for t in range(forest.num_trees):
-        v = vals[t]
-        if forest.linear_k:
-            xv, ok = gather_values(x, rows, forest.leaf_feat[t][leaf[t]])
-            lin = linear_dot_plain(forest.leaf_coeff[t][leaf[t]], xv)
-            v = v + torch.where(ok, lin, torch.zeros_like(lin))
-        out += v
+    in, so the two agree bitwise). An f16 forest sums in batches of
+    QUANT_TREE_BATCH trees, as K1's f16 mode does."""
+    vals = _tree_values_plain(forest, x, _leaves_plain(forest, x))
+    out = _sum_trees_plain(vals, QUANT_TREE_BATCH
+                           if forest.leaf_value.dtype == torch.float16
+                           else 0)
     return out if transform is None else apply_output_plain(out, transform)
 
 
 def forest_leaf_walk_plain(forest: Forest, x: torch.Tensor) -> torch.Tensor:
     """[N, T] i32 leaf index per (row, tree)."""
     return _leaves_plain(forest, x).t().to(torch.int32).contiguous()
+
+
+def forest_early_stop_walk_plain(forest: Forest, x: torch.Tensor,
+                                 margin: float, freq: int
+                                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(out [K, N] f32, iters [N] i32) of ES: the JAX function's loop
+    over iterations, adding where(active, value, 0) to the class sums
+    and, after every freq-th iteration, keeping active the rows whose
+    margin (2|sum| for K = 1, top-1 minus top-2 for K >= 2) is <= margin;
+    iters counts the iterations a row walked."""
+    k = forest.num_classes
+    t_iters = forest.num_trees // k
+    n = x.shape[0]
+    vals = _tree_values_plain(forest, x, _leaves_plain(forest, x)).view(
+        k, t_iters, n)
+    acc = torch.zeros((k, n), dtype=torch.float32, device=x.device)
+    active = torch.ones(n, dtype=torch.bool, device=x.device)
+    iters = torch.zeros(n, dtype=torch.int32, device=x.device)
+    limit = torch.tensor(margin, dtype=torch.float32, device=x.device)
+    for t in range(t_iters):
+        acc = acc + torch.where(active[None, :], vals[:, t], 0.0)
+        iters += active.to(torch.int32)
+        if (t + 1) % freq == 0:
+            if k == 1:
+                m = 2.0 * acc[0].abs()
+            else:
+                top = torch.topk(acc.t(), 2, dim=1).values
+                m = top[:, 0] - top[:, 1]
+            active = active & (m <= limit)
+    return acc, iters
+
+
+def quant_codes_plain(qf: QuantForest, x: torch.Tensor) -> torch.Tensor:
+    """QC in torch ops: [N, F] int16, 1 + #{grid bounds < x} (both
+    flushed to zero where subnormal, NaN taken as 0), -1 for a missing
+    row of a missing-typed feature, 1 past the grid's features."""
+    n, nf = x.shape
+    fg = qf.grid.shape[0]
+    codes = torch.ones((n, nf), dtype=torch.int16, device=x.device)
+    nan = torch.isnan(x[:, :fg])
+    clean = torch.where(nan, 0.0, x[:, :fg])
+    clean = torch.where(clean.abs() < _F32_TINY, clean * 0.0, clean)
+    grid = torch.where(qf.grid.abs() < _F32_TINY, qf.grid * 0.0, qf.grid)
+    step = max(1, (1 << 24) // max(fg * grid.shape[1], 1))
+    for i in range(0, n, step):
+        above = clean[i:i + step, :, None] > grid[None]
+        codes[i:i + step, :fg] = 1 + above.sum(-1).to(torch.int16)
+    if qf.miss is not None:
+        miss = qf.miss.long()
+        special = (((miss & _MISS_NAN_BIT) != 0)[None, :] & nan) | (
+            ((miss & _MISS_ZERO_BIT) != 0)[None, :]
+            & (nan | (clean.abs() <= K_ZERO_THRESHOLD)))
+        codes[:, :fg] = torch.where(special, -1, codes[:, :fg]).to(
+            torch.int16)
+    return codes
+
+
+def forest_quant_walk_plain(qf: QuantForest, codes: torch.Tensor,
+                            x: torch.Tensor,
+                            transform: Optional[OutputTransform] = None
+                            ) -> torch.Tensor:
+    """QW in torch ops: the walk on the codes (categorical nodes on the
+    raw rows), f16 leaves widened and summed in batches of
+    QUANT_TREE_BATCH trees."""
+    leaf = _leaves_plain(qf.walk, x, (qf.thr_code, qf.lo, codes))
+    out = _sum_trees_plain(qf.walk.leaf_value.gather(1, leaf).float(),
+                           QUANT_TREE_BATCH)
+    return out if transform is None else apply_output_plain(out, transform)
 
 
 # ----------------------------------------------------------------------
@@ -309,11 +557,23 @@ def _check_inputs(forest: Forest, x: torch.Tensor) -> None:
                             % x.device)
 
 
+def _check_leaf_type(forest: Forest, dtype: torch.dtype, name: str) -> None:
+    if forest.leaf_value.dtype != dtype:
+        raise LightGBMError("%s takes a forest of %s leaves (got %s)"
+                            % (name, dtype, forest.leaf_value.dtype))
+
+
+def _epilogue_args(transform: Optional[OutputTransform]) -> tuple:
+    return (0, 1.0, 0.0, 1.0) if transform is None else (
+        _EPILOGUE[transform.kind], float(transform.denom),
+        float(transform.bias), float(transform.sigmoid))
+
+
 def _launch(wrapper, entry: str, forest: Forest, x: torch.Tensor,
-            extra: tuple, out: torch.Tensor) -> None:
+            extra: tuple, outs: tuple, library: str = "forest") -> None:
     """Launch one walk kernel on the current stream of x's device and
     count it; raises on any CUDA error the launch reports."""
-    lib = _build.load_library("forest")
+    lib = _build.load_library(library)
     ptr = [ctypes.c_void_p(t.data_ptr()) for t in (
         forest.num_leaves, forest.split_feature, forest.threshold,
         forest.decision, forest.left_child, forest.right_child,
@@ -326,7 +586,12 @@ def _launch(wrapper, entry: str, forest: Forest, x: torch.Tensor,
             forest.num_trees, forest.split_feature.shape[1],
             forest.leaf_value.shape[1], forest.cat_boundaries.shape[1],
             forest.cat_bitset.shape[1], forest.linear_k, *extra,
-            ctypes.c_void_p(out.data_ptr()), ctypes.c_void_p(stream))
+            *[ctypes.c_void_p(t.data_ptr()) for t in outs],
+            ctypes.c_void_p(stream))
+    _count(wrapper, lib, entry, rc)
+
+
+def _count(wrapper, lib, entry: str, rc: int) -> None:
     if rc != 0:
         raise LightGBMError("%s launch failed: CUDA error %d (%s)" % (
             entry, rc, lib.lgbt_error_string(rc).decode()))
@@ -340,15 +605,30 @@ def forest_value_walk(forest: Forest, x: torch.Tensor,
     """K1: [N] f32 raw score (or, with `transform`, the converted
     output) of the forest on rows x [N, F]."""
     _check_inputs(forest, x)
+    _check_leaf_type(forest, torch.float32, "forest_value_walk")
     if x.device.type == "cpu":
         return forest_value_walk_plain(forest, x, transform)
     out = torch.empty(x.shape[0], dtype=torch.float32, device=x.device)
     if x.shape[0]:
-        extra = (0, 1.0, 0.0, 1.0) if transform is None else (
-            _EPILOGUE[transform.kind], float(transform.denom),
-            float(transform.bias), float(transform.sigmoid))
         _launch(forest_value_walk, "lgbt_forest_value_walk", forest, x,
-                extra, out)
+                _epilogue_args(transform), (out,))
+    return out
+
+
+def forest_value_walk_f16(forest: Forest, x: torch.Tensor,
+                          transform: Optional[OutputTransform] = None
+                          ) -> torch.Tensor:
+    """K1's f16-leaf mode: [N] f32 raw score (or converted output) of an
+    f16 forest (`to_f16`), summed in batches of QUANT_TREE_BATCH trees."""
+    _check_inputs(forest, x)
+    _check_leaf_type(forest, torch.float16, "forest_value_walk_f16")
+    _refuse_linear(forest.linear_k > 0, "f16")
+    if x.device.type == "cpu":
+        return forest_value_walk_plain(forest, x, transform)
+    out = torch.empty(x.shape[0], dtype=torch.float32, device=x.device)
+    if x.shape[0]:
+        _launch(forest_value_walk_f16, "lgbt_forest_value_walk_f16", forest,
+                x, (QUANT_TREE_BATCH,) + _epilogue_args(transform), (out,))
     return out
 
 
@@ -361,12 +641,97 @@ def forest_leaf_walk(forest: Forest, x: torch.Tensor) -> torch.Tensor:
                       device=x.device)
     if x.shape[0]:
         _launch(forest_leaf_walk, "lgbt_forest_leaf_walk", forest, x, (),
-                out)
+                (out,))
+    return out
+
+
+#: the widest [K, T] stack ES takes (its per-row class sums;
+#: csrc/forest_walk.cu kMaxClasses)
+MAX_EARLY_STOP_CLASSES = 32
+
+
+def forest_early_stop_walk(forest_kt: Forest, x: torch.Tensor,
+                           margin: float, freq: int,
+                           return_iters: bool = False):
+    """ES: [K, N] f32 raw scores of a [K, T] stack
+    (`stack_trees_early_stop`) with per-row early stop after every
+    `freq`-th iteration at `margin`; with `return_iters`, also the [N]
+    i32 iterations each row walked."""
+    _check_inputs(forest_kt, x)
+    _check_leaf_type(forest_kt, torch.float32, "forest_early_stop_walk")
+    k = forest_kt.num_classes
+    if not 1 <= k <= MAX_EARLY_STOP_CLASSES \
+            or forest_kt.num_trees % k:
+        raise LightGBMError(
+            "forest_early_stop_walk takes a [K, T] stack of 1 to %d "
+            "classes (got %d classes over %d trees)"
+            % (MAX_EARLY_STOP_CLASSES, k, forest_kt.num_trees))
+    if int(freq) < 1:
+        raise LightGBMError("pred_early_stop_freq must be >= 1 (got %r)"
+                            % freq)
+    if x.device.type == "cpu":
+        out, iters = forest_early_stop_walk_plain(forest_kt, x, margin,
+                                                  int(freq))
+    else:
+        out = torch.empty((k, x.shape[0]), dtype=torch.float32,
+                          device=x.device)
+        iters = torch.empty(x.shape[0], dtype=torch.int32, device=x.device)
+        if x.shape[0]:
+            _launch(forest_early_stop_walk, "lgbt_forest_early_stop_walk",
+                    forest_kt, x, (k, float(margin), int(freq)),
+                    (out, iters))
+    return (out, iters) if return_iters else out
+
+
+def quant_codes(qf: QuantForest, x: torch.Tensor) -> torch.Tensor:
+    """QC: the [N, F] int16 codes of rows x [N, F] against the fixed-point
+    layout's grids."""
+    _check_inputs(qf.walk, x)
+    if x.device.type == "cpu":
+        return quant_codes_plain(qf, x)
+    codes = torch.empty(tuple(x.shape), dtype=torch.int16, device=x.device)
+    if x.numel():
+        lib = _build.load_library("quant")
+        p = ctypes.c_void_p
+        with torch.cuda.device(x.device):
+            stream = torch.cuda.current_stream(x.device).cuda_stream
+            rc = lib.lgbt_quant_codes(
+                p(x.data_ptr()), x.shape[0], x.shape[1],
+                p(qf.grid.data_ptr()), qf.grid.shape[0], qf.grid.shape[1],
+                p(None if qf.miss is None else qf.miss.data_ptr()),
+                p(codes.data_ptr()), p(stream))
+        _count(quant_codes, lib, "lgbt_quant_codes", rc)
+    return codes
+
+
+def forest_quant_walk(qf: QuantForest, codes: torch.Tensor, x: torch.Tensor,
+                      transform: Optional[OutputTransform] = None
+                      ) -> torch.Tensor:
+    """QW: [N] f32 raw score (or converted output) of the fixed-point
+    layout on rows x [N, F] and their codes [N, F] (`quant_codes`)."""
+    _check_inputs(qf.walk, x)
+    if codes.shape != x.shape or codes.dtype != torch.int16 \
+            or codes.device != x.device or not codes.is_contiguous():
+        raise LightGBMError("forest_quant_walk takes the rows' contiguous "
+                            "int16 codes of the same shape")
+    if x.device.type == "cpu":
+        return forest_quant_walk_plain(qf, codes, x, transform)
+    out = torch.empty(x.shape[0], dtype=torch.float32, device=x.device)
+    if x.shape[0]:
+        p = ctypes.c_void_p
+        _launch(forest_quant_walk, "lgbt_forest_quant_walk", qf.walk, x,
+                (p(qf.thr_code.data_ptr()), p(qf.lo.data_ptr()),
+                 p(codes.data_ptr()), QUANT_TREE_BATCH)
+                + _epilogue_args(transform), (out,), library="quant")
     return out
 
 
 forest_value_walk.launches = 0
+forest_value_walk_f16.launches = 0
 forest_leaf_walk.launches = 0
+forest_early_stop_walk.launches = 0
+quant_codes.launches = 0
+forest_quant_walk.launches = 0
 
 
 # ----------------------------------------------------------------------

@@ -216,15 +216,17 @@ def split_scan_plain(hist: torch.Tensor, sums: torch.Tensor,
     if params.xla_scan_order:
         scan = xla_cumsum(adj.transpose(2, 3)).transpose(2, 3)
     else:
-        kg = torch.zeros((c_cnt, f_cnt), dtype=dt, device=dev)
-        kh, cg, ch, cc = (torch.zeros_like(kg) for _ in range(4))
-        scans = []
+        # g and h compensated side by side (elementwise, so the same
+        # bits as two separate scans), the count plain
+        comp = torch.zeros((c_cnt, f_cnt, 2), dtype=dt, device=dev)
+        run = torch.zeros_like(comp)
+        cc = torch.zeros((c_cnt, f_cnt), dtype=dt, device=dev)
+        scan = torch.empty_like(adj)                          # [C,F,fb,3]
         for t in range(fb):
-            cg, kg = _kahan(cg, kg, adj[:, :, t, 0])
-            ch, kh = _kahan(ch, kh, adj[:, :, t, 1])
+            run, comp = _kahan(run, comp, adj[:, :, t, :2])
             cc = cc + adj[:, :, t, 2]
-            scans.append(torch.stack([cg, ch, cc], dim=-1))
-        scan = torch.stack(scans, dim=2)                      # [C,F,fb,3]
+            scan[:, :, t, :2] = run
+            scan[:, :, t, 2] = cc
 
     # every threshold of every variant at once (elementwise, so the same
     # bits as the kernel's per-threshold evaluation)

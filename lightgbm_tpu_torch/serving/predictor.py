@@ -124,8 +124,16 @@ class Predictor:
         the kernels take any row count. Warmup traffic is NOT counted
         in the request/latency stats."""
         t0 = time.perf_counter()
-        self._predict_timed(np.zeros((1, self.num_features()), np.float32),
-                            count=False)
+        # the all-zero row must not become the quantize gate's
+        # calibration (one leaf a tree, a near-zero delta kept for the
+        # model version): the gate waits for the first real batch
+        # (lightgbm_tpu/serving/predictor.py:177-184)
+        self._gbdt._quant_gate_defer = True
+        try:
+            self._predict_timed(np.zeros((1, self.num_features()),
+                                         np.float32), count=False)
+        finally:
+            self._gbdt._quant_gate_defer = False
         self._warmup_seconds = time.perf_counter() - t0
         log.debug("Predictor warmup in %.3fs", self._warmup_seconds)
         return {"seconds": self._warmup_seconds}
@@ -340,6 +348,7 @@ class Predictor:
         out["model_version"] = int(self._gbdt._compiled_forest.version)
         stack = self._gbdt._compiled_forest.stats
         out.update({f"stack_{k}": int(v) for k, v in stack.items()})
+        out["quantize"] = str(self._gbdt.config.io.tpu_predict_quantize)
         out["warmup_seconds"] = self._warmup_seconds
         out["admission"] = self.admission.stats()
         if hist["count"]:

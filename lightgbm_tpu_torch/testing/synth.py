@@ -16,6 +16,11 @@ run and the tests make one from a seed instead:
   ulp either side, NaN, exact and signed zero, +-1e-36 and 1e-35, and
   negative, non-member and beyond-the-bitset categories.
 
+- `grid_edge_rows` fills every cell with a value the fixed-point codes
+  of `tpu_predict_quantize=int8` are easiest to get wrong on: one of
+  the column's f32 split thresholds (a grid bound) or one ulp either
+  side, +-0, subnormals, +-inf and NaN.
+
 `edge_case_rows` reads only `num_leaves`, `split_feature`, `threshold`,
 `decision_type`, `left_child`, `right_child`, `cat_boundaries` and
 `cat_threshold`, so it takes the trees of either package.
@@ -64,10 +69,13 @@ def _numeric_left(vals, thr, missing, default_left):
                     np.where(nan, 0.0, vals) <= thr)
 
 
-def _grow_tree(rng, sample, num_leaves, num_features, cat_features):
+def _grow_tree(rng, sample, num_leaves, num_features, cat_features,
+               binned=None):
     """One leaf-wise tree as a dict of Tree attribute arrays: the leaf
     to split is drawn in proportion to its rows, as a best-first grower
-    keeps splitting where the data is."""
+    keeps splitting where the data is. `binned` = (grids, missing): each
+    numeric threshold is moved up to the feature's next grid bound and
+    each numeric node takes its feature's missing type."""
     first_cat = num_features - cat_features
     leaves = [np.arange(sample.shape[0])]
     parent = [None]                       # leaf -> (node, is_left)
@@ -101,6 +109,11 @@ def _grow_tree(rng, sample, num_leaves, num_features, cat_features):
                 continue
             threshold = float(np.quantile(finite, rng.uniform(0.2, 0.8),
                                           method="lower"))
+            if binned is not None:
+                grid = binned[0][feat]
+                threshold = float(grid[min(np.searchsorted(grid, threshold),
+                                           len(grid) - 1)])
+                missing = binned[1][feat]
             decision = (2 if default_left else 0) | (int(missing) << 2)
             go_left = _numeric_left(vals, threshold, missing, default_left)
         node = len(node_arrays["split_feature"])
@@ -132,12 +145,31 @@ def _grow_tree(rng, sample, num_leaves, num_features, cat_features):
 
 
 def synthetic_forest_text(seed: int, num_trees: int, num_leaves: int,
-                          num_features: int, cat_features: int = 0) -> str:
-    """Model text of a seeded binary forest (see the module docstring)."""
+                          num_features: int, cat_features: int = 0,
+                          max_bin: int = 0) -> str:
+    """Model text of a seeded binary forest (see the module docstring).
+    With `max_bin`, the forest has the two properties of a model trained
+    at that max_bin that the fixed-point serving layout needs: each
+    numeric feature's thresholds come from at most max_bin - 1 bin bounds
+    (quantiles of the sample) and its nodes share one missing type; the
+    trees' shapes and leaves are drawn as without it."""
     rng = np.random.RandomState(seed)
     sample = synthetic_rows(seed + 1, _SAMPLE_ROWS, num_features,
                             cat_features)
-    trees = [_grow_tree(rng, sample, num_leaves, num_features, cat_features)
+    binned = None
+    if max_bin:
+        side = np.random.RandomState(seed + 7919)
+        levels = np.linspace(0.0, 1.0, max_bin + 1)[1:-1]
+        grids = []
+        for f in range(num_features):
+            finite = sample[:, f][~np.isnan(sample[:, f])]
+            grids.append(np.unique(np.quantile(finite, levels,
+                                               method="lower")))
+        missing = side.choice([MISSING_NONE, MISSING_ZERO, MISSING_NAN],
+                              num_features)
+        binned = (grids, missing)
+    trees = [_grow_tree(rng, sample, num_leaves, num_features, cat_features,
+                        binned)
              for _ in range(num_trees)]
     header = {"num_class": 1, "num_tree_per_iteration": 1,
               "max_feature_idx": num_features - 1,
@@ -225,6 +257,30 @@ def edge_case_rows(trees, num_features: int, seed: int, n: int,
         rows[r, int(tree.split_feature[node])] = values[
             rng.randint(len(values))]
     return rows
+
+
+def grid_edge_rows(trees, num_features: int, seed: int,
+                   n: int) -> np.ndarray:
+    """[n, num_features] f32 rows whose every cell is one of its column's
+    edge values: a numeric split threshold of the forest (f32, clipped to
+    the f32 range) or its nextafter neighbours, +-0, +-1e-40, 1e-36,
+    +-inf, NaN, +-1 or a small integer category."""
+    rng = np.random.RandomState(seed)
+    fmax = np.finfo(np.float32).max
+    special = np.array([0.0, -0.0, 1e-40, -1e-40, 1e-36, np.inf, -np.inf,
+                        np.nan, 1.0, -1.0, 0.0, 1.0, 2.0, 3.0], np.float32)
+    cols = []
+    for f in range(num_features):
+        thr = np.asarray(
+            [np.clip(t.threshold[i], -fmax, fmax) for t in trees
+             for i in range(t.num_leaves - 1)
+             if int(t.split_feature[i]) == f
+             and not int(t.decision_type[i]) & 1], np.float32)
+        pool = np.concatenate([special, thr,
+                               np.nextafter(thr, np.float32(np.inf)),
+                               np.nextafter(thr, np.float32(-np.inf))])
+        cols.append(rng.choice(pool.astype(np.float32), n))
+    return np.stack(cols, axis=1)
 
 
 def synth_higgs(n: int, f: int = 28, seed: int = 0):

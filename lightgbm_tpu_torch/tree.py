@@ -321,6 +321,52 @@ class Tree:
             node = self.left_child[node] if go_left else self.right_child[node]
         return self._leaf_output(~node, row)
 
+    def cat_values(self, node: int) -> list:
+        """Raw category values going left at a categorical node."""
+        idx = int(self.threshold[node])
+        lo, hi = self.cat_boundaries[idx], self.cat_boundaries[idx + 1]
+        words = self.cat_threshold[lo:hi]
+        return [w * 32 + b for w in range(len(words)) for b in range(32)
+                if (int(words[w]) >> b) & 1]
+
+    def to_json(self) -> dict:
+        """Reference: Tree::ToJSON (tree.cpp:262-330); the dict of
+        lightgbm_tpu/tree.py:522."""
+        def node_json(idx: int) -> dict:
+            if idx < 0:
+                leaf = ~idx
+                d = {"leaf_index": int(leaf),
+                     "leaf_value": float(self.leaf_value[leaf]),
+                     "leaf_count": int(self.leaf_count[leaf])}
+                if self.is_linear:
+                    live = self.leaf_features[leaf] >= 0
+                    d["leaf_features"] = [
+                        int(f) for f in self.leaf_features[leaf][live]]
+                    d["leaf_coeff"] = [
+                        float(c) for c in self.leaf_coeff[leaf][live]]
+                return d
+            cat = self.is_categorical_node(idx)
+            thr = "||".join(str(c) for c in self.cat_values(idx)) if cat \
+                else float(self.threshold[idx])
+            return {
+                "split_index": int(idx),
+                "split_feature": int(self.split_feature[idx]),
+                "split_gain": float(self.split_gain[idx]),
+                "threshold": thr,
+                "decision_type": "==" if cat else "<=",
+                "default_left": self.default_left_node(idx),
+                "missing_type": ["None", "Zero", "NaN"][
+                    self.missing_type_node(idx)],
+                "internal_value": float(self.internal_value[idx]),
+                "internal_count": int(self.internal_count[idx]),
+                "left_child": node_json(int(self.left_child[idx])),
+                "right_child": node_json(int(self.right_child[idx])),
+            }
+        return {"num_leaves": int(self.num_leaves),
+                "shrinkage": self.shrinkage,
+                "tree_structure": node_json(0) if self.num_leaves > 1 else
+                {"leaf_value": float(self.leaf_value[0])}}
+
     # ------------------------------------------------------------------
     # text model format (reference: Tree::ToString, tree.cpp:208-260)
     def to_string(self) -> str:

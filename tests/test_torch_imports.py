@@ -8,8 +8,12 @@ the grower and kernels H, S, R and W in their plain versions), and a
 small ranker through the ranking modules (query groups, NDCG and MAP,
 kernel L's plain version, the scikit-learn wrappers), and a small
 linear-tree model through the linear modules (kernels LF, LS, LA and
-LM's plain versions, rollback); an AST scan finds
-no such import in the package or in chip_smoke.py.
+LM's plain versions, rollback), and walks the serving extras and the
+model API (early stop, the f16 and int8 layouts with kernels ES, QC,
+QW and K1's f16 mode in their plain versions, TreeSHAP contributions,
+the JSON dump, a data file through `io.parser`, continued training
+from `init_model`); an AST scan finds no such import in the package or
+in chip_smoke.py.
 """
 import ast
 import json
@@ -85,11 +89,36 @@ _CHILD = textwrap.dedent("""
     moments = leaf_feature_moments(
         torch.zeros((8, 2), dtype=torch.uint8), torch.ones(8, 2),
         torch.ones(8, 3), torch.zeros(8, dtype=torch.int32), [0], 4)
+    import os, tempfile
+    extras = {
+        "early_stop": booster.predict(rows, pred_early_stop=True,
+                                      pred_early_stop_freq=2,
+                                      pred_early_stop_margin=1.0).shape,
+        "contrib": booster.predict(rows, pred_contrib=True).shape,
+        "dump": len(booster.dump_model()["tree_info"])}
+    for mode in ("f16", "int8"):
+        q = lgb.Booster(model_str=text, device="cpu",
+                        params={"tpu_predict_quantize": mode,
+                                "tpu_predict_quantize_tol": 1.0})
+        extras[mode] = bool(np.isfinite(q.predict(rows)).all())
+    tmp = tempfile.mkdtemp()
+    path = os.path.join(tmp, "rows.tsv")
+    np.savetxt(path, np.column_stack([np.zeros(16), rows]), delimiter="\t")
+    extras["file"] = bool(np.array_equal(booster.predict(path),
+                                         booster.predict(rows)))
+    model_path = os.path.join(tmp, "model.txt")
+    trained.save_model(model_path)
+    extras["continued"] = lgb.train(
+        {"objective": "binary", "num_leaves": 7, "max_bin": 31,
+         "verbose": -1}, lgb.Dataset(x[:300], y[:300]), 2,
+        init_model=model_path, verbose_eval=False,
+        device="cpu").num_trees()
     modules = ["lightgbm_tpu_torch." + m for m in (
         "engine", "callback", "metrics", "dataset", "efb", "binning",
         "ingest.build", "learner.grow", "ops.histogram", "ops.split",
         "ops.route", "ops.rank", "ops.linear", "linear.solver",
-        "linear.stats", "objectives", "sklearn", "convert")]
+        "linear.stats", "objectives", "sklearn", "convert", "shap",
+        "io.parser")]
     print(json.dumps({"pred": [float(v) for v in pred],
                       "leaf_shape": list(leaf.shape),
                       "round_trip": booster.model_to_string() == text,
@@ -106,6 +135,10 @@ _CHILD = textwrap.dedent("""
                                      for t in linear._inner.models),
                                  bool(np.isfinite(linear.predict(x)).all()),
                                  float(moments[0, 0, 0])],
+                      "extras": [list(extras["early_stop"]),
+                                 list(extras["contrib"]), extras["dump"],
+                                 extras["f16"], extras["int8"],
+                                 extras["file"], extras["continued"]],
                       "modules": all(m in sys.modules for m in modules),
                       "loaded": sorted(m for m in sys.modules if blocked(m))}))
 """)
@@ -126,6 +159,8 @@ def test_port_runs_with_jax_and_the_jax_package_blocked():
     assert len(out["ndcg"]) == len(out["map"]) == 3
     assert out["ndcg"][-1] > 0.5 and out["served"] and out["sk_trees"] == 2
     assert out["linear"] == [2, True, True, 8.0]
+    assert out["extras"] == [[16], [16, 7], 5, True, True, True,
+                             out["trained"] + 2]
 
 
 def _imported_modules(path):

@@ -181,8 +181,41 @@ def test_linear_solve_singular_and_unfitted_leaves_fall_back():
 
 
 def test_wider_designs_are_refused_by_name():
-    with pytest.raises(LightGBMError, match="tpu_linear_max_features"):
-        linear.check_linear_features(linear.MAX_LINEAR_FEATURES + 1)
+    """Any k >= 1 is taken (LF splits a leaf's sums over as many blocks as
+    they need), as in the JAX package; a zero-width design is refused."""
+    for k in (1, 43, 64, 200):
+        linear.check_linear_features(k)
+    with pytest.raises(LightGBMError, match="tpu_linear_max_features=0"):
+        linear.check_linear_features(0)
+
+
+@pytest.mark.parametrize("k", [43, 64])
+def test_fit_leaves_past_42_features_matches_jax(k):
+    """Wide designs: every leaf regresses on k of 70 features (a few
+    slots padded), against the JAX package's fit_leaves to this file's
+    tolerance, and the solve's fitted flags exactly."""
+    rng = np.random.RandomState(k)
+    n, f, leaves = 2400, 70, 4
+    x = rng.uniform(-1, 1, (n, f)).astype(np.float32)
+    lid = rng.randint(0, leaves, n).astype(np.int32)
+    feats = np.stack([rng.choice(f, k, replace=False)
+                      for _ in range(leaves)]).astype(np.int32)
+    feats[1, -3:] = -1
+    x[rng.rand(n) < 0.02, feats[2, 5]] = np.nan
+    g = (x[:, 0] - x[:, 1] + 0.1 * rng.randn(n)).astype(np.float32)
+    h = rng.uniform(0.5, 1.5, n).astype(np.float32)
+    w = np.ones(n, np.float32)
+    const = rng.randn(leaves).astype(np.float32)
+    args = (x, g, h, w, lid, feats, const)
+    jv, jc, jf = (np.asarray(a) for a in jax_fit(
+        *(jnp.asarray(a) for a in args), jnp.float32(0.01), leaves))
+    tv, tc, tf = (a.numpy() for a in fit_leaves(
+        *(torch.from_numpy(a) for a in args), 0.01, leaves))
+    assert tc.shape == (leaves, k)
+    assert np.array_equal(tf, jf) and tf.all()
+    assert np.all(np.abs(tv - jv) <= 1e-4 * np.maximum(1, np.abs(jv)))
+    assert np.all(np.abs(tc - jc) <= 1e-4 * np.maximum(1, np.abs(jc)))
+    assert np.all(tc[1, -3:] == 0)
 
 
 def test_linear_row_values_and_addend_match_jax():

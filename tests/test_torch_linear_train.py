@@ -220,7 +220,11 @@ def test_the_estimator_trains_linear_trees():
      "linear_tree does not support multiclass"),
     ({"tree_learner": "data", "num_machines": 2},
      "linear_tree does not support multi-host"),
-    ({"tpu_linear_max_features": 43}, "tpu_linear_max_features=43"),
+    # any width >= 1 trains now (queue C repair); zero is refused, under
+    # the id this case has always had
+    pytest.param({"tpu_linear_max_features": 0},
+                 "tpu_linear_max_features must be >= 1",
+                 id="extra5-tpu_linear_max_features=43"),
 ])
 def test_training_refusals_by_name(extra, match):
     params = dict(BASE, **extra)

@@ -165,18 +165,29 @@ def _linear_text(text):
     return head + "Tree=0\n" + block + "\n" + linear + "\n\n" + tail
 
 
+def _case(case, match, old_match=None):
+    """One refusal case under the test id it has always had."""
+    return pytest.param(case, match, id="%s-%s" % (case, old_match or match))
+
+
 @pytest.mark.parametrize("case,match", [
-    ("pred_contrib", "pred_contrib"),
-    ("pred_early_stop", "pred_early_stop"),
-    ("quantize_f16", "tpu_predict_quantize=f16"),
-    ("quantize_int8", "tpu_predict_quantize=int8"),
-    ("linear", "linear_tree"),
-    ("multiclass", "multiclass"),
-    ("objective", "objective regression_l1 is not ported"),
-    ("training", "training is not ported"),
-    ("data_file", "data file"),
+    # the serving extras are carried now: what each still refuses
+    _case("pred_contrib", "predict_contrib does not support linear_tree",
+          "pred_contrib"),
+    _case("pred_early_stop", "pred_early_stop_freq must be >= 1",
+          "pred_early_stop"),
+    _case("quantize_f16", "tpu_predict_quantize=f16 refused for this model: "
+          "linear_tree", "tpu_predict_quantize=f16"),
+    _case("quantize_int8", "tpu_predict_quantize=int8 refused: max raw-score",
+          "tpu_predict_quantize=int8"),
+    _case("linear", "linear_tree"),
+    _case("multiclass", "multiclass"),
+    _case("objective", "objective regression_l1 is not ported"),
+    _case("training", "training is not ported"),
+    _case("data_file", "Data file .* is empty", "data file"),
 ])
-def test_unsupported_options_raise_named_errors(models, case, match):
+def test_unsupported_options_raise_named_errors(models, case, match,
+                                                tmp_path):
     text, rows = models["binary"]
     rows = rows[:4]
     with pytest.raises(tlgb.LightGBMError, match=match):
@@ -188,17 +199,28 @@ def test_unsupported_options_raise_named_errors(models, case, match):
                 "objective=binary sigmoid:1", "objective=regression_l1"),
                 device="cpu")
         else:
-            params = {"tpu_predict_quantize": case[len("quantize_"):]} \
-                if case.startswith("quantize") else {}
-            if case == "linear":
-                # linear models serve; the quantized layouts refuse them
+            params, kw, model = {}, {}, text
+            if case in ("pred_contrib", "quantize_f16", "linear"):
+                # linear models serve in f32; contributions and the
+                # quantized layouts refuse them
+                model = _linear_text(text)
+            if case == "multiclass":
+                model = _multiclass_text(text)
+            if case == "quantize_f16":
+                params = {"tpu_predict_quantize": "f16"}
+            if case in ("quantize_int8", "linear"):
                 params = {"tpu_predict_quantize": "int8"}
-            model = {"linear": _linear_text,
-                     "multiclass": _multiclass_text}.get(case, str)(text)
+            if case == "quantize_int8":
+                params["tpu_predict_quantize_tol"] = 1e-12
+            if case == "pred_contrib":
+                kw = {"pred_contrib": True}
+            if case == "pred_early_stop":
+                kw = {"pred_early_stop": True, "pred_early_stop_freq": 0}
+            if case == "data_file":
+                rows = str(tmp_path / "rows.tsv")
+                open(rows, "w").close()
             booster = tlgb.Booster(params, model_str=model, device="cpu")
-            kw = {case: True} if case.startswith("pred_") else {}
-            booster.predict("rows.tsv" if case == "data_file" else rows,
-                            **kw)
+            booster.predict(rows, **kw)
 
 
 def test_linear_text_helper_makes_a_linear_model(models):

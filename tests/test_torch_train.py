@@ -229,8 +229,6 @@ def test_train_arguments_the_slice_refuses():
     with pytest.raises(LightGBMError, match="feval"):
         tlgb.train(p, ds, 2, feval=lambda s, d: ("m", 0.0, False),
                    device="cpu")
-    with pytest.raises(LightGBMError, match="init_model"):
-        tlgb.train(p, ds, 2, init_model="model.txt", device="cpu")
     with pytest.raises(LightGBMError, match="categorical"):
         tlgb.train(p, tlgb.Dataset(X[:300], y[:300],
                                    categorical_feature=[1]), 2,

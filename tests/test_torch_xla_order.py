@@ -13,9 +13,19 @@ too, if they add in XLA's order:
   program, which contracts `score + value * shrinkage` into a fused
   multiply-add (`ops/route.fma_f32`);
 - `jnp.einsum("nk,nk->n")` at precision HIGHEST, the linear leaves'
-  term, adds the products one at a time, except for k = 2, where the
-  second product is fused with the first (`ops/linear.linear_dot_plain`,
-  probed for k <= 8).
+  term, rounds and adds the first 8 products one at a time and fuses
+  each later one into the sum, except for k = 2, where the second
+  product is fused with the first (`ops/linear.linear_dot_plain`; LA and
+  K1's linear term, bitwise against `linear_leaf_addend` for k = 9, 16,
+  64);
+- `jnp.exp` in f32 is XLA's Cephes polynomial with fused multiply-adds
+  and a flushed subnormal result (`objectives.xla_exp_f32`, bitwise on
+  2^24 inputs over [-104, 89] and the special values), so the binary
+  objective's gradients equal the JAX package's bitwise;
+- a sum over the leading axis of a [T, N] array (the JAX package's
+  init-model replay, `vals.sum(axis=0)`) adds in order up to 32 rows
+  and, from 33 to 64, sums two halves of ceil(T / 2) and the rest first
+  (engine._replay_sum).
 """
 import numpy as np
 import pytest
@@ -24,8 +34,11 @@ import torch
 import jax
 import jax.numpy as jnp
 
+from lightgbm_tpu.ops.predict import linear_leaf_addend
 from lightgbm_tpu.ops.split import find_best_splits
-from lightgbm_tpu_torch.ops.linear import linear_dot_plain
+from lightgbm_tpu_torch.engine import _XLA_SEQUENTIAL_SUM
+from lightgbm_tpu_torch.objectives import xla_exp_f32
+from lightgbm_tpu_torch.ops.linear import linear_addend, linear_dot_plain
 from lightgbm_tpu_torch.ops.route import fma_f32
 from lightgbm_tpu_torch.ops.split import (SplitParams, split_scan_plain,
                                           xla_cumsum)
@@ -126,7 +139,7 @@ def test_score_update_is_the_fused_multiply_add_of_xla():
     assert not np.array_equal(ref, score + value * lr)
 
 
-@pytest.mark.parametrize("k", [1, 2, 3, 4, 5, 6, 7, 8])
+@pytest.mark.parametrize("k", [1, 2, 3, 4, 5, 6, 7, 8, 9, 16, 64])
 def test_linear_dot_equals_jnp_einsum_bitwise(k):
     rng = np.random.RandomState(k)
     c = (rng.randn(5000, k) * np.exp(rng.randn(5000, k) * 3)).astype(
@@ -137,3 +150,65 @@ def test_linear_dot_equals_jnp_einsum_bitwise(k):
         "nk,nk->n", a, b, precision=jax.lax.Precision.HIGHEST))(c, x))
     got = linear_dot_plain(torch.from_numpy(c), torch.from_numpy(x)).numpy()
     assert np.array_equal(_bits(ref), _bits(got))
+
+
+@pytest.mark.parametrize("k", [9, 16, 64])
+def test_linear_addend_equals_jax_linear_leaf_addend_bitwise(k):
+    """LA's plain version (the valid-set update, scale 1, from a zero
+    score) against the JAX package's leaf value plus linear_leaf_addend
+    in one XLA program, with padded slots and non-finite rows."""
+    rng = np.random.RandomState(100 + k)
+    n, f, leaves = 4000, k + 6, 5
+    x = (rng.randn(n, f) * np.exp(rng.randn(n, f) * 2)).astype(np.float32)
+    x[rng.rand(n) < 0.01, 3] = np.nan
+    lid = rng.randint(0, leaves, n).astype(np.int32)
+    feats = np.stack([rng.choice(f, k, replace=False)
+                      for _ in range(leaves)]).astype(np.int32)
+    feats[2, k // 2:] = -1
+    coeff = (rng.randn(leaves, k) * 3).astype(np.float32)
+    coeff[feats < 0] = 0.0
+    value = rng.randn(leaves).astype(np.float32)
+    ref = np.asarray(jax.jit(lambda v, c, fe, l, d: v[l] + linear_leaf_addend(
+        c, fe, l, d))(value, coeff, feats, lid, x))
+    score = torch.zeros(n)
+    linear_addend(*(torch.from_numpy(a) for a in (x, lid, value, coeff,
+                                                   feats)), score, 1.0)
+    assert np.array_equal(_bits(ref), _bits(score.numpy()))
+
+
+def test_xla_exp_equals_jnp_exp_bitwise():
+    edges = np.array([0.0, -0.0, 1e-45, -1e-45, 1e-40, -1e-40, np.inf,
+                      -np.inf, np.nan, 88.72283, 88.72284, 88.8, 89.0,
+                      -87.33654, -87.33655, -87.8, -88.0, -103.97,
+                      -104.0, 3e38, -3e38, 1.0, -1.0], np.float32)
+    lo, hi = np.float32(-104.0), np.float32(89.0)
+    grid = np.linspace(lo, hi, 1 << 24, dtype=np.float32)
+    exp = jax.jit(jnp.exp)
+    for chunk in [edges] + np.split(grid, 16):
+        ref = np.asarray(exp(chunk))
+        got = xla_exp_f32(torch.from_numpy(chunk)).numpy()
+        assert np.array_equal(_bits(ref), _bits(got))
+    # torch's own exp is not XLA's
+    sample = grid[::97]
+    assert not np.array_equal(
+        _bits(np.asarray(exp(sample))),
+        _bits(torch.exp(torch.from_numpy(sample)).numpy()))
+
+
+def _xla_axis0_sum(v):
+    if len(v) > _XLA_SEQUENTIAL_SUM:
+        half = -(-len(v) // 2)
+        return _xla_axis0_sum(v[:half]) + _xla_axis0_sum(v[half:])
+    acc = np.zeros(v.shape[1], np.float32)
+    for row in v:
+        acc = acc + row
+    return acc
+
+
+@pytest.mark.parametrize("trees", [3, 10, 32, 33, 40, 64])
+def test_the_replay_sum_order_is_xla_axis0_sum(trees):
+    rng = np.random.RandomState(trees)
+    v = (rng.randn(trees, 3000) * np.exp(rng.randn(trees, 3000) * 3)
+         ).astype(np.float32)
+    ref = np.asarray(jax.jit(lambda a: a.sum(axis=0))(v))
+    assert np.array_equal(_bits(ref), _bits(_xla_axis0_sum(v)))
