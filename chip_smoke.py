@@ -67,9 +67,13 @@ Phases, any failure raises and the script exits non-zero:
    learning rate 0.1, min_data_in_leaf 1, min_sum_hessian_in_leaf 100,
    metric auc and binary_logloss, 10 rounds through lightgbm_tpu_torch
    .train on the default device; the training kernels' launch counts
-   are set to 0 before the run and read after it; the run is made twice
-   and the two model texts must be byte-identical; the valid AUC must be
-   finite and well above chance;
+   are set to 0 before the run and read after it, and every H launch
+   must be in hi+lo mode (the default tpu_hist_bf16); the run is made
+   twice and the two model texts must be byte-identical; the valid AUC
+   must be finite and well above chance; then the path of H's f32 mode:
+   3 rounds of the protocol with tpu_hist_bf16=false, counts set to 0
+   before and read after, every kernel launched and no H launch in
+   hi+lo mode, valid AUC above 0.7;
 10. training kernels vs plain at the main path's shapes, on the first
     tree's inputs: H (leaf_histogram) on the root in all-rows mode and
     on the root split's smaller child in row-list mode, S (split_scan)
@@ -84,8 +88,8 @@ Phases, any failure raises and the script exits non-zero:
     must repeat its bits;
 11. the card against the CPU: the same protocol at 131,072 rows, 63
     leaves and 5 rounds on the card and with device="cpu" (the plain
-    versions): the same tree structure, leaf values within 1e-5
-    relative, valid AUC within 2e-3;
+    versions), under tpu_hist_bf16=true and false: the same tree
+    structure, leaf values within 1e-5 relative, valid AUC within 2e-3;
 12. training times: seconds per boosting round (median of rounds 2-10)
     and million row-iterations per second as bench.py reports them; per
     kernel its device time per call (torch.profiler, which leaves out the
@@ -199,7 +203,48 @@ Phases, any failure raises and the script exits non-zero:
     of 12 after 0.3 s of calls), their plain versions (median of 5),
     bounds (ES over the node visits of the trees each row walked), QC's
     yardstick torch.searchsorted over the [F, K] grid; Booster.predict
-    end to end for f32, f16, int8 and early stop.
+    end to end for f32, f16, int8 and early stop;
+25. GOSS, DART and RF main paths on the phase-9 Datasets, every count
+    set to 0 before each run and read after it: boosting=goss (top_rate
+    0.2, other_rate 0.1, 20 rounds: it samples from round 11), GT and GW
+    launched once a sampled round; boosting=dart (drop_rate 0.1,
+    skip_drop 0.5, max_drop 50, drop_seed 4, 10 rounds), W launched once
+    a round for the valid set and three times a dropped tree;
+    boosting=rf (bagging_fraction 0.7, bagging_freq 1, feature_fraction
+    0.7, 10 rounds), R's average mode once a round for the train score
+    and once for the valid set, W and M once a round; every H launch in
+    hi+lo mode (the default tpu_hist_bf16); each run twice with
+    byte-identical model texts; valid AUC finite and above 0.7; the saved
+    model reloaded and served through K1 within 1e-5 * max(1, |ref|) of
+    the valid scores kept in training (RF through average_output);
+26. GT and GW against their plain versions on the card: on the GOSS
+    run's gradients at rounds 11 and 20, on all-equal and all-zero
+    magnitudes, at top_k 1 and n - 1, and on 1,000,003 rows: weights and
+    threshold bitwise, the threshold equal to np.partition on the host, a
+    second launch repeating the bits;
+27. H's hi+lo mode against its plain version on the root and a child
+    (row list) at max_bin 63 (round 20's GOSS channels) and at max_bin
+    255 (65,536 weighted rows): counts exact, g/h within 1e-5 * max(1,
+    |ref|) of the plain version and of the f64 sum of the exact halves,
+    repeats equal, and other sums than the f32 mode; then, bitwise (a
+    NaN need only be a NaN), on a sweep of 9,216 f32 values (every
+    exponent, the subnormals, rounding ties, +-0, +-inf and NaN) with one
+    row a (group, bin), all rows and a row list; R's average mode
+    bitwise against its plain version on the train score (leaf ids) and
+    a valid score (per-row values);
+28. the card against the CPU for goss, dart and rf at 131,072 rows, 63
+    leaves, learning rate 0.5 (GOSS samples from round 3), 5 rounds: the
+    same trees, leaves within 1e-5 relative, valid AUC within 2e-3;
+29. times (CUDA events or torch.profiler, median of 12 after 0.3 s of
+    calls): GT + GW at 2,000,000 rows against their plain versions and
+    torch.kthvalue (the library yardstick, checked equal), H hi+lo
+    against H f32 at the root, R's average mode, seconds per round of
+    goss (its sampled rounds), dart and rf, and one profiled GOSS
+    round's idle share.
+
+Phases 5-24 train with the default tpu_hist_bf16, so H runs in its
+hi+lo mode on their paths; phase 9's tpu_hist_bf16=false run is the
+path of its f32 mode, and phase 10 holds that mode to its plain version.
 
 The line before the last is the kernels' JSON summary, the last line
 `{"ok": true, "device": {...}}`.
@@ -233,6 +278,9 @@ INSTR_PER_VISIT = 8
 # the training protocol (bench.py run_amortized, at its 2,000,000 rows)
 TRAIN_ROWS, VALID_ROWS, TRAIN_ROUNDS = 2_000_000, 262_144, 10
 CPU_ROWS, CPU_VALID_ROWS, CPU_LEAVES, CPU_ROUNDS = 131_072, 32_768, 63, 5
+# rounds of the protocol with tpu_hist_bf16=false, the path of H's f32
+# mode (every other training run takes the hi+lo default)
+F32_ROUNDS = 3
 TRAIN_PARAMS = {"objective": "binary", "metric": "auc,binary_logloss",
                 "max_bin": 63, "num_leaves": 255, "learning_rate": 0.1,
                 "min_data_in_leaf": 1, "min_sum_hessian_in_leaf": 100.0,
@@ -542,14 +590,20 @@ def training(name, card, dev):
           % (TRAIN_ROWS, VALID_ROWS, FEATURES, time.perf_counter() - t0))
     for fn in counted.values():
         fn.launches = 0
+    histogram.leaf_histogram.launches_hilo = 0
     t0 = time.perf_counter()
     booster, evals, update_s, ds, valid = train_run(
         lgb, x, y, xv, yv, TRAIN_PARAMS, TRAIN_ROUNDS)
     wall = time.perf_counter() - t0
     launches = {k: fn.launches for k, fn in counted.items()}
-    print("training main path launches:", launches)
+    hilo_launches = histogram.leaf_histogram.launches_hilo
+    print("training main path launches:", launches, "(H in hi+lo mode %d)"
+          % hilo_launches)
     check(all(v > 0 for v in launches.values()),
           "a training kernel of the main path was never launched")
+    check(hilo_launches == launches["leaf_histogram"],
+          "the default training ran H %d times, %d in hi+lo mode"
+          % (launches["leaf_histogram"], hilo_launches))
     check(booster.device.type == "cuda", "training did not run on cuda")
     check(booster.num_trees() == TRAIN_ROUNDS, "trained %d trees, not %d"
           % (booster.num_trees(), TRAIN_ROUNDS))
@@ -577,6 +631,26 @@ def training(name, card, dev):
           "two training runs gave different model texts")
     print("training main path: a second run gave a byte-identical model "
           "text (%d bytes)" % len(text))
+    # H's f32 mode: the protocol with tpu_hist_bf16=false
+    for fn in counted.values():
+        fn.launches = 0
+    histogram.leaf_histogram.launches_hilo = 0
+    f32_evals = train_run(lgb, x, y, xv, yv,
+                          dict(TRAIN_PARAMS, tpu_hist_bf16=False),
+                          F32_ROUNDS, data=(ds, valid))[1]
+    f32_launches = {k: fn.launches for k, fn in counted.items()}
+    print("training f32 path launches:", f32_launches, "(H in hi+lo mode "
+          "%d)" % histogram.leaf_histogram.launches_hilo)
+    check(all(v > 0 for v in f32_launches.values())
+          and histogram.leaf_histogram.launches_hilo == 0,
+          "tpu_hist_bf16=false: a kernel never launched, or H in hi+lo "
+          "mode")
+    f32_auc = f32_evals["valid"]["auc"]
+    check(len(f32_auc) == F32_ROUNDS and np.isfinite(f32_auc).all()
+          and f32_auc[-1] > 0.7, "tpu_hist_bf16=false: valid AUC %s"
+          % f32_auc)
+    print("training f32 path: %d rounds with tpu_hist_bf16=false, valid "
+          "auc %.5f" % (F32_ROUNDS, f32_auc[-1]))
     pred = booster.predict(xv[:4096])
     check(np.isfinite(pred).all() and ((pred > 0) & (pred < 1)).all(),
           "predictions of the trained model")
@@ -730,22 +804,26 @@ def training(name, card, dev):
              VALID_ROWS))
 
     # --------------------------------------------------------------- 11
-    cpu_params = dict(TRAIN_PARAMS, num_leaves=CPU_LEAVES)
     xs, ys = x[:CPU_ROWS], y[:CPU_ROWS]
     xvs, yvs = xv[:CPU_VALID_ROWS], yv[:CPU_VALID_ROWS]
-    t0 = time.perf_counter()
-    on_card, ev_card = train_run(lgb, xs, ys, xvs, yvs, cpu_params,
-                                 CPU_ROUNDS)[:2]
-    on_cpu, ev_cpu = train_run(lgb, xs, ys, xvs, yvs, cpu_params,
-                               CPU_ROUNDS, device="cpu")[:2]
-    worst = same_trees(on_card, on_cpu, CPU_ROUNDS)
-    d_auc = abs(ev_card["valid"]["auc"][-1] - ev_cpu["valid"]["auc"][-1])
-    check(d_auc <= 2e-3, "card/CPU valid AUC differ by %g" % d_auc)
-    print("card vs CPU [%d rows, %d leaves, %d rounds]: same structure, "
-          "leaf values within %.3g relative, valid auc %.5f vs %.5f (%.2f s)"
-          % (CPU_ROWS, CPU_LEAVES, CPU_ROUNDS, worst,
-             ev_card["valid"]["auc"][-1], ev_cpu["valid"]["auc"][-1],
-             time.perf_counter() - t0))
+    for bf16 in (True, False):
+        cpu_params = dict(TRAIN_PARAMS, num_leaves=CPU_LEAVES,
+                          tpu_hist_bf16=bf16)
+        t0 = time.perf_counter()
+        on_card, ev_card = train_run(lgb, xs, ys, xvs, yvs, cpu_params,
+                                     CPU_ROUNDS)[:2]
+        on_cpu, ev_cpu = train_run(lgb, xs, ys, xvs, yvs, cpu_params,
+                                   CPU_ROUNDS, device="cpu")[:2]
+        worst = same_trees(on_card, on_cpu, CPU_ROUNDS)
+        d_auc = abs(ev_card["valid"]["auc"][-1]
+                    - ev_cpu["valid"]["auc"][-1])
+        check(d_auc <= 2e-3, "card/CPU valid AUC differ by %g" % d_auc)
+        print("card vs CPU [%d rows, %d leaves, %d rounds, tpu_hist_bf16="
+              "%s]: same structure, leaf values within %.3g relative, valid "
+              "auc %.5f vs %.5f (%.2f s)"
+              % (CPU_ROWS, CPU_LEAVES, CPU_ROUNDS, str(bf16).lower(), worst,
+                 ev_card["valid"]["auc"][-1], ev_cpu["valid"]["auc"][-1],
+                 time.perf_counter() - t0))
 
     # --------------------------------------------------------------- 12
     print("clocks [%s]: SM clock, max SM clock: %s (idle after the CPU "
@@ -827,11 +905,15 @@ def training(name, card, dev):
                  reps=5),
         bound(visits + 8 * VALID_ROWS + bt.nodes.numel() * 4,
               visits * INSTR_PER_VISIT), None)
+    # H's row is its f32 mode, launched by the tpu_hist_bf16=false run
+    launches["leaf_histogram"] = f32_launches["leaf_histogram"]
+    rounds_of = dict.fromkeys(times, TRAIN_ROUNDS)
+    rounds_of["leaf_histogram"] = F32_ROUNDS
     for k, (ms, plain_ms, (b_ms, b_by), lib_ms) in times.items():
         print("time [%s | %s]: %s %.4f ms, plain %.3f ms, bound %.5f ms "
               "(%s), %.1f launches per tree%s"
               % (name, card, k, ms, plain_ms, b_ms, b_by,
-                 launches[k] / TRAIN_ROUNDS,
+                 launches[k] / rounds_of[k],
                  "" if lib_ms is None else
                  ", torch.bincount x3 %.4f ms" % lib_ms))
     print("clocks [%s]: SM clock, max SM clock: %s (after the timings)"
@@ -860,7 +942,8 @@ def training(name, card, dev):
         rows.append(row)
     ctx = {"x": x, "y": y, "xv": xv, "yv": yv, "data": (ds, valid),
            "auc": auc, "perm": perm, "n_left": n_left, "rounds_s": med,
-           "text": text, "train_score": train_score}
+           "text": text, "train_score": train_score,
+           "hilo_launches": hilo_launches}
     return rows, ctx
 
 
@@ -1038,8 +1121,6 @@ def quantized(name, card, dev, ctx):
     # params, against its repeat and plain version
     grower8 = gb8._grower
     prm8 = grower8.params
-    check(prm8.xla_scan_order, "int8: the grower does not scan in XLA's "
-          "order")
     mask8 = torch.ones(grower8.fmeta_dev["num_bin"].shape[0],
                        dtype=torch.uint8, device=dev)
     for label, parts, depth in (("root", ("root",), 0),
@@ -2699,6 +2780,489 @@ def serving_extras(name, card, dev, ctx, phase2_text):
     return rows
 
 
+# ---------------------------------------------------------------------
+# GOSS, DART and RF training (phases 25-29)
+# the three boosting modes on the HIGGS protocol: GOSS at the JAX
+# defaults samples from iteration int(1 / 0.1) = 10, so it runs 20
+# rounds; DART at the JAX defaults; RF as the JAX package's own test
+# (tests/test_engine.py:212-214)
+MODE_PARAMS = {
+    "goss": dict(TRAIN_PARAMS, boosting="goss", top_rate=0.2,
+                 other_rate=0.1),
+    "dart": dict(TRAIN_PARAMS, boosting="dart", drop_rate=0.1,
+                 skip_drop=0.5, max_drop=50, drop_seed=4),
+    "rf": dict(TRAIN_PARAMS, boosting="rf", bagging_fraction=0.7,
+               bagging_freq=1, feature_fraction=0.7)}
+MODE_ROUNDS = {"goss": 20, "dart": 10, "rf": 10}
+GOSS_FROM = 10
+# phase 27's weighted max_bin 255 set, and phase 26's odd row count
+HILO_ROWS = 65_536
+ODD_ROWS = 1_000_003
+
+
+# phase 27's sweep of f32 bit patterns (tests/test_torch_hist_bf16.py
+# sweeps the same): every exponent (0: zero and subnormals, 255: inf and
+# NaN) times mantissas at and around bf16's rounding boundaries, both
+# signs; histogrammed SWEEP_BINS rows a call over SWEEP_GROUPS groups
+SWEEP_MANTISSAS = [0, 1, 2, 0x7FFF, 0x8000, 0x8001, 0xFFFF, 0x10000,
+                   0x17FFF, 0x18000, 0x18001, 0x123456, 0x3FFFFF, 0x400000,
+                   0x7F7FFF, 0x7F8000, 0x7FC000, 0x7FFFFF]
+SWEEP_BINS, SWEEP_GROUPS = 256, 8
+
+
+def f32_sweep():
+    e = np.arange(256, dtype=np.uint32)
+    m = np.asarray(SWEEP_MANTISSAS, np.uint32)
+    bits = (e[:, None] << 23 | m[None, :]).ravel()
+    return np.concatenate([bits, bits | 0x80000000]).view(np.float32)
+
+
+def hilo_oracle(binned, w3, num_bins, rows=None):
+    """The f64 histogram of the exact hi + lo halves of g*w and h*w."""
+    from lightgbm_tpu_torch.ops import histogram
+    hi, lo = histogram.hi_lo(w3[:, :2].contiguous())
+    v = torch.cat([hi.double() + lo.double(), w3[:, 2:].double()], 1)
+    return hist_oracle(binned, v, num_bins, rows)
+
+
+def goss_case(g, h, top_k, other_k, key, label):
+    """GT and GW against their plain versions on the card (weights and
+    threshold bitwise, a second launch repeating the bits) and the
+    threshold against np.partition on the host."""
+    from lightgbm_tpu_torch.ops import goss
+    n = g.shape[0]
+    rest_p, mult = goss.goss_rates(n, top_k, other_k)
+    outs = []
+    for _ in range(2):
+        mag, thr = goss.goss_threshold(g, h, top_k)
+        w = goss.goss_weights(mag, thr, key, rest_p, mult,
+                              torch.empty(n, device=g.device))
+        outs.append((mag, thr, w))
+    mag_p, thr_p = goss.goss_threshold_plain(g, h, top_k)
+    w_p = goss.goss_weights_plain(mag_p, thr_p, key, rest_p, mult,
+                                  torch.empty(n, device=g.device))
+    (mag, thr, w), (mag2, thr2, w2) = outs
+
+    def same(a, b):
+        return torch.equal(a.view(torch.int32), b.view(torch.int32))
+    check(same(thr, thr2) and same(w, w2),
+          "GT/GW (%s): a second launch gave other bits" % label)
+    check(same(mag, mag_p) and same(thr, thr_p),
+          "GT (%s): mag or threshold not bitwise its plain version" % label)
+    check(same(w, w_p), "GW (%s): weights not bitwise the plain version "
+          "(%d differ)" % (label, int((w != w_p).sum())))
+    host = mag.cpu().numpy()
+    part = np.partition(host, n - top_k)[n - top_k]
+    check(np.float32(thr.item()) == part,
+          "GT (%s): threshold %r, np.partition %r" % (label, thr.item(),
+                                                      part))
+    top = int((w == 1.0).sum())
+    check(top >= top_k, "GW (%s): %d top rows of %d" % (label, top, top_k))
+    return top
+
+
+def boosting_modes(name, card, dev, ctx):
+    """Phases 25-29; returns the JSON rows of GT, GW, H's hi+lo mode and
+    R's average mode."""
+    import lightgbm_tpu_torch as lgb
+    from lightgbm_tpu_torch.boosting import dart as dart_mod
+    from lightgbm_tpu_torch.boosting import goss as goss_mod
+    from lightgbm_tpu_torch.ops import goss, histogram, predict, rng, route
+    from lightgbm_tpu_torch.ops import split
+    from lightgbm_tpu_torch.testing.synth import synth_higgs
+
+    counted = {"goss_threshold": goss.goss_threshold,
+               "goss_weights": goss.goss_weights,
+               "leaf_histogram": histogram.leaf_histogram,
+               "split_scan": split.split_scan,
+               "route_partition": route.route_partition,
+               "score_update": route.score_update,
+               "score_average": route.score_average,
+               "tree_value_walk_binned": predict.tree_value_walk_binned,
+               "bagging_mask": rng.bagging_mask}
+    x, y, xv, yv = ctx["x"], ctx["y"], ctx["xv"], ctx["yv"]
+    data = ctx["data"]
+
+    # the GOSS run's gradients at its first and last sampled round
+    # (phase 26), and DART's drops per round (its ledger)
+    kept, drops = {}, []
+    goss_hook = goss_mod.GOSS._bagging_weights
+    drop_hook = dart_mod.DART._dropping_trees
+
+    def keep(self, it, grad=None, hess=None):
+        if it in (GOSS_FROM, MODE_ROUNDS["goss"] - 1) and grad is not None:
+            kept[it] = (grad.clone(), hess.clone())
+        return goss_hook(self, it, grad, hess)
+
+    def count_drops(self):
+        drop_hook(self)
+        drops.append(len(self.drop_index))
+
+    # --------------------------------------------------------------- 25
+    runs, path_launches = {}, {}
+    for mode, params in MODE_PARAMS.items():
+        rounds = MODE_ROUNDS[mode]
+        for fn in counted.values():
+            fn.launches = 0
+        histogram.leaf_histogram.launches_hilo = 0
+        drops.clear()
+        goss_mod.GOSS._bagging_weights = keep
+        dart_mod.DART._dropping_trees = count_drops
+        try:
+            booster, evals, update_s = train_run(
+                lgb, x, y, xv, yv, params, rounds, data=data)[:3]
+        finally:
+            goss_mod.GOSS._bagging_weights = goss_hook
+            dart_mod.DART._dropping_trees = drop_hook
+        launches = {k: fn.launches for k, fn in counted.items()}
+        launches["leaf_histogram_hilo"] = \
+            histogram.leaf_histogram.launches_hilo
+        path_launches[mode] = launches
+        gb = booster._inner
+        print("%s path launches: %s" % (mode, launches))
+        check(booster.device.type == "cuda" and gb.num_trees() == rounds,
+              "%s: %d trees on %s" % (mode, gb.num_trees(), booster.device))
+        check(launches["leaf_histogram"] > 0 and launches[
+            "leaf_histogram_hilo"] == launches["leaf_histogram"],
+            "%s: H ran %d times, %d in hi+lo mode" % (
+                mode, launches["leaf_histogram"],
+                launches["leaf_histogram_hilo"]))
+        check(all(launches[k] > 0 for k in ("split_scan", "route_partition",
+                                             "tree_value_walk_binned")),
+              mode + ": a kernel of the path was never launched")
+        if mode == "goss":
+            sampled = rounds - GOSS_FROM
+            check(launches["goss_threshold"] == sampled
+                  and launches["goss_weights"] == sampled,
+                  "goss: GT %d and GW %d launches, not %d" % (
+                      launches["goss_threshold"], launches["goss_weights"],
+                      sampled))
+            check(sorted(kept) == [GOSS_FROM, rounds - 1],
+                  "goss: sampled rounds %s" % sorted(kept))
+        else:
+            check(launches["goss_threshold"] == 0, mode + ": GT launched")
+        if mode == "rf":
+            check(launches["score_average"] == 2 * rounds
+                  and launches["score_update"] == 0,
+                  "rf: R's average mode launched %d times (train and valid "
+                  "score, %d rounds), the score update %d" % (
+                      launches["score_average"], rounds,
+                      launches["score_update"]))
+            check(launches["tree_value_walk_binned"] == rounds
+                  and launches["bagging_mask"] == rounds,
+                  "rf: W %d, M %d launches in %d rounds" % (
+                      launches["tree_value_walk_binned"],
+                      launches["bagging_mask"], rounds))
+        else:
+            check(launches["score_average"] == 0,
+                  mode + ": R's average mode launched")
+        if mode == "dart":
+            # a round walks the new tree on the valid set; a drop walks
+            # the dropped tree off the train score, onto the valid scores
+            # rescaled, and back onto the train score
+            check(len(drops) == rounds and launches[
+                "tree_value_walk_binned"] == rounds + 3 * sum(drops),
+                "dart: W launched %d times, drops %s" % (
+                    launches["tree_value_walk_binned"], drops))
+            check(len(gb.tree_weight) == rounds,
+                  "dart: ledger of %d weights" % len(gb.tree_weight))
+        auc = evals["valid"]["auc"]
+        check(len(auc) == rounds and np.isfinite(auc).all()
+              and auc[-1] > 0.7, "%s: valid AUC %s" % (mode, auc))
+        text = booster.model_to_string()
+        again = train_run(lgb, x, y, xv, yv, params, rounds, data=data)[0]
+        check(again.model_to_string() == text,
+              mode + ": two runs gave different model texts")
+        del again
+        served = lgb.Booster(model_str=text)
+        raw = served.predict(xv, raw_score=True)
+        kept_scores = gb.valid_score(0)
+        off = np.abs(raw - kept_scores) / np.maximum(1.0,
+                                                      np.abs(kept_scores))
+        check(float(off.max()) <= 1e-5,
+              "%s: served raw scores off the kept valid scores by %g"
+              % (mode, off.max()))
+        sel = update_s[GOSS_FROM:] if mode == "goss" else update_s[1:]
+        med = float(np.median(sel))
+        runs[mode] = (booster, med)
+        print("%s path: %d rounds, trees of %s leaves, valid auc %.5f, a "
+              "second run byte-identical (%d bytes), the reloaded model "
+              "served through K1 within %.3g of the kept valid scores%s"
+              % (mode, rounds, sorted({t.num_leaves for t in gb.models}),
+                 auc[-1], len(text), float(off.max()),
+                 ", drops %s" % drops if mode == "dart" else ""))
+        print("time [%s | %s]: %s boosting round %.4f s (median of rounds "
+              "%s), %.3f million row-iterations/s, rounds %s"
+              % (name, card, mode, med, "%d-%d" % (
+                  GOSS_FROM + 1, rounds) if mode == "goss" else
+                 "2-%d" % rounds, TRAIN_ROWS / med / 1e6,
+                 " ".join("%.4f" % v for v in update_s)))
+
+    # --------------------------------------------------------------- 26
+    gb = runs["goss"][0]._inner
+    n = TRAIN_ROWS
+    bc = gb.config.boosting
+    top_k, other_k = int(n * bc.top_rate), int(n * bc.other_rate)
+    seed = int(bc.bagging_seed)
+    for it, (g, h) in sorted(kept.items()):
+        top = goss_case(g, h, top_k, other_k,
+                        rng.fold_in(rng.prng_key(seed), it),
+                        "round %d" % (it + 1))
+        print("GT/GW vs plain [goss round %d, %d rows]: weights and "
+              "threshold bitwise, threshold = np.partition, %d top rows"
+              % (it + 1, n, top))
+    g19, h19 = kept[MODE_ROUNDS["goss"] - 1]
+    key = rng.fold_in(rng.prng_key(seed), 99)
+    gen = torch.Generator(device="cpu").manual_seed(26)
+    odd_g = torch.randn(ODD_ROWS, generator=gen).to(dev)
+    odd_h = torch.rand(ODD_ROWS, generator=gen).to(dev)
+    cases = [
+        ("all-equal mags", torch.full_like(g19, -0.5),
+         torch.full_like(h19, 0.125), top_k),
+        ("all-zero mags", torch.zeros_like(g19), h19, top_k),
+        ("top_k 1", g19, h19, 1),
+        ("top_k n-1", g19, h19, n - 1),
+        ("%d rows" % ODD_ROWS, odd_g, odd_h, int(ODD_ROWS * 0.2))]
+    for label, g, h, k in cases:
+        m = g.shape[0]
+        goss_case(g, h, k, max(1, int(m * 0.1)), key, label)
+    print("GT/GW vs plain: all-equal and all-zero mags, top_k 1 and n-1, "
+          "%d rows: weights and threshold bitwise, threshold = "
+          "np.partition, repeats equal" % ODD_ROWS)
+
+    # --------------------------------------------------------------- 27
+    hl_err = 0.0
+    binned, nb = gb._binned, gb._grower.num_bins
+    mag, thr = goss.goss_threshold(g19, h19, top_k)
+    rest_p, mult = goss.goss_rates(n, top_k, other_k)
+    wg = goss.goss_weights(mag, thr, rng.fold_in(rng.prng_key(seed), 19),
+                           rest_p, mult, torch.empty(n, device=dev))
+    w3 = torch.stack([g19 * wg, h19 * wg, wg], 1).contiguous()
+    perm, n_left = ctx["perm"], ctx["n_left"]
+    small = perm[:n_left] if n_left * 2 <= n else perm[n_left:]
+    small = small.contiguous()
+    hx = xv[:HILO_ROWS]
+    hw = np.where(np.arange(HILO_ROWS) % 3 == 0, 0.5, 1.0)
+    ds255 = lgb.Dataset(hx, yv[:HILO_ROWS], weight=hw,
+                        params={"max_bin": 255}).construct()
+    b255 = torch.from_numpy(ds255._inner.binned).to(dev)
+    nb255 = ds255._inner.max_num_bin()
+    check(nb255 > 64, "the max_bin 255 set has groups of %d bins" % nb255)
+    gen = torch.Generator(device="cpu").manual_seed(27)
+    gw = (torch.randn(HILO_ROWS, generator=gen)
+          * torch.from_numpy(hw).float()).to(dev)
+    hwt = (torch.rand(HILO_ROWS, generator=gen) * 0.25
+           * torch.from_numpy(hw).float()).to(dev)
+    w255 = torch.stack([gw, hwt, torch.from_numpy(hw).float().to(dev)],
+                       1).contiguous()
+    rows255 = torch.nonzero(b255[:, 0] < nb255 // 3)[:, 0].to(
+        torch.int32).contiguous()
+    for label, (bn, w, bins, rows) in {
+            "max_bin 63, GOSS round 20, root": (binned, w3, nb, None),
+            "max_bin 63, GOSS round 20, child": (binned, w3, nb, small),
+            "max_bin 255, weighted, root": (b255, w255, nb255, None),
+            "max_bin 255, weighted, child": (b255, w255, nb255,
+                                             rows255)}.items():
+        kw = {} if rows is None else {"rows": rows,
+                                      "n_rows": rows.shape[0]}
+        got = histogram.leaf_histogram(bn, w, bins, bf16=True, **kw)
+        check(torch.equal(got, histogram.leaf_histogram(bn, w, bins,
+                                                        bf16=True, **kw)),
+              "H hi+lo (%s): a second launch gave other bits" % label)
+        ref = histogram.leaf_histogram_plain(bn, w, bins, bf16=True, **kw)
+        hl_err = max(hl_err, sums_err(got, ref,
+                                      hilo_oracle(bn, w, bins, rows),
+                                      "H hi+lo (%s)" % label))
+        f32 = histogram.leaf_histogram(bn, w, bins, **kw)
+        check(not torch.equal(f32, got), "H hi+lo (%s) equals the f32 mode"
+              % label)
+    print("H hi+lo vs plain: max_bin 63 (GOSS weights, root and a %d-row "
+          "child) and max_bin 255 (%d weighted rows, %d bins, root and a "
+          "%d-row child): counts exact, g/h within 1e-5 of plain and of "
+          "the f64 sum of the halves (max abs err %.3g), repeats equal, "
+          "the f32 mode differs" % (small.shape[0], HILO_ROWS, nb255,
+                                    rows255.shape[0], hl_err))
+    # one row a (group, bin): each bin is f32(hi) + f32(lo) of one value,
+    # so the kernel's split must give the plain version's bits (round to
+    # nearest even, XLA's subnormal flushes, quiet NaNs); NaN payloads
+    # are left to the hardware, so a NaN need only be a NaN
+    sweep = torch.from_numpy(f32_sweep()).to(dev)
+    r = torch.arange(SWEEP_BINS, device=dev)
+    bins1 = torch.stack([(r * (2 * k + 1) + 37 * k) % SWEEP_BINS
+                         for k in range(SWEEP_GROUPS)], 1).to(
+        torch.uint8).contiguous()
+    back = r.flip(0).to(torch.int32).contiguous()
+    calls = 0
+    for i in range(0, sweep.shape[0], SWEEP_BINS):
+        gv = sweep[i:i + SWEEP_BINS]
+        hv = sweep.flip(0)[i:i + SWEEP_BINS]
+        w1 = torch.stack([gv, hv, torch.ones_like(gv)], 1).contiguous()
+        for kw in ({}, {"rows": back, "n_rows": SWEEP_BINS}):
+            got = histogram.leaf_histogram(bins1, w1, SWEEP_BINS, bf16=True,
+                                           **kw)
+            ref = histogram.leaf_histogram_plain(bins1, w1, SWEEP_BINS,
+                                                 bf16=True, **kw)
+            nan = torch.isnan(ref)
+            bad = int((got.view(torch.int32) != ref.view(torch.int32))[
+                ~nan].sum())
+            check(torch.equal(torch.isnan(got), nan) and bad == 0,
+                  "H hi+lo on the sweep (rows %d-%d, %s): %d words differ "
+                  "from plain, NaNs at %d and %d places"
+                  % (i, i + SWEEP_BINS - 1, "row list" if kw else "all "
+                     "rows", bad, int(torch.isnan(got).sum()),
+                     int(nan.sum())))
+            calls += 1
+    print("H hi+lo vs plain on a sweep of %d f32 values (every exponent, "
+          "subnormals, ties, +-0, +-inf, NaN), one row a (group, bin), %d "
+          "calls, all rows and a row list: bitwise, NaNs where plain has "
+          "them" % (sweep.shape[0], calls))
+    rb = runs["rf"][0]._inner
+    rtree = rb.models[-1]
+    values = torch.from_numpy(rtree.leaf_value.astype(np.float32)).to(dev)
+    lid = gb._grower.leaf_id.clone()
+    lid.clamp_(max=rtree.num_leaves - 1)
+    vadd = torch.zeros(VALID_ROWS, device=dev)
+    predict.tree_value_walk_binned(predict.binned_tree(rtree, dev),
+                                   rb._valid_binned[0], vadd)
+    for label, score0, ids, vals in (
+            ("train, leaf ids", rb._score[0], lid, values),
+            ("valid, per-row values", rb._valid_score[0][0], None, vadd)):
+        outs = []
+        for fn in (route.score_average, route.score_average,
+                   route.score_average_plain):
+            sc = score0.clone()
+            fn(sc, ids, vals, MODE_ROUNDS["rf"])
+            outs.append(sc)
+        check(all(torch.equal(outs[0].view(torch.int32), o.view(torch.int32))
+                  for o in outs[1:]),
+              "R average (%s): not bitwise its repeat and plain" % label)
+    print("R average mode vs plain [%d train rows, %d valid rows]: bitwise, "
+          "repeats equal" % (n, VALID_ROWS))
+
+    # --------------------------------------------------------------- 28
+    xs, ys = x[:CPU_ROWS], y[:CPU_ROWS]
+    xvs, yvs = xv[:CPU_VALID_ROWS], yv[:CPU_VALID_ROWS]
+    for mode, params in MODE_PARAMS.items():
+        p = dict(params, num_leaves=CPU_LEAVES, learning_rate=0.5)
+        t0 = time.perf_counter()
+        on_card, ev_card = train_run(lgb, xs, ys, xvs, yvs, p,
+                                     CPU_ROUNDS)[:2]
+        on_cpu, ev_cpu = train_run(lgb, xs, ys, xvs, yvs, p, CPU_ROUNDS,
+                                   device="cpu")[:2]
+        worst = same_trees(on_card, on_cpu, CPU_ROUNDS)
+        d_auc = abs(ev_card["valid"]["auc"][-1] - ev_cpu["valid"]["auc"][-1])
+        check(d_auc <= 2e-3, "%s: card/CPU valid AUC differ by %g"
+              % (mode, d_auc))
+        print("card vs CPU [%s, %d rows, %d leaves, learning rate 0.5, %d "
+              "rounds]: same structure, leaf values within %.3g relative, "
+              "valid auc %.5f vs %.5f (%.2f s)"
+              % (mode, CPU_ROWS, CPU_LEAVES, CPU_ROUNDS, worst,
+                 ev_card["valid"]["auc"][-1], ev_cpu["valid"]["auc"][-1],
+                 time.perf_counter() - t0))
+
+    # --------------------------------------------------------------- 29
+    print("clocks [%s]: SM clock, max SM clock: %s (before the timings)"
+          % (card, clocks()))
+    times = {}
+    gt_ms = device_ms(lambda: goss.goss_threshold(g19, h19, top_k),
+                      ("gt_count_kernel", "gt_pick_kernel", "Memset"))
+    wbuf = torch.empty(n, device=dev)
+    key19 = rng.fold_in(rng.prng_key(seed), 19)
+    gw_ms = device_ms(lambda: goss.goss_weights(mag, thr, key19, rest_p,
+                                                mult, wbuf), ("gw_kernel",))
+    gt_plain = median_ms(lambda: goss.goss_threshold_plain(g19, h19, top_k),
+                         reps=5)
+    gw_plain = median_ms(lambda: goss.goss_weights_plain(
+        mag, thr, key19, rest_p, mult, wbuf), reps=5)
+    kth_ms = median_ms(lambda: torch.kthvalue(mag, n - top_k + 1))
+    check(torch.kthvalue(mag, n - top_k + 1).values.view(1).view(
+        torch.int32).equal(thr.view(torch.int32)),
+        "torch.kthvalue disagrees with GT's threshold")
+    # the pair's function reads g and h and writes w (12 B a row); split
+    # between the two without the intermediate mag: GT reads g and h, GW
+    # writes w and draws a threefry uniform a row
+    times["goss_threshold"] = (gt_ms, gt_plain, bound(8 * n), kth_ms)
+    times["goss_weights"] = (gw_ms, gw_plain,
+                             bound(4 * n, n * INSTR_PER_DRAW), None)
+    print("time [%s | %s]: GT + GW %.4f ms on %d rows (GT %.4f, GW %.4f), "
+          "plain %.3f ms, torch.kthvalue %.4f ms, bound of the function "
+          "%.5f ms (g and h read, w written: %d MB)"
+          % (name, card, gt_ms + gw_ms, n, gt_ms, gw_ms, gt_plain + gw_plain,
+             kth_ms, bound(12 * n)[0], 12 * n // 10 ** 6))
+    g_cnt = binned.shape[1]
+    h_names = ("hist_tile_kernel", "hist_reduce_kernel")
+    hl_ms = device_ms(lambda: histogram.leaf_histogram(binned, w3, nb,
+                                                       bf16=True), h_names)
+    f32_ms = device_ms(lambda: histogram.leaf_histogram(binned, w3, nb),
+                       h_names)
+    flat = ((torch.arange(g_cnt, device=dev) * nb)[None]
+            + binned.long()).reshape(-1)
+    hi, lo = histogram.hi_lo(w3[:, :2].contiguous())
+    chans = [c[:, None].expand(n, g_cnt).reshape(-1)
+             for c in (hi[:, 0], hi[:, 1], (w3[:, 2] > 0).float(), lo[:, 0],
+                       lo[:, 1])]
+
+    def library():
+        for c in chans:
+            torch.bincount(flat, weights=c, minlength=g_cnt * nb)
+    lib_ms = median_ms(library, reps=5)
+    del flat, chans
+    times["leaf_histogram_hilo"] = (
+        hl_ms, median_ms(lambda: histogram.leaf_histogram_plain(
+            binned, w3, nb, bf16=True), reps=5),
+        bound(n * g_cnt + n * 12 + g_cnt * nb * 12, 5.0 * n * g_cnt),
+        lib_ms)
+    print("time [%s | %s]: H root (%d rows) hi+lo %.4f ms against f32 %.4f "
+          "ms device time, torch.bincount x5 %.4f ms"
+          % (name, card, n, hl_ms, f32_ms, lib_ms))
+    sc = rb._score[0].clone()
+    times["score_average"] = (
+        device_ms(lambda: route.score_average(sc, lid, values, 3),
+                  ("score_average_kernel",)),
+        median_ms(lambda: route.score_average_plain(sc, lid, values, 3),
+                  reps=5),
+        bound(12 * n), None)
+    for k, (ms, plain_ms, (b_ms, b_by), lib) in times.items():
+        print("time [%s | %s]: %s %.4f ms, plain %.3f ms, bound %.5f ms "
+              "(%s)%s" % (name, card, k, ms, plain_ms, b_ms, b_by,
+                          "" if lib is None else ", library %.4f ms" % lib))
+    print("time [%s | %s]: boosting round goss %.4f s (rounds %d-%d), dart "
+          "%.4f s, rf %.4f s, gbdt %.4f s (phase 12)"
+          % (name, card, runs["goss"][1], GOSS_FROM + 1,
+             MODE_ROUNDS["goss"], runs["dart"][1], runs["rf"][1],
+             ctx["rounds_s"]))
+    profile_round(runs["goss"][0], name + ", goss round", card)
+
+    replaces = {
+        "goss_threshold": "lightgbm_tpu/boosting/goss.py:59",
+        "goss_weights": "lightgbm_tpu/boosting/goss.py:59",
+        "leaf_histogram_hilo": "lightgbm_tpu/ops/histogram.py:333",
+        "score_average": "lightgbm_tpu/boosting/rf.py:87"}
+    sources = {
+        "goss_threshold": "lightgbm_tpu_torch/csrc/goss.cu",
+        "goss_weights": "lightgbm_tpu_torch/csrc/goss.cu",
+        "leaf_histogram_hilo": "lightgbm_tpu_torch/csrc/histogram.cu",
+        "score_average": "lightgbm_tpu_torch/csrc/route_partition.cu"}
+    # H's hi+lo mode: the launches of phase 9's default run and of the
+    # three runs above
+    launches = {"goss_threshold": path_launches["goss"]["goss_threshold"],
+                "goss_weights": path_launches["goss"]["goss_weights"],
+                "leaf_histogram_hilo": ctx["hilo_launches"] + sum(
+                    v["leaf_histogram_hilo"]
+                    for v in path_launches.values()),
+                "score_average": path_launches["rf"]["score_average"]}
+    errs = {"goss_threshold": 0.0, "goss_weights": 0.0,
+            "leaf_histogram_hilo": hl_err, "score_average": 0.0}
+    rows = []
+    for k in times:
+        ms, plain_ms, (b_ms, b_by), lib = times[k]
+        rows.append({"name": k, "route": "cuda", "source": sources[k],
+                     "replaces": replaces[k], "launches": launches[k],
+                     "max_abs_err": errs[k], "ms": ms, "plain_ms": plain_ms,
+                     "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib})
+    return rows
+
+
 def main():
     # ---------------------------------------------------------------- 0
     if not torch.cuda.is_available():
@@ -2949,6 +3513,7 @@ def main():
     rows.extend(quantized(name, card, dev, ctx))
     rows.extend(linear(name, card, dev, ctx))
     rows.extend(serving_extras(name, card, dev, ctx, text))
+    rows.extend(boosting_modes(name, card, dev, ctx))
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

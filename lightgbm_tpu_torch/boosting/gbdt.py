@@ -23,6 +23,14 @@ run first passes the JAX package's train-time gate
 the leading `tpu_hist_chunk` rows must agree within
 `tpu_hist_quantize_tol`.
 
+GOSS, DART and RF train through subclasses (`goss.py`, `dart.py`,
+`rf.py`) over the hooks here: `_bagging_weights(iter, grad, hess)` gives
+the [n] f32 row weight of an iteration (M's 0/1 bag, or GOSS's weights
+from kernels GT and GW) and `_grow_tree` grows and extracts one tree
+from given gradients, weight and feature mask. f32 histograms are
+summed in bf16 hi+lo halves under `tpu_hist_bf16` (true by default, as
+in the JAX package), in f32 otherwise.
+
 Serving takes the JAX package's options: `pred_leaf`, `pred_contrib`
 (TreeSHAP on the host, `shap.py`), `pred_early_stop` (kernel ES, for a
 binary objective; ignored for any other, as in the JAX package, and it
@@ -30,12 +38,13 @@ turns quantize off) and `tpu_predict_quantize=f16|int8` (K1's f16 mode,
 kernels QC and QW) behind the JAX package's accuracy gate
 (`_quant_gate`); `dump_model` gives the JSON dump. Every option the
 port does not carry raises a named LightGBMError instead of answering
-with something else: in serving multiclass models; in training GOSS,
-DART, RF, multiclass, categorical features and the distributed tree
-learners. Linear trees keep the JAX package's own refusals (with dart
-or rf, multiclass, more than one machine, `pred_contrib`, quantized
-serving layouts).
-The JAX package's schedule keys (`tpu_hist_bf16`, `tpu_batch_k`,
+with something else: in serving multiclass models; in training
+multiclass, categorical features and the distributed tree learners.
+GOSS, RF and linear trees keep the JAX package's own refusals (GOSS with
+bagging or a rate <= 0; RF without bagging or without a feature_fraction
+in (0, 1); linear trees with dart or rf, multiclass, more than one
+machine, `pred_contrib`, quantized serving layouts).
+The JAX package's other schedule keys (`tpu_batch_k`,
 `tpu_hist_subtract`, `tpu_hist_compact`, `tpu_compact_threshold`)
 choose how its TPU programs run, not which trees grow; the port takes
 them and ignores them. `tpu_hist_chunk` does the same, except that it
@@ -88,16 +97,25 @@ def feature_fraction_mask(rng: np.random.RandomState, frac: float,
     return mask
 
 
+def boosting_kind(boosting_type: str) -> str:
+    """The boosting type with `random_forest` named `rf`, as
+    lightgbm_tpu/boosting/__init__.py creates it."""
+    return "rf" if boosting_type == "random_forest" else boosting_type
+
+
 def refuse_unported_training(config: Config) -> None:
     """Raise by name for what the training slice does not carry: it
-    trains boosting=gbdt, with or without bagging (`bagging_freq=0` is no
-    bagging, as in the JAX package), with f32 or quantized
-    (`tpu_hist_quantize=int8|int16`) histograms, with constant or linear
-    leaves. Linear trees keep the JAX package's refusals
-    (lightgbm_tpu/boosting/gbdt.py:656-672)."""
+    trains boosting=gbdt, goss, dart and rf, with or without bagging
+    (`bagging_freq=0` is no bagging, as in the JAX package), with f32 or
+    quantized (`tpu_hist_quantize=int8|int16`) histograms, with constant
+    or linear leaves. GOSS, RF and linear trees keep the JAX package's
+    refusals (lightgbm_tpu/boosting/goss.py:19-22, rf.py:21-25,
+    gbdt.py:656-672)."""
     cfg = config
+    bc = cfg.boosting
+    kind = boosting_kind(cfg.boosting_type)
     if cfg.tree.linear_tree:
-        if cfg.boosting_type not in ("gbdt", "goss"):
+        if kind not in ("gbdt", "goss"):
             log.fatal("linear_tree supports boosting=gbdt/goss only (got "
                       "%s): dart re-normalization and RF averaging replay "
                       "trees through the binned-only path"
@@ -111,9 +129,23 @@ def refuse_unported_training(config: Config) -> None:
             log.fatal("linear_tree does not support multi-host training "
                       "(the leaf regression needs the global raw matrix "
                       "resident on every process); set linear_tree=false")
-    if cfg.boosting_type != "gbdt":
-        log.fatal("boosting=%s training is not ported to lightgbm_tpu_torch "
-                  "yet (train with boosting=gbdt)" % cfg.boosting_type)
+    if kind == "goss":
+        if bc.top_rate <= 0 or bc.other_rate <= 0:
+            log.fatal("GOSS requires top_rate > 0 and other_rate > 0")
+        if bc.bagging_freq > 0 and bc.bagging_fraction != 1.0:
+            log.fatal("Cannot use bagging in GOSS")
+    if kind == "rf":
+        if not (bc.bagging_freq > 0 and 0.0 < bc.bagging_fraction < 1.0):
+            log.fatal("RF mode requires bagging "
+                      "(bagging_freq > 0 and bagging_fraction in (0,1))")
+        if not 0.0 < cfg.tree.feature_fraction < 1.0:
+            log.fatal("RF mode requires feature_fraction in (0, 1)")
+        if str(cfg.tree.tpu_hist_quantize or "none").lower() != "none":
+            log.fatal("RF mode grows its trees from the f32 gradients of "
+                      "the zero score: train it with tpu_hist_quantize=none")
+    if kind not in ("gbdt", "goss", "dart", "rf"):
+        log.fatal("boosting=%s is not a boosting type lightgbm_tpu_torch "
+                  "trains (gbdt, goss, dart, rf)" % cfg.boosting_type)
     if cfg.objective_config.num_class > 1:
         log.fatal("multiclass training (num_class=%d) is not ported to "
                   "lightgbm_tpu_torch yet" % cfg.objective_config.num_class)
@@ -237,7 +269,8 @@ class GBDT:
                 min_data_in_leaf=tc.min_data_in_leaf,
                 min_sum_hessian_in_leaf=tc.min_sum_hessian_in_leaf,
                 max_depth=tc.max_depth, hist_quantize=quant,
-                hist_qmax=self._quant_qmax),
+                hist_qmax=self._quant_qmax,
+                hist_bf16=bool(tc.tpu_hist_bf16)),
             train_data.max_num_bin(),
             int(train_data.num_bins_per_feature().max()))
         fm, gcfg, num_bins, feature_bins = self._grower_args
@@ -377,8 +410,18 @@ class GBDT:
                 valid_data.metadata.init_score, np.float32)).to(self.device)
         if self.init_score_bias != 0.0:
             vs += self.init_score_bias
-        for tree in self.models:
-            self._add_tree_values(tree, vb, vraw, vs)
+        # the trees already grown, replayed into a zero accumulator that
+        # is averaged under average_output (RF) and then added once
+        # (gbdt.py:1097-1107)
+        if self.models:
+            acc = torch.zeros(nv, dtype=torch.float32, device=self.device)
+            for tree in self.models:
+                self._add_tree_values(tree, vb, vraw, acc)
+            if self.average_output and self.iter_ > 0:
+                acc = acc / torch.tensor(float(self.iter_),
+                                         dtype=torch.float32,
+                                         device=self.device)
+            vs = vs + acc
         self._valid_score.append(vs.reshape(1, nv))
 
     def _feature_mask(self) -> np.ndarray:
@@ -386,9 +429,14 @@ class GBDT:
                                      self.config.tree.feature_fraction,
                                      self.train_data.num_features)
 
-    def _bagging_weights(self, iter_idx: int) -> Optional[torch.Tensor]:
-        """The [n] f32 0/1 in-bag mask (lightgbm_tpu/boosting/gbdt.py
-        `_bagging_weights`, :1111-1142): per-row Bernoulli(
+    def _bagging_weights(self, iter_idx: int,
+                         grad: Optional[torch.Tensor] = None,
+                         hess: Optional[torch.Tensor] = None
+                         ) -> Optional[torch.Tensor]:
+        """The [n] f32 row weight of iteration `iter_idx`, or None when
+        every row weighs 1 (lightgbm_tpu/boosting/gbdt.py
+        `_bagging_weights`, :1111-1132; GOSS overrides it from the
+        gradients): here the 0/1 in-bag mask, per-row Bernoulli(
         bagging_fraction) from JAX's threefry stream keyed by
         fold_in(PRNGKey(bagging_seed), iter // bagging_freq), redrawn when
         iter % bagging_freq == 0 (kernel M); None without bagging."""
@@ -402,43 +450,56 @@ class GBDT:
             self._bag_drawn = True
         return self._bag
 
-    def train_one_iter(self) -> bool:
-        """One boosting iteration (reference: GBDT::TrainOneIter,
-        gbdt.cpp:380-474; the synchronous serial branch of
-        lightgbm_tpu/boosting/gbdt.py:1191-1357). Returns True when no
-        tree could split (training should stop)."""
-        grad, hess = self.objective.get_gradients(self._score[0])
+    def _check_gradients(self, grad, hess) -> None:
         if self.config.boosting.tpu_guard_nonfinite and not bool(
                 torch.isfinite(grad).all() & torch.isfinite(hess).all()):
             raise log.LightGBMError(
                 "Objective '%s' produced non-finite gradients/hessians at "
                 "iteration %d; set tpu_guard_nonfinite=false to disable "
                 "this check." % (self.objective.name, self.iter_))
-        bag = self._bagging_weights(self.iter_)
-        mask = self._feature_mask()
+
+    def _grow_tree(self, grad, hess, weight, mask):
+        """One tree from the [n] f32 gradients and hessians, the row
+        weight (None: every row weighs 1) and the feature mask: quantized
+        (Q, then HQ) or on f32 channels (g*w, h*w, w) (H). Any row of
+        weight 0 makes the growth `bagged`. Returns the grower's state
+        and the tree (linear leaves fitted, LF and LS, and the train
+        scores updated with LA when `linear_tree`; the train scores are
+        the caller's otherwise)."""
         if self._quant_mode != "none":
-            q = self._quantize(grad, hess, self._ones if bag is None else bag,
+            q = self._quantize(grad, hess,
+                               self._ones if weight is None else weight,
                                self.iter_, self._n, self._quant_qmax)
             state = self._grower.grow((q.codes, q.w01), mask, q.qscale,
-                                      bagged=bag is not None)
+                                      bagged=weight is not None)
         else:
-            # (g*w, h*w, w): the all-ones weight of unbagged training, or
-            # the 0/1 bag mask
-            w3 = torch.stack([grad, hess, self._ones] if bag is None else
-                             [grad * bag, hess * bag, bag],
+            # (g*w, h*w, w): the all-ones weight of unweighted training,
+            # the 0/1 bag mask or GOSS's weights
+            w3 = torch.stack([grad, hess, self._ones] if weight is None else
+                             [grad * weight, hess * weight, weight],
                              dim=1).contiguous()
-            state = self._grower.grow(w3, mask, bagged=bag is not None)
+            state = self._grower.grow(w3, mask, bagged=weight is not None)
         if self._linear and state.num_leaves_used > 1:
-            tree = self._fit_linear(state, grad, hess, bag)
-        else:
-            tree = Tree.from_grower_state(state, self.train_data)
-            if tree.num_leaves > 1:
-                # the train-score update of gbdt.py:185-190: f32 leaf
-                # values gathered by leaf id times the f32 shrinkage, fused
-                score_update(self._score[0], state.leaf_id,
-                             torch.from_numpy(
-                                 state.leaf_value[:tree.num_leaves]).to(
-                                     self.device), self.shrinkage_rate)
+            return state, self._fit_linear(state, grad, hess, weight)
+        return state, Tree.from_grower_state(state, self.train_data)
+
+    def train_one_iter(self) -> bool:
+        """One boosting iteration (reference: GBDT::TrainOneIter,
+        gbdt.cpp:380-474; the synchronous serial branch of
+        lightgbm_tpu/boosting/gbdt.py:1191-1357). Returns True when no
+        tree could split (training should stop)."""
+        grad, hess = self.objective.get_gradients(self._score[0])
+        self._check_gradients(grad, hess)
+        weight = self._bagging_weights(self.iter_, grad, hess)
+        state, tree = self._grow_tree(grad, hess, weight,
+                                      self._feature_mask())
+        if tree.num_leaves > 1 and not tree.is_linear:
+            # the train-score update of gbdt.py:185-190: f32 leaf values
+            # gathered by leaf id times the f32 shrinkage, fused
+            score_update(self._score[0], state.leaf_id,
+                         torch.from_numpy(
+                             state.leaf_value[:tree.num_leaves]).to(
+                                 self.device), self.shrinkage_rate)
         if tree.num_leaves > 1:
             tree.apply_shrinkage(self.shrinkage_rate)
             self._update_valid_scores(tree)
@@ -451,10 +512,10 @@ class GBDT:
         self.models.append(tree)
         return self._finish_iter(tree.num_leaves > 1)
 
-    def _fit_linear(self, state, grad, hess, bag) -> Tree:
+    def _fit_linear(self, state, grad, hess, weight) -> Tree:
         """The linear leaves of a grown tree (gbdt.py:1269-1301): the fit
         (LF + LS) on the f32 gradients before any quantization and the
-        row weight, then the train scores get f32(shrinkage) * (value +
+        row weight (None: all ones), then the train scores get f32(shrinkage) * (value +
         row_ok * coeff . x) from the unshrunk fit (LA). Returns the tree
         with the fitted tables."""
         dev = self.device
@@ -464,7 +525,8 @@ class GBDT:
                                    state.num_leaves_used, self._linear_k)
         feats_dev = torch.from_numpy(feats).to(dev)
         value, coeff, _ = fit_leaves(
-            self._raw, grad, hess, self._ones if bag is None else bag, None,
+            self._raw, grad, hess, self._ones if weight is None else weight,
+            None,
             feats_dev, torch.from_numpy(state.leaf_value).to(dev),
             self.config.tree.linear_lambda, L, perm=state.perm,
             leaf_begin=state.leaf_begin, leaf_rows=state.leaf_rows)
@@ -479,11 +541,13 @@ class GBDT:
                          raw: Optional[torch.Tensor], score: torch.Tensor,
                          sign: float = 1.0) -> None:
         """score += sign * the tree's values on a binned matrix: W adds a
-        constant tree's leaf values; a linear tree's leaves come from W's
-        leaf mode and LA adds value + row_ok * coeff . x from the raw
-        matrix (gbdt.py:1563-1581). sign -1 rolls the tree back."""
+        constant tree's leaf values (sign times them in f64, then rounded
+        to f32, as DART's rescaled copies are); a linear tree's leaves
+        come from W's leaf mode and LA adds value + row_ok * coeff . x
+        from the raw matrix (gbdt.py:1563-1581). sign -1 rolls the tree
+        back."""
         if not tree.is_linear:
-            values = tree.leaf_value if sign > 0 else -tree.leaf_value
+            values = tree.leaf_value * sign
             tree_value_walk_binned(binned_tree(tree, self.device, values),
                                    binned, score)
             return

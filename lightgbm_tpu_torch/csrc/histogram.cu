@@ -35,6 +35,19 @@
 // call from its own shape. The per-row work is a handful of
 // instructions a (row, group), so bytes bound it.
 //
+// The hi+lo mode (tpu_hist_bf16, the JAX package's default): the bf16
+// branch of the same three functions, with _hi_lo (:52). Each row's g*w
+// and h*w are split in registers into hi = bf16(v) and lo = bf16(v -
+// f32(hi)), rounded as XLA's CPU backend rounds (ops/histogram.py
+// hi_lo), and the four halves are summed apart in f32 in the same fixed
+// lane and tile trees; the reduce kernel adds hi + lo once, after all
+// rows (the JAX merge at :394-396). The split reads no more bytes, so
+// the bound is H's. The trap is shared memory: five words a (lane, bin)
+// instead of three, 40 KB a warp at B = 64 and 160 KB at B = 256. A
+// block takes as many warps (at most 4) as fit in 160 KB, so at max_bin
+// 255 a block holds one warp, which keeps one pass over the rows; a
+// second pass for the lo halves would read every row twice.
+//
 // Kernel HQ, leaf_histogram_i32, the quantized-training mode
 // (tpu_hist_quantize=int8|int16): per (group, bin) the int32 sums
 // (q_g*w01, q_h*w01, w01) of the quantizer's int16 codes over a set of
@@ -64,16 +77,46 @@ namespace {
 constexpr int kTileRows = 2048;
 constexpr int kLanes = 32;
 constexpr int kUnroll = 4;  // rows a lane has in flight
+// the shared memory a block of H may take: 4 warps of f32 mode at
+// B = 64 (96 KB) or of hi+lo mode (160 KB); above the budget of one warp
+// a block holds that one warp (hi+lo at B = 256: 160 KB)
+constexpr int kHistSmem = 160 * 1024;
 
-// partial layout: [tiles, G, B] for each of g, h (float) and count
-// (uint32), so the tile reduction reads coalesced runs of bins.
+constexpr float kF32MinNormal = 1.17549435e-38f;
+
+// a subnormal as the zero of its sign, as XLA's CPU backend reads and
+// writes them in arithmetic
+__device__ __forceinline__ float flush_subnormal(float x) {
+  return fabsf(x) < kF32MinNormal ? __fmul_rn(x, 0.f) : x;
+}
+
+// f32 -> bf16 -> f32 as XLA's CPU convert rounds it: to nearest, ties to
+// even, subnormals kept, overflow to inf, a NaN to the quiet NaN of its
+// sign (ops/histogram.py bf16_round)
+__device__ __forceinline__ float bf16_round(float x) {
+  const uint32_t u = __float_as_uint(x);
+  if (isnan(x)) return __uint_as_float((u & 0x80000000u) | 0x7FC00000u);
+  return __uint_as_float((u + 0x7FFFu + ((u >> 16) & 1u)) & 0xFFFF0000u);
+}
+
+// lightgbm_tpu/ops/histogram.py _hi_lo (:52) as XLA's CPU backend
+// computes it (ops/histogram.py hi_lo)
+__device__ __forceinline__ void hi_lo(float w, float& hi, float& lo) {
+  hi = bf16_round(w);
+  lo = bf16_round(flush_subnormal(
+      __fsub_rn(flush_subnormal(w), flush_subnormal(hi))));
+}
+
+// partial layout: [tiles, G, B] for each channel, so the tile reduction
+// reads coalesced runs of bins. f32 mode: g, h (float) and count
+// (uint32); hi+lo mode (HILO): g_hi, h_hi, count, g_lo, h_lo.
+template <bool HILO>
 __global__ void hist_tile_kernel(const uint8_t* __restrict__ binned, int G,
                                  const float* __restrict__ w3,
                                  const int* __restrict__ rows, int n,
-                                 int B,
-                                 int warps, float* __restrict__ part_g,
-                                 float* __restrict__ part_h,
-                                 uint32_t* __restrict__ part_c) {
+                                 int B, int warps,
+                                 float* __restrict__ part) {
+  constexpr int kCh = HILO ? 5 : 3;
   extern __shared__ unsigned char smem[];
   const int tile = blockIdx.x;
   const int warp = threadIdx.x / kLanes;
@@ -86,11 +129,17 @@ __global__ void hist_tile_kernel(const uint8_t* __restrict__ binned, int G,
   float* hh = reinterpret_cast<float*>(smem) + (warps + warp) * per_warp;
   uint32_t* hc = reinterpret_cast<uint32_t*>(smem) +
                  (2 * warps + warp) * per_warp;
+  float* lg = reinterpret_cast<float*>(smem) + (3 * warps + warp) * per_warp;
+  float* lh = reinterpret_cast<float*>(smem) + (4 * warps + warp) * per_warp;
   if (g >= G) return;  // whole warps; no block-wide barrier follows
   for (int e = lane; e < per_warp; e += kLanes) {
     hg[e] = 0.f;
     hh[e] = 0.f;
     hc[e] = 0u;
+    if (HILO) {
+      lg[e] = 0.f;
+      lh[e] = 0.f;
+    }
   }
   __syncwarp();
 
@@ -120,60 +169,91 @@ __global__ void hist_tile_kernel(const uint8_t* __restrict__ binned, int G,
 #pragma unroll
     for (int u = 0; u < kUnroll; ++u) {
       if (bin[u] < B) {
-        hg[bin[u] * kLanes + lane] += vg[u];
-        hh[bin[u] * kLanes + lane] += vh[u];
-        hc[bin[u] * kLanes + lane] += vc[u];
+        const int e = bin[u] * kLanes + lane;
+        if (HILO) {
+          // the split costs registers only: no more bytes are read
+          float ghi, glo, hhi, hlo;
+          hi_lo(vg[u], ghi, glo);
+          hi_lo(vh[u], hhi, hlo);
+          hg[e] += ghi;
+          hh[e] += hhi;
+          lg[e] += glo;
+          lh[e] += hlo;
+        } else {
+          hg[e] += vg[u];
+          hh[e] += vh[u];
+        }
+        hc[e] += vc[u];
       }
     }
   }
   __syncwarp();
 
   // the lanes' histograms added in a fixed tree into the tile's partial
+  const size_t elems = (size_t)G * B;
   const size_t out0 = ((size_t)tile * G + g) * B;
+  const size_t chan = (size_t)gridDim.x * elems;  // one channel's words
   for (int b = 0; b < B; ++b) {
-    float a = hg[b * kLanes + lane];
-    float h = hh[b * kLanes + lane];
+    float v[kCh];
+    v[0] = hg[b * kLanes + lane];
+    v[1] = hh[b * kLanes + lane];
     uint32_t k = hc[b * kLanes + lane];
+    if (HILO) {
+      v[3] = lg[b * kLanes + lane];
+      v[4] = lh[b * kLanes + lane];
+    }
     for (int o = kLanes / 2; o > 0; o >>= 1) {
-      a += __shfl_down_sync(~0u, a, o);
-      h += __shfl_down_sync(~0u, h, o);
+#pragma unroll
+      for (int c = 0; c < kCh; ++c) {
+        if (c != 2) v[c] += __shfl_down_sync(~0u, v[c], o);
+      }
       k += __shfl_down_sync(~0u, k, o);
     }
     if (lane == 0) {
-      part_g[out0 + b] = a;
-      part_h[out0 + b] = h;
-      part_c[out0 + b] = k;
+#pragma unroll
+      for (int c = 0; c < kCh; ++c) {
+        if (c != 2) part[c * chan + out0 + b] = v[c];
+      }
+      reinterpret_cast<uint32_t*>(part)[2 * chan + out0 + b] = k;
     }
   }
 }
 
 // out[g, b, :] = the sum over tiles of the partials, one warp per
 // element: lane l adds tiles l, l+32, ... in order, then the lanes are
-// added in a fixed tree. Same order every run.
-__global__ void hist_reduce_kernel(const float* __restrict__ part_g,
-                                   const float* __restrict__ part_h,
-                                   const uint32_t* __restrict__ part_c,
+// added in a fixed tree. Same order every run. In hi+lo mode the hi and
+// lo sums are added here, once, after all rows.
+template <bool HILO>
+__global__ void hist_reduce_kernel(const float* __restrict__ part,
                                    int tiles, int elems,
                                    float* __restrict__ out) {
+  constexpr int kCh = HILO ? 5 : 3;
   const int e = blockIdx.x * (blockDim.x / kLanes) + threadIdx.x / kLanes;
   const int lane = threadIdx.x % kLanes;
   if (e >= elems) return;  // whole warps leave together
-  float a = 0.f, b = 0.f;
+  const size_t chan = (size_t)tiles * elems;
+  float v[kCh];
+#pragma unroll
+  for (int c = 0; c < kCh; ++c) v[c] = 0.f;
   uint32_t k = 0u;
   for (int t = lane; t < tiles; t += kLanes) {
     const size_t i = (size_t)t * elems + e;
-    a += part_g[i];
-    b += part_h[i];
-    k += part_c[i];
+#pragma unroll
+    for (int c = 0; c < kCh; ++c) {
+      if (c != 2) v[c] += part[c * chan + i];
+    }
+    k += reinterpret_cast<const uint32_t*>(part)[2 * chan + i];
   }
   for (int o = kLanes / 2; o > 0; o >>= 1) {
-    a += __shfl_down_sync(~0u, a, o);
-    b += __shfl_down_sync(~0u, b, o);
+#pragma unroll
+    for (int c = 0; c < kCh; ++c) {
+      if (c != 2) v[c] += __shfl_down_sync(~0u, v[c], o);
+    }
     k += __shfl_down_sync(~0u, k, o);
   }
   if (lane == 0) {
-    out[(size_t)e * 3] = a;
-    out[(size_t)e * 3 + 1] = b;
+    out[(size_t)e * 3] = HILO ? __fadd_rn(v[0], v[3]) : v[0];
+    out[(size_t)e * 3 + 1] = HILO ? __fadd_rn(v[1], v[4]) : v[1];
     out[(size_t)e * 3 + 2] = (float)k;
   }
 }
@@ -224,38 +304,51 @@ extern "C" int lgbt_hist_tiles(int n) {
   return n > 0 ? (n + kTileRows - 1) / kTileRows : 1;
 }
 
-// binned [N, G] u8 row-major; w3 [N, 3] f32 = (g*w, h*w, w); rows: a row
-// list of n entries or NULL for rows 0..n-1; scratch: 3 * tiles * G * B
-// words; out [G, B, 3] f32. Returns cudaGetLastError().
-extern "C" int lgbt_leaf_histogram(const uint8_t* binned, int G,
-                                   const float* w3, const int* rows, int n,
-                                   int B, void* scratch, float* out,
-                                   void* stream) {
-  cudaStream_t s = (cudaStream_t)stream;
+namespace {
+
+template <bool HILO>
+int launch_histogram(const uint8_t* binned, int G, const float* w3,
+                     const int* rows, int n, int B, float* part, float* out,
+                     cudaStream_t s) {
   const int tiles = lgbt_hist_tiles(n);
-  const size_t warp_bytes = (size_t)kLanes * B * 12;
-  int warps = (int)((96 * 1024) / warp_bytes);
+  const size_t warp_bytes = (size_t)kLanes * B * 4 * (HILO ? 5 : 3);
+  int warps = (int)(kHistSmem / warp_bytes);
   warps = warps < 1 ? 1 : (warps > 4 ? 4 : warps);
   if (warps > G) warps = G;
   const size_t smem = warp_bytes * warps;
   cudaError_t err = cudaFuncSetAttribute(
-      hist_tile_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      hist_tile_kernel<HILO>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
   if (err != cudaSuccess) return (int)err;
   const size_t elems = (size_t)G * B;
-  float* part_g = (float*)scratch;
-  float* part_h = part_g + (size_t)tiles * elems;
-  uint32_t* part_c = (uint32_t*)(part_h + (size_t)tiles * elems);
   dim3 grid(tiles, (G + warps - 1) / warps);
-  hist_tile_kernel<<<grid, warps * kLanes, smem, s>>>(
-      binned, G, w3, rows, n, B, warps, part_g, part_h, part_c);
+  hist_tile_kernel<HILO><<<grid, warps * kLanes, smem, s>>>(
+      binned, G, w3, rows, n, B, warps, part);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   const int per_block = 8;  // warps, one element each
-  hist_reduce_kernel<<<(int)((elems + per_block - 1) / per_block),
-                       per_block * kLanes, 0, s>>>(part_g, part_h, part_c,
-                                                   tiles, (int)elems, out);
+  hist_reduce_kernel<HILO><<<(int)((elems + per_block - 1) / per_block),
+                             per_block * kLanes, 0, s>>>(part, tiles,
+                                                         (int)elems, out);
   return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+// binned [N, G] u8 row-major; w3 [N, 3] f32 = (g*w, h*w, w); rows: a row
+// list of n entries or NULL for rows 0..n-1; hilo: 1 for the hi+lo
+// mode; scratch: (hilo ? 5 : 3) * tiles * G * B words; out [G, B, 3]
+// f32. Returns cudaGetLastError().
+extern "C" int lgbt_leaf_histogram(const uint8_t* binned, int G,
+                                   const float* w3, const int* rows, int n,
+                                   int B, int hilo, void* scratch,
+                                   float* out, void* stream) {
+  cudaStream_t s = (cudaStream_t)stream;
+  float* part = (float*)scratch;
+  return hilo ? launch_histogram<true>(binned, G, w3, rows, n, B, part, out,
+                                       s)
+              : launch_histogram<false>(binned, G, w3, rows, n, B, part,
+                                        out, s);
 }
 
 // binned [N, G] u8 row-major; codes [N] short2 (q_g, q_h); w01 [N] f32;

@@ -9,11 +9,12 @@
 //   bundled feature, rebuilds the default bin as leaf totals minus the
 //   other bins (FixHistogram, dataset.cpp:747-767);
 // - scans the bins once, in bin order, for the inclusive sums of
-//   (g, h, count): on f32 histograms g and h as compensated (Kahan)
-//   sums; on dequantized ones (quantized training, `xla_order`) in the
-//   order of XLA's CPU cumsum, running sums over blocks of 16 bins plus
-//   the running sum of the earlier blocks' totals (ops/split.py
-//   xla_cumsum), so the scans equal the JAX package's bitwise;
+//   (g, h, count) in the order of XLA's CPU cumsum, running sums over
+//   blocks of 16 bins plus the running sum of the earlier blocks'
+//   totals (ops/split.py xla_cumsum): on dequantized histograms
+//   (quantized training) the scans equal the JAX package's bitwise, and
+//   on f32 ones a tie that exact arithmetic makes is decided as the JAX
+//   package decides it;
 // - evaluates at each threshold the default-left and default-right
 //   variants (split.py:117-174) and the one-vs-rest categorical variant
 //   (split.py:176-195), with K_EPSILON on the parent and left hessians
@@ -55,7 +56,7 @@ constexpr int kXlaScanBase = 16;
 
 struct Params {
   float l1, l2, min_gain_to_split, min_sum_hessian;
-  int min_data, max_depth, xla_order;
+  int min_data, max_depth;
 };
 
 __device__ __forceinline__ float split_gain(float g, float h, float l1,
@@ -201,7 +202,7 @@ __global__ void __launch_bounds__(kMaxWarps * 32) split_scan_kernel(
         bc = v[2];
       }
     };
-    if (lane == 0 && p.xla_order) {
+    if (lane == 0) {
       // running sums within blocks of kXlaScanBase bins (rg, rh, rc),
       // plus the running sum of the finished blocks' totals (bg_, ...);
       // FB <= 256 (the wrapper checks), so at most 16 blocks, whose
@@ -224,20 +225,6 @@ __global__ void __launch_bounds__(kMaxWarps * 32) split_scan_kernel(
         scan[t] = rg + bg_;
         scan[FB + t] = rh + bh_;
         scan[2 * FB + t] = rc + bc_;
-      }
-    } else if (lane == 0) {
-      float cg = 0.f, ch = 0.f, cc = 0.f, kg = 0.f, kh = 0.f;
-      for (int t = 0; t < FB; ++t) {
-        float vg, vh, vc;
-        bin_at(t, vg, vh, vc);
-        const bool zero_it =
-            (skip_default && t == dbin) || (use_na && t == nan_bin);
-        kahan_add(cg, kg, zero_it ? 0.f : vg);
-        kahan_add(ch, kh, zero_it ? 0.f : vh);
-        cc += zero_it ? 0.f : vc;
-        scan[t] = cg;
-        scan[FB + t] = ch;
-        scan[2 * FB + t] = cc;
       }
     }
     __syncwarp();
@@ -345,18 +332,18 @@ __global__ void __launch_bounds__(kMaxWarps * 32) split_scan_kernel(
 // is_categorical, group, offset, is_bundled, feature mask); FB: the
 // per-feature scan width. feat_gain [C, F] f32; out_f [C, 4] = (gain,
 // left_sum_g, left_sum_h, left_count); out_i [C, 4] = (feature,
-// threshold, default_left, is_categorical). xla_order: scan in XLA's
-// cumsum order (FB <= 256), else compensated.
+// threshold, default_left, is_categorical). FB <= 256 (the wrapper
+// checks).
 extern "C" int lgbt_split_scan(
     const float* hist, int C, int G, int B, int F, int FB, const float* sums,
     const int* depth, const int* num_bin, const int* missing,
     const int* default_bin, const uint8_t* is_cat, const int* group,
     const int* offset, const uint8_t* bundled, const uint8_t* mask, float l1,
     float l2, float min_gain_to_split, int min_data, float min_sum_hessian,
-    int max_depth, int xla_order, float* feat_gain, float* out_f,
+    int max_depth, float* feat_gain, float* out_f,
     int* out_i, void* stream) {
   Params p{l1,       l2,        min_gain_to_split, min_sum_hessian,
-           min_data, max_depth, xla_order};
+           min_data, max_depth};
   // a warp per feature at a time; 16 warps of at most 128 registers a
   // thread fit the SM's 65,536 registers
   const int warps = F < kMaxWarps ? F : kMaxWarps;

@@ -4,7 +4,9 @@ time, the reference's SerialTreeLearner
 and R.
 
 Counterpart of `lightgbm_tpu/learner/grow.py` `grow_tree` with
-`data_axis` and `feature_axis` None and f32 histograms. The JAX grower
+`data_axis` and `feature_axis` None, on f32 histograms summed in f32 or
+in bf16 hi+lo halves (`hist_bf16`, the JAX package's `tpu_hist_bf16`,
+grow.py:130-131, :152) or on quantized ones. The JAX grower
 runs the split loop as one jitted program and expands a speculative
 node table in batches to fill the TPU's matrix unit; its docstring
 (:46-52) states that the trees it commits are those of a sequential
@@ -23,7 +25,12 @@ best-first grower, which is what this one is:
   larger as parent - smaller, and scans both children with one S
   launch;
 - a child's (sum_g, sum_h, count) come from the parent's scan, the
-  right child's as parent - left (grow.py:1134-1140), never re-summed.
+  right child's as parent - left (grow.py:1134-1140), never re-summed;
+- S scans the bins in the order of XLA's CPU cumsum (`ops/split.py`
+  `xla_cumsum`), as the JAX grower's `jnp.cumsum` adds them: where a
+  split is decided in the last bits (a bin that holds only rows of
+  weight 0 ties two thresholds), the port then decides as the JAX
+  package does.
 
 The host reads the two children's best splits back after each split
 (one small device-to-host copy); leaf values and the tree arrays are
@@ -67,12 +74,14 @@ class GrowerConfig:
     # clip magnitude (ops/histogram.train_qmax)
     hist_quantize: str = "none"
     hist_qmax: int = 0
+    # f32 histograms: g and h summed in bf16 hi+lo halves (H's hi+lo
+    # mode), as tpu_hist_bf16 (true by default) chooses
+    hist_bf16: bool = True
 
     def split_params(self) -> SplitParams:
         return SplitParams(self.lambda_l1, self.lambda_l2,
                            self.min_gain_to_split, self.min_data_in_leaf,
-                           self.min_sum_hessian_in_leaf, self.max_depth,
-                           xla_scan_order=self.hist_quantize != "none")
+                           self.min_sum_hessian_in_leaf, self.max_depth)
 
 
 @dataclass
@@ -196,7 +205,8 @@ class SerialGrower:
             return leaf_histogram_i32(self.binned, codes, w01, self.num_bins,
                                       rows=rows, n_rows=n_rows, out=out)
         return leaf_histogram(self.binned, chans, self.num_bins, rows=rows,
-                              n_rows=n_rows, out=out)
+                              n_rows=n_rows, out=out,
+                              bf16=self.cfg.hist_bf16)
 
     def grow(self, chans, feature_mask: np.ndarray,
              qscale: Optional[torch.Tensor] = None,
@@ -208,7 +218,9 @@ class SerialGrower:
         holds more rows than its count channel says and each split reads
         R's count of the rows it sent left back to the host (one more
         blocking copy a split); otherwise that count is the scan's, and
-        R's counts are checked against it once a tree."""
+        R's counts are checked against it once a tree. Row weights
+        other than 0/1 (GOSS) scale g and h; the count channel counts the
+        rows of weight > 0."""
         if self.quantized != (qscale is not None):
             raise LightGBMError("grow: quantized growth takes (codes, w01) "
                                 "and qscale, f32 growth w3 and no qscale")

@@ -57,7 +57,7 @@ LIBRARIES = {
     }, ()),
     "histogram": ("histogram.cu", {
         "lgbt_hist_tiles": [_i],
-        "lgbt_leaf_histogram": [_p, _i, _p, _p, _i, _i, _p, _p, _p],
+        "lgbt_leaf_histogram": [_p, _i, _p, _p, _i, _i, _i, _p, _p, _p],
         "lgbt_leaf_histogram_i32": [_p, _i, _p, _p, _p, _i, _i, _p, _p],
     }, _NO_FMA),
     "quantize": ("quantize.cu", {
@@ -65,15 +65,20 @@ LIBRARIES = {
         "lgbt_quantize_gradients": [_p, _p, _p, _i, _i] + [_u] * 4
         + [_i] + [_p] * 5,
     }, _NO_FMA),
+    "goss": ("goss.cu", {
+        "lgbt_goss_threshold": [_p, _p, _i, _i, _p, _p, _p, _p],
+        "lgbt_goss_weights": [_p, _p, _i, _u, _u, _f, _f, _p, _p],
+    }, _NO_FMA),
     "split": ("split_scan.cu", {
         "lgbt_split_scan": [_p] + [_i] * 5 + [_p] * 10 + [_f] * 3
-        + [_i, _f, _i, _i] + [_p] * 4,
+        + [_i, _f, _i] + [_p] * 4,
     }, _NO_FMA),
     "route": ("route_partition.cu", {
         "lgbt_route_tiles": [_i],
         "lgbt_route_partition": [_p, _i, _p, _i, _i] + [_i] * 11
         + [_p, _p, _p, _p],
         "lgbt_score_update": [_p, _p, _p, _f, _i, _p],
+        "lgbt_score_average": [_p, _p, _p, _f, _f, _i, _p],
     }, _NO_FMA),
     "rank": ("lambdarank.cu", {
         "lgbt_lambdarank_grads": [_p, _p, _i, _p, _p, _p, _f] + [_p] * 5,

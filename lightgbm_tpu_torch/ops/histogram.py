@@ -11,14 +11,25 @@ a compacted row list), plus `subtract` (:785). Both compute
 from the channel matrix w3 = [N, 3] (g*w, h*w, w). The JAX package's
 `batched_leaves_histogram` (:402) computes the same sum over the rows
 whose `leaf_id` is one id; the serial grower keeps each leaf's rows
-contiguous in its permutation, so it passes them as a row list. The
-JAX package contracts a one-hot in bf16 hi+lo halves by default
-(`tpu_hist_bf16`); the port accumulates in f32 and counts in integers,
-so it takes that key and ignores it.
+contiguous in its permutation, so it passes them as a row list.
+
+Two modes of the g and h sums, as the JAX package's `bf16` argument
+(`tpu_hist_bf16`, true by default) chooses them:
+- f32 (`bf16=False`): the f32 values g*w and h*w are summed;
+- hi+lo (`bf16=True`): each value v is split as `_hi_lo` (:52) splits
+  it, hi = bf16(v) and lo = bf16(v - f32(hi)), rounded as XLA's CPU
+  backend rounds (`hi_lo`); the hi and the lo halves are summed apart
+  in f32 and added once, after all rows, into the [G, B, 3] histogram
+  (`leaf_histogram` :379-396). hi + lo keeps about 16 bits of v, so the
+  two modes grow different trees wherever a split is decided in the
+  low bits, and the port grows the JAX package's under either setting.
+The count channel is exact in both. Siblings subtract on the merged
+histogram (`subtract`, :785).
 
 On a CUDA tensor `leaf_histogram` launches the hand-written kernel
 (`csrc/histogram.cu`) or raises; on a CPU tensor it runs the plain
-version. The wrapper counts its launches in `leaf_histogram.launches`.
+version. The wrapper counts its launches in `leaf_histogram.launches`,
+and those in hi+lo mode also in `leaf_histogram.launches_hilo`.
 
 Quantized training (`tpu_hist_quantize=int8|int16`, the JAX section at
 :60-156 and `_quant_u`/`_quant_merge` :291-330) adds two kernels:
@@ -75,36 +86,80 @@ def _check(binned, w3, num_bins, rows, n_rows):
         raise LightGBMError("leaf_histogram: num_bins must be >= 1")
 
 
+_F32_MIN_NORMAL = float(np.finfo(np.float32).tiny)
+
+
+def flush_subnormal(x: torch.Tensor) -> torch.Tensor:
+    """An f32 subnormal as the zero of its sign, as XLA's CPU backend
+    reads and writes them in arithmetic."""
+    return torch.where(x.abs() < _F32_MIN_NORMAL, x * 0.0, x)
+
+
+def bf16_round(x: torch.Tensor) -> torch.Tensor:
+    """f32 -> bf16 -> f32 as XLA's CPU `convert` rounds: to nearest, ties
+    to even, subnormals kept, overflow to inf, and a NaN to the quiet NaN
+    of its sign (0x7fc0 or 0xffc0). In integer ops, so it gives the same
+    bits on every device."""
+    u = x.contiguous().view(torch.int32).to(torch.int64) & 0xFFFFFFFF
+    r = (u + 0x7FFF + ((u >> 16) & 1)) & 0xFFFF0000
+    r = torch.where(torch.isnan(x), (u & 0x80000000) | 0x7FC00000, r)
+    return torch.where(r >= 2 ** 31, r - 2 ** 32, r).to(torch.int32).view(
+        torch.float32)
+
+
+def hi_lo(w: torch.Tensor):
+    """lightgbm_tpu/ops/histogram.py `_hi_lo` (:52) as XLA's CPU backend
+    computes it: hi = bf16(w), lo = bf16(w - f32(hi)), the subtraction
+    reading subnormal operands as zero and flushing a subnormal
+    difference to the zero of its sign. Both as f32 values."""
+    hi = bf16_round(w)
+    lo = bf16_round(flush_subnormal(flush_subnormal(w)
+                                    - flush_subnormal(hi)))
+    return hi, lo
+
+
 def leaf_histogram_plain(binned: torch.Tensor, w3: torch.Tensor,
                          num_bins: int, rows: Optional[torch.Tensor] = None,
-                         n_rows: Optional[int] = None) -> torch.Tensor:
+                         n_rows: Optional[int] = None,
+                         bf16: bool = False) -> torch.Tensor:
     """[G, B, 3] by index_add over the flattened (group, bin) axis,
     summed in f64 and rounded to f32 once: within f32 round-off of the
-    kernel's f32 sums, whichever order either takes. Counts are exact."""
+    kernel's f32 sums, whichever order either takes. Counts are exact.
+    With `bf16` the hi and lo halves of g and h are summed apart, each
+    rounded to f32, and added in f32."""
     g_cnt = binned.shape[1]
     if rows is not None:
         sel = rows[:n_rows].long()
         bins, w = binned[sel], w3[sel]
     else:
         bins, w = binned, w3
-    chans = torch.stack([w[:, 0], w[:, 1],
-                         (w[:, 2] > 0).to(torch.float32)], dim=1)
+    cnt = (w[:, 2] > 0).to(torch.float32)
+    if bf16:
+        hi, lo = hi_lo(w[:, :2].contiguous())
+        chans = torch.cat([hi, cnt[:, None], lo], dim=1)
+    else:
+        chans = torch.stack([w[:, 0], w[:, 1], cnt], dim=1)
+    c = chans.shape[1]
     flat = (torch.arange(g_cnt, device=binned.device) * num_bins)[None, :] \
         + bins.long()
-    vals = chans[:, None, :].expand(-1, g_cnt, 3).reshape(-1, 3)
-    h = torch.zeros(g_cnt * num_bins, 3, dtype=torch.float64,
+    vals = chans[:, None, :].expand(-1, g_cnt, c).reshape(-1, c)
+    h = torch.zeros(g_cnt * num_bins, c, dtype=torch.float64,
                     device=binned.device)
     h.index_add_(0, flat.reshape(-1), vals.double())
-    return h.float().view(g_cnt, num_bins, 3)
+    h = h.float()
+    if bf16:
+        h = torch.cat([h[:, :2] + h[:, 3:], h[:, 2:3]], dim=1)
+    return h.view(g_cnt, num_bins, 3)
 
 
 def leaf_histogram(binned: torch.Tensor, w3: torch.Tensor, num_bins: int,
                    rows: Optional[torch.Tensor] = None,
                    n_rows: Optional[int] = None,
-                   out: Optional[torch.Tensor] = None) -> torch.Tensor:
+                   out: Optional[torch.Tensor] = None,
+                   bf16: bool = False) -> torch.Tensor:
     """H: the [G, B, 3] f32 histogram of the rows 0..N-1, or of
     rows[:n_rows]; written into `out` (contiguous, that shape) when
-    given."""
+    given; g and h summed in hi+lo halves when `bf16`."""
     _check(binned, w3, num_bins, rows, n_rows)
     shape = (binned.shape[1], num_bins, 3)
     if out is not None and (tuple(out.shape) != shape
@@ -114,7 +169,8 @@ def leaf_histogram(binned: torch.Tensor, w3: torch.Tensor, num_bins: int,
         raise LightGBMError("leaf_histogram: out must be a contiguous f32 "
                             "%s tensor on %s" % (shape, binned.device))
     if binned.device.type == "cpu":
-        hist = leaf_histogram_plain(binned, w3, num_bins, rows, n_rows)
+        hist = leaf_histogram_plain(binned, w3, num_bins, rows, n_rows,
+                                    bf16)
         return hist if out is None else out.copy_(hist)
     if binned.device.type != "cuda":
         raise LightGBMError("leaf_histogram runs on cpu or cuda, not %s"
@@ -131,7 +187,7 @@ def leaf_histogram(binned: torch.Tensor, w3: torch.Tensor, num_bins: int,
     g_cnt = binned.shape[1]
     lib = _build.load_library("histogram")
     tiles = lib.lgbt_hist_tiles(n)
-    scratch = torch.empty(3 * tiles * g_cnt * num_bins,
+    scratch = torch.empty((5 if bf16 else 3) * tiles * g_cnt * num_bins,
                           dtype=torch.float32, device=binned.device)
     if out is None:
         out = torch.empty(shape, dtype=torch.float32, device=binned.device)
@@ -143,16 +199,20 @@ def leaf_histogram(binned: torch.Tensor, w3: torch.Tensor, num_bins: int,
         stream = torch.cuda.current_stream(binned.device).cuda_stream
         rc = lib.lgbt_leaf_histogram(
             ptr(binned), g_cnt, ptr(w3), ptr(rows), n, num_bins,
-            ptr(scratch), ptr(out), ctypes.c_void_p(stream))
+            int(bool(bf16)), ptr(scratch), ptr(out), ctypes.c_void_p(stream))
     if rc != 0:
         raise LightGBMError("leaf_histogram launch failed: CUDA error %d "
                             "(%s)" % (rc, lib.lgbt_error_string(rc).decode()))
     with _launch_lock:
         leaf_histogram.launches += 1
+        if bf16:
+            leaf_histogram.launches_hilo += 1
     return out
 
 
+# all launches of H, and those in hi+lo mode among them
 leaf_histogram.launches = 0
+leaf_histogram.launches_hilo = 0
 
 
 def subtract(parent: torch.Tensor, child: torch.Tensor,

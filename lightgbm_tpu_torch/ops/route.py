@@ -13,11 +13,16 @@ segment stably, left rows first. `score_update` adds each row's leaf
 value times the shrinkage to its score as one fused multiply-add, as
 the JAX package's fused grow-and-update program does. All outputs but
 the score are integers and equal the plain versions exactly; the score
-is rounded once a row either way (`fma_f32`).
+is rounded once a row either way (`fma_f32`). `score_average`, R's
+average mode, is RF's running average (`lightgbm_tpu/boosting/rf.py`
+:87-96), score = (score * t + contrib) / (t + 1), each operation
+rounded on its own as JAX's eager calls round them, with contrib the
+leaf value of each row's leaf id or a given per-row value.
 
-On CUDA tensors both launch `csrc/route_partition.cu` or raise; on CPU
-tensors they run the plain versions. Launches are counted in
-`route_partition.launches` and `score_update.launches`.
+On CUDA tensors each launches `csrc/route_partition.cu` or raises; on
+CPU tensors they run the plain versions. Launches are counted in
+`route_partition.launches`, `score_update.launches` and
+`score_average.launches`.
 """
 from __future__ import annotations
 
@@ -26,6 +31,7 @@ import threading
 from dataclasses import dataclass
 from typing import Optional
 
+import numpy as np
 import torch
 
 from ..binning import MISSING_NAN, MISSING_ZERO
@@ -211,5 +217,56 @@ def score_update(score: torch.Tensor, leaf_id: torch.Tensor,
         score_update.launches += 1
 
 
+def score_average_plain(score: torch.Tensor, leaf_id: Optional[torch.Tensor],
+                        value: torch.Tensor, t: int) -> None:
+    dev = score.device
+    tf = torch.tensor(float(t), dtype=torch.float32, device=dev)
+    t1 = torch.tensor(float(t) + 1.0, dtype=torch.float32, device=dev)
+    c = value if leaf_id is None else value[leaf_id.long()]
+    score.copy_((score * tf + c) / t1)
+
+
+def score_average(score: torch.Tensor, leaf_id: Optional[torch.Tensor],
+                  value: torch.Tensor, t: int) -> None:
+    """R's average mode: score[r] = (score[r] * t + c[r]) / (t + 1) in
+    place, c[r] = value[leaf_id[r]] (the tree's f32 leaf values), or
+    value[r] when leaf_id is None (a per-row f32 [N]); t and t + 1 in
+    f32."""
+    n = score.shape[0]
+    if score.dim() != 1 or score.dtype != torch.float32 \
+            or value.dtype != torch.float32 or (
+                leaf_id is None and value.shape != score.shape) or (
+                leaf_id is not None and leaf_id.shape != score.shape):
+        raise LightGBMError("score_average takes f32 score [N] with leaf_id "
+                            "[N] and f32 leaf values, or f32 values [N]")
+    tensors = [t_ for t_ in (leaf_id, value) if t_ is not None]
+    if any(t_.device != score.device for t_ in tensors):
+        raise LightGBMError("score_average: inputs on different devices")
+    if score.device.type == "cpu":
+        return score_average_plain(score, leaf_id, value, t)
+    if score.device.type != "cuda":
+        raise LightGBMError("score_average runs on cpu or cuda, not %s"
+                            % score.device)
+    if (leaf_id is not None and leaf_id.dtype != torch.int32) or not all(
+            t_.is_contiguous() for t_ in [score] + tensors):
+        raise LightGBMError("score_average takes contiguous tensors and "
+                            "int32 leaf ids")
+    lib = _build.load_library("route")
+    p = ctypes.c_void_p
+    with torch.cuda.device(score.device):
+        stream = torch.cuda.current_stream(score.device).cuda_stream
+        rc = lib.lgbt_score_average(
+            p(score.data_ptr()),
+            p(None if leaf_id is None else leaf_id.data_ptr()),
+            p(value.data_ptr()), float(t), float(np.float32(float(t) + 1.0)),
+            n, p(stream))
+    if rc != 0:
+        raise LightGBMError("score_average launch failed: CUDA error %d (%s)"
+                            % (rc, lib.lgbt_error_string(rc).decode()))
+    with _launch_lock:
+        score_average.launches += 1
+
+
 route_partition.launches = 0
 score_update.launches = 0
+score_average.launches = 0

@@ -12,16 +12,17 @@ CalculateSplittedLeafOutput (feature_histogram.hpp:206-225).
 
 Every gain is f32 arithmetic in the JAX package's operation order. The
 plain version walks the bins in order like the kernel
-(`csrc/split_scan.cu`), so the two agree bitwise. On f32 histograms
-both carry the g and h scans as compensated (Kahan) sums: a plain
-running f32 sum over the bins strays from the exact scan several times
-further than the JAX package's cumsum does, a compensated one stays
-closer than it. Against the JAX package the choice agrees wherever the
-top two gains are apart by more than f32 round-off. On dequantized
-histograms (`SplitParams.xla_scan_order`, quantized training), whose
-bins equal the JAX package's bitwise, both add in the order of XLA's
-CPU cumsum instead (`xla_cumsum`), so the scans, and the child totals
-taken from them, equal the JAX package's bitwise.
+(`csrc/split_scan.cu`), so the two agree bitwise. Both scan the bins
+in the order of XLA's CPU cumsum (`xla_cumsum`), as the JAX package's
+`jnp.cumsum` adds them. On dequantized histograms (quantized training),
+whose bins equal the JAX package's bitwise, the scans and the child
+totals taken from them equal the JAX package's bitwise. On f32
+histograms, whose bins differ from XLA's in the last bits, a tie that
+exact arithmetic makes (a bin that holds only rows of weight 0, as GOSS
+and bagging leave many) is decided as the JAX package decides it; a
+compensated scan, closer to the exact sums, decided such ties
+otherwise. Against the JAX package the choice agrees wherever the top
+two gains are apart by more than f32 round-off.
 
 `split_scan` launches the kernel for CUDA tensors (or raises) and runs
 the plain version for CPU tensors; it counts launches in
@@ -84,8 +85,6 @@ class SplitParams:
     min_data_in_leaf: int
     min_sum_hessian_in_leaf: float
     max_depth: int
-    # scan in XLA's cumsum order (dequantized histograms), not Kahan
-    xla_scan_order: bool = False
 
 
 def device_fmeta(fm: Dict[str, np.ndarray], device) -> Dict[str, torch.Tensor]:
@@ -213,20 +212,7 @@ def split_scan_plain(hist: torch.Tensor, sums: torch.Tensor,
     zero_all = ((skip_default.unsqueeze(-1) & (dbin.unsqueeze(-1) == t_all))
                 | (use_na.unsqueeze(-1) & (nan_bin.unsqueeze(-1) == t_all)))
     adj = torch.where(zero_all.unsqueeze(-1), zero, fh)        # [C,F,fb,3]
-    if params.xla_scan_order:
-        scan = xla_cumsum(adj.transpose(2, 3)).transpose(2, 3)
-    else:
-        # g and h compensated side by side (elementwise, so the same
-        # bits as two separate scans), the count plain
-        comp = torch.zeros((c_cnt, f_cnt, 2), dtype=dt, device=dev)
-        run = torch.zeros_like(comp)
-        cc = torch.zeros((c_cnt, f_cnt), dtype=dt, device=dev)
-        scan = torch.empty_like(adj)                          # [C,F,fb,3]
-        for t in range(fb):
-            run, comp = _kahan(run, comp, adj[:, :, t, :2])
-            cc = cc + adj[:, :, t, 2]
-            scan[:, :, t, :2] = run
-            scan[:, :, t, 2] = cc
+    scan = xla_cumsum(adj.transpose(2, 3)).transpose(2, 3)
 
     # every threshold of every variant at once (elementwise, so the same
     # bits as the kernel's per-threshold evaluation)
@@ -336,7 +322,7 @@ def split_scan(hist: torch.Tensor, sums: torch.Tensor, depth: torch.Tensor,
                             "and a uint8 mask")
     if any(not t.is_contiguous() for t in tensors):
         raise LightGBMError("split_scan takes contiguous tensors")
-    if params.xla_scan_order and feature_bins > XLA_SCAN_BASE ** 2:
+    if feature_bins > XLA_SCAN_BASE ** 2:
         raise LightGBMError("split_scan: the XLA scan order takes at most "
                             "%d bins a feature (got %d)"
                             % (XLA_SCAN_BASE ** 2, feature_bins))
@@ -358,7 +344,7 @@ def split_scan(hist: torch.Tensor, sums: torch.Tensor, depth: torch.Tensor,
             float(params.lambda_l2), float(params.min_gain_to_split),
             int(params.min_data_in_leaf),
             float(params.min_sum_hessian_in_leaf), int(params.max_depth),
-            int(params.xla_scan_order), p(feat_gain.data_ptr()), p(out_f.data_ptr()),
+            p(feat_gain.data_ptr()), p(out_f.data_ptr()),
             p(out_i.data_ptr()), p(stream))
     if rc != 0:
         raise LightGBMError("split_scan launch failed: CUDA error %d (%s)"

@@ -11,10 +11,12 @@ on the same data; the port's continued model has its 20 trees, its JSON
 dump has the JAX dump's shape, and its early-stop predictions equal the
 JAX package's on the same model (raw scores bitwise). Between the two
 runs, full and early-stop predictions agree within 1e-5 on all rows but
-at most 2 of 2,100 (1 on this data): the weighted first run at max_bin
-255 takes another split at tree 1, node 9, where the two packages'
-best gains lie 4e-6 apart (13.775306, feature 27, in the JAX package;
-13.775360, feature 0, in the port; ROADMAP C), and the row that the
+at most 2 of 2,100 (1 on this data): both packages sum the weighted
+histograms in bf16 hi+lo halves (the default `tpu_hist_bf16`) and scan
+them in XLA's cumsum order, and the first nine trees are the same; at
+tree 9, node 26, the JAX package splits feature 20 at bin 69 (gain
+8.7435226) and the port at bin 68 (gain 8.7435217), adjacent thresholds
+whose gains differ in the last bits (ROADMAP C), and the row that the
 split moves differs by 0.031.
 """
 import importlib.util

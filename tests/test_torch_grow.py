@@ -85,7 +85,8 @@ def port_grower(ds, opts, num_leaves):
         lambda_l2=opts.get("lambda_l2", 0.0),
         min_gain_to_split=opts.get("min_gain_to_split", 0.0),
         min_data_in_leaf=opts.get("min_data_in_leaf", 10),
-        min_sum_hessian_in_leaf=1e-3, max_depth=opts.get("max_depth", -1))
+        min_sum_hessian_in_leaf=1e-3, max_depth=opts.get("max_depth", -1),
+        hist_bf16=False)
     return SerialGrower(torch.from_numpy(ds.binned),
                         ds.feature_meta_arrays(), cfg, ds.max_num_bin(),
                         int(ds.num_bins_per_feature().max()))

@@ -12,8 +12,9 @@ LM's plain versions, rollback), and walks the serving extras and the
 model API (early stop, the f16 and int8 layouts with kernels ES, QC,
 QW and K1's f16 mode in their plain versions, TreeSHAP contributions,
 the JSON dump, a data file through `io.parser`, continued training
-from `init_model`); an AST scan finds no such import in the package or
-in chip_smoke.py.
+from `init_model`), and trains GOSS (kernels GT and GW), DART and RF
+(R's average mode) models with H's hi+lo mode in their plain versions;
+an AST scan finds no such import in the package or in chip_smoke.py.
 """
 import ast
 import json
@@ -113,12 +114,22 @@ _CHILD = textwrap.dedent("""
          "verbose": -1}, lgb.Dataset(x[:300], y[:300]), 2,
         init_model=model_path, verbose_eval=False,
         device="cpu").num_trees()
+    modes = []
+    for extra in ({"boosting": "goss", "learning_rate": 0.5},
+                  {"boosting": "dart"},
+                  {"boosting": "rf", "bagging_fraction": 0.5,
+                   "bagging_freq": 1, "feature_fraction": 0.6}):
+        modes.append(lgb.train(
+            dict({"objective": "binary", "num_leaves": 7, "max_bin": 31,
+                  "verbose": -1}, **extra), lgb.Dataset(x[:300], y[:300]),
+            4, verbose_eval=False, device="cpu").num_trees())
     modules = ["lightgbm_tpu_torch." + m for m in (
         "engine", "callback", "metrics", "dataset", "efb", "binning",
         "ingest.build", "learner.grow", "ops.histogram", "ops.split",
         "ops.route", "ops.rank", "ops.linear", "linear.solver",
         "linear.stats", "objectives", "sklearn", "convert", "shap",
-        "io.parser")]
+        "io.parser", "ops.goss", "boosting.goss", "boosting.dart",
+        "boosting.rf")]
     print(json.dumps({"pred": [float(v) for v in pred],
                       "leaf_shape": list(leaf.shape),
                       "round_trip": booster.model_to_string() == text,
@@ -139,6 +150,7 @@ _CHILD = textwrap.dedent("""
                                  list(extras["contrib"]), extras["dump"],
                                  extras["f16"], extras["int8"],
                                  extras["file"], extras["continued"]],
+                      "modes": modes,
                       "modules": all(m in sys.modules for m in modules),
                       "loaded": sorted(m for m in sys.modules if blocked(m))}))
 """)
@@ -161,6 +173,7 @@ def test_port_runs_with_jax_and_the_jax_package_blocked():
     assert out["linear"] == [2, True, True, 8.0]
     assert out["extras"] == [[16], [16, 7], 5, True, True, True,
                              out["trained"] + 2]
+    assert out["modes"] == [4, 4, 4]
 
 
 def _imported_modules(path):

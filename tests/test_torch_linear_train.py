@@ -5,7 +5,7 @@ Both packages train `linear_tree=true` models on the CPU (the port with
 `_linear_problem` of tests/test_linear_tree.py with its parameters
 (regression, 15 leaves, learning rate 0.5, linear_lambda 0.01, 10
 rounds) and a second draw as the valid set; the JAX package with
-`tpu_hist_bf16=false`. Runs: f32 regression, binary (labels drawn from
+`tpu_hist_bf16=false` on both sides. Runs: f32 regression, binary (labels drawn from
 a logistic of the target), int8 regression and bagged regression.
 
 Tolerances: the same tree structure every round and the same leaf
@@ -215,7 +215,11 @@ def test_the_estimator_trains_linear_trees():
     ({"boosting": "dart"}, "linear_tree supports boosting=gbdt/goss"),
     ({"boosting": "rf", "bagging_fraction": 0.5, "bagging_freq": 1},
      "linear_tree supports boosting=gbdt/goss"),
-    ({"boosting": "goss"}, "boosting=goss training is not ported"),
+    # linear GOSS trains now (tests/test_torch_goss.py); GOSS with bagging
+    # is refused, under the id this case has always had
+    pytest.param({"boosting": "goss", "bagging_fraction": 0.5,
+                  "bagging_freq": 1}, "Cannot use bagging in GOSS",
+                 id="extra2-boosting=goss training is not ported"),
     ({"objective": "multiclass", "num_class": 3},
      "linear_tree does not support multiclass"),
     ({"tree_learner": "data", "num_machines": 2},

@@ -24,10 +24,12 @@ one, and leaf values and raw predictions within TOL[run] * max(1,
   its 20 trees (it was 2.6e-4 with torch's exp, which left 1,688 of
   3,000 gradients an ulp apart by iteration 28);
 - 1e-4 for f32 with bagging: both packages take a child's totals as
-  its parent's minus its sibling's, from split scans of f32 bins that
-  sum in different orders (the port's compensated, XLA's blocked), and
-  in leaves of a small hessian the cancellation lifts that round-off to
-  1.9e-5 (measured, tree 3 of the bagged run).
+  its parent's minus its sibling's, from split scans (in XLA's cumsum
+  order on both sides) of f32 bins whose rows sum in different orders
+  (the port's fixed lane and tile trees, the JAX package's one-hot
+  contraction over row chunks), and in leaves of a small hessian the
+  cancellation lifts that round-off to 1.4e-5
+  (measured, tree 3 of the bagged run; predictions 1.0e-5).
 
 tests/quant_parity_report.py prints these numbers.
 """

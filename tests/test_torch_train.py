@@ -1,9 +1,10 @@
 """lightgbm_tpu_torch.train end to end against lightgbm_tpu.train.
 
 Both packages train on the same seeded numpy data (NaN and zero-heavy
-columns) on the CPU, the JAX package with `tpu_hist_bf16=false` so both
-accumulate histograms in f32; the port runs the plain versions of its
-kernels (`device="cpu"`). Each JAX model is trained once per module.
+columns) on the CPU, both with `tpu_hist_bf16=false`, so both sum
+histograms in f32 (tests/test_torch_hist_bf16.py holds the default
+hi+lo sums); the port runs the plain versions of its kernels
+(`device="cpu"`). Each JAX model is trained once per module.
 Tolerances: the same tree structure (split features, bin thresholds,
 decision types, children), raw predictions within 1e-5 * max(1, |ref|),
 every recorded metric within 2e-3, and the same best_iteration under
@@ -168,19 +169,21 @@ def test_valid_set_holding_the_train_set_reports_a_train_metric():
     assert ev["train"]["l2"][2] < ev["train"]["l2"][0]
 
 
-# (params, the word the error names, test id): bagging and quantized
-# histograms train now; with what is still refused they raise by the
-# refused thing's name
+# (params, the word the error names, test id): bagging, quantized
+# histograms, goss, dart and rf train now; with what is still refused
+# they raise by the refused thing's name
 REFUSED = [
     ({"linear_tree": True, "boosting": "rf", "bagging_fraction": 0.5,
       "bagging_freq": 1}, "linear_tree supports boosting=gbdt/goss",
      "bagging"),
-    ({"boosting": "goss"}, "goss", "goss"),
-    ({"boosting": "dart"}, "dart", "dart"),
-    ({"boosting": "rf", "bagging_fraction": 0.5, "bagging_freq": 1}, "rf",
-     "rf"),
-    ({"boosting": "goss", "tpu_hist_quantize": "int8"}, "goss",
-     "tpu_hist_quantize"),
+    ({"boosting": "goss", "bagging_fraction": 0.5, "bagging_freq": 1},
+     "Cannot use bagging in GOSS", "goss_with_bagging"),
+    ({"boosting": "goss", "top_rate": 0.0}, "GOSS requires top_rate > 0",
+     "goss_top_rate_0"),
+    ({"boosting": "rf"}, "RF mode requires bagging", "rf_without_bagging"),
+    ({"boosting": "rf", "bagging_fraction": 0.5, "bagging_freq": 1,
+      "feature_fraction": 1.0}, "RF mode requires feature_fraction",
+     "rf_feature_fraction_1"),
     ({"linear_tree": True, "boosting": "dart"}, "linear_tree",
      "linear_tree"),
     ({"objective": "multiclass", "num_class": 3}, "multiclass",
@@ -200,7 +203,31 @@ def test_what_the_slice_does_not_carry_raises_by_name(params, word):
                    verbose_eval=False, device="cpu")
 
 
-SCHEDULE_KEYS = [("tpu_hist_bf16", True), ("tpu_batch_k", 3),
+# (params, test id): refused by name before GOSS, DART and RF training
+# were ported; each trains now and its model predicts
+NOW_TRAINED = [
+    ({"boosting": "goss", "learning_rate": 0.5}, "goss"),
+    ({"boosting": "dart"}, "dart"),
+    ({"boosting": "rf", "bagging_fraction": 0.5, "bagging_freq": 1,
+      "feature_fraction": 0.7}, "rf"),
+    ({"boosting": "goss", "learning_rate": 0.5, "tpu_hist_quantize": "int8"},
+     "tpu_hist_quantize"),
+]
+
+
+@pytest.mark.parametrize("params", [r[0] for r in NOW_TRAINED],
+                         ids=[r[1] for r in NOW_TRAINED])
+def test_what_the_slice_now_trains(params):
+    y, _ = LABELS["binary"]
+    b = tlgb.train(dict(BASE, objective="binary", **params),
+                   tlgb.Dataset(X[:600], y[:600]), 4, verbose_eval=False,
+                   device="cpu")
+    assert b.num_trees() == 4
+    p = b.predict(XV[:50])
+    assert np.isfinite(p).all() and ((p > 0) & (p < 1)).all()
+
+
+SCHEDULE_KEYS = [("tpu_batch_k", 3),
                  ("tpu_hist_subtract", False), ("tpu_hist_compact", False),
                  ("tpu_compact_threshold", 0.0),
                  ("tpu_compact_threshold", 1.0), ("tpu_hist_chunk", 512)]

@@ -114,7 +114,7 @@ def test_quantized_split_scan_gains_equal_the_jax_ones(missing):
              for k, v in dict(fm, group=np.arange(f, dtype=np.int32),
                               offset=np.zeros(f, np.int32),
                               is_bundled=np.zeros(f, bool)).items()}
-    params = SplitParams(0.0, 0.5, 0.0, 3, 1e-3, -1, xla_scan_order=True)
+    params = SplitParams(0.0, 0.5, 0.0, 3, 1e-3, -1)
     out_f, out_i, feat_gain = split_scan_plain(
         torch.from_numpy(hist)[None], torch.from_numpy(tot)[None],
         torch.zeros(1, dtype=torch.int32), fmeta,
