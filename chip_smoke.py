@@ -240,16 +240,74 @@ Phases, any failure raises and the script exits non-zero:
     torch.kthvalue (the library yardstick, checked equal), H hi+lo
     against H f32 at the root, R's average mode, seconds per round of
     goss (its sampled rounds), dart and rf, and one profiled GOSS
-    round's idle share.
+    round's idle share;
+30. uint16 kernels against their plain versions on the Bosch matrix
+    (phase 31's Datasets): H in f32 and hi+lo modes at the root (the
+    first round's and the tenth's gradients), on the root split's
+    smaller child as a row list and on a random quarter of the rows in
+    random order (the tenth's): counts exact, g/h within 1e-5 *
+    max(1, |ref|) of the plain version and of an f64 oracle (hi+lo: the
+    f64 sum of the exact halves), a second launch repeating the bits; S
+    on the root and on the root split's two children, and (phase 34) at
+    ~1,024 bins a feature on the max_bin=1023 root, bitwise its plain
+    version and its repeat; R's partition and leaf ids on the root split
+    and W's value and leaf modes (the first tree, the 100,000 valid
+    rows), exactly; H on 262,144 rows of the uint8 HIGGS matrix, both
+    modes, bit for bit its own summation order (`lane_order_hist`: the
+    uint8 path is unchanged);
+31. the Bosch main path: bench.py's bosch shape, synth_bosch(600,000,
+    968, seed 2), rows 0-499,999 training and 500,000-599,999 valid
+    (338 EFB groups: 70 of 631 bins, the rest of at most 63; a uint16
+    matrix), binary, metric auc, max_bin 63, 255 leaves, learning rate
+    0.1, min_data_in_leaf 1, min_sum_hessian_in_leaf 100, 10 rounds
+    through lightgbm_tpu_torch.train on the default device, every count
+    set to 0 before and read after: H (all in its uint16 hi+lo mode), S,
+    R and W (uint16) launched; a second run's model text byte-identical;
+    valid AUC rising from round 1 to 10; the saved model reloaded and
+    served through K1 at 968 features within 1e-5 * max(1, |ref|) of
+    the valid scores W kept; tpu_hist_quantize=int8 refused, naming
+    HQ's uint16 mode; 3 rounds with tpu_hist_bf16=false (H's uint16 f32
+    mode);
+32. files and the binary cache: 50,000 Bosch rows written as a TSV,
+    label first (each value the shortest decimal of its float64);
+    Dataset(path) streamed in chunks of 8,192 rows (the last one
+    ragged) and loaded whole (tpu_ingest=false), both bitwise the array
+    Dataset's matrix and labels, 3 rounds from the file giving the
+    array Dataset's model text; save_binary of the 500,000-row training
+    Dataset, load_binary, the matrix equal and 3 rounds giving the same
+    text, with the save, load and skipped binning times; a mismatched
+    fingerprint raising CacheMismatch, a corrupted byte CacheCorrupt
+    and the file quarantined;
+33. the card against the CPU on Bosch at 65,536 rows (16,384 valid), 63
+    leaves, 3 rounds: the same trees, leaves within 1e-5 relative,
+    valid AUC within 2e-3; then 3 rounds of linear trees on those
+    uint16 Datasets (W's leaf mode, LF, LS, LA launched);
+34. the HIGGS protocol of phase 9 at max_bin=1023 (28 single-feature
+    groups of up to 1,023 bins, uint16): 3 rounds with every S launch
+    past 256 bins a feature, twice and byte-identical; S on its root
+    against its plain version (phase 30); the card against the CPU at
+    131,072 rows, 63 leaves, 3 rounds;
+35. times (CUDA events or torch.profiler, median of 12 after 0.3 s of
+    calls): H's uint16 f32 and hi+lo modes at the Bosch root (and its
+    row list) against their bound, their plain versions, torch.bincount
+    x3 (x5 for hi+lo) over group x B + bin and H's uint8 time at the
+    HIGGS root, with the tiles and partial bytes of each mode's plan;
+    both modes at the max_bin=1023 root against its bound; S on the
+    Bosch leaf pair and at ~1,024 bins; R and W
+    (both modes) on uint16 bins; Dataset.construct() of the 500,000
+    rows; seconds per Bosch round (median of rounds 2-10); one profiled
+    Bosch round's idle share.
 
-Phases 5-24 train with the default tpu_hist_bf16, so H runs in its
+Phases 5-34 train with the default tpu_hist_bf16, so H runs in its
 hi+lo mode on their paths; phase 9's tpu_hist_bf16=false run is the
-path of its f32 mode, and phase 10 holds that mode to its plain version.
+path of its f32 mode, and phase 10 holds that mode to its plain version
+(phase 31's 3-round run and phase 30 the same for uint16 bins).
 
 The line before the last is the kernels' JSON summary, the last line
 `{"ok": true, "device": {...}}`.
 """
 import json
+import os
 import pathlib
 import subprocess
 import sys
@@ -480,13 +538,14 @@ def sums_err(got, ref, oracle, label):
 
 def hist_oracle(binned, w3, num_bins, rows=None):
     """The histogram in float64 torch ops on the card."""
+    from lightgbm_tpu_torch.ops.histogram import take_bins
     g_cnt = binned.shape[1]
     sel = torch.arange(binned.shape[0], device=binned.device) \
         if rows is None else rows.long()
     w = w3[sel].double()
     vals = torch.stack([w[:, 0], w[:, 1], (w[:, 2] > 0).double()], 1)
     flat = (torch.arange(g_cnt, device=binned.device) * num_bins)[None] \
-        + binned[sel].long()
+        + take_bins(binned, sel)
     out = torch.zeros(g_cnt * num_bins, 3, dtype=torch.float64,
                       device=binned.device)
     out.index_add_(0, flat.reshape(-1), vals[:, None, :].expand(
@@ -2109,7 +2168,6 @@ def check_rank_kernel(obj, score, label, sample):
 
 def ranking(name, card, dev):
     """Phases 5-8; returns L's JSON row."""
-    import os
     import lightgbm_tpu_torch as lgb
     from lightgbm_tpu_torch.ops import histogram, predict, rank, route, split
     from lightgbm_tpu_torch.testing.synth import mslr_like_groups, rank_data
@@ -3263,6 +3321,748 @@ def boosting_modes(name, card, dev, ctx):
     return rows
 
 
+# ---------------------------------------------------------------------
+# uint16 group bins, data files and the binary cache (phases 30-35)
+# bench.py's bosch shape (synth_bosch, max_bin 63) through the phase-5
+# split: rows 0-499,999 train, 500,000-599,999 validate
+BOSCH_ROWS, BOSCH_VALID_ROWS, BOSCH_FEATURES, BOSCH_SEED = \
+    500_000, 100_000, 968, 2
+BOSCH_ROUNDS, BOSCH_F32_ROUNDS = 10, 3
+BOSCH_PARAMS = dict(TRAIN_PARAMS, metric="auc")
+BOSCH_FILE_ROWS, BOSCH_FILE_CHUNK, BOSCH_FILE_ROUNDS = 50_000, 8192, 3
+BOSCH_CPU_ROWS, BOSCH_CPU_VALID_ROWS = 65_536, 16_384
+BOSCH_CPU_LEAVES, BOSCH_CPU_ROUNDS = 63, 3
+# the phase-9 protocol at max_bin 1023: one feature a group, ~1,024 bins
+WIDE_MAX_BIN, WIDE_ROUNDS = 1023, 3
+# rows of the HIGGS matrix that H's uint8 summation order is replayed on
+ORDER_ROWS = 262_144
+
+
+def lane_order_hist(binned, w3, num_bins, hilo):
+    """H on a uint8 matrix in its own summation order, replayed in torch
+    ops (csrc/histogram.cu, unchanged for uint8 since its f32 and hi+lo
+    modes came in): tiles of 2,048 rows; in a tile lane l adds rows l,
+    l + 32, ... of each group in order; the lanes are added in the
+    shuffle-down tree (16, 8, 4, 2, 1); lane l of the reduction adds
+    tiles l, l + 32, ... in order, then the same tree; hi + lo once at
+    the end. Equal to the kernel bit for bit, so to its earlier self."""
+    from lightgbm_tpu_torch.ops.histogram import hi_lo
+    n, g_cnt = binned.shape
+    tile, lanes = 2048, 32
+    tiles = -(-n // tile)
+    pad = tiles * tile - n
+    cnt = (w3[:, 2:3] > 0).float()
+    if hilo:
+        hi, lo = hi_lo(w3[:, :2].contiguous())
+        chans = torch.cat([hi, cnt, lo], 1)
+    else:
+        chans = torch.cat([w3[:, :2], cnt], 1)
+    c = chans.shape[1]
+    b = torch.nn.functional.pad(binned.long(), (0, 0, 0, pad),
+                                value=num_bins)
+    v = torch.nn.functional.pad(chans, (0, 0, 0, pad))
+    steps = tile // lanes
+    b = b.view(tiles, steps, lanes, g_cnt)
+    v = v.view(tiles, steps, lanes, c)
+    acc = torch.zeros(tiles, lanes, g_cnt, num_bins + 1, c,
+                      device=binned.device)
+    for k in range(steps):
+        idx = b[:, k][..., None, None].expand(tiles, lanes, g_cnt, 1, c)
+        val = v[:, k][:, :, None, None, :].expand(tiles, lanes, g_cnt, 1, c)
+        acc.scatter_add_(3, idx, val)
+    acc = acc[:, :, :, :num_bins]
+
+    def lane_tree(x, dim):
+        o = lanes // 2
+        while o >= 1:
+            x = x.narrow(dim, 0, o) + x.narrow(dim, o, o)
+            o //= 2
+        return x.squeeze(dim)
+    part = lane_tree(acc, 1)                       # [tiles, G, B, c]
+    rounds = -(-tiles // lanes)
+    red = torch.zeros((lanes,) + tuple(part.shape[1:]), device=part.device)
+    for j in range(rounds):
+        t = torch.arange(j * lanes, (j + 1) * lanes, device=part.device)
+        live = (t < tiles).view(lanes, 1, 1, 1)
+        red = torch.where(live, red + part[t.clamp(max=tiles - 1)], red)
+    out = lane_tree(red, 0)
+    if hilo:
+        out = torch.cat([out[..., :2] + out[..., 3:], out[..., 2:3]], -1)
+    return out
+
+
+def uint16_ops(dev):
+    """What this torch does with a uint16 tensor on `dev`: an add and an
+    index, each "ok" or the first words of the error it raises (the
+    plain versions widen uint16 bins through their int16 view)."""
+    t = torch.from_numpy(np.arange(4, dtype=np.uint16)).to(dev)
+    idx = torch.tensor([1, 0], device=dev)
+    out = []
+    for label, op in (("add", lambda: t + 1), ("index", lambda: t[idx])):
+        try:
+            op()
+            torch.cuda.synchronize()
+            out.append(label + " ok")
+        except (RuntimeError, NotImplementedError) as exc:
+            out.append("%s raises %r" % (label, str(exc).splitlines()[0][:60]))
+    return ", ".join(out)
+
+
+def write_tsv(path, x, y, block=5000):
+    """Label first, then the features, each the shortest decimal that
+    reads back as the same float64 (so the file holds the f32 values
+    exactly)."""
+    with open(path, "w") as fh:
+        for lo in range(0, len(x), block):
+            m = np.column_stack([y[lo:lo + block], x[lo:lo + block]]).astype(
+                np.float64).astype(str)
+            fh.write("\n".join("\t".join(r) for r in m))
+            fh.write("\n")
+
+
+def bosch(name, card, dev, ctx):
+    """Phases 30-35; returns the JSON rows of the kernels' uint16 modes
+    and S past 256 bins a feature."""
+    import lightgbm_tpu_torch as lgb
+    from lightgbm_tpu_torch.dataset import Dataset as Inner
+    from lightgbm_tpu_torch.ingest import CacheCorrupt, CacheMismatch
+    from lightgbm_tpu_torch.ops import (histogram, linear as lin, predict,
+                                        route, split)
+    from lightgbm_tpu_torch.ops.histogram import take_bins
+    from lightgbm_tpu_torch.testing.synth import synth_bosch
+
+    H = histogram.leaf_histogram
+    counted = {"leaf_histogram": H, "split_scan": split.split_scan,
+               "route_partition": route.route_partition,
+               "score_update": route.score_update,
+               "tree_value_walk_binned": predict.tree_value_walk_binned,
+               "tree_leaf_walk_binned": predict.tree_leaf_walk_binned,
+               "linear_normal_eq": lin.linear_normal_eq,
+               "linear_solve": lin.linear_solve,
+               "linear_addend": lin.linear_addend}
+
+    def reset():
+        for fn in counted.values():
+            fn.launches = 0
+        for fn in (H, route.route_partition, predict.tree_value_walk_binned,
+                   predict.tree_leaf_walk_binned):
+            fn.launches_u16 = 0
+        H.launches_hilo = 0
+        split.split_scan.launches_wide = 0
+
+    def read():
+        out = {k: fn.launches for k, fn in counted.items()}
+        out.update(H_u16=H.launches_u16, H_hilo=H.launches_hilo,
+                   R_u16=route.route_partition.launches_u16,
+                   W_u16=predict.tree_value_walk_binned.launches_u16,
+                   W_leaf_u16=predict.tree_leaf_walk_binned.launches_u16,
+                   S_wide=split.split_scan.launches_wide)
+        return out
+
+    t0 = time.perf_counter()
+    xa, ya = synth_bosch(BOSCH_ROWS + BOSCH_VALID_ROWS, BOSCH_FEATURES,
+                         seed=BOSCH_SEED)
+    x, y = xa[:BOSCH_ROWS], ya[:BOSCH_ROWS]
+    xv, yv = xa[BOSCH_ROWS:], ya[BOSCH_ROWS:]
+    print("bosch data: synth_bosch(%d, %d, seed %d) in %.1f s"
+          % (BOSCH_ROWS + BOSCH_VALID_ROWS, BOSCH_FEATURES, BOSCH_SEED,
+             time.perf_counter() - t0))
+    t0 = time.perf_counter()
+    ds = lgb.Dataset(x, y, params=dict(BOSCH_PARAMS))
+    ds.construct()
+    construct_s = time.perf_counter() - t0
+    valid = ds.create_valid(xv, yv)
+    valid.construct()
+    inner = ds._inner
+    widths = inner.groups.group_num_bin
+    check(inner.binned.dtype == np.uint16 and inner.num_groups == 338
+          and int((widths == 631).sum()) == 70,
+          "the Bosch matrix is %s with %d groups, not uint16 with 338 "
+          "(70 of 631 bins)" % (inner.binned.dtype, inner.num_groups))
+    print("bosch datasets: %d x %d features -> %d groups (%d of %d bins, "
+          "the rest at most %d), uint16, %.1f MB of training bins; "
+          "Dataset.construct() of the %d training rows %.1f s, valid %d "
+          "rows" % (BOSCH_ROWS, BOSCH_FEATURES, inner.num_groups,
+                    int((widths == widths.max()).sum()), widths.max(),
+                    int(widths[widths < widths.max()].max()),
+                    inner.binned.nbytes / 1e6, BOSCH_ROWS, construct_s,
+                    BOSCH_VALID_ROWS))
+
+    # --------------------------------------------------------------- 31
+    reset()
+    booster, evals, update_s = train_run(
+        lgb, x, y, xv, yv, BOSCH_PARAMS, BOSCH_ROUNDS,
+        data=(ds, valid))[:3]
+    launches = read()
+    print("bosch main path launches:", launches)
+    check(booster.device.type == "cuda"
+          and booster._inner._binned.dtype == torch.uint16,
+          "the Bosch path did not train on uint16 bins on cuda")
+    for k in ("leaf_histogram", "split_scan", "route_partition",
+              "tree_value_walk_binned", "score_update"):
+        check(launches[k] > 0, "Bosch path: %s never launched" % k)
+    check(launches["H_u16"] == launches["H_hilo"] == launches[
+        "leaf_histogram"] and launches["R_u16"] == launches[
+        "route_partition"] and launches["W_u16"] == launches[
+        "tree_value_walk_binned"], "Bosch path: H, R or W launched off "
+          "their uint16 (H: hi+lo) modes: %s" % launches)
+    auc = evals["valid"]["auc"]
+    check(len(auc) == BOSCH_ROUNDS and np.isfinite(auc).all()
+          and auc[-1] > auc[0] and auc[-1] > 0.7,
+          "Bosch valid AUC %s does not rise" % auc)
+    text = booster.model_to_string()
+    again = train_run(lgb, x, y, xv, yv, BOSCH_PARAMS, BOSCH_ROUNDS,
+                      data=(ds, valid))[0]
+    check(again.model_to_string() == text,
+          "two Bosch runs gave different model texts")
+    del again
+    OUT_DIR.mkdir(parents=True, exist_ok=True)
+    model_path = str(OUT_DIR / "bosch_model.txt")
+    booster.save_model(model_path)
+    predict.forest_value_walk.launches = 0
+    served = lgb.Booster(model_file=model_path)
+    raw = served.predict(xv, raw_score=True)
+    check(served.device.type == "cuda" and served.num_feature()
+          == BOSCH_FEATURES and predict.forest_value_walk.launches > 0,
+          "the served Bosch model: not on cuda, not 968 features or no K1")
+    kept = booster._inner.valid_score(0)
+    rel = float(np.max(np.abs(raw - kept) / np.maximum(1.0, np.abs(kept))))
+    check(rel <= 1e-5, "served Bosch raw scores off W's by %g" % rel)
+    refused = ""
+    try:
+        lgb.train(dict(BOSCH_PARAMS, tpu_hist_quantize="int8"), ds, 1)
+    except lgb.LightGBMError as exc:
+        refused = str(exc)
+    check("HQ's uint16 mode" in refused, "tpu_hist_quantize=int8 on the "
+          "uint16 matrix: %r, not HQ's refusal" % refused)
+    # H's f32 mode on uint16 bins: the path with tpu_hist_bf16=false
+    reset()
+    f32_auc = train_run(lgb, x, y, xv, yv,
+                        dict(BOSCH_PARAMS, tpu_hist_bf16=False),
+                        BOSCH_F32_ROUNDS, data=(ds, valid))[1]["valid"]["auc"]
+    f32_launches = read()
+    check(f32_launches["H_u16"] == f32_launches["leaf_histogram"] > 0
+          and f32_launches["H_hilo"] == 0 and f32_auc[-1] > 0.7,
+          "Bosch tpu_hist_bf16=false: %s, auc %s" % (f32_launches, f32_auc))
+    print("bosch main path: %d rounds, %d trees of %s leaves, valid auc "
+          "%s; a second run byte-identical (%d bytes); the saved model "
+          "served through K1 on %d rows x %d features within %.3g of W's "
+          "scores; tpu_hist_quantize=int8 refused: %s; tpu_hist_bf16=false "
+          "%d rounds (H f32 mode on uint16 %d launches), auc %.5f"
+          % (BOSCH_ROUNDS, booster.num_trees(),
+             sorted({t.num_leaves for t in booster._inner.models}),
+             " ".join("%.5f" % a for a in auc), len(text), BOSCH_VALID_ROWS,
+             BOSCH_FEATURES, rel, refused, BOSCH_F32_ROUNDS,
+             f32_launches["H_u16"], f32_auc[-1]))
+
+    # --------------------------------------------------------------- 30
+    errs = {}
+    fresh = lgb.Booster(dict(BOSCH_PARAMS), train_set=ds)
+    gb = fresh._inner
+    grower = gb._grower
+    binned = gb._binned
+    layouts = {bf16: histogram.hist_layout(
+        inner.groups.group_num_bin, bf16, dev) for bf16 in (True, False)}
+    nb, fb = grower.num_bins, grower.feature_bins
+    fmeta, prm = grower.fmeta_dev, grower.params
+    n = binned.shape[0]
+    mask = torch.ones(inner.num_features, dtype=torch.uint8, device=dev)
+    grad, hess = gb.objective.get_gradients(gb._score[0])
+    w1 = torch.stack([grad, hess, torch.ones_like(grad)], 1).contiguous()
+    g10, h10 = booster._inner.objective.get_gradients(
+        booster._inner._score[0])
+    w10 = torch.stack([g10, h10, torch.ones_like(g10)], 1).contiguous()
+    del grad, hess, g10, h10
+
+    def hist(w, bf16, rows=None, cnt=None):
+        return H(binned, w, nb, rows=rows, n_rows=cnt, bf16=bf16,
+                 layout=layouts[bf16])
+
+    def held(w, bf16, rows=None, cnt=None, label=""):
+        got = hist(w, bf16, rows, cnt)
+        check(torch.equal(got, hist(w, bf16, rows, cnt)),
+              "H u16 %s: a second launch gave other bits" % label)
+        sel = None if rows is None else rows[:cnt]
+        if bf16:  # the f64 sum of the exact halves
+            hi, lo = histogram.hi_lo(w[:, :2].contiguous())
+            oracle = hist_oracle(binned, torch.cat([hi, w[:, 2:3]], 1), nb,
+                                 sel)
+            oracle[..., :2] += hist_oracle(binned, torch.cat(
+                [lo, w[:, 2:3]], 1), nb, sel)[..., :2]
+        else:
+            oracle = hist_oracle(binned, w, nb, sel)
+        err = sums_err(got, histogram.leaf_histogram_plain(
+            binned, w, nb, rows, cnt, bf16), oracle, "H u16 " + label)
+        return got, err
+
+    errs["leaf_histogram_u16_f32"] = errs["leaf_histogram_u16_hilo"] = 0.0
+    roots = {}
+    for wl, w in (("round 1", w1), ("round 10", w10)):
+        for bf16 in (True, False):
+            key = "leaf_histogram_u16_" + ("hilo" if bf16 else "f32")
+            got, err = held(w, bf16, label="%s root, %s" % (key, wl))
+            errs[key] = max(errs[key], err)
+            roots[(wl, bf16)] = got
+    h_root = roots[("round 1", True)]
+    acc = leaf_totals(h_root)
+    sums = torch.from_numpy(acc[None]).to(dev)
+    depth0 = torch.zeros(1, dtype=torch.int32, device=dev)
+    s_root = split.split_scan(h_root[None], sums, depth0, fmeta, mask, prm,
+                              fb)
+    for got in (split.split_scan(h_root[None], sums, depth0, fmeta, mask,
+                                 prm, fb),
+                split.split_scan_plain(h_root[None], sums, depth0, fmeta,
+                                       mask, prm, fb)):
+        check(all(torch.equal(a, b) for a, b in zip(s_root, got)),
+              "S Bosch root: not bitwise its repeat and plain version")
+    out_f = s_root[0][0].cpu().numpy()
+    out_i = s_root[1][0].cpu().numpy()
+    feat = int(out_i[0])
+    fm = grower.fmeta
+    rule = route.SplitRule(
+        int(fm["group"][feat]), int(fm["offset"][feat]),
+        int(fm["num_bin"][feat]), int(fm["default_bin"][feat]),
+        int(fm["missing_type"][feat]), bool(fm["is_bundled"][feat]),
+        int(out_i[1]), bool(out_i[2]), bool(out_i[3]), 0, 1)
+    perm0 = torch.arange(n, dtype=torch.int32, device=dev)
+    lid0 = torch.zeros(n, dtype=torch.int32, device=dev)
+    res = []
+    for fn in (route.route_partition, route.route_partition,
+               route.route_partition_plain):
+        perm, lid = perm0.clone(), lid0.clone()
+        res.append((perm, lid, int(fn(binned, perm, 0, n, rule, lid))))
+    check(all(torch.equal(res[0][0], r[0]) and torch.equal(res[0][1], r[1])
+              and res[0][2] == r[2] for r in res[1:]),
+          "R u16: partition or leaf ids differ between launches or from "
+          "plain")
+    perm, lid, n_left = res[0]
+    check(n_left == int(round(float(out_f[3]))),
+          "R u16 sent %d rows left, the scan counted %s" % (n_left, out_f[3]))
+    small_left = np.float32(out_f[3]) * np.float32(2.0) <= acc[2]
+    b0, cnt = (0, n_left) if small_left else (n_left, n - n_left)
+    small = 0 if small_left else 1
+    for bf16 in (True, False):
+        key = "leaf_histogram_u16_" + ("hilo" if bf16 else "f32")
+        errs[key] = max(errs[key], held(
+            w1, bf16, perm[b0:], cnt, "%s row list, %d rows" % (key, cnt))[1])
+    # a random quarter of the rows, in random order, as the row list
+    rnd = torch.from_numpy(np.random.RandomState(3).choice(
+        n, n // 4, replace=False).astype(np.int32)).to(dev)
+    for bf16 in (True, False):
+        key = "leaf_histogram_u16_" + ("hilo" if bf16 else "f32")
+        errs[key] = max(errs[key], held(
+            w10, bf16, rnd, len(rnd), "%s random row list, %d rows"
+            % (key, len(rnd)))[1])
+    del rnd
+    h_small = hist(w1, True, perm[b0:], cnt)
+    pair = torch.empty((2,) + tuple(h_root.shape), device=dev)
+    pair[small] = h_small
+    pair[1 - small] = histogram.subtract(h_root, h_small)
+    left = out_f[1:4].astype(np.float32)
+    csums = torch.from_numpy(np.stack([left, acc - left])).to(dev)
+    depth1 = torch.ones(2, dtype=torch.int32, device=dev)
+    s_kids = split.split_scan(pair, csums, depth1, fmeta, mask, prm, fb)
+    for got in (split.split_scan(pair, csums, depth1, fmeta, mask, prm, fb),
+                split.split_scan_plain(pair, csums, depth1, fmeta, mask, prm,
+                                       fb)):
+        check(all(torch.equal(a, b) for a, b in zip(s_kids, got)),
+              "S Bosch children: not bitwise its repeat and plain version")
+    tree0 = booster._inner.models[0]
+    bt = predict.binned_tree(tree0, dev)
+    vb = booster._inner._valid_binned[0]
+    check(vb.dtype == torch.uint16, "the Bosch valid bins are not uint16")
+    walked, leaves = [], []
+    for fn in (predict.tree_value_walk_binned,
+               predict.tree_value_walk_binned,
+               predict.tree_value_walk_binned_plain):
+        sc = torch.zeros(BOSCH_VALID_ROWS, dtype=torch.float32, device=dev)
+        fn(bt, vb, sc)
+        walked.append(sc)
+    for fn in (predict.tree_leaf_walk_binned, predict.tree_leaf_walk_binned,
+               predict.tree_leaf_walk_binned_plain):
+        leaves.append(fn(bt, vb))
+    check(all(torch.equal(walked[0], s) for s in walked[1:])
+          and all(torch.equal(leaves[0], v) for v in leaves[1:]),
+          "W u16 (value or leaf mode) differs between launches or from "
+          "plain")
+    # H on a uint8 matrix: its own summation order, bit for bit
+    hb = ctx["data"][0]._inner.binned[:ORDER_ROWS]
+    b8 = torch.from_numpy(np.ascontiguousarray(hb)).to(dev)
+    rng = np.random.RandomState(30)
+    w8 = torch.from_numpy(np.stack([
+        rng.randn(ORDER_ROWS) * 0.7, rng.rand(ORDER_ROWS) * 0.25 + 1e-3,
+        (rng.rand(ORDER_ROWS) < 0.9) * 1.0], 1).astype(np.float32)).to(dev)
+    w8[:, :2] *= w8[:, 2:]
+    nb8 = int(hb.max()) + 1
+    for bf16 in (True, False):
+        got = H(b8, w8, nb8, bf16=bf16)
+        check(torch.equal(got, lane_order_hist(b8, w8, nb8, bf16)),
+              "H on uint8 bins (%s) is not its own summation order"
+              % ("hi+lo" if bf16 else "f32"))
+    print("uint16 kernels vs plain [Bosch, %d rows x %d groups, B %d]: H "
+          "f32 and hi+lo at the root (round-1 and round-10 gradients) and "
+          "on the root split's smaller child (%d rows): counts exact, g/h "
+          "within 1e-5 of plain and f64 (max abs err %.3g f32, %.3g hi+lo), "
+          "repeats equal; S root and children bitwise; R partition and "
+          "leaf ids exact; W value and leaf modes exact on %d valid rows; "
+          "H on %d uint8 rows bitwise its own summation order in both "
+          "modes; torch %s on uint16: %s" % (
+              n, binned.shape[1], nb, cnt, errs["leaf_histogram_u16_f32"],
+              errs["leaf_histogram_u16_hilo"], BOSCH_VALID_ROWS, ORDER_ROWS,
+              torch.__version__, uint16_ops(dev)))
+    del b8, w8, w10, roots
+
+    # --------------------------------------------------------------- 32
+    fx, fy = x[:BOSCH_FILE_ROWS], y[:BOSCH_FILE_ROWS]
+    tsv = str(OUT_DIR / "bosch.tsv")
+    t0 = time.perf_counter()
+    write_tsv(tsv, fx, fy)
+    write_s = time.perf_counter() - t0
+    file_params = dict(BOSCH_PARAMS, tpu_ingest_chunk_rows=BOSCH_FILE_CHUNK)
+    t0 = time.perf_counter()
+    streamed = lgb.Dataset(tsv, params=dict(file_params)).construct()
+    stream_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    whole = lgb.Dataset(tsv, params=dict(BOSCH_PARAMS,
+                                         tpu_ingest=False)).construct()
+    whole_s = time.perf_counter() - t0
+    arr = lgb.Dataset(fx, fy, params=dict(BOSCH_PARAMS)).construct()
+    check(BOSCH_FILE_ROWS % BOSCH_FILE_CHUNK != 0, "the last chunk is whole")
+    for label, d in (("streamed", streamed), ("loaded whole", whole)):
+        check(np.array_equal(d._inner.binned, arr._inner.binned)
+              and d._inner.binned.dtype == np.uint16
+              and np.array_equal(d._inner.metadata.label,
+                                 arr._inner.metadata.label),
+              "the %s file's Dataset differs from the array's" % label)
+    texts = [lgb.train(dict(BOSCH_PARAMS), d, BOSCH_FILE_ROUNDS)
+             .model_to_string() for d in (arr, streamed)]
+    check(texts[0] == texts[1], "the file's model text differs from the "
+          "array Dataset's")
+    os.remove(tsv)
+    cache = str(OUT_DIR / "bosch_train.bin")
+    t0 = time.perf_counter()
+    ds.save_binary(cache)
+    save_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    loaded = Inner.load_binary(cache)
+    load_s = time.perf_counter() - t0
+    check(np.array_equal(loaded.binned, inner.binned)
+          and np.array_equal(loaded.metadata.label, inner.metadata.label),
+          "the loaded cache's matrix or labels differ")
+    texts = [lgb.train(dict(BOSCH_PARAMS), d, BOSCH_FILE_ROUNDS)
+             .model_to_string() for d in (ds, lgb.Dataset._from_inner(
+                 loaded))]
+    check(texts[0] == texts[1], "the cache's model text differs")
+    del loaded
+    os.remove(cache)
+    small_cache = str(OUT_DIR / "bosch_file.bin")
+    arr._inner.save_binary(small_cache, fingerprint="bosch-a")
+    mismatch = corrupt = ""
+    try:
+        Inner.load_binary(small_cache, expected_fingerprint="bosch-b")
+    except CacheMismatch as exc:
+        mismatch = type(exc).__name__
+    with open(small_cache, "r+b") as fh:
+        fh.seek(-16, os.SEEK_END)
+        fh.write(b"\xff" * 8)
+    try:
+        Inner.load_binary(small_cache)
+    except CacheCorrupt as exc:
+        corrupt = type(exc).__name__
+    check(mismatch == "CacheMismatch" and corrupt == "CacheCorrupt"
+          and not os.path.exists(small_cache)
+          and os.path.exists(small_cache + ".corrupt"),
+          "cache refusals: %r %r" % (mismatch, corrupt))
+    os.remove(small_cache + ".corrupt")
+    print("files [%d Bosch rows as TSV, %.1f s to write]: Dataset(path) "
+          "streamed in chunks of %d (last %d rows) %.1f s, loaded whole "
+          "%.1f s, both bitwise the array Dataset's uint16 matrix, %d "
+          "rounds on the card give its model text" % (
+              BOSCH_FILE_ROWS, write_s, BOSCH_FILE_CHUNK,
+              BOSCH_FILE_ROWS % BOSCH_FILE_CHUNK, stream_s, whole_s,
+              BOSCH_FILE_ROUNDS))
+    print("time [%s | %s]: binary cache of the %d training rows: "
+          "save_binary %.2f s, load_binary %.2f s (mapped, CRCs checked), "
+          "binning skipped %.1f s; matrix equal, %d rounds give the same "
+          "model text; a mismatched fingerprint raised %s, a corrupted "
+          "byte %s and the file was quarantined"
+          % (name, card, BOSCH_ROWS, save_s, load_s, construct_s,
+             BOSCH_FILE_ROUNDS, mismatch, corrupt))
+
+    # --------------------------------------------------------------- 33
+    cx, cy = x[:BOSCH_CPU_ROWS], y[:BOSCH_CPU_ROWS]
+    cxv, cyv = xv[:BOSCH_CPU_VALID_ROWS], yv[:BOSCH_CPU_VALID_ROWS]
+    cparams = dict(BOSCH_PARAMS, num_leaves=BOSCH_CPU_LEAVES)
+    # the Datasets keep raw values, for the linear run below
+    cds = lgb.Dataset(cx, cy, params=dict(cparams, linear_tree=True))
+    cvalid = cds.create_valid(cxv, cyv)
+    cds.construct()
+    cvalid.construct()
+    t0 = time.perf_counter()
+    on_card, ev_card = train_run(lgb, cx, cy, cxv, cyv, cparams,
+                                 BOSCH_CPU_ROUNDS, data=(cds, cvalid))[:2]
+    on_cpu, ev_cpu = train_run(lgb, cx, cy, cxv, cyv, cparams,
+                               BOSCH_CPU_ROUNDS, device="cpu",
+                               data=(cds, cvalid))[:2]
+    worst = same_trees(on_card, on_cpu, BOSCH_CPU_ROUNDS)
+    d_auc = abs(ev_card["valid"]["auc"][-1] - ev_cpu["valid"]["auc"][-1])
+    check(d_auc <= 2e-3, "Bosch card/CPU valid AUC differ by %g" % d_auc)
+    print("card vs CPU [Bosch %d rows, %d leaves, %d rounds]: same trees, "
+          "leaf values within %.3g relative, valid auc %.5f vs %.5f "
+          "(%.1f s)" % (BOSCH_CPU_ROWS, BOSCH_CPU_LEAVES, BOSCH_CPU_ROUNDS,
+                        worst, ev_card["valid"]["auc"][-1],
+                        ev_cpu["valid"]["auc"][-1],
+                        time.perf_counter() - t0))
+    # linear trees on uint16 bins: H, S, R, W's leaf mode, LF, LS, LA
+    reset()
+    lin_auc = train_run(lgb, cx, cy, cxv, cyv,
+                        dict(cparams, linear_tree=True, linear_lambda=0.01),
+                        BOSCH_CPU_ROUNDS, data=(cds, cvalid))[1]
+    lin_launches = read()
+    check(all(lin_launches[k] > 0 for k in (
+        "linear_normal_eq", "linear_solve", "linear_addend",
+        "tree_leaf_walk_binned", "W_leaf_u16", "H_u16", "R_u16"))
+          and np.isfinite(lin_auc["valid"]["auc"]).all(),
+          "linear trees on uint16 bins: %s" % lin_launches)
+    print("linear trees on uint16 bins [Bosch %d rows, %d rounds]: "
+          "launches %s, valid auc %.5f" % (
+              BOSCH_CPU_ROWS, BOSCH_CPU_ROUNDS, lin_launches,
+              lin_auc["valid"]["auc"][-1]))
+    del cds, cvalid, on_card, on_cpu
+
+    # --------------------------------------------------------------- 34
+    hx, hy, hxv, hyv = ctx["x"], ctx["y"], ctx["xv"], ctx["yv"]
+    wparams = dict(TRAIN_PARAMS, max_bin=WIDE_MAX_BIN)
+    t0 = time.perf_counter()
+    wds = lgb.Dataset(hx, hy, params=dict(wparams))
+    wvalid = wds.create_valid(hxv, hyv)
+    wds.construct()
+    wvalid.construct()
+    wfb = int(wds._inner.num_bins_per_feature().max())
+    check(wds._inner.binned.dtype == np.uint16 and wfb > 256,
+          "max_bin %d: %s bins, %d a feature" % (
+              WIDE_MAX_BIN, wds._inner.binned.dtype, wfb))
+    print("max_bin=%d datasets: %d + %d rows x %d groups of up to %d bins, "
+          "uint16, %.1f s" % (WIDE_MAX_BIN, len(hx), len(hxv),
+                              wds._inner.num_groups,
+                              wds._inner.max_num_bin(),
+                              time.perf_counter() - t0))
+    reset()
+    wide_b, wide_ev = train_run(lgb, hx, hy, hxv, hyv, wparams, WIDE_ROUNDS,
+                                data=(wds, wvalid))[:2]
+    wide_launches = read()
+    check(wide_launches["S_wide"] == wide_launches["split_scan"] > 0
+          and wide_launches["H_u16"] == wide_launches["leaf_histogram"] > 0,
+          "max_bin=%d path: %s" % (WIDE_MAX_BIN, wide_launches))
+    wtext = wide_b.model_to_string()
+    check(train_run(lgb, hx, hy, hxv, hyv, wparams, WIDE_ROUNDS,
+                    data=(wds, wvalid))[0].model_to_string() == wtext,
+          "two max_bin=%d runs gave different model texts" % WIDE_MAX_BIN)
+    # S at FB ~1,024 on the root, against its plain version (phase 30)
+    wfresh = lgb.Booster(dict(wparams), train_set=wds)._inner
+    wg = wfresh._grower
+    wgrad, whess = wfresh.objective.get_gradients(wfresh._score[0])
+    ww = torch.stack([wgrad, whess, torch.ones_like(wgrad)], 1).contiguous()
+    w_root = H(wfresh._binned, ww, wg.num_bins, bf16=True,
+               layout=wg.hist_layout)
+    wsums = torch.from_numpy(leaf_totals(w_root)[None]).to(dev)
+    wmask = torch.ones(wds._inner.num_features, dtype=torch.uint8,
+                       device=dev)
+    s_wide = split.split_scan(w_root[None], wsums, depth0, wg.fmeta_dev,
+                              wmask, wg.params, wg.feature_bins)
+    for got in (split.split_scan(w_root[None], wsums, depth0, wg.fmeta_dev,
+                                 wmask, wg.params, wg.feature_bins),
+                split.split_scan_plain(w_root[None], wsums, depth0,
+                                       wg.fmeta_dev, wmask, wg.params,
+                                       wg.feature_bins)):
+        check(all(torch.equal(a, b) for a, b in zip(s_wide, got)),
+              "S at %d bins a feature: not bitwise its repeat and plain "
+              "version" % wg.feature_bins)
+    print("max_bin=%d path: %d rounds, S launched %d times at %d bins a "
+          "feature (every launch past 256), a second run byte-identical, "
+          "valid auc %.5f; S on the root bitwise its plain version"
+          % (WIDE_MAX_BIN, WIDE_ROUNDS, wide_launches["S_wide"],
+             wg.feature_bins, wide_ev["valid"]["auc"][-1]))
+    wcparams = dict(wparams, num_leaves=CPU_LEAVES)
+    wc = train_run(lgb, hx[:CPU_ROWS], hy[:CPU_ROWS], hxv[:CPU_VALID_ROWS],
+                   hyv[:CPU_VALID_ROWS], wcparams, WIDE_ROUNDS)
+    wc_data = (wc[3], wc[4])
+    wc_cpu = train_run(lgb, None, None, None, None, wcparams, WIDE_ROUNDS,
+                       device="cpu", data=wc_data)
+    worst = same_trees(wc[0], wc_cpu[0], WIDE_ROUNDS)
+    d_auc = abs(wc[1]["valid"]["auc"][-1] - wc_cpu[1]["valid"]["auc"][-1])
+    check(d_auc <= 2e-3, "max_bin=%d card/CPU AUC differ by %g"
+          % (WIDE_MAX_BIN, d_auc))
+    print("card vs CPU [max_bin=%d, %d rows, %d leaves, %d rounds]: same "
+          "trees, leaf values within %.3g relative, valid auc %.5f vs %.5f"
+          % (WIDE_MAX_BIN, CPU_ROWS, CPU_LEAVES, WIDE_ROUNDS, worst,
+             wc[1]["valid"]["auc"][-1], wc_cpu[1]["valid"]["auc"][-1]))
+    del wc, wc_cpu, wc_data
+
+    # --------------------------------------------------------------- 35
+    print("clocks [%s]: SM clock, max SM clock: %s (before the timings)"
+          % (card, clocks()))
+    g_cnt = binned.shape[1]
+    times = {}
+    h_names = ("hist_tile_kernel", "hist_wide_kernel", "hist_reduce_kernel")
+    in_bytes = n * (2 * g_cnt + 12) + g_cnt * nb * 12
+    flat = ((torch.arange(g_cnt, device=dev) * nb)[None]
+            + take_bins(binned)).reshape(-1)
+    for bf16 in (False, True):
+        key = "leaf_histogram_u16_" + ("hilo" if bf16 else "f32")
+        halves = histogram.hi_lo(w1[:, :2].contiguous()) if bf16 else (
+            w1[:, :2].contiguous(),)
+        chans = [c[:, j].contiguous() for c in halves for j in (0, 1)]
+        chans.append((w1[:, 2] > 0).float())
+
+        def library(chans=chans):
+            for ch in chans:
+                torch.bincount(flat, weights=ch[:, None].expand(
+                    n, g_cnt).reshape(-1), minlength=g_cnt * nb)
+        times[key] = (
+            device_ms(lambda: hist(w1, bf16), h_names),
+            median_ms(lambda: histogram.leaf_histogram_plain(
+                binned, w1, nb, bf16=bf16), reps=3),
+            bound(in_bytes, (5.0 if bf16 else 3.0) * n * g_cnt),
+            median_ms(library, reps=3))
+        print("time [%s | %s]: %s at the Bosch root (%d rows x %d groups, "
+              "B %d) %.4f ms, plain %.2f ms, bound %.5f ms (%s), "
+              "torch.bincount x%d %.3f ms; row list (%d rows) %.4f ms"
+              % (name, card, key, n, g_cnt, nb, times[key][0],
+                 times[key][1], times[key][2][0], times[key][2][1],
+                 len(chans), times[key][3], cnt, device_ms(
+                     lambda: hist(w1, bf16, perm[b0:], cnt), h_names)))
+        lay = layouts[bf16]
+        tile = histogram.hist_tile_rows(lay, n)
+        tiles = -(-n // tile)
+        print("plan [%s]: %s at the Bosch root: tiles of %d rows, %d tiles, "
+              "partials %.1f MB (written and read: %.1f MB, input %.1f MB); "
+              "%d lane-private groups of at most %d bins, %d warp-shared of "
+              "at most %d" % (card, key, tile, tiles,
+                              tiles * lay.elems * (5 if bf16 else 3) * 4
+                              / 1e6, tiles * lay.elems * (5 if bf16 else 3)
+                              * 8 / 1e6, n * (2 * g_cnt + 12) / 1e6,
+                              len(lay.narrow), lay.narrow_w, len(lay.wide),
+                              lay.wide_w))
+    del flat
+    # H at the max_bin=1023 root: 28 warp-shared groups of ~1,024 bins
+    wn, wgc = wfresh._binned.shape
+    for bf16 in (True, False):
+        w_lay = histogram.hist_layout(wg.hist_layout.widths, bf16, dev)
+        w_ms = device_ms(lambda: H(wfresh._binned, ww, wg.num_bins,
+                                   bf16=bf16, layout=w_lay),
+                         h_names)
+        w_bound = bound(wn * (2 * wgc + 12) + wgc * wg.num_bins * 12,
+                        (5.0 if bf16 else 3.0) * wn * wgc)
+        print("time [%s | %s]: leaf_histogram_u16_%s at the max_bin=%d "
+              "root (%d rows x %d groups, B %d) %.4f ms, bound %.5f ms (%s)"
+              % (name, card, "hilo" if bf16 else "f32", WIDE_MAX_BIN, wn,
+                 wgc, wg.num_bins, w_ms, w_bound[0], w_bound[1]))
+    hb_all = ctx["data"][0]._inner.binned
+    hb_dev = torch.from_numpy(np.ascontiguousarray(hb_all)).to(dev)
+    hw = torch.ones((hb_all.shape[0], 3), dtype=torch.float32, device=dev)
+    nb_u8 = int(ctx["data"][0]._inner.max_num_bin())
+    u8_ms = device_ms(lambda: H(hb_dev, hw, nb_u8),
+                      ("hist_tile_kernel", "hist_reduce_kernel"))
+    u8_bytes = hb_dev.numel() + hb_all.shape[0] * 12
+    print("time [%s | %s]: H on the uint8 HIGGS root (%d rows x %d groups, "
+          "hi+lo) %.4f ms, %.0f GB/s of input; uint16 Bosch root hi+lo "
+          "%.0f GB/s" % (name, card, hb_all.shape[0], hb_all.shape[1],
+                         u8_ms, u8_bytes / u8_ms / 1e6,
+                         in_bytes / times["leaf_histogram_u16_hilo"][0]
+                         / 1e6))
+    del hb_dev, hw
+    s_ops = 2 * fmeta["num_bin"].shape[0] * fb * 50
+    times["split_scan_u16"] = (
+        device_ms(lambda: split.split_scan(pair, csums, depth1, fmeta, mask,
+                                           prm, fb), ("split_scan_kernel",)),
+        median_ms(lambda: split.split_scan_plain(pair, csums, depth1, fmeta,
+                                                mask, prm, fb), reps=3),
+        bound(pair.numel() * 4 + 64, s_ops), None)
+    wfm = wg.fmeta_dev["num_bin"].shape[0]
+    times["split_scan_wide"] = (
+        device_ms(lambda: split.split_scan(w_root[None], wsums, depth0,
+                                           wg.fmeta_dev, wmask, wg.params,
+                                           wg.feature_bins),
+                  ("split_scan_kernel",)),
+        median_ms(lambda: split.split_scan_plain(
+            w_root[None], wsums, depth0, wg.fmeta_dev, wmask, wg.params,
+            wg.feature_bins), reps=3),
+        bound(w_root.numel() * 4 + 32, wfm * wg.feature_bins * 50), None)
+    rperm, rlid = perm0.clone(), lid0.clone()
+    route.route_partition(binned, rperm, 0, n, rule, rlid)
+    times["route_partition_u16"] = (
+        device_ms(lambda: route.route_partition(binned, rperm, 0, n, rule,
+                                                rlid),
+                  ("route_kernel", "scan_tiles_kernel", "scatter_kernel",
+                   "Memcpy DtoD")),
+        median_ms(lambda: route.route_partition_plain(binned, rperm, 0, n,
+                                                     rule, rlid), reps=3),
+        bound(14 * n), None)
+    leaf = leaves[0].long()
+    depth = torch.from_numpy(leaf_depths([tree0])[0]).to(dev)
+    visits = int(depth[leaf].sum())
+    sc = torch.zeros(BOSCH_VALID_ROWS, dtype=torch.float32, device=dev)
+    times["tree_value_walk_binned_u16"] = (
+        device_ms(lambda: predict.tree_value_walk_binned(bt, vb, sc),
+                  ("walk_kernel",)),
+        median_ms(lambda: predict.tree_value_walk_binned_plain(bt, vb, sc),
+                  reps=3),
+        bound(2 * visits + 8 * BOSCH_VALID_ROWS + bt.nodes.numel() * 4,
+              visits * INSTR_PER_VISIT), None)
+    times["tree_leaf_walk_binned_u16"] = (
+        device_ms(lambda: predict.tree_leaf_walk_binned(bt, vb),
+                  ("walk_kernel",)),
+        median_ms(lambda: predict.tree_leaf_walk_binned_plain(bt, vb),
+                  reps=3),
+        bound(2 * visits + 4 * BOSCH_VALID_ROWS + bt.nodes.numel() * 4,
+              visits * INSTR_PER_VISIT), None)
+    for k in ("split_scan_u16", "split_scan_wide", "route_partition_u16",
+              "tree_value_walk_binned_u16", "tree_leaf_walk_binned_u16"):
+        ms, plain_ms, (b_ms, b_by), _ = times[k]
+        print("time [%s | %s]: %s %.4f ms, plain %.3f ms, bound %.5f ms (%s)"
+              % (name, card, k, ms, plain_ms, b_ms, b_by))
+    med = float(np.median(update_s[1:BOSCH_ROUNDS]))
+    print("time [%s | %s]: Bosch boosting round %.4f s (median of rounds "
+          "2-%d), %.3f million row-iterations/s, rounds %s; "
+          "Dataset.construct() of %d rows %.1f s"
+          % (name, card, med, BOSCH_ROUNDS, BOSCH_ROWS / med / 1e6,
+             " ".join("%.4f" % v for v in update_s), BOSCH_ROWS,
+             construct_s))
+    print("clocks [%s]: SM clock, max SM clock: %s (after the timings)"
+          % (card, clocks()))
+    profile_round(booster, name, card)
+
+    launch_of = {
+        "leaf_histogram_u16_f32": f32_launches["H_u16"],
+        "leaf_histogram_u16_hilo": launches["H_u16"],
+        "split_scan_u16": launches["split_scan"],
+        "split_scan_wide": wide_launches["S_wide"],
+        "route_partition_u16": launches["R_u16"],
+        "tree_value_walk_binned_u16": launches["W_u16"],
+        "tree_leaf_walk_binned_u16": lin_launches["W_leaf_u16"]}
+    replaces = {
+        "leaf_histogram_u16_f32": "lightgbm_tpu/ops/histogram.py:333",
+        "leaf_histogram_u16_hilo": "lightgbm_tpu/ops/histogram.py:333",
+        "split_scan_u16": "lightgbm_tpu/ops/split.py:80",
+        "split_scan_wide": "lightgbm_tpu/ops/split.py:80",
+        "route_partition_u16": "lightgbm_tpu/learner/grow.py:1037",
+        "tree_value_walk_binned_u16": "lightgbm_tpu/ops/predict.py:182",
+        "tree_leaf_walk_binned_u16": "lightgbm_tpu/ops/predict.py:87"}
+    sources = {"leaf": "histogram.cu", "spli": "split_scan.cu",
+               "rout": "route_partition.cu", "tree": "binned_walk.cu"}
+    rows = []
+    for k, ms_row in times.items():
+        ms, plain_ms, (b_ms, b_by), lib_ms = ms_row
+        rows.append({
+            "name": k, "route": "cuda",
+            "source": "lightgbm_tpu_torch/csrc/" + sources[k[:4]],
+            "replaces": replaces[k], "launches": launch_of[k],
+            "max_abs_err": errs.get(k, 0.0), "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms})
+    return rows
+
+
 def main():
     # ---------------------------------------------------------------- 0
     if not torch.cuda.is_available():
@@ -3514,6 +4314,7 @@ def main():
     rows.extend(linear(name, card, dev, ctx))
     rows.extend(serving_extras(name, card, dev, ctx, text))
     rows.extend(boosting_modes(name, card, dev, ctx))
+    rows.extend(bosch(name, card, dev, ctx))
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

@@ -69,7 +69,9 @@ def objective_params(objective: Optional[str]) -> Dict[str, str]:
 
 
 class Dataset:
-    """Lazy dataset (reference: basic.py:548-1222), numpy input only."""
+    """Lazy dataset (reference: basic.py:548-1222): a numpy matrix (or
+    DataFrame, scipy sparse matrix), or a data file's path (CSV, TSV or
+    LibSVM, label in column 0)."""
 
     def __init__(self, data, label=None, max_bin: int = 255,
                  reference: Optional["Dataset"] = None, weight=None,
@@ -78,9 +80,6 @@ class Dataset:
                  categorical_feature: Union[str, Sequence] = "auto",
                  params: Optional[Dict[str, Any]] = None,
                  free_raw_data: bool = False):
-        if isinstance(data, str):
-            raise LightGBMError("training from a data file is not ported "
-                                "to lightgbm_tpu_torch yet; pass an array")
         self.data = data
         self.label = label
         self.max_bin = max_bin
@@ -96,6 +95,25 @@ class Dataset:
         # linear_tree, whatever this says
         self.free_raw_data = free_raw_data
         self._inner: Optional[_InnerDataset] = None
+
+    @classmethod
+    def _from_inner(cls, inner: _InnerDataset) -> "Dataset":
+        """A Dataset around a constructed inner one (a loaded binary
+        cache; lightgbm_tpu/basic.py:119)."""
+        ds = cls.__new__(cls)
+        ds.data = None
+        ds.label = inner.metadata.label
+        ds.max_bin = inner.max_bin
+        ds.reference = None
+        ds.weight = None
+        ds.group = None
+        ds.init_score = None
+        ds.params = {}
+        ds.feature_name = "auto"
+        ds.categorical_feature = "auto"
+        ds.free_raw_data = True
+        ds._inner = inner
+        return ds
 
     def _update_params(self, params: Dict[str, Any]) -> "Dataset":
         """Training params reach a dataset not yet constructed; a
@@ -122,14 +140,35 @@ class Dataset:
                 or params.get("categorical_column"):
             raise LightGBMError("categorical features are not ported to "
                                 "lightgbm_tpu_torch training yet")
-        data = _data_to_2d(self.data)
+        # a data file (label in column 0) streams through the two-pass
+        # build in chunks of tpu_ingest_chunk_rows rows; tpu_ingest=false
+        # and LibSVM files load whole first (lightgbm_tpu/basic.py:174-206)
+        data, source, label = self.data, None, self.label
+        has_header = _parse_value(params.get("has_header", False), bool)
+        if isinstance(data, str):
+            if _parse_value(params.get("tpu_ingest", True), bool):
+                from .ingest import FileSource
+                try:
+                    source = FileSource(data, chunk_rows=int(params.get(
+                        "tpu_ingest_chunk_rows", 65536)),
+                        has_header=has_header)
+                except ValueError:
+                    source = None  # libsvm: loaded whole below
+            if source is None:
+                from .io.parser import load_data_file
+                data, file_label = load_data_file(data,
+                                                  has_header=has_header)
+                if label is None:
+                    label = file_label
+        else:
+            data = _data_to_2d(data)
         names = None if self.feature_name in ("auto", None) \
             else list(self.feature_name)
         ref = self.reference._lazy_init() if self.reference is not None \
             else None
-        self._inner = _InnerDataset.from_numpy(
-            data, label=None if self.label is None else np.asarray(
-                self.label, np.float32).ravel(),
+        kwargs = dict(
+            label=None if label is None else np.asarray(
+                label, np.float32).ravel(),
             max_bin=int(params.get("max_bin", self.max_bin)),
             min_data_in_bin=int(params.get("min_data_in_bin", 3)),
             bin_construct_sample_cnt=int(params.get(
@@ -144,14 +183,27 @@ class Dataset:
                                        bool),
             max_conflict_rate=float(params.get("max_conflict_rate", 0.0)),
             sparse_threshold=float(params.get("sparse_threshold", 0.8)),
-            chunk_rows=int(params.get("tpu_ingest_chunk_rows", 65536)),
             # linear trees regress on raw values: linear_tree in the
             # params keeps them (lightgbm_tpu/basic.py:307-320)
             keep_raw=_parse_value(params.get("linear_tree", False), bool))
+        if source is not None:
+            from .ingest import build_inner
+            self._inner = build_inner(source, **kwargs)
+        else:
+            self._inner = _InnerDataset.from_numpy(
+                data, chunk_rows=int(params.get("tpu_ingest_chunk_rows",
+                                                65536)), **kwargs)
         return self._inner
 
     def construct(self) -> "Dataset":
         self._lazy_init()
+        return self
+
+    def save_binary(self, filename: str) -> "Dataset":
+        """The constructed Dataset as a binary cache file, in the JAX
+        package's format (lightgbm_tpu/basic.py:409); load it with
+        `dataset.Dataset.load_binary` and `Dataset._from_inner`."""
+        self._lazy_init().save_binary(filename)
         return self
 
     def create_valid(self, data, label=None, weight=None, group=None,

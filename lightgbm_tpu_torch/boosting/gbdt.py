@@ -198,10 +198,13 @@ class GBDT:
     # ------------------------------------------------------------------
     # training (reference: gbdt.cpp; lightgbm_tpu/boosting/gbdt.py)
     def _device_bins(self, binned: np.ndarray) -> torch.Tensor:
-        if binned.dtype != np.uint8 and self.device.type == "cuda":
-            log.fatal("groups of more than 256 bins (uint16 bin matrices) "
-                      "are not ported to the lightgbm_tpu_torch kernels yet")
-        return torch.from_numpy(np.ascontiguousarray(binned)).to(self.device)
+        """The binned matrix on the device: uint8, or uint16 where a group
+        has more than 256 bins (efb.py FeatureGroups.dtype). A read-only
+        matrix (a mapped binary cache) is copied first."""
+        binned = np.ascontiguousarray(binned)
+        if not binned.flags.writeable:
+            binned = binned.copy()
+        return torch.from_numpy(binned).to(self.device)
 
     def init(self, train_data, objective: Optional[ObjectiveFunction],
              metric_names=()) -> None:
@@ -252,6 +255,12 @@ class GBDT:
         if quant not in TRAIN_QUANTIZE_MODES:
             log.fatal("tpu_hist_quantize must be one of %s (got %r)"
                       % (TRAIN_QUANTIZE_MODES, quant))
+        if quant != "none" and train_data.binned.dtype == np.uint16 \
+                and self.device.type == "cuda":
+            log.fatal("tpu_hist_quantize=%s on groups of more than 256 bins "
+                      "needs HQ's uint16 mode (leaf_histogram_i32 on uint16 "
+                      "bins), which is not ported to lightgbm_tpu_torch yet"
+                      % quant)
         self._quant_mode = quant
         self._quant_qmax = train_qmax(quant, n) if quant != "none" else 0
         self._quant_hess_const = bool(
@@ -272,10 +281,11 @@ class GBDT:
                 hist_qmax=self._quant_qmax,
                 hist_bf16=bool(tc.tpu_hist_bf16)),
             train_data.max_num_bin(),
-            int(train_data.num_bins_per_feature().max()))
-        fm, gcfg, num_bins, feature_bins = self._grower_args
+            int(train_data.num_bins_per_feature().max()),
+            train_data.groups.group_num_bin.copy())
+        fm, gcfg, num_bins, feature_bins, group_bins = self._grower_args
         self._grower = SerialGrower(self._binned, fm, gcfg, num_bins,
-                                    feature_bins)
+                                    feature_bins, group_bins)
         self._feature_rng = np.random.RandomState(tc.feature_fraction_seed)
         self._ones = torch.ones(n, dtype=torch.float32, device=self.device)
         bc = self.config.boosting
@@ -338,7 +348,7 @@ class GBDT:
         mode = self._quant_mode
         n_cal = min(self._n, self._chunk)
         grad, hess = self.objective.get_gradients(self._score[0])
-        fm, gcfg, num_bins, feature_bins = self._grower_args
+        fm, gcfg, num_bins, feature_bins, group_bins = self._grower_args
         cfg = dataclasses.replace(
             gcfg, num_leaves=min(31, self.config.tree.num_leaves))
         qmax = train_qmax(mode, n_cal)
@@ -354,8 +364,8 @@ class GBDT:
                  .contiguous(), None,
                  dataclasses.replace(cfg, hist_quantize="none",
                                      hist_qmax=0))):
-            st = SerialGrower(binned, fm, gc, num_bins, feature_bins).grow(
-                chans, mask, qscale)
+            st = SerialGrower(binned, fm, gc, num_bins, feature_bins,
+                              group_bins).grow(chans, mask, qscale)
             table = torch.from_numpy(st.leaf_value).to(self.device)
             values.append((table[st.leaf_id.long()], st.leaf_value,
                            st.num_leaves_used))

@@ -25,6 +25,12 @@
 // value LA then computes from the leaf and the row's raw values
 // (lightgbm_tpu/boosting/gbdt.py:1563-1581: predict_leaf_binned, then
 // linear_leaf_addend). Bound: G bytes of bins read, 4 written a row.
+//
+// A uint16 matrix (groups past 256 bins) takes the same walk on two-byte
+// bins (walk_kernel<uint16_t>), in both modes. For the Bosch valid set
+// (100,000 rows x 338 groups) the bound counts the bins the walk reads
+// (depth-many a row), the score read and written, or the leaf written:
+// chip_smoke.py computes it from the run's own trees.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -42,7 +48,8 @@ enum {
 constexpr int kDefaultLeftFlag = 1;
 constexpr int kCategoricalFlag = 2;
 
-__global__ void walk_kernel(const uint8_t* __restrict__ binned, int G, int n,
+template <typename BinT>
+__global__ void walk_kernel(const BinT* __restrict__ binned, int G, int n,
                             const int* __restrict__ nodes, int num_leaves,
                             const int* __restrict__ cat_bounds,
                             const uint32_t* __restrict__ cat_bits,
@@ -52,7 +59,7 @@ __global__ void walk_kernel(const uint8_t* __restrict__ binned, int G, int n,
                             int* __restrict__ leaf_out) {
   const int r = blockIdx.x * kBlock + threadIdx.x;
   if (r >= n) return;
-  const uint8_t* row = binned + (size_t)r * G;
+  const BinT* row = binned + (size_t)r * G;
   int node = num_leaves > 1 ? 0 : -1;
   while (node >= 0) {
     const int* nd = nodes + node * kFields;
@@ -95,20 +102,28 @@ __global__ void walk_kernel(const uint8_t* __restrict__ binned, int G, int n,
 
 }  // namespace
 
-// binned [n, G] u8; nodes [max(num_leaves-1, 1), 11] int32 records;
+// binned [n, G] u8, or u16 when u16 != 0; nodes [max(num_leaves-1, 1), 11] int32 records;
 // cat_bounds [C+2] / cat_bits [W] the bin-space bitsets; leaf_value
 // [num_leaves] f32; score [n] f32, added to in place; or, when
 // leaf_out [n] i32 is not NULL, the rows' leaves written there and
 // score untouched.
 extern "C" int lgbt_tree_value_walk_binned(
-    const uint8_t* binned, int G, int n, const int* nodes, int num_leaves,
-    const int* cat_bounds, const uint32_t* cat_bits, int cat_words,
-    const float* leaf_value, float* score, int* leaf_out, void* stream) {
+    const void* binned, int G, int u16, int n, const int* nodes,
+    int num_leaves, const int* cat_bounds, const uint32_t* cat_bits,
+    int cat_words, const float* leaf_value, float* score, int* leaf_out,
+    void* stream) {
   if (n <= 0) return 0;
-  walk_kernel<<<(n + kBlock - 1) / kBlock, kBlock, 0,
-                (cudaStream_t)stream>>>(binned, G, n, nodes, num_leaves,
-                                        cat_bounds, cat_bits, cat_words,
-                                        leaf_value, score, leaf_out);
+  const int blocks = (n + kBlock - 1) / kBlock;
+  cudaStream_t s = (cudaStream_t)stream;
+  if (u16) {
+    walk_kernel<uint16_t><<<blocks, kBlock, 0, s>>>(
+        static_cast<const uint16_t*>(binned), G, n, nodes, num_leaves,
+        cat_bounds, cat_bits, cat_words, leaf_value, score, leaf_out);
+  } else {
+    walk_kernel<uint8_t><<<blocks, kBlock, 0, s>>>(
+        static_cast<const uint8_t*>(binned), G, n, nodes, num_leaves,
+        cat_bounds, cat_bits, cat_words, leaf_value, score, leaf_out);
+  }
   return (int)cudaGetLastError();
 }
 

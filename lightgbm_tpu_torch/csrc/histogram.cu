@@ -1,5 +1,6 @@
 // Kernel H, leaf_histogram, of lightgbm_tpu_torch: per (group, bin) the
-// sums (g*w, h*w, count of rows with w > 0) over a set of rows, built
+// sums (g*w, h*w, count of rows with w > 0) over a set of rows of a
+// uint8 or uint16 binned matrix, built
 // for sm_90a by ops/_build.py and called through ctypes from
 // ops/histogram.py.
 //
@@ -25,7 +26,8 @@
 //   partial in device memory, and a second kernel adds the tiles, each
 //   lane a fixed residue of tiles, then the lanes in a fixed tree.
 //   Counts are integers throughout.
-// The result depends only on the inputs and kTileRows, never on timing.
+// The result depends only on the inputs and the tile size, never on
+// timing.
 //
 // Bound on an H100 SXM (3.35 TB/s): every input byte read once: the
 // group bins of the rows (G bytes a row), 12 bytes of channels a row,
@@ -47,6 +49,26 @@
 // block takes as many warps (at most 4) as fit in 160 KB, so at max_bin
 // 255 a block holds one warp, which keeps one pass over the rows; a
 // second pass for the lo halves would read every row twice.
+//
+// The uint16 modes (groups of more than 256 bins, the JAX package's
+// uint16 matrix: efb.py:96-99, ingest/build.py:116; its H functions are
+// dtype-generic and pad every group to the widest): the same sums in
+// both modes, with each group at its own width (group_num_bin), the
+// tiles' partials laid out at those widths, and tiles of 2,048 << k
+// rows, the least k that keeps the partials' traffic under a quarter of
+// the input's bytes (ops/histogram.py hist_layout, hist_tile_rows: at
+// the Bosch root 16,384 rows, 31 tiles, in both modes). A group whose 32
+// private copies fit 64 KB a warp (at most 170 bins in f32 mode, 102
+// in hi+lo) keeps the lane-private scheme above; a wider one (up to
+// 2,048 bins) cannot (631 bins: 242 KB a warp in f32, 404 KB in hi+lo)
+// and goes warp-shared (hist_wide_kernel): ONE histogram a warp, the
+// lanes that hold the same bin (__match_any_sync) combined in a fixed
+// tree over their rank before their lowest lane's single add. Chosen
+// over bin-range passes, which read each tile once a range: the sums
+// need one pass, and the combining costs a few shuffles a turn only
+// where lanes share a bin. Bound at the Bosch root (500,000 rows x 338
+// groups, B 631; chip_smoke.py phases 30-35): 500,000 x (676 + 12)
+// bytes in, the [338, 631, 3] histogram out, 0.1035 ms.
 //
 // Kernel HQ, leaf_histogram_i32, the quantized-training mode
 // (tpu_hist_quantize=int8|int16): per (group, bin) the int32 sums
@@ -81,6 +103,9 @@ constexpr int kUnroll = 4;  // rows a lane has in flight
 // B = 64 (96 KB) or of hi+lo mode (160 KB); above the budget of one warp
 // a block holds that one warp (hi+lo at B = 256: 160 KB)
 constexpr int kHistSmem = 160 * 1024;
+// warps of a warp-shared block (uint16 groups wider than the lanes'
+// private copies allow): 8 at 1,024 bins in hi+lo mode (160 KB)
+constexpr int kWideWarps = 8;
 
 constexpr float kF32MinNormal = 1.17549435e-38f;
 
@@ -107,23 +132,35 @@ __device__ __forceinline__ void hi_lo(float w, float& hi, float& lo) {
       __fsub_rn(flush_subnormal(w), flush_subnormal(hi))));
 }
 
-// partial layout: [tiles, G, B] for each channel, so the tile reduction
-// reads coalesced runs of bins. f32 mode: g, h (float) and count
-// (uint32); hi+lo mode (HILO): g_hi, h_hi, count, g_lo, h_lo.
-template <bool HILO>
-__global__ void hist_tile_kernel(const uint8_t* __restrict__ binned, int G,
+// partial layout: per channel [tiles, elems] words, elems = the sum of
+// the groups' widths, group g's bins at poff[g] within a tile (the
+// uint8 path: every group B wide at g * B), so the tile reduction reads
+// coalesced runs of bins. f32 mode: g, h (float) and count (uint32);
+// hi+lo mode (HILO): g_hi, h_hi, count, g_lo, h_lo.
+//
+// The lane-private scheme: warp w of block y takes group glist[y *
+// warps + w] (group y * warps + w without a list) of width widths[g]
+// (B without widths).
+template <bool HILO, typename BinT>
+__global__ void hist_tile_kernel(const BinT* __restrict__ binned, int G,
                                  const float* __restrict__ w3,
                                  const int* __restrict__ rows, int n,
-                                 int B, int warps,
-                                 float* __restrict__ part) {
+                                 int tile_rows, int B,
+                                 const int* __restrict__ glist, int n_list,
+                                 const int* __restrict__ widths,
+                                 const int* __restrict__ poff, int elems,
+                                 int warps, float* __restrict__ part) {
   constexpr int kCh = HILO ? 5 : 3;
   extern __shared__ unsigned char smem[];
   const int tile = blockIdx.x;
   const int warp = threadIdx.x / kLanes;
   const int lane = threadIdx.x % kLanes;
-  const int g = blockIdx.y * warps + warp;  // this warp's group
-  const int per_warp = kLanes * B;
-  // this warp's [B bins][32 lanes] histograms: lane l's words all in
+  const int slot = blockIdx.y * warps + warp;  // this warp's group
+  if (slot >= n_list) return;  // whole warps; no block-wide barrier follows
+  const int g = glist ? glist[slot] : slot;
+  const int W = widths ? widths[g] : B;
+  const int per_warp = kLanes * B;  // B: the widest group of the list
+  // this warp's [W bins][32 lanes] histograms: lane l's words all in
   // bank l, so the lanes' adds never conflict
   float* hg = reinterpret_cast<float*>(smem) + warp * per_warp;
   float* hh = reinterpret_cast<float*>(smem) + (warps + warp) * per_warp;
@@ -131,8 +168,7 @@ __global__ void hist_tile_kernel(const uint8_t* __restrict__ binned, int G,
                  (2 * warps + warp) * per_warp;
   float* lg = reinterpret_cast<float*>(smem) + (3 * warps + warp) * per_warp;
   float* lh = reinterpret_cast<float*>(smem) + (4 * warps + warp) * per_warp;
-  if (g >= G) return;  // whole warps; no block-wide barrier follows
-  for (int e = lane; e < per_warp; e += kLanes) {
+  for (int e = lane; e < kLanes * W; e += kLanes) {
     hg[e] = 0.f;
     hh[e] = 0.f;
     hc[e] = 0u;
@@ -143,8 +179,8 @@ __global__ void hist_tile_kernel(const uint8_t* __restrict__ binned, int G,
   }
   __syncwarp();
 
-  const int begin = tile * kTileRows;
-  const int end = min(n, begin + kTileRows);
+  const int begin = tile * tile_rows;
+  const int end = min(n, begin + tile_rows);
   // lane l takes rows begin+l, begin+l+32, ... in order, kUnroll of
   // them loaded before any is added
   for (int i0 = begin + lane; i0 < end; i0 += kLanes * kUnroll) {
@@ -154,7 +190,7 @@ __global__ void hist_tile_kernel(const uint8_t* __restrict__ binned, int G,
 #pragma unroll
     for (int u = 0; u < kUnroll; ++u) {
       const int i = i0 + u * kLanes;
-      bin[u] = B;
+      bin[u] = W;
       vg[u] = vh[u] = 0.f;
       vc[u] = 0u;
       if (i < end) {
@@ -168,7 +204,7 @@ __global__ void hist_tile_kernel(const uint8_t* __restrict__ binned, int G,
     }
 #pragma unroll
     for (int u = 0; u < kUnroll; ++u) {
-      if (bin[u] < B) {
+      if (bin[u] < W) {
         const int e = bin[u] * kLanes + lane;
         if (HILO) {
           // the split costs registers only: no more bytes are read
@@ -190,10 +226,9 @@ __global__ void hist_tile_kernel(const uint8_t* __restrict__ binned, int G,
   __syncwarp();
 
   // the lanes' histograms added in a fixed tree into the tile's partial
-  const size_t elems = (size_t)G * B;
-  const size_t out0 = ((size_t)tile * G + g) * B;
+  const size_t out0 = (size_t)tile * elems + (poff ? poff[g] : (size_t)g * B);
   const size_t chan = (size_t)gridDim.x * elems;  // one channel's words
-  for (int b = 0; b < B; ++b) {
+  for (int b = 0; b < W; ++b) {
     float v[kCh];
     v[0] = hg[b * kLanes + lane];
     v[1] = hh[b * kLanes + lane];
@@ -219,25 +254,182 @@ __global__ void hist_tile_kernel(const uint8_t* __restrict__ binned, int G,
   }
 }
 
+// the lane of rank j (0-based) among the set bits of m: a binary search
+// on popcounts, 5 steps
+__device__ __forceinline__ int nth_set_lane(unsigned m, int j) {
+  int pos = 0;
+#pragma unroll
+  for (int s = 16; s > 0; s >>= 1) {
+    const unsigned low = m & ((1u << s) - 1u);
+    const int c = __popc(low);
+    if (j >= c) {
+      j -= c;
+      m >>= s;
+      pos += s;
+    } else {
+      m = low;
+    }
+  }
+  return pos;
+}
+
+// The warp-shared scheme, for groups too wide for 32 private copies
+// (uint16 matrices): block (tile, y) takes group glist[y]; its warps
+// take the tile's rows in turns of 32 (warp w rows begin + 32 * (w +
+// warps * k) + lane), and each warp keeps ONE [ch][W] histogram. In each
+// turn the lanes that hold the same bin (__match_any_sync) add their
+// values in a fixed tree over their rank among those lanes, and the
+// lowest of them adds the sum to the shared bin: the leaders of one turn
+// hold distinct bins, so no two lanes write one word, and no float
+// atomics are needed. The warps' histograms are then added in warp order
+// into the tile's partial. Every order depends on the rows' bins only.
+template <bool HILO>
+__global__ void hist_wide_kernel(const uint16_t* __restrict__ binned, int G,
+                                 const float* __restrict__ w3,
+                                 const int* __restrict__ rows, int n,
+                                 int tile_rows,
+                                 const int* __restrict__ glist,
+                                 const int* __restrict__ widths,
+                                 const int* __restrict__ poff, int elems,
+                                 int wmax, float* __restrict__ part) {
+  constexpr int kCh = HILO ? 5 : 3;
+  extern __shared__ unsigned char smem[];
+  const int tile = blockIdx.x;
+  const int warps = blockDim.x / kLanes;
+  const int warp = threadIdx.x / kLanes;
+  const int lane = threadIdx.x % kLanes;
+  const int g = glist[blockIdx.y];
+  const int W = widths[g];
+  // warp w's channels: [kCh][wmax] words at w * kCh * wmax
+  float* h = reinterpret_cast<float*>(smem) + (size_t)warp * kCh * wmax;
+  for (int e = threadIdx.x; e < warps * kCh * wmax; e += blockDim.x) {
+    reinterpret_cast<float*>(smem)[e] = 0.f;
+  }
+  __syncthreads();
+  const int begin = tile * tile_rows;
+  const int end = min(n, begin + tile_rows);
+  const unsigned below = (1u << lane) - 1u;
+  for (int i0 = begin + warp * kLanes + lane; i0 - lane < end;
+       i0 += warps * kLanes * kUnroll) {
+    int bin[kUnroll];
+    float vg[kUnroll], vh[kUnroll];
+    uint32_t vc[kUnroll];
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) {
+      const int i = i0 + u * warps * kLanes;
+      bin[u] = W;
+      vg[u] = vh[u] = 0.f;
+      vc[u] = 0u;
+      if (i < end) {
+        const int r = rows ? __ldg(rows + i) : i;
+        bin[u] = __ldg(binned + (size_t)r * G + g);
+        const float* w = w3 + (size_t)r * 3;
+        vg[u] = __ldg(w);
+        vh[u] = __ldg(w + 1);
+        vc[u] = __ldg(w + 2) > 0.f ? 1u : 0u;
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) {
+      float v[kCh];
+      if (HILO) {
+        hi_lo(vg[u], v[0], v[3]);
+        hi_lo(vh[u], v[1], v[4]);
+      } else {
+        v[0] = vg[u];
+        v[1] = vh[u];
+      }
+      uint32_t k = vc[u];
+      const unsigned peers = __match_any_sync(~0u, bin[u]);
+      const int rank = __popc(peers & below);
+      const int cnt = __popc(peers);
+      const int most = __reduce_max_sync(~0u, cnt);
+      // pairwise by rank: at step s, rank r (a multiple of 2s) adds the
+      // sum held by rank r + s
+      for (int s = 1; s < most; s <<= 1) {
+        const bool take = (rank % (2 * s)) == 0 && rank + s < cnt;
+        const int src = take ? nth_set_lane(peers, rank + s) : lane;
+#pragma unroll
+        for (int c = 0; c < kCh; ++c) {
+          if (c != 2) {
+            const float o = __shfl_sync(~0u, v[c], src);
+            if (take) v[c] += o;
+          }
+        }
+        const uint32_t ko = __shfl_sync(~0u, k, src);
+        if (take) k += ko;
+      }
+      if (rank == 0 && bin[u] < W) {
+#pragma unroll
+        for (int c = 0; c < kCh; ++c) {
+          if (c != 2) h[c * wmax + bin[u]] += v[c];
+        }
+        reinterpret_cast<uint32_t*>(h)[2 * wmax + bin[u]] += k;
+      }
+      __syncwarp();
+    }
+  }
+  __syncthreads();
+  // the warps' histograms added in warp order into the tile's partial
+  const size_t out0 = (size_t)tile * elems + poff[g];
+  const size_t chan = (size_t)gridDim.x * elems;
+  const float* all = reinterpret_cast<const float*>(smem);
+  for (int b = threadIdx.x; b < W; b += blockDim.x) {
+#pragma unroll
+    for (int c = 0; c < kCh; ++c) {
+      if (c == 2) {
+        uint32_t k = 0u;
+        for (int w = 0; w < warps; ++w) {
+          k += reinterpret_cast<const uint32_t*>(all)[
+              ((size_t)w * kCh + 2) * wmax + b];
+        }
+        reinterpret_cast<uint32_t*>(part)[2 * chan + out0 + b] = k;
+      } else {
+        float v = 0.f;
+        for (int w = 0; w < warps; ++w) {
+          v += all[((size_t)w * kCh + c) * wmax + b];
+        }
+        part[c * chan + out0 + b] = v;
+      }
+    }
+  }
+}
+
 // out[g, b, :] = the sum over tiles of the partials, one warp per
 // element: lane l adds tiles l, l+32, ... in order, then the lanes are
 // added in a fixed tree. Same order every run. In hi+lo mode the hi and
-// lo sums are added here, once, after all rows.
+// lo sums are added here, once, after all rows. With widths, out is
+// [G, B, 3] and a bin past its group's width is written 0.
 template <bool HILO>
 __global__ void hist_reduce_kernel(const float* __restrict__ part,
-                                   int tiles, int elems,
+                                   int tiles, int elems, int G, int B,
+                                   const int* __restrict__ widths,
+                                   const int* __restrict__ poff,
                                    float* __restrict__ out) {
   constexpr int kCh = HILO ? 5 : 3;
   const int e = blockIdx.x * (blockDim.x / kLanes) + threadIdx.x / kLanes;
   const int lane = threadIdx.x % kLanes;
-  if (e >= elems) return;  // whole warps leave together
+  if (e >= G * B) return;  // whole warps leave together
+  int src = e;  // the element's word in a tile's partial
+  if (widths) {
+    const int g = e / B, b = e % B;
+    if (b >= widths[g]) {
+      if (lane == 0) {
+        out[(size_t)e * 3] = 0.f;
+        out[(size_t)e * 3 + 1] = 0.f;
+        out[(size_t)e * 3 + 2] = 0.f;
+      }
+      return;
+    }
+    src = poff[g] + b;
+  }
   const size_t chan = (size_t)tiles * elems;
   float v[kCh];
 #pragma unroll
   for (int c = 0; c < kCh; ++c) v[c] = 0.f;
   uint32_t k = 0u;
   for (int t = lane; t < tiles; t += kLanes) {
-    const size_t i = (size_t)t * elems + e;
+    const size_t i = (size_t)t * elems + src;
 #pragma unroll
     for (int c = 0; c < kCh; ++c) {
       if (c != 2) v[c] += part[c * chan + i];
@@ -306,49 +498,110 @@ extern "C" int lgbt_hist_tiles(int n) {
 
 namespace {
 
-template <bool HILO>
-int launch_histogram(const uint8_t* binned, int G, const float* w3,
-                     const int* rows, int n, int B, float* part, float* out,
-                     cudaStream_t s) {
-  const int tiles = lgbt_hist_tiles(n);
+// the per-lane kernel over n_list groups of at most B bins
+template <bool HILO, typename BinT>
+int launch_lanes(const BinT* binned, int G, const float* w3,
+                 const int* rows, int n, int tile_rows, int tiles, int B,
+                 const int* glist, int n_list, const int* widths,
+                 const int* poff, int elems, float* part, cudaStream_t s) {
   const size_t warp_bytes = (size_t)kLanes * B * 4 * (HILO ? 5 : 3);
   int warps = (int)(kHistSmem / warp_bytes);
   warps = warps < 1 ? 1 : (warps > 4 ? 4 : warps);
-  if (warps > G) warps = G;
+  if (warps > n_list) warps = n_list;
   const size_t smem = warp_bytes * warps;
   cudaError_t err = cudaFuncSetAttribute(
-      hist_tile_kernel<HILO>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
+      hist_tile_kernel<HILO, BinT>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  const size_t elems = (size_t)G * B;
-  dim3 grid(tiles, (G + warps - 1) / warps);
-  hist_tile_kernel<HILO><<<grid, warps * kLanes, smem, s>>>(
-      binned, G, w3, rows, n, B, warps, part);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
+  dim3 grid(tiles, (n_list + warps - 1) / warps);
+  hist_tile_kernel<HILO, BinT><<<grid, warps * kLanes, smem, s>>>(
+      binned, G, w3, rows, n, tile_rows, B, glist, n_list, widths, poff,
+      elems, warps, part);
+  return (int)cudaGetLastError();
+}
+
+template <bool HILO>
+int launch_histogram(const void* binned, int G, int u16, const float* w3,
+                     const int* rows, int n, int B, const int* widths,
+                     const int* poff, const int* narrow, int n_narrow,
+                     int narrow_w, const int* wide, int n_wide, int wide_w,
+                     int tile_rows, int elems, float* part, float* out,
+                     cudaStream_t s) {
+  const int tiles = n > 0 ? (n + tile_rows - 1) / tile_rows : 1;
+  int rc = 0;
+  if (!u16) {
+    rc = launch_lanes<HILO, uint8_t>(
+        static_cast<const uint8_t*>(binned), G, w3, rows, n, tile_rows,
+        tiles, B, nullptr, G, nullptr, nullptr, G * B, part, s);
+  } else {
+    const uint16_t* b16 = static_cast<const uint16_t*>(binned);
+    if (n_narrow > 0) {
+      rc = launch_lanes<HILO, uint16_t>(b16, G, w3, rows, n, tile_rows,
+                                        tiles, narrow_w, narrow, n_narrow,
+                                        widths, poff, elems, part, s);
+    }
+    if (rc == 0 && n_wide > 0) {
+      constexpr int kCh = HILO ? 5 : 3;
+      const size_t warp_bytes = (size_t)kCh * wide_w * 4;
+      int warps = (int)(kHistSmem / warp_bytes);
+      warps = warps < 1 ? 1 : (warps > kWideWarps ? kWideWarps : warps);
+      const size_t smem = warp_bytes * warps;
+      cudaError_t err = cudaFuncSetAttribute(
+          hist_wide_kernel<HILO>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+          (int)smem);
+      if (err != cudaSuccess) return (int)err;
+      dim3 grid(tiles, n_wide);
+      hist_wide_kernel<HILO><<<grid, warps * kLanes, smem, s>>>(
+          b16, G, w3, rows, n, tile_rows, wide, widths, poff, elems, wide_w,
+          part);
+      rc = (int)cudaGetLastError();
+    }
+  }
+  if (rc != 0) return rc;
   const int per_block = 8;  // warps, one element each
-  hist_reduce_kernel<HILO><<<(int)((elems + per_block - 1) / per_block),
-                             per_block * kLanes, 0, s>>>(part, tiles,
-                                                         (int)elems, out);
+  const size_t outs = (size_t)G * B;
+  hist_reduce_kernel<HILO><<<(int)((outs + per_block - 1) / per_block),
+                             per_block * kLanes, 0, s>>>(
+      part, tiles, elems, G, B, u16 ? widths : nullptr,
+      u16 ? poff : nullptr, out);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// binned [N, G] u8 row-major; w3 [N, 3] f32 = (g*w, h*w, w); rows: a row
-// list of n entries or NULL for rows 0..n-1; hilo: 1 for the hi+lo
-// mode; scratch: (hilo ? 5 : 3) * tiles * G * B words; out [G, B, 3]
-// f32. Returns cudaGetLastError().
-extern "C" int lgbt_leaf_histogram(const uint8_t* binned, int G,
+// binned [N, G] row-major, u8 or (u16 != 0) u16; w3 [N, 3] f32 = (g*w,
+// h*w, w); rows: a row list of n entries or NULL for rows 0..n-1; hilo:
+// 1 for the hi+lo mode; out [G, B, 3] f32. A u8 matrix takes rows in
+// tiles of kTileRows, every group B wide and lane-private (the other
+// arguments unread). A u16 matrix takes the layout of ops/histogram.py
+// hist_layout, on the device: widths [G] (each group's own bins), poff [G]
+// (its first word in a tile's partial), the lane-private groups
+// narrow[n_narrow] (at most narrow_w bins) and the warp-shared ones
+// wide[n_wide] (at most wide_w), elems (a tile's words a channel), and
+// tile_rows (hist_tile_rows). scratch: (hilo ? 5 : 3) * tiles * elems words. Returns
+// cudaGetLastError().
+extern "C" int lgbt_leaf_histogram(const void* binned, int G, int u16,
                                    const float* w3, const int* rows, int n,
-                                   int B, int hilo, void* scratch,
+                                   int B, int hilo, const int* widths,
+                                   const int* poff, const int* narrow,
+                                   int n_narrow, int narrow_w,
+                                   const int* wide, int n_wide, int wide_w,
+                                   int tile_rows, int elems, void* scratch,
                                    float* out, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
   float* part = (float*)scratch;
-  return hilo ? launch_histogram<true>(binned, G, w3, rows, n, B, part, out,
-                                       s)
-              : launch_histogram<false>(binned, G, w3, rows, n, B, part,
-                                        out, s);
+  if (!u16) {
+    tile_rows = kTileRows;
+    elems = G * B;
+  }
+  return hilo ? launch_histogram<true>(binned, G, u16, w3, rows, n, B,
+                                       widths, poff, narrow, n_narrow,
+                                       narrow_w, wide, n_wide, wide_w,
+                                       tile_rows, elems, part, out, s)
+              : launch_histogram<false>(binned, G, u16, w3, rows, n, B,
+                                        widths, poff, narrow, n_narrow,
+                                        narrow_w, wide, n_wide, wide_w,
+                                        tile_rows, elems, part, out, s);
 }
 
 // binned [N, G] u8 row-major; codes [N] short2 (q_g, q_h); w01 [N] f32;

@@ -38,11 +38,19 @@
 // 0.0072 ms; a division a row is far below the card's rate.
 //
 // Bound on an H100 (3.35 TB/s), per split of an m-row segment: read m
-// row ids, m group bins and m leaf ids, write m leaf ids and 2m row ids,
-// ~21 bytes a row (42 MB, 0.013 ms, for the root's 2,000,000 rows). The
-// bin reads gather one byte a row with a stride of G, so they cost a
+// row ids and m group bins, write m row ids and m leaf ids, 13 bytes a
+// row (26 MB, 0.0078 ms, for the root's 2,000,000 rows; chip_smoke.py
+// counts the same). The kernels also write and read back a scratch copy
+// of the row ids and read the leaf ids, 12 bytes a row more. The bin
+// reads gather one byte a row with a stride of G, so they cost a
 // 32-byte sector each: the kernel sits well above that bound until the
 // matrix is kept column-major as well.
+//
+// A uint16 matrix (groups past 256 bins, lightgbm_tpu/efb.py:96-99)
+// takes the same kernel on two-byte bins (route_kernel<uint16_t>); the
+// partition is integer either way. At the Bosch root (500,000 rows, 338
+// groups) the bound is 500,000 x (4 + 2 + 4 + 4) bytes, 7 MB, 0.0021
+// ms; each bin still costs its 32-byte sector.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -70,7 +78,8 @@ __device__ __forceinline__ bool go_left(const Split& s, int col) {
   return missing ? s.default_left != 0 : col <= s.threshold;
 }
 
-__global__ void route_kernel(const uint8_t* __restrict__ binned, int G,
+template <typename BinT>
+__global__ void route_kernel(const BinT* __restrict__ binned, int G,
                              const int* __restrict__ perm, int begin, int m,
                              Split s, int* __restrict__ leaf_id,
                              int* __restrict__ tile_left) {
@@ -181,13 +190,14 @@ __global__ void score_average_kernel(float* __restrict__ score,
 
 extern "C" int lgbt_route_tiles(int m) { return (m + kTile - 1) / kTile; }
 
+// binned [N, G] row-major, u8 or (u16 != 0) u16.
 // Split the segment perm[begin, begin+m) by the split s: leaf_id of its
 // rows becomes left_slot or right_slot, and the segment is reordered
 // stably, left rows first. scratch: tiles + 1 ints for the counts, then
 // m ints for the reordered segment. The left count ends in
 // scratch[tiles] and, when count_out is not NULL, in *count_out.
 extern "C" int lgbt_route_partition(
-    const uint8_t* binned, int G, int* perm, int begin, int m, int group,
+    const void* binned, int G, int u16, int* perm, int begin, int m, int group,
     int offset, int num_bin, int default_bin, int missing, int bundled,
     int threshold, int default_left, int is_cat, int left_slot,
     int right_slot, int* leaf_id, int* scratch, int* count_out,
@@ -203,8 +213,15 @@ extern "C" int lgbt_route_partition(
   const int tiles = lgbt_route_tiles(m);
   int* tile_left = scratch;
   int* seg = scratch + tiles + 1;
-  route_kernel<<<tiles, kThreads, 0, st>>>(binned, G, perm, begin, m, s,
-                                           leaf_id, tile_left);
+  if (u16) {
+    route_kernel<uint16_t><<<tiles, kThreads, 0, st>>>(
+        static_cast<const uint16_t*>(binned), G, perm, begin, m, s, leaf_id,
+        tile_left);
+  } else {
+    route_kernel<uint8_t><<<tiles, kThreads, 0, st>>>(
+        static_cast<const uint8_t*>(binned), G, perm, begin, m, s, leaf_id,
+        tile_left);
+  }
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   scan_tiles_kernel<<<1, 32, 0, st>>>(tile_left, tiles, count_out);

@@ -31,6 +31,16 @@
 // copied to shared memory (when it fits), so that lane's serial walk
 // waits on shared memory, not on device memory.
 //
+// Past 256 bins a feature (max_bin above 255: single-feature groups of
+// up to 2,048 bins, a uint16 matrix) XLA scans the blocks' totals in
+// blocks of 16 again; lane 0 carries that second level (a running sum
+// within each block of 16 blocks plus the running sum of the finished
+// ones), which at FB <= 4,096 is all there is. The scans' shared memory
+// (3 x FB words a warp) sets the warps: 16 up to FB = 1,063 at F = 28,
+// 8 at 2,048. At Bosch (968 features, a leaf pair's 2 x 2.6 MB
+// histograms) the histogram is not staged and the bound is its 5.1 MB,
+// 0.0015 ms; one lane's serial walk sets the time.
+//
 // Arithmetic is f32 in the JAX package's order; the library is built
 // with -fmad=false so no multiply-add is fused, which keeps the kernel
 // bitwise equal to its plain version. Bound on an H100: C*G*B*12 bytes
@@ -47,6 +57,8 @@ namespace {
 constexpr float kEpsilon = 1e-15f;
 constexpr float kGainClamp = 1e30f;
 constexpr int kMaxWarps = 16;
+// the dynamic shared memory a block may take (an SM gives 227 KB)
+constexpr size_t kSmemBudget = 200 * 1024;
 constexpr int kMissingNone = 0;
 constexpr int kMissingZero = 1;
 constexpr int kMissingNan = 2;
@@ -204,15 +216,30 @@ __global__ void __launch_bounds__(kMaxWarps * 32) split_scan_kernel(
     };
     if (lane == 0) {
       // running sums within blocks of kXlaScanBase bins (rg, rh, rc),
-      // plus the running sum of the finished blocks' totals (bg_, ...);
-      // FB <= 256 (the wrapper checks), so at most 16 blocks, whose
-      // totals XLA also adds one at a time
-      float rg = 0.f, rh = 0.f, rc = 0.f, bg_ = 0.f, bh_ = 0.f, bc_ = 0.f;
+      // plus X[j - 1] for block j > 0, X the XLA scan of the blocks'
+      // totals: up to kXlaScanBase blocks a running sum (wg, ...); past
+      // that the totals are scanned in blocks of kXlaScanBase too, a
+      // running sum within each (wg, ...) plus the running sum of the
+      // finished super-blocks' totals (yg, ...), which at FB <= 4096
+      // (the wrapper takes at most 2048) are at most kXlaScanBase
+      const bool two = FB > kXlaScanBase * kXlaScanBase;
+      float rg = 0.f, rh = 0.f, rc = 0.f, wg = 0.f, wh = 0.f, wc = 0.f;
+      float yg = 0.f, yh = 0.f, yc = 0.f, bg_ = 0.f, bh_ = 0.f, bc_ = 0.f;
       for (int t = 0; t < FB; ++t) {
         if (t > 0 && t % kXlaScanBase == 0) {
-          bg_ = bg_ + rg;
-          bh_ = bh_ + rh;
-          bc_ = bc_ + rc;
+          const int k = t / kXlaScanBase - 1;  // the block just finished
+          if (two && k > 0 && k % kXlaScanBase == 0) {
+            yg = yg + wg;
+            yh = yh + wh;
+            yc = yc + wc;
+            wg = wh = wc = 0.f;
+          }
+          wg = wg + rg;
+          wh = wh + rh;
+          wc = wc + rc;
+          bg_ = two ? wg + yg : wg;
+          bh_ = two ? wh + yh : wh;
+          bc_ = two ? wc + yc : wc;
           rg = rh = rc = 0.f;
         }
         float vg, vh, vc;
@@ -332,8 +359,9 @@ __global__ void __launch_bounds__(kMaxWarps * 32) split_scan_kernel(
 // is_categorical, group, offset, is_bundled, feature mask); FB: the
 // per-feature scan width. feat_gain [C, F] f32; out_f [C, 4] = (gain,
 // left_sum_g, left_sum_h, left_count); out_i [C, 4] = (feature,
-// threshold, default_left, is_categorical). FB <= 256 (the wrapper
-// checks).
+// threshold, default_left, is_categorical). FB <= 2048 (the wrapper
+// checks); cudaErrorInvalidValue when F features and one warp's scans do
+// not fit kSmemBudget.
 extern "C" int lgbt_split_scan(
     const float* hist, int C, int G, int B, int F, int FB, const float* sums,
     const int* depth, const int* num_bin, const int* missing,
@@ -345,9 +373,15 @@ extern "C" int lgbt_split_scan(
   Params p{l1,       l2,        min_gain_to_split, min_sum_hessian,
            min_data, max_depth};
   // a warp per feature at a time; 16 warps of at most 128 registers a
-  // thread fit the SM's 65,536 registers
-  const int warps = F < kMaxWarps ? F : kMaxWarps;
-  size_t smem = ((size_t)F * 6 + (size_t)warps * 3 * FB) * 4;
+  // thread fit the SM's 65,536 registers; fewer where each warp's scans
+  // (3 * FB words) would not fit the shared-memory budget (FB = 2048:
+  // 8 warps)
+  const size_t fixed = (size_t)F * 6 * 4, per_warp = (size_t)3 * FB * 4;
+  if (fixed + per_warp > kSmemBudget) return (int)cudaErrorInvalidValue;
+  int warps = F < kMaxWarps ? F : kMaxWarps;
+  const int fit = (int)((kSmemBudget - fixed) / per_warp);
+  if (warps > fit) warps = fit;
+  size_t smem = fixed + (size_t)warps * per_warp;
   const size_t hist_bytes = (size_t)G * B * 3 * 4;
   const int staged = smem + hist_bytes <= 160 * 1024;
   if (staged) smem += hist_bytes;

@@ -2,7 +2,8 @@
 
 The port's copy of `lightgbm_tpu/dataset.py` (reference Dataset,
 `include/LightGBM/dataset.h:280-570`): the whole training set is ONE
-dense `[num_data, num_groups]` uint8 matrix of bin indices, which the
+dense `[num_data, num_groups]` uint8 matrix of bin indices (uint16 where
+a group has more than 256 bins), which the
 trainer copies to the card once (`boosting/gbdt.py`); trivial features
 are dropped and sparse ones bundled (`efb.py`). Metadata mirrors
 `dataset.h:36-248`: label, weights, init score and, for ranking, the
@@ -10,12 +11,18 @@ query boundaries and per-query weights.
 """
 from __future__ import annotations
 
+import json
+import struct
 from typing import Dict, List, Optional, Sequence
 
 import numpy as np
 
 from . import log
 from .binning import BIN_CATEGORICAL, BinMapper
+
+# the JAX package's first binary format (lightgbm_tpu/dataset.py:29),
+# still read
+_BINARY_MAGIC = b"lightgbm_tpu.dataset.v1\n"
 
 
 class Metadata:
@@ -142,9 +149,9 @@ class Dataset:
         data = np.asarray(data)
         if data.ndim != 2:
             log.fatal("Dataset data must be 2-dimensional")
-        from .ingest import build_inner
+        from .ingest import ArraySource, build_inner
         return build_inner(
-            data, chunk_rows=chunk_rows,
+            ArraySource(data, chunk_rows),
             max_bin=max_bin, min_data_in_bin=min_data_in_bin,
             min_split_data=min_split_data,
             bin_construct_sample_cnt=bin_construct_sample_cnt,
@@ -228,3 +235,61 @@ class Dataset:
         return {"num_bin": num_bin, "missing_type": missing_type,
                 "default_bin": default_bin, "is_categorical": is_categorical,
                 "group": group, "offset": offset, "is_bundled": is_bundled}
+
+    # ------------------------------------------------------------------
+    # the binary file (lightgbm_tpu/dataset.py:262-319): written as the
+    # v2 ingest cache (ingest/cache.py); the v1 reader stays for older
+    # files
+    def save_binary(self, filename: str, fingerprint: str = "") -> None:
+        from .ingest import save_cache
+        save_cache(self, filename, fingerprint=fingerprint)
+
+    @classmethod
+    def load_binary(cls, filename: str,
+                    expected_fingerprint=None) -> "Dataset":
+        from .ingest import CACHE_MAGIC, load_cache
+        with open(filename, "rb") as fh:
+            head = fh.read(max(len(CACHE_MAGIC), len(_BINARY_MAGIC)))
+        if head.startswith(CACHE_MAGIC):
+            return load_cache(filename,
+                              expected_fingerprint=expected_fingerprint)
+        return cls._load_binary_v1(filename)
+
+    @classmethod
+    def _load_binary_v1(cls, filename: str) -> "Dataset":
+        ds = cls()
+        with open(filename, "rb") as fh:
+            if fh.read(len(_BINARY_MAGIC)) != _BINARY_MAGIC:
+                log.fatal("%s is not a lightgbm_tpu binary dataset"
+                          % filename)
+            (mlen,) = struct.unpack("<q", fh.read(8))
+            meta = json.loads(fh.read(mlen).decode())
+            ds.feature_names = meta["feature_names"]
+            ds.used_features = [int(x) for x in meta["used_features"]]
+            ds.num_total_features = int(meta["num_total_features"])
+            ds.max_bin = int(meta["max_bin"])
+            ds.mappers = [BinMapper.from_dict(d) for d in meta["mappers"]]
+            if meta.get("groups") is not None:
+                from .efb import FeatureGroups
+                num_bins = np.asarray([ds.mappers[j].num_bin
+                                       for j in ds.used_features], np.int32)
+                ds.groups = FeatureGroups(
+                    [[int(j) for j in g] for g in meta["groups"]], num_bins)
+            arrays = []
+            for _ in range(5):
+                code = fh.read(1)
+                arrays.append(None if code == b"N"
+                              else np.load(fh, allow_pickle=False))
+        ds.binned, label, weights, qb, init = arrays
+        ds.metadata = Metadata(0 if ds.binned is None
+                               else ds.binned.shape[0])
+        if label is not None:
+            ds.metadata.set_label(label)
+        if weights is not None:
+            ds.metadata.set_weights(weights)
+        if qb is not None:
+            ds.metadata.query_boundaries = qb
+            ds.metadata._update_query_weights()
+        if init is not None:
+            ds.metadata.set_init_score(init)
+        return ds

@@ -1,13 +1,14 @@
-"""The two-pass build: an in-memory matrix -> Dataset (the port's copy
-of `lightgbm_tpu/ingest/build.py` `build_inner`, in-memory source and
-host landing only).
+"""The two-pass build: a chunk source -> Dataset (the port's copy of
+`lightgbm_tpu/ingest/build.py` `build_inner`, host landing only).
 
 Pass 1 (`sketch.sketch_pass`) freezes the bin mappers from the row
 samples; pass 2 re-streams the row chunks, bins each against the frozen
 bounds, bundles it (EFB) and writes it into a preallocated host matrix.
 Every decision that shapes the result (row samples, bounds, bundle
 layout, per-row bins) is made by the same functions on the same rows
-as in the JAX package, so both build the same matrix.
+as in the JAX package, so both build the same matrix, and a file
+streamed at any chunk size gives the matrix of the same rows held in
+memory.
 """
 from __future__ import annotations
 
@@ -16,16 +17,15 @@ from typing import List, Optional, Sequence
 import numpy as np
 
 from .. import log
-from .sketch import (DEFAULT_CHUNK_ROWS, bin_sample_columns, row_chunks,
-                     sketch_pass)
+from .sketch import bin_sample_columns, sketch_pass
+from .sources import ArraySource, ChunkSource
 
 #: parallel per-feature binning inside a chunk above these sizes
 _POOL_MIN_FEATURES = 4
 _POOL_MIN_ROWS = 100_000
 
 
-def build_inner(data: np.ndarray, *,
-                chunk_rows: int = DEFAULT_CHUNK_ROWS,
+def build_inner(source: ChunkSource, *,
                 max_bin: int = 255, min_data_in_bin: int = 3,
                 min_split_data: int = 0,
                 bin_construct_sample_cnt: int = 200000,
@@ -38,8 +38,9 @@ def build_inner(data: np.ndarray, *,
                 enable_bundle: bool = True,
                 max_conflict_rate: float = 0.0,
                 sparse_threshold: float = 0.8, keep_raw: bool = False):
-    """Build a `dataset.Dataset` by streaming the `[n, f]` matrix twice
-    in chunks of `chunk_rows` rows.
+    """Build a `dataset.Dataset` by streaming `source` twice
+    (lightgbm_tpu/ingest/build.py:33). A source with a label column
+    gives the labels unless `label` is passed.
 
     `reference`: reuse a training set's mappers and groups (a validation
     set). `mappers`: preset BinMappers. `keep_raw`: also keep the f32
@@ -47,12 +48,7 @@ def build_inner(data: np.ndarray, *,
     from ..dataset import Dataset, Metadata
     from ..efb import find_groups_sampled
 
-    data = np.asarray(data)
-    if data.ndim != 2:
-        log.fatal("build_inner needs a 2-dimensional matrix")
-    # float64 once (copy only if the dtype differs), chunk views after
-    data = data.astype(np.float64, copy=False)
-    n, f = data.shape
+    f, n = source.num_cols(), source.num_rows()
     ds = Dataset()
     ds.num_total_features = f
     ds.max_bin = max_bin if reference is None else reference.max_bin
@@ -70,8 +66,7 @@ def build_inner(data: np.ndarray, *,
         sketch = None
     else:
         sketch = sketch_pass(
-            data, max_bin=max_bin, chunk_rows=chunk_rows,
-            min_data_in_bin=min_data_in_bin,
+            source, max_bin=max_bin, min_data_in_bin=min_data_in_bin,
             min_split_data=min_split_data,
             bin_construct_sample_cnt=bin_construct_sample_cnt,
             seed=data_random_seed,
@@ -107,32 +102,47 @@ def build_inner(data: np.ndarray, *,
         if g_cnt else 1
     out_dtype = np.uint8 if max_group_bin <= 256 else np.uint16
     binned = np.zeros((n, g_cnt), out_dtype)
+    labels_out = None if label is not None or not source.has_labels \
+        else np.zeros(n, np.float64)
+    # an ArraySource holds the matrix already: its raw values are a view
+    collect_raw = keep_raw and not isinstance(source, ArraySource)
+    raw_blocks: List[np.ndarray] = []
 
     pool = None
     if len(used) > _POOL_MIN_FEATURES and n > _POOL_MIN_ROWS:
         from concurrent.futures import ThreadPoolExecutor
         pool = ThreadPoolExecutor(max_workers=8)
     try:
-        for lo, chunk in row_chunks(data, chunk_rows):
-            if not used:
-                break
-
-            def _bin_col(j, chunk=chunk):
-                return ds.mappers[j].values_to_bins(chunk[:, j])
-            cols: List[np.ndarray] = (list(pool.map(_bin_col, used))
-                                      if pool is not None
-                                      else [_bin_col(j) for j in used])
-            binned[lo:lo + len(chunk)] = groups.bundle_rows(cols,
-                                                            default_bins)
+        lo = 0
+        for chunk, chunk_labels in source.chunks():
+            m = len(chunk)
+            if used:
+                def _bin_col(j, chunk=chunk):
+                    return ds.mappers[j].values_to_bins(chunk[:, j])
+                cols = (list(pool.map(_bin_col, used)) if pool is not None
+                        else [_bin_col(j) for j in used])
+                binned[lo:lo + m] = groups.bundle_rows(cols, default_bins)
+            if labels_out is not None and chunk_labels is not None:
+                labels_out[lo:lo + m] = chunk_labels
+            if collect_raw:
+                raw_blocks.append(np.asarray(chunk[:, used], np.float32))
+            lo += m
+        if lo != n:
+            log.fatal("Source reported %d rows but streamed %d" % (n, lo))
     finally:
         if pool is not None:
             pool.shutdown()
     ds.binned = binned
     if keep_raw:
-        ds.raw = np.ascontiguousarray(data[:, used], np.float32)
+        ds.raw = np.ascontiguousarray(source.data[:, used], np.float32) \
+            if isinstance(source, ArraySource) else (
+                np.concatenate(raw_blocks, axis=0) if raw_blocks
+                else np.zeros((n, len(used)), np.float32))
 
     # ----------------------------------------------------------- metadata
     ds.metadata = Metadata(n)
+    if label is None and labels_out is not None:
+        label = labels_out
     if label is not None:
         ds.metadata.set_label(label)
     if weight is not None:

@@ -1,4 +1,4 @@
-"""Pass 1: stream the matrix's row chunks once, gather the two row
+"""Pass 1: stream a source's row chunks once, gather the two row
 samples, sketch bins (the port's copy of `lightgbm_tpu/ingest/sketch.py`).
 
 The rows gathered are exactly `binning.sample_row_indices` (bin
@@ -12,17 +12,10 @@ from typing import List, Optional, Sequence
 
 import numpy as np
 
+from .. import log
 from ..binning import BinMapper, mappers_from_sample, sample_row_indices
 from ..efb import EFB_SAMPLE_CNT, efb_sample_indices
-
-DEFAULT_CHUNK_ROWS = 65536
-
-
-def row_chunks(data: np.ndarray, chunk_rows: int):
-    """(first row, [rows, features] view) over the matrix, in order."""
-    step = max(1, int(chunk_rows))
-    for lo in range(0, data.shape[0], step):
-        yield lo, data[lo:lo + step]
+from .sources import ChunkSource
 
 
 class _RowGatherer:
@@ -59,26 +52,32 @@ class SketchResult:
         self.efb_rows = efb_rows  # [s, num_cols] raw sampled rows
 
 
-def sketch_pass(data: np.ndarray, *, max_bin: int,
-                chunk_rows: int = DEFAULT_CHUNK_ROWS,
+def sketch_pass(source: ChunkSource, *, max_bin: int,
                 min_data_in_bin: int = 3, min_split_data: int = 0,
                 bin_construct_sample_cnt: int = 200000, seed: int = 1,
                 categorical_features: Optional[Sequence[int]] = None,
                 use_missing: bool = True, zero_as_missing: bool = False,
                 efb_sample_cnt: int = EFB_SAMPLE_CNT,
                 mappers: Optional[List[BinMapper]] = None) -> SketchResult:
-    """Stream the float64 `[n, f]` matrix once in row chunks; return
+    """Stream the source once (lightgbm_tpu/ingest/sketch.py:68); return
     frozen BinMappers and the EFB sample. With `mappers` preset only the
     EFB rows are gathered."""
-    n, f = data.shape
+    n, f = source.num_rows(), source.num_cols()
     bin_gather = None if mappers is not None else _RowGatherer(
         sample_row_indices(n, bin_construct_sample_cnt, seed))
     efb_gather = _RowGatherer(efb_sample_indices(n, efb_sample_cnt, seed))
 
-    for lo, chunk in row_chunks(data, chunk_rows):
+    lo = 0
+    for chunk, _labels in source.chunks():
+        if chunk.shape[1] != f:
+            log.fatal("Chunk at row %d has %d columns, expected %d"
+                      % (lo, chunk.shape[1], f))
         if bin_gather is not None:
             bin_gather.feed(lo, chunk)
         efb_gather.feed(lo, chunk)
+        lo += len(chunk)
+    if lo != n:
+        log.fatal("Source reported %d rows but streamed %d" % (n, lo))
     if mappers is None:
         sample = bin_gather.rows(f)
         total = n if bin_gather.indices is None \

@@ -53,7 +53,8 @@ import numpy as np
 import torch
 
 from ..log import LightGBMError
-from ..ops.histogram import leaf_histogram, leaf_histogram_i32, subtract
+from ..ops.histogram import (hist_layout, leaf_histogram, leaf_histogram_i32,
+                              subtract)
 from ..ops.route import SplitRule, route_partition
 from ..ops.split import (SplitParams, dequantize_hist, device_fmeta,
                          leaf_output, split_scan)
@@ -140,12 +141,17 @@ class _LeafTable:
 class SerialGrower:
     """Grows trees over one device-resident binned matrix.
 
-    binned: [N, G] uint8 stored-group bins on the device; fmeta:
-    Dataset.feature_meta_arrays(); num_bins: the histogram width
-    (widest group); feature_bins: the per-feature scan width."""
+    binned: [N, G] stored-group bins on the device, uint8, or uint16
+    where a group has more than 256 bins (every kernel takes the
+    matrix's type from the tensor); fmeta: Dataset.feature_meta_arrays();
+    num_bins: the histogram width (widest group); feature_bins: the
+    per-feature scan width; group_bins: each group's own bin count [G],
+    which H lays a uint16 matrix's sums out by (required for one; its
+    `hist_layout` is made here, once)."""
 
     def __init__(self, binned: torch.Tensor, fmeta: Dict[str, np.ndarray],
-                 cfg: GrowerConfig, num_bins: int, feature_bins: int):
+                 cfg: GrowerConfig, num_bins: int, feature_bins: int,
+                 group_bins: Optional[np.ndarray] = None):
         if cfg.num_leaves < 2:
             raise LightGBMError("num_leaves must be >= 2")
         self.binned = binned
@@ -154,6 +160,14 @@ class SerialGrower:
         self.params = cfg.split_params()
         self.num_bins = int(num_bins)
         self.feature_bins = int(feature_bins)
+        self.hist_layout = None
+        if binned.dtype == torch.uint16:
+            if group_bins is None:
+                raise LightGBMError("SerialGrower: a uint16 matrix takes "
+                                    "each group's own bin count "
+                                    "(group_bins)")
+            self.hist_layout = hist_layout(group_bins, cfg.hist_bf16,
+                                           self.device)
         self.fmeta = {k: np.asarray(v) for k, v in fmeta.items()}
         self.fmeta_dev = device_fmeta(fmeta, self.device)
         n = binned.shape[0]
@@ -206,7 +220,8 @@ class SerialGrower:
                                       rows=rows, n_rows=n_rows, out=out)
         return leaf_histogram(self.binned, chans, self.num_bins, rows=rows,
                               n_rows=n_rows, out=out,
-                              bf16=self.cfg.hist_bf16)
+                              bf16=self.cfg.hist_bf16,
+                              layout=self.hist_layout)
 
     def grow(self, chans, feature_mask: np.ndarray,
              qscale: Optional[torch.Tensor] = None,

@@ -57,7 +57,9 @@ LIBRARIES = {
     }, ()),
     "histogram": ("histogram.cu", {
         "lgbt_hist_tiles": [_i],
-        "lgbt_leaf_histogram": [_p, _i, _p, _p, _i, _i, _i, _p, _p, _p],
+        "lgbt_leaf_histogram": [_p, _i, _i, _p, _p, _i, _i, _i, _p, _p,
+                                _p, _i, _i, _p, _i, _i, _i, _i, _p, _p,
+                                _p],
         "lgbt_leaf_histogram_i32": [_p, _i, _p, _p, _p, _i, _i, _p, _p],
     }, _NO_FMA),
     "quantize": ("quantize.cu", {
@@ -75,7 +77,7 @@ LIBRARIES = {
     }, _NO_FMA),
     "route": ("route_partition.cu", {
         "lgbt_route_tiles": [_i],
-        "lgbt_route_partition": [_p, _i, _p, _i, _i] + [_i] * 11
+        "lgbt_route_partition": [_p, _i, _i, _p, _i, _i] + [_i] * 11
         + [_p, _p, _p, _p],
         "lgbt_score_update": [_p, _p, _p, _f, _i, _p],
         "lgbt_score_average": [_p, _p, _p, _f, _f, _i, _p],
@@ -85,8 +87,8 @@ LIBRARIES = {
         "lgbt_lambdarank_stage_cap": [],
     }, _NO_FMA),
     "walk": ("binned_walk.cu", {
-        "lgbt_tree_value_walk_binned": [_p, _i, _i, _p, _i, _p, _p, _i, _p,
-                                        _p, _p, _p],
+        "lgbt_tree_value_walk_binned": [_p, _i, _i, _i, _p, _i, _p, _p, _i,
+                                        _p, _p, _p, _p],
     }, _NO_FMA),
     "linear": ("linear.cu", {
         "lgbt_linear_tile_rows": [],

@@ -28,8 +28,15 @@ histogram (`subtract`, :785).
 
 On a CUDA tensor `leaf_histogram` launches the hand-written kernel
 (`csrc/histogram.cu`) or raises; on a CPU tensor it runs the plain
-version. The wrapper counts its launches in `leaf_histogram.launches`,
-and those in hi+lo mode also in `leaf_histogram.launches_hilo`.
+version. A uint16 matrix (groups of more than 256 bins, up to 2,048)
+takes the kernel's uint16 modes: each group at its own width
+(`hist_layout`, made once for a grower), the groups too wide for
+private per-lane copies summed warp-shared, the tiles sized by
+`hist_tile_rows`. The wrapper counts its
+launches in `leaf_histogram.launches`, and those in hi+lo mode also in
+`leaf_histogram.launches_hilo`, those on uint16 bins in
+`leaf_histogram.launches_u16`. HQ and LM refuse uint16 bins by name:
+their uint16 modes are not ported yet.
 
 Quantized training (`tpu_hist_quantize=int8|int16`, the JAX section at
 :60-156 and `_quant_u`/`_quant_merge` :291-330) adds two kernels:
@@ -67,6 +74,29 @@ from . import _build
 from .rng import Key, uniform
 
 _launch_lock = threading.Lock()
+
+# the widest group H, R and W take: the EFB bundle cap (efb.py
+# pick_max_group_bins); a feature S scans is at most this wide too
+MAX_GROUP_BINS = 2048
+
+
+def widen_bins(binned: torch.Tensor) -> torch.Tensor:
+    """Bins as a type torch computes on: uint16 (which has no arithmetic
+    and, on the card, no indexing) as int32 through its int16 view;
+    other types as they are."""
+    if binned.dtype == torch.uint16:
+        return binned.view(torch.int16).to(torch.int32) & 0xFFFF
+    return binned
+
+
+def take_bins(binned: torch.Tensor, sel=None) -> torch.Tensor:
+    """The rows `sel` (all when None) of a binned matrix, or of one of
+    its columns, as int64."""
+    if sel is None:
+        return widen_bins(binned).long()
+    if binned.device.type == "cpu":
+        return widen_bins(binned[sel]).long()
+    return widen_bins(binned)[sel].long()
 
 
 def _check(binned, w3, num_bins, rows, n_rows):
@@ -130,9 +160,9 @@ def leaf_histogram_plain(binned: torch.Tensor, w3: torch.Tensor,
     g_cnt = binned.shape[1]
     if rows is not None:
         sel = rows[:n_rows].long()
-        bins, w = binned[sel], w3[sel]
+        bins, w = take_bins(binned, sel), w3[sel]
     else:
-        bins, w = binned, w3
+        bins, w = take_bins(binned), w3
     cnt = (w[:, 2] > 0).to(torch.float32)
     if bf16:
         hi, lo = hi_lo(w[:, :2].contiguous())
@@ -141,7 +171,7 @@ def leaf_histogram_plain(binned: torch.Tensor, w3: torch.Tensor,
         chans = torch.stack([w[:, 0], w[:, 1], cnt], dim=1)
     c = chans.shape[1]
     flat = (torch.arange(g_cnt, device=binned.device) * num_bins)[None, :] \
-        + bins.long()
+        + bins
     vals = chans[:, None, :].expand(-1, g_cnt, c).reshape(-1, c)
     h = torch.zeros(g_cnt * num_bins, c, dtype=torch.float64,
                     device=binned.device)
@@ -152,14 +182,88 @@ def leaf_histogram_plain(binned: torch.Tensor, w3: torch.Tensor,
     return h.view(g_cnt, num_bins, 3)
 
 
+# the uint16 plan (csrc/histogram.cu): a group keeps the lanes' private
+# copies while they take at most this many bytes a warp, and a tile of
+# rows holds 2048 << k rows, the least k (k <= 5) at which the tiles'
+# partials take at most 1/HIST_PARTIAL_SHARE of the input's bytes (they
+# are written once and read once)
+HIST_LANE_BYTES = 64 * 1024
+HIST_TILE_ROWS = 2048
+HIST_MAX_TILE_ROWS = 65536
+HIST_PARTIAL_SHARE = 4
+
+
+class HistLayout(NamedTuple):
+    """How H lays out a uint16 matrix's histogram in one mode: `widths`
+    [G] (each group's own bins), `poff` [G] (its first word in a tile's
+    partial), the lane-private groups `narrow` (at most `narrow_w` bins)
+    and the warp-shared `wide` (at most `wide_w`), all int32; `elems` (a
+    tile's words a channel), `bf16` (the mode it is for) and `dev`, the
+    four arrays on the device (each with a trailing 0, so none is
+    empty)."""
+    widths: np.ndarray
+    poff: np.ndarray
+    narrow: np.ndarray
+    wide: np.ndarray
+    narrow_w: int
+    wide_w: int
+    elems: int
+    bf16: bool
+    dev: tuple
+
+
+def hist_layout(group_bins, bf16: bool, device="cpu") -> HistLayout:
+    """H's layout of a uint16 matrix whose groups have `group_bins`
+    bins, made once for a grower: groups whose 32 private copies fit
+    HIST_LANE_BYTES a warp stay lane-private, the others go
+    warp-shared, and the partials are laid out at each group's own
+    width."""
+    widths = np.asarray(group_bins, np.int32)
+    if widths.ndim != 1 or widths.min(initial=1) < 1 \
+            or widths.max(initial=1) > MAX_GROUP_BINS:
+        raise LightGBMError("hist_layout: each group takes 1..%d bins"
+                            % MAX_GROUP_BINS)
+    ch = 5 if bf16 else 3
+    lane = 32 * widths.astype(np.int64) * ch * 4 <= HIST_LANE_BYTES
+    narrow = np.flatnonzero(lane).astype(np.int32)
+    wide = np.flatnonzero(~lane).astype(np.int32)
+    poff = np.concatenate([[0], np.cumsum(widths, dtype=np.int64)[:-1]]
+                          ).astype(np.int32)
+    dev = tuple(torch.from_numpy(np.concatenate([a, [0]]).astype(np.int32))
+                .to(device) for a in (widths, poff, narrow, wide))
+    return HistLayout(widths, poff, narrow, wide,
+                      int(widths[narrow].max(initial=1)),
+                      int(widths[wide].max(initial=1)), int(widths.sum()),
+                      bool(bf16), dev)
+
+
+def hist_tile_rows(layout: HistLayout, n: int,
+                   row_list: bool = False) -> int:
+    """The rows of one of H's tiles over n rows of a uint16 matrix: the
+    least 2048 << k (at most HIST_MAX_TILE_ROWS) at which the tiles'
+    partials, written once and read once, take at most
+    1/HIST_PARTIAL_SHARE of the input's bytes."""
+    ch = 5 if layout.bf16 else 3
+    in_bytes = n * (2 * len(layout.widths) + 12 + (4 if row_list else 0))
+    tile = HIST_TILE_ROWS
+    while tile < min(n, HIST_MAX_TILE_ROWS) and (
+            -(-n // tile) * layout.elems * ch * 4 * 2 * HIST_PARTIAL_SHARE
+            > in_bytes):
+        tile *= 2
+    return tile
+
+
 def leaf_histogram(binned: torch.Tensor, w3: torch.Tensor, num_bins: int,
                    rows: Optional[torch.Tensor] = None,
                    n_rows: Optional[int] = None,
                    out: Optional[torch.Tensor] = None,
-                   bf16: bool = False) -> torch.Tensor:
+                   bf16: bool = False,
+                   layout: Optional[HistLayout] = None) -> torch.Tensor:
     """H: the [G, B, 3] f32 histogram of the rows 0..N-1, or of
     rows[:n_rows]; written into `out` (contiguous, that shape) when
-    given; g and h summed in hi+lo halves when `bf16`."""
+    given; g and h summed in hi+lo halves when `bf16`. On the card a
+    uint16 matrix (groups past 256 bins) takes its `hist_layout` for
+    this mode, each group at its own width; a bin past it is 0."""
     _check(binned, w3, num_bins, rows, n_rows)
     shape = (binned.shape[1], num_bins, 3)
     if out is not None and (tuple(out.shape) != shape
@@ -175,9 +279,12 @@ def leaf_histogram(binned: torch.Tensor, w3: torch.Tensor, num_bins: int,
     if binned.device.type != "cuda":
         raise LightGBMError("leaf_histogram runs on cpu or cuda, not %s"
                             % binned.device)
-    if binned.dtype != torch.uint8 or num_bins > 256:
-        raise LightGBMError("the leaf_histogram kernel takes uint8 bins "
-                            "(at most 256 a group)")
+    u16 = binned.dtype == torch.uint16
+    if not ((binned.dtype == torch.uint8 and num_bins <= 256)
+            or (u16 and num_bins <= MAX_GROUP_BINS)):
+        raise LightGBMError("the leaf_histogram kernel takes uint8 bins (at "
+                            "most 256 a group) or uint16 bins (at most %d)"
+                            % MAX_GROUP_BINS)
     for t in (binned, w3, rows):
         if t is not None and not t.is_contiguous():
             raise LightGBMError("leaf_histogram takes contiguous tensors")
@@ -186,8 +293,21 @@ def leaf_histogram(binned: torch.Tensor, w3: torch.Tensor, num_bins: int,
     n = binned.shape[0] if rows is None else int(n_rows)
     g_cnt = binned.shape[1]
     lib = _build.load_library("histogram")
-    tiles = lib.lgbt_hist_tiles(n)
-    scratch = torch.empty((5 if bf16 else 3) * tiles * g_cnt * num_bins,
+    if u16:
+        if layout is None or layout.bf16 != bool(bf16) \
+                or layout.widths.shape != (g_cnt,) \
+                or int(layout.widths.max(initial=1)) > num_bins \
+                or layout.dev[0].device != binned.device:
+            raise LightGBMError(
+                "leaf_histogram: a uint16 matrix on the card takes the "
+                "hist_layout of its %d groups (at most %d bins each) for "
+                "bf16=%s on %s" % (g_cnt, num_bins, bool(bf16),
+                                   binned.device))
+        tile_rows = hist_tile_rows(layout, n, rows is not None)
+        tiles, elems = max(1, -(-n // tile_rows)), layout.elems
+    else:
+        tiles, elems = lib.lgbt_hist_tiles(n), g_cnt * num_bins
+    scratch = torch.empty((5 if bf16 else 3) * tiles * elems,
                           dtype=torch.float32, device=binned.device)
     if out is None:
         out = torch.empty(shape, dtype=torch.float32, device=binned.device)
@@ -197,9 +317,16 @@ def leaf_histogram(binned: torch.Tensor, w3: torch.Tensor, num_bins: int,
 
     with torch.cuda.device(binned.device):
         stream = torch.cuda.current_stream(binned.device).cuda_stream
+        widths, poff, narrow, wide = layout.dev if u16 else (None,) * 4
+        plan_args = (ptr(widths), ptr(poff), ptr(narrow),
+                     len(layout.narrow), layout.narrow_w, ptr(wide),
+                     len(layout.wide), layout.wide_w, tile_rows,
+                     elems) if u16 else (ptr(None),) * 3 + (0, 0) \
+            + (ptr(None),) + (0,) * 4
         rc = lib.lgbt_leaf_histogram(
-            ptr(binned), g_cnt, ptr(w3), ptr(rows), n, num_bins,
-            int(bool(bf16)), ptr(scratch), ptr(out), ctypes.c_void_p(stream))
+            ptr(binned), g_cnt, int(u16), ptr(w3), ptr(rows), n, num_bins,
+            int(bool(bf16)), *plan_args, ptr(scratch), ptr(out),
+            ctypes.c_void_p(stream))
     if rc != 0:
         raise LightGBMError("leaf_histogram launch failed: CUDA error %d "
                             "(%s)" % (rc, lib.lgbt_error_string(rc).decode()))
@@ -207,12 +334,16 @@ def leaf_histogram(binned: torch.Tensor, w3: torch.Tensor, num_bins: int,
         leaf_histogram.launches += 1
         if bf16:
             leaf_histogram.launches_hilo += 1
+        if u16:
+            leaf_histogram.launches_u16 += 1
     return out
 
 
-# all launches of H, and those in hi+lo mode among them
+# all launches of H, those in hi+lo mode and those on uint16 bins among
+# them
 leaf_histogram.launches = 0
 leaf_histogram.launches_hilo = 0
+leaf_histogram.launches_u16 = 0
 
 
 def subtract(parent: torch.Tensor, child: torch.Tensor,
@@ -374,13 +505,13 @@ def leaf_histogram_i32_plain(binned: torch.Tensor, codes: torch.Tensor,
     g_cnt = binned.shape[1]
     if rows is not None:
         sel = rows[:n_rows].long()
-        bins, q, w = binned[sel], codes[sel], w01[sel]
+        bins, q, w = take_bins(binned, sel), codes[sel], w01[sel]
     else:
-        bins, q, w = binned, codes, w01
+        bins, q, w = take_bins(binned), codes, w01
     c = (w > 0).to(torch.int64)
     chans = torch.stack([q[:, 0].long() * c, q[:, 1].long() * c, c], 1)
     flat = (torch.arange(g_cnt, device=binned.device) * num_bins)[None, :] \
-        + bins.long()
+        + bins
     vals = chans[:, None, :].expand(-1, g_cnt, 3).reshape(-1, 3)
     h = torch.zeros(g_cnt * num_bins, 3, dtype=torch.int64,
                     device=binned.device)
@@ -412,6 +543,9 @@ def leaf_histogram_i32(binned: torch.Tensor, codes: torch.Tensor,
     if binned.device.type != "cuda":
         raise LightGBMError("leaf_histogram_i32 runs on cpu or cuda, not %s"
                             % binned.device)
+    if binned.dtype == torch.uint16:
+        raise LightGBMError("HQ's uint16 mode (leaf_histogram_i32 on groups "
+                            "of more than 256 bins) is not ported yet")
     if binned.dtype != torch.uint8 or num_bins > 256:
         raise LightGBMError("the leaf_histogram_i32 kernel takes uint8 bins "
                             "(at most 256 a group)")
@@ -470,8 +604,8 @@ def leaf_moments_plain(binned: torch.Tensor, x: torch.Tensor,
     terms = torch.stack([xv * m, (xv * xv) * m, xv * gm, xv * hm], dim=-1)
     flat = (slot[:, None] * f_cnt
             + torch.arange(f_cnt, device=binned.device)[None, :]) \
-        * num_bins + binned[sel].long()
-    keep = binned[sel].long() < num_bins
+        * num_bins + take_bins(binned, sel)
+    keep = take_bins(binned, sel) < num_bins
     out = torch.zeros((c_cnt * f_cnt * num_bins, 4), dtype=torch.float64,
                       device=binned.device)
     out.index_add_(0, flat[keep], terms[keep].to(torch.float64))
@@ -504,6 +638,9 @@ def leaf_moments(binned: torch.Tensor, x: torch.Tensor, w3: torch.Tensor,
     if binned.device.type != "cuda":
         raise LightGBMError("leaf_moments runs on cpu or cuda, not %s"
                             % binned.device)
+    if binned.dtype == torch.uint16:
+        raise LightGBMError("LM's uint16 mode (leaf_moments on features of "
+                            "more than 256 bins) is not ported yet")
     if binned.dtype != torch.uint8 or not 1 <= num_bins <= 256 \
             or x.dtype != torch.float32 or w3.dtype != torch.float32:
         raise LightGBMError("the leaf_moments kernel takes uint8 bins (at "

@@ -22,7 +22,9 @@ W, `tree_value_walk_binned`, is the counterpart of `predict_value_binned`
 tree walked in the stored-group bin space of a binned matrix (EFB
 decode, bin thresholds), its leaf value added to each row's score
 (`csrc/binned_walk.cu`); its leaf mode, `tree_leaf_walk_binned`, returns
-the rows' leaves instead (a linear tree's valid-set scoring).
+the rows' leaves instead (a linear tree's valid-set scoring). Both take
+a uint8 matrix or a uint16 one (groups of more than 256 bins) and count
+the latter's launches also in `launches_u16`.
 
 Linear forests (`linear_tree`): the stack carries each leaf's
 coefficients and real feature columns, and K1 adds the leaf's linear
@@ -58,6 +60,7 @@ import torch
 from ..binning import MISSING_NAN, MISSING_NONE, MISSING_ZERO
 from ..log import LightGBMError
 from . import _build
+from .histogram import widen_bins
 
 K_ZERO_THRESHOLD = 1e-35
 # smallest normal f32. The JAX package's walk runs with subnormals
@@ -801,9 +804,11 @@ def tree_leaf_binned_plain(tree: BinnedTree,
     rec = tree.nodes.long()
     f = {name: rec[:, j] for j, name in enumerate(_NODE_FIELDS)}
     rows = torch.arange(n, device=binned.device)
+    # the card indexes no uint16 tensor
+    wide = widen_bins(binned) if binned.is_cuda else binned
     for _ in range(tree.max_depth):
         nd = node.clamp(min=0)
-        b = binned[rows, f["node_group"][nd]].long()
+        b = wide[rows, f["node_group"][nd]].long()
         off, nb = f["node_offset"][nd], f["node_num_bin"][nd]
         dbin = f["node_default_bin"][nd]
         in_slice = (b >= off) & (b < off + nb)
@@ -878,16 +883,17 @@ def _walk_binned(tree: BinnedTree, binned: torch.Tensor,
     if binned.device.type != "cuda":
         raise LightGBMError("tree_value_walk_binned runs on cpu or cuda, "
                             "not %s" % binned.device)
-    if binned.dtype != torch.uint8 or not (binned.is_contiguous()
-                                           and out.is_contiguous()):
+    u16 = binned.dtype == torch.uint16
+    if binned.dtype not in (torch.uint8, torch.uint16) or not (
+            binned.is_contiguous() and out.is_contiguous()):
         raise LightGBMError("tree_value_walk_binned takes contiguous uint8 "
-                            "bins and score")
+                            "or uint16 bins and score")
     lib = _build.load_library("walk")
     p = ctypes.c_void_p
     with torch.cuda.device(binned.device):
         stream = torch.cuda.current_stream(binned.device).cuda_stream
         rc = lib.lgbt_tree_value_walk_binned(
-            p(binned.data_ptr()), binned.shape[1], binned.shape[0],
+            p(binned.data_ptr()), binned.shape[1], int(u16), binned.shape[0],
             p(tree.nodes.data_ptr()), tree.num_leaves,
             p(tree.cat_bounds.data_ptr()), p(tree.cat_bits.data_ptr()),
             tree.cat_bits.shape[0], p(tree.leaf_value.data_ptr()),
@@ -901,7 +907,11 @@ def _walk_binned(tree: BinnedTree, binned: torch.Tensor,
         else tree_leaf_walk_binned
     with _launch_lock:
         counter.launches += 1
+        if u16:
+            counter.launches_u16 += 1
 
 
 tree_value_walk_binned.launches = 0
+tree_value_walk_binned.launches_u16 = 0
 tree_leaf_walk_binned.launches = 0
+tree_leaf_walk_binned.launches_u16 = 0

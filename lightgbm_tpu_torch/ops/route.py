@@ -20,8 +20,11 @@ rounded on its own as JAX's eager calls round them, with contrib the
 leaf value of each row's leaf id or a given per-row value.
 
 On CUDA tensors each launches `csrc/route_partition.cu` or raises; on
-CPU tensors they run the plain versions. Launches are counted in
-`route_partition.launches`, `score_update.launches` and
+CPU tensors they run the plain versions. `route_partition` takes a
+uint8 matrix or a uint16 one (groups of more than 256 bins), the same
+partition either way. Launches are counted in
+`route_partition.launches` (those on uint16 bins also in
+`route_partition.launches_u16`), `score_update.launches` and
 `score_average.launches`.
 """
 from __future__ import annotations
@@ -37,6 +40,7 @@ import torch
 from ..binning import MISSING_NAN, MISSING_ZERO
 from ..log import LightGBMError
 from . import _build
+from .histogram import take_bins
 
 _launch_lock = threading.Lock()
 
@@ -93,7 +97,7 @@ def route_partition_plain(binned: torch.Tensor, perm: torch.Tensor,
     number of left rows as a 0-dim int32 tensor (also written to
     count_out[0] when given)."""
     seg = perm[begin:begin + count].long()
-    left = go_left_plain(rule, binned[seg, rule.group])
+    left = go_left_plain(rule, take_bins(binned[:, rule.group], seg))
     leaf_id[seg] = torch.where(left, rule.left_slot,
                                rule.right_slot).to(torch.int32)
     perm[begin:begin + count] = torch.cat([seg[left], seg[~left]]).to(
@@ -128,10 +132,11 @@ def route_partition(binned: torch.Tensor, perm: torch.Tensor, begin: int,
     if binned.device.type != "cuda":
         raise LightGBMError("route_partition runs on cpu or cuda, not %s"
                             % binned.device)
-    if binned.dtype != torch.uint8 or perm.dtype != torch.int32 \
-            or leaf_id.dtype != torch.int32:
-        raise LightGBMError("route_partition takes uint8 bins and int32 "
-                            "perm/leaf_id")
+    u16 = binned.dtype == torch.uint16
+    if binned.dtype not in (torch.uint8, torch.uint16) \
+            or perm.dtype != torch.int32 or leaf_id.dtype != torch.int32:
+        raise LightGBMError("route_partition takes uint8 or uint16 bins and "
+                            "int32 perm/leaf_id")
     if not (binned.is_contiguous() and perm.is_contiguous()
             and leaf_id.is_contiguous()):
         raise LightGBMError("route_partition takes contiguous tensors")
@@ -145,8 +150,8 @@ def route_partition(binned: torch.Tensor, perm: torch.Tensor, begin: int,
     with torch.cuda.device(binned.device):
         stream = torch.cuda.current_stream(binned.device).cuda_stream
         rc = lib.lgbt_route_partition(
-            p(binned.data_ptr()), binned.shape[1], p(perm.data_ptr()),
-            begin, count, *rule.args(), p(leaf_id.data_ptr()),
+            p(binned.data_ptr()), binned.shape[1], int(u16),
+            p(perm.data_ptr()), begin, count, *rule.args(), p(leaf_id.data_ptr()),
             p(scratch.data_ptr()),
             p(None if count_out is None else count_out.data_ptr()),
             p(stream))
@@ -156,6 +161,8 @@ def route_partition(binned: torch.Tensor, perm: torch.Tensor, begin: int,
     if count:
         with _launch_lock:
             route_partition.launches += 1
+            if u16:
+                route_partition.launches_u16 += 1
     return scratch[tiles]
 
 
@@ -268,5 +275,6 @@ def score_average(score: torch.Tensor, leaf_id: Optional[torch.Tensor],
 
 
 route_partition.launches = 0
+route_partition.launches_u16 = 0
 score_update.launches = 0
 score_average.launches = 0

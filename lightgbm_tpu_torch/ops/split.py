@@ -26,7 +26,9 @@ two gains are apart by more than f32 round-off.
 
 `split_scan` launches the kernel for CUDA tensors (or raises) and runs
 the plain version for CPU tensors; it counts launches in
-`split_scan.launches`.
+`split_scan.launches`, and those at more than 256 bins a feature (past
+16 of XLA's blocks, whose totals are scanned in blocks again) also in
+`split_scan.launches_wide`.
 """
 from __future__ import annotations
 
@@ -112,6 +114,9 @@ def _kahan(total, comp, v):
 # XLA's CPU backend rewrites the reduce_window that `jnp.cumsum` lowers
 # to (ReduceWindowRewriter) into blocks of this many elements
 XLA_SCAN_BASE = 16
+# the widest feature the kernel scans: the EFB bundle cap, two levels of
+# XLA's blocks (at most 4,096)
+MAX_FEATURE_BINS = 2048
 
 
 def _sequential_cumsum(x: torch.Tensor) -> torch.Tensor:
@@ -322,10 +327,9 @@ def split_scan(hist: torch.Tensor, sums: torch.Tensor, depth: torch.Tensor,
                             "and a uint8 mask")
     if any(not t.is_contiguous() for t in tensors):
         raise LightGBMError("split_scan takes contiguous tensors")
-    if feature_bins > XLA_SCAN_BASE ** 2:
-        raise LightGBMError("split_scan: the XLA scan order takes at most "
-                            "%d bins a feature (got %d)"
-                            % (XLA_SCAN_BASE ** 2, feature_bins))
+    if feature_bins > MAX_FEATURE_BINS:
+        raise LightGBMError("split_scan takes at most %d bins a feature "
+                            "(got %d)" % (MAX_FEATURE_BINS, feature_bins))
     lib = _build.load_library("split")
     dev = hist.device
     if out is None:
@@ -351,7 +355,10 @@ def split_scan(hist: torch.Tensor, sums: torch.Tensor, depth: torch.Tensor,
                             % (rc, lib.lgbt_error_string(rc).decode()))
     with _launch_lock:
         split_scan.launches += 1
+        if feature_bins > XLA_SCAN_BASE ** 2:
+            split_scan.launches_wide += 1
     return out_f, out_i, feat_gain
 
 
 split_scan.launches = 0
+split_scan.launches_wide = 0

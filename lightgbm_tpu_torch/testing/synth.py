@@ -26,7 +26,9 @@ run and the tests make one from a seed instead:
 `cat_threshold`, so it takes the trees of either package.
 
 `synth_higgs` draws labelled HIGGS-shaped training data with the
-generator of the repo's bench.py, for training runs. `rank_data` draws
+generator of the repo's bench.py, for training runs, and `synth_bosch`
+its Bosch shape (sparse, with one-hot blocks that EFB bundles into
+groups of more than 256 bins, a uint16 matrix). `rank_data` draws
 the repo's ranking protocol (fixed-length queries, graded labels), and
 `mslr_like_groups` the query layout of MSLR-WEB30K (ragged lengths up
 to 1,251 docs, labels 0-4 mostly 0 and 1) from its published shape.
@@ -293,6 +295,29 @@ def synth_higgs(n: int, f: int = 28, seed: int = 0):
              + 0.5 * np.abs(x[:, 4]) + 0.3 * x[:, 5] ** 2)
     y = (score + rng.logistic(size=n) > 0.5).astype(np.float32)
     return x, y
+
+
+def synth_bosch(n: int, f: int = 968, seed: int = 2):
+    """bench.py synth_bosch (:194-215), the same RandomState calls in the
+    same order: 70 blocks of 10 mutually exclusive one-hot features
+    (each row sets one of each block to a value in [0.1, 1.1)), then
+    f - 700 numerics that are 80% zeros; binary labels from five of
+    them."""
+    rng = np.random.RandomState(seed)
+    X = np.zeros((n, f), np.float32)
+    n_blocks = 70
+    for b in range(n_blocks):
+        pick = rng.randint(0, 10, size=n)
+        vals = rng.rand(n).astype(np.float32) + 0.1
+        X[np.arange(n), b * 10 + pick] = vals
+    f_rest = f - n_blocks * 10
+    R = rng.randn(n, f_rest).astype(np.float32)
+    R[rng.rand(n, f_rest) < 0.8] = 0.0
+    X[:, n_blocks * 10:] = R
+    score = (X[:, 0] * 2.0 - X[:, 10] + X[:, 700] - 0.5 * X[:, 701]
+             + X[:, 20] * X[:, 702])
+    y = (score + 0.5 * rng.logistic(size=n) > 0.3).astype(np.float32)
+    return X, y
 
 
 def rank_data(n: int, f: int = 28, qlen: int = 100, seed: int = 0):

@@ -13,7 +13,9 @@ model API (early stop, the f16 and int8 layouts with kernels ES, QC,
 QW and K1's f16 mode in their plain versions, TreeSHAP contributions,
 the JSON dump, a data file through `io.parser`, continued training
 from `init_model`), and trains GOSS (kernels GT and GW), DART and RF
-(R's average mode) models with H's hi+lo mode in their plain versions;
+(R's average mode) models with H's hi+lo mode in their plain versions,
+and a model from a data file through the streamed build, the binary
+cache and the durable writer;
 an AST scan finds no such import in the package or in chip_smoke.py.
 """
 import ast
@@ -114,6 +116,18 @@ _CHILD = textwrap.dedent("""
          "verbose": -1}, lgb.Dataset(x[:300], y[:300]), 2,
         init_model=model_path, verbose_eval=False,
         device="cpu").num_trees()
+    fpath = os.path.join(tmp, "train.tsv")
+    np.savetxt(fpath, np.column_stack([y[:300], x[:300]]), delimiter="\t")
+    fds = lgb.Dataset(fpath, params={"tpu_ingest_chunk_rows": 64})
+    cache = os.path.join(tmp, "train.bin")
+    fds.save_binary(cache)
+    from lightgbm_tpu_torch.dataset import Dataset as Inner
+    cached = lgb.Dataset._from_inner(Inner.load_binary(cache))
+    files = [lgb.train({"objective": "binary", "num_leaves": 7,
+                        "verbose": -1}, cached, 2, verbose_eval=False,
+                       device="cpu").num_trees(),
+             bool(np.array_equal(cached._inner.binned,
+                                 fds._inner.binned))]
     modes = []
     for extra in ({"boosting": "goss", "learning_rate": 0.5},
                   {"boosting": "dart"},
@@ -129,7 +143,7 @@ _CHILD = textwrap.dedent("""
         "ops.route", "ops.rank", "ops.linear", "linear.solver",
         "linear.stats", "objectives", "sklearn", "convert", "shap",
         "io.parser", "ops.goss", "boosting.goss", "boosting.dart",
-        "boosting.rf")]
+        "boosting.rf", "ingest.sources", "ingest.cache", "durable")]
     print(json.dumps({"pred": [float(v) for v in pred],
                       "leaf_shape": list(leaf.shape),
                       "round_trip": booster.model_to_string() == text,
@@ -150,7 +164,7 @@ _CHILD = textwrap.dedent("""
                                  list(extras["contrib"]), extras["dump"],
                                  extras["f16"], extras["int8"],
                                  extras["file"], extras["continued"]],
-                      "modes": modes,
+                      "modes": modes, "files": files,
                       "modules": all(m in sys.modules for m in modules),
                       "loaded": sorted(m for m in sys.modules if blocked(m))}))
 """)
@@ -174,6 +188,7 @@ def test_port_runs_with_jax_and_the_jax_package_blocked():
     assert out["extras"] == [[16], [16, 7], 5, True, True, True,
                              out["trained"] + 2]
     assert out["modes"] == [4, 4, 4]
+    assert out["files"] == [2, True]
 
 
 def _imported_modules(path):
@@ -190,6 +205,10 @@ def test_no_source_of_the_port_imports_jax_or_the_jax_package():
     files = sorted((REPO / "lightgbm_tpu_torch").rglob("*.py"))
     files.append(REPO / "chip_smoke.py")
     assert len(files) > 15
+    names = {str(f.relative_to(REPO)) for f in files}
+    assert {"lightgbm_tpu_torch/ingest/sources.py",
+            "lightgbm_tpu_torch/ingest/cache.py",
+            "lightgbm_tpu_torch/durable.py"} <= names
     bad = [(str(f.relative_to(REPO)), m) for f in files
            for m in _imported_modules(f)
            if m.split(".")[0] in ("jax", "jaxlib", "lightgbm_tpu")]
