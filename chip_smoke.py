@@ -265,10 +265,9 @@ Phases, any failure raises and the script exits non-zero:
     R and W (uint16) launched; a second run's model text byte-identical;
     valid AUC rising from round 1 to 10; the saved model reloaded and
     served through K1 at 968 features within 1e-5 * max(1, |ref|) of
-    the valid scores W kept; tpu_hist_quantize=int8 refused, naming
-    HQ's uint16 mode; 3 rounds with tpu_hist_bf16=false (H's uint16 f32
-    mode);
-32. files and the binary cache: 50,000 Bosch rows written as a TSV,
+    the valid scores W kept; 3 rounds with tpu_hist_bf16=false (H's
+    uint16 f32 mode);
+32. files and the binary cache: 10,000 Bosch rows written as a TSV,
     label first (each value the shortest decimal of its float64);
     Dataset(path) streamed in chunks of 8,192 rows (the last one
     ragged) and loaded whole (tpu_ingest=false), both bitwise the array
@@ -296,7 +295,67 @@ Phases, any failure raises and the script exits non-zero:
     Bosch leaf pair and at ~1,024 bins; R and W
     (both modes) on uint16 bins; Dataset.construct() of the 500,000
     rows; seconds per Bosch round (median of rounds 2-10); one profiled
-    Bosch round's idle share.
+    Bosch round's idle share;
+36. categorical kernels against their plain versions on phase 37's
+    Datasets: S on the root and on the root split's two children bitwise
+    its plain version and its repeat (at least one categorical feature
+    wins a split in the first tree); R's partition and leaf ids on the
+    root split and on the first tree's first categorical split (every
+    row), exactly; W's value and leaf modes on the first tree (with its
+    categorical nodes) over the 100,000 test rows, exactly; K1 serving
+    the saved model within 1e-5 * max(1, |ref|) of W's scores;
+37. the categorical main path: the protocol behind ACCURACY_r05.json's
+    categorical gate (scripts/measure_accuracy.py:114-146),
+    synth_expo(600,000, seed 13), rows 0-499,999 training and the rest
+    test, 40 features of which 8 categorical (12-96 categories),
+    categorical_feature=[0..7] in the params, binary, metric auc,
+    max_bin 63, 255 leaves, learning rate 0.1, min_data_in_leaf 1,
+    min_sum_hessian_in_leaf 100, a uint8 matrix; 10 rounds through
+    lightgbm_tpu_torch.train with every count set to 0 before and read
+    after: H, S (every launch in its categorical variant), R and W
+    launched, R and W on categorical nodes; a second run's model text
+    byte-identical; valid AUC rising; LGBMClassifier(...).fit(X, y,
+    categorical_feature=[0..7]) for 10 rounds gives the same model text;
+    then 500 rounds, whose test AUC (raw scores, the script's rank
+    statistic) must lie within 2e-3 of reference LightGBM's 0.815114,
+    printed beside the JAX package's 0.815474;
+38. categorical, the card against the CPU: the protocol at 131,072
+    rows, 63 leaves, 5 rounds: the same trees, leaves within 1e-5
+    relative, valid AUC within 2e-3; 50,000 rows written as a TSV (label
+    first), Dataset(path, params={"categorical_column": "0,...,7"}) (the
+    indices count features, not the label column) bitwise the array
+    Dataset's matrix, 3 rounds giving its model text;
+39. HQ and LM on uint16 bins against their plain versions: HQ in int8
+    and int16 at the Bosch root (round 1's and round 10's codes), on the
+    first tree's root split's smaller child as a row list and on a
+    random quarter of the rows in random order, exactly, a second launch
+    repeating the int32 histogram; HQ at the max_bin=1023 root; HQ on the
+    uint8 HIGGS matrix exactly (its uint16 mode not launched); LM at
+    max_bin=1023 on the last linear tree's leaves (phase 40) and LM on
+    the uint8 HIGGS matrix over phase 9's last tree's leaves, within
+    1e-5 * max(1, sum of |terms|) of the plain version and of an f64
+    oracle, repeats equal;
+40. the quantized uint16 main paths on phase 31's Bosch Datasets, every
+    count set to 0 before each run and read after: int8 (twice,
+    byte-identical), int16 and int8 + bagging 0.8 every round, 10 rounds
+    each: HQ launched once a split and for the gate's quantized tree,
+    every launch in its uint16 mode, H only for the gate's f32 tree, Q
+    once a round and once for the gate, M once a round when bagging;
+    valid AUC rising and within 0.02 of phase 31's; on phase 34's
+    max_bin=1023 Datasets int8 for 3 rounds, and linear trees for 3
+    rounds with leaf_feature_moments (LM u16) of the last tree's leaves;
+    the card against the CPU on Bosch at 65,536 rows, int8 and int16, 3
+    rounds: the same trees, leaves within 1e-5 relative;
+41. times (CUDA events or torch.profiler, median of 12 after 0.3 s of
+    calls): HQ u16 at the Bosch root, on its row list and at the
+    max_bin=1023 root against its bound, torch.bincount x3 (the codes as
+    weights), its plain version and HQ at the uint8 HIGGS root; LM u16
+    against its bound, torch.bincount x4, its plain version and LM on
+    uint8 bins; S's categorical scan on an Expo leaf pair, R on the
+    categorical split and W on the categorical tree; seconds per round of
+    the categorical path and of the three quantized Bosch runs against
+    phase 31's round; one profiled categorical round's and one profiled
+    Bosch int8 round's idle share; the 500-round run's wall time.
 
 Phases 5-34 train with the default tpu_hist_bf16, so H runs in its
 hi+lo mode on their paths; phase 9's tpu_hist_bf16=false run is the
@@ -1406,6 +1465,7 @@ def linear_oracle(x, grad, hess, weight, perm, begin, rows, feats):
 def moment_oracle(binned, x, w3, num_bins, leaf_id, ids):
     """LM's per-bin moments of the rows of each leaf id and the sums of
     their terms' absolute values, in f64 on the card."""
+    from lightgbm_tpu_torch.ops.histogram import take_bins
     match = leaf_id.long()[:, None] == ids.long()[None, :]
     hit = match.any(dim=1)
     sel = torch.nonzero(hit)[:, 0]
@@ -1419,7 +1479,7 @@ def moment_oracle(binned, x, w3, num_bins, leaf_id, ids):
                          xv * w[:, 0:1], xv * w[:, 1:2]], -1)
     flat = ((slot[:, None] * f_cnt
              + torch.arange(f_cnt, device=binned.device)[None]) * num_bins
-            + binned[sel].long()).reshape(-1)
+            + take_bins(binned, sel)).reshape(-1)
     out = []
     for t in (terms, terms.abs()):
         acc = torch.zeros((c_cnt * f_cnt * num_bins, 4), dtype=torch.float64,
@@ -3329,7 +3389,9 @@ BOSCH_ROWS, BOSCH_VALID_ROWS, BOSCH_FEATURES, BOSCH_SEED = \
     500_000, 100_000, 968, 2
 BOSCH_ROUNDS, BOSCH_F32_ROUNDS = 10, 3
 BOSCH_PARAMS = dict(TRAIN_PARAMS, metric="auc")
-BOSCH_FILE_ROWS, BOSCH_FILE_CHUNK, BOSCH_FILE_ROUNDS = 50_000, 8192, 3
+# 10,000 rows: 50,000 rows of 968 columns took 80 s of the command to
+# write and parse; the last of the 8,192-row chunks stays ragged
+BOSCH_FILE_ROWS, BOSCH_FILE_CHUNK, BOSCH_FILE_ROUNDS = 10_000, 8192, 3
 BOSCH_CPU_ROWS, BOSCH_CPU_VALID_ROWS = 65_536, 16_384
 BOSCH_CPU_LEAVES, BOSCH_CPU_ROUNDS = 63, 3
 # the phase-9 protocol at max_bin 1023: one feature a group, ~1,024 bins
@@ -3528,13 +3590,6 @@ def bosch(name, card, dev, ctx):
     kept = booster._inner.valid_score(0)
     rel = float(np.max(np.abs(raw - kept) / np.maximum(1.0, np.abs(kept))))
     check(rel <= 1e-5, "served Bosch raw scores off W's by %g" % rel)
-    refused = ""
-    try:
-        lgb.train(dict(BOSCH_PARAMS, tpu_hist_quantize="int8"), ds, 1)
-    except lgb.LightGBMError as exc:
-        refused = str(exc)
-    check("HQ's uint16 mode" in refused, "tpu_hist_quantize=int8 on the "
-          "uint16 matrix: %r, not HQ's refusal" % refused)
     # H's f32 mode on uint16 bins: the path with tpu_hist_bf16=false
     reset()
     f32_auc = train_run(lgb, x, y, xv, yv,
@@ -3547,12 +3602,12 @@ def bosch(name, card, dev, ctx):
     print("bosch main path: %d rounds, %d trees of %s leaves, valid auc "
           "%s; a second run byte-identical (%d bytes); the saved model "
           "served through K1 on %d rows x %d features within %.3g of W's "
-          "scores; tpu_hist_quantize=int8 refused: %s; tpu_hist_bf16=false "
-          "%d rounds (H f32 mode on uint16 %d launches), auc %.5f"
+          "scores; tpu_hist_bf16=false %d rounds (H f32 mode on uint16 %d "
+          "launches), auc %.5f"
           % (BOSCH_ROUNDS, booster.num_trees(),
              sorted({t.num_leaves for t in booster._inner.models}),
              " ".join("%.5f" % a for a in auc), len(text), BOSCH_VALID_ROWS,
-             BOSCH_FEATURES, rel, refused, BOSCH_F32_ROUNDS,
+             BOSCH_FEATURES, rel, BOSCH_F32_ROUNDS,
              f32_launches["H_u16"], f32_auc[-1]))
 
     # --------------------------------------------------------------- 30
@@ -3828,13 +3883,14 @@ def bosch(name, card, dev, ctx):
           "launches %s, valid auc %.5f" % (
               BOSCH_CPU_ROWS, BOSCH_CPU_ROUNDS, lin_launches,
               lin_auc["valid"]["auc"][-1]))
-    del cds, cvalid, on_card, on_cpu
+    del on_card, on_cpu
 
     # --------------------------------------------------------------- 34
     hx, hy, hxv, hyv = ctx["x"], ctx["y"], ctx["xv"], ctx["yv"]
     wparams = dict(TRAIN_PARAMS, max_bin=WIDE_MAX_BIN)
     t0 = time.perf_counter()
-    wds = lgb.Dataset(hx, hy, params=dict(wparams))
+    # the Datasets keep raw values, for phase 40's linear run
+    wds = lgb.Dataset(hx, hy, params=dict(wparams, linear_tree=True))
     wvalid = wds.create_valid(hxv, hyv)
     wds.construct()
     wvalid.construct()
@@ -4032,6 +4088,10 @@ def bosch(name, card, dev, ctx):
     print("clocks [%s]: SM clock, max SM clock: %s (after the timings)"
           % (card, clocks()))
     profile_round(booster, name, card)
+    # phases 39-41 train quantized on these Datasets
+    ctx["bosch"] = {"x": x, "y": y, "xv": xv, "yv": yv, "data": (ds, valid),
+                    "auc": auc, "round_s": med, "cpu_data": (cds, cvalid),
+                    "wide_data": (wds, wvalid)}
 
     launch_of = {
         "leaf_histogram_u16_f32": f32_launches["H_u16"],
@@ -4057,6 +4117,848 @@ def bosch(name, card, dev, ctx):
         rows.append({
             "name": k, "route": "cuda",
             "source": "lightgbm_tpu_torch/csrc/" + sources[k[:4]],
+            "replaces": replaces[k], "launches": launch_of[k],
+            "max_abs_err": errs.get(k, 0.0), "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms})
+    return rows
+
+
+# ---------------------------------------------------------------------
+# categorical features (phases 36-38, 41)
+# the protocol behind ACCURACY_r05.json's categorical gate
+# (scripts/measure_accuracy.py:30-32, :114-146): synth_expo at 600,000
+# rows (seed 13), rows 0-499,999 train and the rest test
+EXPO_ROWS, EXPO_TEST_ROWS, EXPO_SEED = 500_000, 100_000, 13
+EXPO_ROUNDS, EXPO_GATE_ROUNDS = 10, 500
+EXPO_CATS = list(range(8))
+EXPO_PARAMS = dict(TRAIN_PARAMS, metric="auc", categorical_feature=EXPO_CATS)
+# reference LightGBM's test AUC and the JAX package's, 500 rounds
+# (ACCURACY_r05.json "categorical"), and the gate the JAX package met
+EXPO_REF_AUC, EXPO_JAX_AUC, EXPO_AUC_GATE = 0.815114, 0.815474, 2e-3
+EXPO_FILE_ROWS, EXPO_FILE_ROUNDS = 50_000, 3
+
+
+def rank_auc(y, p):
+    """scripts/measure_accuracy.py _auc: the rank statistic over the
+    order np.argsort gives (ties by position)."""
+    order = np.argsort(p)
+    ranks = np.empty(len(p))
+    ranks[order] = np.arange(1, len(p) + 1)
+    pos = y > 0
+    n_pos, n_neg = pos.sum(), (~pos).sum()
+    return (ranks[pos].sum() - n_pos * (n_pos + 1) / 2) / (n_pos * n_neg)
+
+
+def single_bin(tree, node):
+    """The one bin of a one-vs-rest categorical node's bin-space bitset."""
+    c = int(tree.threshold_in_bin[node])
+    lo, hi = tree.cat_boundaries_inner[c], tree.cat_boundaries_inner[c + 1]
+    bits = np.flatnonzero(np.unpackbits(np.asarray(
+        tree.cat_threshold_inner[lo:hi], "<u4").view(np.uint8),
+        bitorder="little"))
+    check(len(bits) == 1, "categorical node %d holds %d bins" % (node,
+                                                                 len(bits)))
+    return int(bits[0])
+
+
+def categorical(name, card, dev):
+    """Phases 37, 36 and 38; returns what phase 41 times (the Datasets,
+    the trained booster, the kernels' inputs and errors, the main path's
+    counts)."""
+    import lightgbm_tpu_torch as lgb
+    from lightgbm_tpu_torch.binning import BIN_CATEGORICAL
+    from lightgbm_tpu_torch.ops import histogram, predict, route, split
+    from lightgbm_tpu_torch.testing.synth import synth_expo
+
+    H, S, R = histogram.leaf_histogram, split.split_scan, route.route_partition
+    W = predict.tree_value_walk_binned
+    counted = {"leaf_histogram": H, "split_scan": S, "route_partition": R,
+               "score_update": route.score_update, "tree_value_walk_binned": W}
+
+    def reset():
+        for fn in counted.values():
+            fn.launches = 0
+        S.launches_cat = R.launches_cat = W.launches_cat = 0
+
+    def read():
+        out = {k: fn.launches for k, fn in counted.items()}
+        out.update(S_cat=S.launches_cat, R_cat=R.launches_cat,
+                   W_cat=W.launches_cat)
+        return out
+
+    # --------------------------------------------------------------- 37
+    t0 = time.perf_counter()
+    xa, ya, cats = synth_expo(EXPO_ROWS + EXPO_TEST_ROWS, seed=EXPO_SEED)
+    check(cats == EXPO_CATS, "synth_expo's categorical columns %s" % cats)
+    x, y = xa[:EXPO_ROWS], ya[:EXPO_ROWS]
+    xt, yt = xa[EXPO_ROWS:], ya[EXPO_ROWS:]
+    data_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    ds = lgb.Dataset(x, y, params=dict(EXPO_PARAMS))
+    ds.construct()
+    construct_s = time.perf_counter() - t0
+    valid = ds.create_valid(xt, yt)
+    valid.construct()
+    inner = ds._inner
+    flags = [inner.feature_mapper(j).bin_type == BIN_CATEGORICAL
+             for j in range(inner.num_features)]
+    check([j for j, c in enumerate(flags) if c] == EXPO_CATS
+          and inner.binned.dtype == np.uint8,
+          "the Expo Dataset: categorical features %s, %s bins"
+          % ([j for j, c in enumerate(flags) if c], inner.binned.dtype))
+    print("expo datasets: synth_expo(%d, seed %d) in %.1f s; %d x %d "
+          "features (%d categorical, %s categories), %d groups, uint8, "
+          "%.1f MB of training bins; Dataset.construct() %.1f s; test %d "
+          "rows" % (EXPO_ROWS + EXPO_TEST_ROWS, EXPO_SEED, data_s, EXPO_ROWS,
+                    inner.num_features, len(EXPO_CATS),
+                    [inner.feature_mapper(j).num_bin for j in EXPO_CATS],
+                    inner.num_groups, inner.binned.nbytes / 1e6, construct_s,
+                    EXPO_TEST_ROWS))
+    reset()
+    booster, evals, update_s = train_run(
+        lgb, x, y, xt, yt, EXPO_PARAMS, EXPO_ROUNDS, data=(ds, valid))[:3]
+    launches = read()
+    print("categorical main path launches:", launches)
+    check(booster.device.type == "cuda", "the categorical path ran on %s"
+          % booster.device)
+    for k in counted:
+        check(launches[k] > 0, "categorical path: %s never launched" % k)
+    check(launches["S_cat"] == launches["split_scan"]
+          and launches["R_cat"] > 0 and launches["W_cat"] > 0,
+          "categorical path: S, R or W never ran a categorical variant: %s"
+          % launches)
+    auc = evals["valid"]["auc"]
+    check(len(auc) == EXPO_ROUNDS and np.isfinite(auc).all()
+          and auc[-1] > auc[0], "categorical valid AUC %s does not rise"
+          % auc)
+    text = booster.model_to_string()
+    again = train_run(lgb, x, y, xt, yt, EXPO_PARAMS, EXPO_ROUNDS,
+                      data=(ds, valid))[0]
+    check(again.model_to_string() == text,
+          "two categorical runs gave different model texts")
+    del again
+    clf = lgb.LGBMClassifier(
+        n_estimators=EXPO_ROUNDS, num_leaves=EXPO_PARAMS["num_leaves"],
+        learning_rate=EXPO_PARAMS["learning_rate"],
+        max_bin=EXPO_PARAMS["max_bin"],
+        min_child_samples=EXPO_PARAMS["min_data_in_leaf"],
+        min_child_weight=EXPO_PARAMS["min_sum_hessian_in_leaf"])
+    clf.fit(x, y, categorical_feature=EXPO_CATS)
+    check(clf.booster_.device.type == "cuda", "LGBMClassifier trained on "
+          "%s" % clf.booster_.device)
+    check(clf.booster_.model_to_string() == text,
+          "LGBMClassifier.fit(categorical_feature=) gave another model text "
+          "than train")
+    del clf
+    cat_nodes = sum(t.is_categorical_node(i) for t in booster._inner.models
+                    for i in range(t.num_leaves - 1))
+    print("categorical main path: %d rounds, %d trees of %s leaves, %d "
+          "categorical nodes, valid auc %s; a second run and "
+          "LGBMClassifier.fit(categorical_feature=%s) byte-identical (%d "
+          "bytes)" % (EXPO_ROUNDS, booster.num_trees(),
+                      sorted({t.num_leaves for t in booster._inner.models}),
+                      cat_nodes, " ".join("%.5f" % a for a in auc),
+                      EXPO_CATS, len(text)))
+    t0 = time.perf_counter()
+    gate = lgb.train(dict(EXPO_PARAMS), ds, EXPO_GATE_ROUNDS)
+    torch.cuda.synchronize()
+    gate_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    raw = gate.predict(xt, raw_score=True)
+    predict_s = time.perf_counter() - t0
+    test_auc = float(rank_auc(yt, raw))
+    check(gate.num_trees() == EXPO_GATE_ROUNDS and np.isfinite(raw).all()
+          and abs(test_auc - EXPO_REF_AUC) <= EXPO_AUC_GATE,
+          "categorical %d rounds: test AUC %.6f, outside %.6f +- %g"
+          % (EXPO_GATE_ROUNDS, test_auc, EXPO_REF_AUC, EXPO_AUC_GATE))
+    print("categorical gate [%s | %s]: %d rounds in %.1f s, test AUC "
+          "%.6f on %d rows (predict %.2f s): reference LightGBM %.6f "
+          "(delta %+.6f, gate +-%g), the JAX package %.6f "
+          "(ACCURACY_r05.json)" % (name, card, EXPO_GATE_ROUNDS, gate_s,
+                                   test_auc, EXPO_TEST_ROWS, predict_s,
+                                   EXPO_REF_AUC, test_auc - EXPO_REF_AUC,
+                                   EXPO_AUC_GATE, EXPO_JAX_AUC))
+    del gate, raw
+
+    # --------------------------------------------------------------- 36
+    trees = booster._inner.models
+    check(trees[0].num_cat > 0, "no categorical feature won a split in the "
+          "first tree")
+    fresh = lgb.Booster(dict(EXPO_PARAMS), train_set=ds)
+    gb = fresh._inner
+    grower = gb._grower
+    binned = gb._binned
+    nb, fb = grower.num_bins, grower.feature_bins
+    fmeta, prm = grower.fmeta_dev, grower.params
+    check(fmeta.categorical, "the grower's feature metadata is not "
+          "categorical")
+    n = binned.shape[0]
+    mask = torch.ones(inner.num_features, dtype=torch.uint8, device=dev)
+    grad, hess = gb.objective.get_gradients(gb._score[0])
+    w1 = torch.stack([grad, hess, torch.ones_like(grad)], 1).contiguous()
+    del grad, hess
+    h_root = H(binned, w1, nb, bf16=True)
+    acc = leaf_totals(h_root)
+    sums = torch.from_numpy(acc[None]).to(dev)
+    depth0 = torch.zeros(1, dtype=torch.int32, device=dev)
+    s_root = S(h_root[None], sums, depth0, fmeta, mask, prm, fb)
+    for got in (S(h_root[None], sums, depth0, fmeta, mask, prm, fb),
+                split.split_scan_plain(h_root[None], sums, depth0, fmeta,
+                                       mask, prm, fb)):
+        check(all(torch.equal(a, b) for a, b in zip(s_root, got)),
+              "S (categorical) root: not bitwise its repeat and plain "
+              "version")
+    out_f = s_root[0][0].cpu().numpy()
+    out_i = s_root[1][0].cpu().numpy()
+    fm = grower.fmeta
+
+    def rule_of(feat, thr, default_left, is_cat):
+        return route.SplitRule(
+            int(fm["group"][feat]), int(fm["offset"][feat]),
+            int(fm["num_bin"][feat]), int(fm["default_bin"][feat]),
+            int(fm["missing_type"][feat]), bool(fm["is_bundled"][feat]),
+            int(thr), bool(default_left), bool(is_cat), 0, 1)
+
+    perm0 = torch.arange(n, dtype=torch.int32, device=dev)
+    lid0 = torch.zeros(n, dtype=torch.int32, device=dev)
+
+    def held_route(rule, label):
+        res = []
+        for fn in (R, R, route.route_partition_plain):
+            perm, lid = perm0.clone(), lid0.clone()
+            res.append((perm, lid, int(fn(binned, perm, 0, n, rule, lid))))
+        check(all(torch.equal(res[0][0], r[0]) and torch.equal(res[0][1], r[1])
+                  and res[0][2] == r[2] for r in res[1:]),
+              "R (%s): partition or leaf ids differ between launches or "
+              "from plain" % label)
+        return res[0]
+
+    perm, _, n_left = held_route(
+        rule_of(int(out_i[0]), out_i[1], out_i[2], out_i[3]), "root split")
+    check(n_left == int(round(float(out_f[3]))),
+          "R sent %d rows left at the root, the scan counted %s"
+          % (n_left, out_f[3]))
+    small_left = np.float32(out_f[3]) * np.float32(2.0) <= acc[2]
+    b0, cnt = (0, n_left) if small_left else (n_left, n - n_left)
+    small = 0 if small_left else 1
+    h_small = H(binned, w1, nb, rows=perm[b0:], n_rows=cnt, bf16=True)
+    pair = torch.empty((2,) + tuple(h_root.shape), device=dev)
+    pair[small] = h_small
+    pair[1 - small] = histogram.subtract(h_root, h_small)
+    left = out_f[1:4].astype(np.float32)
+    csums = torch.from_numpy(np.stack([left, acc - left])).to(dev)
+    depth1 = torch.ones(2, dtype=torch.int32, device=dev)
+    s_kids = S(pair, csums, depth1, fmeta, mask, prm, fb)
+    for got in (S(pair, csums, depth1, fmeta, mask, prm, fb),
+                split.split_scan_plain(pair, csums, depth1, fmeta, mask, prm,
+                                       fb)):
+        check(all(torch.equal(a, b) for a, b in zip(s_kids, got)),
+              "S (categorical) children: not bitwise its repeat and plain "
+              "version")
+    # R on the first tree's first categorical split, over every row
+    tree0 = trees[0]
+    node = next(i for i in range(tree0.num_leaves - 1)
+                if tree0.is_categorical_node(i))
+    feat = int(tree0.split_feature_inner[node])
+    cat_rule = rule_of(feat, single_bin(tree0, node),
+                       tree0.default_left_node(node), True)
+    cat_perm, cat_lid, cat_left = held_route(cat_rule, "categorical split")
+    col = histogram.take_bins(binned[:, cat_rule.group].contiguous())
+    check(cat_left == int((col == cat_rule.threshold).sum()),
+          "R (categorical split): %d rows left, not the rows of bin %d"
+          % (cat_left, cat_rule.threshold))
+    del cat_perm, cat_lid, col
+    # W on the first tree with its categorical nodes, over the test rows
+    bt = predict.binned_tree(tree0, dev)
+    vb = booster._inner._valid_binned[0]
+    check(bt.categorical, "W's tree has no categorical node")
+    walked, leaves = [], []
+    for fn in (W, W, predict.tree_value_walk_binned_plain):
+        sc = torch.zeros(EXPO_TEST_ROWS, dtype=torch.float32, device=dev)
+        fn(bt, vb, sc)
+        walked.append(sc)
+    for fn in (predict.tree_leaf_walk_binned, predict.tree_leaf_walk_binned,
+               predict.tree_leaf_walk_binned_plain):
+        leaves.append(fn(bt, vb))
+    check(all(torch.equal(walked[0], s) for s in walked[1:])
+          and all(torch.equal(leaves[0], v) for v in leaves[1:]),
+          "W (categorical; value or leaf mode) differs between launches or "
+          "from plain")
+    # K1 serving the saved model
+    OUT_DIR.mkdir(parents=True, exist_ok=True)
+    model_path = str(OUT_DIR / "expo_model.txt")
+    booster.save_model(model_path)
+    predict.forest_value_walk.launches = 0
+    served = lgb.Booster(model_file=model_path)
+    served_raw = served.predict(xt, raw_score=True)
+    kept = booster._inner.valid_score(0)
+    rel = float(np.max(np.abs(served_raw - kept)
+                       / np.maximum(1.0, np.abs(kept))))
+    check(served.device.type == "cuda"
+          and predict.forest_value_walk.launches > 0 and rel <= 1e-5,
+          "the saved categorical model through K1: off W's scores by %g"
+          % rel)
+    print("categorical kernels vs plain [Expo, %d rows x %d groups, B %d]: "
+          "S bitwise on the root (split on feature %d, %s) and its "
+          "children; R exact on the root split and on tree 0's categorical "
+          "node %d (feature %d, bin %d: %d rows left); W value and leaf "
+          "modes exact on %d test rows (%d categorical nodes in tree 0); K1 "
+          "on the saved model within %.3g of W's scores"
+          % (n, binned.shape[1], nb, int(out_i[0]),
+             "categorical" if out_i[3] else "numeric", node, feat,
+             cat_rule.threshold, cat_left, EXPO_TEST_ROWS, tree0.num_cat,
+             rel))
+
+    # --------------------------------------------------------------- 38
+    cparams = dict(EXPO_PARAMS, num_leaves=CPU_LEAVES)
+    t0 = time.perf_counter()
+    cx, cy = x[:CPU_ROWS], y[:CPU_ROWS]
+    cxt, cyt = xt[:CPU_VALID_ROWS], yt[:CPU_VALID_ROWS]
+    on_card, ev_card, _, cds, cvalid = train_run(lgb, cx, cy, cxt, cyt,
+                                                 cparams, CPU_ROUNDS)
+    on_cpu, ev_cpu = train_run(lgb, cx, cy, cxt, cyt, cparams, CPU_ROUNDS,
+                               device="cpu", data=(cds, cvalid))[:2]
+    worst = same_trees(on_card, on_cpu, CPU_ROUNDS)
+    d_auc = abs(ev_card["valid"]["auc"][-1] - ev_cpu["valid"]["auc"][-1])
+    check(d_auc <= 2e-3, "categorical card/CPU AUC differ by %g" % d_auc)
+    print("card vs CPU [categorical, %d rows, %d leaves, %d rounds]: same "
+          "trees (%d categorical nodes), leaf values within %.3g relative, "
+          "valid auc %.5f vs %.5f (%.1f s)"
+          % (CPU_ROWS, CPU_LEAVES, CPU_ROUNDS,
+             sum(t.num_cat for t in on_card._inner.models), worst,
+             ev_card["valid"]["auc"][-1], ev_cpu["valid"]["auc"][-1],
+             time.perf_counter() - t0))
+    del on_card, on_cpu, cds, cvalid
+    fx, fy = x[:EXPO_FILE_ROWS], y[:EXPO_FILE_ROWS]
+    tsv = str(OUT_DIR / "expo.tsv")
+    write_tsv(tsv, fx, fy)
+    file_params = {k: v for k, v in EXPO_PARAMS.items()
+                   if k != "categorical_feature"}
+    file_params["categorical_column"] = ",".join(map(str, EXPO_CATS))
+    t0 = time.perf_counter()
+    from_file = lgb.Dataset(tsv, params=dict(file_params)).construct()
+    file_s = time.perf_counter() - t0
+    arr = lgb.Dataset(fx, fy, params=dict(EXPO_PARAMS)).construct()
+    check(np.array_equal(from_file._inner.binned, arr._inner.binned)
+          and [j for j in range(from_file._inner.num_features)
+               if from_file._inner.feature_mapper(j).bin_type
+               == BIN_CATEGORICAL] == EXPO_CATS,
+          "Dataset(path, categorical_column=...) differs from the array "
+          "Dataset")
+    texts = [lgb.train(dict(EXPO_PARAMS), d, EXPO_FILE_ROUNDS)
+             .model_to_string() for d in (arr, from_file)]
+    check(texts[0] == texts[1] and "num_cat=" in texts[0],
+          "the categorical file's model text differs from the array's")
+    os.remove(tsv)
+    print("files [%d Expo rows as TSV]: Dataset(path, params="
+          "{categorical_column: %r}) %.1f s, bitwise the array Dataset's "
+          "matrix, %d rounds give its model text"
+          % (EXPO_FILE_ROWS, file_params["categorical_column"], file_s,
+             EXPO_FILE_ROUNDS))
+    return {"booster": booster, "update_s": update_s, "launches": launches,
+            "gate_s": gate_s, "binned": binned, "pair": pair,
+            "csums": csums, "depth1": depth1, "mask": mask, "fmeta": fmeta,
+            "prm": prm, "fb": fb, "cat_rule": cat_rule, "bt": bt, "vb": vb,
+            "perm0": perm0, "lid0": lid0, "tree0": tree0,
+            "leaves": leaves[0]}
+
+
+# ---------------------------------------------------------------------
+# quantized training and leaf moments on uint16 bins (phases 39-41)
+U16Q_ROUNDS, U16Q_WIDE_ROUNDS = 10, 3
+
+
+def uint16_quant(name, card, dev, ctx):
+    """Phases 40 and 39 on phase 31's Bosch Datasets and phase 34's
+    max_bin=1023 ones; returns what phase 41 times."""
+    import lightgbm_tpu_torch as lgb
+    from lightgbm_tpu_torch.linear import leaf_feature_moments
+    from lightgbm_tpu_torch.ops import histogram, predict, rng, route, split
+
+    HQ, H = histogram.leaf_histogram_i32, histogram.leaf_histogram
+    LM = histogram.leaf_moments
+    counted = {"bagging_mask": rng.bagging_mask,
+               "quantize_gradients": histogram.quantize_gradients,
+               "leaf_histogram_i32": HQ, "leaf_histogram": H,
+               "split_scan": split.split_scan,
+               "route_partition": route.route_partition,
+               "score_update": route.score_update,
+               "tree_value_walk_binned": predict.tree_value_walk_binned,
+               "tree_leaf_walk_binned": predict.tree_leaf_walk_binned,
+               "leaf_moments": LM}
+
+    def reset():
+        for fn in counted.values():
+            fn.launches = 0
+        HQ.launches_u16 = H.launches_u16 = LM.launches_u16 = 0
+
+    def read():
+        out = {k: fn.launches for k, fn in counted.items()}
+        out.update(HQ_u16=HQ.launches_u16, H_u16=H.launches_u16,
+                   LM_u16=LM.launches_u16)
+        return out
+
+    bo = ctx["bosch"]
+    x, y, xv, yv = bo["x"], bo["y"], bo["xv"], bo["yv"]
+    leaves = TRAIN_PARAMS["num_leaves"]
+
+    def path(label, params, rounds, data):
+        """One run with every count set to 0 before it: HQ on uint16
+        bins once a split, H only for the quantize gate's f32 tree, Q
+        once a round and once for the gate."""
+        reset()
+        booster, evals, update_s = train_run(lgb, x, y, xv, yv, params,
+                                             rounds, data=data)[:3]
+        launches = read()
+        gb = booster._inner
+        trees = gb.models
+        gq, gf = gb.quant_gate_leaves
+        print("%s path launches: %s" % (label, launches))
+        check(booster.device.type == "cuda" and len(trees) == rounds
+              and gb._binned.dtype == torch.uint16,
+              label + ": %d trees on %s, %s bins" % (len(trees), booster.device,
+                                                     gb._binned.dtype))
+        check(launches["quantize_gradients"] == rounds + 1,
+              label + ": Q launched %d times" % launches["quantize_gradients"])
+        want = hist_launches(trees, leaves) + gq - (gq == 31)
+        check(launches["leaf_histogram_i32"] == launches["HQ_u16"] == want,
+              label + ": HQ launched %d times (%d on uint16 bins), not once a "
+              "split (%d)" % (launches["leaf_histogram_i32"],
+                              launches["HQ_u16"], want))
+        check(launches["leaf_histogram"] == launches["H_u16"]
+              == gf - (gf == 31),
+              label + ": H launched %d times beyond the gate's f32 tree"
+              % launches["leaf_histogram"])
+        for k in ("split_scan", "route_partition", "tree_value_walk_binned"):
+            check(launches[k] > 0, label + ": %s never launched" % k)
+        check(gb.quant_gate_delta <= 0.5, label + ": gate delta %g"
+              % gb.quant_gate_delta)
+        auc = evals["valid"]["auc"]
+        check(np.isfinite(auc).all() and auc[-1] > auc[0],
+              label + ": valid AUC %s did not rise" % auc)
+        med = float(np.median(update_s[1:])) if rounds > 1 else update_s[0]
+        print("%s path: qmax %d, gate delta %.4g (trees of %d and %d "
+              "leaves), valid auc %.5f (round 1) -> %.5f, trees of %s leaves"
+              % (label, gb._quant_qmax, gb.quant_gate_delta, gq, gf, auc[0],
+                 auc[-1], sorted({t.num_leaves for t in trees})))
+        print("time [%s | %s]: %s boosting round %.4f s (median of rounds "
+              "2-%d), rounds %s" % (name, card, label, med, rounds,
+                                     " ".join("%.4f" % v for v in update_s)))
+        return booster, auc, med, launches
+
+    # --------------------------------------------------------------- 40
+    bdata = bo["data"]
+    int8 = dict(BOSCH_PARAMS, tpu_hist_quantize="int8")
+    b8, auc8, med8, l8 = path("bosch int8", int8, U16Q_ROUNDS, bdata)
+    check(l8["bagging_mask"] == 0, "bosch int8: M launched without bagging")
+    text8 = b8.model_to_string()
+    check(train_run(lgb, x, y, xv, yv, int8, U16Q_ROUNDS, data=bdata)[0]
+          .model_to_string() == text8,
+          "two Bosch int8 runs gave different model texts")
+    b16, auc16, med16, l16 = path("bosch int16",
+                                  dict(BOSCH_PARAMS, tpu_hist_quantize="int16"),
+                                  U16Q_ROUNDS, bdata)
+    bb, aucb, medb, lb = path("bosch int8 + bagging",
+                              dict(int8, bagging_fraction=0.8, bagging_freq=1),
+                              U16Q_ROUNDS, bdata)
+    check(lb["bagging_mask"] == U16Q_ROUNDS, "bosch bagging: M launched %d "
+          "times" % lb["bagging_mask"])
+    del bb
+    for label, auc in (("int8", auc8), ("int16", auc16),
+                       ("int8 + bagging", aucb)):
+        check(abs(auc[-1] - bo["auc"][-1]) <= 0.02,
+              "bosch %s: valid AUC %.5f vs %.5f in f32 (phase 31)"
+              % (label, auc[-1], bo["auc"][-1]))
+    print("bosch quantized paths: a second int8 run byte-identical (%d "
+          "bytes); valid auc int8 %.5f, int16 %.5f, int8 + bagging %.5f "
+          "against phase 31's %.5f" % (len(text8), auc8[-1], auc16[-1],
+                                        aucb[-1], bo["auc"][-1]))
+    wds, wvalid = bo["wide_data"]
+    hx, hy, hxv, hyv = ctx["x"], ctx["y"], ctx["xv"], ctx["yv"]
+    wparams = dict(TRAIN_PARAMS, max_bin=WIDE_MAX_BIN)
+    reset()
+    bw8, evw = train_run(lgb, hx, hy, hxv, hyv,
+                         dict(wparams, tpu_hist_quantize="int8"),
+                         U16Q_WIDE_ROUNDS, data=(wds, wvalid))[:2]
+    lw = read()
+    check(lw["leaf_histogram_i32"] == lw["HQ_u16"] > 0
+          and lw["split_scan"] > 0 and np.isfinite(evw["valid"]["auc"]).all(),
+          "max_bin=%d int8: %s" % (WIDE_MAX_BIN, lw))
+    print("max_bin=%d int8 path: %d rounds, HQ %d launches on uint16 bins, "
+          "valid auc %.5f" % (WIDE_MAX_BIN, U16Q_WIDE_ROUNDS, lw["HQ_u16"],
+                              evw["valid"]["auc"][-1]))
+    reset()
+    lin = train_run(lgb, hx, hy, hxv, hyv,
+                    dict(wparams, linear_tree=True, linear_lambda=0.01,
+                         tpu_linear_max_features=5),
+                    U16Q_WIDE_ROUNDS, data=(wds, wvalid))[0]
+    gbt = lin._inner
+    last = gbt.models[-1]
+    check(last.is_linear and gbt._binned.dtype == torch.uint16,
+          "max_bin=%d linear trees: not linear on uint16 bins" % WIDE_MAX_BIN)
+    leaf_of = predict.tree_leaf_walk_binned(
+        predict.binned_tree(last, dev), gbt._binned).to(torch.int32)
+    g_l, h_l = gbt.objective.get_gradients(gbt._score[0])
+    w_l = torch.stack([g_l, h_l, torch.ones_like(g_l)], 1).contiguous()
+    del g_l, h_l
+    lm_ids = list(range(last.num_leaves))
+    nbw = gbt._grower.num_bins
+    moments = leaf_feature_moments(gbt._binned, gbt._raw, w_l, leaf_of,
+                                   lm_ids, nbw)
+    ll = read()
+    check(ll["LM_u16"] == ll["leaf_moments"] > 0
+          and bool(torch.isfinite(moments).all())
+          and tuple(moments.shape) == (last.num_leaves, FEATURES, 4),
+          "leaf_feature_moments on uint16 bins: %s, shape %s"
+          % (ll, tuple(moments.shape)))
+    total = moments[:, :, 0].sum(0).double()
+    check(bool(((total - gbt._raw.double().sum(0)).abs()
+                <= 1e-4 * gbt._raw.double().abs().sum(0)).all()),
+          "leaf_feature_moments on uint16 bins: the leaves' sum w x is not "
+          "the column sum")
+    print("max_bin=%d linear trees: %d rounds on uint16 bins (%s); "
+          "leaf_feature_moments of the last tree's %d leaves x %d features "
+          "at %d bins (LM %d launches on uint16 bins)"
+          % (WIDE_MAX_BIN, U16Q_WIDE_ROUNDS,
+             {k: ll[k] for k in ("leaf_histogram", "tree_leaf_walk_binned",
+                                 "leaf_moments")}, last.num_leaves,
+             FEATURES, nbw, ll["LM_u16"]))
+    cds, cvalid = bo["cpu_data"]
+    cx, cy = x[:BOSCH_CPU_ROWS], y[:BOSCH_CPU_ROWS]
+    cxv, cyv = xv[:BOSCH_CPU_VALID_ROWS], yv[:BOSCH_CPU_VALID_ROWS]
+    for mode in ("int8", "int16"):
+        cparams = dict(BOSCH_PARAMS, num_leaves=BOSCH_CPU_LEAVES,
+                       tpu_hist_quantize=mode)
+        t0 = time.perf_counter()
+        on_card, ev_card = train_run(lgb, cx, cy, cxv, cyv, cparams,
+                                     BOSCH_CPU_ROUNDS, data=(cds, cvalid))[:2]
+        on_cpu, ev_cpu = train_run(lgb, cx, cy, cxv, cyv, cparams,
+                                   BOSCH_CPU_ROUNDS, device="cpu",
+                                   data=(cds, cvalid))[:2]
+        worst = same_trees(on_card, on_cpu, BOSCH_CPU_ROUNDS)
+        d_auc = abs(ev_card["valid"]["auc"][-1] - ev_cpu["valid"]["auc"][-1])
+        check(d_auc <= 2e-3, "Bosch %s card/CPU AUC differ by %g"
+              % (mode, d_auc))
+        print("card vs CPU [Bosch %s, %d rows, %d leaves, %d rounds]: same "
+              "trees, leaf values within %.3g relative, valid auc %.5f vs "
+              "%.5f (%.1f s)" % (mode, BOSCH_CPU_ROWS, BOSCH_CPU_LEAVES,
+                                 BOSCH_CPU_ROUNDS, worst,
+                                 ev_card["valid"]["auc"][-1],
+                                 ev_cpu["valid"]["auc"][-1],
+                                 time.perf_counter() - t0))
+    del on_card, on_cpu
+
+    # --------------------------------------------------------------- 39
+    ds = bdata[0]
+    gb8 = b8._inner
+    binned, nb = gb8._binned, gb8._grower.num_bins
+    n = binned.shape[0]
+    lay = gb8._grower.hist_layout
+    fresh = lgb.Booster(dict(int8), train_set=ds)._inner
+    g1, h1 = fresh.objective.get_gradients(fresh._score[0])
+    g10, h10 = gb8.objective.get_gradients(gb8._score[0])
+    ones = torch.ones(n, dtype=torch.float32, device=dev)
+    codes = {}
+    for mode, gbm in (("int8", gb8), ("int16", b16._inner)):
+        qmax = gbm._quant_qmax
+        codes[(mode, 1)] = gbm._quantize(g1, h1, ones, 0, n, qmax)
+        codes[(mode, 10)] = gbm._quantize(g10, h10, ones, U16Q_ROUNDS - 1, n,
+                                          qmax)
+    del g1, h1, g10, h10, fresh
+    # the first tree's root split, routed by R: its smaller child's rows
+    t0_ = b8._inner.models[0]
+    fm = gb8._grower.fmeta
+    f0 = int(t0_.split_feature_inner[0])
+    rule = route.SplitRule(
+        int(fm["group"][f0]), int(fm["offset"][f0]), int(fm["num_bin"][f0]),
+        int(fm["default_bin"][f0]), int(fm["missing_type"][f0]),
+        bool(fm["is_bundled"][f0]),
+        single_bin(t0_, 0) if t0_.is_categorical_node(0)
+        else int(t0_.threshold_in_bin[0]), t0_.default_left_node(0),
+        t0_.is_categorical_node(0), 0, 1)
+    perm = torch.arange(n, dtype=torch.int32, device=dev)
+    n_left = int(route.route_partition(binned, perm, 0, n, rule,
+                                       torch.zeros(n, dtype=torch.int32,
+                                                   device=dev)))
+    b0, cnt = (0, n_left) if 2 * n_left <= n else (n_left, n - n_left)
+    rnd = torch.from_numpy(np.random.RandomState(3).choice(
+        n, n // 4, replace=False).astype(np.int32)).to(dev)
+
+    def held_hq(b, q, width, layout, rows=None, count=None, label=""):
+        got = HQ(b, q.codes, q.w01, width, rows=rows, n_rows=count,
+                 layout=layout)
+        check(torch.equal(got, HQ(b, q.codes, q.w01, width, rows=rows,
+                                  n_rows=count, layout=layout)),
+              "HQ %s: a second launch gave other bits" % label)
+        check(torch.equal(got, histogram.leaf_histogram_i32_plain(
+            b, q.codes, q.w01, width, rows, count)),
+              "HQ %s: not equal to its plain version" % label)
+        return got
+
+    checked = []
+    for (mode, rnd_i), q in codes.items():
+        held_hq(binned, q, nb, lay, label="u16 %s round-%d root"
+                % (mode, rnd_i))
+        checked.append("%s round %d" % (mode, rnd_i))
+        if rnd_i == 10:
+            held_hq(binned, q, nb, lay, perm[b0:], cnt,
+                    "u16 %s smaller child (%d rows)" % (mode, cnt))
+            held_hq(binned, q, nb, lay, rnd, len(rnd),
+                    "u16 %s random quarter" % mode)
+    gw = bw8._inner
+    qw = gw._quantize(*gw.objective.get_gradients(gw._score[0]),
+                      torch.ones(gw._n, dtype=torch.float32, device=dev), 0,
+                      gw._n, gw._quant_qmax)
+    held_hq(gw._binned, qw, gw._grower.num_bins, gw._grower.hist_layout,
+            label="u16 max_bin=%d root" % WIDE_MAX_BIN)
+    hb = torch.from_numpy(np.ascontiguousarray(
+        ctx["data"][0]._inner.binned)).to(dev)
+    nb8 = int(ctx["data"][0]._inner.max_num_bin())
+    hn = hb.shape[0]
+    gen = np.random.RandomState(39)
+    q8 = histogram.quantize_gradients(
+        torch.from_numpy(gen.randn(hn).astype(np.float32)).to(dev),
+        torch.from_numpy((gen.rand(hn) * 0.25 + 1e-3).astype(np.float32)
+                         ).to(dev),
+        torch.from_numpy((gen.rand(hn) < 0.8).astype(np.float32)).to(dev),
+        qmax=histogram.train_qmax("int8", hn), key_g=rng.prng_key(1),
+        key_h=rng.prng_key(2))
+    HQ.launches_u16 = 0
+    held_hq(hb, q8, nb8, None, label="uint8 HIGGS root")
+    check(HQ.launches_u16 == 0, "HQ on the uint8 matrix ran its uint16 mode")
+    # LM at max_bin=1023 on the last linear tree's leaves (the main path's
+    # call), and on uint8 bins at the HIGGS shape
+    lm_err = {}
+    ids_w = torch.tensor(lm_ids, dtype=torch.int32, device=dev)
+    raw8 = torch.from_numpy(np.ascontiguousarray(ctx["x"])).to(dev)
+    inner8 = ctx["data"][0]._inner
+    check(inner8.num_features == FEATURES and not inner8.groups.is_bundled.any(),
+          "the HIGGS matrix is not one feature a group")
+    b9 = lgb.Booster(model_str=ctx["text"])._inner.models[-1]
+    lid8 = predict.tree_leaf_walk_binned(predict.binned_tree(b9, dev),
+                                         hb).to(torch.int32)
+    w8 = torch.from_numpy(np.stack([gen.randn(hn), gen.rand(hn) + 0.1,
+                                    (gen.rand(hn) < 0.9) * 1.0], 1).astype(
+        np.float32)).to(dev)
+    w8[:, :2] *= w8[:, 2:]
+    ids8 = torch.arange(b9.num_leaves, dtype=torch.int32, device=dev)
+    for label, args in (
+            ("u16", (gbt._binned, gbt._raw, w_l, nbw, leaf_of, ids_w)),
+            ("u8", (hb, raw8, w8, nb8, lid8, ids8))):
+        got = LM(*args)
+        check(torch.equal(got, LM(*args)),
+              "LM %s: a second launch gave other bits" % label)
+        ref, scale = moment_oracle(args[0], args[1], args[2], args[3],
+                                   args[4], args[5])
+        lm_err[label] = within(got, histogram.leaf_moments_plain(*args),
+                               scale, "LM %s vs plain" % label)
+        within(got, ref, scale, "LM %s vs f64 oracle" % label)
+        if label == "u16":
+            check(torch.equal(moments, got.sum(dim=2)),
+                  "leaf_feature_moments is not LM u16 summed over bins")
+        del got, ref, scale
+    print("uint16 HQ and LM vs plain: HQ exact and repeating at the Bosch "
+          "root (%s), on the root split's smaller child (%d rows) and a "
+          "random quarter in random order (round-10 codes, int8 and "
+          "int16), at the max_bin=%d root, and on the uint8 HIGGS root; LM "
+          "u16 (%d ids x %d features x %d bins) and LM uint8 (%d ids) within "
+          "1e-5 of plain and the f64 oracle (max abs err %.3g, %.3g), "
+          "repeats equal" % (", ".join(checked), cnt, WIDE_MAX_BIN,
+                             len(lm_ids), FEATURES, nbw, b9.num_leaves,
+                             lm_err["u16"], lm_err["u8"]))
+    return {"b8": b8, "med8": med8, "med16": med16, "medb": medb,
+            "round_s": bo["round_s"], "lm_u8": (raw8, w8, nb8, lid8, ids8),
+            "launches": l8, "lm_launches": ll, "binned": binned, "nb": nb,
+            "layout": lay, "q10": codes[("int8", 10)], "perm": perm,
+            "b0": b0, "cnt": cnt, "wide": (gw._binned, qw,
+                                           gw._grower.num_bins,
+                                           gw._grower.hist_layout),
+            "u8": (hb, q8, nb8), "lm_u16": (gbt._binned, gbt._raw, w_l, nbw,
+                                            leaf_of, ids_w),
+            "lm_err": lm_err}
+
+
+def times_41(name, card, dev, cat, q):
+    """Phase 41: HQ u16, LM u16 and the categorical variants of S, R and
+    W against their bounds, plain versions and library calls; the round
+    times; returns the JSON rows of the five modes."""
+    from lightgbm_tpu_torch.ops import histogram, predict, route, split
+    HQ, LM = histogram.leaf_histogram_i32, histogram.leaf_moments
+    print("clocks [%s]: SM clock, max SM clock: %s (before the timings)"
+          % (card, clocks()))
+    times = {}
+    hq_names = ("hist_i32_kernel", "Memset")
+
+    def hq_library(b, qc, width):
+        """torch.bincount x3 over group x B + bin, the codes as weights."""
+        g_cnt = b.shape[1]
+        flat = ((torch.arange(g_cnt, device=dev) * width)[None]
+                + histogram.take_bins(b)).reshape(-1)
+        live = (qc.w01 > 0).float()
+        chans = [(qc.codes[:, c].float() * live)[:, None].expand(
+            -1, g_cnt).reshape(-1) for c in (0, 1)]
+        chans.append(live[:, None].expand(-1, g_cnt).reshape(-1))
+
+        def run():
+            for ch in chans:
+                torch.bincount(flat, weights=ch, minlength=g_cnt * width)
+        return median_ms(run, reps=3)
+
+    def hq_bound(rows, g_cnt, width, row_list=False):
+        return bound(rows * (2 * g_cnt + 8 + (4 if row_list else 0))
+                     + g_cnt * width * 12, 3.0 * rows * g_cnt)
+
+    binned, nb, lay, q10 = q["binned"], q["nb"], q["layout"], q["q10"]
+    n, g_cnt = binned.shape
+    times["leaf_histogram_i32_u16"] = (
+        device_ms(lambda: HQ(binned, q10.codes, q10.w01, nb, layout=lay),
+                  hq_names),
+        median_ms(lambda: histogram.leaf_histogram_i32_plain(
+            binned, q10.codes, q10.w01, nb), reps=3),
+        hq_bound(n, g_cnt, nb), hq_library(binned, q10, nb))
+    perm, b0, cnt = q["perm"], q["b0"], q["cnt"]
+    list_ms = device_ms(lambda: HQ(binned, q10.codes, q10.w01, nb,
+                                   rows=perm[b0:], n_rows=cnt, layout=lay),
+                        hq_names)
+    list_bound = hq_bound(cnt, g_cnt, nb, True)
+    wb, wq, wnb, wlay = q["wide"]
+    wn, wg = wb.shape
+    wide_ms = device_ms(lambda: HQ(wb, wq.codes, wq.w01, wnb, layout=wlay),
+                        hq_names)
+    wide_bound = hq_bound(wn, wg, wnb)
+    hb, q8, nb8 = q["u8"]
+    u8_ms = device_ms(lambda: HQ(hb, q8.codes, q8.w01, nb8), hq_names)
+    u8_bound = hq_bound(hb.shape[0], hb.shape[1], nb8)
+    ms, plain_ms, (b_ms, b_by), lib_ms = times["leaf_histogram_i32_u16"]
+    print("time [%s | %s]: leaf_histogram_i32_u16 at the Bosch root (%d rows "
+          "x %d groups, B %d, %d slices) %.4f ms, plain %.2f ms, bound %.5f "
+          "ms (%s), torch.bincount x3 %.3f ms; row list (%d rows) %.4f ms, "
+          "bound %.5f; max_bin=%d root (%d x %d, B %d) %.4f ms, bound %.5f; "
+          "HQ on the uint8 HIGGS root (%d x %d) %.4f ms, bound %.5f"
+          % (name, card, n, g_cnt, nb, len(lay.slices) - 1, ms, plain_ms,
+             b_ms, b_by, lib_ms, cnt, list_ms, list_bound[0], WIDE_MAX_BIN,
+             wn, wg, wnb, wide_ms, wide_bound[0], hb.shape[0], hb.shape[1],
+             u8_ms, u8_bound[0]))
+    lm_names = ("moment_count_kernel", "moment_scan_kernel",
+                "moment_scatter_kernel", "moment_reduce_kernel", "Memset")
+
+    def lm_time(args, kernel):
+        lb, raw, w3, width, lid, ids = args
+        rows, f_cnt = lb.shape
+        c_cnt = ids.shape[0]
+        out_bytes = c_cnt * f_cnt * width * 16
+        b = bound(rows * (f_cnt * (lb.element_size() + 4) + 12 + 4)
+                  + out_bytes, 4.0 * rows * f_cnt)
+        match = lid.long()[:, None] == ids.long()[None, :]
+        slot = torch.where(match.any(1), match.int().argmax(1),
+                           torch.full_like(lid.long(), c_cnt))
+        del match
+        flat = ((slot[:, None] * f_cnt + torch.arange(f_cnt, device=dev))
+                * width + histogram.take_bins(lb)).reshape(-1)
+        xv = torch.where(torch.isfinite(raw), raw, torch.zeros_like(raw))
+        terms = [(xv * w3[:, 2:3]).reshape(-1),
+                 (xv * xv * w3[:, 2:3]).reshape(-1),
+                 (xv * w3[:, 0:1]).reshape(-1), (xv * w3[:, 1:2]).reshape(-1)]
+
+        def library():
+            for t in terms:
+                torch.bincount(flat, weights=t,
+                               minlength=(c_cnt + 1) * f_cnt * width)
+        return (device_ms(lambda: LM(*args), lm_names + (kernel,)),
+                median_ms(lambda: histogram.leaf_moments_plain(*args),
+                          reps=3), b, median_ms(library, reps=3))
+
+    times["leaf_moments_u16"] = lm_time(q["lm_u16"], "moment_wide_kernel")
+    u8_lm = lm_time((hb,) + q["lm_u8"], "moment_tile_kernel")
+    for label, (ms, plain_ms, (b_ms, b_by), lib_ms) in (
+            ("leaf_moments_u16 at max_bin=%d (%d ids)" % (
+                WIDE_MAX_BIN, q["lm_u16"][5].shape[0]),
+             times["leaf_moments_u16"]),
+            ("leaf_moments on uint8 HIGGS bins (%d ids)"
+             % q["lm_u8"][4].shape[0], u8_lm)):
+        print("time [%s | %s]: %s %.4f ms, plain %.2f ms, bound %.5f ms (%s), "
+              "torch.bincount x4 %.3f ms" % (name, card, label, ms, plain_ms,
+                                             b_ms, b_by, lib_ms))
+    # the categorical variants on the Expo main path's inputs
+    pair, csums, depth1 = cat["pair"], cat["csums"], cat["depth1"]
+    fmeta, mask, prm, fb = cat["fmeta"], cat["mask"], cat["prm"], cat["fb"]
+    cb = cat["binned"]
+    cn = cb.shape[0]
+    f_cnt = fmeta["num_bin"].shape[0]
+    times["split_scan_cat"] = (
+        device_ms(lambda: split.split_scan(pair, csums, depth1, fmeta, mask,
+                                           prm, fb), ("split_scan_kernel",)),
+        median_ms(lambda: split.split_scan_plain(pair, csums, depth1, fmeta,
+                                                mask, prm, fb), reps=3),
+        bound(pair.numel() * 4 + 64, 2 * f_cnt * fb * 50), None)
+    rperm, rlid = cat["perm0"].clone(), cat["lid0"].clone()
+    rule = cat["cat_rule"]
+    times["route_partition_cat"] = (
+        device_ms(lambda: route.route_partition(cb, rperm, 0, cn, rule,
+                                                rlid),
+                  ("route_kernel", "scan_tiles_kernel", "scatter_kernel",
+                   "Memcpy DtoD")),
+        median_ms(lambda: route.route_partition_plain(cb, rperm, 0, cn, rule,
+                                                     rlid), reps=3),
+        bound(13 * cn), None)
+    bt, vb = cat["bt"], cat["vb"]
+    depth = torch.from_numpy(leaf_depths([cat["tree0"]])[0]).to(dev)
+    visits = int(depth[cat["leaves"].long()].sum())
+    sc = torch.zeros(vb.shape[0], dtype=torch.float32, device=dev)
+    times["tree_value_walk_binned_cat"] = (
+        device_ms(lambda: predict.tree_value_walk_binned(bt, vb, sc),
+                  ("walk_kernel",)),
+        median_ms(lambda: predict.tree_value_walk_binned_plain(bt, vb, sc),
+                  reps=3),
+        bound(visits + 8 * vb.shape[0] + bt.nodes.numel() * 4
+              + bt.cat_bits.numel() * 4, visits * INSTR_PER_VISIT), None)
+    for k in ("split_scan_cat", "route_partition_cat",
+              "tree_value_walk_binned_cat"):
+        ms, plain_ms, (b_ms, b_by), _ = times[k]
+        print("time [%s | %s]: %s %.4f ms, plain %.3f ms, bound %.5f ms (%s)"
+              % (name, card, k, ms, plain_ms, b_ms, b_by))
+    cat_med = float(np.median(cat["update_s"][1:EXPO_ROUNDS]))
+    print("time [%s | %s]: categorical boosting round %.4f s (median of "
+          "rounds 2-%d), %.3f million row-iterations/s, rounds %s; %d rounds "
+          "%.1f s wall" % (name, card, cat_med, EXPO_ROUNDS,
+                           EXPO_ROWS / cat_med / 1e6,
+                           " ".join("%.4f" % v for v in cat["update_s"]),
+                           EXPO_GATE_ROUNDS, cat["gate_s"]))
+    print("time [%s | %s]: Bosch boosting rounds int8 %.4f s, int16 %.4f s, "
+          "int8 + bagging %.4f s, phase 31 (f32 sums, hi+lo) %.4f s (medians "
+          "of rounds 2-%d)" % (name, card, q["med8"], q["med16"], q["medb"],
+                               q["round_s"], U16Q_ROUNDS))
+    print("clocks [%s]: SM clock, max SM clock: %s (after the timings)"
+          % (card, clocks()))
+    profile_round(cat["booster"], name, card)
+    wall_us, busy, by_kind = profile_round(q["b8"], name, card)
+    hq_us = sum(v for k, v in by_kind.items() if "hist_i32_kernel" in k)
+    print("where the time goes [%s | %s]: Bosch int8 round: HQ u16 %.3f ms "
+          "(share %.3f of device busy), idle share %.3f"
+          % (name, card, hq_us / 1e3, hq_us / busy, 1.0 - busy / wall_us))
+
+    launch_of = {"leaf_histogram_i32_u16": q["launches"]["HQ_u16"],
+                 "leaf_moments_u16": q["lm_launches"]["LM_u16"],
+                 "split_scan_cat": cat["launches"]["S_cat"],
+                 "route_partition_cat": cat["launches"]["R_cat"],
+                 "tree_value_walk_binned_cat": cat["launches"]["W_cat"]}
+    replaces = {"leaf_histogram_i32_u16": "lightgbm_tpu/ops/histogram.py:291",
+                "leaf_moments_u16": "lightgbm_tpu/ops/histogram.py:679",
+                "split_scan_cat": "lightgbm_tpu/ops/split.py:176",
+                "route_partition_cat": "lightgbm_tpu/learner/grow.py:1052",
+                "tree_value_walk_binned_cat":
+                    "lightgbm_tpu/ops/predict.py:75"}
+    sources = {"leaf_histogram_i32_u16": "histogram.cu",
+               "leaf_moments_u16": "moments.cu",
+               "split_scan_cat": "split_scan.cu",
+               "route_partition_cat": "route_partition.cu",
+               "tree_value_walk_binned_cat": "binned_walk.cu"}
+    errs = {"leaf_moments_u16": q["lm_err"]["u16"]}
+    rows = []
+    for k, (ms, plain_ms, (b_ms, b_by), lib_ms) in times.items():
+        rows.append({
+            "name": k, "route": "cuda",
+            "source": "lightgbm_tpu_torch/csrc/" + sources[k],
             "replaces": replaces[k], "launches": launch_of[k],
             "max_abs_err": errs.get(k, 0.0), "ms": ms, "plain_ms": plain_ms,
             "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms})
@@ -4306,15 +5208,26 @@ def main():
          "plain_ms": times[k]["plain_ms"], "bound_ms": times[k]["bound_ms"],
          "bound_by": times[k]["bound_by"], "library_ms": None}
         for k in ("forest_value_walk", "forest_leaf_walk")]
-    rank_row = ranking(name, card, dev)
-    train_rows, ctx = training(name, card, dev)
+    def timed(label, fn, *args):
+        t0 = time.perf_counter()
+        out = fn(*args)
+        print("phase time: %s %.1f s" % (label, time.perf_counter() - t0))
+        return out
+
+    rank_row = timed("ranking (5-8)", ranking, name, card, dev)
+    train_rows, ctx = timed("training (9-12)", training, name, card, dev)
     rows.extend(train_rows)
     rows.append(rank_row)
-    rows.extend(quantized(name, card, dev, ctx))
-    rows.extend(linear(name, card, dev, ctx))
-    rows.extend(serving_extras(name, card, dev, ctx, text))
-    rows.extend(boosting_modes(name, card, dev, ctx))
-    rows.extend(bosch(name, card, dev, ctx))
+    rows.extend(timed("quantized (13-16)", quantized, name, card, dev, ctx))
+    rows.extend(timed("linear (17-20)", linear, name, card, dev, ctx))
+    rows.extend(timed("serving extras (21-24)", serving_extras, name, card,
+                      dev, ctx, text))
+    rows.extend(timed("boosting modes (25-29)", boosting_modes, name, card,
+                      dev, ctx))
+    rows.extend(timed("bosch (30-35)", bosch, name, card, dev, ctx))
+    cat = timed("categorical (36-38)", categorical, name, card, dev)
+    q = timed("uint16 HQ and LM (39-40)", uint16_quant, name, card, dev, ctx)
+    rows.extend(timed("times (41)", times_41, name, card, dev, cat, q))
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

@@ -132,14 +132,66 @@ class Dataset:
                         built, new_bin)
         return self
 
+    def _categorical_indices(self, params: Dict[str, Any],
+                             names: Optional[List[str]]):
+        """The feature names and the categorical features' indices (None:
+        no categorical feature) as lightgbm_tpu/basic.py:213-266 resolves
+        them: a DataFrame's names and category columns, else the
+        constructor's `categorical_feature` (indices or names), else
+        `categorical_column` from params ("0,1,2", "name:c1,c2", an int or
+        a list); a name that matches no feature is warned about and
+        ignored."""
+        cat_indices: Optional[List[int]] = None
+        try:
+            import pandas as pd
+            if isinstance(self.data, pd.DataFrame):
+                if names is None:
+                    names = [str(c) for c in self.data.columns]
+                if self.categorical_feature == "auto":
+                    cat_indices = [i for i, dt in enumerate(self.data.dtypes)
+                                   if str(dt) == "category"]
+        except ImportError:
+            pass
+        cat_param = self.categorical_feature
+        cp = params.get("categorical_column")
+        if cat_param == "auto" and cp:
+            if isinstance(cp, str):
+                if cp.startswith("name:"):
+                    # name: entries resolve through the feature names only,
+                    # even when they are numeric strings
+                    cat_param = [c for c in cp[5:].split(",") if c != ""]
+                else:
+                    cat_param = []
+                    for c in cp.split(","):
+                        if c == "":
+                            continue
+                        try:
+                            cat_param.append(int(c))
+                        except ValueError:
+                            log.fatal(
+                                "categorical_column: cannot parse '%s' as "
+                                "a feature index; use integer indices or "
+                                "the name: prefix for feature names" % c)
+            elif isinstance(cp, (int, np.integer)):
+                cat_param = [int(cp)]
+            else:
+                cat_param = list(cp)
+        if isinstance(cat_param, (list, tuple)):
+            cat_indices = []
+            for c in cat_param:
+                if isinstance(c, str) and names and c in names:
+                    cat_indices.append(names.index(c))
+                elif isinstance(c, (int, np.integer)):
+                    cat_indices.append(int(c))
+                elif isinstance(c, str):
+                    log.warning("categorical_column entry '%s' does not "
+                                "match any feature name; ignored", c)
+        return names, cat_indices
+
     def _lazy_init(self) -> _InnerDataset:
         if self._inner is not None:
             return self._inner
         params = key_alias_transform(self.params)
-        if self.categorical_feature not in ("auto", None, []) \
-                or params.get("categorical_column"):
-            raise LightGBMError("categorical features are not ported to "
-                                "lightgbm_tpu_torch training yet")
         # a data file (label in column 0) streams through the two-pass
         # build in chunks of tpu_ingest_chunk_rows rows; tpu_ingest=false
         # and LibSVM files load whole first (lightgbm_tpu/basic.py:174-206)
@@ -164,12 +216,14 @@ class Dataset:
             data = _data_to_2d(data)
         names = None if self.feature_name in ("auto", None) \
             else list(self.feature_name)
+        names, cat_indices = self._categorical_indices(params, names)
         ref = self.reference._lazy_init() if self.reference is not None \
             else None
         kwargs = dict(
             label=None if label is None else np.asarray(
                 label, np.float32).ravel(),
             max_bin=int(params.get("max_bin", self.max_bin)),
+            categorical_features=cat_indices,
             min_data_in_bin=int(params.get("min_data_in_bin", 3)),
             bin_construct_sample_cnt=int(params.get(
                 "bin_construct_sample_cnt", 200000)),

@@ -39,7 +39,10 @@ kernels QC and QW) behind the JAX package's accuracy gate
 (`_quant_gate`); `dump_model` gives the JSON dump. Every option the
 port does not carry raises a named LightGBMError instead of answering
 with something else: in serving multiclass models; in training
-multiclass, categorical features and the distributed tree learners.
+multiclass and the distributed tree learners. Categorical features
+train (S's one-vs-rest variant, R's equality route, W's bin-space
+bitsets), as do quantized histograms on uint16 bins (HQ's uint16
+mode).
 GOSS, RF and linear trees keep the JAX package's own refusals (GOSS with
 bagging or a rate <= 0; RF without bagging or without a feature_fraction
 in (0, 1); linear trees with dart or rf, multiclass, more than one
@@ -60,7 +63,6 @@ import numpy as np
 import torch
 
 from .. import log
-from ..binning import BIN_CATEGORICAL
 from ..config import Config
 from ..ingest.landing import hist_chunk
 from ..learner.grow import GrowerConfig, SerialGrower, leaf_path_features
@@ -217,10 +219,6 @@ class GBDT:
                       "fobj) is not ported to lightgbm_tpu_torch yet")
         if train_data.metadata.label is None:
             log.fatal("Training data must have a label")
-        if any(train_data.feature_mapper(j).bin_type == BIN_CATEGORICAL
-               for j in range(train_data.num_features)):
-            log.fatal("categorical features are not ported to "
-                      "lightgbm_tpu_torch training yet")
         if train_data.num_features == 0:
             log.fatal("every feature of the training data is constant; "
                       "there is nothing to split on")
@@ -255,12 +253,6 @@ class GBDT:
         if quant not in TRAIN_QUANTIZE_MODES:
             log.fatal("tpu_hist_quantize must be one of %s (got %r)"
                       % (TRAIN_QUANTIZE_MODES, quant))
-        if quant != "none" and train_data.binned.dtype == np.uint16 \
-                and self.device.type == "cuda":
-            log.fatal("tpu_hist_quantize=%s on groups of more than 256 bins "
-                      "needs HQ's uint16 mode (leaf_histogram_i32 on uint16 "
-                      "bins), which is not ported to lightgbm_tpu_torch yet"
-                      % quant)
         self._quant_mode = quant
         self._quant_qmax = train_qmax(quant, n) if quant != "none" else 0
         self._quant_hess_const = bool(

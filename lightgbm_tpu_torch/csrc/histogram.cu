@@ -90,9 +90,27 @@
 // overflows. Bound on an H100 SXM: G bytes of bins, 4 bytes of codes and
 // 4 of w01 a row (4 more for a row list) and the [G, B, 3] output; at
 // the root of the main path 72 MB, 0.021 ms.
+//
+// HQ's uint16 mode (the same quantized channels on groups of more
+// than 256 bins, up to 2,048): the kernel is templated on the bin type
+// as H's is. Padded to B, the 96 KB shared budget takes 12 groups of 631
+// bins (29 blocks of groups at Bosch) and 4 of 2,048, so the groups are
+// packed by their own widths (H's hist_layout: widths, poff) into slices
+// whose words fit the budget (hist_layout's slices: at Bosch 338 groups,
+// 61,054 bins, 733 KB in all, 8 slices; grid tiles x slices). Sparse data puts most rows of a
+// warp in one bin of a group (the default bin of a one-hot bundle), and
+// 32 integer adds to one shared word serialize: the lanes of one bin
+// (__match_any_sync) sum their codes (__reduce_add_sync) and the lowest
+// adds once, as H's hist_wide_kernel combines its lanes. The output stays
+// the padded [G, B, 3] int32 that S reads, zeroed first (2.56 MB at
+// Bosch). Bound: 500,000 x (676 B of bins + 4 of codes + 4 of w01) =
+// 342 MB at the Bosch root, 0.102 ms (a row list adds 4 B a row);
+// 2,000,000 x 64 B at the max_bin=1023 root, 0.038 ms.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "warp_rank.cuh"
 
 namespace {
 
@@ -252,25 +270,6 @@ __global__ void hist_tile_kernel(const BinT* __restrict__ binned, int G,
       reinterpret_cast<uint32_t*>(part)[2 * chan + out0 + b] = k;
     }
   }
-}
-
-// the lane of rank j (0-based) among the set bits of m: a binary search
-// on popcounts, 5 steps
-__device__ __forceinline__ int nth_set_lane(unsigned m, int j) {
-  int pos = 0;
-#pragma unroll
-  for (int s = 16; s > 0; s >>= 1) {
-    const unsigned low = m & ((1u << s) - 1u);
-    const int c = __popc(low);
-    if (j >= c) {
-      j -= c;
-      m >>= s;
-      pos += s;
-    } else {
-      m = low;
-    }
-  }
-  return pos;
 }
 
 // The warp-shared scheme, for groups too wide for 32 private copies
@@ -454,39 +453,108 @@ constexpr int kTileRowsI32 = 4096;
 constexpr int kThreadsI32 = 512;
 constexpr int kSmemI32 = 96 * 1024;  // the shared histogram's budget
 
-// gpb groups from blockIdx.y * gpb; out [G, B, 3] int32, zeroed
-__global__ void hist_i32_kernel(const uint8_t* __restrict__ binned, int G,
+// HQ. Block (tile, y) holds an int32 [words / 3, 3] histogram of its
+// slice of groups in shared memory: on a uint8 matrix the gpb groups
+// from y * gpb, each B bins wide (slices NULL); on a uint16 matrix the
+// groups slices[y] .. slices[y + 1] - 1, each at its own width widths[g]
+// from word poff[g] - poff[slices[y]] on. out [G, B, 3] int32, zeroed.
+//
+// uint8: a thread a row, its adds straight into the shared words.
+// uint16 (Bosch: most rows sit in the default bin of most groups): the
+// lanes of a warp that hold the same bin of a group (__match_any_sync)
+// sum their codes first (__reduce_add_sync) and the lowest of them adds
+// the sums, so 32 lanes on one bin cost one add a word, not 32
+// serialized ones. Integer sums: the bits are the same either way.
+template <typename BinT>
+__global__ void hist_i32_kernel(const BinT* __restrict__ binned, int G,
                                 const short2* __restrict__ codes,
                                 const float* __restrict__ w01,
                                 const int* __restrict__ rows, int n, int B,
-                                int gpb, int* __restrict__ out) {
-  extern __shared__ int sh[];  // [gc, B, 3]
-  const int g0 = blockIdx.y * gpb;
-  const int gc = min(gpb, G - g0);
-  const int words = gc * B * 3;
+                                int gpb, const int* __restrict__ slices,
+                                const int* __restrict__ widths,
+                                const int* __restrict__ poff,
+                                int* __restrict__ out) {
+  constexpr bool kWide = sizeof(BinT) == 2;
+  extern __shared__ int sh[];
+  int g0, gc, base, words;
+  if (kWide) {
+    g0 = slices[blockIdx.y];
+    gc = slices[blockIdx.y + 1] - g0;
+    base = poff[g0];
+    words = (poff[g0 + gc - 1] + widths[g0 + gc - 1] - base) * 3;
+  } else {
+    g0 = blockIdx.y * gpb;
+    gc = min(gpb, G - g0);
+    base = 0;
+    words = gc * B * 3;
+  }
   for (int e = threadIdx.x; e < words; e += blockDim.x) sh[e] = 0;
   __syncthreads();
   const int begin = blockIdx.x * kTileRowsI32;
   const int end = min(n, begin + kTileRowsI32);
-  for (int i = begin + threadIdx.x; i < end; i += blockDim.x) {
-    const int r = rows ? __ldg(rows + i) : i;
-    if (!(__ldg(w01 + r) > 0.f)) continue;
-    const short2 q = codes[r];
-    const uint8_t* b = binned + (size_t)r * G + g0;
-    for (int g = 0; g < gc; ++g) {
-      const int bin = __ldg(b + g);
-      if (bin >= B) continue;
-      int* cell = sh + (g * B + bin) * 3;
-      atomicAdd(cell, (int)q.x);
-      atomicAdd(cell + 1, (int)q.y);
-      atomicAdd(cell + 2, 1);
+  if (!kWide) {
+    for (int i = begin + threadIdx.x; i < end; i += blockDim.x) {
+      const int r = rows ? __ldg(rows + i) : i;
+      if (!(__ldg(w01 + r) > 0.f)) continue;
+      const short2 q = codes[r];
+      const BinT* b = binned + (size_t)r * G + g0;
+      for (int g = 0; g < gc; ++g) {
+        const int bin = __ldg(b + g);
+        if (bin >= B) continue;
+        int* cell = sh + (g * B + bin) * 3;
+        atomicAdd(cell, (int)q.x);
+        atomicAdd(cell + 1, (int)q.y);
+        atomicAdd(cell + 2, 1);
+      }
+    }
+  } else {
+    const int lane = threadIdx.x % kLanes;
+    // whole warps take a turn together: i0 - lane is the warp's first row
+    for (int i0 = begin + threadIdx.x; i0 - lane < end; i0 += blockDim.x) {
+      bool live = i0 < end;
+      const int r = live ? (rows ? __ldg(rows + i0) : i0) : 0;
+      live = live && __ldg(w01 + r) > 0.f;
+      const short2 q = live ? codes[r] : make_short2(0, 0);
+      const BinT* b = binned + (size_t)r * G + g0;
+      for (int j = 0; j < gc; ++j) {
+        const int W = __ldg(widths + g0 + j);
+        const int bin = live ? (int)__ldg(b + j) : W;
+        const int key = bin < W ? bin : -1;
+        const unsigned peers = __match_any_sync(~0u, key);
+        const int sg = __reduce_add_sync(peers, (int)q.x);
+        const int sq = __reduce_add_sync(peers, (int)q.y);
+        if (key >= 0 && lane == __ffs(peers) - 1) {
+          int* cell = sh + (__ldg(poff + g0 + j) - base + key) * 3;
+          atomicAdd(cell, sg);
+          atomicAdd(cell + 1, sq);
+          atomicAdd(cell + 2, __popc(peers));
+        }
+      }
     }
   }
   __syncthreads();
-  int* o = out + (size_t)g0 * B * 3;
   for (int e = threadIdx.x; e < words; e += blockDim.x) {
     const int v = sh[e];
-    if (v != 0) atomicAdd(o + e, v);
+    if (v == 0) continue;
+    size_t at;
+    if (kWide) {
+      // the group of word e: the last of the slice whose first word is
+      // at or before it
+      const int k = e / 3 + base;
+      int lo = g0, hi = g0 + gc - 1;
+      while (lo < hi) {
+        const int mid = (lo + hi + 1) >> 1;
+        if (__ldg(poff + mid) <= k) {
+          lo = mid;
+        } else {
+          hi = mid - 1;
+        }
+      }
+      at = ((size_t)lo * B + (k - __ldg(poff + lo))) * 3 + e % 3;
+    } else {
+      at = (size_t)g0 * B * 3 + e;
+    }
+    atomicAdd(out + at, v);
   }
 }
 
@@ -604,29 +672,49 @@ extern "C" int lgbt_leaf_histogram(const void* binned, int G, int u16,
                                         tile_rows, elems, part, out, s);
 }
 
-// binned [N, G] u8 row-major; codes [N] short2 (q_g, q_h); w01 [N] f32;
-// rows: a row list of n entries or NULL for rows 0..n-1; out [G, B, 3]
-// int32. Returns cudaGetLastError().
-extern "C" int lgbt_leaf_histogram_i32(const uint8_t* binned, int G,
+// binned [N, G] row-major, u8 or (u16 != 0) u16; codes [N] short2 (q_g,
+// q_h); w01 [N] f32; rows: a row list of n entries or NULL for rows
+// 0..n-1; out [G, B, 3] int32. A u16 matrix takes its groups' widths
+// [G] and first words poff [G] (ops/histogram.py hist_layout) and the
+// slices of groups whose words fit a block, slices [n_slices + 1] (group
+// bounds), the widest holding slice_words int32 words. Returns
+// cudaGetLastError().
+extern "C" int lgbt_leaf_histogram_i32(const void* binned, int G, int u16,
                                        const short2* codes,
                                        const float* w01, const int* rows,
-                                       int n, int B, int* out,
-                                       void* stream) {
+                                       int n, int B, const int* slices,
+                                       int n_slices, int slice_words,
+                                       const int* widths, const int* poff,
+                                       int* out, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
   cudaError_t err =
       cudaMemsetAsync(out, 0, (size_t)G * B * 3 * sizeof(int), s);
   if (err != cudaSuccess) return (int)err;
   if (n <= 0 || G <= 0) return 0;
+  const int tiles = (n + kTileRowsI32 - 1) / kTileRowsI32;
+  if (u16) {
+    const size_t smem = (size_t)slice_words * sizeof(int);
+    err = cudaFuncSetAttribute(hist_i32_kernel<uint16_t>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               (int)smem);
+    if (err != cudaSuccess) return (int)err;
+    hist_i32_kernel<uint16_t><<<dim3(tiles, n_slices), kThreadsI32, smem,
+                                s>>>(
+        static_cast<const uint16_t*>(binned), G, codes, w01, rows, n, B, 0,
+        slices, widths, poff, out);
+    return (int)cudaGetLastError();
+  }
   int gpb = kSmemI32 / (B * 3 * (int)sizeof(int));
   gpb = gpb < 1 ? 1 : (gpb > G ? G : gpb);
   const size_t smem = (size_t)gpb * B * 3 * sizeof(int);
-  err = cudaFuncSetAttribute(hist_i32_kernel,
+  err = cudaFuncSetAttribute(hist_i32_kernel<uint8_t>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              (int)smem);
   if (err != cudaSuccess) return (int)err;
-  dim3 grid((n + kTileRowsI32 - 1) / kTileRowsI32, (G + gpb - 1) / gpb);
-  hist_i32_kernel<<<grid, kThreadsI32, smem, s>>>(binned, G, codes, w01,
-                                                  rows, n, B, gpb, out);
+  hist_i32_kernel<uint8_t><<<dim3(tiles, (G + gpb - 1) / gpb), kThreadsI32,
+                             smem, s>>>(
+      static_cast<const uint8_t*>(binned), G, codes, w01, rows, n, B, gpb,
+      nullptr, nullptr, nullptr, out);
   return (int)cudaGetLastError();
 }
 

@@ -44,16 +44,39 @@
 // leaves of a main-path tree (2,000,000 rows x 28 features) about 156
 // bytes a row and 7 MB of output, 0.095 ms. The sort adds 16 bytes a
 // row of its own (slot and row order, each written and read once).
+//
+// LM's uint16 mode (features of more than 256 bins, up to 2,048,
+// e.g. max_bin=1023): each lane's private [B] x 4 f32 histograms take
+// 32 x B x 16 bytes a warp, 512 KB at B = 1,024, far past shared memory.
+// moment_wide_kernel takes H's warp-shared scheme (hist_wide_kernel)
+// rather than bin-range passes, which would read each tile once a range:
+// each warp keeps ONE [4][B] histogram, its lanes take the tile's rows in
+// turns of 32, the lanes that hold one bin (__match_any_sync) add their
+// terms in a fixed tree over their rank and the lowest adds the sum, so
+// no float atomics and the same bits every launch; the warps' histograms
+// are added in warp order into the tile's partial. Tiles hold
+// kWideTileRows rows, so the partials (written and read once, 16 B a
+// (feature, bin)) stay near one a leaf. The output stays [C, F, B, 4]
+// f32, as the plain version and the JAX function give it. A uint8 matrix
+// keeps moment_tile_kernel and its bits. Bound at max_bin=1023 over 255
+// ids (2,000,000 x 28): (56 B of bins + 112 of x + 12 of channels + 4 of
+// leaf id) a row and 117 MB of output, 0.145 ms; the sort adds 16 B a
+// row.
 
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include "warp_rank.cuh"
 
 namespace {
 
 constexpr int kLanes = 32;
 constexpr int kChannels = 4;
 constexpr int kTileRows = 2048;   // rows of a moment tile
+constexpr int kWideTileRows = 16384;  // rows of a uint16 moment tile
+constexpr int kWideSmem = 160 * 1024;  // a warp-shared block's budget
+constexpr int kWideWarps = 8;
 constexpr int kSortRows = 1024;   // rows of a sort tile (one warp)
 constexpr int kMaxSortCells = 1 << 24;  // C * T counters at most
 constexpr int kScanWarps = 32;
@@ -233,6 +256,82 @@ __global__ void moment_tile_kernel(const uint8_t* __restrict__ binned, int F,
   }
 }
 
+// uint16 bins: block (tile, f); warp w takes rows 32 * (w + warps * k) +
+// lane of the tile and keeps ONE [4][B] histogram; the lanes of one bin
+// add their terms in a fixed tree over their rank (at step s the lane of
+// rank r, a multiple of 2s, adds the sum of rank r + s) and the lowest
+// adds the sum to the shared bin. The warps' histograms are added in
+// warp order into the tile's partial [T2, F, B, 4].
+__global__ void moment_wide_kernel(const uint16_t* __restrict__ binned,
+                                   int F, const float* __restrict__ x,
+                                   const float* __restrict__ w3,
+                                   const int* __restrict__ order,
+                                   const int* __restrict__ tiles, int B,
+                                   float* __restrict__ part) {
+  extern __shared__ float smem[];
+  const int tile = blockIdx.x;
+  const int f = blockIdx.y;
+  const int warps = blockDim.x / kLanes;
+  const int warp = threadIdx.x / kLanes;
+  const int lane = threadIdx.x % kLanes;
+  float* h = smem + (size_t)warp * kChannels * B;  // [4][B]
+  for (int e = threadIdx.x; e < warps * kChannels * B; e += blockDim.x) {
+    smem[e] = 0.f;
+  }
+  __syncthreads();
+  const int first = __ldg(tiles + 3 * tile + 1);
+  const int rows = __ldg(tiles + 3 * tile + 2);
+  const unsigned below = (1u << lane) - 1u;
+  for (int j0 = warp * kLanes; j0 < rows; j0 += warps * kLanes) {
+    const int j = j0 + lane;
+    int bin = B;
+    float t[kChannels] = {0.f, 0.f, 0.f, 0.f};
+    if (j < rows) {
+      const int r = __ldg(order + first + j);
+      bin = __ldg(binned + (size_t)r * F + f);
+      const float v = __ldg(x + (size_t)r * F + f);
+      const float xv = isfinite(v) ? v : 0.f;
+      const float m = __ldg(w3 + (size_t)r * 3 + 2);
+      t[0] = __fmul_rn(xv, m);
+      t[1] = __fmul_rn(__fmul_rn(xv, xv), m);
+      t[2] = __fmul_rn(xv, __ldg(w3 + (size_t)r * 3));
+      t[3] = __fmul_rn(xv, __ldg(w3 + (size_t)r * 3 + 1));
+    }
+    const unsigned peers = __match_any_sync(~0u, bin);
+    const int rank = __popc(peers & below);
+    const int cnt = __popc(peers);
+    const int most = __reduce_max_sync(~0u, cnt);
+    for (int s = 1; s < most; s <<= 1) {
+      const bool take = (rank % (2 * s)) == 0 && rank + s < cnt;
+      const int src = take ? nth_set_lane(peers, rank + s) : lane;
+#pragma unroll
+      for (int ch = 0; ch < kChannels; ++ch) {
+        const float o = __shfl_sync(~0u, t[ch], src);
+        if (take) t[ch] = __fadd_rn(t[ch], o);
+      }
+    }
+    if (rank == 0 && bin < B) {
+#pragma unroll
+      for (int ch = 0; ch < kChannels; ++ch) {
+        h[ch * B + bin] = __fadd_rn(h[ch * B + bin], t[ch]);
+      }
+    }
+    __syncwarp();
+  }
+  __syncthreads();
+  const size_t out0 = ((size_t)tile * F + f) * B;
+  for (int b = threadIdx.x; b < B; b += blockDim.x) {
+#pragma unroll
+    for (int ch = 0; ch < kChannels; ++ch) {
+      float a = 0.f;
+      for (int w = 0; w < warps; ++w) {
+        a = __fadd_rn(a, smem[((size_t)w * kChannels + ch) * B + b]);
+      }
+      part[(out0 + b) * kChannels + ch] = a;
+    }
+  }
+}
+
 // out[c, e] = the sum over slot c's tiles, in order, of part[t, e]
 // (0 for a slot with no rows); one thread an output word
 __global__ void moment_reduce_kernel(const float* __restrict__ part,
@@ -265,7 +364,11 @@ extern "C" int lgbt_moment_sort_tiles(int n, int C) {
   return tiles;
 }
 
-extern "C" int lgbt_moment_tile_rows() { return kTileRows; }
+// rows of a moment tile: kTileRows for uint8 bins, kWideTileRows for
+// uint16 (u16 != 0)
+extern "C" int lgbt_moment_tile_rows(int u16) {
+  return u16 ? kWideTileRows : kTileRows;
+}
 
 // leaf_id [n] i32; sid [C] the ids sorted ascending (distinct), sslot
 // [C] their positions in ids; T = lgbt_moment_sort_tiles(n, C); scratch
@@ -293,19 +396,34 @@ extern "C" int lgbt_moment_sort(const int* leaf_id, int n, const int* sid,
   return (int)cudaGetLastError();
 }
 
-// binned [N, F] u8 (per-feature bins); x [N, F] f32 aligned with them;
-// w3 [N, 3] f32 = (g*m, h*m, m); order: the sorted rows; tiles [T2, 3]
-// i32 (slot, first position in order, rows), slot by slot;
-// tile_first/tile_count [C] i32 each slot's tile range; part: T2 * F *
-// B * 4 floats of scratch; out [C, F, B, 4] f32.
-extern "C" int lgbt_leaf_moments(const uint8_t* binned, int F,
+// binned [N, F] u8 or (u16 != 0) u16 (per-feature bins); x [N, F] f32
+// aligned with them; w3 [N, 3] f32 = (g*m, h*m, m); order: the sorted
+// rows; tiles [T2, 3] i32 (slot, first position in order, rows), slot by
+// slot, of at most lgbt_moment_tile_rows(u16) rows; tile_first /
+// tile_count [C] i32 each slot's tile range; part: T2 * F * B * 4 floats
+// of scratch; out [C, F, B, 4] f32.
+extern "C" int lgbt_leaf_moments(const void* binned, int F, int u16,
                                  const float* x, const float* w3,
                                  const int* order, const int* tiles, int T2,
                                  const int* tile_first,
                                  const int* tile_count, int C, int B,
                                  float* part, float* out, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
-  if (T2 > 0) {
+  if (T2 > 0 && u16) {
+    const size_t warp_bytes = (size_t)kChannels * B * sizeof(float);
+    int warps = (int)(kWideSmem / warp_bytes);
+    warps = warps < 1 ? 1 : (warps > kWideWarps ? kWideWarps : warps);
+    const size_t smem = warp_bytes * warps;
+    cudaError_t err = cudaFuncSetAttribute(
+        moment_wide_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)smem);
+    if (err != cudaSuccess) return (int)err;
+    moment_wide_kernel<<<dim3(T2, F), warps * kLanes, smem, s>>>(
+        static_cast<const uint16_t*>(binned), F, x, w3, order, tiles, B,
+        part);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+  } else if (T2 > 0) {
     const size_t warp_bytes =
         (size_t)kLanes * B * kChannels * sizeof(float);
     int warps = (int)((96 * 1024) / warp_bytes);
@@ -318,7 +436,8 @@ extern "C" int lgbt_leaf_moments(const uint8_t* binned, int F,
     if (err != cudaSuccess) return (int)err;
     dim3 grid(T2, (F + warps - 1) / warps);
     moment_tile_kernel<<<grid, warps * kLanes, smem, s>>>(
-        binned, F, x, w3, order, tiles, B, warps, part);
+        static_cast<const uint8_t*>(binned), F, x, w3, order, tiles, B,
+        warps, part);
     err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
   }

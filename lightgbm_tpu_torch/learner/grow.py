@@ -217,7 +217,8 @@ class SerialGrower:
         if self.quantized:
             codes, w01 = chans
             return leaf_histogram_i32(self.binned, codes, w01, self.num_bins,
-                                      rows=rows, n_rows=n_rows, out=out)
+                                      rows=rows, n_rows=n_rows, out=out,
+                                      layout=self.hist_layout)
         return leaf_histogram(self.binned, chans, self.num_bins, rows=rows,
                               n_rows=n_rows, out=out,
                               bf16=self.cfg.hist_bf16,

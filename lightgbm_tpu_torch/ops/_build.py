@@ -60,7 +60,8 @@ LIBRARIES = {
         "lgbt_leaf_histogram": [_p, _i, _i, _p, _p, _i, _i, _i, _p, _p,
                                 _p, _i, _i, _p, _i, _i, _i, _i, _p, _p,
                                 _p],
-        "lgbt_leaf_histogram_i32": [_p, _i, _p, _p, _p, _i, _i, _p, _p],
+        "lgbt_leaf_histogram_i32": [_p, _i, _i, _p, _p, _p, _i, _i, _p,
+                                    _i, _i, _p, _p, _p, _p],
     }, _NO_FMA),
     "quantize": ("quantize.cu", {
         "lgbt_bagging_mask": [_u, _u, _f, _i, _p, _p],
@@ -99,10 +100,10 @@ LIBRARIES = {
     }, _NO_FMA),
     "moments": ("moments.cu", {
         "lgbt_moment_sort_tiles": [_i, _i],
-        "lgbt_moment_tile_rows": [],
+        "lgbt_moment_tile_rows": [_i],
         "lgbt_moment_sort": [_p, _i, _p, _p, _i, _i] + [_p] * 5,
-        "lgbt_leaf_moments": [_p, _i, _p, _p, _p, _p, _i, _p, _p, _i, _i,
-                              _p, _p, _p],
+        "lgbt_leaf_moments": [_p, _i, _i, _p, _p, _p, _p, _i, _p, _p, _i,
+                              _i, _p, _p, _p],
     }, _NO_FMA),
 }
 

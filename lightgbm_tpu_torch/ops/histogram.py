@@ -35,8 +35,11 @@ private per-lane copies summed warp-shared, the tiles sized by
 `hist_tile_rows`. The wrapper counts its
 launches in `leaf_histogram.launches`, and those in hi+lo mode also in
 `leaf_histogram.launches_hilo`, those on uint16 bins in
-`leaf_histogram.launches_u16`. HQ and LM refuse uint16 bins by name:
-their uint16 modes are not ported yet.
+`leaf_histogram.launches_u16`. HQ and LM take uint16 bins too (their
+uint16 modes count in `leaf_histogram_i32.launches_u16` and
+`leaf_moments.launches_u16`): HQ packs the groups by their own widths
+(the layout's `slices`) and LM sums a warp's lanes of one bin in a fixed
+tree, as H's warp-shared groups do.
 
 Quantized training (`tpu_hist_quantize=int8|int16`, the JAX section at
 :60-156 and `_quant_u`/`_quant_merge` :291-330) adds two kernels:
@@ -191,6 +194,9 @@ HIST_LANE_BYTES = 64 * 1024
 HIST_TILE_ROWS = 2048
 HIST_MAX_TILE_ROWS = 65536
 HIST_PARTIAL_SHARE = 4
+# HQ's shared int32 histogram a block (csrc/histogram.cu kSmemI32), in
+# words: a uint16 matrix's groups are packed into slices that fit it
+HIST_I32_WORDS = 96 * 1024 // 4
 
 
 class HistLayout(NamedTuple):
@@ -198,9 +204,11 @@ class HistLayout(NamedTuple):
     [G] (each group's own bins), `poff` [G] (its first word in a tile's
     partial), the lane-private groups `narrow` (at most `narrow_w` bins)
     and the warp-shared `wide` (at most `wide_w`), all int32; `elems` (a
-    tile's words a channel), `bf16` (the mode it is for) and `dev`, the
-    four arrays on the device (each with a trailing 0, so none is
-    empty)."""
+    tile's words a channel), `bf16` (the mode it is for); for HQ the
+    `slices` [S + 1] (group bounds of runs of whole groups whose
+    3 * widths words fit HIST_I32_WORDS, `slice_words` words the widest);
+    and `dev`, the five arrays on the device (each with a trailing 0, so
+    none is empty)."""
     widths: np.ndarray
     poff: np.ndarray
     narrow: np.ndarray
@@ -209,7 +217,24 @@ class HistLayout(NamedTuple):
     wide_w: int
     elems: int
     bf16: bool
+    slices: np.ndarray
+    slice_words: int
     dev: tuple
+
+
+def i32_slices(widths: np.ndarray):
+    """HQ's slices of a uint16 matrix: runs of whole groups, in order,
+    each taking at most HIST_I32_WORDS words at 3 a bin. Returns the
+    group bounds [S + 1] int32 and the widest slice's words."""
+    bounds, words, most = [0], 0, 0
+    for g, w in enumerate(np.asarray(widths, np.int64) * 3):
+        if words + w > HIST_I32_WORDS:
+            bounds.append(g)
+            words = 0
+        words += int(w)
+        most = max(most, words)
+    bounds.append(len(widths))
+    return np.asarray(bounds, np.int32), most
 
 
 def hist_layout(group_bins, bf16: bool, device="cpu") -> HistLayout:
@@ -229,12 +254,32 @@ def hist_layout(group_bins, bf16: bool, device="cpu") -> HistLayout:
     wide = np.flatnonzero(~lane).astype(np.int32)
     poff = np.concatenate([[0], np.cumsum(widths, dtype=np.int64)[:-1]]
                           ).astype(np.int32)
+    slices, slice_words = i32_slices(widths)
     dev = tuple(torch.from_numpy(np.concatenate([a, [0]]).astype(np.int32))
-                .to(device) for a in (widths, poff, narrow, wide))
+                .to(device) for a in (widths, poff, narrow, wide, slices))
     return HistLayout(widths, poff, narrow, wide,
                       int(widths[narrow].max(initial=1)),
                       int(widths[wide].max(initial=1)), int(widths.sum()),
-                      bool(bf16), dev)
+                      bool(bf16), slices, slice_words, dev)
+
+
+def check_layout(name: str, binned: torch.Tensor, num_bins: int,
+                 layout: Optional[HistLayout],
+                 bf16: Optional[bool] = None) -> None:
+    """Raise unless `layout` is the hist_layout of the uint16 matrix
+    `binned` (its groups at most `num_bins` wide, on its device; for H
+    also of the mode `bf16`): the card's kernels lay a uint16 matrix's
+    sums out by it."""
+    g_cnt = binned.shape[1]
+    if layout is None or layout.widths.shape != (g_cnt,) \
+            or (bf16 is not None and layout.bf16 != bool(bf16)) \
+            or int(layout.widths.max(initial=1)) > num_bins \
+            or layout.dev[0].device != binned.device:
+        raise LightGBMError(
+            "%s: a uint16 matrix on the card takes the hist_layout of its "
+            "%d groups (at most %d bins each)%s on %s"
+            % (name, g_cnt, num_bins, "" if bf16 is None else
+               " for bf16=%s" % bool(bf16), binned.device))
 
 
 def hist_tile_rows(layout: HistLayout, n: int,
@@ -294,15 +339,7 @@ def leaf_histogram(binned: torch.Tensor, w3: torch.Tensor, num_bins: int,
     g_cnt = binned.shape[1]
     lib = _build.load_library("histogram")
     if u16:
-        if layout is None or layout.bf16 != bool(bf16) \
-                or layout.widths.shape != (g_cnt,) \
-                or int(layout.widths.max(initial=1)) > num_bins \
-                or layout.dev[0].device != binned.device:
-            raise LightGBMError(
-                "leaf_histogram: a uint16 matrix on the card takes the "
-                "hist_layout of its %d groups (at most %d bins each) for "
-                "bf16=%s on %s" % (g_cnt, num_bins, bool(bf16),
-                                   binned.device))
+        check_layout("leaf_histogram", binned, num_bins, layout, bf16)
         tile_rows = hist_tile_rows(layout, n, rows is not None)
         tiles, elems = max(1, -(-n // tile_rows)), layout.elems
     else:
@@ -317,7 +354,7 @@ def leaf_histogram(binned: torch.Tensor, w3: torch.Tensor, num_bins: int,
 
     with torch.cuda.device(binned.device):
         stream = torch.cuda.current_stream(binned.device).cuda_stream
-        widths, poff, narrow, wide = layout.dev if u16 else (None,) * 4
+        widths, poff, narrow, wide = layout.dev[:4] if u16 else (None,) * 4
         plan_args = (ptr(widths), ptr(poff), ptr(narrow),
                      len(layout.narrow), layout.narrow_w, ptr(wide),
                      len(layout.wide), layout.wide_w, tile_rows,
@@ -523,11 +560,15 @@ def leaf_histogram_i32(binned: torch.Tensor, codes: torch.Tensor,
                        w01: torch.Tensor, num_bins: int,
                        rows: Optional[torch.Tensor] = None,
                        n_rows: Optional[int] = None,
-                       out: Optional[torch.Tensor] = None) -> torch.Tensor:
+                       out: Optional[torch.Tensor] = None,
+                       layout: Optional[HistLayout] = None) -> torch.Tensor:
     """HQ: the [G, B, 3] int32 histogram (sum q_g*w01, sum q_h*w01, sum
     w01) of the rows 0..N-1, or of rows[:n_rows]; written into `out`
     (contiguous, that shape) when given. The caller keeps qmax * N below
-    2^31 (`train_qmax`), so no sum overflows."""
+    2^31 (`train_qmax`), so no sum overflows. On the card a uint16 matrix
+    (groups past 256 bins) takes its `hist_layout` (either mode's: HQ
+    reads the widths, word offsets and slices), each group at its own
+    width; a bin past it is 0."""
     _check_i32(binned, codes, w01, num_bins, rows, n_rows)
     shape = (binned.shape[1], num_bins, 3)
     if out is not None and (tuple(out.shape) != shape
@@ -543,12 +584,15 @@ def leaf_histogram_i32(binned: torch.Tensor, codes: torch.Tensor,
     if binned.device.type != "cuda":
         raise LightGBMError("leaf_histogram_i32 runs on cpu or cuda, not %s"
                             % binned.device)
-    if binned.dtype == torch.uint16:
-        raise LightGBMError("HQ's uint16 mode (leaf_histogram_i32 on groups "
-                            "of more than 256 bins) is not ported yet")
-    if binned.dtype != torch.uint8 or num_bins > 256:
+    u16 = binned.dtype == torch.uint16
+    if not ((binned.dtype == torch.uint8 and num_bins <= 256)
+            or (u16 and num_bins <= MAX_GROUP_BINS)):
         raise LightGBMError("the leaf_histogram_i32 kernel takes uint8 bins "
-                            "(at most 256 a group)")
+                            "(at most 256 a group) or uint16 bins (at most "
+                            "%d)" % MAX_GROUP_BINS)
+    g_cnt = binned.shape[1]
+    if u16:
+        check_layout("leaf_histogram_i32", binned, num_bins, layout)
     for t in (binned, codes, w01, rows):
         if t is not None and not t.is_contiguous():
             raise LightGBMError("leaf_histogram_i32 takes contiguous "
@@ -565,19 +609,27 @@ def leaf_histogram_i32(binned: torch.Tensor, codes: torch.Tensor,
 
     with torch.cuda.device(binned.device):
         stream = torch.cuda.current_stream(binned.device).cuda_stream
+        widths, poff, _, _, slices = layout.dev if u16 else (None,) * 5
         rc = lib.lgbt_leaf_histogram_i32(
-            ptr(binned), binned.shape[1], ptr(codes), ptr(w01), ptr(rows),
-            n, num_bins, ptr(out), ctypes.c_void_p(stream))
+            ptr(binned), g_cnt, int(u16), ptr(codes), ptr(w01), ptr(rows),
+            n, num_bins, ptr(slices),
+            len(layout.slices) - 1 if u16 else 0,
+            layout.slice_words if u16 else 0, ptr(widths), ptr(poff),
+            ptr(out), ctypes.c_void_p(stream))
     if rc != 0:
         raise LightGBMError("leaf_histogram_i32 launch failed: CUDA error "
                             "%d (%s)" % (rc, lib.lgbt_error_string(rc)
                                          .decode()))
     with _launch_lock:
         leaf_histogram_i32.launches += 1
+        if u16:
+            leaf_histogram_i32.launches_u16 += 1
     return out
 
 
+# all launches of HQ, and those on uint16 bins among them
 leaf_histogram_i32.launches = 0
+leaf_histogram_i32.launches_u16 = 0
 
 
 # ---------------------------------------------------------------------------
@@ -617,7 +669,8 @@ def leaf_moments(binned: torch.Tensor, x: torch.Tensor, w3: torch.Tensor,
                  ids: torch.Tensor) -> torch.Tensor:
     """LM: the [C, F, B, 4] f32 moments (sum x*m, sum x^2*m, sum x*g*m,
     sum x*h*m) per (leaf id, feature, bin) of the rows whose leaf_id [N]
-    is ids[c]. binned [N, F] holds per-feature bins and x [N, F] the raw
+    is ids[c]. binned [N, F] holds per-feature bins (uint8, or uint16 for
+    features of more than 256 bins) and x [N, F] the raw
     values aligned with them (the caller resolves EFB); w3 [N, 3] =
     (g*m, h*m, m); a non-finite x adds nothing; the ids are distinct.
     All rows are one id over a constant leaf_id. Counterpart of lightgbm_tpu/ops/histogram.py
@@ -638,13 +691,13 @@ def leaf_moments(binned: torch.Tensor, x: torch.Tensor, w3: torch.Tensor,
     if binned.device.type != "cuda":
         raise LightGBMError("leaf_moments runs on cpu or cuda, not %s"
                             % binned.device)
-    if binned.dtype == torch.uint16:
-        raise LightGBMError("LM's uint16 mode (leaf_moments on features of "
-                            "more than 256 bins) is not ported yet")
-    if binned.dtype != torch.uint8 or not 1 <= num_bins <= 256 \
+    u16 = binned.dtype == torch.uint16
+    if not ((binned.dtype == torch.uint8 and 1 <= num_bins <= 256)
+            or (u16 and 1 <= num_bins <= MAX_GROUP_BINS)) \
             or x.dtype != torch.float32 or w3.dtype != torch.float32:
         raise LightGBMError("the leaf_moments kernel takes uint8 bins (at "
-                            "most 256), f32 x and f32 w3")
+                            "most 256), or uint16 bins (at most %d), f32 x "
+                            "and f32 w3" % MAX_GROUP_BINS)
     if not all(t.is_contiguous() for t in tensors):
         raise LightGBMError("leaf_moments takes contiguous tensors")
     if leaf_id.dtype != torch.int32 or ids.dtype != torch.int32:
@@ -674,17 +727,20 @@ def leaf_moments(binned: torch.Tensor, x: torch.Tensor, w3: torch.Tensor,
                 _ptr(order), stream), lib)
             begin = starts.cpu().numpy().astype(np.int64)
         meta, n_tiles = segment_tiles(begin[:-1], np.diff(begin),
-                                      lib.lgbt_moment_tile_rows())
+                                      lib.lgbt_moment_tile_rows(int(u16)))
         meta = torch.from_numpy(meta).to(dev)
         part = torch.empty(max(n_tiles, 1) * f_cnt * num_bins * 4,
                            dtype=torch.float32, device=dev)
         _moments_ok(lib.lgbt_leaf_moments(
-            _ptr(binned), f_cnt, _ptr(x), _ptr(w3), _ptr(order), _ptr(meta),
+            _ptr(binned), f_cnt, int(u16), _ptr(x), _ptr(w3), _ptr(order),
+            _ptr(meta),
             n_tiles, _ptr(meta[3 * n_tiles:]),
             _ptr(meta[3 * n_tiles + c_cnt:]), c_cnt, num_bins, _ptr(part),
             _ptr(out), stream), lib)
     with _launch_lock:
         leaf_moments.launches += 1
+        if u16:
+            leaf_moments.launches_u16 += 1
     return out
 
 
@@ -714,4 +770,6 @@ def _moments_ok(rc: int, lib) -> None:
                             % (rc, lib.lgbt_error_string(rc).decode()))
 
 
+# all launches of LM, and those on uint16 bins among them
 leaf_moments.launches = 0
+leaf_moments.launches_u16 = 0

@@ -24,7 +24,8 @@ decode, bin thresholds), its leaf value added to each row's score
 (`csrc/binned_walk.cu`); its leaf mode, `tree_leaf_walk_binned`, returns
 the rows' leaves instead (a linear tree's valid-set scoring). Both take
 a uint8 matrix or a uint16 one (groups of more than 256 bins) and count
-the latter's launches also in `launches_u16`.
+the latter's launches also in `launches_u16`, and those of a tree with a
+categorical node (whose bin-space bitsets W walks) in `launches_cat`.
 
 Linear forests (`linear_tree`): the stack carries each leaf's
 coefficients and real feature columns, and K1 adds the leaf's linear
@@ -756,6 +757,7 @@ class BinnedTree:
     leaf_value: torch.Tensor    # [L] f32
     num_leaves: int
     max_depth: int
+    categorical: bool = False   # a node splits on a categorical feature
 
 
 def binned_tree(tree, device: torch.device,
@@ -791,7 +793,8 @@ def binned_tree(tree, device: torch.device,
         cat_bits=torch.from_numpy(bits.view(np.int32)).to(device),
         leaf_value=torch.from_numpy(
             np.asarray(values, np.float32).copy()).to(device),
-        num_leaves=int(tree.num_leaves), max_depth=_tree_depth(tree))
+        num_leaves=int(tree.num_leaves), max_depth=_tree_depth(tree),
+        categorical=any(tree.is_categorical_node(i) for i in range(nodes)))
 
 
 def tree_leaf_binned_plain(tree: BinnedTree,
@@ -909,9 +912,13 @@ def _walk_binned(tree: BinnedTree, binned: torch.Tensor,
         counter.launches += 1
         if u16:
             counter.launches_u16 += 1
+        if tree.categorical:
+            counter.launches_cat += 1
 
 
 tree_value_walk_binned.launches = 0
 tree_value_walk_binned.launches_u16 = 0
+tree_value_walk_binned.launches_cat = 0
 tree_leaf_walk_binned.launches = 0
 tree_leaf_walk_binned.launches_u16 = 0
+tree_leaf_walk_binned.launches_cat = 0

@@ -24,7 +24,8 @@ CPU tensors they run the plain versions. `route_partition` takes a
 uint8 matrix or a uint16 one (groups of more than 256 bins), the same
 partition either way. Launches are counted in
 `route_partition.launches` (those on uint16 bins also in
-`route_partition.launches_u16`), `score_update.launches` and
+`route_partition.launches_u16`, those on a categorical split in
+`route_partition.launches_cat`), `score_update.launches` and
 `score_average.launches`.
 """
 from __future__ import annotations
@@ -163,6 +164,8 @@ def route_partition(binned: torch.Tensor, perm: torch.Tensor, begin: int,
             route_partition.launches += 1
             if u16:
                 route_partition.launches_u16 += 1
+            if rule.is_cat:
+                route_partition.launches_cat += 1
     return scratch[tiles]
 
 
@@ -276,5 +279,6 @@ def score_average(score: torch.Tensor, leaf_id: Optional[torch.Tensor],
 
 route_partition.launches = 0
 route_partition.launches_u16 = 0
+route_partition.launches_cat = 0
 score_update.launches = 0
 score_average.launches = 0

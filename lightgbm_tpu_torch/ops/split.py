@@ -28,7 +28,9 @@ two gains are apart by more than f32 round-off.
 the plain version for CPU tensors; it counts launches in
 `split_scan.launches`, and those at more than 256 bins a feature (past
 16 of XLA's blocks, whose totals are scanned in blocks again) also in
-`split_scan.launches_wide`.
+`split_scan.launches_wide`, and those over features of which one is
+categorical (`device_fmeta(...).categorical`: the one-vs-rest variant
+runs) in `split_scan.launches_cat`.
 """
 from __future__ import annotations
 
@@ -89,10 +91,18 @@ class SplitParams:
     max_depth: int
 
 
-def device_fmeta(fm: Dict[str, np.ndarray], device) -> Dict[str, torch.Tensor]:
+class DeviceMeta(dict):
+    """The kernel's feature metadata tensors by name; `categorical` says,
+    on the host, whether a feature is categorical (S then evaluates its
+    one-vs-rest variant)."""
+    categorical = False
+
+
+def device_fmeta(fm: Dict[str, np.ndarray], device) -> DeviceMeta:
     """Dataset.feature_meta_arrays() as the kernel's tensors: int32
     fields and uint8 flags on `device`."""
-    out = {}
+    out = DeviceMeta()
+    out.categorical = bool(np.any(fm["is_categorical"]))
     for k in FMETA_KEYS:
         v = np.asarray(fm[k])
         dt = np.uint8 if v.dtype == bool else np.int32
@@ -357,8 +367,11 @@ def split_scan(hist: torch.Tensor, sums: torch.Tensor, depth: torch.Tensor,
         split_scan.launches += 1
         if feature_bins > XLA_SCAN_BASE ** 2:
             split_scan.launches_wide += 1
+        if getattr(fmeta, "categorical", False):
+            split_scan.launches_cat += 1
     return out_f, out_i, feat_gain
 
 
 split_scan.launches = 0
 split_scan.launches_wide = 0
+split_scan.launches_cat = 0

@@ -26,8 +26,9 @@ run and the tests make one from a seed instead:
 `cat_threshold`, so it takes the trees of either package.
 
 `synth_higgs` draws labelled HIGGS-shaped training data with the
-generator of the repo's bench.py, for training runs, and `synth_bosch`
-its Bosch shape (sparse, with one-hot blocks that EFB bundles into
+generator of the repo's bench.py, for training runs, `synth_expo` its
+Expo shape (8 categorical columns beside 32 numerics), and
+`synth_bosch` its Bosch shape (sparse, with one-hot blocks that EFB bundles into
 groups of more than 256 bins, a uint16 matrix). `rank_data` draws
 the repo's ranking protocol (fixed-length queries, graded labels), and
 `mslr_like_groups` the query layout of MSLR-WEB30K (ragged lengths up
@@ -318,6 +319,23 @@ def synth_bosch(n: int, f: int = 968, seed: int = 2):
              + X[:, 20] * X[:, 702])
     y = (score + 0.5 * rng.logistic(size=n) > 0.3).astype(np.float32)
     return X, y
+
+
+def synth_expo(n: int, seed: int = 3):
+    """bench.py synth_expo (:229-242), the same RandomState calls in the
+    same order: 8 categorical columns of cardinality 12-96 (integer
+    codes as f32) and 32 N(0, 1) numerics; binary labels from the
+    categories, nonlinearly, and two numerics. Returns (X [n, 40] f32,
+    y [n] f32, the categorical columns [0..7])."""
+    rng = np.random.RandomState(seed)
+    cards = [12, 24, 24, 48, 48, 64, 96, 96]
+    cats = [rng.randint(0, c, size=n) for c in cards]
+    xn = rng.randn(n, 32).astype(np.float32)
+    x = np.column_stack([np.asarray(c, np.float32) for c in cats] + [xn])
+    score = (np.sin(cats[0] * 1.7) + (cats[3] % 5 == 0) * 1.5
+             + np.cos(cats[6] * 0.4) + xn[:, 0] - 0.5 * xn[:, 1])
+    y = (score + rng.logistic(size=n) > 0.5).astype(np.float32)
+    return x, y, list(range(8))
 
 
 def rank_data(n: int, f: int = 28, qlen: int = 100, seed: int = 0):

@@ -21,6 +21,7 @@ import torch
 import lightgbm_tpu as jlgb
 import lightgbm_tpu_torch as tlgb
 from lightgbm_tpu_torch import LightGBMError
+from lightgbm_tpu_torch.binning import BIN_CATEGORICAL
 
 torch.set_num_threads(1)
 
@@ -256,10 +257,12 @@ def test_train_arguments_the_slice_refuses():
     with pytest.raises(LightGBMError, match="feval"):
         tlgb.train(p, ds, 2, feval=lambda s, d: ("m", 0.0, False),
                    device="cpu")
-    with pytest.raises(LightGBMError, match="categorical"):
-        tlgb.train(p, tlgb.Dataset(X[:300], y[:300],
-                                   categorical_feature=[1]), 2,
-                   device="cpu")
+    # categorical features train now (tests/test_torch_categorical.py)
+    cat = tlgb.Dataset(np.round(np.abs(X[:300]) * 3), y[:300],
+                       categorical_feature=[1])
+    b = tlgb.train(p, cat, 2, device="cpu")
+    assert b.num_trees() == 2
+    assert cat._lazy_init().feature_mapper(1).bin_type == BIN_CATEGORICAL
 
 
 def test_default_device_is_the_card():

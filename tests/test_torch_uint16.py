@@ -164,7 +164,9 @@ def test_histogram_on_uint16_bins_against_the_jax_histogram(mode, bf16):
 
 
 def test_uint16_plan_keeps_narrow_groups_lane_private_and_partials_small():
-    x, _ = synth_bosch(20_000)
+    # 4,000 rows give the Bosch groups' widths (every one-hot block 631
+    # bins wide); the plan is checked at the Bosch root's 500,000
+    x, _ = synth_bosch(4_000)
     ds = TorchDataset.from_numpy(x, np.zeros(len(x)), max_bin=63)
     widths = ds.groups.group_num_bin
     assert ds.binned.dtype == np.uint16 and ds.num_groups == 338
