@@ -2,6 +2,9 @@
 
     python3 chip_smoke.py
 
+(`python3 chip_smoke.py --ab OLD --ab NEW ...` compares checkouts on one
+card instead; see ab_main.)
+
 Phases, any failure raises and the script exits non-zero:
 
 0. device: requires CUDA; prints the card and its power limit;
@@ -85,7 +88,14 @@ Phases, any failure raises and the script exits non-zero:
     scores must equal the plain versions exactly (S bitwise), the g/h
     sums must be within 1e-5 * max(1, |plain|) of the plain version and
     of an f64 oracle, and each kernel launched twice on the same inputs
-    must repeat its bits;
+    must repeat its bits; H (f32, and hi+lo on both gradients at the
+    root and the smaller child) must equal bit for bit the replay of its
+    summation order (ops/histogram.py leaf_histogram_order); then H in
+    both modes on cancelling gradients at the root's shape (seeded
+    uniform bins, 2,000,000 x 28 at B 64, g ~ N(0, 0.25) and h ~ U(0,
+    0.25) on 90% of the rows): all rows and a 966,119-row list, bitwise
+    its order, a repeat of its bits, within 1e-5 * max(1, |ref|) of plain
+    and of the f64 oracle (f32 chains of f32 values miss that here);
 11. the card against the CPU: the same protocol at 131,072 rows, 63
     leaves and 5 rounds on the card and with device="cpu" (the plain
     versions), under tpu_hist_bf16=true and false: the same tree
@@ -112,7 +122,9 @@ Phases, any failure raises and the script exits non-zero:
     path's shapes: M bitwise on 2,000,000 rows at three refresh indices;
     Q's codes, in-bag weights and scales bitwise on the round-1 and
     round-10 binary gradients, a constant-hessian L2 vector and a bag
-    mask; HQ exactly at the root (all rows, and bagged) and on the root
+    mask, each in both scale modes (a training iteration's max * f32(1 /
+    qmax), which GBDT._quantize runs every round, and the gate's max /
+    qmax); HQ exactly at the root (all rows, and bagged) and on the root
     split's smaller child as a row list; parent == left + right in int32;
     S in XLA's cumsum order (the order quantized growth scans in) with
     the int8 grower's params on the dequantized root and on its two
@@ -121,8 +133,9 @@ Phases, any failure raises and the script exits non-zero:
 15. the card against the CPU at 131,072 rows, 63 leaves and 5 rounds for
     int8, int16, int8 + bagging and f32 + bagging: the same tree
     structure, leaf values within 1e-5 relative, valid AUC within 2e-3;
-    Q on the card and on the CPU from the same gradients gives the same
-    codes (and how many differ from each side's own gradients);
+    Q in the training scale mode on the card and on the CPU from the
+    same gradients gives the same codes (and how many differ from each
+    side's own gradients);
 16. times: M, Q and HQ (root and row list) with their plain versions
     (CUDA events, median of 12 after 0.3 s of back-to-back calls) and
     bounds, torch.bincount x3 with the codes as weights as HQ's library
@@ -179,7 +192,11 @@ Phases, any failure raises and the script exits non-zero:
     and 10, margins 0, 1e30 and the median 2|raw| at half the
     iterations, with the freeze histogram (some rows freeze at the
     first check, some never); ES on a K = 3 stack of three synthetic
-    class forests and on phase 17's linear forest;
+    class forests and on phase 17's linear forest; QC bitwise on
+    hand-made grids and rows (`qc_edge_cases`: subnormals, +-0, +-inf,
+    NaN, values equal to a bound, both missing types, columns past the
+    grid, grids of 1 and 255 bounds and of 64 features, N x F not a
+    multiple of 4, unaligned views);
 22. serving-extras main path: Booster(model_str=...) of the binned
     500 x 255 x 28 forest on the default device, 262,144 rows through
     predict with pred_early_stop (freq 10, phase 21's margin) and with
@@ -202,8 +219,10 @@ Phases, any failure raises and the script exits non-zero:
 24. times: ES, QC, QW and K1-f16 at 262,144 rows (CUDA events, median
     of 12 after 0.3 s of calls), their plain versions (median of 5),
     bounds (ES over the node visits of the trees each row walked), QC's
-    yardstick torch.searchsorted over the [F, K] grid; Booster.predict
-    end to end for f32, f16, int8 and early stop;
+    yardstick torch.searchsorted over the [F, K] grid; QC and
+    torch.searchsorted also as device time alone (a CUDA graph of one
+    call, replayed), which the JSON row keeps; Booster.predict end to
+    end for f32, f16, int8 and early stop;
 25. GOSS, DART and RF main paths on the phase-9 Datasets, every count
     set to 0 before each run and read after it: boosting=goss (top_rate
     0.2, other_rate 0.1, 20 rounds: it samples from round 11), GT and GW
@@ -252,9 +271,11 @@ Phases, any failure raises and the script exits non-zero:
     ~1,024 bins a feature on the max_bin=1023 root, bitwise its plain
     version and its repeat; R's partition and leaf ids on the root split
     and W's value and leaf modes (the first tree, the 100,000 valid
-    rows), exactly; H on 262,144 rows of the uint8 HIGGS matrix, both
-    modes, bit for bit its own summation order (`lane_order_hist`: the
-    uint8 path is unchanged);
+    rows), exactly; the narrow (lane-private) groups of every H launch
+    bit for bit the replay of their summation order; H on 262,144 rows
+    of the uint8 HIGGS matrix (B 64) and on 65,536 rows of seeded bins at
+    B 256, both modes, all rows and a row list, bit for bit the replay of
+    its summation order (leaf_histogram_order);
 31. the Bosch main path: bench.py's bosch shape, synth_bosch(600,000,
     968, seed 2), rows 0-499,999 training and 500,000-599,999 valid
     (338 EFB groups: 70 of 631 bins, the rest of at most 63; a uint16
@@ -465,6 +486,32 @@ def median_ms(fn, reps=REPS):
         end.synchronize()
         times.append(start.elapsed_time(end))
     return float(np.median(times))
+
+
+def graph_ms(fn, reps=50):
+    """Device time of one fn() call without its host time: a CUDA graph
+    captures one call and is replayed `reps` times between two events
+    after a spin-up; the mean of the replays."""
+    spin_up(fn)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, capture_error_mode="relaxed"):
+        fn()
+    for _ in range(3):
+        graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        graph.replay()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps
 
 
 def device_busy(prof):
@@ -842,6 +889,9 @@ def training(name, card, dev):
         check(torch.equal(h_list, histogram.leaf_histogram(
             binned, w, nb, rows=perm[b0:], n_rows=cnt)),
             "H row list (%s): a second launch gave other bits" % label)
+        check(torch.equal(h_list, histogram.leaf_histogram_order(
+            binned, w, nb, rows=perm[b0:], n_rows=cnt)),
+            "H row list (%s): not its summation order" % label)
         err = sums_err(
             h_list, histogram.leaf_histogram_plain(
                 binned, w, nb, rows=perm[b0:], n_rows=cnt),
@@ -886,10 +936,88 @@ def training(name, card, dev):
         h_late, histogram.leaf_histogram_plain(binned, w10, nb),
         hist_oracle(binned, w10, nb),
         "H all rows (gradients after %d rounds)" % TRAIN_ROUNDS))
+    check(torch.equal(h_late, histogram.leaf_histogram_order(
+        binned, w10, nb)), "H all rows: not its summation order")
     late = "gradients after %d rounds" % TRAIN_ROUNDS
     errs["leaf_histogram"] = max(errs["leaf_histogram"],
                                  children(w10, h_late, None, late)[0])
-    del w10, g10, h10, h_late
+    # hi+lo at the root and on the smaller child, both gradients: bit for
+    # bit its summation order, within 1e-5 of plain and of the f64 sum of
+    # the exact halves
+    hilo_err = 0.0
+    for w in (w3, w10):
+        hi, lo = histogram.hi_lo(w[:, :2].contiguous())
+        for rows, c in ((None, None), (perm[b0:], cnt)):
+            got = histogram.leaf_histogram(binned, w, nb, rows=rows,
+                                           n_rows=c, bf16=True)
+            check(torch.equal(got, histogram.leaf_histogram_order(
+                binned, w, nb, rows, c, bf16=True)),
+                  "H hi+lo (%s): not its summation order"
+                  % ("all rows" if rows is None else "row list"))
+            sel = None if rows is None else rows[:c]
+            oracle = hist_oracle(binned, torch.cat([hi, w[:, 2:3]], 1), nb,
+                                 sel)
+            oracle[..., :2] += hist_oracle(binned, torch.cat(
+                [lo, w[:, 2:3]], 1), nb, sel)[..., :2]
+            hilo_err = max(hilo_err, sums_err(
+                got, histogram.leaf_histogram_plain(binned, w, nb, rows, c,
+                                                    bf16=True), oracle,
+                "H hi+lo at the main path's shapes"))
+    print("H hi+lo [%d rows x %d groups]: root and smaller child, round-1 "
+          "and round-%d gradients: bitwise its summation order, max abs "
+          "err %.3g against plain" % (TRAIN_ROWS, binned.shape[1],
+                                      TRAIN_ROUNDS, hilo_err))
+    del w10, g10, h10, h_late, hi, lo, oracle
+    # cancelling gradients at the root's shape: each bin's g sum is a
+    # small part of its terms' magnitudes, where f32 chains of f32 values
+    # miss 1e-5 * max(1, |ref|); H sums in f64 and rounds once
+    gen = np.random.RandomState(1)
+    cb = torch.from_numpy(gen.randint(0, 64, (TRAIN_ROWS, FEATURES))
+                          .astype(np.uint8)).to(dev)
+    mask_c = (gen.rand(TRAIN_ROWS) < 0.9).astype(np.float32)
+    wc = torch.from_numpy(np.stack([
+        gen.randn(TRAIN_ROWS).astype(np.float32) * 0.5 * mask_c,
+        gen.rand(TRAIN_ROWS).astype(np.float32) * 0.25 * mask_c, mask_c],
+        1)).to(dev)
+    c_rows = torch.from_numpy(gen.permutation(TRAIN_ROWS)[:966_119]
+                              .astype(np.int32)).to(dev)
+    cancel = {}
+    for bf16 in (False, True):
+        if bf16:
+            hi, lo = histogram.hi_lo(wc[:, :2].contiguous())
+        for rows, c in ((None, None), (c_rows, int(c_rows.shape[0]))):
+            label = "H %s on cancelling gradients (%s)" % (
+                "hi+lo" if bf16 else "f32",
+                "all rows" if rows is None else "%d-row list" % c)
+            got = histogram.leaf_histogram(cb, wc, 64, rows=rows, n_rows=c,
+                                           bf16=bf16)
+            check(torch.equal(got, histogram.leaf_histogram(
+                cb, wc, 64, rows=rows, n_rows=c, bf16=bf16)),
+                label + ": a second launch gave other bits")
+            check(torch.equal(got, histogram.leaf_histogram_order(
+                cb, wc, 64, rows, c, bf16=bf16)),
+                label + ": not its summation order")
+            if bf16:
+                oracle = hist_oracle(cb, torch.cat([hi, wc[:, 2:3]], 1), 64,
+                                     rows)
+                oracle[..., :2] += hist_oracle(cb, torch.cat(
+                    [lo, wc[:, 2:3]], 1), 64, rows)[..., :2]
+            else:
+                oracle = hist_oracle(cb, wc, 64, rows)
+            plain = histogram.leaf_histogram_plain(cb, wc, 64, rows, c,
+                                                   bf16=bf16)
+            sums_err(got, plain, oracle, label)
+            d = (got[..., :2].double() - oracle[..., :2]).abs()
+            cancel[label] = float((d / oracle[..., :2].abs().clamp(
+                min=1.0)).max())
+            errs["leaf_histogram"] = max(errs["leaf_histogram"], float(
+                (got[..., :2] - plain[..., :2]).abs().max()))
+    print("H on cancelling gradients [%d rows x %d groups, B 64]: bitwise "
+          "its summation order, repeats equal, within 1e-5 of plain and "
+          "f64; error against f64 relative to max(1, |ref|): %s"
+          % (TRAIN_ROWS, FEATURES, "; ".join(
+              "%s %.3g" % (k[2:], v) for k, v in cancel.items())))
+    del cb, wc, c_rows, got, plain, oracle
     errs["split_scan"] = 0.0
     values = torch.tensor([0.05, -0.07], dtype=torch.float32, device=dev)
     scores = []
@@ -962,7 +1090,7 @@ def training(name, card, dev):
     def library():
         for c in (chans[0], chans[1], ones):
             torch.bincount(flat, weights=c, minlength=g_cnt * nb)
-    h_names = ("hist_tile_kernel", "hist_reduce_kernel")
+    h_names = ("hist_lane_kernel", "hist_lane_reduce_kernel")
     times["leaf_histogram"] = (
         device_ms(lambda: histogram.leaf_histogram(binned, w3, nb), h_names),
         median_ms(lambda: histogram.leaf_histogram_plain(binned, w3, nb),
@@ -1200,17 +1328,46 @@ def quantized(name, card, dev, ctx):
              "constant-hessian L2": (l2_g, ones, ones, keys[0], keys[1],
                                      True),
              "bag mask": (g1, h1, masks[0], keys[0], keys[1], False)}
-    qs = {}
+    # the round-1 gradients with a maximum whose two scales differ in the
+    # last bit (max / qmax != max * f32(1 / qmax)), so that the checks
+    # below tell the modes apart
+    qm32 = np.float32(qmax)
+    apart = np.float32(1.0)
+    while apart / qm32 == apart * (np.float32(1.0) / qm32):
+        apart = np.nextafter(apart, np.float32(2.0))
+    g_apart = g1.clone()
+    g_apart[0] = float(apart)
+    cases["scales apart"] = (g_apart, h1, ones, keys[0], keys[1], False)
+    # each case in both scale modes: a training iteration's (max *
+    # f32(1 / qmax), GBDT._quantize's every round) and the gate's (max /
+    # qmax); the training mode's codes go on to HQ below
+    qs, held, scale_diff = {}, [], 0
     for label, (g, h, w, kg, kh, hc) in cases.items():
-        got = histogram.quantize_gradients(g, h, w, qmax=qmax, key_g=kg,
-                                           key_h=kh, hess_const=hc)
-        again = histogram.quantize_gradients(g, h, w, qmax=qmax, key_g=kg,
-                                             key_h=kh, hess_const=hc)
-        plain = histogram.quantize_gradients_plain(g, h, w, qmax, kg, kh, hc)
-        check(q_equal(got, again) and q_equal(got, plain),
-              "Q (%s): codes, w01 or scale not bitwise equal to its repeat "
-              "and plain" % label)
-        qs[label] = got
+        modes = {}
+        for recip, mode in ((True, "training"), (False, "gate")):
+            got = histogram.quantize_gradients(
+                g, h, w, qmax=qmax, key_g=kg, key_h=kh, hess_const=hc,
+                reciprocal_scale=recip)
+            again = histogram.quantize_gradients(
+                g, h, w, qmax=qmax, key_g=kg, key_h=kh, hess_const=hc,
+                reciprocal_scale=recip)
+            plain = histogram.quantize_gradients_plain(
+                g, h, w, qmax, kg, kh, hc, reciprocal_scale=recip)
+            check(q_equal(got, again) and q_equal(got, plain),
+                  "Q (%s, %s mode): codes, w01 or scale not bitwise equal to "
+                  "its repeat and plain" % (label, mode))
+            held.append("%s (%s)" % (label, mode))
+            modes[mode] = got
+        scale_diff += int((modes["training"].qscale[:2].view(torch.int32)
+                           != modes["gate"].qscale[:2].view(torch.int32))
+                          .sum())
+        qs[label] = modes["training"]
+    check(scale_diff > 0, "Q: no case held the two scale modes apart")
+    print("Q [%d rows, qmax %d]: codes, w01 and scales bitwise its repeat "
+          "and plain in %s; the two modes' scales differ in %d of %d words "
+          "(max |g| %r in the scales-apart case)"
+          % (n, qmax, ", ".join(held), scale_diff, 2 * len(cases),
+             float(apart)))
     q10 = qs["round %d" % TRAIN_ROUNDS]
     perm, n_left = ctx["perm"], ctx["n_left"]
     small = (0, n_left) if n_left <= n - n_left else (n_left, n - n_left)
@@ -1295,18 +1452,18 @@ def quantized(name, card, dev, ctx):
             g_c, h_c = gc.objective.get_gradients(gc._score[0])
             g_h, h_h = gcpu.objective.get_gradients(gcpu._score[0])
             w = torch.ones(CPU_ROWS, device=dev)
-            q_card = histogram.quantize_gradients(
-                g_c, h_c, w, qmax=gc._quant_qmax, key_g=kg, key_h=kh)
-            q_same = histogram.quantize_gradients(
-                g_c.cpu(), h_c.cpu(), w.cpu(), qmax=gc._quant_qmax, key_g=kg,
-                key_h=kh)
-            q_own = histogram.quantize_gradients(
-                g_h, h_h, w.cpu(), qmax=gc._quant_qmax, key_g=kg, key_h=kh)
+            # the training mode, as GBDT._quantize runs every round
+            q_card, q_same, q_own = (histogram.quantize_gradients(
+                g, h, wt, qmax=gc._quant_qmax, key_g=kg, key_h=kh,
+                reciprocal_scale=True) for g, h, wt in (
+                    (g_c, h_c, w), (g_c.cpu(), h_c.cpu(), w.cpu()),
+                    (g_h, h_h, w.cpu())))
             same = int((q_card.codes.cpu() != q_same.codes).sum())
             own = int((q_card.codes.cpu() != q_own.codes).sum())
             check(same == 0, "%s: Q on the card and on the CPU give %d "
                   "different codes from the same gradients" % (label, same))
-            codes = ("; round-%d codes: card vs CPU from the same gradients "
+            codes = ("; round-%d codes (training mode): card vs CPU from "
+                     "the same gradients "
                      "%d differ, from each side's own gradients %d differ "
                      "(%d gradient and %d hessian words differ)"
                      % (CPU_ROUNDS + 1, same, own,
@@ -1351,9 +1508,11 @@ def quantized(name, card, dev, ctx):
                       reps=5), m_bound, None),
         "quantize_gradients": (
             median_ms(lambda: histogram.quantize_gradients(
-                g10, h10, ones, qmax=qmax, key_g=kg, key_h=kh)),
+                g10, h10, ones, qmax=qmax, key_g=kg, key_h=kh,
+                reciprocal_scale=True)),
             median_ms(lambda: histogram.quantize_gradients_plain(
-                g10, h10, ones, qmax, kg, kh), reps=5), q_bound, None),
+                g10, h10, ones, qmax, kg, kh, reciprocal_scale=True),
+                reps=5), q_bound, None),
         "leaf_histogram_i32": (
             median_ms(lambda: histogram.leaf_histogram_i32(
                 binned, q10.codes, q10.w01, nb)),
@@ -1368,7 +1527,8 @@ def quantized(name, card, dev, ctx):
                                   ("bag_kernel",)),
         "quantize_gradients": device_ms(
             lambda: histogram.quantize_gradients(g10, h10, ones, qmax=qmax,
-                                                 key_g=kg, key_h=kh),
+                                                 key_g=kg, key_h=kh,
+                                                 reciprocal_scale=True),
             ("absmax_kernel", "quantize_kernel", "Memset")),
         "leaf_histogram_i32": device_ms(
             lambda: histogram.leaf_histogram_i32(binned, q10.codes, q10.w01,
@@ -2502,6 +2662,63 @@ def check_early_stop(label, P, stack, x, margins, freqs, errs):
     return out
 
 
+def qc_edge_cases(P, qf, dev):
+    """QC bitwise its plain version on hand-made grids and rows: bounds
+    and values that are subnormal, +-0, +-inf (values NaN too), values
+    equal to a bound and its neighbours, values at the zero threshold,
+    each missing-type mix (none, NaN, zero, both) a feature, columns past
+    the grid, grids of 1 and of 255 bounds, 64 features of 255 bounds
+    (the grid searched in device memory, past the shared budget), N x F
+    not a multiple of 4, and views 4 and 8 bytes off 16-byte alignment.
+    Returns the number of (grid, rows) cases held."""
+    import dataclasses
+    rng = np.random.RandomState(21)
+    nf = qf.walk.num_features + 2
+    cases = 0
+    for feats, k, n in ((FEATURES, 1, 1001), (FEATURES, 255, 777),
+                        (64, 255, 999), (3, 7, 5), (FEATURES, 237, 4097)):
+        grid = rng.randn(feats, k).astype(np.float32)
+        special = np.array([1e-40, -1e-40, 0.0, -0.0, 1e-36, 5e-36],
+                           np.float32)
+        grid.flat[rng.choice(grid.size, min(grid.size, 2 * feats),
+                             replace=False)] = rng.choice(special,
+                                                          2 * feats)
+        grid[rng.rand(feats, k) < 0.2] = np.inf
+        grid = np.sort(grid, 1)
+        cols = max(nf, feats + 2)
+        x = rng.randn(n + 8, cols).astype(np.float32)
+        # a bound of the cell's feature, or its neighbours, in a third
+        f_of = np.minimum(np.arange(cols), feats - 1)
+        at = grid[f_of[None, :], rng.randint(0, k, x.shape)]
+        pick = rng.rand(*x.shape)
+        x = np.where(pick < 0.2, at, x)
+        x = np.where((pick >= 0.2) & (pick < 0.27),
+                     np.nextafter(at, np.float32(np.inf)), x)
+        x = np.where((pick >= 0.27) & (pick < 0.33),
+                     np.nextafter(at, np.float32(-np.inf)), x)
+        odd = np.array([np.nan, -np.nan, np.inf, -np.inf, 0.0, -0.0, 1e-40,
+                        -1e-40, 1e-35, -1e-35, 1.1e-35, 1e-36],
+                       np.float32)
+        x = np.where(rng.rand(*x.shape) < 0.15,
+                     rng.choice(odd, x.shape), x).astype(np.float32)
+        for miss in (None, rng.randint(0, 4, feats).astype(np.uint8)):
+            q = dataclasses.replace(
+                qf, grid=torch.from_numpy(grid).to(dev),
+                miss=None if miss is None else torch.from_numpy(miss).to(
+                    dev))
+            flat = torch.from_numpy(x).to(dev).view(-1)
+            for off in (0, 1, 2):
+                xv = flat[off:off + n * cols].view(n, cols)
+                got = P.quant_codes(q, xv)
+                check(torch.equal(got, P.quant_codes_plain(q, xv))
+                      and torch.equal(got, P.quant_codes(q, xv)),
+                      "QC edge case (%d features, %d bounds, %d x %d rows, "
+                      "offset %d, miss %s): not its plain version"
+                      % (feats, k, n, cols, off * 4, miss is not None))
+                cases += 1
+    return cases
+
+
 def serving_extras(name, card, dev, ctx, phase2_text):
     """Phases 21-24; returns the JSON rows of ES, QC, QW and K1's f16
     mode. `phase2_text` is phase 2's (unbinned) synthetic forest."""
@@ -2557,6 +2774,9 @@ def serving_extras(name, card, dev, ctx, phase2_text):
         check(torch.equal(codes, codes_p)
               and torch.equal(codes, P.quant_codes(qf, x)),
               label + ": QC codes differ from plain or from a repeat")
+        if label == "full":
+            print("QC edge cases: %d grids x rows x views bitwise the plain "
+                  "version" % qc_edge_cases(P, qf, dev))
         qw = [P.forest_quant_walk(qf, codes, x),
               P.forest_quant_walk(qf, codes, x),
               P.forest_quant_walk_plain(qf, codes_p, x)]
@@ -2869,6 +3089,16 @@ def serving_extras(name, card, dev, ctx, phase2_text):
               "(%s)%s" % (name, card, kname, ms, plain_ms, b_ms, b_by,
                           "" if lib_ms is None else
                           ", torch.searchsorted %.4f ms" % lib_ms))
+        if kname == "quant_codes":
+            # QC's device time apart from its wrapper's host time, and
+            # the library call's measured the same two ways; the JSON
+            # row keeps the device times
+            wrapper_ms, lib_call_ms = ms, lib_ms
+            ms, lib_ms = graph_ms(kernel), graph_ms(library)
+            print("time [%s | %s]: quant_codes device %.4f ms (CUDA graph "
+                  "replay), call %.4f ms (CUDA events around the wrapper); "
+                  "torch.searchsorted device %.4f ms, call %.4f ms"
+                  % (name, card, ms, wrapper_ms, lib_ms, lib_call_ms))
         rows.append({"name": kname, "route": "cuda",
                      "source": "lightgbm_tpu_torch/csrc/" + sources[kname],
                      "replaces": replaces[kname],
@@ -3308,7 +3538,7 @@ def boosting_modes(name, card, dev, ctx):
           % (name, card, gt_ms + gw_ms, n, gt_ms, gw_ms, gt_plain + gw_plain,
              kth_ms, bound(12 * n)[0], 12 * n // 10 ** 6))
     g_cnt = binned.shape[1]
-    h_names = ("hist_tile_kernel", "hist_reduce_kernel")
+    h_names = ("hist_lane_kernel", "hist_lane_reduce_kernel")
     hl_ms = device_ms(lambda: histogram.leaf_histogram(binned, w3, nb,
                                                        bf16=True), h_names)
     f32_ms = device_ms(lambda: histogram.leaf_histogram(binned, w3, nb),
@@ -3396,61 +3626,8 @@ BOSCH_CPU_ROWS, BOSCH_CPU_VALID_ROWS = 65_536, 16_384
 BOSCH_CPU_LEAVES, BOSCH_CPU_ROUNDS = 63, 3
 # the phase-9 protocol at max_bin 1023: one feature a group, ~1,024 bins
 WIDE_MAX_BIN, WIDE_ROUNDS = 1023, 3
-# rows of the HIGGS matrix that H's uint8 summation order is replayed on
+# rows of the HIGGS matrix that H's summation order is replayed on
 ORDER_ROWS = 262_144
-
-
-def lane_order_hist(binned, w3, num_bins, hilo):
-    """H on a uint8 matrix in its own summation order, replayed in torch
-    ops (csrc/histogram.cu, unchanged for uint8 since its f32 and hi+lo
-    modes came in): tiles of 2,048 rows; in a tile lane l adds rows l,
-    l + 32, ... of each group in order; the lanes are added in the
-    shuffle-down tree (16, 8, 4, 2, 1); lane l of the reduction adds
-    tiles l, l + 32, ... in order, then the same tree; hi + lo once at
-    the end. Equal to the kernel bit for bit, so to its earlier self."""
-    from lightgbm_tpu_torch.ops.histogram import hi_lo
-    n, g_cnt = binned.shape
-    tile, lanes = 2048, 32
-    tiles = -(-n // tile)
-    pad = tiles * tile - n
-    cnt = (w3[:, 2:3] > 0).float()
-    if hilo:
-        hi, lo = hi_lo(w3[:, :2].contiguous())
-        chans = torch.cat([hi, cnt, lo], 1)
-    else:
-        chans = torch.cat([w3[:, :2], cnt], 1)
-    c = chans.shape[1]
-    b = torch.nn.functional.pad(binned.long(), (0, 0, 0, pad),
-                                value=num_bins)
-    v = torch.nn.functional.pad(chans, (0, 0, 0, pad))
-    steps = tile // lanes
-    b = b.view(tiles, steps, lanes, g_cnt)
-    v = v.view(tiles, steps, lanes, c)
-    acc = torch.zeros(tiles, lanes, g_cnt, num_bins + 1, c,
-                      device=binned.device)
-    for k in range(steps):
-        idx = b[:, k][..., None, None].expand(tiles, lanes, g_cnt, 1, c)
-        val = v[:, k][:, :, None, None, :].expand(tiles, lanes, g_cnt, 1, c)
-        acc.scatter_add_(3, idx, val)
-    acc = acc[:, :, :, :num_bins]
-
-    def lane_tree(x, dim):
-        o = lanes // 2
-        while o >= 1:
-            x = x.narrow(dim, 0, o) + x.narrow(dim, o, o)
-            o //= 2
-        return x.squeeze(dim)
-    part = lane_tree(acc, 1)                       # [tiles, G, B, c]
-    rounds = -(-tiles // lanes)
-    red = torch.zeros((lanes,) + tuple(part.shape[1:]), device=part.device)
-    for j in range(rounds):
-        t = torch.arange(j * lanes, (j + 1) * lanes, device=part.device)
-        live = (t < tiles).view(lanes, 1, 1, 1)
-        red = torch.where(live, red + part[t.clamp(max=tiles - 1)], red)
-    out = lane_tree(red, 0)
-    if hilo:
-        out = torch.cat([out[..., :2] + out[..., 3:], out[..., 2:3]], -1)
-    return out
 
 
 def uint16_ops(dev):
@@ -3637,6 +3814,15 @@ def bosch(name, card, dev, ctx):
         got = hist(w, bf16, rows, cnt)
         check(torch.equal(got, hist(w, bf16, rows, cnt)),
               "H u16 %s: a second launch gave other bits" % label)
+        # the lane-private (narrow) groups: bit for bit their order
+        lay = layouts[bf16]
+        narrow = torch.from_numpy(lay.narrow.astype(np.int64)).to(dev)
+        order = histogram.leaf_histogram_order(binned, w, nb, rows, cnt,
+                                               bf16, lay)
+        check(torch.equal(got[narrow], order[narrow]),
+              "H u16 %s: the %d narrow groups are not their summation "
+              "order" % (label, len(lay.narrow)))
+        del order
         sel = None if rows is None else rows[:cnt]
         if bf16:  # the f64 sum of the exact halves
             hi, lo = histogram.hi_lo(w[:, :2].contiguous())
@@ -3740,28 +3926,42 @@ def bosch(name, card, dev, ctx):
           and all(torch.equal(leaves[0], v) for v in leaves[1:]),
           "W u16 (value or leaf mode) differs between launches or from "
           "plain")
-    # H on a uint8 matrix: its own summation order, bit for bit
+    # H on uint8 matrices: bit for bit its summation order (the replay
+    # leaf_histogram_order), all rows and a row list, at B 64 (the HIGGS
+    # matrix) and at B 256 (seeded bins of every value)
     hb = ctx["data"][0]._inner.binned[:ORDER_ROWS]
-    b8 = torch.from_numpy(np.ascontiguousarray(hb)).to(dev)
     rng = np.random.RandomState(30)
     w8 = torch.from_numpy(np.stack([
         rng.randn(ORDER_ROWS) * 0.7, rng.rand(ORDER_ROWS) * 0.25 + 1e-3,
         (rng.rand(ORDER_ROWS) < 0.9) * 1.0], 1).astype(np.float32)).to(dev)
     w8[:, :2] *= w8[:, 2:]
-    nb8 = int(hb.max()) + 1
-    for bf16 in (True, False):
-        got = H(b8, w8, nb8, bf16=bf16)
-        check(torch.equal(got, lane_order_hist(b8, w8, nb8, bf16)),
-              "H on uint8 bins (%s) is not its own summation order"
-              % ("hi+lo" if bf16 else "f32"))
+    order_rows = torch.from_numpy(rng.permutation(ORDER_ROWS)[
+        :ORDER_ROWS // 3].astype(np.int32)).to(dev)
+    b256 = torch.from_numpy(rng.randint(
+        0, 256, (ORDER_ROWS // 4, hb.shape[1])).astype(np.uint8)).to(dev)
+    for b8, nb8 in ((torch.from_numpy(np.ascontiguousarray(hb)).to(dev),
+                     int(hb.max()) + 1), (b256, 256)):
+        w8b = w8[:b8.shape[0]].contiguous()
+        sub = order_rows[order_rows < b8.shape[0]].contiguous()
+        for bf16 in (True, False):
+            for rows, cnt in ((None, None), (sub, int(sub.shape[0]) - 7)):
+                got = H(b8, w8b, nb8, rows=rows, n_rows=cnt, bf16=bf16)
+                check(torch.equal(got, histogram.leaf_histogram_order(
+                    b8, w8b, nb8, rows, cnt, bf16)),
+                      "H on uint8 bins (B %d, %s, %s) is not its summation "
+                      "order" % (nb8, "hi+lo" if bf16 else "f32",
+                                 "all rows" if rows is None else "row list"))
+    del b256
     print("uint16 kernels vs plain [Bosch, %d rows x %d groups, B %d]: H "
           "f32 and hi+lo at the root (round-1 and round-10 gradients) and "
           "on the root split's smaller child (%d rows): counts exact, g/h "
           "within 1e-5 of plain and f64 (max abs err %.3g f32, %.3g hi+lo), "
-          "repeats equal; S root and children bitwise; R partition and "
+          "repeats equal, the narrow groups bitwise their summation "
+          "order; S root and children bitwise; R partition and "
           "leaf ids exact; W value and leaf modes exact on %d valid rows; "
-          "H on %d uint8 rows bitwise its own summation order in both "
-          "modes; torch %s on uint16: %s" % (
+          "H on %d uint8 rows (B 64, and B 256 on a quarter) bitwise its "
+          "summation order in both modes, all rows and a row list; torch "
+          "%s on uint16: %s" % (
               n, binned.shape[1], nb, cnt, errs["leaf_histogram_u16_f32"],
               errs["leaf_histogram_u16_hilo"], BOSCH_VALID_ROWS, ORDER_ROWS,
               torch.__version__, uint16_ops(dev)))
@@ -3960,7 +4160,8 @@ def bosch(name, card, dev, ctx):
           % (card, clocks()))
     g_cnt = binned.shape[1]
     times = {}
-    h_names = ("hist_tile_kernel", "hist_wide_kernel", "hist_reduce_kernel")
+    h_names = ("hist_lane_kernel", "hist_lane_reduce_kernel",
+               "hist_wide_kernel", "hist_reduce_kernel")
     in_bytes = n * (2 * g_cnt + 12) + g_cnt * nb * 12
     flat = ((torch.arange(g_cnt, device=dev) * nb)[None]
             + take_bins(binned)).reshape(-1)
@@ -3991,15 +4192,17 @@ def bosch(name, card, dev, ctx):
         lay = layouts[bf16]
         tile = histogram.hist_tile_rows(lay, n)
         tiles = -(-n // tile)
-        print("plan [%s]: %s at the Bosch root: tiles of %d rows, %d tiles, "
-              "partials %.1f MB (written and read: %.1f MB, input %.1f MB); "
-              "%d lane-private groups of at most %d bins, %d warp-shared of "
-              "at most %d" % (card, key, tile, tiles,
-                              tiles * lay.elems * (5 if bf16 else 3) * 4
-                              / 1e6, tiles * lay.elems * (5 if bf16 else 3)
-                              * 8 / 1e6, n * (2 * g_cnt + 12) / 1e6,
-                              len(lay.narrow), lay.narrow_w, len(lay.wide),
-                              lay.wide_w))
+        plan = histogram.hist_plan(n, len(lay.narrow), lay.narrow_w)
+        print("plan [%s]: %s at the Bosch root: %d lane-private groups of "
+              "at most %d bins in %d slices of %d, %d blocks of %d warps, "
+              "runs of %d rows, partials %.1f MB; %d warp-shared groups of "
+              "at most %d bins in tiles of %d rows, %d tiles, partials %.1f "
+              "MB (each written and read once; input %.1f MB)"
+              % (card, key, len(lay.narrow), lay.narrow_w, plan.slices,
+                 plan.gw, plan.blocks, plan.warps, plan.run,
+                 plan.partial_words * 8 / 1e6, len(lay.wide), lay.wide_w,
+                 tile, tiles, tiles * lay.elems * (5 if bf16 else 3) * 4
+                 / 1e6, n * (2 * g_cnt + 12) / 1e6))
     del flat
     # H at the max_bin=1023 root: 28 warp-shared groups of ~1,024 bins
     wn, wgc = wfresh._binned.shape
@@ -4019,7 +4222,7 @@ def bosch(name, card, dev, ctx):
     hw = torch.ones((hb_all.shape[0], 3), dtype=torch.float32, device=dev)
     nb_u8 = int(ctx["data"][0]._inner.max_num_bin())
     u8_ms = device_ms(lambda: H(hb_dev, hw, nb_u8),
-                      ("hist_tile_kernel", "hist_reduce_kernel"))
+                      ("hist_lane_kernel", "hist_lane_reduce_kernel"))
     u8_bytes = hb_dev.numel() + hb_all.shape[0] * 12
     print("time [%s | %s]: H on the uint8 HIGGS root (%d rows x %d groups, "
           "hi+lo) %.4f ms, %.0f GB/s of input; uint16 Bosch root hi+lo "
@@ -4661,9 +4864,10 @@ def uint16_quant(name, card, dev, ctx):
     codes = {}
     for mode, gbm in (("int8", gb8), ("int16", b16._inner)):
         qmax = gbm._quant_qmax
-        codes[(mode, 1)] = gbm._quantize(g1, h1, ones, 0, n, qmax)
+        codes[(mode, 1)] = gbm._quantize(g1, h1, ones, 0, n, qmax,
+                                         reciprocal_scale=True)
         codes[(mode, 10)] = gbm._quantize(g10, h10, ones, U16Q_ROUNDS - 1, n,
-                                          qmax)
+                                          qmax, reciprocal_scale=True)
     del g1, h1, g10, h10, fresh
     # the first tree's root split, routed by R: its smaller child's rows
     t0_ = b8._inner.models[0]
@@ -4708,7 +4912,7 @@ def uint16_quant(name, card, dev, ctx):
     gw = bw8._inner
     qw = gw._quantize(*gw.objective.get_gradients(gw._score[0]),
                       torch.ones(gw._n, dtype=torch.float32, device=dev), 0,
-                      gw._n, gw._quant_qmax)
+                      gw._n, gw._quant_qmax, reciprocal_scale=True)
     held_hq(gw._binned, qw, gw._grower.num_bins, gw._grower.hist_layout,
             label="u16 max_bin=%d root" % WIDE_MAX_BIN)
     hb = torch.from_numpy(np.ascontiguousarray(
@@ -4722,7 +4926,7 @@ def uint16_quant(name, card, dev, ctx):
                          ).to(dev),
         torch.from_numpy((gen.rand(hn) < 0.8).astype(np.float32)).to(dev),
         qmax=histogram.train_qmax("int8", hn), key_g=rng.prng_key(1),
-        key_h=rng.prng_key(2))
+        key_h=rng.prng_key(2), reciprocal_scale=True)
     HQ.launches_u16 = 0
     held_hq(hb, q8, nb8, None, label="uint8 HIGGS root")
     check(HQ.launches_u16 == 0, "HQ on the uint8 matrix ran its uint16 mode")
@@ -5234,5 +5438,186 @@ def main():
         "count": torch.cuda.device_count()}}))
 
 
+# ---------------------------------------------------------------------
+# A/B mode: H, QC and training rounds of several checkouts on one card
+AB_LIST_ROWS = 966_119
+
+
+def host_us(fn, reps=200):
+    """Median host time of one fn() call in microseconds, with no
+    synchronisation: a launch returns once queued, so this is the
+    wrapper's own time while the device keeps up."""
+    spin_up(fn)
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        times.append((time.perf_counter() - t0) * 1e6)
+    torch.cuda.synchronize()
+    return float(np.median(times))
+
+
+def ab_child(root, rounds, cat_rounds):
+    """One checkout's numbers as one JSON line (see ab_main)."""
+    sys.path.insert(0, os.path.abspath(root))
+    import lightgbm_tpu_torch as lgb
+    from torch.profiler import ProfilerActivity, profile
+    from lightgbm_tpu_torch.ops import _build, histogram
+    from lightgbm_tpu_torch.ops import predict as P
+    from lightgbm_tpu_torch.testing.synth import (
+        synth_expo, synth_higgs, synthetic_forest_text, synthetic_rows)
+    check(os.path.dirname(os.path.abspath(lgb.__file__)) == os.path.join(
+        os.path.abspath(root), "lightgbm_tpu_torch"),
+        "imported %s, not %s's package" % (lgb.__file__, root))
+    dev = torch.device("cuda", 0)
+    out = {"root": root}
+    _build.build_all()
+    leaf_histogram = histogram.leaf_histogram
+
+    # H at the HIGGS root and on a row list, on the first gradients
+    x, y = synth_higgs(TRAIN_ROWS, FEATURES, seed=0)
+    ds = lgb.Dataset(x, y, params=dict(TRAIN_PARAMS)).construct()
+    inner = lgb.Booster(dict(TRAIN_PARAMS), train_set=ds)._inner
+    binned, nb = inner._binned, inner._grower.num_bins
+    grad, hess = inner.objective.get_gradients(inner._score[0])
+    w3 = torch.stack([grad, hess, torch.ones_like(grad)], 1).contiguous()
+    rows = torch.from_numpy(np.random.RandomState(1).permutation(
+        TRAIN_ROWS)[:AB_LIST_ROWS].astype(np.int32)).to(dev)
+    for mode, bf16 in (("f32", False), ("hilo", True)):
+        def root_call():
+            leaf_histogram(binned, w3, nb, bf16=bf16)
+
+        def list_call():
+            leaf_histogram(binned, w3, nb, rows=rows, n_rows=AB_LIST_ROWS,
+                           bf16=bf16)
+        out["H_%s_root_call" % mode] = median_ms(root_call)
+        out["H_%s_root_device" % mode] = graph_ms(root_call)
+        out["H_%s_list_call" % mode] = median_ms(list_call)
+        out["H_%s_list_device" % mode] = graph_ms(list_call)
+        small = rows[:1000].contiguous()
+        out["H_%s_host_us" % mode] = host_us(
+            lambda: leaf_histogram(binned, w3, nb, rows=small, n_rows=1000,
+                                   bf16=bf16))
+    # phase 10's cancelling gradients: the error against the f64 sums
+    gen = np.random.RandomState(1)
+    cb = torch.from_numpy(gen.randint(0, 64, (TRAIN_ROWS, FEATURES))
+                          .astype(np.uint8)).to(dev)
+    mask_c = (gen.rand(TRAIN_ROWS) < 0.9).astype(np.float32)
+    wc = torch.from_numpy(np.stack([
+        gen.randn(TRAIN_ROWS).astype(np.float32) * 0.5 * mask_c,
+        gen.rand(TRAIN_ROWS).astype(np.float32) * 0.25 * mask_c, mask_c],
+        1)).to(dev)
+    hi, lo = histogram.hi_lo(wc[:, :2].contiguous())
+    exact = {False: hist_oracle(cb, wc, 64)}
+    exact[True] = hist_oracle(cb, torch.cat([hi, wc[:, 2:3]], 1), 64)
+    exact[True][..., :2] += hist_oracle(
+        cb, torch.cat([lo, wc[:, 2:3]], 1), 64)[..., :2]
+    for mode, bf16 in (("f32", False), ("hilo", True)):
+        got = leaf_histogram(cb, wc, 64, bf16=bf16)[..., :2].double()
+        ref = exact[bf16][..., :2]
+        out["H_%s_cancel_rel" % mode] = float(
+            ((got - ref).abs() / ref.abs().clamp(min=1.0)).max())
+    del cb, wc, hi, lo, exact, rows
+
+    # QC and torch.searchsorted over the same grid (phase 24's inputs)
+    text = synthetic_forest_text(0, TREES, LEAVES, FEATURES, max_bin=255)
+    trees = lgb.Booster(model_str=text, device="cpu")._inner.models
+    qf = P.stack_trees_quant(trees, dev)
+    xb = torch.from_numpy(synthetic_rows(4, BULK_ROWS, FEATURES)).to(dev)
+    xt = xb[:, :qf.grid.shape[0]].t().contiguous()
+    out["QC_call"] = median_ms(lambda: P.quant_codes(qf, xb))
+    out["QC_device"] = graph_ms(lambda: P.quant_codes(qf, xb))
+    out["QC_host_us"] = host_us(lambda: P.quant_codes(qf, xb))
+    out["searchsorted_call"] = median_ms(
+        lambda: torch.searchsorted(qf.grid, xt))
+    out["searchsorted_device"] = graph_ms(
+        lambda: torch.searchsorted(qf.grid, xt))
+
+    def rounds_of(booster, k, label):
+        """k rounds' seconds, their median from round 2, and one more
+        round under torch.profiler: wall, device busy, idle share, H."""
+        secs = []
+        for _ in range(k):
+            t0 = time.perf_counter()
+            booster.update()
+            torch.cuda.synchronize()
+            secs.append(time.perf_counter() - t0)
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            booster.update()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        events, busy = device_busy(prof)
+        h_us = sum(e.time_range.elapsed_us() for e in events
+                   if "hist_" in e.name and "i32" not in e.name)
+        out.update({
+            label + "_round_s": secs,
+            label + "_round_s_median": float(np.median(secs[1:])),
+            label + "_profiled_round_s": wall,
+            label + "_device_busy_ms": busy / 1e3,
+            label + "_idle_share": 1.0 - busy / 1e6 / wall,
+            label + "_H_in_round_ms": h_us / 1e3})
+
+    rounds_of(lgb.Booster(dict(TRAIN_PARAMS), train_set=ds), rounds, "higgs")
+    del ds, binned, w3, inner, grad, hess
+    # the categorical protocol (phase 36): its rounds, then its 500-round
+    # train as phase 36 times it
+    xa, ya, _ = synth_expo(EXPO_ROWS + EXPO_TEST_ROWS, seed=EXPO_SEED)
+    cds = lgb.Dataset(xa[:EXPO_ROWS], ya[:EXPO_ROWS],
+                      params=dict(EXPO_PARAMS)).construct()
+    rounds_of(lgb.Booster(dict(EXPO_PARAMS), train_set=cds), rounds, "cat")
+    t0 = time.perf_counter()
+    lgb.train(dict(EXPO_PARAMS), cds, cat_rounds)
+    torch.cuda.synchronize()
+    out["cat_train_%d_s" % cat_rounds] = time.perf_counter() - t0
+    print(json.dumps(out), flush=True)
+
+
+def ab_main(argv):
+    """python3 chip_smoke.py --ab OLD --ab NEW --ab NEW --ab OLD
+
+    Compares checkouts on one card in one run. Each --ab is a directory
+    holding a lightgbm_tpu_torch package, run in a process of its own in
+    the order given. The card's name and power limit come first; then
+    per checkout one JSON line: H (leaf_histogram) at the HIGGS root (the
+    phase-9 protocol's data and first gradients) in f32 and hi+lo mode
+    and on a 966,119-row list, `*_call` the median of CUDA events around
+    a call (the wrapper's host time included) and `*_device` the mean of
+    replays of a CUDA graph that captured one call; `*_host_us` the
+    median host time of a call that returns once queued (H on a
+    1,000-row list; QC at full size); H's error on phase 10's cancelling gradients
+    against the f64 sums, relative to max(1, |ref|); QC and
+    torch.searchsorted over the same grid on 262,144 rows (phase 24's
+    inputs), the same two ways; `--rounds` rounds of the HIGGS protocol
+    (hi+lo) and of the categorical protocol (phase 36), each round's
+    seconds and their median from round 2, and one more round under
+    torch.profiler: wall, device busy time (the union of the device
+    events' intervals), idle share and H's device time; and the
+    categorical protocol's `--cat-rounds` rounds through lgb.train, as
+    phase 36 times its 500."""
+    import argparse
+    ap = argparse.ArgumentParser(usage=ab_main.__doc__.splitlines()[0])
+    ap.add_argument("--ab", action="append", required=True)
+    ap.add_argument("--rounds", type=int, default=6)
+    ap.add_argument("--cat-rounds", type=int, default=EXPO_GATE_ROUNDS)
+    ap.add_argument("--child", action="store_true", help=argparse.SUPPRESS)
+    args = ap.parse_args(argv)
+    if not torch.cuda.is_available():
+        print("chip_smoke: CUDA is not available", file=sys.stderr)
+        sys.exit(2)
+    if args.child:
+        ab_child(args.ab[0], args.rounds, args.cat_rounds)
+        return
+    print(card_line(), flush=True)
+    for root in args.ab:
+        subprocess.run([sys.executable, os.path.abspath(__file__), "--child",
+                        "--ab", root, "--rounds", str(args.rounds),
+                        "--cat-rounds", str(args.cat_rounds)], check=True)
+
+
 if __name__ == "__main__":
-    main()
+    if len(sys.argv) > 1:
+        ab_main(sys.argv[1:])
+    else:
+        main()

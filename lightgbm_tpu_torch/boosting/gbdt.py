@@ -317,16 +317,19 @@ class GBDT:
             self._hist_quant_gate()
 
     def _quantize(self, grad, hess, row_weight, iteration: int, n: int,
-                  qmax: int):
+                  qmax: int, reciprocal_scale: bool):
         """Q with the JAX package's key chain (gbdt.py:363-405):
         fold_in(fold_in(fold_in(PRNGKey(data_random_seed), iteration),
         class 0), 0 for the gradients | 1 for the hessians), folded on
-        the host."""
+        the host. A training iteration takes the scales of the JAX
+        package's jitted program (`reciprocal_scale`: max * f32(1 /
+        qmax)), the gate those of its op-by-op call (max / qmax)."""
         kc = fold_in(fold_in(prng_key(self._quant_seed), iteration), 0)
         return quantize_gradients(
             grad[:n], hess[:n], row_weight[:n], qmax=qmax,
             key_g=fold_in(kc, 0), key_h=fold_in(kc, 1),
-            hess_const=self._quant_hess_const)
+            hess_const=self._quant_hess_const,
+            reciprocal_scale=reciprocal_scale)
 
     def _hist_quant_gate(self) -> None:
         """The train-time gate of tpu_hist_quantize (gbdt.py:983-1051):
@@ -345,7 +348,8 @@ class GBDT:
             gcfg, num_leaves=min(31, self.config.tree.num_leaves))
         qmax = train_qmax(mode, n_cal)
         ones = self._ones[:n_cal]
-        q = self._quantize(grad, hess, ones, 0, n_cal, qmax)
+        q = self._quantize(grad, hess, ones, 0, n_cal, qmax,
+                           reciprocal_scale=False)
         binned = self._binned[:n_cal]
         mask = np.ones(self.train_data.num_features, bool)
         values = []
@@ -471,7 +475,8 @@ class GBDT:
         if self._quant_mode != "none":
             q = self._quantize(grad, hess,
                                self._ones if weight is None else weight,
-                               self.iter_, self._n, self._quant_qmax)
+                               self.iter_, self._n, self._quant_qmax,
+                               reciprocal_scale=True)
             state = self._grower.grow((q.codes, q.w01), mask, q.qscale,
                                       bagged=weight is not None)
         else:

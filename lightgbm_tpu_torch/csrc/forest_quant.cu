@@ -10,16 +10,31 @@
 // numeric splits; 1 for a column past the grid. Replaces quant_codes,
 // lightgbm_tpu/ops/predict.py:820, which compares every (row, feature,
 // bound) triple ([N, F, K] booleans summed over K) because the TPU has
-// no cheap branch. Here one thread takes one (row, feature) and finds
-// the count by a branch-free binary search of the grid row (at most 8
-// steps for 255 bounds), x and the bounds flushed to zero where
-// subnormal as XLA's backends flush them, and -0 < +0 false as IEEE has
-// it. Codes run from -1 to 256, 258 values, so they are stored as int16.
+// no cheap branch. x and the bounds are flushed to zero where subnormal
+// as XLA's backends flush them, and -0 < +0 is false as IEEE has it.
+// Codes run from -1 to 256, 258 values, so they are stored as int16.
+//
+// Design: one block of 1,024 threads an SM first stages the whole grid
+// into shared memory, flushed, each feature's row padded with +inf to
+// 2^k - 1 entries and laid out transposed (entry j of feature f at j * fs
+// + f, fs the features rounded up to 32), with the missing-type bytes
+// beside it; then each warp takes 128 cells a turn, lane l the cells l,
+// l + 32, l + 64 and l + 96 of it. So each load of x and store of codes
+// is one contiguous 128- or 64-byte run of the warp, the feature of a
+// lane's next cell comes by one add and compare (no modulo a cell), and
+// the 32 lanes of a probe hold 32 consecutive features, whose entries sit
+// in 32 distinct banks, wherever each lane's search has got to. The count
+// is a branch-free binary search of the staged row (8 probes for 255
+// bounds), four independent searches a lane. A grid past 48 KB of shared
+// memory (more than 32 features of 255 bounds) is searched in device
+// memory instead, by the same code. Four consecutive cells a thread
+// (16-byte loads) would put a probe's 32 lanes on 7 of 28 features, at
+// entries that collide in banks.
 // Bound on an H100 SXM: 4 bytes read and 2 written a (row, feature), and
-// the grid (28 x 255 floats, L1/L2 resident): 262,144 x 28 cells move
-// 44 MB, 0.013 ms at 3.35 TB/s; about 40 instructions a cell (load,
-// flush, 8 search steps of load, compare and add, the missing test),
-// 0.009 ms at 33.5e12 a second. Bytes bound it.
+// the grid (28 x 237 floats at the main path's forest, from L2 once an
+// SM): 262,144 x 28 cells move 44 MB, 0.013 ms at 3.35 TB/s; about
+// 40 instructions a cell (the flush and missing test, 8 probes of load,
+// compare and add), 0.009 ms at 33.5e12 a second. Bytes bound it.
 //
 // QW forest_quant_walk: the forest walked on the codes. A numeric node
 // goes left iff lo <= code <= thr_code (thr_code = 1 + the threshold's
@@ -49,35 +64,106 @@ using namespace lgbt_forest;
 constexpr int kBlock = 128;
 constexpr int kMissNanBit = 1;
 constexpr int kMissZeroBit = 2;
+constexpr int kCodesThreads = 1024;
+// QC's staged grid and missing bytes: the default 48 KB a block
+constexpr int kCodesSmem = 48 * 1024;
+// QC's cells a call: their 32-bit indices never wrap
+constexpr size_t kMaxCells = ((size_t)1 << 32) - 256;
 
-__global__ void __launch_bounds__(kBlock)
-codes_kernel(const float* __restrict__ x, int n, int nf,
-             const float* __restrict__ grid, int grid_features, int bounds,
-             const uint8_t* __restrict__ miss, int16_t* __restrict__ codes) {
-  const size_t cell = (size_t)blockIdx.x * kBlock + threadIdx.x;
-  if (cell >= (size_t)n * nf) return;
-  const int f = (int)(cell % nf);
-  if (f >= grid_features) {
-    codes[cell] = 1;
-    return;
-  }
-  const float raw = __ldg(x + cell);
+// the code of one value of feature f (f < the grid's features): `g`
+// points at the feature's first entry, `at` apart (staged: flushed, +inf
+// past `bounds`; in device memory: `bounds` raw entries), `half` = 2^k /
+// 2 with 2^k - 1 >= bounds
+template <bool kStaged>
+__device__ __forceinline__ int code_of(float raw, int m, const float* g,
+                                       int at, int bounds, int half) {
   const bool nan = isnan(raw);
   const float v = flush_subnormal(nan ? 0.f : raw);
-  const int m = miss == nullptr ? 0 : __ldg(miss + f);
   if (((m & kMissNanBit) && nan) ||
       ((m & kMissZeroBit) && (nan || fabsf(v) <= kZeroThreshold))) {
-    codes[cell] = -1;
-    return;
+    return -1;
   }
-  // the number of bounds below v: binary lifting over the sorted row
-  const float* g = grid + (size_t)f * bounds;
-  int count = 0;
-  for (int step = 1 << (31 - __clz(bounds)); step > 0; step >>= 1) {
+  int count = 0;  // the number of bounds below v, by binary lifting
+  for (int step = half; step > 0; step >>= 1) {
     const int j = count + step - 1;
-    if (j < bounds && flush_subnormal(__ldg(g + j)) < v) count += step;
+    if (kStaged) {
+      if (g[j * at] < v) count += step;
+    } else if (j < bounds && flush_subnormal(__ldg(g + j)) < v) {
+      count += step;
+    }
   }
-  codes[cell] = (int16_t)(1 + count);
+  return 1 + count;
+}
+
+// x [cells / nf, nf] f32 row-major, codes the same int16 (cells below
+// kMaxCells, so no cell index of a turn wraps);
+// staged: entry j of feature f at j * fs + f (fs = the features rounded
+// up to 32)
+template <bool kStaged>
+__global__ void __launch_bounds__(kCodesThreads)
+codes_kernel(const float* __restrict__ x, uint32_t cells, int nf,
+             const float* __restrict__ grid, int grid_features, int bounds,
+             int half, int fs, const uint8_t* __restrict__ miss,
+             int16_t* __restrict__ codes) {
+  extern __shared__ float staged[];
+  const int entries = 2 * half - 1;
+  uint8_t* sm = reinterpret_cast<uint8_t*>(staged + entries * fs);
+  if (kStaged) {
+    // read in the grid's order (coalesced); the transposed writes
+    // conflict, once a block
+    for (int e = threadIdx.x; e < grid_features * entries;
+         e += blockDim.x) {
+      const int f = e / entries, j = e - f * entries;
+      staged[j * fs + f] =
+          j < bounds ? flush_subnormal(__ldg(grid + (size_t)f * bounds + j))
+                     : __int_as_float(0x7f800000);  // +inf
+    }
+    for (int f = threadIdx.x; f < grid_features; f += blockDim.x) {
+      sm[f] = miss == nullptr ? 0 : __ldg(miss + f);
+    }
+    __syncthreads();
+  }
+  const int lane = threadIdx.x % 32;
+  const int warps = blockDim.x / 32;
+  const int wrap = 32 % nf;  // the feature 32 cells on
+  // a warp takes 128 cells a turn, lane l cells l, l + 32, l + 64 and
+  // l + 96: each load and store of the warp is one contiguous run, and
+  // the lanes of a probe hold 32 consecutive features, whose staged
+  // entries sit in distinct banks (two lanes share one where a row
+  // wraps)
+  const uint32_t turns = cells / 128 + (cells % 128 != 0);
+  for (uint32_t t = blockIdx.x * warps + threadIdx.x / 32; t < turns;
+       t += gridDim.x * warps) {
+    const uint32_t c0 = t * 128 + lane;
+    float v[4];
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {
+      const uint32_t c = c0 + 32 * u;
+      v[u] = c < cells ? __ldg(x + c) : 0.f;
+    }
+    int f = (int)(c0 % (uint32_t)nf);
+    short code[4];
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {
+      if (f >= grid_features) {
+        code[u] = 1;
+      } else if (kStaged) {
+        code[u] = (short)code_of<true>(v[u], sm[f], staged + f, fs, bounds,
+                                       half);
+      } else {
+        code[u] = (short)code_of<false>(
+            v[u], miss == nullptr ? 0 : __ldg(miss + f),
+            grid + (size_t)f * bounds, 1, bounds, half);
+      }
+      f += wrap;
+      f = f >= nf ? f - nf : f;
+    }
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {
+      const uint32_t c = c0 + 32 * u;
+      if (c < cells) codes[c] = code[u];
+    }
+  }
 }
 
 __global__ void __launch_bounds__(kBlock)
@@ -110,20 +196,58 @@ quant_walk_kernel(Forest f, const int16_t* __restrict__ thr_code,
 
 }  // namespace
 
+namespace {
+
+template <bool kStaged>
+int launch_codes(const float* x, uint32_t cells, int nf, const float* grid,
+                 int grid_features, int bounds, int half, int fs,
+                 const uint8_t* miss, int16_t* codes, size_t smem,
+                 cudaStream_t s) {
+  static int sms = 0;
+  if (sms == 0) {
+    int dev = 0;
+    cudaError_t err = cudaGetDevice(&dev);
+    if (err == cudaSuccess) {
+      err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    }
+    if (err != cudaSuccess) return (int)err;
+  }
+  // one block an SM at most: each block stages the grid once
+  const uint32_t turns = cells / 128 + (cells % 128 != 0);
+  const uint32_t per_block = kCodesThreads / 32;
+  uint32_t blocks = (turns + per_block - 1) / per_block;
+  blocks = blocks > (uint32_t)sms ? (uint32_t)sms : blocks;
+  codes_kernel<kStaged><<<blocks, kCodesThreads, smem, s>>>(
+      x, cells, nf, grid, grid_features, bounds, half, fs, miss, codes);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace
+
 // x [n, nf] f32; grid [grid_features, bounds] f32 sorted, +inf padded;
 // miss [grid_features] u8 (bit 0 NaN, bit 1 zero) or null when the
-// forest has no missing-typed numeric split; codes [n, nf] int16 out.
+// forest has no missing-typed numeric split; codes [n, nf] int16 out;
+// n * nf below kMaxCells (ops/predict.py QUANT_MAX_CELLS).
 extern "C" int lgbt_quant_codes(const float* x, int n, int nf,
                                 const float* grid, int grid_features,
                                 int bounds, const uint8_t* miss,
                                 int16_t* codes, void* stream) {
   const size_t cells = (size_t)n * nf;
   if (cells == 0) return 0;
-  if (bounds < 1) return (int)cudaErrorInvalidValue;
-  const size_t blocks = (cells + kBlock - 1) / kBlock;
-  codes_kernel<<<(unsigned)blocks, kBlock, 0, (cudaStream_t)stream>>>(
-      x, n, nf, grid, grid_features, bounds, miss, codes);
-  return (int)cudaGetLastError();
+  if (bounds < 1 || nf < 1 || cells >= kMaxCells) {
+    return (int)cudaErrorInvalidValue;
+  }
+  int half = 1;
+  while (2 * half - 1 < bounds) half *= 2;
+  const int fs = (grid_features + 31) / 32 * 32;
+  const size_t smem = (size_t)(2 * half - 1) * fs * 4 + grid_features;
+  const cudaStream_t s = (cudaStream_t)stream;
+  if (smem <= (size_t)kCodesSmem) {
+    return launch_codes<true>(x, (uint32_t)cells, nf, grid, grid_features,
+                              bounds, half, fs, miss, codes, smem, s);
+  }
+  return launch_codes<false>(x, (uint32_t)cells, nf, grid, grid_features,
+                             bounds, half, fs, miss, codes, 0, s);
 }
 
 // The forest's node arrays and f16 leaves as K1 takes them (the

@@ -14,54 +14,76 @@
 // it has; on a GPU the scatter-add itself is cheap when it lands in
 // shared memory without contention, so the kernel scatters.
 //
-// Design (the same bits on every run, no float atomics):
-// - grid (tiles, blocks of groups); a tile is kTileRows rows of the
-//   row sequence (0..n-1, or rows[0..n-1]); each warp of a block takes
-//   one group;
-// - each lane of a warp owns a private [B bins] histogram of its group
-//   in shared memory (laid out [bin][lane], so lane l's words sit in
-//   bank l and the lanes' adds never conflict) and adds its rows, l,
-//   l+32, ..., in order, four rows' loads in flight;
-// - the lanes' histograms are added in a fixed tree into the tile's
-//   partial in device memory, and a second kernel adds the tiles, each
-//   lane a fixed residue of tiles, then the lanes in a fixed tree.
-//   Counts are integers throughout.
-// The result depends only on the inputs and the tile size, never on
-// timing.
+// Design (the same bits on every run, no float atomics; ops/histogram.py
+// hist_plan computes the launch plan on the host and leaf_histogram_order
+// replays the summation order in torch ops):
+// - one pass over the rows: a block takes warps * run consecutive
+//   positions of the row sequence (0..n-1, or rows[0..n-1]) and a slice of
+//   up to 32 groups; its warp w takes a run of `run` positions, and lane l
+//   of the warp owns group l of the slice. Per 32 positions the lanes read
+//   the 32 rows' channels (12 bytes each, 4 more for a row list) once,
+//   split g and h into their hi and lo halves once (hi+lo mode), and
+//   broadcast them by shuffles; each owner lane reads its group's byte of
+//   every row (a warp reads a row's bins as one contiguous run) and adds
+//   the row into its own column of the warp's [ch][bins + 1][32 lanes]
+//   shared histogram. Columns never collide, and lane l's words sit in
+//   bank l (two banks for an f64 word). The next 32 rows' loads are in
+//   flight while these are added;
+// - so a warp holds ONE copy of each of its groups' histograms (41.6 KB
+//   for 32 groups at B = 64: 20 bytes a slot, g and h in f64 in f32 mode,
+//   the four bf16 halves in f32 in hi+lo mode, and a uint32 count), a
+//   block 5 warps, and the rows of a run are added in order: one chain a
+//   (run, group, bin) of at most HIST_MAX_RUN = 4,096 rows;
+// - the read-add-write of a shared word is a chain of latencies, so the
+//   rows go four at a time: the four words are read together, added in
+//   row order (a row whose bin an earlier one of the four holds takes
+//   that row's sum: the same adds in the same order), and written back
+//   in row order. A row a lane does not add goes to the column's extra
+//   sentinel bin, so no add is under a branch;
+// - the warps' histograms are added in warp order, in f64, into the
+//   block's partial ([blocks][ch][bins][slots] f64, written coalesced),
+//   and a second kernel adds the blocks' partials, one thread a (bin,
+//   group), in eight interleaved f64 chains and a fixed tree, and rounds
+//   each sum to f32 once. About 132 blocks at the HIGGS root: 10.8 MB of
+//   partials in hi+lo mode, 6.5 MB in f32, against 80 MB of input. f32
+//   sums of f32 values over a 2,000,000-row root of cancelling gradients
+//   miss 1e-5 * max(1, |sum|) in any order of f32 chains (the earlier
+//   2,048-row tiles' too); the f64 sums hold that input to about one
+//   rounding (chip_smoke.py phase 10's cancelling input).
+// Counts are integers throughout. At B = 256 a warp takes 16 groups (82
+// KB), so a block still holds two warps.
 //
 // Bound on an H100 SXM (3.35 TB/s): every input byte read once: the
 // group bins of the rows (G bytes a row), 12 bytes of channels a row,
 // 4 more a row for a row list, and the [G, B, 3] output.
 // At the root of the main path (2,000,000 rows x 28 groups) that is
 // 80 MB, 0.024 ms; chip_smoke.py computes the bound of each measured
-// call from its own shape. The per-row work is a handful of
-// instructions a (row, group), so bytes bound it.
+// call from its own shape. What sets the time instead (by design
+// estimate) is each column's serial chain of shared-memory read, add and
+// write, some 30 cycles a row, over the few warps whose histograms fit
+// an SM.
 //
 // The hi+lo mode (tpu_hist_bf16, the JAX package's default): the bf16
 // branch of the same three functions, with _hi_lo (:52). Each row's g*w
-// and h*w are split in registers into hi = bf16(v) and lo = bf16(v -
-// f32(hi)), rounded as XLA's CPU backend rounds (ops/histogram.py
-// hi_lo), and the four halves are summed apart in f32 in the same fixed
-// lane and tile trees; the reduce kernel adds hi + lo once, after all
-// rows (the JAX merge at :394-396). The split reads no more bytes, so
-// the bound is H's. The trap is shared memory: five words a (lane, bin)
-// instead of three, 40 KB a warp at B = 64 and 160 KB at B = 256. A
-// block takes as many warps (at most 4) as fit in 160 KB, so at max_bin
-// 255 a block holds one warp, which keeps one pass over the rows; a
-// second pass for the lo halves would read every row twice.
+// and h*w are split into hi = bf16(v) and lo = bf16(v - f32(hi)), rounded
+// as XLA's CPU backend rounds (ops/histogram.py hi_lo), and the four
+// halves are summed apart in f32 in the same order; the reduction adds
+// hi + lo once, after all rows (the JAX merge at :394-396). The split
+// reads no more bytes, so the bound is H's.
 //
 // The uint16 modes (groups of more than 256 bins, the JAX package's
 // uint16 matrix: efb.py:96-99, ingest/build.py:116; its H functions are
 // dtype-generic and pad every group to the widest): the same sums in
 // both modes, with each group at its own width (group_num_bin), the
-// tiles' partials laid out at those widths, and tiles of 2,048 << k
-// rows, the least k that keeps the partials' traffic under a quarter of
-// the input's bytes (ops/histogram.py hist_layout, hist_tile_rows: at
-// the Bosch root 16,384 rows, 31 tiles, in both modes). A group whose 32
-// private copies fit 64 KB a warp (at most 170 bins in f32 mode, 102
-// in hi+lo) keeps the lane-private scheme above; a wider one (up to
-// 2,048 bins) cannot (631 bins: 242 KB a warp in f32, 404 KB in hi+lo)
-// and goes warp-shared (hist_wide_kernel): ONE histogram a warp, the
+// warp-shared groups' tiles' partials laid out at those widths, and
+// tiles of 2,048 << k rows, the least k that keeps the partials' traffic
+// under a quarter of the input's bytes (ops/histogram.py hist_layout,
+// hist_tile_rows: at the Bosch root 16,384 rows, 31 tiles, in both
+// modes). A group narrow enough that two warps of 16 such columns fit
+// the block's budget (at most 351 bins, 20 bytes a slot) takes
+// the lane-private scheme above, in columns as wide as the widest of
+// them; a wider one (up to 2,048 bins; Bosch's 631) goes warp-shared
+// (hist_wide_kernel): ONE histogram a warp, the
 // lanes that hold the same bin (__match_any_sync) combined in a fixed
 // tree over their rank before their lowest lane's single add. Chosen
 // over bin-range passes, which read each tile once a range: the sums
@@ -80,8 +102,8 @@
 // recombines the digits in int32. Hopper adds int32 natively, so HQ adds
 // the codes themselves.
 //
-// Design: the same grid as H (row tiles of the row sequence x blocks of
-// groups); each block keeps an int32 [groups, B, 3] histogram in shared
+// Design: a grid of row tiles of the row sequence x blocks of
+// groups; each block keeps an int32 [groups, B, 3] histogram in shared
 // memory, its threads add their rows into it with integer atomicAdd,
 // and the block adds its nonzero words into the zeroed output with
 // atomicAdd. Integer addition is associative, so the result has the
@@ -114,13 +136,16 @@
 
 namespace {
 
-constexpr int kTileRows = 2048;
 constexpr int kLanes = 32;
-constexpr int kUnroll = 4;  // rows a lane has in flight
-// the shared memory a block of H may take: 4 warps of f32 mode at
-// B = 64 (96 KB) or of hi+lo mode (160 KB); above the budget of one warp
-// a block holds that one warp (hi+lo at B = 256: 160 KB)
-constexpr int kHistSmem = 160 * 1024;
+constexpr int kUnroll = 4;  // rows a lane of the warp-shared kernel has in flight
+// the shared memory a block of H may take (ops/histogram.py
+// HIST_SMEM_BYTES): 5 warps of the lane-private kernel at B = 64 (41.6
+// KB a warp)
+constexpr int kHistSmem = 220 * 1024;
+// ... and of the warp-shared kernel
+constexpr int kWideSmem = 160 * 1024;
+// warps of a lane-private block at most (HIST_MAX_WARPS)
+constexpr int kMaxWarps = 8;
 // warps of a warp-shared block (uint16 groups wider than the lanes'
 // private copies allow): 8 at 1,024 bins in hi+lo mode (160 KB)
 constexpr int kWideWarps = 8;
@@ -150,125 +175,257 @@ __device__ __forceinline__ void hi_lo(float w, float& hi, float& lo) {
       __fsub_rn(flush_subnormal(w), flush_subnormal(hi))));
 }
 
-// partial layout: per channel [tiles, elems] words, elems = the sum of
-// the groups' widths, group g's bins at poff[g] within a tile (the
-// uint8 path: every group B wide at g * B), so the tile reduction reads
-// coalesced runs of bins. f32 mode: g, h (float) and count (uint32);
-// hi+lo mode (HILO): g_hi, h_hi, count, g_lo, h_lo.
-//
-// The lane-private scheme: warp w of block y takes group glist[y *
-// warps + w] (group y * warps + w without a list) of width widths[g]
-// (B without widths).
+// The lane-private scheme (every group of a uint8 matrix; a uint16
+// matrix's groups narrow enough, hist_layout's `narrow`): block (x, y)
+// takes the row positions [x * warps * run, (x + 1) * warps * run) of the
+// row sequence and slice y of the group list, groups y * gw ..
+// y * gw + gw - 1 of it; warp w takes the run of `run` positions from
+// (x * warps + w) * run on, and its lane l owns the slice's group l
+// (lanes gw..31 own none when gw < 32). Per 32 positions, lane j reads
+// the row of position j (its channels, split into hi and lo halves once
+// in hi+lo mode), the lanes broadcast them in turn, and each owner lane
+// adds the row into its group's column of the warp's shared histogram,
+// rows in order: one f64 chain a (run, group, bin), and the lanes never
+// collide because they own different columns. The value added is g*w
+// (h*w) in f32 mode and hi + lo in hi+lo mode, which f64 holds exactly,
+// so the chain sums the hi and the lo halves at once. A warp's histogram
+// is [2][words] f64 sums, then [words] uint32 counts; words = (bw + 1) *
+// gw rounded up to even, 20 bytes a slot (ops/histogram.py
+// HIST_SLOT_BYTES). Then the warps' histograms are added in warp order,
+// in f64, into the block's partial, f64 words laid out
+// [blocks][3][bw][nsp] (nsp = slices * gw, the count last) so that both
+// the writes here and the reduction's reads are coalesced.
 template <bool HILO, typename BinT>
-__global__ void hist_tile_kernel(const BinT* __restrict__ binned, int G,
-                                 const float* __restrict__ w3,
-                                 const int* __restrict__ rows, int n,
-                                 int tile_rows, int B,
-                                 const int* __restrict__ glist, int n_list,
-                                 const int* __restrict__ widths,
-                                 const int* __restrict__ poff, int elems,
-                                 int warps, float* __restrict__ part) {
-  constexpr int kCh = HILO ? 5 : 3;
-  extern __shared__ unsigned char smem[];
-  const int tile = blockIdx.x;
+__global__ void __launch_bounds__(kMaxWarps * kLanes)
+hist_lane_kernel(const BinT* __restrict__ binned, int G,
+                 const float* __restrict__ w3, const int* __restrict__ rows,
+                 int n, const int* __restrict__ glist, int n_list,
+                 const int* __restrict__ widths, int bw, int gw, int run,
+                 double* __restrict__ part) {
+  constexpr int kAcc = 2;    // g and h
+  constexpr int kGroup = 4;  // rows whose read-add-writes overlap
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int warps = blockDim.x / kLanes;
   const int warp = threadIdx.x / kLanes;
   const int lane = threadIdx.x % kLanes;
-  const int slot = blockIdx.y * warps + warp;  // this warp's group
-  if (slot >= n_list) return;  // whole warps; no block-wide barrier follows
-  const int g = glist ? glist[slot] : slot;
-  const int W = widths ? widths[g] : B;
-  const int per_warp = kLanes * B;  // B: the widest group of the list
-  // this warp's [W bins][32 lanes] histograms: lane l's words all in
-  // bank l, so the lanes' adds never conflict
-  float* hg = reinterpret_cast<float*>(smem) + warp * per_warp;
-  float* hh = reinterpret_cast<float*>(smem) + (warps + warp) * per_warp;
-  uint32_t* hc = reinterpret_cast<uint32_t*>(smem) +
-                 (2 * warps + warp) * per_warp;
-  float* lg = reinterpret_cast<float*>(smem) + (3 * warps + warp) * per_warp;
-  float* lh = reinterpret_cast<float*>(smem) + (4 * warps + warp) * per_warp;
-  for (int e = lane; e < kLanes * W; e += kLanes) {
-    hg[e] = 0.f;
-    hh[e] = 0.f;
-    hc[e] = 0u;
-    if (HILO) {
-      lg[e] = 0.f;
-      lh[e] = 0.f;
+  // one channel of one warp: bw bins and a sentinel bin that takes the
+  // rows a lane does not add, so every add below is unconditional
+  const int words = ((bw + 1) * gw + 1) / 2 * 2;
+  const size_t warp_bytes = (size_t)words * (kAcc * 8 + 4);
+  double* h = reinterpret_cast<double*>(smem + warp * warp_bytes);
+  uint32_t* hc = reinterpret_cast<uint32_t*>(h + kAcc * words);
+  {
+    // zero every warp's histogram, 16 bytes a store and a 4-byte tail
+    const int all = (int)(warps * warp_bytes / 4);
+    float* hist = reinterpret_cast<float*>(smem);
+    for (int e = threadIdx.x; e < all / 4; e += blockDim.x) {
+      reinterpret_cast<float4*>(hist)[e] = make_float4(0.f, 0.f, 0.f, 0.f);
+    }
+    for (int e = all / 4 * 4 + threadIdx.x; e < all; e += blockDim.x) {
+      hist[e] = 0.f;
     }
   }
-  __syncwarp();
+  const int slot = blockIdx.y * gw + lane;
+  const bool owner = lane < gw && slot < n_list;
+  const int g = owner ? (glist ? __ldg(glist + slot) : slot) : 0;
+  const int width = owner ? (widths ? __ldg(widths + g) : bw) : 0;
+  const int col = lane & (gw - 1);  // a lane past gw adds to a sentinel
+  __syncthreads();
 
-  const int begin = tile * tile_rows;
-  const int end = min(n, begin + tile_rows);
-  // lane l takes rows begin+l, begin+l+32, ... in order, kUnroll of
-  // them loaded before any is added
-  for (int i0 = begin + lane; i0 < end; i0 += kLanes * kUnroll) {
-    int bin[kUnroll];
-    float vg[kUnroll], vh[kUnroll];
-    uint32_t vc[kUnroll];
+  const long long begin = ((long long)blockIdx.x * warps + warp) * run;
+  const long long end = min((long long)n, begin + run);
+  // the row of position p, clamped into the run: every load below is
+  // unconditional, so all of a turn's loads can be in flight at once,
+  // and the positions past the run are masked where they are added
+  auto row_of = [&](long long p) {
+    p = min(p, end - 1);
+    return rows ? __ldg(rows + p) : (int)p;
+  };
+  // lane j's row's channels, and every owner's bin of the 32 rows
+  auto load = [&](int r, float (&w)[3], int (&bin)[kLanes]) {
+    const float* p = w3 + (size_t)r * 3;
+    w[0] = __ldg(p);
+    w[1] = __ldg(p + 1);
+    w[2] = __ldg(p + 2);
 #pragma unroll
-    for (int u = 0; u < kUnroll; ++u) {
-      const int i = i0 + u * kLanes;
-      bin[u] = W;
-      vg[u] = vh[u] = 0.f;
-      vc[u] = 0u;
-      if (i < end) {
-        const int r = rows ? __ldg(rows + i) : i;
-        bin[u] = __ldg(binned + (size_t)r * G + g);
-        const float* w = w3 + (size_t)r * 3;
-        vg[u] = __ldg(w);
-        vh[u] = __ldg(w + 1);
-        vc[u] = __ldg(w + 2) > 0.f ? 1u : 0u;
-      }
+    for (int j = 0; j < kLanes; ++j) {
+      const int rj = __shfl_sync(~0u, r, j);
+      bin[j] = (int)__ldg(binned + (size_t)rj * G + g);
     }
+  };
+  if (begin < end) {
+    // software pipelined: the next 32 rows' loads are in flight while
+    // this 32's are added, and a row list's ids two turns ahead
+    float wc[3], wn[3];
+    int bc[kLanes], bn[kLanes];
+    int r_next = row_of(begin + kLanes + lane);
+    load(row_of(begin + lane), wc, bc);
+    for (long long base = begin; base < end; base += kLanes) {
+      load(r_next, wn, bn);
+      r_next = row_of(base + 2 * kLanes + lane);
+      const int m = (int)min((long long)kLanes, end - base);
+      // lane j's row: its g and h, in hi+lo mode split into their hi
+      // and lo halves once and added back in f64 (exactly)
+      double v[kAcc];
 #pragma unroll
-    for (int u = 0; u < kUnroll; ++u) {
-      if (bin[u] < W) {
-        const int e = bin[u] * kLanes + lane;
-        if (HILO) {
-          // the split costs registers only: no more bytes are read
-          float ghi, glo, hhi, hlo;
-          hi_lo(vg[u], ghi, glo);
-          hi_lo(vh[u], hhi, hlo);
-          hg[e] += ghi;
-          hh[e] += hhi;
-          lg[e] += glo;
-          lh[e] += hlo;
+      for (int c = 0; c < kAcc; ++c) {
+        if constexpr (HILO) {
+          float hi, lo;
+          hi_lo(wc[c], hi, lo);
+          v[c] = (double)hi + (double)lo;
         } else {
-          hg[e] += vg[u];
-          hh[e] += vh[u];
+          v[c] = (double)wc[c];
         }
-        hc[e] += vc[u];
       }
+      const uint32_t k = lane < m && wc[2] > 0.f ? 1u : 0u;
+      // four rows at a time: their four words are read together, then
+      // added in row order, a row whose bin an earlier one of the four
+      // holds taking that row's sum (the same adds in the same order as
+      // one row at a time), and written back in row order, so the last
+      // write of a word is its latest sum
+#pragma unroll
+      for (int q = 0; q < kLanes; q += kGroup) {
+        double x[kGroup][kAcc], o[kGroup][kAcc];
+        uint32_t kx[kGroup], ko[kGroup];
+        int e[kGroup];
+#pragma unroll
+        for (int i = 0; i < kGroup; ++i) {
+          const int j = q + i;
+#pragma unroll
+          for (int c = 0; c < kAcc; ++c) {
+            x[i][c] = __shfl_sync(~0u, v[c], j);
+          }
+          kx[i] = __shfl_sync(~0u, k, j);
+          const int b = owner && j < m && bc[j] < width ? bc[j] : bw;
+          e[i] = b * gw + col;
+        }
+#pragma unroll
+        for (int i = 0; i < kGroup; ++i) {
+#pragma unroll
+          for (int c = 0; c < kAcc; ++c) o[i][c] = h[c * words + e[i]];
+          ko[i] = hc[e[i]];
+        }
+        const bool s10 = e[1] == e[0], s21 = e[2] == e[1];
+        const bool s20 = e[2] == e[0], s32 = e[3] == e[2];
+        const bool s31 = e[3] == e[1], s30 = e[3] == e[0];
+#pragma unroll
+        for (int c = 0; c < kAcc; ++c) {
+          const double a0 = o[0][c] + x[0][c];
+          const double a1 = (s10 ? a0 : o[1][c]) + x[1][c];
+          const double a2 = (s21 ? a1 : s20 ? a0 : o[2][c]) + x[2][c];
+          const double a3 =
+              (s32 ? a2 : s31 ? a1 : s30 ? a0 : o[3][c]) + x[3][c];
+          h[c * words + e[0]] = a0;
+          h[c * words + e[1]] = a1;
+          h[c * words + e[2]] = a2;
+          h[c * words + e[3]] = a3;
+        }
+        const uint32_t c0 = ko[0] + kx[0];
+        const uint32_t c1 = (s10 ? c0 : ko[1]) + kx[1];
+        const uint32_t c2 = (s21 ? c1 : s20 ? c0 : ko[2]) + kx[2];
+        const uint32_t c3 = (s32 ? c2 : s31 ? c1 : s30 ? c0 : ko[3]) + kx[3];
+        hc[e[0]] = c0;
+        hc[e[1]] = c1;
+        hc[e[2]] = c2;
+        hc[e[3]] = c3;
+      }
+#pragma unroll
+      for (int j = 0; j < kLanes; ++j) bc[j] = bn[j];
+      wc[0] = wn[0];
+      wc[1] = wn[1];
+      wc[2] = wn[2];
     }
   }
-  __syncwarp();
+  __syncthreads();
 
-  // the lanes' histograms added in a fixed tree into the tile's partial
-  const size_t out0 = (size_t)tile * elems + (poff ? poff[g] : (size_t)g * B);
-  const size_t chan = (size_t)gridDim.x * elems;  // one channel's words
-  for (int b = 0; b < W; ++b) {
-    float v[kCh];
-    v[0] = hg[b * kLanes + lane];
-    v[1] = hh[b * kLanes + lane];
-    uint32_t k = hc[b * kLanes + lane];
-    if (HILO) {
-      v[3] = lg[b * kLanes + lane];
-      v[4] = lh[b * kLanes + lane];
+  // the warps' histograms added in warp order, in f64, into the block's
+  // partial (the sentinel bins left out)
+  const int nsp = gridDim.y * gw;
+  const int gshift = __ffs(gw) - 1;  // gw is a power of two
+  const size_t chan = (size_t)bw * nsp;
+  double* const out = part + (size_t)blockIdx.x * (kAcc + 1) * chan +
+                      blockIdx.y * gw;
+  for (int e = threadIdx.x; e < bw * gw; e += blockDim.x) {
+    const size_t at = (size_t)(e >> gshift) * nsp + (e & (gw - 1));
+#pragma unroll
+    for (int c = 0; c < kAcc; ++c) {
+      double sum = 0.0;
+      for (int w = 0; w < warps; ++w) {
+        sum += reinterpret_cast<const double*>(
+            smem + w * warp_bytes)[c * words + e];
+      }
+      out[c * chan + at] = sum;
     }
-    for (int o = kLanes / 2; o > 0; o >>= 1) {
+    uint32_t count = 0u;
+    for (int w = 0; w < warps; ++w) {
+      count += reinterpret_cast<const uint32_t*>(
+          smem + w * warp_bytes + kAcc * words * 8)[e];
+    }
+    out[kAcc * chan + at] = (double)count;
+  }
+}
+
+// out[g, b, :] for the lane-private groups from the blocks' f64
+// partials: one thread a (bin, slot), slots adjacent so the reads
+// coalesce; the blocks are added in eight interleaved f64 chains (chain
+// s adds blocks s, s + 8, ... in order) and the chains in the fixed tree
+// ((0+4)+(2+6)) + ((1+5)+(3+7)), and each sum is rounded to f32 once. A
+// bin at or past its group's width is written 0.
+__global__ void hist_lane_reduce_kernel(const double* __restrict__ part,
+                                        int blocks, int bw, int nsp,
+                                        const int* __restrict__ glist,
+                                        int n_list,
+                                        const int* __restrict__ widths,
+                                        int B, float* __restrict__ out) {
+  constexpr int kCh = 3;  // g, h and the count
+  constexpr int kChains = 8;
+  const int e = blockIdx.x * blockDim.x + threadIdx.x;
+  if (e >= n_list * B) return;
+  const int b = e / n_list, slot = e % n_list;
+  const int g = glist ? glist[slot] : slot;
+  const int width = widths ? widths[g] : bw;
+  float* o = out + ((size_t)g * B + b) * 3;
+  if (b >= width) {
+    o[0] = 0.f;
+    o[1] = 0.f;
+    o[2] = 0.f;
+    return;
+  }
+  double a[kChains][kCh];
+#pragma unroll
+  for (int s = 0; s < kChains; ++s) {
+#pragma unroll
+    for (int c = 0; c < kCh; ++c) a[s][c] = 0.0;
+  }
+  const size_t chan = (size_t)bw * nsp;
+  const size_t off = (size_t)b * nsp + slot;
+  // two blocks a chain a turn, all their loads in flight together; a
+  // block past the last adds +0, which leaves a chain's sum as it is
+  // (a sum from +0 is never -0)
+  for (int b0 = 0; b0 < blocks; b0 += 2 * kChains) {
+    double t[2 * kChains][kCh];
+#pragma unroll
+    for (int s = 0; s < 2 * kChains; ++s) {
+      const bool live = b0 + s < blocks;
+      const double* p =
+          part + (size_t)(live ? b0 + s : 0) * kCh * chan + off;
 #pragma unroll
       for (int c = 0; c < kCh; ++c) {
-        if (c != 2) v[c] += __shfl_down_sync(~0u, v[c], o);
+        const double v = p[c * chan];  // unconditional: block 0 is read
+        t[s][c] = live ? v : 0.0;
       }
-      k += __shfl_down_sync(~0u, k, o);
     }
-    if (lane == 0) {
 #pragma unroll
-      for (int c = 0; c < kCh; ++c) {
-        if (c != 2) part[c * chan + out0 + b] = v[c];
-      }
-      reinterpret_cast<uint32_t*>(part)[2 * chan + out0 + b] = k;
+    for (int s = 0; s < 2 * kChains; ++s) {
+#pragma unroll
+      for (int c = 0; c < kCh; ++c) a[s % kChains][c] += t[s][c];
     }
+  }
+#pragma unroll
+  for (int c = 0; c < kCh; ++c) {
+    const double t0 = a[0][c] + a[4][c], t1 = a[1][c] + a[5][c];
+    const double t2 = a[2][c] + a[6][c], t3 = a[3][c] + a[7][c];
+    o[c] = __double2float_rn((t0 + t2) + (t1 + t3));
   }
 }
 
@@ -394,34 +551,33 @@ __global__ void hist_wide_kernel(const uint16_t* __restrict__ binned, int G,
   }
 }
 
-// out[g, b, :] = the sum over tiles of the partials, one warp per
-// element: lane l adds tiles l, l+32, ... in order, then the lanes are
-// added in a fixed tree. Same order every run. In hi+lo mode the hi and
-// lo sums are added here, once, after all rows. With widths, out is
-// [G, B, 3] and a bin past its group's width is written 0.
+// out[g, b, :] of the warp-shared groups wide[0..n_wide-1] = the sum
+// over tiles of their partials, one warp per element: lane l adds tiles
+// l, l+32, ... in order, then the lanes are added in a fixed tree. Same
+// order every run. In hi+lo mode the hi and lo sums are added here, once,
+// after all rows. A bin past its group's width is written 0.
 template <bool HILO>
 __global__ void hist_reduce_kernel(const float* __restrict__ part,
-                                   int tiles, int elems, int G, int B,
+                                   int tiles, int elems, int B,
+                                   const int* __restrict__ wide, int n_wide,
                                    const int* __restrict__ widths,
                                    const int* __restrict__ poff,
                                    float* __restrict__ out) {
   constexpr int kCh = HILO ? 5 : 3;
   const int e = blockIdx.x * (blockDim.x / kLanes) + threadIdx.x / kLanes;
   const int lane = threadIdx.x % kLanes;
-  if (e >= G * B) return;  // whole warps leave together
-  int src = e;  // the element's word in a tile's partial
-  if (widths) {
-    const int g = e / B, b = e % B;
-    if (b >= widths[g]) {
-      if (lane == 0) {
-        out[(size_t)e * 3] = 0.f;
-        out[(size_t)e * 3 + 1] = 0.f;
-        out[(size_t)e * 3 + 2] = 0.f;
-      }
-      return;
+  if (e >= n_wide * B) return;  // whole warps leave together
+  const int g = wide[e / B], b = e % B;
+  float* o = out + ((size_t)g * B + b) * 3;
+  if (b >= widths[g]) {
+    if (lane == 0) {
+      o[0] = 0.f;
+      o[1] = 0.f;
+      o[2] = 0.f;
     }
-    src = poff[g] + b;
+    return;
   }
+  const int src = poff[g] + b;  // the element's word in a tile's partial
   const size_t chan = (size_t)tiles * elems;
   float v[kCh];
 #pragma unroll
@@ -435,17 +591,17 @@ __global__ void hist_reduce_kernel(const float* __restrict__ part,
     }
     k += reinterpret_cast<const uint32_t*>(part)[2 * chan + i];
   }
-  for (int o = kLanes / 2; o > 0; o >>= 1) {
+  for (int o2 = kLanes / 2; o2 > 0; o2 >>= 1) {
 #pragma unroll
     for (int c = 0; c < kCh; ++c) {
-      if (c != 2) v[c] += __shfl_down_sync(~0u, v[c], o);
+      if (c != 2) v[c] += __shfl_down_sync(~0u, v[c], o2);
     }
-    k += __shfl_down_sync(~0u, k, o);
+    k += __shfl_down_sync(~0u, k, o2);
   }
   if (lane == 0) {
-    out[(size_t)e * 3] = HILO ? __fadd_rn(v[0], v[3]) : v[0];
-    out[(size_t)e * 3 + 1] = HILO ? __fadd_rn(v[1], v[4]) : v[1];
-    out[(size_t)e * 3 + 2] = (float)k;
+    o[0] = HILO ? __fadd_rn(v[0], v[3]) : v[0];
+    o[1] = HILO ? __fadd_rn(v[1], v[4]) : v[1];
+    o[2] = (float)k;
   }
 }
 
@@ -560,116 +716,119 @@ __global__ void hist_i32_kernel(const BinT* __restrict__ binned, int G,
 
 }  // namespace
 
-extern "C" int lgbt_hist_tiles(int n) {
-  return n > 0 ? (n + kTileRows - 1) / kTileRows : 1;
-}
-
 namespace {
-
-// the per-lane kernel over n_list groups of at most B bins
-template <bool HILO, typename BinT>
-int launch_lanes(const BinT* binned, int G, const float* w3,
-                 const int* rows, int n, int tile_rows, int tiles, int B,
-                 const int* glist, int n_list, const int* widths,
-                 const int* poff, int elems, float* part, cudaStream_t s) {
-  const size_t warp_bytes = (size_t)kLanes * B * 4 * (HILO ? 5 : 3);
-  int warps = (int)(kHistSmem / warp_bytes);
-  warps = warps < 1 ? 1 : (warps > 4 ? 4 : warps);
-  if (warps > n_list) warps = n_list;
-  const size_t smem = warp_bytes * warps;
-  cudaError_t err = cudaFuncSetAttribute(
-      hist_tile_kernel<HILO, BinT>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  dim3 grid(tiles, (n_list + warps - 1) / warps);
-  hist_tile_kernel<HILO, BinT><<<grid, warps * kLanes, smem, s>>>(
-      binned, G, w3, rows, n, tile_rows, B, glist, n_list, widths, poff,
-      elems, warps, part);
-  return (int)cudaGetLastError();
-}
 
 template <bool HILO>
 int launch_histogram(const void* binned, int G, int u16, const float* w3,
-                     const int* rows, int n, int B, const int* widths,
-                     const int* poff, const int* narrow, int n_narrow,
-                     int narrow_w, const int* wide, int n_wide, int wide_w,
-                     int tile_rows, int elems, float* part, float* out,
+                     const int* rows, int n, int B, const int* lane,
+                     int n_lane, const int* widths, int lane_w, int gw,
+                     int warps, int run, int blocks, const int* wide,
+                     int n_wide, int wide_w, const int* poff, int elems,
+                     int tile_rows, float* scratch, float* out,
                      cudaStream_t s) {
-  const int tiles = n > 0 ? (n + tile_rows - 1) / tile_rows : 1;
-  int rc = 0;
-  if (!u16) {
-    rc = launch_lanes<HILO, uint8_t>(
-        static_cast<const uint8_t*>(binned), G, w3, rows, n, tile_rows,
-        tiles, B, nullptr, G, nullptr, nullptr, G * B, part, s);
-  } else {
-    const uint16_t* b16 = static_cast<const uint16_t*>(binned);
-    if (n_narrow > 0) {
-      rc = launch_lanes<HILO, uint16_t>(b16, G, w3, rows, n, tile_rows,
-                                        tiles, narrow_w, narrow, n_narrow,
-                                        widths, poff, elems, part, s);
+  constexpr int kCh = HILO ? 5 : 3;
+  if (n_lane > 0) {
+    if (gw < 1 || gw > kLanes || kLanes % gw || warps < 1 ||
+        warps > kMaxWarps || run < kLanes || run % kLanes || blocks < 1 ||
+        lane_w < 1 || lane_w > B) {
+      return (int)cudaErrorInvalidValue;
     }
-    if (rc == 0 && n_wide > 0) {
-      constexpr int kCh = HILO ? 5 : 3;
-      const size_t warp_bytes = (size_t)kCh * wide_w * 4;
-      int warps = (int)(kHistSmem / warp_bytes);
-      warps = warps < 1 ? 1 : (warps > kWideWarps ? kWideWarps : warps);
-      const size_t smem = warp_bytes * warps;
-      cudaError_t err = cudaFuncSetAttribute(
-          hist_wide_kernel<HILO>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-          (int)smem);
+    // 20 bytes a slot in either mode (ops/histogram.py _warp_bytes)
+    const size_t smem =
+        (size_t)warps * (((size_t)(lane_w + 1) * gw + 1) / 2 * 2) * 20;
+    if (smem > (size_t)kHistSmem) return (int)cudaErrorInvalidValue;
+    double* const part = reinterpret_cast<double*>(scratch);
+    const int slices = (n_lane + gw - 1) / gw;
+    dim3 grid(blocks, slices);
+    cudaError_t err;
+    if (u16) {
+      err = cudaFuncSetAttribute(hist_lane_kernel<HILO, uint16_t>,
+                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                 (int)smem);
       if (err != cudaSuccess) return (int)err;
-      dim3 grid(tiles, n_wide);
-      hist_wide_kernel<HILO><<<grid, warps * kLanes, smem, s>>>(
-          b16, G, w3, rows, n, tile_rows, wide, widths, poff, elems, wide_w,
-          part);
-      rc = (int)cudaGetLastError();
+      hist_lane_kernel<HILO, uint16_t><<<grid, warps * kLanes, smem, s>>>(
+          static_cast<const uint16_t*>(binned), G, w3, rows, n, lane, n_lane,
+          widths, lane_w, gw, run, part);
+    } else {
+      err = cudaFuncSetAttribute(hist_lane_kernel<HILO, uint8_t>,
+                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                 (int)smem);
+      if (err != cudaSuccess) return (int)err;
+      hist_lane_kernel<HILO, uint8_t><<<grid, warps * kLanes, smem, s>>>(
+          static_cast<const uint8_t*>(binned), G, w3, rows, n, lane, n_lane,
+          widths, lane_w, gw, run, part);
     }
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+    const int threads = 256;
+    const int outs = n_lane * B;
+    hist_lane_reduce_kernel<<<(outs + threads - 1) / threads, threads, 0,
+                              s>>>(part, blocks, lane_w, slices * gw, lane,
+                                   n_lane, widths, B, out);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+    // the f64 lane partials take two f32 words each
+    scratch += 2 * (size_t)blocks * 3 * lane_w * slices * gw;
   }
-  if (rc != 0) return rc;
-  const int per_block = 8;  // warps, one element each
-  const size_t outs = (size_t)G * B;
-  hist_reduce_kernel<HILO><<<(int)((outs + per_block - 1) / per_block),
-                             per_block * kLanes, 0, s>>>(
-      part, tiles, elems, G, B, u16 ? widths : nullptr,
-      u16 ? poff : nullptr, out);
-  return (int)cudaGetLastError();
+  if (n_wide > 0) {
+    const int tiles = n > 0 ? (n + tile_rows - 1) / tile_rows : 1;
+    const size_t warp_bytes = (size_t)kCh * wide_w * 4;
+    int wwarps = (int)(kWideSmem / warp_bytes);
+    wwarps = wwarps < 1 ? 1 : (wwarps > kWideWarps ? kWideWarps : wwarps);
+    const size_t smem = warp_bytes * wwarps;
+    cudaError_t err = cudaFuncSetAttribute(
+        hist_wide_kernel<HILO>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)smem);
+    if (err != cudaSuccess) return (int)err;
+    dim3 grid(tiles, n_wide);
+    hist_wide_kernel<HILO><<<grid, wwarps * kLanes, smem, s>>>(
+        static_cast<const uint16_t*>(binned), G, w3, rows, n, tile_rows,
+        wide, widths, poff, elems, wide_w, scratch);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+    const int per_block = 8;  // warps, one element each
+    const size_t outs = (size_t)n_wide * B;
+    hist_reduce_kernel<HILO><<<(int)((outs + per_block - 1) / per_block),
+                               per_block * kLanes, 0, s>>>(
+        scratch, tiles, elems, B, wide, n_wide, widths, poff, out);
+    return (int)cudaGetLastError();
+  }
+  return 0;
 }
 
 }  // namespace
 
 // binned [N, G] row-major, u8 or (u16 != 0) u16; w3 [N, 3] f32 = (g*w,
 // h*w, w); rows: a row list of n entries or NULL for rows 0..n-1; hilo:
-// 1 for the hi+lo mode; out [G, B, 3] f32. A u8 matrix takes rows in
-// tiles of kTileRows, every group B wide and lane-private (the other
-// arguments unread). A u16 matrix takes the layout of ops/histogram.py
-// hist_layout, on the device: widths [G] (each group's own bins), poff [G]
-// (its first word in a tile's partial), the lane-private groups
-// narrow[n_narrow] (at most narrow_w bins) and the warp-shared ones
-// wide[n_wide] (at most wide_w), elems (a tile's words a channel), and
-// tile_rows (hist_tile_rows). scratch: (hilo ? 5 : 3) * tiles * elems words. Returns
+// 1 for the hi+lo mode; out [G, B, 3] f32. The lane-private groups:
+// lane[n_lane] (NULL: groups 0..n_lane-1, every group of a u8 matrix),
+// each widths[g] bins wide (NULL: lane_w = B), summed by the plan of
+// ops/histogram.py hist_plan: gw groups a warp, warps a block, runs of
+// `run` positions, `blocks` row blocks. The warp-shared groups of a u16
+// matrix (hist_layout): wide[n_wide] (at most wide_w bins), their first
+// words poff [G] in a tile's partial of elems words, tiles of tile_rows
+// rows (hist_tile_rows). scratch: the lane partials, blocks * ch * lane_w
+// * ceil(n_lane / gw) * gw f64 words, then the wide ones, ch * tiles *
+// elems f32 words (ch = 5 in hi+lo mode, else 3). Returns
 // cudaGetLastError().
 extern "C" int lgbt_leaf_histogram(const void* binned, int G, int u16,
                                    const float* w3, const int* rows, int n,
-                                   int B, int hilo, const int* widths,
-                                   const int* poff, const int* narrow,
-                                   int n_narrow, int narrow_w,
+                                   int B, int hilo, const int* lane,
+                                   int n_lane, const int* widths, int lane_w,
+                                   int gw, int warps, int run, int blocks,
                                    const int* wide, int n_wide, int wide_w,
-                                   int tile_rows, int elems, void* scratch,
-                                   float* out, void* stream) {
+                                   const int* poff, int elems, int tile_rows,
+                                   void* scratch, float* out, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
   float* part = (float*)scratch;
-  if (!u16) {
-    tile_rows = kTileRows;
-    elems = G * B;
-  }
-  return hilo ? launch_histogram<true>(binned, G, u16, w3, rows, n, B,
-                                       widths, poff, narrow, n_narrow,
-                                       narrow_w, wide, n_wide, wide_w,
-                                       tile_rows, elems, part, out, s)
-              : launch_histogram<false>(binned, G, u16, w3, rows, n, B,
-                                        widths, poff, narrow, n_narrow,
-                                        narrow_w, wide, n_wide, wide_w,
-                                        tile_rows, elems, part, out, s);
+  return hilo ? launch_histogram<true>(binned, G, u16, w3, rows, n, B, lane,
+                                       n_lane, widths, lane_w, gw, warps,
+                                       run, blocks, wide, n_wide, wide_w,
+                                       poff, elems, tile_rows, part, out, s)
+              : launch_histogram<false>(binned, G, u16, w3, rows, n, B, lane,
+                                        n_lane, widths, lane_w, gw, warps,
+                                        run, blocks, wide, n_wide, wide_w,
+                                        poff, elems, tile_rows, part, out, s);
 }
 
 // binned [N, G] row-major, u8 or (u16 != 0) u16; codes [N] short2 (q_g,

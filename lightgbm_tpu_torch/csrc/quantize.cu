@@ -23,8 +23,9 @@
 //      shuffles, then atomicMax on the bit patterns, which order like
 //      the non-negative floats they are; a maximum does not depend on
 //      the order, so the bits are the same every run;
-//  (b) one thread a row: scale = max(m, 1e-30) / qmax, x = gw / scale
-//      (IEEE division), q = floor(x) + (u < x - floor(x)) clipped to
+//  (b) one thread a row: scale = max(m, 1e-30) / qmax (or, with recip,
+//      max(m, 1e-30) * f32(1 / qmax), as XLA computes it in the JAX
+//      package's jitted training program), x = gw / scale (IEEE division), q = floor(x) + (u < x - floor(x)) clipped to
 //      +-qmax, the JAX expressions operation for operation; with
 //      hess_const q_h = qmax * w01 and no draw. It writes the codes as
 //      int16 pairs, w01 as f32 and the [3] scale, with no host read.
@@ -98,17 +99,18 @@ __global__ void quantize_kernel(const float* __restrict__ grad,
                                 const float* __restrict__ hess,
                                 const float* __restrict__ w, int n, int qmax,
                                 uint32_t kg0, uint32_t kg1, uint32_t kh0,
-                                uint32_t kh1, int hess_const,
+                                uint32_t kh1, int hess_const, int recip,
                                 const unsigned int* __restrict__ maxbits,
                                 short2* __restrict__ codes,
                                 float* __restrict__ w01,
                                 float* __restrict__ qscale) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   const float qm = (float)qmax;
-  const float g_scale = __fdiv_rn(fmaxf(__uint_as_float(maxbits[0]), 1e-30f),
-                                  qm);
-  const float h_scale = __fdiv_rn(fmaxf(__uint_as_float(maxbits[1]), 1e-30f),
-                                  qm);
+  const float inv = __fdiv_rn(1.f, qm);
+  const float gm = fmaxf(__uint_as_float(maxbits[0]), 1e-30f);
+  const float hm = fmaxf(__uint_as_float(maxbits[1]), 1e-30f);
+  const float g_scale = recip ? __fmul_rn(gm, inv) : __fdiv_rn(gm, qm);
+  const float h_scale = recip ? __fmul_rn(hm, inv) : __fdiv_rn(hm, qm);
   if (i == 0) {
     qscale[0] = g_scale;
     qscale[1] = h_scale;
@@ -139,12 +141,13 @@ extern "C" int lgbt_bagging_mask(uint32_t k0, uint32_t k1, float fraction,
   return (int)cudaGetLastError();
 }
 
-// grad, hess, w [n] f32; scratch: 2 words; codes [n] short2 (q_g, q_h);
+// grad, hess, w [n] f32; recip: 1 for scales by the reciprocal of qmax;
+// scratch: 2 words; codes [n] short2 (q_g, q_h);
 // w01 [n] f32; qscale [3] f32. Returns cudaGetLastError().
 extern "C" int lgbt_quantize_gradients(
     const float* grad, const float* hess, const float* w, int n, int qmax,
     uint32_t kg0, uint32_t kg1, uint32_t kh0, uint32_t kh1, int hess_const,
-    unsigned int* scratch, short2* codes, float* w01, float* qscale,
+    int recip, unsigned int* scratch, short2* codes, float* w01, float* qscale,
     void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
   cudaError_t err = cudaMemsetAsync(scratch, 0, 2 * sizeof(unsigned int), s);
@@ -156,8 +159,8 @@ extern "C" int lgbt_quantize_gradients(
   if (err != cudaSuccess) return (int)err;
   const int rows_blocks = n > 0 ? (n + kThreads - 1) / kThreads : 1;
   quantize_kernel<<<rows_blocks, kThreads, 0, s>>>(
-      grad, hess, w, n, qmax, kg0, kg1, kh0, kh1, hess_const, scratch, codes,
-      w01, qscale);
+      grad, hess, w, n, qmax, kg0, kg1, kh0, kh1, hess_const, recip, scratch,
+      codes, w01, qscale);
   return (int)cudaGetLastError();
 }
 

@@ -56,17 +56,16 @@ LIBRARIES = {
                                                 _f, _p, _p],
     }, ()),
     "histogram": ("histogram.cu", {
-        "lgbt_hist_tiles": [_i],
-        "lgbt_leaf_histogram": [_p, _i, _i, _p, _p, _i, _i, _i, _p, _p,
-                                _p, _i, _i, _p, _i, _i, _i, _i, _p, _p,
-                                _p],
+        "lgbt_leaf_histogram": [_p, _i, _i, _p, _p, _i, _i, _i, _p, _i,
+                                _p, _i, _i, _i, _i, _i, _p, _i, _i, _p,
+                                _i, _i, _p, _p, _p],
         "lgbt_leaf_histogram_i32": [_p, _i, _i, _p, _p, _p, _i, _i, _p,
                                     _i, _i, _p, _p, _p, _p],
     }, _NO_FMA),
     "quantize": ("quantize.cu", {
         "lgbt_bagging_mask": [_u, _u, _f, _i, _p, _p],
         "lgbt_quantize_gradients": [_p, _p, _p, _i, _i] + [_u] * 4
-        + [_i] + [_p] * 5,
+        + [_i, _i] + [_p] * 5,
     }, _NO_FMA),
     "goss": ("goss.cu", {
         "lgbt_goss_threshold": [_p, _p, _i, _i, _p, _p, _p, _p],

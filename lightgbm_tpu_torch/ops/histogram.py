@@ -28,11 +28,13 @@ histogram (`subtract`, :785).
 
 On a CUDA tensor `leaf_histogram` launches the hand-written kernel
 (`csrc/histogram.cu`) or raises; on a CPU tensor it runs the plain
-version. A uint16 matrix (groups of more than 256 bins, up to 2,048)
-takes the kernel's uint16 modes: each group at its own width
-(`hist_layout`, made once for a grower), the groups too wide for
-private per-lane copies summed warp-shared, the tiles sized by
-`hist_tile_rows`. The wrapper counts its
+version. The kernel sums in a fixed order that depends on its launch
+plan only (`hist_plan`, computed here on the host);
+`leaf_histogram_order` replays that order in torch ops. A uint16 matrix
+(groups of more than 256 bins, up to 2,048) takes the kernel's uint16
+modes: each group at its own width (`hist_layout`, made once for a
+grower), the groups too wide for a lane-private column summed
+warp-shared in tiles sized by `hist_tile_rows`. The wrapper counts its
 launches in `leaf_histogram.launches`, and those in hi+lo mode also in
 `leaf_histogram.launches_hilo`, those on uint16 bins in
 `leaf_histogram.launches_u16`. HQ and LM take uint16 bins too (their
@@ -185,18 +187,80 @@ def leaf_histogram_plain(binned: torch.Tensor, w3: torch.Tensor,
     return h.view(g_cnt, num_bins, 3)
 
 
-# the uint16 plan (csrc/histogram.cu): a group keeps the lanes' private
-# copies while they take at most this many bytes a warp, and a tile of
-# rows holds 2048 << k rows, the least k (k <= 5) at which the tiles'
-# partials take at most 1/HIST_PARTIAL_SHARE of the input's bytes (they
-# are written once and read once)
-HIST_LANE_BYTES = 64 * 1024
+# H's lane-private kernel (csrc/histogram.cu hist_lane_kernel): a warp
+# owns up to 32 groups, one shared column a group (its bins and a
+# sentinel bin), and adds a run of rows in order; a block holds up to
+# HIST_MAX_WARPS such warps in HIST_SMEM_BYTES. A (group, bin) slot takes
+# HIST_SLOT_BYTES: g and h summed in f64 (in hi+lo mode the value hi + lo,
+# which f64 holds exactly) and a uint32 count; a warp's slots are rounded
+# up to an even number so its f64 words stay aligned. A warp takes fewer
+# groups (16) where two warps of 32 would not fit, and a group is
+# lane-private while two warps of HIST_MIN_GROUPS such columns fit (at
+# most 351 bins). Runs are sized for about HIST_TARGET_BLOCKS blocks (the
+# H100's SMs) of whole warps, at least HIST_MIN_RUN rows (one turn of 32)
+# and at most HIST_MAX_RUN (past that, more blocks rather than longer
+# runs). The warps of a block and the blocks are added in f64 too, and
+# each sum is rounded to f32 once: f32 sums of f32 values over millions
+# of cancelling gradients miss 1e-5 * max(1, |sum|) in any order of f32
+# chains. The plan, and so the summation order, depends only on the
+# shape.
+HIST_SMEM_BYTES = 220 * 1024
+HIST_SLOT_BYTES = 20
+HIST_MAX_WARPS = 8
+HIST_MIN_GROUPS = 16
+HIST_TARGET_BLOCKS = 132
+HIST_MIN_RUN = 32
+HIST_MAX_RUN = 4096
+# the warp-shared kernel's tiles (uint16 groups too wide for the above):
+# 2048 << k rows, the least k (k <= 5) at which the tiles' partials take
+# at most 1/HIST_PARTIAL_SHARE of the input's bytes (they are written
+# once and read once)
 HIST_TILE_ROWS = 2048
 HIST_MAX_TILE_ROWS = 65536
 HIST_PARTIAL_SHARE = 4
 # HQ's shared int32 histogram a block (csrc/histogram.cu kSmemI32), in
 # words: a uint16 matrix's groups are packed into slices that fit it
 HIST_I32_WORDS = 96 * 1024 // 4
+
+
+class HistPlan(NamedTuple):
+    """The launch plan of H's lane-private kernel over n positions and
+    `groups` groups in columns of `width` bins: `gw` groups a warp (a
+    power of two up to 32), `warps` a block, runs of `run` positions a
+    warp, `blocks` row blocks by `slices` group slices, the block's
+    shared bytes `smem` and the partials' f64 words `partial_words`."""
+    gw: int
+    warps: int
+    run: int
+    blocks: int
+    slices: int
+    smem: int
+    partial_words: int
+
+
+def hist_plan(n: int, groups: int, width: int) -> HistPlan:
+    """H's lane-private plan (see the constants above), the same in
+    both modes; its summation order is `leaf_histogram_order`'s."""
+    if groups < 1 or not 1 <= width <= MAX_GROUP_BINS:
+        raise LightGBMError("hist_plan: groups >= 1 and 1..%d bins"
+                            % MAX_GROUP_BINS)
+    gw = min(32, 1 << (int(groups) - 1).bit_length())
+    while gw > 1 and 2 * _warp_bytes(gw, width) > HIST_SMEM_BYTES:
+        gw //= 2
+    warp_bytes = _warp_bytes(gw, width)
+    warps = max(1, min(HIST_MAX_WARPS, HIST_SMEM_BYTES // warp_bytes))
+    per = -(-max(int(n), 1) // (warps * HIST_TARGET_BLOCKS))
+    run = min(HIST_MAX_RUN, max(HIST_MIN_RUN, -(-per // 32) * 32))
+    blocks = max(1, -(-int(n) // (warps * run)))
+    slices = -(-int(groups) // gw)
+    return HistPlan(gw, warps, run, blocks, slices, warps * warp_bytes,
+                    blocks * 3 * width * slices * gw)
+
+
+def _warp_bytes(gw: int, width: int) -> int:
+    """One warp's shared histogram: gw columns of width bins and a
+    sentinel, the slots rounded up to an even number."""
+    return (gw * (width + 1) + 1) // 2 * 2 * HIST_SLOT_BYTES
 
 
 class HistLayout(NamedTuple):
@@ -239,17 +303,17 @@ def i32_slices(widths: np.ndarray):
 
 def hist_layout(group_bins, bf16: bool, device="cpu") -> HistLayout:
     """H's layout of a uint16 matrix whose groups have `group_bins`
-    bins, made once for a grower: groups whose 32 private copies fit
-    HIST_LANE_BYTES a warp stay lane-private, the others go
-    warp-shared, and the partials are laid out at each group's own
-    width."""
+    bins, made once for a grower: groups whose columns fit two warps of
+    HIST_MIN_GROUPS in HIST_SMEM_BYTES stay lane-private, the others go
+    warp-shared, and the warp-shared kernel's partials are laid out at
+    each group's own width."""
     widths = np.asarray(group_bins, np.int32)
     if widths.ndim != 1 or widths.min(initial=1) < 1 \
             or widths.max(initial=1) > MAX_GROUP_BINS:
         raise LightGBMError("hist_layout: each group takes 1..%d bins"
                             % MAX_GROUP_BINS)
-    ch = 5 if bf16 else 3
-    lane = 32 * widths.astype(np.int64) * ch * 4 <= HIST_LANE_BYTES
+    lane = 2 * HIST_MIN_GROUPS * (widths.astype(np.int64) + 1) \
+        * HIST_SLOT_BYTES <= HIST_SMEM_BYTES
     narrow = np.flatnonzero(lane).astype(np.int32)
     wide = np.flatnonzero(~lane).astype(np.int32)
     poff = np.concatenate([[0], np.cumsum(widths, dtype=np.int64)[:-1]]
@@ -284,9 +348,9 @@ def check_layout(name: str, binned: torch.Tensor, num_bins: int,
 
 def hist_tile_rows(layout: HistLayout, n: int,
                    row_list: bool = False) -> int:
-    """The rows of one of H's tiles over n rows of a uint16 matrix: the
-    least 2048 << k (at most HIST_MAX_TILE_ROWS) at which the tiles'
-    partials, written once and read once, take at most
+    """The rows of one of H's warp-shared tiles over n rows of a uint16
+    matrix: the least 2048 << k (at most HIST_MAX_TILE_ROWS) at which the
+    tiles' partials, written once and read once, take at most
     1/HIST_PARTIAL_SHARE of the input's bytes."""
     ch = 5 if layout.bf16 else 3
     in_bytes = n * (2 * len(layout.widths) + 12 + (4 if row_list else 0))
@@ -296,6 +360,86 @@ def hist_tile_rows(layout: HistLayout, n: int,
             > in_bytes):
         tile *= 2
     return tile
+
+
+def leaf_histogram_order(binned: torch.Tensor, w3: torch.Tensor,
+                         num_bins: int, rows: Optional[torch.Tensor] = None,
+                         n_rows: Optional[int] = None, bf16: bool = False,
+                         layout: Optional[HistLayout] = None
+                         ) -> torch.Tensor:
+    """H's lane-private kernel in its own summation order, replayed in
+    torch ops on the inputs' device, bit for bit the kernel's: with the
+    plan of `hist_plan`, warp w of block x adds the rows' values (g*w
+    and h*w; in hi+lo mode hi + lo) of positions (x * warps + w) * run ..
+    + run - 1 in order into each (group, bin) from +0 in f64, the block
+    adds its warps in order from +0 in f64, and each output adds the
+    blocks in eight f64 chains (chain s: blocks s, s + 8, ... from +0)
+    and the tree ((0+4)+(2+6)) + ((1+5)+(3+7)), rounded to f32 once.
+    Counts exact. [G, B, 3]; on a uint16 matrix (with its
+    `layout`) only the lane-private groups `layout.narrow` hold sums,
+    the warp-shared groups' rows are 0."""
+    g_all = binned.shape[1]
+    dev = binned.device
+    out = torch.zeros((g_all, num_bins, 3), dtype=torch.float32, device=dev)
+    if binned.dtype == torch.uint16:
+        if layout is None:
+            raise LightGBMError("leaf_histogram_order: a uint16 matrix "
+                                "takes its hist_layout")
+        groups = torch.from_numpy(layout.narrow.astype(np.int64)).to(dev)
+        widths = torch.from_numpy(layout.widths.astype(np.int64)).to(dev)
+        widths, width = widths[groups], layout.narrow_w
+    else:
+        groups = torch.arange(g_all, device=dev)
+        widths = torch.full((g_all,), num_bins, device=dev)
+        width = num_bins
+    n = binned.shape[0] if rows is None else int(n_rows)
+    gl = groups.shape[0]
+    if gl == 0:
+        return out
+    plan = hist_plan(n, gl, width)
+    sel = torch.arange(n, device=dev) if rows is None else rows[:n].long()
+    bins = widen_bins(binned).to(torch.int32).index_select(1, groups)
+    bins = bins.index_select(0, sel)
+    bins = torch.where(bins < widths[None, :], bins, width)
+    w = w3[sel]
+    if bf16:
+        hi, lo = hi_lo(w[:, :2].contiguous())
+        vals = hi.double() + lo.double()
+    else:
+        vals = w[:, :2].double()
+    cf = vals.shape[1]
+    total = plan.blocks * plan.warps * plan.run
+    bins = torch.nn.functional.pad(bins, (0, 0, 0, total - n), value=width)
+    vals = torch.nn.functional.pad(vals, (0, 0, 0, total - n))
+    bins = bins.view(plan.blocks, plan.warps, plan.run, gl)
+    vals = vals.view(plan.blocks, plan.warps, plan.run, cf)
+    acc = torch.zeros((plan.blocks, plan.warps, gl, width + 1, cf),
+                      dtype=torch.float64, device=dev)
+    shape = (plan.blocks, plan.warps, gl, 1, cf)
+    for k in range(plan.run):
+        acc.scatter_add_(3, bins[:, :, k, :, None, None].long().expand(shape),
+                         vals[:, :, k, None, None, :].expand(shape))
+    part = torch.zeros_like(acc[:, 0, :, :width])
+    for wi in range(plan.warps):
+        part = part + acc[:, wi, :, :width]
+    del acc
+    chains = -(-plan.blocks // 8)
+    part = torch.nn.functional.pad(
+        part, (0, 0, 0, 0, 0, 0, 0, chains * 8 - plan.blocks))
+    part = part.view(chains, 8, gl, width, cf)
+    a = torch.zeros_like(part[0])
+    for j in range(chains):
+        a = a + part[j]
+    v = ((a[0] + a[4] + (a[2] + a[6])) + (a[1] + a[5] + (a[3] + a[7]))
+         ).float()
+    live = (bins < width).view(-1, gl)[:n] & (w[:, 2:3] > 0)
+    flat = torch.arange(gl, device=dev)[None, :] * (width + 1) \
+        + bins.view(-1, gl)[:n].long()
+    cnt = torch.zeros(gl * (width + 1), dtype=torch.int64, device=dev)
+    cnt.index_add_(0, flat[live], torch.ones_like(flat[live]))
+    cnt = cnt.view(gl, width + 1)[:, :width].to(torch.float32)
+    out[groups, :width] = torch.cat([v, cnt[..., None]], -1)
+    return out
 
 
 def leaf_histogram(binned: torch.Tensor, w3: torch.Tensor, num_bins: int,
@@ -337,33 +481,41 @@ def leaf_histogram(binned: torch.Tensor, w3: torch.Tensor, num_bins: int,
         raise LightGBMError("leaf_histogram takes int32 rows")
     n = binned.shape[0] if rows is None else int(n_rows)
     g_cnt = binned.shape[1]
-    lib = _build.load_library("histogram")
+    ch = 5 if bf16 else 3
     if u16:
         check_layout("leaf_histogram", binned, num_bins, layout, bf16)
-        tile_rows = hist_tile_rows(layout, n, rows is not None)
-        tiles, elems = max(1, -(-n // tile_rows)), layout.elems
+        widths, poff, lane, wide = layout.dev[:4]
+        n_lane, lane_w = len(layout.narrow), layout.narrow_w
+        n_wide = len(layout.wide)
     else:
-        tiles, elems = lib.lgbt_hist_tiles(n), g_cnt * num_bins
-    scratch = torch.empty((5 if bf16 else 3) * tiles * elems,
-                          dtype=torch.float32, device=binned.device)
+        widths = poff = lane = wide = None
+        n_lane, lane_w, n_wide = g_cnt, num_bins, 0
+    plan = hist_plan(n, n_lane, lane_w) if n_lane else None
+    # the lane partials' f64 words, then the wide tiles' f32 words
+    words = 2 * plan.partial_words if plan else 0
+    tile_rows = elems = 0
+    if n_wide:
+        tile_rows = hist_tile_rows(layout, n, rows is not None)
+        elems = layout.elems
+        words += ch * max(1, -(-n // tile_rows)) * elems
+    scratch = torch.empty(max(words, 1), dtype=torch.float32,
+                          device=binned.device)
     if out is None:
         out = torch.empty(shape, dtype=torch.float32, device=binned.device)
 
     def ptr(t):
-        return ctypes.c_void_p(None if t is None else t.data_ptr())
+        return None if t is None else t.data_ptr()
 
+    lib = _build.load_library("histogram")
     with torch.cuda.device(binned.device):
         stream = torch.cuda.current_stream(binned.device).cuda_stream
-        widths, poff, narrow, wide = layout.dev[:4] if u16 else (None,) * 4
-        plan_args = (ptr(widths), ptr(poff), ptr(narrow),
-                     len(layout.narrow), layout.narrow_w, ptr(wide),
-                     len(layout.wide), layout.wide_w, tile_rows,
-                     elems) if u16 else (ptr(None),) * 3 + (0, 0) \
-            + (ptr(None),) + (0,) * 4
         rc = lib.lgbt_leaf_histogram(
             ptr(binned), g_cnt, int(u16), ptr(w3), ptr(rows), n, num_bins,
-            int(bool(bf16)), *plan_args, ptr(scratch), ptr(out),
-            ctypes.c_void_p(stream))
+            int(bool(bf16)), ptr(lane), n_lane, ptr(widths), lane_w,
+            *((plan.gw, plan.warps, plan.run, plan.blocks) if plan
+              else (0, 0, 0, 0)),
+            ptr(wide), n_wide, layout.wide_w if u16 else 0, ptr(poff), elems,
+            tile_rows, ptr(scratch), ptr(out), stream)
     if rc != 0:
         raise LightGBMError("leaf_histogram launch failed: CUDA error %d "
                             "(%s)" % (rc, lib.lgbt_error_string(rc).decode()))
@@ -432,19 +584,28 @@ def stochastic_round(x: torch.Tensor, key: Key) -> torch.Tensor:
 def quantize_gradients_plain(grad: torch.Tensor, hess: torch.Tensor,
                              row_weight: torch.Tensor, qmax: int,
                              key_g: Key, key_h: Key,
-                             hess_const: bool = False) -> QuantGradients:
+                             hess_const: bool = False, *,
+                             reciprocal_scale: bool) -> QuantGradients:
     """lightgbm_tpu/ops/histogram.py:127-156 in the same f32 operations.
     The constants are 0-dim tensors on the inputs' device: PyTorch
     divides a CUDA tensor by a host scalar as a multiply by its
-    reciprocal, which is not the quotient JAX computes."""
+    reciprocal, which is not the quotient JAX computes. With
+    `reciprocal_scale` each scale is max * f32(1 / qmax), as XLA computes
+    it where qmax is a constant of a compiled program (see
+    `quantize_gradients`)."""
     dev = grad.device
     qm = torch.tensor(float(qmax), dtype=torch.float32, device=dev)
     floor = torch.tensor(_SCALE_FLOOR, dtype=torch.float32, device=dev)
     w01 = (row_weight > 0).to(torch.float32)
     gw = grad * row_weight
     hw = hess * row_weight
-    g_scale = torch.maximum(gw.abs().max(), floor) / qm
-    h_scale = torch.maximum(hw.abs().max(), floor) / qm
+    if reciprocal_scale:
+        inv = torch.tensor(1.0, dtype=torch.float32, device=dev) / qm
+        g_scale = torch.maximum(gw.abs().max(), floor) * inv
+        h_scale = torch.maximum(hw.abs().max(), floor) * inv
+    else:
+        g_scale = torch.maximum(gw.abs().max(), floor) / qm
+        h_scale = torch.maximum(hw.abs().max(), floor) / qm
     q_g = torch.clamp(stochastic_round(gw / g_scale, key_g), -qm, qm)
     if hess_const:
         q_h = qm * w01
@@ -457,13 +618,23 @@ def quantize_gradients_plain(grad: torch.Tensor, hess: torch.Tensor,
 
 def quantize_gradients(grad: torch.Tensor, hess: torch.Tensor,
                        row_weight: torch.Tensor, *, qmax: int, key_g: Key,
-                       key_h: Key, hess_const: bool = False
-                       ) -> QuantGradients:
+                       key_h: Key, hess_const: bool = False,
+                       reciprocal_scale: bool) -> QuantGradients:
     """Q: one iteration's gradients and hessians [N] f32 with the row
     weight [N] f32 folded in (gw = grad * w) as integer codes, the 0/1
     in-bag weight and the dequantization scale, all on the inputs'
     device (no host read). With `hess_const` q_h = qmax * w01 exactly and
-    takes no draw."""
+    takes no draw.
+
+    The scales, which the caller must choose: max|gw| / qmax as the JAX
+    function computes it when it runs op by op (its quantize gate,
+    gbdt.py:1025); with `reciprocal_scale`, max|gw| * f32(1 / qmax) as
+    its training program
+    computes it (`_quantize_iter_device`, gbdt.py:363, jitted with qmax
+    static: XLA's algebraic simplifier turns a division by a constant
+    into a multiply by its reciprocal). The two differ in the last bit
+    for some maxima (1 in 23 at qmax 127), and every dequantized sum,
+    gain and leaf carries the scale's bits."""
     n = grad.shape[0]
     for t in (grad, hess, row_weight):
         if t.shape != (n,) or t.dtype != torch.float32:
@@ -477,7 +648,8 @@ def quantize_gradients(grad: torch.Tensor, hess: torch.Tensor,
                             "[1, 32767] (got %d)" % qmax)
     if grad.device.type == "cpu":
         return quantize_gradients_plain(grad, hess, row_weight, qmax,
-                                        key_g, key_h, hess_const)
+                                        key_g, key_h, hess_const,
+                                        reciprocal_scale=reciprocal_scale)
     if grad.device.type != "cuda":
         raise LightGBMError("quantize_gradients runs on cpu or cuda, not %s"
                             % grad.device)
@@ -498,8 +670,8 @@ def quantize_gradients(grad: torch.Tensor, hess: torch.Tensor,
         rc = lib.lgbt_quantize_gradients(
             ptr(grad), ptr(hess), ptr(row_weight), n, qmax, key_g[0],
             key_g[1], key_h[0], key_h[1], int(bool(hess_const)),
-            ptr(scratch), ptr(codes), ptr(w01), ptr(qscale),
-            ctypes.c_void_p(stream))
+            int(bool(reciprocal_scale)), ptr(scratch), ptr(codes), ptr(w01),
+            ptr(qscale), ctypes.c_void_p(stream))
     if rc != 0:
         raise LightGBMError("quantize_gradients launch failed: CUDA error "
                             "%d (%s)" % (rc, lib.lgbt_error_string(rc)

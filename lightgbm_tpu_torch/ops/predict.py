@@ -687,24 +687,38 @@ def forest_early_stop_walk(forest_kt: Forest, x: torch.Tensor,
     return (out, iters) if return_iters else out
 
 
+# QC's library, looked up once (the wrapper's host path is most of a
+# call's time at the main path's 262,144 rows), and its cells a call
+# (csrc/forest_quant.cu kMaxCells: 32-bit cell indices)
+_quant_lib = None
+QUANT_MAX_CELLS = 2 ** 32 - 256
+
+
 def quant_codes(qf: QuantForest, x: torch.Tensor) -> torch.Tensor:
     """QC: the [N, F] int16 codes of rows x [N, F] against the fixed-point
     layout's grids."""
+    global _quant_lib
     _check_inputs(qf.walk, x)
     if x.device.type == "cpu":
         return quant_codes_plain(qf, x)
+    if x.numel() >= QUANT_MAX_CELLS:
+        raise LightGBMError("quant_codes takes fewer than %d cells a call "
+                            "(got %d)" % (QUANT_MAX_CELLS, x.numel()))
     codes = torch.empty(tuple(x.shape), dtype=torch.int16, device=x.device)
     if x.numel():
-        lib = _build.load_library("quant")
-        p = ctypes.c_void_p
-        with torch.cuda.device(x.device):
-            stream = torch.cuda.current_stream(x.device).cuda_stream
-            rc = lib.lgbt_quant_codes(
-                p(x.data_ptr()), x.shape[0], x.shape[1],
-                p(qf.grid.data_ptr()), qf.grid.shape[0], qf.grid.shape[1],
-                p(None if qf.miss is None else qf.miss.data_ptr()),
-                p(codes.data_ptr()), p(stream))
-        _count(quant_codes, lib, "lgbt_quant_codes", rc)
+        if _quant_lib is None:
+            _quant_lib = _build.load_library("quant")
+        fn = _quant_lib.lgbt_quant_codes
+        miss = None if qf.miss is None else qf.miss.data_ptr()
+        args = (x.data_ptr(), x.shape[0], x.shape[1], qf.grid.data_ptr(),
+                qf.grid.shape[0], qf.grid.shape[1], miss, codes.data_ptr())
+        # no device switch when x's card is already the current one
+        if torch.cuda.current_device() == x.device.index:
+            rc = fn(*args, torch.cuda.current_stream().cuda_stream)
+        else:
+            with torch.cuda.device(x.device):
+                rc = fn(*args, torch.cuda.current_stream().cuda_stream)
+        _count(quant_codes, _quant_lib, "lgbt_quant_codes", rc)
     return codes
 
 

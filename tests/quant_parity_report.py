@@ -10,7 +10,7 @@ structure differs), the largest relative difference of the raw valid
 predictions, and, for the quantized runs, the first iteration at which
 a stochastic-rounding code of the port differs from the JAX package's,
 each side quantizing its own gradients of its own scores with the same
-keys. The test file's tolerances and ROADMAP.md queue C quote it.
+keys (the JAX side through its training program's jitted quantizer). The test file's tolerances and ROADMAP.md queue C quote it.
 """
 import os
 import sys
@@ -28,7 +28,7 @@ import jax.numpy as jnp  # noqa: E402
 
 import lightgbm_tpu as jlgb  # noqa: E402
 import lightgbm_tpu_torch as tlgb  # noqa: E402
-from lightgbm_tpu.ops.histogram import quantize_gradients as jax_quantize  # noqa: E402
+from lightgbm_tpu.boosting.gbdt import _quantize_iter_device  # noqa: E402
 import test_torch_quant_train as fixture  # noqa: E402
 
 jax.config.update("jax_platforms", "cpu")
@@ -75,15 +75,13 @@ def first_code(name):
         tg, th = ti.objective.get_gradients(ti._score[0])
         bag = ti._bagging_weights(it)
         w = np.ones(n, np.float32) if bag is None else bag.numpy()
-        kc = jax.random.fold_in(jax.random.fold_in(
-            jax.random.PRNGKey(ti._quant_seed), it), 0)
-        qg, qh, _, _ = jax_quantize(
-            jnp.asarray(jg), jnp.asarray(jh), jnp.asarray(w), n=n,
-            qmax=ti._quant_qmax, key_g=jax.random.fold_in(kc, 0),
-            key_h=jax.random.fold_in(kc, 1),
+        qg, qh, _, _ = _quantize_iter_device(
+            jnp.asarray(jg)[None], jnp.asarray(jh)[None], jnp.asarray(w), it,
+            seed=ti._quant_seed, n=n, qmax=ti._quant_qmax,
             hess_const=ti._quant_hess_const)
-        q = ti._quantize(tg, th, torch.from_numpy(w), it, n, ti._quant_qmax)
-        ref = np.stack([np.asarray(qg), np.asarray(qh)], 1)
+        q = ti._quantize(tg, th, torch.from_numpy(w), it, n, ti._quant_qmax,
+                         reciprocal_scale=True)
+        ref = np.stack([np.asarray(qg)[0], np.asarray(qh)[0]], 1)
         bad = np.argwhere(ref != q.codes.numpy())
         if len(bad):
             r, c = bad[0]

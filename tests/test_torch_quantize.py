@@ -89,7 +89,7 @@ def quantize_both(g, h, w, mode, hess_const, seed=7, it=2):
     got = th.quantize_gradients(
         torch.from_numpy(g), torch.from_numpy(h), torch.from_numpy(w),
         qmax=qmax, key_g=rng.fold_in(tb, 0), key_h=rng.fold_in(tb, 1),
-        hess_const=hess_const)
+        hess_const=hess_const, reciprocal_scale=False)
     return [np.asarray(r) for r in ref], got, qmax
 
 
@@ -122,8 +122,10 @@ def test_quantize_gradients_of_zeros_and_the_plain_version():
     assert np.array_equal(got.qscale.numpy(), qscale)
     before = th.quantize_gradients.launches
     args = [torch.from_numpy(a) for a in gradients(3, 500, True)]
-    a = th.quantize_gradients(*args, qmax=127, key_g=(0, 1), key_h=(0, 2))
-    b = th.quantize_gradients_plain(*args, 127, (0, 1), (0, 2))
+    a = th.quantize_gradients(*args, qmax=127, key_g=(0, 1), key_h=(0, 2),
+                              reciprocal_scale=False)
+    b = th.quantize_gradients_plain(*args, 127, (0, 1), (0, 2),
+                                    reciprocal_scale=False)
     assert all(torch.equal(x, y) for x, y in zip(a, b))
     assert th.quantize_gradients.launches == before
 
@@ -132,10 +134,10 @@ def test_quantize_gradients_refuses_bad_inputs():
     t = torch.ones(8)
     with pytest.raises(LightGBMError, match="f32"):
         th.quantize_gradients(t.double(), t, t, qmax=127, key_g=(0, 0),
-                              key_h=(0, 1))
+                              key_h=(0, 1), reciprocal_scale=False)
     with pytest.raises(LightGBMError, match="qmax"):
         th.quantize_gradients(t, t, t, qmax=40000, key_g=(0, 0),
-                              key_h=(0, 1))
+                              key_h=(0, 1), reciprocal_scale=False)
 
 
 def codes_and_bins(seed, mode, bag=True):

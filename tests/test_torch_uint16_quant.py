@@ -99,7 +99,8 @@ def codes_of(n, mode, seed):
     w = torch.from_numpy((rng.rand(n) >= 0.2).astype(np.float32))
     key = fold_in(prng_key(seed), 0)
     q = th.quantize_gradients(grad, hess, w, qmax=th.train_qmax(mode, n),
-                              key_g=fold_in(key, 0), key_h=fold_in(key, 1))
+                              key_g=fold_in(key, 0), key_h=fold_in(key, 1),
+                              reciprocal_scale=False)
     w01 = q.w01.numpy()
     w3 = np.stack([q.codes[:, 0].numpy() * w01, q.codes[:, 1].numpy() * w01,
                    w01], 1).astype(np.float32)
