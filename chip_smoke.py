@@ -104,7 +104,8 @@ Phases, any failure raises and the script exits non-zero:
     and million row-iterations per second as bench.py reports them; per
     kernel its device time per call (torch.profiler, which leaves out the
     Python wrapper's host time; CUDA events around the call when the
-    profiler lists other than the calls' kernels), launches per tree, the plain version's
+    profiler lists other than the calls' kernels; S by CUDA-graph
+    replay, the mean of 50), launches per tree, the plain version's
     CUDA-event ms and the bound, and for H the torch.bincount library
     time, every timing after 0.3 s of back-to-back calls that take the
     card off its idle clocks (printed from nvidia-smi); the device's idle
@@ -137,7 +138,8 @@ Phases, any failure raises and the script exits non-zero:
     same gradients gives the same codes (and how many differ from each
     side's own gradients);
 16. times: M, Q and HQ (root and row list) with their plain versions
-    (CUDA events, median of 12 after 0.3 s of back-to-back calls) and
+    (CUDA events, median of 12 after 0.3 s of back-to-back calls; HQ's
+    root by CUDA-graph replay, the mean of 50) and
     bounds, torch.bincount x3 with the codes as weights as HQ's library
     yardstick, seconds per quantized and bagged round, and HQ's and Q's
     share of one profiled int8 round;
@@ -267,9 +269,12 @@ Phases, any failure raises and the script exits non-zero:
     random order (the tenth's): counts exact, g/h within 1e-5 *
     max(1, |ref|) of the plain version and of an f64 oracle (hi+lo: the
     f64 sum of the exact halves), a second launch repeating the bits; S
-    on the root and on the root split's two children, and (phase 34) at
-    ~1,024 bins a feature on the max_bin=1023 root, bitwise its plain
-    version and its repeat; R's partition and leaf ids on the root split
+    on the root and on the root split's two children, and on that leaf
+    pair with a seeded feature mask, with max_depth 2 blocking the
+    second leaf and with the second leaf emptied (no split valid: the
+    flat-index-0 pick), and (phase 34) at ~1,024 and at 2,048 bins a
+    feature on the max_bin=1023 root, bitwise its plain version and its
+    repeat; R's partition and leaf ids on the root split
     and W's value and leaf modes (the first tree, the 100,000 valid
     rows), exactly; the narrow (lane-private) groups of every H launch
     bit for bit the replay of their summation order; H on 262,144 rows
@@ -313,14 +318,16 @@ Phases, any failure raises and the script exits non-zero:
     x3 (x5 for hi+lo) over group x B + bin and H's uint8 time at the
     HIGGS root, with the tiles and partial bytes of each mode's plan;
     both modes at the max_bin=1023 root against its bound; S on the
-    Bosch leaf pair and at ~1,024 bins; R and W
+    Bosch leaf pair and at ~1,024 bins (by CUDA-graph replay); R and
+    W
     (both modes) on uint16 bins; Dataset.construct() of the 500,000
     rows; seconds per Bosch round (median of rounds 2-10); one profiled
     Bosch round's idle share;
 36. categorical kernels against their plain versions on phase 37's
-    Datasets: S on the root and on the root split's two children bitwise
-    its plain version and its repeat (at least one categorical feature
-    wins a split in the first tree); R's partition and leaf ids on the
+    Datasets: S on the root and on the root split's two children, and on
+    that pair's feature-mask, max_depth and empty-leaf cases (phase 30),
+    bitwise its plain version and its repeat (at least one categorical
+    feature wins a split in the first tree); R's partition and leaf ids on the
     root split and on the first tree's first categorical split (every
     row), exactly; W's value and leaf modes on the first tree (with its
     categorical nodes) over the 100,000 test rows, exactly; K1 serving
@@ -351,7 +358,10 @@ Phases, any failure raises and the script exits non-zero:
     first tree's root split's smaller child as a row list and on a
     random quarter of the rows in random order, exactly, a second launch
     repeating the int32 histogram; HQ at the max_bin=1023 root; HQ on the
-    uint8 HIGGS matrix exactly (its uint16 mode not launched); LM at
+    uint8 HIGGS matrix exactly (its uint16 mode not launched); on the
+    Bosch and the uint8 HIGGS matrices HQ at the root and on a seeded
+    1,000-row list, both again with a fifth of w01 at 0, and under plans
+    whose skipped bins hold none of those rows, exactly and repeating; LM at
     max_bin=1023 on the last linear tree's leaves (phase 40) and LM on
     the uint8 HIGGS matrix over phase 9's last tree's leaves, within
     1e-5 * max(1, sum of |terms|) of the plain version and of an f64
@@ -368,8 +378,9 @@ Phases, any failure raises and the script exits non-zero:
     the card against the CPU on Bosch at 65,536 rows, int8 and int16, 3
     rounds: the same trees, leaves within 1e-5 relative;
 41. times (CUDA events or torch.profiler, median of 12 after 0.3 s of
-    calls): HQ u16 at the Bosch root, on its row list and at the
-    max_bin=1023 root against its bound, torch.bincount x3 (the codes as
+    calls; HQ and S's categorical scan by CUDA-graph replay): HQ u16
+    at the Bosch root, on its row list and at the max_bin=1023 root
+    against its bound, torch.bincount x3 (the codes as
     weights), its plain version and HQ at the uint8 HIGGS root; LM u16
     against its bound, torch.bincount x4, its plain version and LM on
     uint8 bins; S's categorical scan on an Expo leaf pair, R on the
@@ -1116,8 +1127,8 @@ def training(name, card, dev):
     # S: the two children of the root split
     s_ops = 2 * fmeta["num_bin"].shape[0] * fb * 50
     times["split_scan"] = (
-        device_ms(lambda: split.split_scan(pair, csums, depth1, fmeta, mask,
-                                           prm, fb), ("split_scan_kernel",)),
+        graph_ms(lambda: split.split_scan(pair, csums, depth1, fmeta, mask,
+                                          prm, fb)),
         median_ms(lambda: split.split_scan_plain(pair, csums, depth1, fmeta,
                                                 mask, prm, fb), reps=5),
         bound(pair.numel() * 4 + 64, s_ops), None)
@@ -1206,6 +1217,100 @@ def q_equal(a, b):
     return (torch.equal(a.codes, b.codes) and torch.equal(a.w01, b.w01)
             and torch.equal(a.qscale.view(torch.int32),
                             b.qscale.view(torch.int32)))
+
+
+def s_held(label, args):
+    """S on args = (hist, sums, depth, fmeta, mask, params, fb), bitwise
+    its repeat and its plain version; returns its outputs."""
+    from lightgbm_tpu_torch.ops import split
+    got = split.split_scan(*args)
+    for other in (split.split_scan(*args), split.split_scan_plain(*args)):
+        check(all(torch.equal(a, b) for a, b in zip(got, other)),
+              "S %s: not bitwise its repeat and plain version" % label)
+    return got
+
+
+def s_cases(label, pair, sums, fmeta, prm, fb, dev):
+    """S on a leaf pair [2, G, B, 3] in the cases its grid of feature
+    tiles and per-leaf pick could get wrong, each bitwise its repeat and
+    plain version: both leaves, a seeded feature mask (half the
+    features), a max_depth that blocks the second leaf, and a second leaf
+    with no rows (no split valid: the flat-index-0 path). Returns the
+    case names."""
+    import dataclasses
+    f_cnt = int(fmeta["num_bin"].shape[0])
+    full = torch.ones(f_cnt, dtype=torch.uint8, device=dev)
+    half = torch.from_numpy((np.random.RandomState(11).rand(f_cnt) < 0.5)
+                            .astype(np.uint8)).to(dev)
+    one = torch.ones(2, dtype=torch.int32, device=dev)
+    s_held(label + " pair", (pair, sums, one, fmeta, full, prm, fb))
+    s_held(label + " pair, feature mask",
+           (pair, sums, one, fmeta, half, prm, fb))
+    got = s_held(label + " pair, max_depth 2 blocks the second leaf",
+                 (pair, sums, torch.tensor([0, 2], dtype=torch.int32,
+                                           device=dev), fmeta, full,
+                  dataclasses.replace(prm, max_depth=2), fb))
+    check(float(got[0][1, 0]) == float("-inf"),
+          "S %s: the leaf max_depth blocks got a split" % label)
+    empty, esums = pair.clone(), sums.clone()
+    empty[1].zero_()
+    esums[1].zero_()
+    got = s_held(label + " pair, an empty second leaf",
+                 (empty, esums, one, fmeta, full, prm, fb))
+    check(float(got[0][1, 0]) == float("-inf")
+          and got[1][1, :2].tolist() == [0, 0],
+          "S %s: the empty leaf is not the flat-index-0 pick" % label)
+    return ["pair", "feature mask", "max_depth", "empty leaf"]
+
+
+def hq_cases(label, binned, q, nb, plan, dev):
+    """HQ exactly its plain version and its repeat on the cases its row
+    blocks and skipped bins could get wrong: the root, a seeded
+    1,000-row list in random order, both again with a fifth of w01 set to
+    0 (bagging), and the list and the root under plans whose skipped bins
+    hold none of their rows where a group has such a bin. Returns the
+    number of groups whose skipped bin was empty on the list."""
+    from lightgbm_tpu_torch.ops import histogram
+    HQ = histogram.leaf_histogram_i32
+    n = binned.shape[0]
+    gen = np.random.RandomState(13)
+    rows = torch.from_numpy(gen.permutation(n)[:1000].astype(np.int32)
+                            ).to(dev)
+    bag = q.w01 * torch.from_numpy((gen.rand(n) >= 0.2).astype(np.float32)
+                                   ).to(dev)
+
+    def held(case, w01, sel=None, cnt=None, pl=plan):
+        got = HQ(binned, q.codes, w01, nb, rows=sel, n_rows=cnt, plan=pl)
+        check(torch.equal(got, HQ(binned, q.codes, w01, nb, rows=sel,
+                                  n_rows=cnt, plan=pl)),
+              "HQ %s %s: a second launch gave other bits" % (label, case))
+        check(torch.equal(got, histogram.leaf_histogram_i32_plain(
+            binned, q.codes, w01, nb, sel, cnt)),
+              "HQ %s %s: not equal to its plain version" % (label, case))
+
+    held("root", q.w01)
+    held("1,000-row list", q.w01, rows, 1000)
+    held("root, bagged", bag)
+    held("1,000-row list, bagged", bag, rows, 1000)
+    ones = torch.ones(n, dtype=torch.float32, device=dev)
+    group_bins = None if binned.dtype == torch.uint8 else plan.widths
+    emptied = 0
+    for case, sel, cnt in (("list", rows, 1000), ("root", None, None)):
+        rows_in = histogram.leaf_histogram_i32_plain(
+            binned, q.codes, ones, nb, sel, cnt)[..., 2].cpu().numpy()
+        skip = plan.skip.copy()
+        for g, w in enumerate(plan.widths):
+            none = np.flatnonzero(rows_in[g, :w] == 0)
+            if len(none):
+                skip[g] = none[0]
+        changed = int(np.sum(skip != plan.skip))
+        emptied = emptied or changed
+        if changed:
+            held("%s, %d skipped bins holding no row" % (case, changed),
+                 q.w01, sel, cnt,
+                 histogram.i32_plan(binned, nb, group_bins, skip=skip))
+    check(emptied > 0, "HQ %s: no group had a bin without rows" % label)
+    return emptied
 
 
 def quantized(name, card, dev, ctx):
@@ -1303,6 +1408,7 @@ def quantized(name, card, dev, ctx):
     gb8 = b8._inner
     qmax = gb8._quant_qmax
     binned, nb = gb8._binned, gb8._grower.num_bins
+    plan = gb8._grower.hq_plan
     seed = int(gb8.config.boosting.bagging_seed)
     masks = {}
     for ridx in (0, 1, TRAIN_ROUNDS - 1):
@@ -1379,9 +1485,10 @@ def quantized(name, card, dev, ctx):
             ("left", q10, (0, n_left)), ("right", q10, (n_left, n - n_left))):
         kw = {} if rows is None else {"rows": perm[rows[0]:],
                                       "n_rows": rows[1]}
-        got = histogram.leaf_histogram_i32(binned, q.codes, q.w01, nb, **kw)
+        got = histogram.leaf_histogram_i32(binned, q.codes, q.w01, nb,
+                                           plan=plan, **kw)
         again = histogram.leaf_histogram_i32(binned, q.codes, q.w01, nb,
-                                             **kw)
+                                             plan=plan, **kw)
         plain = histogram.leaf_histogram_i32_plain(binned, q.codes, q.w01,
                                                    nb, **kw)
         check(torch.equal(got, again) and torch.equal(got, plain),
@@ -1514,8 +1621,8 @@ def quantized(name, card, dev, ctx):
                 g10, h10, ones, qmax, kg, kh, reciprocal_scale=True),
                 reps=5), q_bound, None),
         "leaf_histogram_i32": (
-            median_ms(lambda: histogram.leaf_histogram_i32(
-                binned, q10.codes, q10.w01, nb)),
+            graph_ms(lambda: histogram.leaf_histogram_i32(
+                binned, q10.codes, q10.w01, nb, plan=plan)),
             median_ms(lambda: histogram.leaf_histogram_i32_plain(
                 binned, q10.codes, q10.w01, nb), reps=5), hq_root_bound,
             median_ms(library, reps=5))}
@@ -1532,22 +1639,24 @@ def quantized(name, card, dev, ctx):
             ("absmax_kernel", "quantize_kernel", "Memset")),
         "leaf_histogram_i32": device_ms(
             lambda: histogram.leaf_histogram_i32(binned, q10.codes, q10.w01,
-                                                 nb),
-            ("hist_i32_kernel", "Memset"))}
+                                                 nb, plan=plan),
+            ("hist_i32_kernel", "hist_i32_reduce_kernel", "Memset"))}
     for k, (ms, plain_ms, (b_ms, b_by), lib_ms) in times.items():
-        print("time [%s | %s]: %s %.4f ms (CUDA events around the call; "
-              "device time %.4f ms), plain %.3f ms, bound %.5f ms (%s)%s"
-              % (name, card, k, ms, device[k], plain_ms, b_ms, b_by,
+        print("time [%s | %s]: %s %.4f ms (%s; profiler device time %.4f "
+              "ms), plain %.3f ms, bound %.5f ms (%s)%s"
+              % (name, card, k, ms, "CUDA-graph replay"
+                 if k == "leaf_histogram_i32" else "CUDA events around the "
+                 "call", device[k], plain_ms, b_ms, b_by,
                  "" if lib_ms is None else
                  ", torch.bincount x3 %.4f ms" % lib_ms))
     list_dev = device_ms(lambda: histogram.leaf_histogram_i32(
-        binned, q10.codes, q10.w01, nb, **rows_arg),
-        ("hist_i32_kernel", "Memset"))
+        binned, q10.codes, q10.w01, nb, plan=plan, **rows_arg),
+        ("hist_i32_kernel", "hist_i32_reduce_kernel", "Memset"))
     print("time [%s | %s]: leaf_histogram_i32 row list (%d of %d rows) "
           "%.4f ms (device time %.4f ms), plain %.3f ms, bound %.5f ms (%s)"
           % (name, card, cnt, n, median_ms(
               lambda: histogram.leaf_histogram_i32(
-                  binned, q10.codes, q10.w01, nb, **rows_arg)),
+                  binned, q10.codes, q10.w01, nb, plan=plan, **rows_arg)),
              list_dev,
              median_ms(lambda: histogram.leaf_histogram_i32_plain(
                  binned, q10.codes, q10.w01, nb, **rows_arg), reps=5),
@@ -1556,7 +1665,7 @@ def quantized(name, card, dev, ctx):
           "(phase 12) %.4f s (medians of rounds 2-%d)"
           % (name, card, med8, med_bag, ctx["rounds_s"], TRAIN_ROUNDS))
     wall_us, busy, by_kind = profile_round(b8, name, card)
-    hq_us = sum(v for k, v in by_kind.items() if "hist_i32_kernel" in k)
+    hq_us = sum(v for k, v in by_kind.items() if "hist_i32" in k)
     q_us = sum(v for k, v in by_kind.items()
                if "absmax_kernel" in k or "quantize_kernel" in k)
     print("where the time goes [%s | %s]: int8 round: HQ %.3f ms (share "
@@ -3908,6 +4017,13 @@ def bosch(name, card, dev, ctx):
                                        fb)):
         check(all(torch.equal(a, b) for a, b in zip(s_kids, got)),
               "S Bosch children: not bitwise its repeat and plain version")
+    # the cases S's grid of feature tiles could get wrong, on that pair
+    s_case_names = s_cases("Bosch", pair, csums, fmeta, prm, fb, dev)
+    print("S Bosch leaf pair (%d features, tiles %s): bitwise its repeat "
+          "and plain version in the cases %s"
+          % (inner.num_features, tuple(split.split_plan(inner.num_features,
+                                                        fb)),
+             ", ".join(s_case_names)))
     tree0 = booster._inner.models[0]
     bt = predict.binned_tree(tree0, dev)
     vb = booster._inner._valid_binned[0]
@@ -4134,11 +4250,17 @@ def bosch(name, card, dev, ctx):
         check(all(torch.equal(a, b) for a, b in zip(s_wide, got)),
               "S at %d bins a feature: not bitwise its repeat and plain "
               "version" % wg.feature_bins)
+    # the scan's two levels of blocks at the widest scan width S takes
+    s_held("max_bin=%d root at 2,048 bins a feature" % WIDE_MAX_BIN,
+           (w_root[None], wsums, depth0, wg.fmeta_dev, wmask, wg.params,
+            split.MAX_FEATURE_BINS))
     print("max_bin=%d path: %d rounds, S launched %d times at %d bins a "
           "feature (every launch past 256), a second run byte-identical, "
-          "valid auc %.5f; S on the root bitwise its plain version"
+          "valid auc %.5f; S on the root bitwise its plain version at %d "
+          "and %d bins a feature"
           % (WIDE_MAX_BIN, WIDE_ROUNDS, wide_launches["S_wide"],
-             wg.feature_bins, wide_ev["valid"]["auc"][-1]))
+             wg.feature_bins, wide_ev["valid"]["auc"][-1], wg.feature_bins,
+             split.MAX_FEATURE_BINS))
     wcparams = dict(wparams, num_leaves=CPU_LEAVES)
     wc = train_run(lgb, hx[:CPU_ROWS], hy[:CPU_ROWS], hxv[:CPU_VALID_ROWS],
                    hyv[:CPU_VALID_ROWS], wcparams, WIDE_ROUNDS)
@@ -4233,17 +4355,16 @@ def bosch(name, card, dev, ctx):
     del hb_dev, hw
     s_ops = 2 * fmeta["num_bin"].shape[0] * fb * 50
     times["split_scan_u16"] = (
-        device_ms(lambda: split.split_scan(pair, csums, depth1, fmeta, mask,
-                                           prm, fb), ("split_scan_kernel",)),
+        graph_ms(lambda: split.split_scan(pair, csums, depth1, fmeta, mask,
+                                          prm, fb)),
         median_ms(lambda: split.split_scan_plain(pair, csums, depth1, fmeta,
                                                 mask, prm, fb), reps=3),
         bound(pair.numel() * 4 + 64, s_ops), None)
     wfm = wg.fmeta_dev["num_bin"].shape[0]
     times["split_scan_wide"] = (
-        device_ms(lambda: split.split_scan(w_root[None], wsums, depth0,
-                                           wg.fmeta_dev, wmask, wg.params,
-                                           wg.feature_bins),
-                  ("split_scan_kernel",)),
+        graph_ms(lambda: split.split_scan(w_root[None], wsums, depth0,
+                                          wg.fmeta_dev, wmask, wg.params,
+                                          wg.feature_bins)),
         median_ms(lambda: split.split_scan_plain(
             w_root[None], wsums, depth0, wg.fmeta_dev, wmask, wg.params,
             wg.feature_bins), reps=3),
@@ -4558,6 +4679,7 @@ def categorical(name, card, dev):
         check(all(torch.equal(a, b) for a, b in zip(s_kids, got)),
               "S (categorical) children: not bitwise its repeat and plain "
               "version")
+    s_cases("categorical", pair, csums, fmeta, prm, fb, dev)
     # R on the first tree's first categorical split, over every row
     tree0 = trees[0]
     node = next(i for i in range(tree0.num_leaves - 1)
@@ -4856,7 +4978,7 @@ def uint16_quant(name, card, dev, ctx):
     gb8 = b8._inner
     binned, nb = gb8._binned, gb8._grower.num_bins
     n = binned.shape[0]
-    lay = gb8._grower.hist_layout
+    lay = gb8._grower.hq_plan
     fresh = lgb.Booster(dict(int8), train_set=ds)._inner
     g1, h1 = fresh.objective.get_gradients(fresh._score[0])
     g10, h10 = gb8.objective.get_gradients(gb8._score[0])
@@ -4888,11 +5010,11 @@ def uint16_quant(name, card, dev, ctx):
     rnd = torch.from_numpy(np.random.RandomState(3).choice(
         n, n // 4, replace=False).astype(np.int32)).to(dev)
 
-    def held_hq(b, q, width, layout, rows=None, count=None, label=""):
+    def held_hq(b, q, width, plan, rows=None, count=None, label=""):
         got = HQ(b, q.codes, q.w01, width, rows=rows, n_rows=count,
-                 layout=layout)
+                 plan=plan)
         check(torch.equal(got, HQ(b, q.codes, q.w01, width, rows=rows,
-                                  n_rows=count, layout=layout)),
+                                  n_rows=count, plan=plan)),
               "HQ %s: a second launch gave other bits" % label)
         check(torch.equal(got, histogram.leaf_histogram_i32_plain(
             b, q.codes, q.w01, width, rows, count)),
@@ -4913,8 +5035,12 @@ def uint16_quant(name, card, dev, ctx):
     qw = gw._quantize(*gw.objective.get_gradients(gw._score[0]),
                       torch.ones(gw._n, dtype=torch.float32, device=dev), 0,
                       gw._n, gw._quant_qmax, reciprocal_scale=True)
-    held_hq(gw._binned, qw, gw._grower.num_bins, gw._grower.hist_layout,
+    held_hq(gw._binned, qw, gw._grower.num_bins, gw._grower.hq_plan,
             label="u16 max_bin=%d root" % WIDE_MAX_BIN)
+    # the cases HQ's row blocks and skipped bins could get wrong, on the
+    # Bosch matrix (round-10 int8 codes)
+    empty_u16 = hq_cases("u16 Bosch", binned, codes[("int8", 10)], nb, lay,
+                         dev)
     hb = torch.from_numpy(np.ascontiguousarray(
         ctx["data"][0]._inner.binned)).to(dev)
     nb8 = int(ctx["data"][0]._inner.max_num_bin())
@@ -4928,7 +5054,9 @@ def uint16_quant(name, card, dev, ctx):
         qmax=histogram.train_qmax("int8", hn), key_g=rng.prng_key(1),
         key_h=rng.prng_key(2), reciprocal_scale=True)
     HQ.launches_u16 = 0
-    held_hq(hb, q8, nb8, None, label="uint8 HIGGS root")
+    plan8 = histogram.i32_plan(hb, nb8)
+    held_hq(hb, q8, nb8, plan8, label="uint8 HIGGS root")
+    empty_u8 = hq_cases("uint8 HIGGS", hb, q8, nb8, plan8, dev)
     check(HQ.launches_u16 == 0, "HQ on the uint8 matrix ran its uint16 mode")
     # LM at max_bin=1023 on the last linear tree's leaves (the main path's
     # call), and on uint8 bins at the HIGGS shape
@@ -4961,6 +5089,10 @@ def uint16_quant(name, card, dev, ctx):
             check(torch.equal(moments, got.sum(dim=2)),
                   "leaf_feature_moments is not LM u16 summed over bins")
         del got, ref, scale
+    print("HQ cases: exact and repeating at the root, on a 1,000-row list "
+          "and both with a fifth of w01 at 0, and under plans whose skipped "
+          "bins hold no row (%d Bosch groups, %d uint8 HIGGS groups on the "
+          "list)" % (empty_u16, empty_u8))
     print("uint16 HQ and LM vs plain: HQ exact and repeating at the Bosch "
           "root (%s), on the root split's smaller child (%d rows) and a "
           "random quarter in random order (round-10 codes, int8 and "
@@ -4973,11 +5105,11 @@ def uint16_quant(name, card, dev, ctx):
     return {"b8": b8, "med8": med8, "med16": med16, "medb": medb,
             "round_s": bo["round_s"], "lm_u8": (raw8, w8, nb8, lid8, ids8),
             "launches": l8, "lm_launches": ll, "binned": binned, "nb": nb,
-            "layout": lay, "q10": codes[("int8", 10)], "perm": perm,
+            "plan": lay, "q10": codes[("int8", 10)], "perm": perm,
             "b0": b0, "cnt": cnt, "wide": (gw._binned, qw,
                                            gw._grower.num_bins,
-                                           gw._grower.hist_layout),
-            "u8": (hb, q8, nb8), "lm_u16": (gbt._binned, gbt._raw, w_l, nbw,
+                                           gw._grower.hq_plan),
+            "u8": (hb, q8, nb8, plan8), "lm_u16": (gbt._binned, gbt._raw, w_l, nbw,
                                             leaf_of, ids_w),
             "lm_err": lm_err}
 
@@ -4991,7 +5123,6 @@ def times_41(name, card, dev, cat, q):
     print("clocks [%s]: SM clock, max SM clock: %s (before the timings)"
           % (card, clocks()))
     times = {}
-    hq_names = ("hist_i32_kernel", "Memset")
 
     def hq_library(b, qc, width):
         """torch.bincount x3 over group x B + bin, the codes as weights."""
@@ -5012,26 +5143,23 @@ def times_41(name, card, dev, cat, q):
         return bound(rows * (2 * g_cnt + 8 + (4 if row_list else 0))
                      + g_cnt * width * 12, 3.0 * rows * g_cnt)
 
-    binned, nb, lay, q10 = q["binned"], q["nb"], q["layout"], q["q10"]
+    binned, nb, lay, q10 = q["binned"], q["nb"], q["plan"], q["q10"]
     n, g_cnt = binned.shape
     times["leaf_histogram_i32_u16"] = (
-        device_ms(lambda: HQ(binned, q10.codes, q10.w01, nb, layout=lay),
-                  hq_names),
+        graph_ms(lambda: HQ(binned, q10.codes, q10.w01, nb, plan=lay)),
         median_ms(lambda: histogram.leaf_histogram_i32_plain(
             binned, q10.codes, q10.w01, nb), reps=3),
         hq_bound(n, g_cnt, nb), hq_library(binned, q10, nb))
     perm, b0, cnt = q["perm"], q["b0"], q["cnt"]
-    list_ms = device_ms(lambda: HQ(binned, q10.codes, q10.w01, nb,
-                                   rows=perm[b0:], n_rows=cnt, layout=lay),
-                        hq_names)
+    list_ms = graph_ms(lambda: HQ(binned, q10.codes, q10.w01, nb,
+                                  rows=perm[b0:], n_rows=cnt, plan=lay))
     list_bound = hq_bound(cnt, g_cnt, nb, True)
     wb, wq, wnb, wlay = q["wide"]
     wn, wg = wb.shape
-    wide_ms = device_ms(lambda: HQ(wb, wq.codes, wq.w01, wnb, layout=wlay),
-                        hq_names)
+    wide_ms = graph_ms(lambda: HQ(wb, wq.codes, wq.w01, wnb, plan=wlay))
     wide_bound = hq_bound(wn, wg, wnb)
-    hb, q8, nb8 = q["u8"]
-    u8_ms = device_ms(lambda: HQ(hb, q8.codes, q8.w01, nb8), hq_names)
+    hb, q8, nb8, plan8 = q["u8"]
+    u8_ms = graph_ms(lambda: HQ(hb, q8.codes, q8.w01, nb8, plan=plan8))
     u8_bound = hq_bound(hb.shape[0], hb.shape[1], nb8)
     ms, plain_ms, (b_ms, b_by), lib_ms = times["leaf_histogram_i32_u16"]
     print("time [%s | %s]: leaf_histogram_i32_u16 at the Bosch root (%d rows "
@@ -5039,7 +5167,7 @@ def times_41(name, card, dev, cat, q):
           "ms (%s), torch.bincount x3 %.3f ms; row list (%d rows) %.4f ms, "
           "bound %.5f; max_bin=%d root (%d x %d, B %d) %.4f ms, bound %.5f; "
           "HQ on the uint8 HIGGS root (%d x %d) %.4f ms, bound %.5f"
-          % (name, card, n, g_cnt, nb, len(lay.slices) - 1, ms, plain_ms,
+          % (name, card, n, g_cnt, nb, len(lay.slices), ms, plain_ms,
              b_ms, b_by, lib_ms, cnt, list_ms, list_bound[0], WIDE_MAX_BIN,
              wn, wg, wnb, wide_ms, wide_bound[0], hb.shape[0], hb.shape[1],
              u8_ms, u8_bound[0]))
@@ -5090,8 +5218,8 @@ def times_41(name, card, dev, cat, q):
     cn = cb.shape[0]
     f_cnt = fmeta["num_bin"].shape[0]
     times["split_scan_cat"] = (
-        device_ms(lambda: split.split_scan(pair, csums, depth1, fmeta, mask,
-                                           prm, fb), ("split_scan_kernel",)),
+        graph_ms(lambda: split.split_scan(pair, csums, depth1, fmeta, mask,
+                                          prm, fb)),
         median_ms(lambda: split.split_scan_plain(pair, csums, depth1, fmeta,
                                                 mask, prm, fb), reps=3),
         bound(pair.numel() * 4 + 64, 2 * f_cnt * fb * 50), None)
@@ -5136,7 +5264,7 @@ def times_41(name, card, dev, cat, q):
           % (card, clocks()))
     profile_round(cat["booster"], name, card)
     wall_us, busy, by_kind = profile_round(q["b8"], name, card)
-    hq_us = sum(v for k, v in by_kind.items() if "hist_i32_kernel" in k)
+    hq_us = sum(v for k, v in by_kind.items() if "hist_i32" in k)
     print("where the time goes [%s | %s]: Bosch int8 round: HQ u16 %.3f ms "
           "(share %.3f of device busy), idle share %.3f"
           % (name, card, hq_us / 1e3, hq_us / busy, 1.0 - busy / wall_us))
@@ -5441,6 +5569,9 @@ def main():
 # ---------------------------------------------------------------------
 # A/B mode: H, QC and training rounds of several checkouts on one card
 AB_LIST_ROWS = 966_119
+# the Bosch row list HQ is timed on: the size of the main path's root
+# split's smaller child (phase 41)
+AB_BOSCH_LIST_ROWS = 39_589
 
 
 def host_us(fn, reps=200):
@@ -5462,10 +5593,12 @@ def ab_child(root, rounds, cat_rounds):
     sys.path.insert(0, os.path.abspath(root))
     import lightgbm_tpu_torch as lgb
     from torch.profiler import ProfilerActivity, profile
-    from lightgbm_tpu_torch.ops import _build, histogram
+    import inspect
+    from lightgbm_tpu_torch.ops import _build, histogram, split
     from lightgbm_tpu_torch.ops import predict as P
     from lightgbm_tpu_torch.testing.synth import (
-        synth_expo, synth_higgs, synthetic_forest_text, synthetic_rows)
+        synth_bosch, synth_expo, synth_higgs, synthetic_forest_text,
+        synthetic_rows)
     check(os.path.dirname(os.path.abspath(lgb.__file__)) == os.path.join(
         os.path.abspath(root), "lightgbm_tpu_torch"),
         "imported %s, not %s's package" % (lgb.__file__, root))
@@ -5549,28 +5682,106 @@ def ab_child(root, rounds, cat_rounds):
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
         events, busy = device_busy(prof)
-        h_us = sum(e.time_range.elapsed_us() for e in events
-                   if "hist_" in e.name and "i32" not in e.name)
+
+        def in_round(match):
+            return sum(e.time_range.elapsed_us() for e in events
+                       if match(e.name)) / 1e3
         out.update({
             label + "_round_s": secs,
             label + "_round_s_median": float(np.median(secs[1:])),
             label + "_profiled_round_s": wall,
             label + "_device_busy_ms": busy / 1e3,
             label + "_idle_share": 1.0 - busy / 1e6 / wall,
-            label + "_H_in_round_ms": h_us / 1e3})
+            label + "_H_in_round_ms": in_round(
+                lambda k: "hist_" in k and "i32" not in k),
+            label + "_S_in_round_ms": in_round(lambda k: "split_scan" in k),
+            label + "_HQ_in_round_ms": in_round(lambda k: "hist_i32" in k)})
 
+    # S on a leaf pair (a seeded third of the rows and the rest) and on
+    # the root, and HQ at the root and on a seeded row list, each by
+    # CUDA-graph replay; either checkout's HQ: its plan or, before it, the
+    # hist_layout of a uint16 matrix
+    takes_plan = "plan" in inspect.signature(
+        histogram.leaf_histogram_i32).parameters
+
+    def s_device(label, booster, pair=True):
+        g = booster._grower
+        n = booster._binned.shape[0]
+        gr, he = booster.objective.get_gradients(booster._score[0])
+        ww = torch.stack([gr, he, torch.ones_like(gr)], 1).contiguous()
+        perm = torch.from_numpy(np.random.RandomState(2).permutation(n)
+                                .astype(np.int32)).to(dev)
+
+        def hist(rows=None, cnt=None):
+            return leaf_histogram(booster._binned, ww, g.num_bins, rows=rows,
+                                  n_rows=cnt, bf16=True,
+                                  layout=g.hist_layout)
+        k = n // 3
+        hs = [hist(perm, k), hist(perm[k:], n - k)] if pair else [hist()]
+        hists = torch.stack(hs).contiguous()
+        sums = torch.from_numpy(np.stack([leaf_totals(h) for h in hs])).to(
+            dev)
+        depth = torch.ones(len(hs), dtype=torch.int32, device=dev)
+        mask = torch.ones(g.fmeta_dev["num_bin"].shape[0], dtype=torch.uint8,
+                          device=dev)
+        out["S_%s_%s_device" % (label, "pair" if pair else "root")] = \
+            graph_ms(lambda: split.split_scan(hists, sums, depth, g.fmeta_dev,
+                                              mask, g.params,
+                                              g.feature_bins))
+
+    def hq_device(label, booster, list_rows):
+        g = booster._grower
+        n = booster._binned.shape[0]
+        gr, he = booster.objective.get_gradients(booster._score[0])
+        q = histogram.quantize_gradients(
+            gr, he, torch.ones_like(gr), qmax=booster._quant_qmax,
+            key_g=(0, 1), key_h=(0, 2), reciprocal_scale=True)
+        kw = ({"plan": g.hq_plan} if takes_plan else
+              {"layout": g.hist_layout} if g.hist_layout is not None else {})
+        rows = torch.from_numpy(np.random.RandomState(3).permutation(n)[
+            :list_rows].astype(np.int32)).to(dev)
+        out["HQ_%s_root_device" % label] = graph_ms(
+            lambda: histogram.leaf_histogram_i32(
+                booster._binned, q.codes, q.w01, g.num_bins, **kw))
+        if list_rows:
+            out["HQ_%s_list_device" % label] = graph_ms(
+                lambda: histogram.leaf_histogram_i32(
+                    booster._binned, q.codes, q.w01, g.num_bins, rows=rows,
+                    n_rows=list_rows, **kw))
+
+    s_device("higgs", inner)
+    int8 = dict(TRAIN_PARAMS, tpu_hist_quantize="int8")
+    hq_device("higgs_u8", lgb.Booster(int8, train_set=ds)._inner, 0)
     rounds_of(lgb.Booster(dict(TRAIN_PARAMS), train_set=ds), rounds, "higgs")
+    rounds_of(lgb.Booster(int8, train_set=ds), rounds, "higgs_int8")
     del ds, binned, w3, inner, grad, hess
+    wparams = dict(TRAIN_PARAMS, max_bin=WIDE_MAX_BIN)
+    wds = lgb.Dataset(x, y, params=wparams).construct()
+    s_device("wide", lgb.Booster(wparams, train_set=wds)._inner, pair=False)
+    del wds, x, y
+    xb, yb = synth_bosch(BOSCH_ROWS, BOSCH_FEATURES, seed=BOSCH_SEED)
+    bds = lgb.Dataset(xb, yb, params=dict(BOSCH_PARAMS)).construct()
+    del xb, yb
+    s_device("bosch", lgb.Booster(dict(BOSCH_PARAMS), train_set=bds)._inner)
+    qparams = dict(BOSCH_PARAMS, tpu_hist_quantize="int8")
+    hq_device("bosch", lgb.Booster(qparams, train_set=bds)._inner,
+              AB_BOSCH_LIST_ROWS)
+    rounds_of(lgb.Booster(dict(BOSCH_PARAMS), train_set=bds), rounds,
+              "bosch")
+    rounds_of(lgb.Booster(qparams, train_set=bds), rounds, "bosch_int8")
+    del bds
     # the categorical protocol (phase 36): its rounds, then its 500-round
     # train as phase 36 times it
     xa, ya, _ = synth_expo(EXPO_ROWS + EXPO_TEST_ROWS, seed=EXPO_SEED)
     cds = lgb.Dataset(xa[:EXPO_ROWS], ya[:EXPO_ROWS],
                       params=dict(EXPO_PARAMS)).construct()
+    s_device("cat", lgb.Booster(dict(EXPO_PARAMS), train_set=cds)._inner)
     rounds_of(lgb.Booster(dict(EXPO_PARAMS), train_set=cds), rounds, "cat")
-    t0 = time.perf_counter()
-    lgb.train(dict(EXPO_PARAMS), cds, cat_rounds)
-    torch.cuda.synchronize()
-    out["cat_train_%d_s" % cat_rounds] = time.perf_counter() - t0
+    if cat_rounds:
+        t0 = time.perf_counter()
+        lgb.train(dict(EXPO_PARAMS), cds, cat_rounds)
+        torch.cuda.synchronize()
+        out["cat_train_%d_s" % cat_rounds] = time.perf_counter() - t0
     print(json.dumps(out), flush=True)
 
 
@@ -5589,13 +5800,18 @@ def ab_main(argv):
     1,000-row list; QC at full size); H's error on phase 10's cancelling gradients
     against the f64 sums, relative to max(1, |ref|); QC and
     torch.searchsorted over the same grid on 262,144 rows (phase 24's
-    inputs), the same two ways; `--rounds` rounds of the HIGGS protocol
-    (hi+lo) and of the categorical protocol (phase 36), each round's
-    seconds and their median from round 2, and one more round under
-    torch.profiler: wall, device busy time (the union of the device
-    events' intervals), idle share and H's device time; and the
-    categorical protocol's `--cat-rounds` rounds through lgb.train, as
-    phase 36 times its 500."""
+    inputs), the same two ways; S (split_scan) on a leaf pair (a seeded
+    third of the rows and the rest) of the HIGGS, Bosch (phase 31) and
+    categorical (phase 37) protocols and on the max_bin=1023 root (phase
+    34), and HQ (leaf_histogram_i32) at the int8 HIGGS and Bosch roots
+    and on a seeded 39,589-row Bosch list, each `*_device` as above;
+    `--rounds` rounds of the HIGGS and the Bosch protocols in hi+lo and
+    in int8 and of the categorical protocol, each
+    round's seconds and their median from round 2, and one more round
+    under torch.profiler: wall, device busy time (the union of the device
+    events' intervals), idle share and H's, S's and HQ's device time; and
+    the categorical protocol's `--cat-rounds` rounds through lgb.train,
+    as phase 36 times its 500 (0: none)."""
     import argparse
     ap = argparse.ArgumentParser(usage=ab_main.__doc__.splitlines()[0])
     ap.add_argument("--ab", action="append", required=True)

@@ -6,8 +6,12 @@ tested against; it imports torch and numpy and nothing of JAX or of
 Hopper (`csrc/`). It trains, `train(params, Dataset(X, y, group=...),
 ...)` or the scikit-learn style `LGBMRegressor`, `LGBMClassifier`
 (binary) and `LGBMRanker`, for the regression, binary and lambdarank
-objectives on numeric features, and serves: model text -> `Booster` ->
-`Booster.predict` (value, raw_score, pred_leaf, num_iteration) and the
+objectives on numeric and categorical features (uint8 or uint16 EFB
+group bins, from arrays, data files or the binary cache), with bagging,
+GOSS, DART, RF, linear trees and quantized gradients
+(`tpu_hist_quantize`), and serves: model text -> `Booster` ->
+`Booster.predict` (value, raw_score, pred_leaf, pred_contrib,
+num_iteration, early stop, f16 and int8 layouts) and the
 `serving.Predictor` front end. Entry points run on the CUDA card unless
 the caller passes `device="cpu"`, which runs the plain PyTorch versions
 of the kernels.

@@ -102,32 +102,48 @@
 // recombines the digits in int32. Hopper adds int32 natively, so HQ adds
 // the codes themselves.
 //
-// Design: a grid of row tiles of the row sequence x blocks of
-// groups; each block keeps an int32 [groups, B, 3] histogram in shared
-// memory, its threads add their rows into it with integer atomicAdd,
-// and the block adds its nonzero words into the zeroed output with
-// atomicAdd. Integer addition is associative, so the result has the
-// same bits on every run without H's fixed-order reduction trees; the
-// caller keeps qmax * rows below 2^31 (train_qmax), so nothing
-// overflows. Bound on an H100 SXM: G bytes of bins, 4 bytes of codes and
-// 4 of w01 a row (4 more for a row list) and the [G, B, 3] output; at
-// the root of the main path 72 MB, 0.021 ms.
-//
-// HQ's uint16 mode (the same quantized channels on groups of more
-// than 256 bins, up to 2,048): the kernel is templated on the bin type
-// as H's is. Padded to B, the 96 KB shared budget takes 12 groups of 631
-// bins (29 blocks of groups at Bosch) and 4 of 2,048, so the groups are
-// packed by their own widths (H's hist_layout: widths, poff) into slices
-// whose words fit the budget (hist_layout's slices: at Bosch 338 groups,
-// 61,054 bins, 733 KB in all, 8 slices; grid tiles x slices). Sparse data puts most rows of a
-// warp in one bin of a group (the default bin of a one-hot bundle), and
-// 32 integer adds to one shared word serialize: the lanes of one bin
-// (__match_any_sync) sum their codes (__reduce_add_sync) and the lowest
-// adds once, as H's hist_wide_kernel combines its lanes. The output stays
-// the padded [G, B, 3] int32 that S reads, zeroed first (2.56 MB at
-// Bosch). Bound: 500,000 x (676 B of bins + 4 of codes + 4 of w01) =
-// 342 MB at the Bosch root, 0.102 ms (a row list adds 4 B a row);
-// 2,000,000 x 64 B at the max_bin=1023 root, 0.038 ms.
+// Design (no thread reads a row at a stride of G, and no block flushes a
+// slice of groups for every few thousand rows):
+// - a plan made once for a Dataset (ops/histogram.py i32_plan) cuts the
+//   groups into slices of consecutive groups whose int32 histogram fits
+//   100 KB of shared memory (two blocks of 8 warps an SM): groups of at
+//   most 266 bins interleaved by lane (a bin's words of 32 lanes in 32
+//   banks), wider ones packed at their own widths; and it picks each
+//   group's skipped bin, the one most rows hold;
+// - the grid is (slices) x (row blocks), about 264 blocks (ops/histogram
+//   i32_grid), each row block a contiguous run of at least 512 positions
+//   of the row sequence, and only as many as keep the partials below
+//   twice the rows' bytes, so a small row list launches few blocks. In a
+//   block a lane owns a slot (a group) of the slice: a warp takes 32 rows
+//   a turn, lane j loads row j's codes and w01 (and id, from a row list)
+//   once and the lanes broadcast them by shuffles, then, 32 groups at a
+//   time, each lane loads its group's bin of the rows (a warp reads a
+//   row's bins of 32 groups as one contiguous run) and adds every row
+//   outside its group's skipped bin into the block's histogram with
+//   shared integer atomics, three a row: no lane shares a word with
+//   another at once in the interleaved layout, and a row the lane does
+//   not add goes to three spare words of its own, so no atomic is under
+//   a branch. A slice of at most 16 (8) groups takes 2 (4) rows at once,
+//   a phase of its lanes each, so few groups still fill the warp;
+// - the skipped bin: every row holds one bin of each group below the
+//   group's width, so in int32 that bin is exactly the rows' totals
+//   (sum q_g, sum q_h, count), which the block sums once a row, minus the
+//   group's other bins;
+// - each block writes its histogram once, in the shared layout, to its
+//   row block's partial, and a second kernel adds the row blocks'
+//   partials (coalesced reads, an xs-way split of the row blocks) into
+//   the zeroed [G, B, 3] output with integer atomics.
+// What sets the time: the instructions a (row, 32 groups) takes, a bin
+// load, two shuffles, the tests and the three atomics, not the bytes
+// (chip_smoke.py phase 41 times it against its bound).
+// Integer addition is associative, so the result has the same bits on
+// every run; the caller keeps qmax * rows below 2^31 (train_qmax), so
+// nothing overflows. Bound on an H100 SXM (3.35 TB/s): G bytes of bins
+// (2 G on a uint16 matrix), 4 bytes of codes and 4 of w01 a row (4 more
+// for a row list) and the [G, B, 3] output: at the HIGGS root
+// (2,000,000 x 28 uint8) 72 MB, 0.021 ms; at the Bosch root (500,000 x
+// 338 uint16, B 631) 342 MB, 0.102 ms; at the max_bin=1023 root
+// (2,000,000 x 28 uint16) 128 MB, 0.038 ms.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -605,113 +621,294 @@ __global__ void hist_reduce_kernel(const float* __restrict__ part,
   }
 }
 
-constexpr int kTileRowsI32 = 4096;
-constexpr int kThreadsI32 = 512;
-constexpr int kSmemI32 = 96 * 1024;  // the shared histogram's budget
+// HQ's shared int32 histogram a block at most, in words (ops/histogram.py
+// HIST_I32_WORDS): two blocks of 8 warps an SM
+constexpr int kWordsI32 = 100 * 1024 / 4;
+constexpr int kThreadsI32 = 256;
 
-// HQ. Block (tile, y) holds an int32 [words / 3, 3] histogram of its
-// slice of groups in shared memory: on a uint8 matrix the gpb groups
-// from y * gpb, each B bins wide (slices NULL); on a uint16 matrix the
-// groups slices[y] .. slices[y + 1] - 1, each at its own width widths[g]
-// from word poff[g] - poff[slices[y]] on. out [G, B, 3] int32, zeroed.
-//
-// uint8: a thread a row, its adds straight into the shared words.
-// uint16 (Bosch: most rows sit in the default bin of most groups): the
-// lanes of a warp that hold the same bin of a group (__match_any_sync)
-// sum their codes first (__reduce_add_sync) and the lowest of them adds
-// the sums, so 32 lanes on one bin cost one add a word, not 32
-// serialized ones. Integer sums: the bits are the same either way.
+// a slice of gc groups: its row phases P, 4 up to 8 groups, 2 up to 16,
+// else 1; its slots take S = 32 / P lanes
+__device__ __forceinline__ int row_phases(int gc) {
+  return gc <= kLanes / 4 ? 4 : gc <= kLanes / 2 ? 2 : 1;
+}
+
+// HQ. Block (y, x) sums the rows of positions [x * chunk, (x + 1) *
+// chunk) of the row sequence over slice y of the groups, slices[y] =
+// (g0, gc, wn, words): groups g0 .. g0 + gc - 1 in `words` shared int32
+// words, with P = row_phases(gc) row phases (hq_block, compiled for each
+// P).
+// Lane l of a warp takes slot l % S of the slice (group g0 + slot), in
+// item s / S for slot s, and the rows of phase l / S of a turn of 32
+// rows. Bin b, channel ch of lane l's slot is the word
+// - ((item * 3 + ch) * wn + b) * 32 + l where wn > 0 (interleaved:
+//   groups of at most HQ_INTERLEAVE_BINS bins, a lane's words in its own
+//   bank; a slot has a column for each phase),
+// - woff[g] + 3 * b + ch where wn == 0 (packed at the group's width,
+//   shared by the phases).
+// A warp takes 32 rows a turn: lane j loads row j's codes and w01 (and
+// id, from a row list) once and the lanes broadcast them by shuffles;
+// then, item by item, each lane loads its slot's bin of its phase's rows
+// (a warp reads a row's bins of up to 32 groups as one contiguous run;
+// all rows are consecutive positions, so the lanes compute a row's
+// address, and a row list's ids are broadcast) and adds every row that
+// lies outside its group's skipped bin, skip[g], with shared integer
+// atomics. The loads
+// are software pipelined: the next item's bins, the next turn's codes and
+// w01 and the one after's row ids are in flight while an item's rows are
+// added. A row a lane does not add goes to three spare words of the
+// lane, so no atomic is under a branch. The block also sums its rows'
+// (q_g, q_h, 1), and the skipped bin is filled after the rows as those
+// totals minus the group's other bins: exact in int32, since every row
+// holds one bin of each group below the group's width. Integer sums do
+// not depend on their order, so the result has the same bits on every
+// run. The block's histogram goes to its row block's partial,
+// part[x][sbase[y] ...], in the shared layout.
+template <typename BinT, bool kList, int P>
+__device__ __forceinline__ void hq_block(
+    const BinT* __restrict__ binned, int G, const int* __restrict__ codes,
+    const float* __restrict__ w01, const int* __restrict__ rows, int n,
+    int chunk, int y, int4 sl, const int* __restrict__ sbase,
+    const int* __restrict__ widths, const int* __restrict__ woff,
+    const int* __restrict__ skip, int hist_words, int part_words,
+    int* __restrict__ part) {
+  constexpr int S = kLanes / P;   // slot lanes
+  constexpr int NR = kLanes / P;  // rows of a turn a lane adds
+  extern __shared__ __align__(16) int sh[];
+  __shared__ int s_tot[3];
+  const int g0 = sl.x, gc = sl.y, wn = sl.z, words = sl.w;
+  const int warps = blockDim.x / kLanes;
+  const int warp = threadIdx.x / kLanes;
+  const int lane = threadIdx.x % kLanes;
+  for (int e = threadIdx.x; e < words / 4; e += blockDim.x) {
+    reinterpret_cast<int4*>(sh)[e] = make_int4(0, 0, 0, 0);
+  }
+  if (threadIdx.x < 3) s_tot[threadIdx.x] = 0;
+  __syncthreads();
+  const int items = (gc + S - 1) / S;
+  const int phase = lane / S;
+  // the lane's three spare words, after the largest slice's histogram
+  int* const spare = sh + hist_words + lane;
+  // a lane's distance between two bins' words and two channels' words
+  const int bstride = wn ? kLanes : 3;
+  const int cstride = wn ? wn * kLanes : 1;
+  const int begin = blockIdx.y * chunk;
+  const int end = min(n, begin + chunk);
+  const int step = warps * kLanes;
+  // lane's row of the turn of positions from b (-1 past the block's)
+  auto row_id = [&](int b) {
+    const int p = b + lane;
+    return p < end ? (kList ? __ldg(rows + p) : p) : -1;
+  };
+  // the bins of the slot gi * S + lane % S of the lane's NR rows of the
+  // turn of positions from b (lane j's row r)
+  auto load_bins = [&](int (&bin)[NR], int r, int b, int gi) {
+    const int slot = gi * S + lane % S;
+    const BinT* const col = binned + g0 + (slot < gc ? slot : 0);
+#pragma unroll
+    for (int i = 0; i < NR; ++i) {
+      const int j = phase + P * i;
+      const int rj = kList ? max(__shfl_sync(~0u, r, j), 0)
+                           : min(b + j, end - 1);
+      bin[i] = (int)__ldg(col + (size_t)rj * G);
+    }
+  };
+  int tg = 0, th = 0, tc = 0;
+  int base = begin + warp * kLanes;
+  if (base < end) {
+    int r = row_id(base), rn = row_id(base + step);
+    int q = r >= 0 ? __ldg(codes + r) : 0;  // (q_g, q_h) as int16 halves
+    bool live = r >= 0 && __ldg(w01 + r) > 0.f;
+    int bin[NR], nxt[NR];
+    load_bins(bin, r, base, 0);
+    for (;;) {
+      const int rnn = row_id(base + 2 * step);
+      const int qn = rn >= 0 ? __ldg(codes + rn) : 0;
+      const bool ln = rn >= 0 && __ldg(w01 + rn) > 0.f;
+      tg += live ? (int)(short)(q & 0xFFFF) : 0;
+      th += live ? q >> 16 : 0;
+      tc += live ? 1 : 0;
+      const unsigned m = __ballot_sync(~0u, live);
+      const bool more = base + step < end;
+      for (int gi = 0; gi < items; ++gi) {
+        if (gi + 1 < items) {
+          load_bins(nxt, r, base, gi + 1);
+        } else if (more) {
+          load_bins(nxt, rn, base + step, 0);
+        }
+        const int slot = gi * S + lane % S;
+        const bool mine = slot < gc;
+        const int g = g0 + (mine ? slot : 0);
+        const int k = __ldg(skip + g);
+        const int W = mine ? __ldg(widths + g) : 0;
+        int* const col =
+            sh + (wn ? gi * 3 * wn * kLanes + lane : __ldg(woff + g));
+#pragma unroll
+        for (int i = 0; i < NR; ++i) {
+          const int j = phase + P * i;
+          const int qj = __shfl_sync(~0u, q, j);
+          const int b = bin[i];
+          const bool add = ((m >> j) & 1u) && b != k && b < W;
+          int* const w = add ? col + b * bstride : spare;
+          const int cs = add ? cstride : kLanes;
+          atomicAdd(w, (int)(short)(qj & 0xFFFF));
+          atomicAdd(w + cs, qj >> 16);
+          atomicAdd(w + 2 * cs, 1);
+        }
+#pragma unroll
+        for (int i = 0; i < NR; ++i) bin[i] = nxt[i];
+      }
+      base += step;
+      if (!more) break;
+      r = rn;
+      rn = rnn;
+      q = qn;
+      live = ln;
+    }
+  }
+  tg = __reduce_add_sync(~0u, tg);
+  th = __reduce_add_sync(~0u, th);
+  tc = __reduce_add_sync(~0u, tc);
+  if (lane == 0) {
+    atomicAdd(s_tot, tg);
+    atomicAdd(s_tot + 1, th);
+    atomicAdd(s_tot + 2, tc);
+  }
+  __syncthreads();
+  // each group's skipped bin: the block's totals minus the other bins (a
+  // thread a group where interleaved, summing its P columns; a warp a
+  // group where packed), so the reads do not share a bank
+  if (wn) {
+    for (int slot = threadIdx.x; slot < gc; slot += blockDim.x) {
+      const int g = g0 + slot, W = widths[g], k = skip[g];
+      int* const col = sh + slot / S * 3 * wn * kLanes + slot % S;
+      for (int ch = 0; ch < 3; ++ch) {
+        unsigned sum = 0u;
+        for (int ph = 0; ph < P; ++ph) {
+          for (int b = 0; b < W; ++b) {
+            sum += (unsigned)col[ph * S + ch * cstride + b * kLanes];
+          }
+        }
+        col[ch * cstride + k * kLanes] = (int)((unsigned)s_tot[ch] - sum);
+      }
+    }
+  } else {
+    for (int slot = warp; slot < gc; slot += warps) {
+      const int g = g0 + slot, W = widths[g], k = skip[g];
+      int* const col = sh + woff[g];
+      for (int ch = 0; ch < 3; ++ch) {
+        unsigned sum = 0u;
+        for (int b = lane; b < W; b += kLanes) sum += (unsigned)col[3 * b + ch];
+        sum = __reduce_add_sync(~0u, sum);
+        if (lane == 0) col[3 * k + ch] = (int)((unsigned)s_tot[ch] - sum);
+      }
+    }
+  }
+  __syncthreads();
+  int4* const dst = reinterpret_cast<int4*>(
+      part + (size_t)blockIdx.y * part_words + sbase[y]);
+  for (int e = threadIdx.x; e < words / 4; e += blockDim.x) {
+    dst[e] = reinterpret_cast<const int4*>(sh)[e];
+  }
+}
+
+template <typename BinT, bool kList>
+__global__ void __launch_bounds__(kThreadsI32, 2)
+hist_i32_kernel(const BinT* __restrict__ binned, int G,
+                const int* __restrict__ codes, const float* __restrict__ w01,
+                const int* __restrict__ rows, int n, int chunk,
+                const int4* __restrict__ slices,
+                const int* __restrict__ sbase,
+                const int* __restrict__ widths,
+                const int* __restrict__ woff, const int* __restrict__ skip,
+                int hist_words, int part_words, int* __restrict__ part) {
+  const int y = blockIdx.x;
+  const int4 sl = slices[y];
+  switch (row_phases(sl.y)) {
+    case 4:
+      hq_block<BinT, kList, 4>(binned, G, codes, w01, rows, n, chunk, y, sl,
+                               sbase, widths, woff, skip, hist_words,
+                               part_words, part);
+      break;
+    case 2:
+      hq_block<BinT, kList, 2>(binned, G, codes, w01, rows, n, chunk, y, sl,
+                               sbase, widths, woff, skip, hist_words,
+                               part_words, part);
+      break;
+    default:
+      hq_block<BinT, kList, 1>(binned, G, codes, w01, rows, n, chunk, y, sl,
+                               sbase, widths, woff, skip, hist_words,
+                               part_words, part);
+  }
+}
+
+// HQ's main kernel for bin type BinT, with or without a row list
 template <typename BinT>
-__global__ void hist_i32_kernel(const BinT* __restrict__ binned, int G,
-                                const short2* __restrict__ codes,
-                                const float* __restrict__ w01,
-                                const int* __restrict__ rows, int n, int B,
-                                int gpb, const int* __restrict__ slices,
-                                const int* __restrict__ widths,
-                                const int* __restrict__ poff,
-                                int* __restrict__ out) {
-  constexpr bool kWide = sizeof(BinT) == 2;
-  extern __shared__ int sh[];
-  int g0, gc, base, words;
-  if (kWide) {
-    g0 = slices[blockIdx.y];
-    gc = slices[blockIdx.y + 1] - g0;
-    base = poff[g0];
-    words = (poff[g0 + gc - 1] + widths[g0 + gc - 1] - base) * 3;
+cudaError_t launch_i32(const BinT* binned, int G, const int* codes,
+                       const float* w01, const int* rows, int n, int chunk,
+                       const int4* sl, const int* sbase, const int* widths,
+                       const int* woff, const int* skip, int hist_words,
+                       int part_words, int* part, dim3 grid, size_t smem,
+                       cudaStream_t s) {
+  auto kernel = rows ? hist_i32_kernel<BinT, true>
+                     : hist_i32_kernel<BinT, false>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  kernel<<<grid, kThreadsI32, smem, s>>>(binned, G, codes, w01, rows, n,
+                                         chunk, sl, sbase, widths, woff, skip,
+                                         hist_words, part_words, part);
+  return cudaGetLastError();
+}
+
+// out[g, b, ch] += the row blocks' partial words of slice y: thread e of
+// the slice sums blocks z, z + xs, ... (z = blockIdx.z) and adds the sum
+// into out, which is zeroed, with an integer atomic. Coalesced reads; a
+// word past its group's width (or past the slice's groups) is left out.
+__global__ void hist_i32_reduce_kernel(const int* __restrict__ part,
+                                       int blocks, int part_words,
+                                       const int4* __restrict__ slices,
+                                       const int* __restrict__ sbase,
+                                       const int* __restrict__ widths,
+                                       const int* __restrict__ woff, int B,
+                                       int* __restrict__ out) {
+  const int4 sl = slices[blockIdx.y];
+  const int g0 = sl.x, gc = sl.y, wn = sl.z;
+  const int e = blockIdx.x * blockDim.x + threadIdx.x;
+  if (e >= sl.w) return;
+  int slot, b, ch;
+  if (wn) {
+    // column l of item t / 3: slot (t / 3) * S + l % S (a phase's column)
+    const int S = kLanes / row_phases(gc);
+    int t = e / kLanes;
+    b = t % wn;
+    t /= wn;
+    ch = t % 3;
+    slot = t / 3 * S + e % kLanes % S;
   } else {
-    g0 = blockIdx.y * gpb;
-    gc = min(gpb, G - g0);
-    base = 0;
-    words = gc * B * 3;
-  }
-  for (int e = threadIdx.x; e < words; e += blockDim.x) sh[e] = 0;
-  __syncthreads();
-  const int begin = blockIdx.x * kTileRowsI32;
-  const int end = min(n, begin + kTileRowsI32);
-  if (!kWide) {
-    for (int i = begin + threadIdx.x; i < end; i += blockDim.x) {
-      const int r = rows ? __ldg(rows + i) : i;
-      if (!(__ldg(w01 + r) > 0.f)) continue;
-      const short2 q = codes[r];
-      const BinT* b = binned + (size_t)r * G + g0;
-      for (int g = 0; g < gc; ++g) {
-        const int bin = __ldg(b + g);
-        if (bin >= B) continue;
-        int* cell = sh + (g * B + bin) * 3;
-        atomicAdd(cell, (int)q.x);
-        atomicAdd(cell + 1, (int)q.y);
-        atomicAdd(cell + 2, 1);
+    // the group of word e: the last of the slice whose first word is at
+    // or before it
+    int lo = g0, hi = g0 + gc - 1;
+    while (lo < hi) {
+      const int mid = (lo + hi + 1) >> 1;
+      if (woff[mid] <= e) {
+        lo = mid;
+      } else {
+        hi = mid - 1;
       }
     }
-  } else {
-    const int lane = threadIdx.x % kLanes;
-    // whole warps take a turn together: i0 - lane is the warp's first row
-    for (int i0 = begin + threadIdx.x; i0 - lane < end; i0 += blockDim.x) {
-      bool live = i0 < end;
-      const int r = live ? (rows ? __ldg(rows + i0) : i0) : 0;
-      live = live && __ldg(w01 + r) > 0.f;
-      const short2 q = live ? codes[r] : make_short2(0, 0);
-      const BinT* b = binned + (size_t)r * G + g0;
-      for (int j = 0; j < gc; ++j) {
-        const int W = __ldg(widths + g0 + j);
-        const int bin = live ? (int)__ldg(b + j) : W;
-        const int key = bin < W ? bin : -1;
-        const unsigned peers = __match_any_sync(~0u, key);
-        const int sg = __reduce_add_sync(peers, (int)q.x);
-        const int sq = __reduce_add_sync(peers, (int)q.y);
-        if (key >= 0 && lane == __ffs(peers) - 1) {
-          int* cell = sh + (__ldg(poff + g0 + j) - base + key) * 3;
-          atomicAdd(cell, sg);
-          atomicAdd(cell + 1, sq);
-          atomicAdd(cell + 2, __popc(peers));
-        }
-      }
-    }
+    slot = lo - g0;
+    b = (e - woff[lo]) / 3;
+    ch = (e - woff[lo]) % 3;
   }
-  __syncthreads();
-  for (int e = threadIdx.x; e < words; e += blockDim.x) {
-    const int v = sh[e];
-    if (v == 0) continue;
-    size_t at;
-    if (kWide) {
-      // the group of word e: the last of the slice whose first word is
-      // at or before it
-      const int k = e / 3 + base;
-      int lo = g0, hi = g0 + gc - 1;
-      while (lo < hi) {
-        const int mid = (lo + hi + 1) >> 1;
-        if (__ldg(poff + mid) <= k) {
-          lo = mid;
-        } else {
-          hi = mid - 1;
-        }
-      }
-      at = ((size_t)lo * B + (k - __ldg(poff + lo))) * 3 + e % 3;
-    } else {
-      at = (size_t)g0 * B * 3 + e;
-    }
-    atomicAdd(out + at, v);
+  if (slot >= gc) return;
+  const int g = g0 + slot;
+  if (b >= widths[g]) return;
+  const int* p = part + sbase[blockIdx.y] + e;
+  int sum = 0;
+  for (int x = blockIdx.z; x < blocks; x += gridDim.z) {
+    sum += __ldg(p + (size_t)x * part_words);
   }
+  if (sum != 0) atomicAdd(out + ((size_t)g * B + b) * 3 + ch, sum);
 }
 
 }  // namespace
@@ -832,48 +1029,50 @@ extern "C" int lgbt_leaf_histogram(const void* binned, int G, int u16,
 }
 
 // binned [N, G] row-major, u8 or (u16 != 0) u16; codes [N] short2 (q_g,
-// q_h); w01 [N] f32; rows: a row list of n entries or NULL for rows
-// 0..n-1; out [G, B, 3] int32. A u16 matrix takes its groups' widths
-// [G] and first words poff [G] (ops/histogram.py hist_layout) and the
-// slices of groups whose words fit a block, slices [n_slices + 1] (group
-// bounds), the widest holding slice_words int32 words. Returns
-// cudaGetLastError().
-extern "C" int lgbt_leaf_histogram_i32(const void* binned, int G, int u16,
-                                       const short2* codes,
-                                       const float* w01, const int* rows,
-                                       int n, int B, const int* slices,
-                                       int n_slices, int slice_words,
-                                       const int* widths, const int* poff,
-                                       int* out, void* stream) {
+// q_h) read as one int32; w01 [N] f32; rows: a row list of n entries or
+// NULL for rows 0..n-1; out [G, B, 3] int32. The plan (ops/histogram.py
+// i32_plan, i32_grid): slices [n_slices] int4 (g0, gc, wn, words), the
+// largest slice_words;
+// sbase [n_slices] each slice's first word in a row block's partial of
+// part_words; widths, woff, skip [G]; `blocks` row blocks of `chunk`
+// positions, the reduction's xs-way split of them. part: blocks *
+// part_words int32 words. Returns cudaGetLastError().
+extern "C" int lgbt_leaf_histogram_i32(
+    const void* binned, int G, int u16, const int* codes, const float* w01,
+    const int* rows, int n, int B, const int* slices, int n_slices,
+    int slice_words, const int* sbase, int part_words, const int* widths,
+    const int* woff, const int* skip, int blocks, int chunk, int xs,
+    int* part, int* out, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
   cudaError_t err =
       cudaMemsetAsync(out, 0, (size_t)G * B * 3 * sizeof(int), s);
   if (err != cudaSuccess) return (int)err;
   if (n <= 0 || G <= 0) return 0;
-  const int tiles = (n + kTileRowsI32 - 1) / kTileRowsI32;
-  if (u16) {
-    const size_t smem = (size_t)slice_words * sizeof(int);
-    err = cudaFuncSetAttribute(hist_i32_kernel<uint16_t>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               (int)smem);
-    if (err != cudaSuccess) return (int)err;
-    hist_i32_kernel<uint16_t><<<dim3(tiles, n_slices), kThreadsI32, smem,
-                                s>>>(
-        static_cast<const uint16_t*>(binned), G, codes, w01, rows, n, B, 0,
-        slices, widths, poff, out);
-    return (int)cudaGetLastError();
+  if (slice_words < 4 || slice_words > kWordsI32 || slice_words % 4 ||
+      part_words % 4 || blocks < 1 || chunk < 1 || xs < 1 || n_slices < 1) {
+    return (int)cudaErrorInvalidValue;
   }
-  int gpb = kSmemI32 / (B * 3 * (int)sizeof(int));
-  gpb = gpb < 1 ? 1 : (gpb > G ? G : gpb);
-  const size_t smem = (size_t)gpb * B * 3 * sizeof(int);
-  err = cudaFuncSetAttribute(hist_i32_kernel<uint8_t>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             (int)smem);
+  // the largest slice's histogram and 3 spare words a lane
+  const size_t smem = ((size_t)slice_words + 3 * kLanes) * sizeof(int);
+  const int4* sl = reinterpret_cast<const int4*>(slices);
+  const dim3 grid(n_slices, blocks);
+  if (u16) {
+    err = launch_i32(static_cast<const uint16_t*>(binned), G, codes, w01,
+                     rows, n, chunk, sl, sbase, widths, woff, skip,
+                     slice_words, part_words, part, grid, smem, s);
+  } else {
+    err = launch_i32(static_cast<const uint8_t*>(binned), G, codes, w01,
+                     rows, n, chunk, sl, sbase, widths, woff, skip,
+                     slice_words, part_words, part, grid, smem, s);
+  }
   if (err != cudaSuccess) return (int)err;
-  hist_i32_kernel<uint8_t><<<dim3(tiles, (G + gpb - 1) / gpb), kThreadsI32,
-                             smem, s>>>(
-      static_cast<const uint8_t*>(binned), G, codes, w01, rows, n, B, gpb,
-      nullptr, nullptr, nullptr, out);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  const int threads = 256;
+  hist_i32_reduce_kernel<<<dim3((slice_words + threads - 1) / threads,
+                                n_slices, xs),
+                           threads, 0, s>>>(part, blocks, part_words, sl,
+                                            sbase, widths, woff, B, out);
   return (int)cudaGetLastError();
 }
 

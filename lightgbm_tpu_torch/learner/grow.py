@@ -53,8 +53,8 @@ import numpy as np
 import torch
 
 from ..log import LightGBMError
-from ..ops.histogram import (hist_layout, leaf_histogram, leaf_histogram_i32,
-                              subtract)
+from ..ops.histogram import (hist_layout, i32_plan, leaf_histogram,
+                              leaf_histogram_i32, subtract)
 from ..ops.route import SplitRule, route_partition
 from ..ops.split import (SplitParams, dequantize_hist, device_fmeta,
                          leaf_output, split_scan)
@@ -147,7 +147,9 @@ class SerialGrower:
     num_bins: the histogram width (widest group); feature_bins: the
     per-feature scan width; group_bins: each group's own bin count [G],
     which H lays a uint16 matrix's sums out by (required for one; its
-    `hist_layout` is made here, once)."""
+    `hist_layout` is made here, once). Quantized growth on the card makes
+    HQ's `i32_plan` here too, once: its slices and each group's skipped
+    bin, counted over the matrix's rows."""
 
     def __init__(self, binned: torch.Tensor, fmeta: Dict[str, np.ndarray],
                  cfg: GrowerConfig, num_bins: int, feature_bins: int,
@@ -179,6 +181,11 @@ class SerialGrower:
                 "hist_quantize=%s: qmax %d at %d rows can overflow the int32 "
                 "histograms (ops/histogram.train_qmax caps it)"
                 % (cfg.hist_quantize, cfg.hist_qmax, n))
+        self.hq_plan = None
+        if self.quantized and self.device.type == "cuda":
+            self.hq_plan = i32_plan(
+                binned, self.num_bins,
+                group_bins if binned.dtype == torch.uint16 else None)
         self.perm = torch.empty(n, dtype=torch.int32, device=self.device)
         self.leaf_id = torch.empty(n, dtype=torch.int32, device=self.device)
         L = cfg.num_leaves
@@ -218,7 +225,7 @@ class SerialGrower:
             codes, w01 = chans
             return leaf_histogram_i32(self.binned, codes, w01, self.num_bins,
                                       rows=rows, n_rows=n_rows, out=out,
-                                      layout=self.hist_layout)
+                                      plan=self.hq_plan)
         return leaf_histogram(self.binned, chans, self.num_bins, rows=rows,
                               n_rows=n_rows, out=out,
                               bf16=self.cfg.hist_bf16,

@@ -60,7 +60,8 @@ LIBRARIES = {
                                 _p, _i, _i, _i, _i, _i, _p, _i, _i, _p,
                                 _i, _i, _p, _p, _p],
         "lgbt_leaf_histogram_i32": [_p, _i, _i, _p, _p, _p, _i, _i, _p,
-                                    _i, _i, _p, _p, _p, _p],
+                                    _i, _i, _p, _i, _p, _p, _p, _i, _i,
+                                    _i, _p, _p, _p],
     }, _NO_FMA),
     "quantize": ("quantize.cu", {
         "lgbt_bagging_mask": [_u, _u, _f, _i, _p, _p],
@@ -72,8 +73,8 @@ LIBRARIES = {
         "lgbt_goss_weights": [_p, _p, _i, _u, _u, _f, _f, _p, _p],
     }, _NO_FMA),
     "split": ("split_scan.cu", {
-        "lgbt_split_scan": [_p] + [_i] * 5 + [_p] * 10 + [_f] * 3
-        + [_i, _f, _i] + [_p] * 4,
+        "lgbt_split_scan": [_p] + [_i] * 6 + [_p] * 10 + [_f] * 3
+        + [_i, _f, _i] + [_p] * 6,
     }, _NO_FMA),
     "route": ("route_partition.cu", {
         "lgbt_route_tiles": [_i],

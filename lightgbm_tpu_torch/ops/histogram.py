@@ -39,9 +39,10 @@ launches in `leaf_histogram.launches`, and those in hi+lo mode also in
 `leaf_histogram.launches_hilo`, those on uint16 bins in
 `leaf_histogram.launches_u16`. HQ and LM take uint16 bins too (their
 uint16 modes count in `leaf_histogram_i32.launches_u16` and
-`leaf_moments.launches_u16`): HQ packs the groups by their own widths
-(the layout's `slices`) and LM sums a warp's lanes of one bin in a fixed
-tree, as H's warp-shared groups do.
+`leaf_moments.launches_u16`): HQ reads the groups by its own plan
+(`i32_plan`: slices of groups at their own widths and each group's
+skipped bin, made once for a Dataset) and LM sums a warp's lanes of one
+bin in a fixed tree, as H's warp-shared groups do.
 
 Quantized training (`tpu_hist_quantize=int8|int16`, the JAX section at
 :60-156 and `_quant_u`/`_quant_merge` :291-330) adds two kernels:
@@ -218,9 +219,23 @@ HIST_MAX_RUN = 4096
 HIST_TILE_ROWS = 2048
 HIST_MAX_TILE_ROWS = 65536
 HIST_PARTIAL_SHARE = 4
-# HQ's shared int32 histogram a block (csrc/histogram.cu kSmemI32), in
-# words: a uint16 matrix's groups are packed into slices that fit it
-HIST_I32_WORDS = 96 * 1024 // 4
+# HQ (csrc/histogram.cu hist_i32_kernel), two blocks of 8 warps an SM: a
+# block's shared int32 histogram of a slice of groups takes at most
+# HIST_I32_WORDS words. A slice is a run of consecutive groups of one
+# kind: groups of at most HQ_INTERLEAVE_BINS bins interleaved by lane (an
+# item of 32 such groups, 3 x 32 words a bin, fits the budget), wider ones
+# packed at their own widths. Row blocks: about HQ_TARGET_BLOCKS blocks
+# over the slices, at least HQ_MIN_ROWS rows each, and so few that their
+# partials (written once, read once) take at most twice the bytes the
+# rows read; the reduction of the partials splits the row blocks into up to
+# xs interleaved sums so that it runs about HQ_REDUCE_THREADS threads.
+HIST_I32_WORDS = 100 * 1024 // 4
+HQ_INTERLEAVE_BINS = HIST_I32_WORDS // (3 * 32)
+HQ_TARGET_BLOCKS = 264
+HQ_MIN_ROWS = 512
+HQ_REDUCE_THREADS = 262144
+# rows a pass of the bin count over the matrix
+_MODE_ROWS = 65536
 
 
 class HistPlan(NamedTuple):
@@ -268,11 +283,9 @@ class HistLayout(NamedTuple):
     [G] (each group's own bins), `poff` [G] (its first word in a tile's
     partial), the lane-private groups `narrow` (at most `narrow_w` bins)
     and the warp-shared `wide` (at most `wide_w`), all int32; `elems` (a
-    tile's words a channel), `bf16` (the mode it is for); for HQ the
-    `slices` [S + 1] (group bounds of runs of whole groups whose
-    3 * widths words fit HIST_I32_WORDS, `slice_words` words the widest);
-    and `dev`, the five arrays on the device (each with a trailing 0, so
-    none is empty)."""
+    tile's words a channel), `bf16` (the mode it is for); and `dev`, the
+    four arrays on the device (each with a trailing 0, so none is
+    empty)."""
     widths: np.ndarray
     poff: np.ndarray
     narrow: np.ndarray
@@ -281,24 +294,7 @@ class HistLayout(NamedTuple):
     wide_w: int
     elems: int
     bf16: bool
-    slices: np.ndarray
-    slice_words: int
     dev: tuple
-
-
-def i32_slices(widths: np.ndarray):
-    """HQ's slices of a uint16 matrix: runs of whole groups, in order,
-    each taking at most HIST_I32_WORDS words at 3 a bin. Returns the
-    group bounds [S + 1] int32 and the widest slice's words."""
-    bounds, words, most = [0], 0, 0
-    for g, w in enumerate(np.asarray(widths, np.int64) * 3):
-        if words + w > HIST_I32_WORDS:
-            bounds.append(g)
-            words = 0
-        words += int(w)
-        most = max(most, words)
-    bounds.append(len(widths))
-    return np.asarray(bounds, np.int32), most
 
 
 def hist_layout(group_bins, bf16: bool, device="cpu") -> HistLayout:
@@ -318,13 +314,12 @@ def hist_layout(group_bins, bf16: bool, device="cpu") -> HistLayout:
     wide = np.flatnonzero(~lane).astype(np.int32)
     poff = np.concatenate([[0], np.cumsum(widths, dtype=np.int64)[:-1]]
                           ).astype(np.int32)
-    slices, slice_words = i32_slices(widths)
     dev = tuple(torch.from_numpy(np.concatenate([a, [0]]).astype(np.int32))
-                .to(device) for a in (widths, poff, narrow, wide, slices))
+                .to(device) for a in (widths, poff, narrow, wide))
     return HistLayout(widths, poff, narrow, wide,
                       int(widths[narrow].max(initial=1)),
                       int(widths[wide].max(initial=1)), int(widths.sum()),
-                      bool(bf16), slices, slice_words, dev)
+                      bool(bf16), dev)
 
 
 def check_layout(name: str, binned: torch.Tensor, num_bins: int,
@@ -705,6 +700,142 @@ def _check_i32(binned, codes, w01, num_bins, rows, n_rows):
         raise LightGBMError("leaf_histogram_i32: num_bins must be >= 1")
 
 
+class I32Plan(NamedTuple):
+    """HQ's plan over a matrix's G groups, made once for a Dataset
+    (`i32_plan`): `widths` [G] (each group's bins), `skip` [G] (the bin of
+    each group that the kernel does not add rows into: by default the one
+    most of the matrix's rows hold), `slices` [S, 4] (first group, groups,
+    interleave width or 0 where packed, shared words), `sbase` [S] (each
+    slice's first word in a row block's partial of `part_words`), `woff`
+    [G] (a packed group's first word in its slice, else 0), all int32;
+    `slice_words` (the largest slice's words) and `dev`, the arrays
+    slices, sbase, widths, woff and skip on the matrix's device."""
+    widths: np.ndarray
+    skip: np.ndarray
+    slices: np.ndarray
+    sbase: np.ndarray
+    woff: np.ndarray
+    part_words: int
+    slice_words: int
+    dev: tuple
+
+
+def i32_slices(widths) -> tuple:
+    """HQ's slices of groups of `widths` bins: runs of consecutive groups
+    of one kind, in order, each within HIST_I32_WORDS words. Interleaved
+    (widths up to HQ_INTERLEAVE_BINS): an item of 32 lanes, one column a
+    (slot, row phase), takes 3 * 32 * wn words, wn the slice's widest
+    group. Packed: each group 3 * width words from its `woff`, the slice
+    rounded up to 4 words. Returns (slices [S, 4], woff [G])."""
+    widths = np.asarray(widths, np.int64)
+    woff = np.zeros(len(widths), np.int32)
+    out = []
+    g0 = gc = wn = pw = 0
+    il = True
+
+    def words(il, wn, gc, pw):
+        return 96 * wn * -(-gc // 32) if il else (pw + 3) // 4 * 4
+
+    for g, w in enumerate(widths):
+        w = int(w)
+        kind = w <= HQ_INTERLEAVE_BINS
+        if gc and kind == il and words(
+                il, max(wn, w), gc + 1, pw + 3 * w) <= HIST_I32_WORDS:
+            gc += 1
+        else:
+            if gc:
+                out.append((g0, gc, wn if il else 0, words(il, wn, gc, pw)))
+            g0, gc, wn, pw, il = g, 1, 0, 0, kind
+        wn = max(wn, w)
+        if not kind:
+            woff[g] = pw
+            pw += 3 * w
+    if gc:
+        out.append((g0, gc, wn if il else 0, words(il, wn, gc, pw)))
+    return np.asarray(out, np.int32).reshape(-1, 4), woff
+
+
+def group_counts(binned: torch.Tensor, widths) -> np.ndarray:
+    """How many rows of `binned` [N, G] hold each bin of each group,
+    counted on the matrix's device in passes of _MODE_ROWS rows; bins at
+    or past a group's width are not counted. int64 [G, max width]."""
+    g_cnt = binned.shape[1]
+    widths = torch.as_tensor(np.asarray(widths, np.int64),
+                             device=binned.device)
+    wmax = int(widths.max()) if g_cnt else 1
+    counts = torch.zeros(g_cnt * wmax + 1, dtype=torch.int64,
+                         device=binned.device)
+    base = torch.arange(g_cnt, device=binned.device) * wmax
+    for r0 in range(0, binned.shape[0], _MODE_ROWS):
+        bins = widen_bins(binned[r0:r0 + _MODE_ROWS]).long()
+        flat = torch.where(bins < widths[None, :], base[None, :] + bins,
+                           g_cnt * wmax)
+        counts += torch.bincount(flat.reshape(-1), minlength=len(counts))
+    return counts[:-1].view(g_cnt, wmax).cpu().numpy()
+
+
+def i32_plan(binned: torch.Tensor, num_bins: int,
+             group_bins=None, skip=None) -> I32Plan:
+    """HQ's plan for the binned matrix [N, G] (uint8, or uint16 with each
+    group's own bin count `group_bins`; a uint8 matrix's groups are all
+    `num_bins` wide): its slices, and the skipped bin of each group,
+    `skip` when given, else the one most of the matrix's rows hold (the
+    lowest of equal counts)."""
+    g_cnt = binned.shape[1]
+    widths = np.full(g_cnt, int(num_bins), np.int32) if group_bins is None \
+        else np.asarray(group_bins, np.int32)
+    if widths.shape != (g_cnt,) or widths.min(initial=1) < 1 \
+            or widths.max(initial=1) > min(int(num_bins), MAX_GROUP_BINS):
+        raise LightGBMError("i32_plan: each of the %d groups takes 1..%d "
+                            "bins" % (g_cnt, min(int(num_bins),
+                                                 MAX_GROUP_BINS)))
+    counts = group_counts(binned, widths)
+    skip = counts.argmax(1).astype(np.int32) if skip is None \
+        else np.asarray(skip, np.int32)
+    if skip.shape != (g_cnt,) or np.any(skip < 0) or np.any(skip >= widths):
+        raise LightGBMError("i32_plan: a skipped bin lies in its group")
+    slices, woff = i32_slices(widths)
+    sbase = np.concatenate([[0], np.cumsum(slices[:, 3])[:-1]]).astype(
+        np.int32)
+    dev = tuple(torch.from_numpy(np.ascontiguousarray(
+        np.concatenate([a.reshape(-1), [0]]).astype(np.int32))).to(
+            binned.device) for a in (slices, sbase, widths, woff, skip))
+    return I32Plan(widths, skip, slices, sbase, woff,
+                   int(slices[:, 3].sum()), int(slices[:, 3].max(initial=4)),
+                   dev)
+
+
+def i32_grid(plan: I32Plan, n: int, row_bytes: int) -> tuple:
+    """HQ's row blocks over n positions that read `row_bytes` a row
+    (bins, codes, w01 and a row list's id): (blocks, chunk, xs), `chunk`
+    positions a block (a multiple of 32) and the reduction's split."""
+    n = max(int(n), 1)
+    blocks = max(1, min(-(-HQ_TARGET_BLOCKS // len(plan.slices)),
+                        -(-n // HQ_MIN_ROWS),
+                        n * int(row_bytes) // (4 * plan.part_words)))
+    chunk = -(-(-(-n // blocks)) // 32) * 32
+    blocks = -(-n // chunk)
+    xs = max(1, min(blocks, -(-HQ_REDUCE_THREADS // plan.part_words)))
+    return blocks, chunk, xs
+
+
+def check_i32_plan(binned: torch.Tensor, num_bins: int,
+                   plan: Optional[I32Plan]) -> None:
+    """Raise unless `plan` is an i32_plan of the matrix `binned` (its
+    groups, at most `num_bins` wide, uint8 ones all that wide, on its
+    device): the card's HQ reads the groups by it."""
+    g_cnt = binned.shape[1]
+    if plan is None or plan.widths.shape != (g_cnt,) \
+            or int(plan.widths.max(initial=1)) > num_bins \
+            or (binned.dtype == torch.uint8
+                and np.any(plan.widths != num_bins)) \
+            or plan.dev[0].device != binned.device:
+        raise LightGBMError(
+            "leaf_histogram_i32: the card's kernel takes the i32_plan of "
+            "its matrix's %d groups (at most %d bins each) on %s"
+            % (g_cnt, num_bins, binned.device))
+
+
 def leaf_histogram_i32_plain(binned: torch.Tensor, codes: torch.Tensor,
                              w01: torch.Tensor, num_bins: int,
                              rows: Optional[torch.Tensor] = None,
@@ -733,14 +864,15 @@ def leaf_histogram_i32(binned: torch.Tensor, codes: torch.Tensor,
                        rows: Optional[torch.Tensor] = None,
                        n_rows: Optional[int] = None,
                        out: Optional[torch.Tensor] = None,
-                       layout: Optional[HistLayout] = None) -> torch.Tensor:
+                       plan: Optional[I32Plan] = None) -> torch.Tensor:
     """HQ: the [G, B, 3] int32 histogram (sum q_g*w01, sum q_h*w01, sum
     w01) of the rows 0..N-1, or of rows[:n_rows]; written into `out`
     (contiguous, that shape) when given. The caller keeps qmax * N below
-    2^31 (`train_qmax`), so no sum overflows. On the card a uint16 matrix
-    (groups past 256 bins) takes its `hist_layout` (either mode's: HQ
-    reads the widths, word offsets and slices), each group at its own
-    width; a bin past it is 0."""
+    2^31 (`train_qmax`), so no sum overflows. On the card the matrix
+    takes its `i32_plan` (a uint16 one with each group's own width; a
+    bin past it is 0), and its rows hold each group's bin below that
+    width, as a Dataset's do: the kernel fills each group's skipped bin
+    from the rows' totals."""
     _check_i32(binned, codes, w01, num_bins, rows, n_rows)
     shape = (binned.shape[1], num_bins, 3)
     if out is not None and (tuple(out.shape) != shape
@@ -763,8 +895,7 @@ def leaf_histogram_i32(binned: torch.Tensor, codes: torch.Tensor,
                             "(at most 256 a group) or uint16 bins (at most "
                             "%d)" % MAX_GROUP_BINS)
     g_cnt = binned.shape[1]
-    if u16:
-        check_layout("leaf_histogram_i32", binned, num_bins, layout)
+    check_i32_plan(binned, num_bins, plan)
     for t in (binned, codes, w01, rows):
         if t is not None and not t.is_contiguous():
             raise LightGBMError("leaf_histogram_i32 takes contiguous "
@@ -775,19 +906,24 @@ def leaf_histogram_i32(binned: torch.Tensor, codes: torch.Tensor,
     lib = _build.load_library("histogram")
     if out is None:
         out = torch.empty(shape, dtype=torch.int32, device=binned.device)
+    blocks, chunk, xs = i32_grid(
+        plan, n, g_cnt * binned.element_size() + 8
+        + (4 if rows is not None else 0))
+    part = torch.empty(blocks * plan.part_words, dtype=torch.int32,
+                       device=binned.device)
 
     def ptr(t):
         return ctypes.c_void_p(None if t is None else t.data_ptr())
 
     with torch.cuda.device(binned.device):
         stream = torch.cuda.current_stream(binned.device).cuda_stream
-        widths, poff, _, _, slices = layout.dev if u16 else (None,) * 5
+        slices, sbase, widths, woff, skip = plan.dev
         rc = lib.lgbt_leaf_histogram_i32(
             ptr(binned), g_cnt, int(u16), ptr(codes), ptr(w01), ptr(rows),
-            n, num_bins, ptr(slices),
-            len(layout.slices) - 1 if u16 else 0,
-            layout.slice_words if u16 else 0, ptr(widths), ptr(poff),
-            ptr(out), ctypes.c_void_p(stream))
+            n, num_bins, ptr(slices), len(plan.slices), plan.slice_words,
+            ptr(sbase), plan.part_words, ptr(widths), ptr(woff), ptr(skip),
+            blocks, chunk, xs, ptr(part), ptr(out),
+            ctypes.c_void_p(stream))
     if rc != 0:
         raise LightGBMError("leaf_histogram_i32 launch failed: CUDA error "
                             "%d (%s)" % (rc, lib.lgbt_error_string(rc)

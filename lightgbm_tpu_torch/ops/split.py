@@ -25,7 +25,10 @@ otherwise. Against the JAX package the choice agrees wherever the top
 two gains are apart by more than f32 round-off.
 
 `split_scan` launches the kernel for CUDA tensors (or raises) and runs
-the plain version for CPU tensors; it counts launches in
+the plain version for CPU tensors. The kernel spreads a launch over a
+grid of (tile of features) x (leaf), the tiles from `split_plan`, and
+keeps its plan and scratch on the `device_fmeta` it is given. It counts
+launches in
 `split_scan.launches`, and those at more than 256 bins a feature (past
 16 of XLA's blocks, whose totals are scanned in blocks again) also in
 `split_scan.launches_wide`, and those over features of which one is
@@ -37,7 +40,7 @@ from __future__ import annotations
 import ctypes
 import threading
 from dataclasses import dataclass
-from typing import Dict, Optional, Tuple
+from typing import Dict, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -94,8 +97,16 @@ class SplitParams:
 class DeviceMeta(dict):
     """The kernel's feature metadata tensors by name; `categorical` says,
     on the host, whether a feature is categorical (S then evaluates its
-    one-vs-rest variant)."""
+    one-vs-rest variant). On the card S keeps its launch state here, made
+    at the first launch (`_launch_state`): its plans by scan width, its
+    scratch table of the features' bests and its per-leaf tickets. The
+    launches that share one DeviceMeta run in one stream's order."""
     categorical = False
+
+    def __init__(self, *args, **kw):
+        super().__init__(*args, **kw)
+        self.plans: Dict[int, "SplitPlan"] = {}
+        self.scratch: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
 
 
 def device_fmeta(fm: Dict[str, np.ndarray], device) -> DeviceMeta:
@@ -157,6 +168,65 @@ def xla_cumsum(x: torch.Tensor) -> torch.Tensor:
         xla_cumsum(within[..., -1])[..., :-1], (1, 0))
     return (within + before[..., None]).reshape(
         *x.shape[:-1], nb * base)[..., :n]
+
+
+# S's launch plan (csrc/split_scan.cu): a block takes `per` consecutive
+# features, one warp each, at most SPLIT_MAX_WARPS; each warp holds its
+# feature's staged bins, its scans and its blocks' totals in a region of
+# `split_region_words` shared words, and a block's regions fit
+# SPLIT_SMEM_BYTES. The features go SPLIT_TARGET_TILES tiles a leaf where
+# there are that many, so a leaf pair puts a block on each of the H100's
+# 132 SMs.
+SPLIT_MAX_WARPS = 8
+SPLIT_SMEM_BYTES = 200 * 1024
+SPLIT_TARGET_TILES = 66
+
+
+class SplitPlan(NamedTuple):
+    """S's grid over F features: `per` features a block, `tiles` blocks a
+    leaf, each warp's shared `region` in words, a block's `smem` bytes."""
+    per: int
+    tiles: int
+    region: int
+    smem: int
+
+
+def split_region_words(feature_bins: int) -> int:
+    """One warp's shared words at scan width FB: the staged [FB, 3] slice
+    with 3 words of 16-byte alignment (rounded up to 4), the scans [3, FB]
+    and the blocks' totals [3, ceil(FB / 16)], rounded up to 4."""
+    fb = int(feature_bins)
+    blocks = -(-fb // XLA_SCAN_BASE)
+    return ((3 * fb + 6) // 4 * 4 + 3 * fb + 3 * blocks + 3) // 4 * 4
+
+
+def split_plan(num_features: int, feature_bins: int) -> SplitPlan:
+    """S's tiles of F features at scan width FB (see the constants)."""
+    f_cnt, fb = int(num_features), int(feature_bins)
+    if f_cnt < 1 or not 1 <= fb <= MAX_FEATURE_BINS:
+        raise LightGBMError("split_plan: at least one feature and 1..%d "
+                            "bins a feature" % MAX_FEATURE_BINS)
+    region = split_region_words(fb)
+    fit = SPLIT_SMEM_BYTES // (4 * region)
+    per = max(1, min(SPLIT_MAX_WARPS, fit,
+                     -(-f_cnt // SPLIT_TARGET_TILES)))
+    return SplitPlan(per, -(-f_cnt // per), region, per * region * 4)
+
+
+def _launch_state(fmeta: DeviceMeta, feature_bins: int, c_cnt: int):
+    """S's plan at this scan width and its scratch for c_cnt leaves: the
+    table of the features' bests (5 words a feature and leaf) and the
+    per-leaf tickets, zeroed once and set back to 0 by every launch."""
+    f_cnt = int(fmeta["num_bin"].shape[0])
+    plan = fmeta.plans.get(feature_bins)
+    if plan is None:
+        plan = fmeta.plans[feature_bins] = split_plan(f_cnt, feature_bins)
+    if fmeta.scratch is None or fmeta.scratch[1].shape[0] < c_cnt:
+        dev = fmeta["num_bin"].device
+        fmeta.scratch = (
+            torch.empty(c_cnt * f_cnt * 5, dtype=torch.float32, device=dev),
+            torch.zeros(c_cnt, dtype=torch.int32, device=dev))
+    return plan, fmeta.scratch
 
 
 def split_scan_plain(hist: torch.Tensor, sums: torch.Tensor,
@@ -340,6 +410,11 @@ def split_scan(hist: torch.Tensor, sums: torch.Tensor, depth: torch.Tensor,
     if feature_bins > MAX_FEATURE_BINS:
         raise LightGBMError("split_scan takes at most %d bins a feature "
                             "(got %d)" % (MAX_FEATURE_BINS, feature_bins))
+    if not isinstance(fmeta, DeviceMeta):
+        raise LightGBMError("split_scan on the card takes the feature "
+                            "metadata of device_fmeta(...)")
+    plan, (best_tab, tickets) = _launch_state(fmeta, int(feature_bins),
+                                              c_cnt)
     lib = _build.load_library("split")
     dev = hist.device
     if out is None:
@@ -352,12 +427,13 @@ def split_scan(hist: torch.Tensor, sums: torch.Tensor, depth: torch.Tensor,
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = lib.lgbt_split_scan(
             p(hist.data_ptr()), c_cnt, g_cnt, b_cnt, f_cnt, int(feature_bins),
-            p(sums.data_ptr()), p(depth.data_ptr()),
+            plan.per, p(sums.data_ptr()), p(depth.data_ptr()),
             *[p(fmeta[k].data_ptr()) for k in FMETA_KEYS],
             p(mask.data_ptr()), float(params.lambda_l1),
             float(params.lambda_l2), float(params.min_gain_to_split),
             int(params.min_data_in_leaf),
             float(params.min_sum_hessian_in_leaf), int(params.max_depth),
+            p(best_tab.data_ptr()), p(tickets.data_ptr()),
             p(feat_gain.data_ptr()), p(out_f.data_ptr()),
             p(out_i.data_ptr()), p(stream))
     if rc != 0:

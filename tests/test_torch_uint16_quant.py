@@ -13,10 +13,10 @@ Held here:
 - HQ's plain version on uint16 bins equal to the JAX quantized
   `leaf_histogram` and `gathered_leaves_histogram` (int8 and int16
   codes from the JAX quantizer's stream), bitwise in int32;
-- HQ's slices of the groups (`hist_layout`): whole groups in order,
-  each slice within the shared budget, 8 at the Bosch layout; a uint16
-  matrix without its layout is refused by name, as the card's kernels
-  refuse it;
+- HQ's slices of the groups (`i32_slices`): whole groups of one kind
+  in order, each slice within the shared budget, 9 at the Bosch widths;
+  a uint16 matrix without H's layout is refused by name, as the card's
+  kernels refuse it;
 - `train` with int8, int16 and int8 + bagging on the Bosch-like fixture
   (7 leaves, 4 rounds): the same trees as the JAX package, leaf
   values and raw predictions within the tolerances
@@ -142,20 +142,33 @@ def test_hq_on_uint16_bins_is_the_jax_int32_histogram(name, mode, rows):
 
 
 def test_hq_slices_pack_whole_groups_under_the_shared_budget():
-    # the Bosch widths: 70 groups of 631 bins, 268 of 63 (61,054 bins)
-    bosch = np.array([631] * 70 + [63] * 268)
-    for widths, count in ((datasets("bosch")[3].groups.group_num_bin, 1),
-                          (bosch, 8), (bosch[::-1], 8),
-                          (np.full(5, 2048), 2)):
-        lay = th.hist_layout(widths, True)
-        s = lay.slices
-        assert s[0] == 0 and s[-1] == len(widths) and np.all(np.diff(s) > 0)
-        words = [3 * int(np.sum(widths[a:z])) for a, z in zip(s[:-1], s[1:])]
-        assert max(words) == lay.slice_words <= th.HIST_I32_WORDS
-        # no slice could have taken the next group too
-        assert all(w + 3 * int(widths[z]) > th.HIST_I32_WORDS
-                   for w, z in zip(words[:-1], s[1:-1]))
-        assert len(s) - 1 == count
+    # the Bosch widths: 268 sparse numerics of 63 bins, then 70 one-hot
+    # bundles of 631 (61,054 bins); HQ interleaves the narrow groups by
+    # lane (3 x 32 words a bin a turn of 32 groups) and packs the wide
+    # ones at their widths
+    bosch = np.array([63] * 268 + [631] * 70)
+    for widths, count in ((datasets("bosch")[3].groups.group_num_bin, None),
+                          (bosch, 9), (np.full(5, 2048), 2)):
+        s, woff = th.i32_slices(widths)
+        widths = np.asarray(widths, np.int64)
+        assert s[0, 0] == 0 and s[-1, 0] + s[-1, 1] == len(widths)
+        assert np.all(s[1:, 0] == s[:-1, 0] + s[:-1, 1])
+        words = []
+        for g0, gc, wn, wd in s:
+            grp = widths[g0:g0 + gc]
+            # whole groups of one kind, within the shared budget
+            assert (grp <= th.HQ_INTERLEAVE_BINS).all() == bool(wn)
+            assert (grp > th.HQ_INTERLEAVE_BINS).all() == (not wn)
+            assert wd == (96 * wn * -(-gc // 32) if wn
+                          else (3 * grp.sum() + 3) // 4 * 4)
+            words.append(wd)
+        assert max(words) <= th.HIST_I32_WORDS
+        # no packed slice could have taken the next group too
+        for (g0, gc, wn, wd), z in zip(s[:-1], s[1:, 0]):
+            if not wn and widths[z] > th.HQ_INTERLEAVE_BINS:
+                assert wd + 3 * widths[z] > th.HIST_I32_WORDS
+        if count is not None:
+            assert len(s) == count
 
 
 def test_a_uint16_matrix_without_its_layout_is_refused_by_name():
