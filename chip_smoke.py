@@ -18,7 +18,16 @@ Phases, any failure raises and the script exits non-zero:
    16,384 rows half of which are edge cases: K2 must equal its plain
    version, K1 must equal it bitwise and its epilogue within 2e-7, a
    second run must repeat the bits, and 64 rows must match the f64 host
-   oracle Tree.predict_row within 1e-4 relative;
+   oracle Tree.predict_row within 1e-4 relative; then K1 at 1, 7, 32,
+   256, 4,096, 32,768 and 32,769 rows (its trees mode up to
+   TREE_PARALLEL_MAX_ROWS, rows mode past it) and 262,144, each twice,
+   bitwise equal to its plain version and its repeat, on 4,096 edge-case
+   rows, 4,096 rows of NaN, +inf and -inf cells and seeded rows: on
+   both forests, on one with two trees of 4,096 leaves among 20 of the
+   full forest's (records read from device memory), on a 20-tree forest
+   over 300-column rows (rows read from device memory; up to 65,536
+   rows), alone and with two such large trees; K1-f16 the same way on
+   the full forest;
 3. serving main path: Booster(model_str=...) on the default device,
    predict on 262,144 rows (value, raw_score, pred_leaf), the serving
    Predictor (warmup, 32 predict_one, 256 submit from 8 threads, stats),
@@ -30,9 +39,15 @@ Phases, any failure raises and the script exits non-zero:
 4. serving times: K1 and K2 on all 262,144 rows, in one launch and in
    the engine's row chunks, must equal their plain versions (K1
    bitwise); then CUDA events around each kernel and its plain version
-   at 262,144 rows (median of 12 after warm-up), Booster.predict end to
-   end, a torch.profiler breakdown of one Booster.predict (device busy
-   time against host wall time), Predictor latency percentiles;
+   at 262,144 rows (median of 12 after warm-up), K1 and K1-f16 device
+   time alone (a CUDA graph of one call, replayed; the JSON row keeps
+   K1's at 262,144 rows) at 262,144 rows, the engine's 131,072-row chunk
+   (K1) and one row, and K1 on one row with CUDA events around the
+   wrapper, K1 in each of its modes at 4,096 to 131,072 rows (the
+   crossover), Booster.predict end to end, a torch.profiler breakdown of
+   one Booster.predict (device busy time against host wall time),
+   Predictor latency percentiles; the main path's K1 launches are
+   counted by mode;
 5. ranking main path: the repo's ranking protocol
    (scripts/measure_accuracy.py _ranking_task) at full width,
    rank_data(600,000, seed 17) as 500,000 training rows (5,000 queries
@@ -161,7 +176,8 @@ Phases, any failure raises and the script exits non-zero:
     on those systems (fitted exact, beta within 1e-5 * max(1, |plain|))
     and on a batch with a singular, an under-populated and a padded-slot
     leaf at linear_lambda 0; LA bitwise on 2,000,000 rows with NaN and
-    inf rows; K1 on the trained linear forest bitwise on 262,144 rows; W's
+    inf rows; K1 on the trained linear forest bitwise and repeating its
+    bits at phase 2's row counts up to the 262,144 valid rows; W's
     leaf mode equal; LM as the main path calls it (leaf_feature_moments
     over the last tree's 255 leaf ids and the trained model's gradients)
     and on the first tree's leaves, all four channels per bin within
@@ -176,12 +192,13 @@ Phases, any failure raises and the script exits non-zero:
     features, leaf values and coefficients within 1e-5 relative, valid
     AUC within 2e-3;
 20. times: each new kernel's device time (torch.profiler; CUDA events
-    for LS and K1; LM on the main path's call), its plain version, bound and library yardstick
-    (index_add_ for LF, torch.linalg.solve for LS, torch.bincount x4 for
-    LM); seconds per linear round against phase 12's constant round; one
-    profiled linear round; the BENCH_SHAPE=linear gate (bench.py:1562-
-    1620: 20,000 x 10 rows, regression, 31 leaves, 60 rounds) on the
-    card, its ratio at most 0.7;
+    for LS; a CUDA graph replay for K1; LM on the main path's call), its
+    plain version, bound and library yardstick (index_add_ for LF,
+    torch.linalg.solve for LS, torch.bincount x4 for LM); seconds per
+    linear round against phase 12's constant round; one profiled linear
+    round; the BENCH_SHAPE=linear gate (bench.py:1562-1620: 20,000 x 10
+    rows, regression, 31 leaves, 60 rounds) on the card, its ratio at
+    most 0.7;
 21. serving-extras kernels vs plain: the phase-2 forests with binned
     thresholds (`synthetic_forest_text(..., max_bin=255)`: at most 254
     bounds and one missing type a feature, as a model trained at
@@ -205,8 +222,10 @@ Phases, any failure raises and the script exits non-zero:
     tpu_predict_quantize=f16 and int8; the gate's delta within
     tpu_predict_quantize_tol; through Predictor the gate waits out
     warmup and measures the first real request; every count of ES, QC,
-    QW and K1-f16 set to 0 before and read after; the bulk raw scores
-    equal to the plain versions on the same rows; pred_early_stop
+    QW and K1-f16 set to 0 before and read after (K1-f16's by mode);
+    the bulk raw scores equal to the plain versions on the same rows;
+    K1-f16 bitwise its plain version and its repeat at 1 and 262,144
+    rows; pred_early_stop
     ignored by a regression model; pred_contrib on 2,048 rows of phase
     9's model (row sums within 1e-5 * max(1, |raw|)); dump_model as
     JSON; predict from a 4,096-row TSV of the valid set equal to the
@@ -223,8 +242,9 @@ Phases, any failure raises and the script exits non-zero:
     bounds (ES over the node visits of the trees each row walked), QC's
     yardstick torch.searchsorted over the [F, K] grid; QC and
     torch.searchsorted also as device time alone (a CUDA graph of one
-    call, replayed), which the JSON row keeps; Booster.predict end to
-    end for f32, f16, int8 and early stop;
+    call, replayed), which the JSON row keeps, and K1-f16 the same way
+    (also on one row); Booster.predict end to end for f32, f16, int8
+    and early stop;
 25. GOSS, DART and RF main paths on the phase-9 Datasets, every count
     set to 0 before each run and read after it: boosting=goss (top_rate
     0.2, other_rate 0.1, 20 rounds: it samples from round 11), GT and GW
@@ -414,6 +434,12 @@ CHECK_ROWS = 16_384
 # rows of the k = 64 linear design (phase 18): its f64 oracle holds
 # [rows, 65 x 65] products
 WIDE_ROWS = 65_536
+# K1's rows read from device memory (phase 2): 300-column rows, whose
+# staged block would pass the card's shared memory
+K1_WIDE_FEATURES, K1_WIDE_ROWS = 300, 65_536
+# trees of 4,096 leaves (4,095 nodes, 64 KB of records each, more than
+# K1's record buffer) grow over 32,768 sample rows
+BIG_LEAVES, BIG_SAMPLE_ROWS = 4096, 32_768
 REPS = 12
 # published H100 SXM peaks (NVIDIA H100 datasheet, 700 W): HBM rate,
 # and the f32 rate outside the tensor cores, 67 TFLOP/s = 132 SMs x 128
@@ -453,6 +479,11 @@ INSTR_PER_DRAW = 80
 def check(ok, what):
     if not ok:
         raise RuntimeError("chip_smoke check failed: " + what)
+
+
+def bitwise(a, b):
+    return a.shape == b.shape and torch.equal(a.view(torch.int32),
+                                              b.view(torch.int32))
 
 
 def card_line():
@@ -635,6 +666,48 @@ def bound(bytes_moved, ops=0.0):
     ops_ms = ops / INSTR_PER_S * 1e3
     return max(bytes_ms, ops_ms), ("operations" if ops_ms > bytes_ms
                                    else "bytes")
+
+
+def k1_counts(P, n_max):
+    """The row counts K1 is held at: its trees mode (1 to 4,096 rows),
+    either side of the crossover to rows mode, and the bulk shape."""
+    return [n for n in (1, 7, 32, 256, 4096, P.TREE_PARALLEL_MAX_ROWS,
+                        P.TREE_PARALLEL_MAX_ROWS + 1, BULK_ROWS)
+            if n <= n_max]
+
+
+def hold_k1(label, walk, forest, x, ref, P):
+    """walk(forest, rows) on the first n rows of x for each k1_counts n,
+    twice: bitwise the plain output `ref` on those rows and its repeat.
+    Returns the largest |walk - plain|."""
+    err, modes = 0.0, []
+    for n in k1_counts(P, x.shape[0]):
+        xn = x[:n].contiguous()
+        got, again = walk(forest, xn), walk(forest, xn)
+        torch.cuda.synchronize()
+        check(bitwise(got, ref[:n]) and bitwise(got, again),
+              "%s: K1 not bitwise equal to plain and its repeat at %d rows"
+              % (label, n))
+        err = max(err, float((got - ref[:n]).abs().max()))
+        modes.append("%d (%s mode)" % (n, P.walk_plan(
+            forest.num_trees, forest.split_feature.shape[1],
+            forest.num_features, n, forest.linear_k > 0).mode))
+    print("kernels vs plain [%s]: bitwise equal to plain and its repeat at "
+          "%s rows" % (label, ", ".join(modes)))
+    return err
+
+
+def held_rows(trees, nf, cats, n):
+    """n rows to hold K1 on: 4,096 edge cases (`edge_case_rows`), 4,096
+    seeded rows with NaN, +inf and -inf cells, then seeded rows."""
+    from lightgbm_tpu_torch.testing.synth import edge_case_rows, synthetic_rows
+    special = synthetic_rows(8, 4096, nf, cats)
+    special[::3, ::2] = np.inf
+    special[1::3, 1::2] = -np.inf
+    special[2::3, ::3] = np.nan
+    special[::5, 1::4] = np.nan
+    return np.concatenate([edge_case_rows(trees, nf, 3, 4096, cats), special,
+                           synthetic_rows(2, n - 8192, nf, cats)])
 
 
 def sums_err(got, ref, oracle, label):
@@ -2105,14 +2178,9 @@ def linear(name, card, dev, ctx):
     errs["linear_addend"] = 0.0
     forest = predict.stack_trees(booster._inner.models, dev)
     xvd = torch.from_numpy(xv).to(dev)
-    walks = [fn(forest, xvd) for fn in (predict.forest_value_walk,
-                                        predict.forest_value_walk,
-                                        predict.forest_value_walk_plain)]
-    check(all(torch.equal(walks[0].view(torch.int32), w.view(torch.int32))
-              for w in walks[1:]),
-          "K1 (linear forest, %d rows): not bitwise equal to its repeat and "
-          "plain" % VALID_ROWS)
-    errs["forest_value_walk_linear"] = 0.0
+    errs["forest_value_walk_linear"] = hold_k1(
+        "linear forest", predict.forest_value_walk, forest, xvd,
+        predict.forest_value_walk_plain(forest, xvd), predict)
     bt = predict.binned_tree(booster._inner.models[0], dev)
     vb = booster._inner._valid_binned[0]
     leaves = [fn(bt, vb) for fn in (predict.tree_leaf_walk_binned,
@@ -2160,7 +2228,7 @@ def linear(name, card, dev, ctx):
     print("linear kernels vs plain [%d rows, %d leaves, k %d]: LF A/b within "
           "%.3g (counts exact), LS fitted exact (singular, under-populated "
           "and padded leaves fall back or pin as plain), LA bitwise with "
-          "NaN/inf rows, K1 linear bitwise on %d rows, W leaf mode equal, "
+          "NaN/inf rows, K1 linear bitwise at 1 to %d rows, W leaf mode equal, "
           "LM's four channels within %.3g on the main path's call (%d leaf "
           "ids) and on the first tree's leaves, leaf_feature_moments its sum "
           "over bins, equal to LF's b; every kernel repeated its bits"
@@ -2272,7 +2340,8 @@ def linear(name, card, dev, ctx):
     visits = int(depth.gather(1, leaf.t().long()).sum())
     walk_ops = visits * INSTR_PER_VISIT + VALID_ROWS * TRAIN_ROUNDS * k * 4
     times["forest_value_walk_linear"] = (
-        None, median_ms(lambda: predict.forest_value_walk(forest, xvd)),
+        graph_ms(lambda: predict.forest_value_walk(forest, xvd)),
+        median_ms(lambda: predict.forest_value_walk(forest, xvd)),
         median_ms(lambda: predict.forest_value_walk_plain(forest, xvd),
                   reps=5),
         bound(xvd.numel() * 4 + VALID_ROWS * 4 + forest.nbytes(), walk_ops),
@@ -2725,11 +2794,6 @@ OUT_DIR = pathlib.Path(__file__).resolve().parent / "build" / "chip_smoke"
 INSTR_PER_CODE, INSTR_PER_STEP = 10, 4
 
 
-def bitwise(a, b):
-    return a.shape == b.shape and torch.equal(a.view(torch.int32),
-                                              b.view(torch.int32))
-
-
 def walked_visits(depth, leaf_t, iters):
     """Node visits of the trees each row walked: depth [T, L] of a
     K = 1 stack, leaf_t [T, N] its rows' leaves, iters [N]."""
@@ -2969,6 +3033,7 @@ def serving_extras(name, card, dev, ctx, phase2_text):
     xb = torch.from_numpy(bulk).to(dev)
     for fn in kernels.values():
         fn.launches = 0
+    P.forest_value_walk_f16.launches_rows = 0
     booster = lgb.Booster(model_str=text)
     check(booster.device.type == "cuda", "default device is not cuda")
     bias = booster._inner.init_score_bias
@@ -3009,7 +3074,10 @@ def serving_extras(name, card, dev, ctx, phase2_text):
                   mode, delta, booster._inner._QUANT_CALIB_ROWS, tol,
                   first))
     launches = {k: fn.launches for k, fn in kernels.items()}
-    print("serving extras main path launches:", launches)
+    f16_rows = P.forest_value_walk_f16.launches_rows
+    print("serving extras main path launches:", launches, "(K1-f16: %d in "
+          "trees mode, %d in rows mode)" % (
+              launches["forest_value_walk_f16"] - f16_rows, f16_rows))
     check(all(v > 0 for v in launches.values()),
           "a serving-extras kernel of the main path was never launched")
     plain = {
@@ -3021,6 +3089,19 @@ def serving_extras(name, card, dev, ctx, phase2_text):
     qf = P.stack_trees_quant(trees, dev)
     plain["int8"] = P.forest_quant_walk_plain(
         qf, P.quant_codes_plain(qf, xb), xb)
+    f16 = P.to_f16(P.stack_trees(trees, dev))
+    for n in (1, BULK_ROWS):
+        xn = xb[:n].contiguous()
+        got = P.forest_value_walk_f16(f16, xn)
+        check(bitwise(got, plain["f16"][:n])
+              and bitwise(got, P.forest_value_walk_f16(f16, xn)),
+              "K1-f16 not bitwise equal to plain and its repeat at %d rows"
+              % n)
+        errs["forest_value_walk_f16"] = max(
+            errs["forest_value_walk_f16"],
+            float((got - plain["f16"][:n]).abs().max()))
+    print("kernels vs plain [binned full, f16 leaves]: K1-f16 bitwise equal "
+          "to plain and its repeat at 1 and %d rows" % BULK_ROWS)
     sig = P.OutputTransform("sigmoid", bias=bias)
     for label, raw, value in (("early stop", es_raw, es_value),
                               ("f16",) + quant["f16"][::-1],
@@ -3198,6 +3279,17 @@ def serving_extras(name, card, dev, ctx, phase2_text):
               "(%s)%s" % (name, card, kname, ms, plain_ms, b_ms, b_by,
                           "" if lib_ms is None else
                           ", torch.searchsorted %.4f ms" % lib_ms))
+        if kname == "forest_value_walk_f16":
+            # device time alone at the bulk shape, which the JSON row
+            # keeps, and on one row
+            wrapper_ms = ms
+            ms = graph_ms(kernel)
+            one = xb[:1].contiguous()
+            print("time [%s | %s]: forest_value_walk_f16 device %.4f ms (CUDA "
+                  "graph replay), call %.4f ms; 1 row device %.4f ms, call "
+                  "%.4f ms" % (name, card, ms, wrapper_ms, graph_ms(
+                      lambda: P.forest_value_walk_f16(f16, one)),
+                      median_ms(lambda: P.forest_value_walk_f16(f16, one))))
         if kname == "quant_codes":
             # QC's device time apart from its wrapper's host time, and
             # the library call's measured the same two ways; the JSON
@@ -5304,10 +5396,11 @@ def main():
         sys.exit(2)
     import lightgbm_tpu_torch as lgb
     from lightgbm_tpu_torch.ops import _build
+    from lightgbm_tpu_torch.ops import predict as P
     from lightgbm_tpu_torch.ops.predict import (
         OutputTransform, apply_output_plain, forest_leaf_walk,
-        forest_leaf_walk_plain, forest_value_walk, forest_value_walk_plain,
-        stack_trees)
+        forest_leaf_walk_plain, forest_value_walk, forest_value_walk_f16,
+        forest_value_walk_plain, stack_trees, to_f16)
     from lightgbm_tpu_torch.testing.synth import (
         edge_case_rows, synthetic_forest_text, synthetic_rows)
 
@@ -5382,10 +5475,49 @@ def main():
         print("kernels vs plain [%s, %d trees]: K2 equal, K1 bitwise equal, "
               "epilogue %.3g, repeat equal, oracle rel %.3g"
               % (label, len(trees), epi, rel))
+    # K1 and its f16 mode at every row count of both modes, on the two
+    # forests, on one whose padded trees pass a record buffer (records
+    # read from device memory) and on 300-column rows (rows read from
+    # device memory), alone and with such trees
+    t0 = time.perf_counter()
+
+    def trees_of(text):
+        return lgb.Booster(model_str=text, device="cpu")._inner.models
+    big = trees_of(synthetic_forest_text(5, 2, BIG_LEAVES, FEATURES,
+                                         sample_rows=BIG_SAMPLE_ROWS))
+    wide = trees_of(synthetic_forest_text(6, 20, 63, K1_WIDE_FEATURES))
+    wide_big = trees_of(synthetic_forest_text(
+        7, 2, BIG_LEAVES, K1_WIDE_FEATURES, sample_rows=BIG_SAMPLE_ROWS))
+    print("K1 forests of large trees and wide rows: %.1f s"
+          % (time.perf_counter() - t0))
+    for label, trees, nf, cats, n in (
+            ("full", host["full"], FEATURES, 0, BULK_ROWS),
+            ("categorical", host["categorical"], FEATURES, 4, BULK_ROWS),
+            ("large trees", big + host["full"][:20], FEATURES, 0,
+             BULK_ROWS),
+            ("wide rows", wide, K1_WIDE_FEATURES, 0, K1_WIDE_ROWS),
+            ("wide rows, large trees", wide_big + wide, K1_WIDE_FEATURES, 0,
+             K1_WIDE_ROWS)):
+        x = torch.from_numpy(held_rows(trees, nf, cats, n)).to(dev)
+        forest = stack_trees(trees, dev)
+        plan = P.walk_plan(forest.num_trees, forest.split_feature.shape[1],
+                           forest.num_features, n)
+        print("K1 plan [%s, %d trees of up to %d nodes, %d columns, %d "
+              "rows]: %s" % (label, forest.num_trees,
+                             forest.split_feature.shape[1], nf, n, plan))
+        errs["forest_value_walk"] = max(errs["forest_value_walk"], hold_k1(
+            label, forest_value_walk, forest, x,
+            forest_value_walk_plain(forest, x), P))
+        if label == "full":
+            f16 = to_f16(forest)
+            hold_k1("full, f16 leaves", forest_value_walk_f16, f16, x,
+                    forest_value_walk_plain(f16, x), P)
+        del x, forest
 
     # ---------------------------------------------------------------- 3
     bulk = synthetic_rows(4, BULK_ROWS, FEATURES)
     forest_value_walk.launches = 0
+    forest_value_walk.launches_rows = 0
     forest_leaf_walk.launches = 0
     booster = lgb.Booster(model_str=text)
     check(booster.device.type == "cuda", "default device is not cuda")
@@ -5413,7 +5545,9 @@ def main():
     predictor.close()
     launches = {"forest_value_walk": forest_value_walk.launches,
                 "forest_leaf_walk": forest_leaf_walk.launches}
-    print("main path launches:", launches)
+    k1_rows = forest_value_walk.launches_rows
+    print("main path launches:", launches, "(K1: %d in trees mode, %d in "
+          "rows mode)" % (launches["forest_value_walk"] - k1_rows, k1_rows))
     check(all(v > 0 for v in launches.values()),
           "a kernel of the main path was never launched")
     check(booster.model_to_string() == text, "model text round trip")
@@ -5504,9 +5638,38 @@ def main():
                   name, card, kname, times[kname]["ms"],
                   times[kname]["plain_ms"], times[kname]["bound_ms"],
                   times[kname]["bound_by"], visits))
+    # K1 and K1-f16 as device time alone (a CUDA graph of one call,
+    # replayed), at the bulk shape, the engine's chunk and one row; the
+    # JSON row keeps the bulk device time
     one_row = x[:1].contiguous()
-    print("time [%s | %s]: forest_value_walk on 1 row %.4f ms" % (
-        name, card, median_ms(lambda: forest_value_walk(forest, one_row))))
+    x_chunk = x[:chunk].contiguous()
+    f16 = to_f16(forest)
+    graph = {"K1 %d rows" % BULK_ROWS: lambda: forest_value_walk(forest, x),
+             "K1 %d rows" % chunk: lambda: forest_value_walk(forest, x_chunk),
+             "K1 1 row": lambda: forest_value_walk(forest, one_row),
+             "K1-f16 %d rows" % BULK_ROWS:
+                 lambda: forest_value_walk_f16(f16, x),
+             "K1-f16 1 row": lambda: forest_value_walk_f16(f16, one_row)}
+    graph = {k: graph_ms(fn) for k, fn in graph.items()}
+    times["forest_value_walk"]["ms"] = graph["K1 %d rows" % BULK_ROWS]
+    print("time [%s | %s]: device (CUDA graph replay) %s ms; K1 on 1 row "
+          "%.4f ms with CUDA events around the wrapper" % (
+              name, card, ", ".join("%s %.4f" % kv for kv in graph.items()),
+              median_ms(lambda: forest_value_walk(forest, one_row))))
+    del f16, x_chunk
+    # K1's two modes either side of its crossover, each forced by moving
+    # TREE_PARALLEL_MAX_ROWS (walk_plan reads it at every call)
+    limit, cross = P.TREE_PARALLEL_MAX_ROWS, []
+    for n in (4096, 16_384, 32_768, 65_536, 131_072):
+        xn = x[:n].contiguous()
+        for mode, at in (("trees", BULK_ROWS), ("rows", 0)):
+            P.TREE_PARALLEL_MAX_ROWS = at
+            cross.append("%d rows %s %.4f" % (n, mode, graph_ms(
+                lambda: forest_value_walk(forest, xn), reps=20)))
+    P.TREE_PARALLEL_MAX_ROWS = limit
+    print("time [%s | %s]: K1 modes (device ms, CUDA graph replay; the "
+          "plan takes trees mode up to %d rows): %s"
+          % (name, card, limit, ", ".join(cross)))
     booster.predict(bulk)
     e2e = []
     for _ in range(REPS):
@@ -5599,6 +5762,7 @@ def ab_child(root, rounds, cat_rounds):
     from lightgbm_tpu_torch.testing.synth import (
         synth_bosch, synth_expo, synth_higgs, synthetic_forest_text,
         synthetic_rows)
+    from lightgbm_tpu_torch.tree import Tree
     check(os.path.dirname(os.path.abspath(lgb.__file__)) == os.path.join(
         os.path.abspath(root), "lightgbm_tpu_torch"),
         "imported %s, not %s's package" % (lgb.__file__, root))
@@ -5606,6 +5770,30 @@ def ab_child(root, rounds, cat_rounds):
     out = {"root": root}
     _build.build_all()
     leaf_histogram = histogram.leaf_histogram
+
+    # K1 and K1-f16 on phase 2's forest, and K1 on its first 10 trees
+    # with seeded linear leaves (k 5, phase 17's width): device time
+    # (CUDA-graph replay) at 262,144 rows and on one row, and one row's
+    # call time
+    trees = lgb.Booster(model_str=synthetic_forest_text(
+        0, TREES, LEAVES, FEATURES), device="cpu")._inner.models
+    forest = P.stack_trees(trees, dev)
+    gen = np.random.RandomState(9)
+    linear = [Tree.from_string(t.to_string()) for t in trees[:TRAIN_ROUNDS]]
+    for t in linear:
+        t.leaf_coeff = gen.normal(0.0, 0.1, (t.num_leaves, 5))
+        t.leaf_features = gen.randint(0, FEATURES, (t.num_leaves, 5)).astype(
+            np.int32)
+    xk = torch.from_numpy(synthetic_rows(4, BULK_ROWS, FEATURES)).to(dev)
+    one = xk[:1].contiguous()
+    for label, walk, stack in (
+            ("K1", P.forest_value_walk, forest),
+            ("K1_f16", P.forest_value_walk_f16, P.to_f16(forest)),
+            ("K1_linear", P.forest_value_walk, P.stack_trees(linear, dev))):
+        out["%s_bulk_device" % label] = graph_ms(lambda: walk(stack, xk))
+        out["%s_1row_device" % label] = graph_ms(lambda: walk(stack, one))
+        out["%s_1row_call" % label] = median_ms(lambda: walk(stack, one))
+    del forest, trees, linear, xk, one
 
     # H at the HIGGS root and on a row list, on the first gradients
     x, y = synth_higgs(TRAIN_ROWS, FEATURES, seed=0)
@@ -5791,7 +5979,11 @@ def ab_main(argv):
     Compares checkouts on one card in one run. Each --ab is a directory
     holding a lightgbm_tpu_torch package, run in a process of its own in
     the order given. The card's name and power limit come first; then
-    per checkout one JSON line: H (leaf_histogram) at the HIGGS root (the
+    per checkout one JSON line: K1 and K1-f16 (forest_value_walk and its
+    f16 mode) on phase 2's 500 x 255 x 28 forest and K1 on its first 10
+    trees with seeded linear leaves (k 5), `*_device` at 262,144 rows
+    and on one row, `*_1row_call` the median of CUDA events around a
+    one-row call; H (leaf_histogram) at the HIGGS root (the
     phase-9 protocol's data and first gradients) in f32 and hi+lo mode
     and on a 966,119-row list, `*_call` the median of CUDA events around
     a call (the wrapper's host time included) and `*_device` the mean of

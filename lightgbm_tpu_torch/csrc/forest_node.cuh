@@ -1,10 +1,13 @@
 // The raw-feature tree walk shared by the forest kernels of
-// lightgbm_tpu_torch: K1, K2 and ES (forest_walk.cu) and QW
+// lightgbm_tpu_torch: K2 and ES (forest_walk.cu) and QW
 // (forest_quant.cu). The Forest struct mirrors ops/predict.py's Forest
 // (node arrays [T, M], leaf values [T, L], categorical bitsets per
 // tree); `walk` follows one row down one tree, with the numeric
-// decision given by the caller (raw f32 threshold for K1, code compare
-// for QW) and the categorical one K1's bitset test.
+// decision given by the caller (raw f32 threshold for K2 and ES, code
+// compare for QW) and the categorical one the bitset test. K1 walks
+// the Forest's 16-byte node records instead (forest_walk.cu) with the
+// same decisions (numeric_left, category_left) and leaf values
+// (tree_value).
 
 #pragma once
 
@@ -116,7 +119,7 @@ __device__ __forceinline__ int walk(const Forest& f, int t,
   return ~node;
 }
 
-// K1's walk: raw f32 thresholds.
+// K2's and ES's walk: raw f32 thresholds.
 __device__ __forceinline__ int leaf_of(const Forest& f, int t,
                                        const float* __restrict__ row) {
   return walk(f, t, row, [&](size_t i, int feature, unsigned decision) {

@@ -33,7 +33,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 _p, _i, _f, _u = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, \
     ctypes.c_uint32
-# the forest-walk pointer block shared by both entry points: x, n, F,
+# the forest-walk pointer block shared by the walk entry points: x, n, F,
 # the eleven Forest arrays, then T, M, L, C+2, W, K
 _WALK_HEAD = [_p, _i, _i] + [_p] * 11 + [_i] * 6
 
@@ -44,9 +44,8 @@ _NO_FMA = ("-fmad=false",)
 # library name -> (source file, {C entry point: argtypes}, extra flags)
 LIBRARIES = {
     "forest": ("forest_walk.cu", {
-        "lgbt_forest_value_walk": _WALK_HEAD + [_i, _f, _f, _f, _p, _p],
-        "lgbt_forest_value_walk_f16": _WALK_HEAD
-        + [_i, _i, _f, _f, _f, _p, _p],
+        "lgbt_forest_value_walk": _WALK_HEAD + [_p] + [_i] * 8
+        + [_f, _f, _f, _p, _p],
         "lgbt_forest_leaf_walk": _WALK_HEAD + [_p, _p],
         "lgbt_forest_early_stop_walk": _WALK_HEAD + [_i, _f, _i, _p, _p, _p],
     }, ()),

@@ -17,6 +17,11 @@ from one to the other on failure. Each wrapper counts its launches in
 a plain integer attribute (`forest_value_walk.launches`), so a run can
 show that its main path went through the kernels.
 
+K1 walks the Forest's 16-byte node records (`node_records`, built once
+a stack) in one of two modes that `walk_plan` picks by the row count: a
+block a row with its trees in parallel, or a row a thread over records
+and rows staged in shared memory (`csrc/forest_walk.cu` says why).
+
 W, `tree_value_walk_binned`, is the counterpart of `predict_value_binned`
 (:182) with `predict_leaf_binned` (:87) and `_decide_binned` (:75): one
 tree walked in the stored-group bin space of a binned matrix (EFB
@@ -99,6 +104,9 @@ class Forest:
     max_depth: int                # deepest leaf: the plain walk's steps
     num_features: int             # 1 + the largest feature read
     num_classes: int = 1          # K of an early-stop [K, T] stack
+    # [T, M, 4] i32, K1's 16-byte node records (`node_records`); None
+    # when the forest does not fit them (K1 refuses it by name)
+    nodes: Optional[torch.Tensor] = None
 
     @property
     def num_trees(self) -> int:
@@ -132,6 +140,44 @@ def _tree_depth(tree) -> int:
             else:
                 stack.append((int(child), depth + 1))
     return deepest
+
+
+# K1's 16-byte node record (csrc/forest_walk.cu): the threshold's f32
+# bits, the feature in the low RECORD_FEATURE_BITS bits with the decision
+# byte above them, the left child, the right child
+RECORD_FEATURE_BITS = 24
+RECORD_MAX_FEATURE = (1 << RECORD_FEATURE_BITS) - 1
+# the kernel indexes a node as t * M + node in 32 bits
+RECORD_MAX_NODES = 2 ** 31 - 1
+
+
+def record_misfit(max_feature: int, num_trees: int,
+                  max_nodes: int) -> Optional[str]:
+    """Why a forest does not fit K1's node records, or None when it does:
+    a feature index past RECORD_MAX_FEATURE, or more than
+    RECORD_MAX_NODES padded nodes."""
+    if max_feature > RECORD_MAX_FEATURE:
+        return ("feature index %d does not fit the 16-byte node record "
+                "(at most %d)" % (max_feature, RECORD_MAX_FEATURE))
+    if num_trees * max_nodes > RECORD_MAX_NODES:
+        return ("node count %d x %d does not fit the 16-byte node record "
+                "(at most %d nodes)" % (num_trees, max_nodes,
+                                        RECORD_MAX_NODES))
+    return None
+
+
+def node_records(split_feature: np.ndarray, threshold: np.ndarray,
+                 decision: np.ndarray, left_child: np.ndarray,
+                 right_child: np.ndarray) -> np.ndarray:
+    """[T, M, 4] int32 node records from the stacked [T, M] arrays: the
+    threshold's bits, feature | decision << 24, left, right. The caller
+    has checked `record_misfit`."""
+    packed = (split_feature.astype(np.int64)
+              | (decision.astype(np.int64) << RECORD_FEATURE_BITS))
+    return np.stack([threshold.astype(np.float32).view(np.int32),
+                     packed.astype(np.uint32).view(np.int32),
+                     left_child.astype(np.int32),
+                     right_child.astype(np.int32)], axis=-1)
 
 
 def stack_trees(trees, device: torch.device) -> Forest:
@@ -198,10 +244,16 @@ def stack_trees(trees, device: torch.device) -> Forest:
     )
     used = [int(np.max(split_features(t))) + 1 for t in trees
             if t.num_leaves > 1] + [int(feat.max()) + 1 if feat.size else 0]
+    nodes = None
+    if record_misfit(int(arrays["split_feature"].max()), len(trees),
+                     max_m) is None:
+        nodes = torch.from_numpy(node_records(
+            *[arrays[k] for k in ("split_feature", "threshold", "decision",
+                                  "left_child", "right_child")])).to(device)
     return Forest(
         **{k: torch.from_numpy(v).to(device) for k, v in arrays.items()},
         max_depth=max(_tree_depth(t) for t in trees),
-        num_features=max(used, default=0))
+        num_features=max(used, default=0), nodes=nodes)
 
 
 def stack_trees_early_stop(models, k: int, t_iters: int,
@@ -226,7 +278,8 @@ def _refuse_linear(linear: bool, layout: str) -> None:
 def to_f16(forest: Forest) -> Forest:
     """The f16 layout of `_stacks_to_f16` (lightgbm_tpu/serving/
     forest.py:429): the same stack with its f32 leaf values rounded to
-    f16 (so f64 -> f32 -> f16, as the JAX package rounds them)."""
+    f16 (so f64 -> f32 -> f16, as the JAX package rounds them); the node
+    arrays and records are the f32 stack's own tensors."""
     _refuse_linear(forest.linear_k > 0, "f16")
     return dataclasses.replace(
         forest, leaf_value=forest.leaf_value.to(torch.float16))
@@ -583,15 +636,20 @@ def _launch(wrapper, entry: str, forest: Forest, x: torch.Tensor,
         forest.decision, forest.left_child, forest.right_child,
         forest.cat_boundaries, forest.cat_bitset, forest.leaf_value,
         forest.leaf_coeff, forest.leaf_feat)]
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        rc = getattr(lib, entry)(
-            ctypes.c_void_p(x.data_ptr()), x.shape[0], x.shape[1], *ptr,
+    args = (ctypes.c_void_p(x.data_ptr()), x.shape[0], x.shape[1], *ptr,
             forest.num_trees, forest.split_feature.shape[1],
             forest.leaf_value.shape[1], forest.cat_boundaries.shape[1],
             forest.cat_bitset.shape[1], forest.linear_k, *extra,
-            *[ctypes.c_void_p(t.data_ptr()) for t in outs],
-            ctypes.c_void_p(stream))
+            *[ctypes.c_void_p(t.data_ptr()) for t in outs])
+    # no device switch when x's card is already the current one (a
+    # served row's launch is mostly this host path)
+    if torch.cuda.current_device() == x.device.index:
+        rc = getattr(lib, entry)(
+            *args, ctypes.c_void_p(torch.cuda.current_stream().cuda_stream))
+    else:
+        with torch.cuda.device(x.device):
+            rc = getattr(lib, entry)(*args, ctypes.c_void_p(
+                torch.cuda.current_stream().cuda_stream))
     _count(wrapper, lib, entry, rc)
 
 
@@ -603,20 +661,113 @@ def _count(wrapper, lib, entry: str, rc: int) -> None:
         wrapper.launches += 1
 
 
+# K1's launch plan (csrc/forest_walk.cu). Up to TREE_PARALLEL_MAX_ROWS
+# rows a launch walks (row, tree) pairs, a block a row ("trees" mode);
+# past it a block of ROWS_THREADS threads walks a row a thread through
+# the forest's records, staged in shared memory a chunk of trees at a
+# time ("rows" mode). The crossover, the threads and the chunk are
+# measured on the card (PERF.md).
+TREE_PARALLEL_MAX_ROWS = 32_768
+ROWS_THREADS = 512
+# one of the two record buffers of "rows" mode: 4 trees of 255 leaves
+CHUNK_BYTES = 16_384
+# trees a pass of "trees" mode (their values in shared memory, 4 B each)
+# and its threads: more for a few rows, where one block's walk is the
+# latency, fewer past PAIRS_WIDE_ROWS rows, where blocks share the SMs
+PAIRS_CHUNK = 2048
+PAIRS_WIDE_ROWS = 512
+PAIRS_THREADS_FEW, PAIRS_THREADS_MANY = 512, 128
+# shared memory one block may use on an H100 (227 KB)
+SHARED_BYTES = 232_448
+RECORD_BYTES = 16
+_MODES = {"trees": 0, "rows": 1}
+
+
+@dataclass(frozen=True)
+class WalkPlan:
+    """One K1 launch: its mode, threads a block, trees a chunk (rows
+    mode: a shared record buffer's trees, 0 when one tree does not fit a
+    buffer and the records are read from device memory; trees mode: the
+    trees of one pass), the row columns staged in shared memory (-1:
+    rows read from device memory) and the dynamic shared memory a block
+    takes."""
+    mode: str
+    threads: int
+    chunk_trees: int
+    staged_features: int
+    shared_bytes: int
+
+    def args(self) -> tuple:
+        return (_MODES[self.mode], self.threads, self.chunk_trees,
+                self.staged_features, self.shared_bytes)
+
+
+def walk_plan(num_trees: int, max_nodes: int, num_features: int, n: int,
+              linear: bool = False) -> WalkPlan:
+    """K1's plan for n rows of a forest of num_trees trees padded to
+    max_nodes nodes that reads num_features row columns; deterministic
+    in its arguments, within SHARED_BYTES. A linear forest's rows mode
+    stages nothing: its leaves read the row from device memory at every
+    tree anyway, so the row's line is in L1 for the walk, and staging
+    would only cost the block's occupancy (PERF.md)."""
+    if n <= TREE_PARALLEL_MAX_ROWS:
+        chunk = min(num_trees, PAIRS_CHUNK)
+        threads = (PAIRS_THREADS_FEW if n <= PAIRS_WIDE_ROWS
+                   else PAIRS_THREADS_MANY)
+        return WalkPlan("trees", min(threads, -(-chunk // 32) * 32), chunk,
+                        -1, chunk * 4)
+    if linear:
+        return WalkPlan("rows", ROWS_THREADS, 0, -1, 0)
+    tree_bytes = max_nodes * RECORD_BYTES
+    chunk = min(num_trees, CHUNK_BYTES // tree_bytes)
+    tree_smem = 2 * chunk * tree_bytes
+    row_smem = num_features * (ROWS_THREADS + 1) * 4
+    if tree_smem + row_smem <= SHARED_BYTES:
+        return WalkPlan("rows", ROWS_THREADS, chunk, num_features,
+                        tree_smem + row_smem)
+    return WalkPlan("rows", ROWS_THREADS, chunk, -1, tree_smem)
+
+
+def _check_records(forest: Forest, name: str) -> None:
+    if forest.nodes is None:
+        raise LightGBMError("%s: %s" % (name, record_misfit(
+            int(forest.split_feature.max()), forest.num_trees,
+            int(forest.split_feature.shape[1]))
+            or "the forest has no node records (stack it with stack_trees)"))
+
+
+def _value_walk(wrapper, forest: Forest, x: torch.Tensor,
+                transform: Optional[OutputTransform], f16: bool
+                ) -> torch.Tensor:
+    """Launch K1 (f16 leaves when `f16`) on the CUDA rows x under its
+    `walk_plan`; counts the launch, and a rows-mode one also in
+    `wrapper.launches_rows`."""
+    out = torch.empty(x.shape[0], dtype=torch.float32, device=x.device)
+    if x.shape[0]:
+        plan = walk_plan(forest.num_trees, forest.split_feature.shape[1],
+                         forest.num_features, x.shape[0],
+                         forest.linear_k > 0)
+        _launch(wrapper, "lgbt_forest_value_walk", forest, x,
+                (ctypes.c_void_p(forest.nodes.data_ptr()),) + plan.args()
+                + (int(f16), QUANT_TREE_BATCH) + _epilogue_args(transform),
+                (out,))
+        if plan.mode == "rows":
+            with _launch_lock:
+                wrapper.launches_rows += 1
+    return out
+
+
 def forest_value_walk(forest: Forest, x: torch.Tensor,
                       transform: Optional[OutputTransform] = None
                       ) -> torch.Tensor:
     """K1: [N] f32 raw score (or, with `transform`, the converted
     output) of the forest on rows x [N, F]."""
+    _check_records(forest, "forest_value_walk")
     _check_inputs(forest, x)
     _check_leaf_type(forest, torch.float32, "forest_value_walk")
     if x.device.type == "cpu":
         return forest_value_walk_plain(forest, x, transform)
-    out = torch.empty(x.shape[0], dtype=torch.float32, device=x.device)
-    if x.shape[0]:
-        _launch(forest_value_walk, "lgbt_forest_value_walk", forest, x,
-                _epilogue_args(transform), (out,))
-    return out
+    return _value_walk(forest_value_walk, forest, x, transform, False)
 
 
 def forest_value_walk_f16(forest: Forest, x: torch.Tensor,
@@ -624,16 +775,13 @@ def forest_value_walk_f16(forest: Forest, x: torch.Tensor,
                           ) -> torch.Tensor:
     """K1's f16-leaf mode: [N] f32 raw score (or converted output) of an
     f16 forest (`to_f16`), summed in batches of QUANT_TREE_BATCH trees."""
+    _check_records(forest, "forest_value_walk_f16")
     _check_inputs(forest, x)
     _check_leaf_type(forest, torch.float16, "forest_value_walk_f16")
     _refuse_linear(forest.linear_k > 0, "f16")
     if x.device.type == "cpu":
         return forest_value_walk_plain(forest, x, transform)
-    out = torch.empty(x.shape[0], dtype=torch.float32, device=x.device)
-    if x.shape[0]:
-        _launch(forest_value_walk_f16, "lgbt_forest_value_walk_f16", forest,
-                x, (QUANT_TREE_BATCH,) + _epilogue_args(transform), (out,))
-    return out
+    return _value_walk(forest_value_walk_f16, forest, x, transform, True)
 
 
 def forest_leaf_walk(forest: Forest, x: torch.Tensor) -> torch.Tensor:
@@ -746,6 +894,9 @@ def forest_quant_walk(qf: QuantForest, codes: torch.Tensor, x: torch.Tensor,
 
 forest_value_walk.launches = 0
 forest_value_walk_f16.launches = 0
+# of those, the launches in "rows" mode (the rest walked trees mode)
+forest_value_walk.launches_rows = 0
+forest_value_walk_f16.launches_rows = 0
 forest_leaf_walk.launches = 0
 forest_early_stop_walk.launches = 0
 quant_codes.launches = 0

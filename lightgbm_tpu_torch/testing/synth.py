@@ -149,15 +149,18 @@ def _grow_tree(rng, sample, num_leaves, num_features, cat_features,
 
 def synthetic_forest_text(seed: int, num_trees: int, num_leaves: int,
                           num_features: int, cat_features: int = 0,
-                          max_bin: int = 0) -> str:
+                          max_bin: int = 0,
+                          sample_rows: int = _SAMPLE_ROWS) -> str:
     """Model text of a seeded binary forest (see the module docstring).
     With `max_bin`, the forest has the two properties of a model trained
     at that max_bin that the fixed-point serving layout needs: each
     numeric feature's thresholds come from at most max_bin - 1 bin bounds
     (quantiles of the sample) and its nodes share one missing type; the
-    trees' shapes and leaves are drawn as without it."""
+    trees' shapes and leaves are drawn as without it. A tree grows over
+    `sample_rows` rows, so it reaches at most about a quarter as many
+    leaves."""
     rng = np.random.RandomState(seed)
-    sample = synthetic_rows(seed + 1, _SAMPLE_ROWS, num_features,
+    sample = synthetic_rows(seed + 1, sample_rows, num_features,
                             cat_features)
     binned = None
     if max_bin:
