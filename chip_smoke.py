@@ -98,8 +98,13 @@ Phases, any failure raises and the script exits non-zero:
     on the root and on the two children, each of them again on the
     gradients after the 10 rounds (whose sums are not exact in f32) at
     the same row sets, R (route_partition and its score update) on the
-    root split, W (tree_value_walk_binned) with the trained first tree
-    on the valid set. Counts, leaf ids, the partition, the split choices and W's
+    root split, and R alone on segments of 0, 1, 511, 512, 513 and 2,637
+    rows and a late small one of 3,000 (sorted ids drawn from all rows),
+    the root split and its all-left and all-right variants, in place and
+    into a second buffer as the grower calls it, on row- and
+    column-major bins (hold_route; phases 30 and 36 the same), W
+    (tree_value_walk_binned) with the trained first tree on the valid
+    set. Counts, leaf ids, the partition, the split choices and W's
     scores must equal the plain versions exactly (S bitwise), the g/h
     sums must be within 1e-5 * max(1, |plain|) of the plain version and
     of an f64 oracle, and each kernel launched twice on the same inputs
@@ -122,7 +127,9 @@ Phases, any failure raises and the script exits non-zero:
     profiler lists other than the calls' kernels; S by CUDA-graph
     replay, the mean of 50), launches per tree, the plain version's
     CUDA-event ms and the bound, and for H the torch.bincount library
-    time, every timing after 0.3 s of back-to-back calls that take the
+    time; R as the grower calls it at the root on row- and column-major
+    bins and on a late small segment (CUDA-graph replay and profiler),
+    its call's host time and its device ms in the profiled round, every timing after 0.3 s of back-to-back calls that take the
     card off its idle clocks (printed from nvidia-smi); the device's idle
     share over one profiled round with the top operations;
 13. quantized and bagged main paths, on the phase-9 Datasets: 10 rounds
@@ -207,7 +214,10 @@ Phases, any failure raises and the script exits non-zero:
     grid-bound edge values (`grid_edge_rows`: every bound and its
     nextafter neighbours, +-0, subnormals, +-inf, NaN): QC's codes
     exact; QW and K1's f16 mode bitwise against their plain versions,
-    their repeats and each other; ES bitwise (iterations too) at freq 1
+    their repeats and each other, and QW bitwise its plain version, its
+    repeat and K1-f16 at 1, 7, 32, 256, 4,096, 32,768, 32,769 and
+    262,144 rows (both of its modes) on 4,096 grid-edge rows and
+    held_rows; ES bitwise (iterations too) at freq 1
     and 10, margins 0, 1e30 and the median 2|raw| at half the
     iterations, with the freeze histogram (some rows freeze at the
     first check, some never); ES on a K = 3 stack of three synthetic
@@ -222,7 +232,8 @@ Phases, any failure raises and the script exits non-zero:
     tpu_predict_quantize=f16 and int8; the gate's delta within
     tpu_predict_quantize_tol; through Predictor the gate waits out
     warmup and measures the first real request; every count of ES, QC,
-    QW and K1-f16 set to 0 before and read after (K1-f16's by mode);
+    QW and K1-f16 set to 0 before and read after (K1-f16's and QW's by
+    mode);
     the bulk raw scores equal to the plain versions on the same rows;
     K1-f16 bitwise its plain version and its repeat at 1 and 262,144
     rows; pred_early_stop
@@ -243,8 +254,10 @@ Phases, any failure raises and the script exits non-zero:
     yardstick torch.searchsorted over the [F, K] grid; QC and
     torch.searchsorted also as device time alone (a CUDA graph of one
     call, replayed), which the JSON row keeps, and K1-f16 the same way
-    (also on one row); Booster.predict end to end for f32, f16, int8
-    and early stop;
+    (also on one row), and QW the same way, with its two modes either
+    side of the crossover; Booster.predict end to end for f32, f16, int8
+    and early stop; Predictor.predict_one p50 and p99 over 200 requests
+    for f32, f16 and int8;
 25. GOSS, DART and RF main paths on the phase-9 Datasets, every count
     set to 0 before each run and read after it: boosting=goss (top_rate
     0.2, other_rate 0.1, 20 rounds: it samples from round 11), GT and GW
@@ -338,7 +351,8 @@ Phases, any failure raises and the script exits non-zero:
     x3 (x5 for hi+lo) over group x B + bin and H's uint8 time at the
     HIGGS root, with the tiles and partial bytes of each mode's plan;
     both modes at the max_bin=1023 root against its bound; S on the
-    Bosch leaf pair and at ~1,024 bins (by CUDA-graph replay); R and
+    Bosch leaf pair and at ~1,024 bins (by CUDA-graph replay); R (as
+    in phase 12, and its device ms in the profiled Bosch round) and
     W
     (both modes) on uint16 bins; Dataset.construct() of the 500,000
     rows; seconds per Bosch round (median of rounds 2-10); one profiled
@@ -402,9 +416,12 @@ Phases, any failure raises and the script exits non-zero:
     at the Bosch root, on its row list and at the max_bin=1023 root
     against its bound, torch.bincount x3 (the codes as
     weights), its plain version and HQ at the uint8 HIGGS root; LM u16
-    against its bound, torch.bincount x4, its plain version and LM on
-    uint8 bins; S's categorical scan on an Expo leaf pair, R on the
-    categorical split and W on the categorical tree; seconds per round of
+    against its bound, torch.bincount x4, one index_add_ of the [rows x
+    groups, 4] channels into the [(ids + 1) x groups x bins, 4] output
+    (the JSON row's yardstick), its plain version and LM on uint8 bins;
+    S's categorical scan on an Expo leaf pair, R on the categorical
+    split (as in phase 12, and its ms in the profiled categorical round)
+    and W on the categorical tree; seconds per round of
     the categorical path and of the three quantized Bosch runs against
     phase 31's round; one profiled categorical round's and one profiled
     Bosch int8 round's idle share; the 500-round run's wall time.
@@ -697,6 +714,152 @@ def hold_k1(label, walk, forest, x, ref, P):
     return err
 
 
+def hold_qw(label, P, qf, f16, x, codes):
+    """QW on the first n rows of x (and their codes) for each k1_counts n,
+    twice: bitwise the plain version on the full rows' codes, its repeat
+    and K1-f16 on the same rows. Returns the largest |QW - plain|."""
+    ref = P.forest_quant_walk_plain(qf, codes, x)
+    err, modes = 0.0, []
+    for n in k1_counts(P, x.shape[0]):
+        xn, cn = x[:n].contiguous(), codes[:n].contiguous()
+        got, again = (P.forest_quant_walk(qf, cn, xn),
+                      P.forest_quant_walk(qf, cn, xn))
+        half = P.forest_value_walk_f16(f16, xn)
+        torch.cuda.synchronize()
+        check(bitwise(got, ref[:n]) and bitwise(got, again)
+              and bitwise(got, half),
+              "%s: QW not bitwise equal to plain, its repeat and K1-f16 at "
+              "%d rows" % (label, n))
+        err = max(err, float((got - ref[:n]).abs().max()))
+        modes.append("%d (%s mode)" % (n, P.walk_plan(
+            qf.walk.num_trees, qf.walk.split_feature.shape[1],
+            qf.walk.num_features, n, value_bytes=2).mode))
+    print("kernels vs plain [%s]: QW bitwise equal to plain, its repeat and "
+          "K1-f16 at %s rows" % (label, ", ".join(modes)))
+    return err
+
+
+# rows of R's late small segment: a deep leaf's, spread over the matrix
+ROUTE_LATE_ROWS = 3000
+
+
+def route_call(route, binned, src, n, rule, lid, scratch, out=None):
+    """R as the grower calls it: src[0:n] into another buffer, with the
+    grower's scratch and count buffer."""
+    out = torch.empty_like(src) if out is None else out
+    cnt = torch.empty(1, dtype=torch.int32, device=src.device)
+    return lambda: route.route_partition(binned, src, 0, n, rule, lid,
+                                         count_out=cnt, out=out,
+                                         scratch=scratch)
+
+
+def hold_route(label, binned, rule, seed=0):
+    """R against its plain version on segments of route_sizes rows and a
+    late small one (sorted row ids drawn from the whole matrix, as a deep
+    leaf holds them), on `rule` and its all-left and all-right numeric
+    variants; in place, and as the grower calls it (into another buffer,
+    with one scratch for every call), on the bins as they are and on a
+    column-major copy: the reordered segment, the leaf ids and the left
+    count exact, and the source buffer untouched. Returns the cases."""
+    import dataclasses
+    from lightgbm_tpu_torch.ops import route
+    dev, n = binned.device, binned.shape[0]
+    gen = np.random.RandomState(seed)
+    sizes = [0, 1, route.PASS_ROWS - 1, route.PASS_ROWS,
+             route.PASS_ROWS + 1, 5 * route.PASS_ROWS + 77, ROUTE_LATE_ROWS]
+    rules = [rule] + [dataclasses.replace(
+        rule, is_cat=False, threshold=thr, default_left=dl)
+        for thr, dl in ((rule.num_bin + 1, True), (-1, False))]
+    layouts = (binned, binned.t().contiguous().t())
+    scratch = route.route_scratch(n, dev)
+    cases, lefts = 0, []
+    for m in sizes:
+        src = torch.arange(n, dtype=torch.int32, device=dev)
+        src[:m] = torch.from_numpy(np.sort(gen.choice(n, m, replace=False))
+                                   .astype(np.int32)).to(dev)
+        for r in rules:
+            ref, lid_p = src.clone(), torch.zeros(n, dtype=torch.int32,
+                                                  device=dev)
+            n_p = int(route.route_partition_plain(binned, ref, 0, m, r,
+                                                  lid_p))
+            for mat in layouts:
+                lid = torch.zeros(n, dtype=torch.int32, device=dev)
+                inplace = src.clone()
+                n_k = int(route.route_partition(mat, inplace, 0, m, r, lid))
+                out = torch.full_like(src, -1)
+                lid2 = torch.zeros(n, dtype=torch.int32, device=dev)
+                cnt = torch.full((1,), -1, dtype=torch.int32, device=dev)
+                keep = src.clone()
+                route.route_partition(mat, src, 0, m, r, lid2, count_out=cnt,
+                                      out=out, scratch=scratch)
+                torch.cuda.synchronize()
+                check(n_k == n_p == int(cnt) and torch.equal(inplace, ref)
+                      and torch.equal(out[:m], ref[:m])
+                      and bool((out[m:] == -1).all())
+                      and torch.equal(src, keep)
+                      and torch.equal(lid, lid_p) and torch.equal(lid2, lid_p),
+                      "%s: R differs from plain at %d rows (rule %s, bins "
+                      "strides %s)" % (label, m, r, mat.stride()))
+                cases += 2
+            lefts.append(n_p)
+    print("kernels vs plain [%s]: R equal to plain (partition, leaf ids, "
+          "left count) on segments of %s rows (the last a late small one), "
+          "the split and its all-left and all-right variants, in place and "
+          "into another buffer, row- and column-major bins: %d cases"
+          % (label, ", ".join(str(m) for m in sizes), cases))
+    return cases
+
+
+def late_segment(n, dev):
+    """A row buffer whose first ROUTE_LATE_ROWS ids are a late small
+    segment: sorted ids drawn from the whole matrix (seeded)."""
+    src = torch.arange(n, dtype=torch.int32, device=dev)
+    src[:ROUTE_LATE_ROWS] = torch.from_numpy(np.sort(
+        np.random.RandomState(5).choice(n, ROUTE_LATE_ROWS, replace=False))
+        .astype(np.int32)).to(dev)
+    return src
+
+
+def route_times(label, binned, rule, name, card):
+    """R as the grower calls it, device time at the root on the bins as
+    they are and on a column-major copy (the grower's), and on a late
+    small segment: CUDA-graph replays (which add a replay's few us to a
+    small launch) and torch.profiler's kernel time; the call's host time
+    (no synchronisation). Returns the root's graph ms on the column-major
+    copy, as the grower reads it."""
+    from lightgbm_tpu_torch.ops import route
+    dev, n = binned.device, binned.shape[0]
+    scratch = route.route_scratch(n, dev)
+    lid = torch.zeros(n, dtype=torch.int32, device=dev)
+    root = torch.arange(n, dtype=torch.int32, device=dev)
+    late = late_segment(n, dev)
+    cols = binned.t().contiguous().t()
+    ms = {}
+    for key, mat, src, m in (("root, row-major", binned, root, n),
+                             ("root, column-major", cols, root, n),
+                             ("late %d rows, row-major" % ROUTE_LATE_ROWS,
+                              binned, late, ROUTE_LATE_ROWS),
+                             ("late, column-major", cols, late,
+                              ROUTE_LATE_ROWS)):
+        fn = route_call(route, mat, src, m, rule, lid, scratch)
+        ms[key] = (graph_ms(fn), device_ms(fn, ("partition_kernel",)))
+    host = host_us(route_call(route, cols, late, ROUTE_LATE_ROWS, rule, lid,
+                              scratch))
+    print("time [%s | %s]: R (%s, %d rows, %s bins) device ms (CUDA-graph "
+          "replay / profiler): %s; a call's host time %.1f us; the "
+          "column-major copy %.1f MB"
+          % (name, card, label, n, str(binned.dtype).split(".")[-1],
+             ", ".join("%s %.4f / %.4f" % ((k,) + v) for k, v in ms.items()),
+             host, cols.numel() * cols.element_size() / 1e6))
+    del cols
+    return ms["root, column-major"][0]
+
+
+def round_r_ms(by_kind):
+    """R's device ms in a profiled round (profile_round's by_kind)."""
+    return sum(v for k, v in by_kind.items() if "partition_kernel" in k) / 1e3
+
+
 def held_rows(trees, nf, cats, n):
     """n rows to hold K1 on: 4,096 edge cases (`edge_case_rows`), 4,096
     seeded rows with NaN, +inf and -inf cells, then seeded rows."""
@@ -957,6 +1120,7 @@ def training(name, card, dev):
     check(n_left == int(round(float(out_f[3]))),
           "R sent %d rows left, the scan counted %s" % (n_left, out_f[3]))
     errs["route_partition"] = 0
+    hold_route("HIGGS root split, uint8", binned, rule)
     small_left = np.float32(out_f[3]) * np.float32(2.0) <= acc[2]
     small, large = (0, 1) if small_left else (1, 0)
     seg = {0: (0, n_left), 1: (n_left, TRAIN_ROWS - n_left)}
@@ -1209,10 +1373,7 @@ def training(name, card, dev):
     # repeats the same work and leaves it as it is
     rperm, rlid = perm0.clone(), lid0.clone()
     times["route_partition"] = (
-        device_ms(lambda: route.route_partition(binned, rperm, 0, n, rule,
-                                                rlid),
-                  ("route_kernel", "scan_tiles_kernel", "scatter_kernel",
-                   "Memcpy DtoD")),
+        route_times("HIGGS", binned, rule, name, card),
         median_ms(lambda: route.route_partition_plain(binned, rperm, 0, n,
                                                      rule, rlid), reps=5),
         bound(13 * n), None)
@@ -1248,7 +1409,8 @@ def training(name, card, dev):
                  ", torch.bincount x3 %.4f ms" % lib_ms))
     print("clocks [%s]: SM clock, max SM clock: %s (after the timings)"
           % (card, clocks()))
-    profile_round(booster, name, card)
+    print("time [%s | %s]: R in the profiled HIGGS round %.4f ms" % (
+        name, card, round_r_ms(profile_round(booster, name, card)[2])))
 
     replaces = {
         "leaf_histogram": "lightgbm_tpu/ops/histogram.py:474",
@@ -2974,6 +3136,17 @@ def serving_extras(name, card, dev, ctx, phase2_text):
               "plain, to their repeats and to each other"
               % (label, len(trees), len(rows), tuple(qf.grid.shape),
                  int(codes.min()), int(codes.max())))
+        # QW in both modes: at every row count up to the bulk shape, the
+        # grid's edge values first
+        xq = torch.from_numpy(np.concatenate([
+            grid_edge_rows(trees, FEATURES, 5, 4096),
+            held_rows(trees, FEATURES, cats, BULK_ROWS - 4096)])).to(dev)
+        cq = P.quant_codes(qf, xq)
+        check(torch.equal(cq, P.quant_codes_plain(qf, xq)),
+              label + ": QC codes differ from plain at %d rows" % BULK_ROWS)
+        errs["forest_quant_walk"] = max(errs["forest_quant_walk"], hold_qw(
+            label + ", int8 layout", P, qf, f16, xq, cq))
+        del xq, cq
         t_half = len(trees) // 2
         raw_half = P.forest_value_walk(P.stack_trees(trees[:t_half], dev), x)
         med = margin_median(raw_half[None], 1)
@@ -3034,6 +3207,7 @@ def serving_extras(name, card, dev, ctx, phase2_text):
     for fn in kernels.values():
         fn.launches = 0
     P.forest_value_walk_f16.launches_rows = 0
+    P.forest_quant_walk.launches_rows = 0
     booster = lgb.Booster(model_str=text)
     check(booster.device.type == "cuda", "default device is not cuda")
     bias = booster._inner.init_score_bias
@@ -3075,9 +3249,11 @@ def serving_extras(name, card, dev, ctx, phase2_text):
                   first))
     launches = {k: fn.launches for k, fn in kernels.items()}
     f16_rows = P.forest_value_walk_f16.launches_rows
+    qw_rows = P.forest_quant_walk.launches_rows
     print("serving extras main path launches:", launches, "(K1-f16: %d in "
-          "trees mode, %d in rows mode)" % (
-              launches["forest_value_walk_f16"] - f16_rows, f16_rows))
+          "trees mode, %d in rows mode; QW: %d in trees mode, %d in rows "
+          "mode)" % (launches["forest_value_walk_f16"] - f16_rows, f16_rows,
+                     launches["forest_quant_walk"] - qw_rows, qw_rows))
     check(all(v > 0 for v in launches.values()),
           "a serving-extras kernel of the main path was never launched")
     plain = {
@@ -3290,6 +3466,28 @@ def serving_extras(name, card, dev, ctx, phase2_text):
                   "%.4f ms" % (name, card, ms, wrapper_ms, graph_ms(
                       lambda: P.forest_value_walk_f16(f16, one)),
                       median_ms(lambda: P.forest_value_walk_f16(f16, one))))
+        if kname == "forest_quant_walk":
+            # device time alone at the bulk shape (the JSON row's), on one
+            # row, and QW's two modes either side of the crossover
+            wrapper_ms = ms
+            ms = graph_ms(kernel)
+            one, c1 = xb[:1].contiguous(), codes[:1].contiguous()
+            limit, cross = P.TREE_PARALLEL_MAX_ROWS, []
+            for n in (4096, 16_384, 32_768, 65_536):
+                xn, cn = xb[:n].contiguous(), codes[:n].contiguous()
+                for mode, at in (("trees", BULK_ROWS), ("rows", 0)):
+                    P.TREE_PARALLEL_MAX_ROWS = at
+                    cross.append("%d rows %s %.4f" % (n, mode, graph_ms(
+                        lambda: P.forest_quant_walk(qf, cn, xn), reps=20)))
+            P.TREE_PARALLEL_MAX_ROWS = limit
+            print("time [%s | %s]: forest_quant_walk device %.4f ms (CUDA "
+                  "graph replay), call %.4f ms; 1 row device %.4f ms, call "
+                  "%.4f ms; modes (device ms; the plan takes trees mode up "
+                  "to %d rows): %s" % (
+                      name, card, ms, wrapper_ms, graph_ms(
+                          lambda: P.forest_quant_walk(qf, c1, one)),
+                      median_ms(lambda: P.forest_quant_walk(qf, c1, one)),
+                      limit, ", ".join(cross)))
         if kname == "quant_codes":
             # QC's device time apart from its wrapper's host time, and
             # the library call's measured the same two ways; the JSON
@@ -3326,6 +3524,22 @@ def serving_extras(name, card, dev, ctx, phase2_text):
         print("time [%s | %s]: Booster.predict %s %d rows %.2f ms, %.0f "
               "rows/s" % (name, card, label, BULK_ROWS, e2e_ms,
                           BULK_ROWS / e2e_ms * 1e3))
+    # a served row of each layout: QC + QW for int8, K1-f16 for f16
+    for mode in ("f32", "f16", "int8"):
+        predictor = lgb.Booster(model_str=text, params={
+            "tpu_predict_quantize": "none" if mode == "f32" else mode
+        }).serving_predictor()
+        predictor.warmup()
+        lat = []
+        for r in bulk[:200]:
+            t0 = time.perf_counter()
+            predictor.predict_one(r)
+            lat.append((time.perf_counter() - t0) * 1e3)
+        predictor.close()
+        print("time [%s | %s]: Predictor.predict_one %s p50 %.3f ms p99 "
+              "%.3f ms (200 requests)" % (name, card, mode,
+                                          np.percentile(lat, 50),
+                                          np.percentile(lat, 99)))
     return rows
 
 
@@ -4080,6 +4294,7 @@ def bosch(name, card, dev, ctx):
     perm, lid, n_left = res[0]
     check(n_left == int(round(float(out_f[3]))),
           "R u16 sent %d rows left, the scan counted %s" % (n_left, out_f[3]))
+    hold_route("Bosch root split, uint16", binned, rule)
     small_left = np.float32(out_f[3]) * np.float32(2.0) <= acc[2]
     b0, cnt = (0, n_left) if small_left else (n_left, n - n_left)
     small = 0 if small_left else 1
@@ -4462,12 +4677,8 @@ def bosch(name, card, dev, ctx):
             wg.feature_bins), reps=3),
         bound(w_root.numel() * 4 + 32, wfm * wg.feature_bins * 50), None)
     rperm, rlid = perm0.clone(), lid0.clone()
-    route.route_partition(binned, rperm, 0, n, rule, rlid)
     times["route_partition_u16"] = (
-        device_ms(lambda: route.route_partition(binned, rperm, 0, n, rule,
-                                                rlid),
-                  ("route_kernel", "scan_tiles_kernel", "scatter_kernel",
-                   "Memcpy DtoD")),
+        route_times("Bosch", binned, rule, name, card),
         median_ms(lambda: route.route_partition_plain(binned, rperm, 0, n,
                                                      rule, rlid), reps=3),
         bound(14 * n), None)
@@ -4503,7 +4714,8 @@ def bosch(name, card, dev, ctx):
              construct_s))
     print("clocks [%s]: SM clock, max SM clock: %s (after the timings)"
           % (card, clocks()))
-    profile_round(booster, name, card)
+    print("time [%s | %s]: R in the profiled Bosch round %.4f ms" % (
+        name, card, round_r_ms(profile_round(booster, name, card)[2])))
     # phases 39-41 train quantized on these Datasets
     ctx["bosch"] = {"x": x, "y": y, "xv": xv, "yv": yv, "data": (ds, valid),
                     "auc": auc, "round_s": med, "cpu_data": (cds, cvalid),
@@ -4785,6 +4997,7 @@ def categorical(name, card, dev):
           "R (categorical split): %d rows left, not the rows of bin %d"
           % (cat_left, cat_rule.threshold))
     del cat_perm, cat_lid, col
+    hold_route("Expo categorical split", binned, cat_rule)
     # W on the first tree with its categorical nodes, over the test rows
     bt = predict.binned_tree(tree0, dev)
     vb = booster._inner._valid_binned[0]
@@ -5288,21 +5501,31 @@ def times_41(name, card, dev, cat, q):
             for t in terms:
                 torch.bincount(flat, weights=t,
                                minlength=(c_cnt + 1) * f_cnt * width)
+        # the one-call yardstick: the four channels as one [rows x
+        # groups, 4] source added into the [(ids + 1) x groups x bins, 4]
+        # output by a single index_add_
+        src4 = torch.stack(terms, 1)
+        acc = torch.zeros(((c_cnt + 1) * f_cnt * width, 4),
+                          dtype=torch.float32, device=dev)
+        one_call = median_ms(lambda: acc.index_add_(0, flat, src4), reps=3)
+        del src4, acc
         return (device_ms(lambda: LM(*args), lm_names + (kernel,)),
                 median_ms(lambda: histogram.leaf_moments_plain(*args),
-                          reps=3), b, median_ms(library, reps=3))
+                          reps=3), b, median_ms(library, reps=3), one_call)
 
-    times["leaf_moments_u16"] = lm_time(q["lm_u16"], "moment_wide_kernel")
-    u8_lm = lm_time((hb,) + q["lm_u8"], "moment_tile_kernel")
-    for label, (ms, plain_ms, (b_ms, b_by), lib_ms) in (
+    *lm16, lm16_one = lm_time(q["lm_u16"], "moment_wide_kernel")
+    # the JSON row keeps the one-call yardstick
+    times["leaf_moments_u16"] = tuple(lm16[:3]) + (lm16_one,)
+    *u8_lm, u8_one = lm_time((hb,) + q["lm_u8"], "moment_tile_kernel")
+    for label, (ms, plain_ms, (b_ms, b_by), lib_ms), one_ms in (
             ("leaf_moments_u16 at max_bin=%d (%d ids)" % (
-                WIDE_MAX_BIN, q["lm_u16"][5].shape[0]),
-             times["leaf_moments_u16"]),
+                WIDE_MAX_BIN, q["lm_u16"][5].shape[0]), lm16, lm16_one),
             ("leaf_moments on uint8 HIGGS bins (%d ids)"
-             % q["lm_u8"][4].shape[0], u8_lm)):
+             % q["lm_u8"][4].shape[0], u8_lm, u8_one)):
         print("time [%s | %s]: %s %.4f ms, plain %.2f ms, bound %.5f ms (%s), "
-              "torch.bincount x4 %.3f ms" % (name, card, label, ms, plain_ms,
-                                             b_ms, b_by, lib_ms))
+              "torch.bincount x4 %.3f ms, one index_add_ %.3f ms"
+              % (name, card, label, ms, plain_ms, b_ms, b_by, lib_ms,
+                 one_ms))
     # the categorical variants on the Expo main path's inputs
     pair, csums, depth1 = cat["pair"], cat["csums"], cat["depth1"]
     fmeta, mask, prm, fb = cat["fmeta"], cat["mask"], cat["prm"], cat["fb"]
@@ -5318,10 +5541,7 @@ def times_41(name, card, dev, cat, q):
     rperm, rlid = cat["perm0"].clone(), cat["lid0"].clone()
     rule = cat["cat_rule"]
     times["route_partition_cat"] = (
-        device_ms(lambda: route.route_partition(cb, rperm, 0, cn, rule,
-                                                rlid),
-                  ("route_kernel", "scan_tiles_kernel", "scatter_kernel",
-                   "Memcpy DtoD")),
+        route_times("Expo, a categorical split", cb, rule, name, card),
         median_ms(lambda: route.route_partition_plain(cb, rperm, 0, cn, rule,
                                                      rlid), reps=3),
         bound(13 * cn), None)
@@ -5354,7 +5574,9 @@ def times_41(name, card, dev, cat, q):
                                q["round_s"], U16Q_ROUNDS))
     print("clocks [%s]: SM clock, max SM clock: %s (after the timings)"
           % (card, clocks()))
-    profile_round(cat["booster"], name, card)
+    print("time [%s | %s]: R in the profiled categorical round %.4f ms"
+          % (name, card, round_r_ms(profile_round(cat["booster"], name,
+                                                  card)[2])))
     wall_us, busy, by_kind = profile_round(q["b8"], name, card)
     hq_us = sum(v for k, v in by_kind.items() if "hist_i32" in k)
     print("where the time goes [%s | %s]: Bosch int8 round: HQ u16 %.3f ms "
@@ -5853,6 +6075,62 @@ def ab_child(root, rounds, cat_rounds):
         lambda: torch.searchsorted(qf.grid, xt))
     out["searchsorted_device"] = graph_ms(
         lambda: torch.searchsorted(qf.grid, xt))
+    # QW on the same rows' codes, at 262,144 rows and on one row, and a
+    # served int8 row (QC + QW + the host path)
+    codes = P.quant_codes(qf, xb)
+    one, c1 = xb[:1].contiguous(), codes[:1].contiguous()
+    out["QW_bulk_device"] = graph_ms(lambda: P.forest_quant_walk(qf, codes,
+                                                                 xb))
+    out["QW_1row_device"] = graph_ms(lambda: P.forest_quant_walk(qf, c1, one))
+    out["QW_1row_call"] = median_ms(lambda: P.forest_quant_walk(qf, c1, one))
+    predictor = lgb.Booster(model_str=text, params={
+        "tpu_predict_quantize": "int8"}).serving_predictor()
+    predictor.warmup()
+    lat = []
+    for r in xb[:200].cpu().numpy():
+        t0 = time.perf_counter()
+        predictor.predict_one(r)
+        lat.append((time.perf_counter() - t0) * 1e3)
+    predictor.close()
+    out["predict_one_int8_p50_ms"] = float(np.percentile(lat, 50))
+    out["predict_one_int8_p99_ms"] = float(np.percentile(lat, 99))
+    del codes, xb, xt
+
+    # R at a root (a split on the first feature at half its bins) and on
+    # a late small segment, as the checkout's grower calls it: device time
+    # (torch.profiler, either checkout's kernels) and a call's host time
+    from lightgbm_tpu_torch.ops import route
+    one_launch = hasattr(route, "route_scratch")
+    r_names = (("partition_kernel",) if one_launch else
+               ("route_kernel", "scan_tiles_kernel", "scatter_kernel",
+                "Memcpy DtoD"))
+
+    def r_times(label, booster):
+        binned, fm = booster._binned, booster._grower.fmeta
+        n = binned.shape[0]
+        rule = route.SplitRule(
+            int(fm["group"][0]), int(fm["offset"][0]), int(fm["num_bin"][0]),
+            int(fm["default_bin"][0]), int(fm["missing_type"][0]),
+            bool(fm["is_bundled"][0]), int(fm["num_bin"][0]) // 2, False,
+            False, 0, 1)
+        lid = torch.zeros(n, dtype=torch.int32, device=dev)
+        root = torch.arange(n, dtype=torch.int32, device=dev)
+        late = late_segment(n, dev)
+        # the bins as the checkout's grower hands them to R
+        bins = getattr(booster._grower, "_route_bins", binned)
+        calls = {}
+        for key, src, m in (("root", root, n), ("late", late,
+                                                ROUTE_LATE_ROWS)):
+            if one_launch:
+                calls[key] = route_call(route, bins, src, m, rule, lid,
+                                        route.route_scratch(n, dev))
+            else:
+                calls[key] = (lambda src=src, m=m: route.route_partition(
+                    bins, src, 0, m, rule, lid))
+        for key, fn in calls.items():
+            out["R_%s_%s_graph" % (label, key)] = graph_ms(fn)
+            out["R_%s_%s_device" % (label, key)] = device_ms(fn, r_names)
+        out["R_%s_host_us" % label] = host_us(calls["late"])
 
     def rounds_of(booster, k, label):
         """k rounds' seconds, their median from round 2, and one more
@@ -5883,7 +6161,12 @@ def ab_child(root, rounds, cat_rounds):
             label + "_H_in_round_ms": in_round(
                 lambda k: "hist_" in k and "i32" not in k),
             label + "_S_in_round_ms": in_round(lambda k: "split_scan" in k),
-            label + "_HQ_in_round_ms": in_round(lambda k: "hist_i32" in k)})
+            label + "_HQ_in_round_ms": in_round(lambda k: "hist_i32" in k),
+            label + "_R_in_round_ms": in_round(lambda k: any(
+                r in k for r in ("partition_kernel", "route_kernel",
+                                 "scan_tiles_kernel", "scatter_kernel"))),
+            label + "_DtoD_in_round_ms": in_round(
+                lambda k: "Memcpy DtoD" in k)})
 
     # S on a leaf pair (a seeded third of the rows and the rest) and on
     # the root, and HQ at the root and on a seeded row list, each by
@@ -5938,6 +6221,7 @@ def ab_child(root, rounds, cat_rounds):
                     n_rows=list_rows, **kw))
 
     s_device("higgs", inner)
+    r_times("higgs", inner)
     int8 = dict(TRAIN_PARAMS, tpu_hist_quantize="int8")
     hq_device("higgs_u8", lgb.Booster(int8, train_set=ds)._inner, 0)
     rounds_of(lgb.Booster(dict(TRAIN_PARAMS), train_set=ds), rounds, "higgs")
@@ -5951,6 +6235,7 @@ def ab_child(root, rounds, cat_rounds):
     bds = lgb.Dataset(xb, yb, params=dict(BOSCH_PARAMS)).construct()
     del xb, yb
     s_device("bosch", lgb.Booster(dict(BOSCH_PARAMS), train_set=bds)._inner)
+    r_times("bosch", lgb.Booster(dict(BOSCH_PARAMS), train_set=bds)._inner)
     qparams = dict(BOSCH_PARAMS, tpu_hist_quantize="int8")
     hq_device("bosch", lgb.Booster(qparams, train_set=bds)._inner,
               AB_BOSCH_LIST_ROWS)
@@ -5992,7 +6277,14 @@ def ab_main(argv):
     1,000-row list; QC at full size); H's error on phase 10's cancelling gradients
     against the f64 sums, relative to max(1, |ref|); QC and
     torch.searchsorted over the same grid on 262,144 rows (phase 24's
-    inputs), the same two ways; S (split_scan) on a leaf pair (a seeded
+    inputs), the same two ways; QW (forest_quant_walk) on those rows'
+    codes, device at 262,144 rows and one row and a one-row call, and
+    int8 Predictor.predict_one p50/p99 over 200 requests; R
+    (route_partition) at the HIGGS and Bosch roots (a split on the first
+    feature) and on a late 3,000-row segment, on the bins the checkout's
+    grower hands it, `*_graph` by CUDA-graph replay and `*_device` by
+    torch.profiler (either checkout's kernels), and a call's host time;
+    S (split_scan) on a leaf pair (a seeded
     third of the rows and the rest) of the HIGGS, Bosch (phase 31) and
     categorical (phase 37) protocols and on the max_bin=1023 root (phase
     34), and HQ (leaf_histogram_i32) at the int8 HIGGS and Bosch roots
@@ -6001,7 +6293,9 @@ def ab_main(argv):
     in int8 and of the categorical protocol, each
     round's seconds and their median from round 2, and one more round
     under torch.profiler: wall, device busy time (the union of the device
-    events' intervals), idle share and H's, S's and HQ's device time; and
+    events' intervals), idle share and H's, S's, HQ's and R's device
+    time (and the device-to-device copies', the parent's R copy among
+    them); and
     the categorical protocol's `--cat-rounds` rounds through lgb.train,
     as phase 36 times its 500 (0: none)."""
     import argparse

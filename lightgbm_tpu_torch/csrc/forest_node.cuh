@@ -1,13 +1,10 @@
 // The raw-feature tree walk shared by the forest kernels of
-// lightgbm_tpu_torch: K2 and ES (forest_walk.cu) and QW
-// (forest_quant.cu). The Forest struct mirrors ops/predict.py's Forest
-// (node arrays [T, M], leaf values [T, L], categorical bitsets per
-// tree); `walk` follows one row down one tree, with the numeric
-// decision given by the caller (raw f32 threshold for K2 and ES, code
-// compare for QW) and the categorical one the bitset test. K1 walks
-// the Forest's 16-byte node records instead (forest_walk.cu) with the
-// same decisions (numeric_left, category_left) and leaf values
-// (tree_value).
+// lightgbm_tpu_torch: K2 and ES (forest_walk.cu) walk the Forest's
+// [T, M] arrays (`leaf_of`); K1 and QW walk its 16-byte node records
+// (forest_records.cuh) with the same decisions (numeric_left,
+// category_left) and leaf values (tree_value). The Forest struct mirrors
+// ops/predict.py's Forest (node arrays [T, M], leaf values [T, L],
+// categorical bitsets per tree).
 
 #pragma once
 
@@ -94,38 +91,26 @@ __device__ __forceinline__ bool numeric_left(unsigned decision,
   return (nan ? 0.f : x) <= threshold;
 }
 
-// The leaf of tree t that the row reaches; `numeric(i, feature,
-// decision)` decides a numeric node i (its flat index in [T, M]). A
-// one-leaf tree starts at node -1, i.e. leaf 0; children hold ~leaf for
-// leaves.
-template <typename Numeric>
-__device__ __forceinline__ int walk(const Forest& f, int t,
-                                    const float* __restrict__ row,
-                                    Numeric numeric) {
+// The leaf of tree t that the row reaches over the [T, M] arrays (K2's
+// and ES's walk): _decide_raw's numeric rules on the raw f32 threshold,
+// or the bitset test. A one-leaf tree starts at node -1, i.e. leaf 0;
+// children hold ~leaf for leaves.
+__device__ __forceinline__ int leaf_of(const Forest& f, int t,
+                                       const float* __restrict__ row) {
   if (__ldg(f.num_leaves + t) <= 1) return 0;
   const size_t base = (size_t)t * f.max_nodes;
   int node = 0;
   while (node >= 0) {
     const size_t i = base + node;
-    const int feature = __ldg(f.split_feature + i);
     const unsigned decision = __ldg(f.decision + i);
-    const bool left =
-        (decision & kCategoricalBit)
-            ? category_left(f, t, __ldg(f.threshold + i),
-                            flush_subnormal(__ldg(row + feature)))
-            : numeric(i, feature, decision);
+    const float threshold = __ldg(f.threshold + i);
+    const float x = flush_subnormal(__ldg(row + __ldg(f.split_feature + i)));
+    const bool left = (decision & kCategoricalBit)
+                          ? category_left(f, t, threshold, x)
+                          : numeric_left(decision, threshold, x);
     node = left ? __ldg(f.left_child + i) : __ldg(f.right_child + i);
   }
   return ~node;
-}
-
-// K2's and ES's walk: raw f32 thresholds.
-__device__ __forceinline__ int leaf_of(const Forest& f, int t,
-                                       const float* __restrict__ row) {
-  return walk(f, t, row, [&](size_t i, int feature, unsigned decision) {
-    return numeric_left(decision, __ldg(f.threshold + i),
-                        flush_subnormal(__ldg(row + feature)));
-  });
 }
 
 // Tree t's value for the row at `leaf`: the f32 leaf value plus, in a

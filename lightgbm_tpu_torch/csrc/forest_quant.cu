@@ -46,22 +46,36 @@
 // _one_tree_match_quant (:846), predict_forest_quant (:882) and
 // _leaf_value_reduce (:870): the TPU evaluates each tree as three
 // matmuls over one-hot path tensors because gathers are what it does
-// worst; a GPU thread chases its own row's pointers (forest_node.cuh).
-// QW and K1's f16 mode make the same decisions over the same f16 leaves
-// in the same sum order, so they agree bitwise. Bound as K1 (operations:
-// node visits), with 2-byte code loads in place of 4-byte values.
+// worst; a GPU thread chases its own row's pointers. QW and K1's f16
+// mode make the same decisions over the same f16 leaves in the same sum
+// order, so they agree bitwise.
+//
+// Design: QW is K1's walk (forest_records.cuh) instantiated on
+// CodeDecision. Its records are K1's with the first word of a numeric
+// node holding thr_code | lo << 16 (ops/predict.py quant_records, built
+// once a stack), so a level is one 16-byte load in place of the six
+// scattered [T, M] loads (feature, decision, lo, thr_code, left, right)
+// of the thread-a-row walk it replaces; K1's two modes and plan: a block
+// a row with its trees in parallel up to TREE_PARALLEL_MAX_ROWS rows,
+// past that a row a thread over the rows' int16 codes staged
+// feature-major (two codes a bank word, half K1's shared memory a row)
+// and double-buffered record chunks. A categorical node reads the row's
+// raw value from device memory (its line is in L1 after the first).
+// Bound as K1 (operations: node visits x 8 instructions; 0.2609 ms at
+// 262,144 rows x 500 binned trees), with 2-byte code loads in place of
+// 4-byte values: bytes are the codes (15 MB), the rows a categorical
+// node reads, 2 MB of records and 1 MB out.
 
-#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include "forest_node.cuh"
+#include "forest_records.cuh"
 
 namespace {
 
 using namespace lgbt_forest;
 
-constexpr int kBlock = 128;
 constexpr int kMissNanBit = 1;
 constexpr int kMissZeroBit = 2;
 constexpr int kCodesThreads = 1024;
@@ -166,38 +180,6 @@ codes_kernel(const float* __restrict__ x, uint32_t cells, int nf,
   }
 }
 
-__global__ void __launch_bounds__(kBlock)
-quant_walk_kernel(Forest f, const int16_t* __restrict__ thr_code,
-                  const int16_t* __restrict__ lo,
-                  const int16_t* __restrict__ codes,
-                  const float* __restrict__ x, int n, int nf, int tree_batch,
-                  int epilogue, float denom, float bias, float sigmoid,
-                  float* __restrict__ out) {
-  const int r = blockIdx.x * kBlock + threadIdx.x;
-  if (r >= n) return;
-  const float* row = x + (size_t)r * nf;
-  const int16_t* code_row = codes + (size_t)r * nf;
-  const __half* leaf_value = static_cast<const __half*>(f.leaf_value);
-  float acc = 0.f, part = 0.f;
-  for (int t = 0; t < f.num_trees; ++t) {
-    const int leaf = walk(f, t, row, [&](size_t i, int feature, unsigned) {
-      const int c = __ldg(code_row + feature);
-      return __ldg(lo + i) <= c && c <= __ldg(thr_code + i);
-    });
-    part = __fadd_rn(
-        part, __half2float(leaf_value[(size_t)t * f.max_leaves + leaf]));
-    if ((t + 1) % tree_batch == 0 || t + 1 == f.num_trees) {
-      acc = __fadd_rn(acc, part);
-      part = 0.f;
-    }
-  }
-  out[r] = epilogue_of(acc, epilogue, denom, bias, sigmoid);
-}
-
-}  // namespace
-
-namespace {
-
 template <bool kStaged>
 int launch_codes(const float* x, uint32_t cells, int nf, const float* grid,
                  int grid_features, int bounds, int half, int fs,
@@ -251,8 +233,10 @@ extern "C" int lgbt_quant_codes(const float* x, int n, int nf,
 }
 
 // The forest's node arrays and f16 leaves as K1 takes them (the
-// categorical bitsets read the raw rows x), thr_code and lo [T, M]
-// int16, the codes [n, nf] int16 of the same rows; out [n] f32.
+// categorical bitsets read the raw rows x), QW's records [T, M, 4] int32
+// (ops/predict.py quant_records), the codes [n, nf] int16 of the same
+// rows and K1's launch plan (ops/predict.py walk_plan with 2-byte
+// values); out [n] f32.
 extern "C" int lgbt_forest_quant_walk(
     const float* x, int n, int nf, const int* num_leaves,
     const int* split_feature, const float* threshold,
@@ -260,21 +244,25 @@ extern "C" int lgbt_forest_quant_walk(
     const int* cat_boundaries, const uint32_t* cat_bitset,
     const void* leaf_value, const float* leaf_coeff, const int* leaf_feat,
     int num_trees, int max_nodes, int max_leaves, int cat_stride,
-    int bitset_stride, int linear_k, const int16_t* thr_code,
-    const int16_t* lo, const int16_t* codes, int tree_batch, int epilogue,
+    int bitset_stride, int linear_k, const void* records,
+    const int16_t* codes, int mode, int threads, int chunk_trees,
+    int staged_features, int smem, int tree_batch, int epilogue,
     float denom, float bias, float sigmoid, float* out, void* stream) {
-  if (tree_batch < 1 || linear_k != 0) return (int)cudaErrorInvalidValue;
+  using namespace lgbt_records;
+  if (linear_k != 0) return (int)cudaErrorInvalidValue;
   const Forest f = make_forest(num_leaves, split_feature, threshold,
                                decision, left_child, right_child,
                                cat_boundaries, cat_bitset, leaf_value,
                                leaf_coeff, leaf_feat, num_trees, max_nodes,
                                max_leaves, cat_stride, bitset_stride,
                                linear_k);
-  const int blocks = (n + kBlock - 1) / kBlock;
-  quant_walk_kernel<<<blocks, kBlock, 0, (cudaStream_t)stream>>>(
-      f, thr_code, lo, codes, x, n, nf, tree_batch, epilogue, denom, bias,
-      sigmoid, out);
-  return (int)cudaGetLastError();
+  const WalkArgs a{static_cast<const int4*>(records), x, n, nf, threads,
+                   chunk_trees, staged_features, smem, tree_batch, epilogue,
+                   denom, bias, sigmoid, out, (cudaStream_t)stream};
+  const int err = plan_error<int16_t>(f, mode, a);
+  if (err != 0) return err;
+  return (int)launch_mode<CodeDecision, true>(mode, CodeDecision{codes}, f,
+                                              a);
 }
 
 extern "C" const char* lgbt_error_string(int code) {

@@ -12,7 +12,7 @@
 // gathers) or turns each tree into three matmuls, because gathers are
 // what its hardware does worst. A GPU thread can simply chase the
 // pointers of its own row, and K2 and ES do: one thread per row, trees
-// in order 0..T-1 (forest_node.cuh's walk over the [T, M] arrays). K2's
+// in order 0..T-1 (forest_node.cuh's leaf_of over the [T, M] arrays). K2's
 // bytes at the chip_smoke shape are its 524 MB of leaf indices, 0.17 ms
 // at 3.35 TB/s, below the 0.262 ms of operations counted for K1 below.
 //
@@ -27,31 +27,12 @@
 // - a level read five [T, M] arrays (feature, decision, threshold, left,
 //   right), scattered over five sectors;
 // - lanes read their rows' features 112 B apart, a sector each.
-// So each node is one 16-byte record (ops/predict.py node_records:
-// threshold bits, feature | decision << 24, left, right), one
-// ld.global.nc.v4 or ld.shared.v4 a level, and K1 has two modes, chosen
-// on the host by the row count (ops/predict.py walk_plan):
-//
-// "trees" (few rows, n <= TREE_PARALLEL_MAX_ROWS): a block a row, its
-// threads walk the row's trees in parallel (one tree a thread, records
-// from device memory, the row's 28 values from L1), each tree's value
-// to shared memory, then one thread adds them in tree order 0..T-1:
-// the same adds as the serial walk. One row's latency is one tree's
-// walk plus T adds, not T walks.
-//
-// "rows" (bulk): a block of ROWS_THREADS (512) threads walks a row a
-// thread. It stages its rows once in shared memory feature-major
-// (column j of local row i at j * (threads + 1) + i), so a warp's lanes,
-// on consecutive rows, read one bank each whatever features they split
-// on, and the staging stores are conflict-free too. The forest's
-// records go through two shared buffers a chunk of trees at a time (4
-// trees of 255 leaves in 16 KB), the next chunk copied by 16-byte
-// cp.async while the block walks this one, every warp on the same
-// chunk. Where one padded tree is larger than a buffer the block reads
-// the records from device memory instead (ld.global.nc.v4), and where
-// the staged rows and the buffers exceed 227 KB (wide rows) it reads
-// the rows from device memory: paths of the same kernel, planned on the
-// host.
+// So each node is one 16-byte record and K1 has two modes, a block a
+// row with its trees in parallel ("trees") and a row a thread over rows
+// and records staged in shared memory ("rows"): the kernels of
+// forest_records.cuh, instantiated here on RawDecision (the f32
+// threshold in the record's first word, the rows' f32 values), which QW
+// instantiates on the codes.
 //
 // What bounds it on an H100 SXM, at the chip_smoke shape (262,144 rows
 // x 500 trees x 255 leaves x 28 features, seed-0 synthetic forest):
@@ -106,11 +87,11 @@
 // actually walks (data dependent): the row's iterations until it froze
 // times K.
 
-#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include "forest_node.cuh"
+#include "forest_records.cuh"
 
 namespace {
 
@@ -120,234 +101,6 @@ constexpr int kBlock = 128;
 // the widest [K, T] stack ES takes (its per-row class sums;
 // ops/predict.py MAX_EARLY_STOP_CLASSES)
 constexpr int kMaxClasses = 32;
-
-// ---------------------------------------------------------------------
-// K1: the 16-byte node record (ops/predict.py node_records)
-constexpr int kFeatureBits = 24;
-constexpr int kFeatureMask = (1 << kFeatureBits) - 1;
-// dynamic shared memory one block may use (H100: 227 KB)
-constexpr int kSharedBudget = 232448;
-constexpr int kModeTrees = 0, kModeRows = 1;
-
-__device__ __forceinline__ int rec_feature(int4 r) {
-  return r.y & kFeatureMask;
-}
-
-// the child of record r (of tree t) for the row's value x: _decide_raw's
-// numeric rules or the categorical bitset test, on the flushed value
-__device__ __forceinline__ int rec_child(const Forest& f, int t, int4 r,
-                                         float x) {
-  x = flush_subnormal(x);
-  const unsigned decision = (unsigned)r.y >> kFeatureBits;
-  const float threshold = __int_as_float(r.x);
-  const bool left = (decision & kCategoricalBit)
-                        ? category_left(f, t, threshold, x)
-                        : numeric_left(decision, threshold, x);
-  return left ? r.z : r.w;
-}
-
-// tree t's value at `leaf`: the f16 leaf widened, or the f32 leaf plus
-// the linear term (forest_node.cuh tree_value)
-template <bool kF16>
-__device__ __forceinline__ float leaf_value_of(const Forest& f, int t,
-                                               int leaf,
-                                               const float* __restrict__ row) {
-  if (kF16) {
-    return __half2float(static_cast<const __half*>(
-        f.leaf_value)[(size_t)t * f.max_leaves + leaf]);
-  }
-  return tree_value(f, t, leaf, row);
-}
-
-// one tree's value into the row's sum: in tree order, or (f16) into the
-// batch's partial, which joins the total every tree_batch trees
-template <bool kF16>
-__device__ __forceinline__ void add_tree(float& acc, float& part, float v,
-                                         bool batch_end) {
-  if (kF16) {
-    part = __fadd_rn(part, v);
-    if (batch_end) {
-      acc = __fadd_rn(acc, part);
-      part = 0.f;
-    }
-  } else {
-    acc = __fadd_rn(acc, v);
-  }
-}
-
-__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
-  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
-               "l"(src));
-}
-
-// `count` records from src to dst by the block, one commit group
-__device__ __forceinline__ void stage_records(int4* dst,
-                                              const int4* __restrict__ src,
-                                              int count) {
-  for (int e = threadIdx.x; e < count; e += blockDim.x) {
-    cp_async16(dst + e, src + e);
-  }
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-template <int kPending>
-__device__ __forceinline__ void wait_records() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(kPending));
-}
-
-// K1 "trees" mode: block r walks row r, a tree a thread, `chunk` trees
-// a pass; thread 0 adds each pass's values in tree order.
-template <bool kF16>
-__global__ void __launch_bounds__(512)
-value_trees_kernel(Forest f, const int4* __restrict__ rec,
-                   const float* __restrict__ x, int nf, int chunk,
-                   int tree_batch, int epilogue, float denom, float bias,
-                   float sigmoid, float* __restrict__ out) {
-  extern __shared__ float vals[];
-  const float* row = x + (size_t)blockIdx.x * nf;
-  const int T = f.num_trees, M = f.max_nodes;
-  float acc = 0.f, part = 0.f;
-  int in_batch = 0;
-  for (int t0 = 0; t0 < T; t0 += chunk) {
-    const int cn = min(chunk, T - t0);
-    for (int i = threadIdx.x; i < cn; i += blockDim.x) {
-      const int t = t0 + i;
-      const int4* tree = rec + (size_t)t * M;
-      int node = __ldg(f.num_leaves + t) <= 1 ? -1 : 0;
-      while (node >= 0) {
-        const int4 r = __ldg(tree + node);
-        node = rec_child(f, t, r, __ldg(row + rec_feature(r)));
-      }
-      vals[i] = leaf_value_of<kF16>(f, t, ~node, row);
-    }
-    __syncthreads();
-    if (threadIdx.x == 0) {
-#pragma unroll 8
-      for (int i = 0; i < cn; ++i) {
-        const bool end = ++in_batch == tree_batch;
-        if (end) in_batch = 0;
-        add_tree<kF16>(acc, part, vals[i], end);
-      }
-    }
-    __syncthreads();
-  }
-  if (threadIdx.x == 0) {
-    if (kF16 && in_batch > 0) acc = __fadd_rn(acc, part);
-    out[blockIdx.x] = epilogue_of(acc, epilogue, denom, bias, sigmoid);
-  }
-}
-
-// K1 "rows" mode: a block walks blockDim.x rows, a thread one; kRows:
-// the rows' first nfs columns staged in shared memory feature-major;
-// kTrees: the records through two shared buffers of chunk_trees trees.
-// See the note at the top.
-template <bool kF16, bool kRows, bool kTrees>
-__global__ void __launch_bounds__(512)
-value_rows_kernel(Forest f, const int4* __restrict__ rec,
-                  const float* __restrict__ x, int n, int nf, int nfs,
-                  int chunk_trees, int tree_batch, int epilogue, float denom,
-                  float bias, float sigmoid, float* __restrict__ out) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  const int T = f.num_trees, M = f.max_nodes;
-  const int row0 = blockIdx.x * blockDim.x;
-  const int rows_here = min((int)blockDim.x, n - row0);
-  const int C = kTrees ? chunk_trees : T;
-  const int buf_records = kTrees ? C * M : 0;
-  int4* buf = reinterpret_cast<int4*>(smem);
-  float* xs = reinterpret_cast<float*>(smem) + 8 * buf_records;
-  const int stride = blockDim.x + 1;
-  if (kTrees) stage_records(buf, rec, min(C, T) * M);
-  if (kRows) {
-    for (int e = threadIdx.x; e < rows_here * nfs; e += blockDim.x) {
-      const int i = e / nfs, j = e - i * nfs;
-      xs[j * stride + i] = __ldg(x + (size_t)(row0 + i) * nf + j);
-    }
-    if (!kTrees) __syncthreads();
-  }
-  const bool valid = (int)threadIdx.x < rows_here;
-  const float* row = x + (size_t)(row0 + (valid ? threadIdx.x : 0)) * nf;
-  float acc = 0.f, part = 0.f;
-  int in_batch = 0;
-  const int chunks = (T + C - 1) / C;
-  for (int c = 0; c < chunks; ++c) {
-    const int t0 = c * C, cn = min(C, T - t0);
-    const int4* recs;
-    if (kTrees) {
-      if (c + 1 < chunks) {
-        stage_records(buf + ((c + 1) & 1) * buf_records,
-                      rec + (size_t)(t0 + C) * M, min(C, T - t0 - C) * M);
-        wait_records<1>();
-      } else {
-        wait_records<0>();
-      }
-      __syncthreads();
-      recs = buf + (c & 1) * buf_records;
-    } else {
-      recs = rec + (size_t)t0 * M;
-    }
-    for (int tt = 0; tt < cn; ++tt) {
-      const int t = t0 + tt;
-      const int4* tree = recs + tt * M;
-      int node = (valid && __ldg(f.num_leaves + t) > 1) ? 0 : -1;
-      while (node >= 0) {
-        const int4 r = kTrees ? tree[node] : __ldg(tree + node);
-        const int feature = rec_feature(r);
-        node = rec_child(f, t, r,
-                         kRows ? xs[feature * stride + threadIdx.x]
-                               : __ldg(row + feature));
-      }
-      const bool end = ++in_batch == tree_batch;
-      if (end) in_batch = 0;
-      add_tree<kF16>(acc, part, leaf_value_of<kF16>(f, t, ~node, row), end);
-    }
-    if (kTrees) __syncthreads();
-  }
-  if (kF16 && in_batch > 0) acc = __fadd_rn(acc, part);
-  if (valid) {
-    out[row0 + threadIdx.x] = epilogue_of(acc, epilogue, denom, bias,
-                                          sigmoid);
-  }
-}
-
-template <typename Kernel>
-cudaError_t allow_shared(Kernel kernel, int smem) {
-  if (smem <= 48 * 1024) return cudaSuccess;
-  return cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-}
-
-template <bool kF16, bool kRows, bool kTrees>
-cudaError_t launch_rows(const Forest& f, const int4* rec, const float* x,
-                        int n, int nf, int threads, int chunk, int nfs,
-                        int smem, int tree_batch, int epilogue, float denom,
-                        float bias, float sigmoid, float* out,
-                        cudaStream_t stream) {
-  auto kernel = value_rows_kernel<kF16, kRows, kTrees>;
-  cudaError_t err = allow_shared(kernel, smem);
-  if (err != cudaSuccess) return err;
-  kernel<<<(n + threads - 1) / threads, threads, smem, stream>>>(
-      f, rec, x, n, nf, nfs, chunk, tree_batch, epilogue, denom, bias,
-      sigmoid, out);
-  return cudaGetLastError();
-}
-
-// the four staging variants of one leaf type
-template <bool kF16>
-cudaError_t launch_rows_any(bool staged_rows, bool staged_trees,
-                            const Forest& f, const int4* rec, const float* x,
-                            int n, int nf, int threads, int chunk, int nfs,
-                            int smem, int tree_batch, int epilogue,
-                            float denom, float bias, float sigmoid,
-                            float* out, cudaStream_t stream) {
-  auto launch = staged_rows
-                    ? (staged_trees ? launch_rows<kF16, true, true>
-                                    : launch_rows<kF16, true, false>)
-                    : (staged_trees ? launch_rows<kF16, false, true>
-                                    : launch_rows<kF16, false, false>);
-  return launch(f, rec, x, n, nf, threads, chunk, nfs, smem, tree_batch,
-                epilogue, denom, bias, sigmoid, out, stream);
-}
 
 // K2: leaf[r, t] = leaf_t(row r), int32, [N, T] row-major.
 __global__ void __launch_bounds__(kBlock)
@@ -429,39 +182,16 @@ extern "C" int lgbt_forest_value_walk(LGBT_FOREST_ARGS, const void* records,
                                       float denom, float bias,
                                       float sigmoid, float* out,
                                       void* stream) {
+  using namespace lgbt_records;
   const Forest f = LGBT_MAKE_FOREST;
-  const int4* rec = static_cast<const int4*>(records);
-  const cudaStream_t s = (cudaStream_t)stream;
-  if (threads < 32 || threads > 512 || threads % 32 != 0 || smem < 0 ||
-      smem > kSharedBudget || tree_batch < 1 || chunk_trees < 0) {
-    return (int)cudaErrorInvalidValue;
-  }
-  if (mode == kModeTrees) {
-    if (chunk_trees < 1 || smem < chunk_trees * 4) {
-      return (int)cudaErrorInvalidValue;
-    }
-    if (f16) {
-      value_trees_kernel<true><<<n, threads, smem, s>>>(
-          f, rec, x, nf, chunk_trees, tree_batch, epilogue, denom, bias,
-          sigmoid, out);
-    } else {
-      value_trees_kernel<false><<<n, threads, smem, s>>>(
-          f, rec, x, nf, chunk_trees, tree_batch, epilogue, denom, bias,
-          sigmoid, out);
-    }
-    return (int)cudaGetLastError();
-  }
-  if (mode != kModeRows) return (int)cudaErrorInvalidValue;
-  const bool staged_trees = chunk_trees > 0;
-  const bool staged_rows = staged_features >= 0;
-  const long need =
-      (staged_trees ? 2L * chunk_trees * max_nodes * 16 : 0) +
-      (staged_rows ? 4L * staged_features * (threads + 1) : 0);
-  if (need > smem || staged_features > nf) return (int)cudaErrorInvalidValue;
-  return (int)(f16 ? launch_rows_any<true> : launch_rows_any<false>)(
-      staged_rows, staged_trees, f, rec, x, n, nf, threads, chunk_trees,
-      staged_features, smem, tree_batch, epilogue, denom, bias, sigmoid, out,
-      s);
+  const WalkArgs a{static_cast<const int4*>(records), x, n, nf, threads,
+                   chunk_trees, staged_features, smem, tree_batch, epilogue,
+                   denom, bias, sigmoid, out, (cudaStream_t)stream};
+  const int err = plan_error<float>(f, mode, a);
+  if (err != 0) return err;
+  const RawDecision d{x};
+  return (int)(f16 ? launch_mode<RawDecision, true>(mode, d, f, a)
+                   : launch_mode<RawDecision, false>(mode, d, f, a));
 }
 
 extern "C" int lgbt_forest_leaf_walk(LGBT_FOREST_ARGS, int* leaf,

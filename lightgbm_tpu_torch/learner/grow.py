@@ -55,7 +55,7 @@ import torch
 from ..log import LightGBMError
 from ..ops.histogram import (hist_layout, i32_plan, leaf_histogram,
                               leaf_histogram_i32, subtract)
-from ..ops.route import SplitRule, route_partition
+from ..ops.route import SplitRule, route_partition, route_scratch
 from ..ops.split import (SplitParams, dequantize_hist, device_fmeta,
                          leaf_output, split_scan)
 
@@ -186,8 +186,20 @@ class SerialGrower:
             self.hq_plan = i32_plan(
                 binned, self.num_bins,
                 group_bins if binned.dtype == torch.uint16 else None)
+        # the DataPartition's two buffers: R reads a leaf's segment from
+        # one and writes its children's into the other (grow tracks which
+        # holds each leaf's); `perm` is whole again when grow ends
         self.perm = torch.empty(n, dtype=torch.int32, device=self.device)
+        self._perm_b = torch.empty_like(self.perm)
         self.leaf_id = torch.empty(n, dtype=torch.int32, device=self.device)
+        # R reads one group's column a split: on the card from a
+        # column-major copy of the bins (the JAX grower's binned_T), where
+        # a dense segment's bins are contiguous (PERF.md, PR 13)
+        on_card = self.device.type == "cuda"
+        self._route_scratch = route_scratch(n, self.device) if on_card \
+            else None
+        self._route_bins = binned.t().contiguous().t() if on_card \
+            else binned
         L = cfg.num_leaves
         dev = self.device
         # per-split buffers, reused: S's outputs for two leaves in one
@@ -257,6 +269,8 @@ class SerialGrower:
         begin = np.zeros(L, np.int64)
         rows = np.zeros(L, np.int64)
         rows[0] = n
+        bufs = (self.perm, self._perm_b)
+        side = np.zeros(L, np.int8)   # the buffer holding each segment
         t = _LeafTable(L)
         st = GrowerState(
             leaf_id=self.leaf_id, num_leaves_used=1,
@@ -343,9 +357,12 @@ class SerialGrower:
                 default_left=bool(t.default_left[slot]),
                 is_cat=bool(t.is_cat[slot]), left_slot=slot, right_slot=new)
             b0, m = int(begin[slot]), int(rows[slot])
-            route_partition(self.binned, self.perm, b0, m, rule,
+            src = int(side[slot])
+            route_partition(self._route_bins, bufs[src], b0, m, rule,
                             self.leaf_id,
-                            count_out=self._left_dev[node:node + 1])
+                            count_out=self._left_dev[node:node + 1],
+                            out=bufs[1 - src], scratch=self._route_scratch)
+            side[slot] = side[new] = 1 - src
             if bagged:
                 n_left = int(self._left_dev[node])
             else:
@@ -363,7 +380,8 @@ class SerialGrower:
             i_small = 0 if small_left else 1
             pair = torch.empty((2,) + tuple(hist[slot].shape),
                                dtype=hist[slot].dtype, device=self.device)
-            self._histogram(chans, rows=self.perm[int(begin[small]):],
+            self._histogram(chans,
+                            rows=bufs[side[small]][int(begin[small]):],
                             n_rows=int(rows[small]), out=pair[i_small])
             subtract(hist[slot], pair[i_small], out=pair[1 - i_small])
             if not self.quantized:
@@ -380,6 +398,7 @@ class SerialGrower:
             t.take(new, hf[1], hi[1])
 
         st.num_leaves_used = used
+        self._join_segments(begin, rows, side, used)
         st.perm, st.leaf_begin, st.leaf_rows = self.perm, begin, rows
         if bagged:
             return st
@@ -391,6 +410,20 @@ class SerialGrower:
                 "split scan counted %d" % (got[bad[0]], bad[0],
                                            expected_left[bad[0]]))
         return st
+
+    def _join_segments(self, begin: np.ndarray, rows: np.ndarray,
+                       side: np.ndarray, used: int) -> None:
+        """One gather a tree: the segments that the last splits left in
+        the second buffer are taken into `perm`, which then holds every
+        leaf's segment, the partition a single buffer would hold."""
+        if not side[:used].any():
+            return
+        order = np.argsort(begin[:used], kind="stable")
+        mask = torch.repeat_interleave(
+            torch.from_numpy(side[:used][order] != 0).to(self.device),
+            torch.from_numpy(rows[:used][order]).to(self.device),
+            output_size=self.n)
+        torch.where(mask, self._perm_b, self.perm, out=self.perm)
 
 
 def leaf_path_features(leaf_parent: np.ndarray, node_feature: np.ndarray,

@@ -33,6 +33,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 _p, _i, _f, _u = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, \
     ctypes.c_uint32
+_ll = ctypes.c_longlong
 # the forest-walk pointer block shared by the walk entry points: x, n, F,
 # the eleven Forest arrays, then T, M, L, C+2, W, K
 _WALK_HEAD = [_p, _i, _i] + [_p] * 11 + [_i] * 6
@@ -51,8 +52,8 @@ LIBRARIES = {
     }, ()),
     "quant": ("forest_quant.cu", {
         "lgbt_quant_codes": [_p, _i, _i, _p, _i, _i, _p, _p, _p],
-        "lgbt_forest_quant_walk": _WALK_HEAD + [_p, _p, _p, _i, _i, _f, _f,
-                                                _f, _p, _p],
+        "lgbt_forest_quant_walk": _WALK_HEAD + [_p, _p] + [_i] * 7
+        + [_f, _f, _f, _p, _p],
     }, ()),
     "histogram": ("histogram.cu", {
         "lgbt_leaf_histogram": [_p, _i, _i, _p, _p, _i, _i, _i, _p, _i,
@@ -76,8 +77,8 @@ LIBRARIES = {
         + [_i, _f, _i] + [_p] * 6,
     }, _NO_FMA),
     "route": ("route_partition.cu", {
-        "lgbt_route_tiles": [_i],
-        "lgbt_route_partition": [_p, _i, _i, _p, _i, _i] + [_i] * 11
+        "lgbt_route_scratch_ints": [_i],
+        "lgbt_route_partition": [_p, _ll, _ll, _i, _p, _p] + [_i] * 12
         + [_p, _p, _p, _p],
         "lgbt_score_update": [_p, _p, _p, _f, _i, _p],
         "lgbt_score_average": [_p, _p, _p, _f, _f, _i, _p],

@@ -20,7 +20,8 @@ show that its main path went through the kernels.
 K1 walks the Forest's 16-byte node records (`node_records`, built once
 a stack) in one of two modes that `walk_plan` picks by the row count: a
 block a row with its trees in parallel, or a row a thread over records
-and rows staged in shared memory (`csrc/forest_walk.cu` says why).
+and rows staged in shared memory (`csrc/forest_records.cuh`, shared
+with QW, says why).
 
 W, `tree_value_walk_binned`, is the counterpart of `predict_value_binned`
 (:182) with `predict_leaf_binned` (:87) and `_decide_binned` (:75): one
@@ -49,8 +50,10 @@ The serving extras:
   (`stack_trees_quant` :760): QC, `quant_codes` (:820), codes each row's
   values against per-feature grids of the split thresholds, and QW,
   `forest_quant_walk` (`predict_forest_quant` :882), walks the forest on
-  the codes (`csrc/forest_quant.cu`). QW and K1's f16 mode make the same
-  decisions over the same f16 leaves and agree bitwise.
+  the codes (`csrc/forest_quant.cu`) over its own node records
+  (`quant_records`: K1's, with the code bounds in a numeric node's first
+  word) in K1's two modes. QW and K1's f16 mode make the same decisions
+  over the same f16 leaves and agree bitwise.
 """
 from __future__ import annotations
 
@@ -142,7 +145,7 @@ def _tree_depth(tree) -> int:
     return deepest
 
 
-# K1's 16-byte node record (csrc/forest_walk.cu): the threshold's f32
+# K1's 16-byte node record (csrc/forest_records.cuh): the threshold's f32
 # bits, the feature in the low RECORD_FEATURE_BITS bits with the decision
 # byte above them, the left child, the right child
 RECORD_FEATURE_BITS = 24
@@ -313,10 +316,13 @@ class QuantForest:
     grid: torch.Tensor            # [F, K] f32 sorted bounds, +inf padded
     miss: Optional[torch.Tensor]  # [F] u8 bit0 NaN, bit1 zero; None: no
     #                               missing-typed numeric split
+    # [T, M, 4] i32, QW's 16-byte node records (`quant_records`); None
+    # when the forest does not fit them (QW refuses it by name)
+    nodes: Optional[torch.Tensor] = None
 
     def nbytes(self) -> int:
-        extra = [self.thr_code, self.lo, self.grid] + (
-            [] if self.miss is None else [self.miss])
+        extra = [self.thr_code, self.lo, self.grid] + [
+            t for t in (self.miss, self.nodes) if t is not None]
         return self.walk.nbytes() + sum(
             t.numel() * t.element_size() for t in extra)
 
@@ -375,11 +381,31 @@ def stack_trees_quant(trees, device: torch.device) -> QuantForest:
     for f, mt in miss.items():
         flags[f] = (_MISS_NAN_BIT if mt == MISSING_NAN else 0) \
             | (_MISS_ZERO_BIT if mt == MISSING_ZERO else 0)
+    nodes = None
+    if walk.nodes is not None:
+        nodes = torch.from_numpy(quant_records(
+            walk.nodes.cpu().numpy(), thr_code, lo)).to(device)
     return QuantForest(
         walk=walk, thr_code=torch.from_numpy(thr_code).to(device),
         lo=torch.from_numpy(lo).to(device),
         grid=torch.from_numpy(grid).to(device),
-        miss=torch.from_numpy(flags).to(device) if has_special else None)
+        miss=torch.from_numpy(flags).to(device) if has_special else None,
+        nodes=nodes)
+
+
+def quant_records(nodes: np.ndarray, thr_code: np.ndarray,
+                  lo: np.ndarray) -> np.ndarray:
+    """QW's [T, M, 4] int32 node records: K1's records (`node_records`)
+    with a numeric node's first word thr_code | lo << 16 (thr_code in the
+    low 16 bits, lo sign-extended above them); a categorical node keeps
+    its cat_idx's f32 bits, which the bitset test reads."""
+    is_cat = ((nodes[..., 1].view(np.uint32) >> RECORD_FEATURE_BITS)
+              & _CAT_BIT) != 0
+    code = ((thr_code.astype(np.int32) & 0xFFFF)
+            | (lo.astype(np.int32) << 16))
+    out = nodes.copy()
+    out[..., 0] = np.where(is_cat, nodes[..., 0], code)
+    return out
 
 
 @dataclass(frozen=True)
@@ -661,12 +687,12 @@ def _count(wrapper, lib, entry: str, rc: int) -> None:
         wrapper.launches += 1
 
 
-# K1's launch plan (csrc/forest_walk.cu). Up to TREE_PARALLEL_MAX_ROWS
-# rows a launch walks (row, tree) pairs, a block a row ("trees" mode);
-# past it a block of ROWS_THREADS threads walks a row a thread through
-# the forest's records, staged in shared memory a chunk of trees at a
-# time ("rows" mode). The crossover, the threads and the chunk are
-# measured on the card (PERF.md).
+# K1's and QW's launch plan (csrc/forest_records.cuh). Up to
+# TREE_PARALLEL_MAX_ROWS rows a launch walks (row, tree) pairs, a block a
+# row ("trees" mode); past it a block of ROWS_THREADS threads walks a row
+# a thread through the forest's records, staged in shared memory a chunk
+# of trees at a time ("rows" mode). The crossover, the threads and the
+# chunk are measured on the card (PERF.md; QW's crossover too).
 TREE_PARALLEL_MAX_ROWS = 32_768
 ROWS_THREADS = 512
 # one of the two record buffers of "rows" mode: 4 trees of 255 leaves
@@ -702,14 +728,21 @@ class WalkPlan:
                 self.staged_features, self.shared_bytes)
 
 
+def staged_stride(threads: int, value_bytes: int) -> int:
+    """Rows mode's staged row stride (csrc/forest_records.cuh): the
+    threads + 1 for 4-byte values, + 2 for 2-byte ones."""
+    return threads + (1 if value_bytes == 4 else 2)
+
+
 def walk_plan(num_trees: int, max_nodes: int, num_features: int, n: int,
-              linear: bool = False) -> WalkPlan:
-    """K1's plan for n rows of a forest of num_trees trees padded to
-    max_nodes nodes that reads num_features row columns; deterministic
-    in its arguments, within SHARED_BYTES. A linear forest's rows mode
-    stages nothing: its leaves read the row from device memory at every
-    tree anyway, so the row's line is in L1 for the walk, and staging
-    would only cost the block's occupancy (PERF.md)."""
+              linear: bool = False, value_bytes: int = 4) -> WalkPlan:
+    """The plan of K1 (f32 values) or QW (`value_bytes` 2: int16 codes)
+    for n rows of a forest of num_trees trees padded to max_nodes nodes
+    that reads num_features row columns; deterministic in its arguments,
+    within SHARED_BYTES. A linear forest's rows mode stages nothing: its
+    leaves read the row from device memory at every tree anyway, so the
+    row's line is in L1 for the walk, and staging would only cost the
+    block's occupancy (PERF.md)."""
     if n <= TREE_PARALLEL_MAX_ROWS:
         chunk = min(num_trees, PAIRS_CHUNK)
         threads = (PAIRS_THREADS_FEW if n <= PAIRS_WIDE_ROWS
@@ -721,7 +754,8 @@ def walk_plan(num_trees: int, max_nodes: int, num_features: int, n: int,
     tree_bytes = max_nodes * RECORD_BYTES
     chunk = min(num_trees, CHUNK_BYTES // tree_bytes)
     tree_smem = 2 * chunk * tree_bytes
-    row_smem = num_features * (ROWS_THREADS + 1) * 4
+    row_smem = num_features * staged_stride(ROWS_THREADS,
+                                            value_bytes) * value_bytes
     if tree_smem + row_smem <= SHARED_BYTES:
         return WalkPlan("rows", ROWS_THREADS, chunk, num_features,
                         tree_smem + row_smem)
@@ -874,7 +908,11 @@ def forest_quant_walk(qf: QuantForest, codes: torch.Tensor, x: torch.Tensor,
                       transform: Optional[OutputTransform] = None
                       ) -> torch.Tensor:
     """QW: [N] f32 raw score (or converted output) of the fixed-point
-    layout on rows x [N, F] and their codes [N, F] (`quant_codes`)."""
+    layout on rows x [N, F] and their codes [N, F] (`quant_codes`),
+    walked over its node records (`quant_records`) in K1's two modes
+    (`walk_plan` with 2-byte values); a rows-mode launch also counts in
+    `forest_quant_walk.launches_rows`."""
+    _check_records(qf.walk, "forest_quant_walk")
     _check_inputs(qf.walk, x)
     if codes.shape != x.shape or codes.dtype != torch.int16 \
             or codes.device != x.device or not codes.is_contiguous():
@@ -884,11 +922,17 @@ def forest_quant_walk(qf: QuantForest, codes: torch.Tensor, x: torch.Tensor,
         return forest_quant_walk_plain(qf, codes, x, transform)
     out = torch.empty(x.shape[0], dtype=torch.float32, device=x.device)
     if x.shape[0]:
+        walk = qf.walk
+        plan = walk_plan(walk.num_trees, walk.split_feature.shape[1],
+                         walk.num_features, x.shape[0], value_bytes=2)
         p = ctypes.c_void_p
-        _launch(forest_quant_walk, "lgbt_forest_quant_walk", qf.walk, x,
-                (p(qf.thr_code.data_ptr()), p(qf.lo.data_ptr()),
-                 p(codes.data_ptr()), QUANT_TREE_BATCH)
+        _launch(forest_quant_walk, "lgbt_forest_quant_walk", walk, x,
+                (p(qf.nodes.data_ptr()), p(codes.data_ptr()))
+                + plan.args() + (QUANT_TREE_BATCH,)
                 + _epilogue_args(transform), (out,), library="quant")
+        if plan.mode == "rows":
+            with _launch_lock:
+                forest_quant_walk.launches_rows += 1
     return out
 
 
@@ -901,6 +945,7 @@ forest_leaf_walk.launches = 0
 forest_early_stop_walk.launches = 0
 quant_codes.launches = 0
 forest_quant_walk.launches = 0
+forest_quant_walk.launches_rows = 0
 
 
 # ----------------------------------------------------------------------

@@ -9,9 +9,11 @@ which each leaf owns a contiguous segment. `route_partition` decides
 go_left for each row of a leaf's segment exactly as the JAX grower does
 (EFB decode, NaN / zero missing to default_left, categorical equality,
 else bin <= threshold), writes the rows' new leaf slot and reorders the
-segment stably, left rows first. `score_update` adds each row's leaf
-value times the shrinkage to its score as one fused multiply-add, as
-the JAX package's fused grow-and-update program does. All outputs but
+segment stably, left rows first (in place, or into another buffer: the
+grower keeps two and tracks which one holds each leaf's segment).
+`score_update` adds each row's leaf value times the shrinkage to its
+score as one fused multiply-add, as the JAX package's fused
+grow-and-update program does. All outputs but
 the score are integers and equal the plain versions exactly; the score
 is rounded once a row either way (`fma_f32`). `score_average`, R's
 average mode, is RF's running average (`lightgbm_tpu/boosting/rf.py`
@@ -44,6 +46,9 @@ from . import _build
 from .histogram import take_bins
 
 _launch_lock = threading.Lock()
+# rows a block of R routes a pass (csrc/route_partition.cu kThreads): a
+# segment of more rows takes several blocks
+PASS_ROWS = 512
 
 
 @dataclass(frozen=True)
@@ -109,64 +114,116 @@ def route_partition_plain(binned: torch.Tensor, perm: torch.Tensor,
     return n_left
 
 
+def route_scratch(rows: int, device: torch.device) -> torch.Tensor:
+    """R's scratch for splits of up to `rows` rows on a CUDA device: its
+    barrier words (zero), a left count a block and a flag bit a row
+    (`csrc/route_partition.cu`). The grower makes one per Dataset."""
+    return torch.zeros(_lib().lgbt_route_scratch_ints(rows),
+                       dtype=torch.int32, device=device)
+
+
+_route_lib = None
+
+
+def _lib():
+    global _route_lib
+    if _route_lib is None:
+        _route_lib = _build.load_library("route")
+    return _route_lib
+
+
 def route_partition(binned: torch.Tensor, perm: torch.Tensor, begin: int,
                     count: int, rule: SplitRule, leaf_id: torch.Tensor,
-                    count_out: Optional[torch.Tensor] = None
+                    count_out: Optional[torch.Tensor] = None,
+                    out: Optional[torch.Tensor] = None,
+                    scratch: Optional[torch.Tensor] = None
                     ) -> torch.Tensor:
-    """R: route the rows perm[begin:begin+count] of one leaf by `rule`,
-    in place (leaf_id of those rows, and the segment's order); returns
-    the left row count as a 0-dim int32 tensor on the same device, and
-    writes it to count_out[0] (an int32 tensor) when given."""
-    if binned.dim() != 2 or perm.dim() != 1 or leaf_id.shape != perm.shape:
+    """R: route the rows perm[begin:begin+count] of one leaf by `rule`:
+    leaf_id of those rows, and the segment reordered stably, left rows
+    first, in place or, with `out` (another int32 [N] buffer), into
+    out[begin:begin+count] with perm left as it is (one kernel launch on
+    the card; in place adds a copy back). Returns the left row count as
+    a 0-dim int32 tensor on the same device, and writes it to
+    count_out[0] (an int32 tensor) when given. binned [N, G] is
+    row-major or column-major (a transposed copy's view). `scratch`: the
+    grower's `route_scratch` of at least `count` rows; made per call
+    when None."""
+    if binned.dim() != 2 or perm.dim() != 1 or leaf_id.shape != perm.shape \
+            or (out is not None and (out.shape != perm.shape
+                                     or out.data_ptr() == perm.data_ptr())):
         raise LightGBMError("route_partition takes binned [N, G], perm "
-                            "[N] and leaf_id [N]")
+                            "[N], leaf_id [N] and out [N] apart from perm")
     if begin < 0 or count < 0 or begin + count > perm.shape[0]:
         raise LightGBMError("route_partition: segment out of range")
-    if any(t.device != binned.device for t in (perm, leaf_id)) or (
-            count_out is not None and (count_out.device != binned.device
-                                       or count_out.dtype != torch.int32)):
+    dev = binned.device
+    if any(t.device != dev for t in (perm, leaf_id)) or (
+            count_out is not None and (count_out.device != dev
+                                       or count_out.dtype != torch.int32)) \
+            or (out is not None and out.device != dev):
         raise LightGBMError("route_partition: inputs on different devices "
                             "or a count_out that is not int32")
-    if binned.device.type == "cpu":
-        return route_partition_plain(binned, perm, begin, count, rule,
+    if dev.type == "cpu":
+        if out is None:
+            return route_partition_plain(binned, perm, begin, count, rule,
+                                         leaf_id, count_out)
+        out[begin:begin + count] = perm[begin:begin + count]
+        return route_partition_plain(binned, out, begin, count, rule,
                                      leaf_id, count_out)
-    if binned.device.type != "cuda":
+    if dev.type != "cuda":
         raise LightGBMError("route_partition runs on cpu or cuda, not %s"
-                            % binned.device)
+                            % dev)
     u16 = binned.dtype == torch.uint16
     if binned.dtype not in (torch.uint8, torch.uint16) \
-            or perm.dtype != torch.int32 or leaf_id.dtype != torch.int32:
+            or perm.dtype != torch.int32 or leaf_id.dtype != torch.int32 \
+            or (out is not None and out.dtype != torch.int32):
         raise LightGBMError("route_partition takes uint8 or uint16 bins and "
-                            "int32 perm/leaf_id")
-    if not (binned.is_contiguous() and perm.is_contiguous()
-            and leaf_id.is_contiguous()):
-        raise LightGBMError("route_partition takes contiguous tensors")
-    lib = _build.load_library("route")
-    tiles = lib.lgbt_route_tiles(count)
-    scratch = torch.empty(tiles + 1 + count, dtype=torch.int32,
-                          device=binned.device)
-    if not count:
-        scratch.zero_()
+                            "int32 perm/leaf_id/out")
+    if not ((binned.is_contiguous() or binned.t().is_contiguous())
+            and perm.is_contiguous() and leaf_id.is_contiguous()
+            and (out is None or out.is_contiguous())):
+        raise LightGBMError("route_partition takes contiguous tensors "
+                            "(binned row- or column-major)")
+    lib = _lib()
+    if scratch is None:
+        scratch = route_scratch(count, dev)
+    elif scratch.dtype != torch.int32 or scratch.device != dev \
+            or scratch.numel() < lib.lgbt_route_scratch_ints(count):
+        raise LightGBMError("route_partition: scratch is not an int32 "
+                            "route_scratch of %d rows on %s" % (count, dev))
+    if count_out is None:
+        count_out = torch.empty(1, dtype=torch.int32, device=dev)
+    if out is None:
+        seg = torch.empty(count, dtype=torch.int32, device=dev)
+        dst = seg.data_ptr()
+    else:
+        dst = out.data_ptr() + 4 * begin
     p = ctypes.c_void_p
-    with torch.cuda.device(binned.device):
-        stream = torch.cuda.current_stream(binned.device).cuda_stream
+    args = (p(binned.data_ptr()), binned.stride(0), binned.stride(1),
+            int(u16), p(perm.data_ptr() + 4 * begin), p(dst), count,
+            *rule.args(), p(leaf_id.data_ptr()), p(scratch.data_ptr()),
+            p(count_out.data_ptr()))
+    # no device switch when the card is already the current one (the
+    # grower calls R once a split)
+    if torch.cuda.current_device() == dev.index:
         rc = lib.lgbt_route_partition(
-            p(binned.data_ptr()), binned.shape[1], int(u16),
-            p(perm.data_ptr()), begin, count, *rule.args(), p(leaf_id.data_ptr()),
-            p(scratch.data_ptr()),
-            p(None if count_out is None else count_out.data_ptr()),
-            p(stream))
+            *args, p(torch.cuda.current_stream().cuda_stream))
+    else:
+        with torch.cuda.device(dev):
+            rc = lib.lgbt_route_partition(
+                *args, p(torch.cuda.current_stream().cuda_stream))
     if rc != 0:
         raise LightGBMError("route_partition launch failed: CUDA error %d "
                             "(%s)" % (rc, lib.lgbt_error_string(rc).decode()))
     if count:
+        if out is None:
+            perm[begin:begin + count].copy_(seg)
         with _launch_lock:
             route_partition.launches += 1
             if u16:
                 route_partition.launches_u16 += 1
             if rule.is_cat:
                 route_partition.launches_cat += 1
-    return scratch[tiles]
+    return count_out[0]
 
 
 def fma_f32(a: torch.Tensor, b: torch.Tensor,
