@@ -186,11 +186,16 @@ Phases, any failure raises and the script exits non-zero:
     inf rows; K1 on the trained linear forest bitwise and repeating its
     bits at phase 2's row counts up to the 262,144 valid rows; W's
     leaf mode equal; LM as the main path calls it (leaf_feature_moments
-    over the last tree's 255 leaf ids and the trained model's gradients)
-    and on the first tree's leaves, all four channels per bin within
-    1e-5 * max(1, sum of |terms|) of the plain version and an f64
-    oracle, the bin-summed sum w g x of the first tree's largest leaf
-    equal to LF's b; LF and LS at k = 64 (65,536 rows x 70 columns, 16
+    over the last tree's 255 leaf ids and the trained model's gradients),
+    on the first tree's leaves and on seeded 65,536 x 70 rows (16 ids in
+    shuffled order, one of no rows, rows of no id, NaN and -inf values;
+    one id over a constant leaf_id; 3,000 ids over 8 of the features,
+    past what the sort counts in shared memory), all four channels per bin
+    within 1e-5 * max(1, sum of |terms|) of the plain version and an f64
+    oracle and bitwise the replay of its summation order
+    (`ops/histogram.leaf_moments_order`), the bin-summed sum w g x of the
+    first tree's largest leaf equal to LF's b; LF and LS at k = 64
+    (65,536 rows x 70 columns, 16
     leaves, LF's sums split over three blocks a leaf) against their
     plain versions and LF's f64 oracle; each launched twice repeating
     its bits;
@@ -199,9 +204,10 @@ Phases, any failure raises and the script exits non-zero:
     features, leaf values and coefficients within 1e-5 relative, valid
     AUC within 2e-3;
 20. times: each new kernel's device time (torch.profiler; CUDA events
-    for LS; a CUDA graph replay for K1; LM on the main path's call), its
-    plain version, bound and library yardstick (index_add_ for LF,
-    torch.linalg.solve for LS, torch.bincount x4 for LM); seconds per
+    for LS; a CUDA graph replay for K1 and for LM on the main path's
+    call, whose call's events and host time print beside it), its plain
+    version, bound and library yardstick (index_add_ for LF and LM, with
+    torch.bincount x4 beside LM's, torch.linalg.solve for LS); seconds per
     linear round against phase 12's constant round; one profiled linear
     round; the BENCH_SHAPE=linear gate (bench.py:1562-1620: 20,000 x 10
     rows, regression, 31 leaves, 60 rounds) on the card, its ratio at
@@ -396,10 +402,11 @@ Phases, any failure raises and the script exits non-zero:
     Bosch and the uint8 HIGGS matrices HQ at the root and on a seeded
     1,000-row list, both again with a fifth of w01 at 0, and under plans
     whose skipped bins hold none of those rows, exactly and repeating; LM at
-    max_bin=1023 on the last linear tree's leaves (phase 40) and LM on
+    max_bin=1023 on the last linear tree's leaves (phase 40), on seeded
+    65,536 x 70 uint16 rows at its width (phase 18's cases), and LM on
     the uint8 HIGGS matrix over phase 9's last tree's leaves, within
     1e-5 * max(1, sum of |terms|) of the plain version and of an f64
-    oracle, repeats equal;
+    oracle, bitwise their replays, repeats equal;
 40. the quantized uint16 main paths on phase 31's Bosch Datasets, every
     count set to 0 before each run and read after: int8 (twice,
     byte-identical), int16 and int8 + bagging 0.8 every round, 10 rounds
@@ -416,9 +423,10 @@ Phases, any failure raises and the script exits non-zero:
     at the Bosch root, on its row list and at the max_bin=1023 root
     against its bound, torch.bincount x3 (the codes as
     weights), its plain version and HQ at the uint8 HIGGS root; LM u16
-    against its bound, torch.bincount x4, one index_add_ of the [rows x
-    groups, 4] channels into the [(ids + 1) x groups x bins, 4] output
-    (the JSON row's yardstick), its plain version and LM on uint8 bins;
+    (CUDA-graph replay, the call's events and host time) against its
+    bound, torch.bincount x4, one index_add_ of the [rows x groups, 4]
+    channels into the [(ids + 1) x groups x bins, 4] output (the JSON
+    row's yardstick), its plain version and LM on uint8 bins;
     S's categorical scan on an Expo leaf pair, R on the categorical
     split (as in phase 12, and its ms in the profiled categorical round)
     and W on the categorical tree; seconds per round of
@@ -448,6 +456,9 @@ import torch
 TREES, LEAVES, FEATURES = 500, 255, 28
 BULK_ROWS = 262_144
 CHECK_ROWS = 16_384
+# rows of the calls whose host time LM's timings report: few enough that
+# the device keeps up with the launches
+LM_HOST_ROWS = 1000
 # rows of the k = 64 linear design (phase 18): its f64 oracle holds
 # [rows, 65 x 65] products
 WIDE_ROWS = 65_536
@@ -1968,7 +1979,8 @@ def linear_oracle(x, grad, hess, weight, perm, begin, rows, feats):
 
 def moment_oracle(binned, x, w3, num_bins, leaf_id, ids):
     """LM's per-bin moments of the rows of each leaf id and the sums of
-    their terms' absolute values, in f64 on the card."""
+    their terms' absolute values, in f64 on the card; a bin past
+    num_bins adds nothing."""
     from lightgbm_tpu_torch.ops.histogram import take_bins
     match = leaf_id.long()[:, None] == ids.long()[None, :]
     hit = match.any(dim=1)
@@ -1981,15 +1993,136 @@ def moment_oracle(binned, x, w3, num_bins, leaf_id, ids):
     w = w3[sel].double()
     terms = torch.stack([xv * w[:, 2:3], xv * xv * w[:, 2:3],
                          xv * w[:, 0:1], xv * w[:, 1:2]], -1)
+    bins = take_bins(binned, sel)
+    keep = (bins < num_bins).reshape(-1)
     flat = ((slot[:, None] * f_cnt
              + torch.arange(f_cnt, device=binned.device)[None]) * num_bins
-            + take_bins(binned, sel)).reshape(-1)
+            + bins).reshape(-1)[keep]
+    terms = terms.reshape(-1, 4)[keep]
     out = []
     for t in (terms, terms.abs()):
         acc = torch.zeros((c_cnt * f_cnt * num_bins, 4), dtype=torch.float64,
                           device=binned.device)
-        out.append(acc.index_add_(0, flat, t.reshape(-1, 4)).view(
+        out.append(acc.index_add_(0, flat, t).view(
             c_cnt, f_cnt, num_bins, 4))
+    return out
+
+
+def hold_lm(label, args):
+    """LM on args (binned, x, w3, num_bins, leaf_id, ids): its repeat and
+    ops/histogram.leaf_moments_order (the replay of its summation order)
+    bit for bit, leaf_moments_plain and the f64 oracle within 1e-5 *
+    max(1, sum of the terms' |values|). Returns (LM, the max abs error
+    against plain)."""
+    from lightgbm_tpu_torch.ops import histogram
+    got = histogram.leaf_moments(*args)
+    check(torch.equal(got, histogram.leaf_moments(*args)),
+          "LM (%s): a second launch gave other bits" % label)
+    check(torch.equal(got, histogram.leaf_moments_order(*args)),
+          "LM (%s): not bitwise the replay of its summation order" % label)
+    ref, scale = moment_oracle(*args)
+    err = within(got, histogram.leaf_moments_plain(*args), scale,
+                 "LM (%s) vs plain" % label)
+    within(got, ref, scale, "LM (%s) vs f64 oracle" % label)
+    return got, err
+
+
+def lm_cases(dev, num_bins, seed):
+    """LM's seeded cases at 65,536 rows x 70 features (the k = 64 check's
+    size; F past 32 takes three slices): uint8 bins below 256, else
+    uint16, a few past num_bins; NaN and -inf values; 16 leaf ids in
+    shuffled order, the last holding no row, and rows of no id; one id
+    over a constant leaf_id; 3,000 ids (the last holding no row) over 8
+    of the features. {label: args}."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    wide = num_bins > 256
+    bins = torch.randint(0, num_bins, (WIDE_ROWS, 70), device=dev,
+                         generator=gen, dtype=torch.int32)
+    bins[::97, 5] = num_bins + 1 if wide else 0
+    bins = bins.to(torch.int16).view(torch.uint16) if wide \
+        else bins.to(torch.uint8)
+    x = torch.randn((WIDE_ROWS, 70), device=dev, generator=gen)
+    x[::53, 3] = float("nan")
+    x[7::89, 40] = float("-inf")
+    m = (torch.rand(WIDE_ROWS, device=dev, generator=gen) < 0.9).float()
+    w = torch.stack([torch.randn(WIDE_ROWS, device=dev, generator=gen) * m,
+                     (torch.rand(WIDE_ROWS, device=dev, generator=gen)
+                      + 0.1) * m, m], 1).contiguous()
+    ids = (torch.randperm(16, device=dev, generator=gen) * 3 + 1).to(
+        torch.int32)
+    lid = ids[torch.randint(0, 15, (WIDE_ROWS,), device=dev, generator=gen)]
+    lid[::41] = -7
+    # more ids than the sort counts in shared memory (kSortSlots), on 8
+    # of the features: the sort's counters stay in device memory
+    many = torch.randperm(3000, device=dev, generator=gen).to(torch.int32)
+    return {"%d x 70, 16 ids" % WIDE_ROWS: (bins, x, w, num_bins, lid, ids),
+            "one id over all rows": (
+                bins, x, w, num_bins,
+                torch.full((WIDE_ROWS,), 3, dtype=torch.int32, device=dev),
+                torch.tensor([3], dtype=torch.int32, device=dev)),
+            "3,000 ids over 8 features": (
+                bins[:, :8].contiguous(), x[:, :8].contiguous(), w,
+                num_bins, many[torch.randint(0, 2999, (WIDE_ROWS,),
+                                             device=dev, generator=gen)],
+                many)}
+
+
+def lm_timing(args):
+    """LM's times on args (binned, x, w3, num_bins, leaf_id, ids) as
+    leaf_feature_moments calls it: `device` (a CUDA graph of the call's
+    LM, leaf_moments_ids), `call` (CUDA events around
+    leaf_feature_moments) and `call_graph`, `host_us` (a call's host
+    time on the first LM_HOST_ROWS rows), the `plain`
+    version, the `bound`, and the yardsticks: `index_add` (one
+    index_add_ of the [rows x F, 4] terms into [(ids + 1) x F x B, 4],
+    rows of no id into the spare id) and `bincount4` (torch.bincount
+    x4)."""
+    from lightgbm_tpu_torch.linear import leaf_feature_moments
+    from lightgbm_tpu_torch.ops import histogram
+    lb, raw, w3, width, lid, ids = args
+    ids_l = ids.tolist()
+    rows, f_cnt = lb.shape
+    c_cnt = len(ids_l)
+    dev = lb.device
+    out = {"bound": bound(rows * (f_cnt * (lb.element_size() + 4) + 12 + 4)
+                          + c_cnt * f_cnt * width * 16,
+                          8.0 * rows * f_cnt)}
+    match = lid.long()[:, None] == ids.long()[None, :]
+    slot = torch.where(match.any(1), match.int().argmax(1),
+                       torch.full_like(lid.long(), c_cnt))
+    del match
+    flat = ((slot[:, None] * f_cnt + torch.arange(f_cnt, device=dev))
+            * width + histogram.take_bins(lb)).reshape(-1)
+    xv = torch.where(torch.isfinite(raw), raw, torch.zeros_like(raw))
+    terms = [(xv * w3[:, 2:3]).reshape(-1), (xv * xv * w3[:, 2:3]).reshape(-1),
+             (xv * w3[:, 0:1]).reshape(-1), (xv * w3[:, 1:2]).reshape(-1)]
+    del xv, slot
+    src4 = torch.stack(terms, 1)
+    acc = torch.zeros(((c_cnt + 1) * f_cnt * width, 4), dtype=torch.float32,
+                      device=dev)
+    out["index_add"] = median_ms(lambda: acc.index_add_(0, flat, src4),
+                                 reps=5)
+    del src4, acc
+
+    def library():
+        for t in terms:
+            torch.bincount(flat, weights=t,
+                           minlength=(c_cnt + 1) * f_cnt * width)
+    out["bincount4"] = median_ms(library, reps=3)
+    del terms, flat
+
+    def call():
+        return leaf_feature_moments(lb, raw, w3, lid, ids_l, width)
+    out["device"] = graph_ms(
+        lambda: histogram.leaf_moments_ids(lb, raw, w3, width, lid, ids_l))
+    out["call"] = median_ms(call)
+    out["call_graph"] = graph_ms(call)
+    # the host time on the first 1,000 rows, where the device keeps up
+    small = [t[:LM_HOST_ROWS].contiguous() for t in (lb, raw, w3, lid)]
+    out["host_us"] = host_us(lambda: leaf_feature_moments(
+        small[0], small[1], small[2], small[3], ids_l, width))
+    out["plain"] = median_ms(lambda: histogram.leaf_moments_plain(*args),
+                             reps=3)
     return out
 
 
@@ -2363,21 +2496,21 @@ def linear(name, card, dev, ctx):
             st.num_leaves_used, dtype=torch.int32, device=dev))}
     lm_err = 0.0
     for label, (w, lid, ids) in lm_args.items():
-        got = histogram.leaf_moments(binned, raw_x, w, nb, lid, ids)
-        check(torch.equal(got, histogram.leaf_moments(binned, raw_x, w, nb,
-                                                      lid, ids)),
-              "LM (%s): a second launch gave other bits" % label)
-        ref, scale = moment_oracle(binned, raw_x, w, nb, lid, ids)
-        lm_err = max(lm_err, within(got, histogram.leaf_moments_plain(
-            binned, raw_x, w, nb, lid, ids), scale, "LM (%s) vs plain"
-            % label))
-        within(got, ref, scale, "LM (%s) vs f64 oracle" % label)
+        got, err = hold_lm(label, (binned, raw_x, w, nb, lid, ids))
+        lm_err = max(lm_err, err)
         if label.startswith("main path"):
             check(torch.equal(moments, got.sum(dim=2)),
                   "leaf_feature_moments is not LM summed over bins")
+            ref, scale = moment_oracle(binned, raw_x, w, nb, lid, ids)
             within(moments, ref.sum(dim=2), scale.sum(dim=2),
                    "leaf_feature_moments vs f64 oracle")
-        del ref, scale
+            del ref, scale
+    for label, args in lm_cases(dev, nb, 18).items():
+        case, err = hold_lm(label, args)
+        lm_err = max(lm_err, err)
+        check(args[5].shape[0] == 1 or not bool(case[-1].any()),
+              "LM (%s): the id of no rows is not 0" % label)
+        del case
     errs["leaf_moments"] = lm_err
     big = int(np.argmax(st.leaf_rows))
     sums = got.sum(dim=2)[big]
@@ -2392,10 +2525,12 @@ def linear(name, card, dev, ctx):
           "and padded leaves fall back or pin as plain), LA bitwise with "
           "NaN/inf rows, K1 linear bitwise at 1 to %d rows, W leaf mode equal, "
           "LM's four channels within %.3g on the main path's call (%d leaf "
-          "ids) and on the first tree's leaves, leaf_feature_moments its sum "
-          "over bins, equal to LF's b; every kernel repeated its bits"
+          "ids), on the first tree's leaves and on %d x 70 seeded rows (16 "
+          "ids, one of no rows; one id over all rows), bitwise its replay, "
+          "leaf_feature_moments its sum over bins, equal to LF's b; every "
+          "kernel repeated its bits"
           % (TRAIN_ROWS, st.num_leaves_used, k, errs["linear_normal_eq"],
-             VALID_ROWS, lm_err, len(lm_ids)))
+             VALID_ROWS, lm_err, len(lm_ids), WIDE_ROWS))
 
     # --------------------------------------------------------------- 19
     xs, ys = x[:CPU_ROWS], y[:CPU_ROWS]
@@ -2468,33 +2603,19 @@ def linear(name, card, dev, ctx):
         bound(n * (12 + 4 * k), n * (3.0 * k + 4)), None)
     # LM as the main path calls it: leaf_feature_moments over the last
     # tree's leaf ids; a row's F bins and F values, 12 bytes of channels
-    # and its leaf id, and the [C, F, B, 4] output. Its yardstick adds the
-    # four channels into (leaf, feature, bin) with torch.bincount
-    c_lm = len(lm_ids)
-    flat = (((leaf_of.long() * nf)[:, None]
-             + torch.arange(nf, device=dev)[None]) * nb
-            + binned.long()).reshape(-1)
-    xw = torch.where(torch.isfinite(raw_x), raw_x, torch.zeros_like(raw_x))
-    chans = [(xw * w_l[:, c, None]).reshape(-1) for c in (2, 0, 1)]
-    chans.insert(1, (xw * xw).reshape(-1))
-
-    def lm_library():
-        for c in chans:
-            torch.bincount(flat, weights=c, minlength=c_lm * nf * nb)
-
-    def lm_call():
-        return leaf_feature_moments(binned, raw_x, w_l, leaf_of, lm_ids, nb)
-    ids_dev = torch.tensor(lm_ids, dtype=torch.int32, device=dev)
-    times["leaf_moments"] = (
-        device_ms(lm_call, ("moment_count_kernel", "moment_scan_kernel",
-                            "moment_scatter_kernel", "moment_tile_kernel",
-                            "moment_reduce_kernel")),
-        median_ms(lm_call),
-        median_ms(lambda: histogram.leaf_moments_plain(
-            binned, raw_x, w_l, nb, leaf_of, ids_dev), reps=5),
-        bound(n * (5 * nf + 16) + c_lm * nf * nb * 16, 8.0 * n * nf),
-        median_ms(lm_library, reps=5))
-    del flat, xw, chans
+    # and its leaf id, and the [C, F, B, 4] output
+    lm_t = lm_timing((binned, raw_x, w_l, nb, leaf_of, torch.tensor(
+        lm_ids, dtype=torch.int32, device=dev)))
+    times["leaf_moments"] = (lm_t["device"], lm_t["call"], lm_t["plain"],
+                             lm_t["bound"], lm_t["index_add"])
+    print("time [%s | %s]: leaf_moments (%d ids over %d x %d, B %d): device "
+          "%.4f ms (CUDA graph), leaf_feature_moments %.4f ms (CUDA events; "
+          "graph %.4f ms), host %.1f us a call, bound %.5f ms, one "
+          "index_add_ %.4f ms, torch.bincount x4 %.4f ms, plain %.3f ms"
+          % (name, card, len(lm_ids), n, nf, nb, lm_t["device"],
+             lm_t["call"], lm_t["call_graph"], lm_t["host_us"],
+             lm_t["bound"][0], lm_t["index_add"], lm_t["bincount4"],
+             lm_t["plain"]))
     # K1 on the linear forest: node visits, and k loads and multiply-adds
     # a (row, tree)
     leaf = predict.forest_leaf_walk_plain(forest, xvd)
@@ -5382,18 +5503,19 @@ def uint16_quant(name, card, dev, ctx):
     for label, args in (
             ("u16", (gbt._binned, gbt._raw, w_l, nbw, leaf_of, ids_w)),
             ("u8", (hb, raw8, w8, nb8, lid8, ids8))):
-        got = LM(*args)
-        check(torch.equal(got, LM(*args)),
-              "LM %s: a second launch gave other bits" % label)
-        ref, scale = moment_oracle(args[0], args[1], args[2], args[3],
-                                   args[4], args[5])
-        lm_err[label] = within(got, histogram.leaf_moments_plain(*args),
-                               scale, "LM %s vs plain" % label)
-        within(got, ref, scale, "LM %s vs f64 oracle" % label)
+        got, lm_err[label] = hold_lm(label, args)
         if label == "u16":
             check(torch.equal(moments, got.sum(dim=2)),
                   "leaf_feature_moments is not LM u16 summed over bins")
-        del got, ref, scale
+        del got
+    LM.launches_u16 = 0
+    for label, args in lm_cases(dev, nbw, 40).items():
+        case, err = hold_lm("u16 " + label, args)
+        lm_err["u16"] = max(lm_err["u16"], err)
+        check(args[5].shape[0] == 1 or not bool(case[-1].any()),
+              "LM u16 (%s): the id of no rows is not 0" % label)
+        del case
+    check(LM.launches_u16 > 0, "LM's seeded uint16 cases ran no uint16 LM")
     print("HQ cases: exact and repeating at the root, on a 1,000-row list "
           "and both with a fifth of w01 at 0, and under plans whose skipped "
           "bins hold no row (%d Bosch groups, %d uint8 HIGGS groups on the "
@@ -5402,11 +5524,12 @@ def uint16_quant(name, card, dev, ctx):
           "root (%s), on the root split's smaller child (%d rows) and a "
           "random quarter in random order (round-10 codes, int8 and "
           "int16), at the max_bin=%d root, and on the uint8 HIGGS root; LM "
-          "u16 (%d ids x %d features x %d bins) and LM uint8 (%d ids) within "
-          "1e-5 of plain and the f64 oracle (max abs err %.3g, %.3g), "
-          "repeats equal" % (", ".join(checked), cnt, WIDE_MAX_BIN,
-                             len(lm_ids), FEATURES, nbw, b9.num_leaves,
-                             lm_err["u16"], lm_err["u8"]))
+          "u16 (%d ids x %d features x %d bins; %d x 70 seeded rows of 16 "
+          "ids, one of no rows, and one id over all rows) and LM uint8 (%d "
+          "ids) within 1e-5 of plain and the f64 oracle (max abs err %.3g, "
+          "%.3g), bitwise their replays, repeats equal"
+          % (", ".join(checked), cnt, WIDE_MAX_BIN, len(lm_ids), FEATURES,
+             nbw, WIDE_ROWS, b9.num_leaves, lm_err["u16"], lm_err["u8"]))
     return {"b8": b8, "med8": med8, "med16": med16, "medb": medb,
             "round_s": bo["round_s"], "lm_u8": (raw8, w8, nb8, lid8, ids8),
             "launches": l8, "lm_launches": ll, "binned": binned, "nb": nb,
@@ -5476,56 +5599,23 @@ def times_41(name, card, dev, cat, q):
              b_ms, b_by, lib_ms, cnt, list_ms, list_bound[0], WIDE_MAX_BIN,
              wn, wg, wnb, wide_ms, wide_bound[0], hb.shape[0], hb.shape[1],
              u8_ms, u8_bound[0]))
-    lm_names = ("moment_count_kernel", "moment_scan_kernel",
-                "moment_scatter_kernel", "moment_reduce_kernel", "Memset")
-
-    def lm_time(args, kernel):
-        lb, raw, w3, width, lid, ids = args
-        rows, f_cnt = lb.shape
-        c_cnt = ids.shape[0]
-        out_bytes = c_cnt * f_cnt * width * 16
-        b = bound(rows * (f_cnt * (lb.element_size() + 4) + 12 + 4)
-                  + out_bytes, 4.0 * rows * f_cnt)
-        match = lid.long()[:, None] == ids.long()[None, :]
-        slot = torch.where(match.any(1), match.int().argmax(1),
-                           torch.full_like(lid.long(), c_cnt))
-        del match
-        flat = ((slot[:, None] * f_cnt + torch.arange(f_cnt, device=dev))
-                * width + histogram.take_bins(lb)).reshape(-1)
-        xv = torch.where(torch.isfinite(raw), raw, torch.zeros_like(raw))
-        terms = [(xv * w3[:, 2:3]).reshape(-1),
-                 (xv * xv * w3[:, 2:3]).reshape(-1),
-                 (xv * w3[:, 0:1]).reshape(-1), (xv * w3[:, 1:2]).reshape(-1)]
-
-        def library():
-            for t in terms:
-                torch.bincount(flat, weights=t,
-                               minlength=(c_cnt + 1) * f_cnt * width)
-        # the one-call yardstick: the four channels as one [rows x
-        # groups, 4] source added into the [(ids + 1) x groups x bins, 4]
-        # output by a single index_add_
-        src4 = torch.stack(terms, 1)
-        acc = torch.zeros(((c_cnt + 1) * f_cnt * width, 4),
-                          dtype=torch.float32, device=dev)
-        one_call = median_ms(lambda: acc.index_add_(0, flat, src4), reps=3)
-        del src4, acc
-        return (device_ms(lambda: LM(*args), lm_names + (kernel,)),
-                median_ms(lambda: histogram.leaf_moments_plain(*args),
-                          reps=3), b, median_ms(library, reps=3), one_call)
-
-    *lm16, lm16_one = lm_time(q["lm_u16"], "moment_wide_kernel")
+    lm16 = lm_timing(q["lm_u16"])
     # the JSON row keeps the one-call yardstick
-    times["leaf_moments_u16"] = tuple(lm16[:3]) + (lm16_one,)
-    *u8_lm, u8_one = lm_time((hb,) + q["lm_u8"], "moment_tile_kernel")
-    for label, (ms, plain_ms, (b_ms, b_by), lib_ms), one_ms in (
+    times["leaf_moments_u16"] = (lm16["device"], lm16["plain"],
+                                 lm16["bound"], lm16["index_add"])
+    lm8 = lm_timing((hb,) + q["lm_u8"])
+    for label, t in (
             ("leaf_moments_u16 at max_bin=%d (%d ids)" % (
-                WIDE_MAX_BIN, q["lm_u16"][5].shape[0]), lm16, lm16_one),
+                WIDE_MAX_BIN, q["lm_u16"][5].shape[0]), lm16),
             ("leaf_moments on uint8 HIGGS bins (%d ids)"
-             % q["lm_u8"][4].shape[0], u8_lm, u8_one)):
-        print("time [%s | %s]: %s %.4f ms, plain %.2f ms, bound %.5f ms (%s), "
+             % q["lm_u8"][4].shape[0], lm8)):
+        print("time [%s | %s]: %s device %.4f ms (CUDA graph), "
+              "leaf_feature_moments %.4f ms (CUDA events; graph %.4f ms), "
+              "host %.1f us, plain %.2f ms, bound %.5f ms (%s), "
               "torch.bincount x4 %.3f ms, one index_add_ %.3f ms"
-              % (name, card, label, ms, plain_ms, b_ms, b_by, lib_ms,
-                 one_ms))
+              % (name, card, label, t["device"], t["call"], t["call_graph"],
+                 t["host_us"], t["plain"], t["bound"][0], t["bound"][1],
+                 t["bincount4"], t["index_add"]))
     # the categorical variants on the Expo main path's inputs
     pair, csums, depth1 = cat["pair"], cat["csums"], cat["depth1"]
     fmeta, mask, prm, fb = cat["fmeta"], cat["mask"], cat["prm"], cat["fb"]
@@ -5973,6 +6063,26 @@ def host_us(fn, reps=200):
     return float(np.median(times))
 
 
+def busy_ms(fn, reps=REPS):
+    """Device busy time of one fn() call: torch.profiler over `reps`
+    calls after a spin-up, the union of the device events' intervals
+    (kernels, copies and memsets alike) over reps; and {event name: its
+    ms a call}, the names shortened."""
+    from torch.profiler import ProfilerActivity, profile
+    spin_up(fn)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    events, busy = device_busy(prof)
+    by_name = {}
+    for e in events:
+        k = e.name.replace("(anonymous namespace)::", "").split("(")[0]
+        by_name[k] = by_name.get(k, 0.0) + e.time_range.elapsed_us() / 1e3
+    return busy / 1e3 / reps, {k: v / reps for k, v in by_name.items()}
+
+
 def ab_child(root, rounds, cat_rounds):
     """One checkout's numbers as one JSON line (see ab_main)."""
     sys.path.insert(0, os.path.abspath(root))
@@ -6061,6 +6171,33 @@ def ab_child(root, rounds, cat_rounds):
         out["H_%s_cancel_rel" % mode] = float(
             ((got - ref).abs() / ref.abs().clamp(min=1.0)).max())
     del cb, wc, hi, lo, exact, rows
+
+    # LM as leaf_feature_moments calls it, on the protocol's bins and raw
+    # values, its first gradients and 255 seeded leaf ids of a tree's
+    # skew: the call (CUDA events), the device busy time of a call
+    # (torch.profiler, either checkout), a CUDA graph of the call where
+    # it reads nothing back, and the call's host time
+    from lightgbm_tpu_torch.linear import leaf_feature_moments
+    lm_gen = np.random.RandomState(14)
+    lm_p = np.exp(2 * lm_gen.randn(LEAVES))
+    lm_lid = torch.from_numpy(lm_gen.choice(
+        LEAVES, TRAIN_ROWS, p=lm_p / lm_p.sum()).astype(np.int32)).to(dev)
+    lm_x = torch.from_numpy(np.ascontiguousarray(x, np.float32)).to(dev)
+
+    def lm_ab(label, lb, lw, width):
+        def call():
+            return leaf_feature_moments(lb, lm_x, lw, lm_lid,
+                                        list(range(LEAVES)), width)
+        out["LM_%s_call" % label] = median_ms(call)
+        out["LM_%s_busy" % label], out["LM_%s_kernels" % label] = \
+            busy_ms(call)
+        if hasattr(histogram, "leaf_moments_ids"):
+            out["LM_%s_graph" % label] = graph_ms(call)
+        small = [t[:LM_HOST_ROWS].contiguous() for t in (lb, lm_x, lw,
+                                                         lm_lid)]
+        out["LM_%s_host_us" % label] = host_us(lambda: leaf_feature_moments(
+            *small, list(range(LEAVES)), width))
+    lm_ab("u8", binned, w3, nb)
 
     # QC and torch.searchsorted over the same grid (phase 24's inputs)
     text = synthetic_forest_text(0, TREES, LEAVES, FEATURES, max_bin=255)
@@ -6230,7 +6367,12 @@ def ab_child(root, rounds, cat_rounds):
     wparams = dict(TRAIN_PARAMS, max_bin=WIDE_MAX_BIN)
     wds = lgb.Dataset(x, y, params=wparams).construct()
     s_device("wide", lgb.Booster(wparams, train_set=wds)._inner, pair=False)
-    del wds, x, y
+    wide_in = lgb.Booster(wparams, train_set=wds)._inner
+    gr, he = wide_in.objective.get_gradients(wide_in._score[0])
+    lm_ab("u16", wide_in._binned, torch.stack(
+        [gr, he, torch.ones_like(gr)], 1).contiguous(),
+        wide_in._grower.num_bins)
+    del wds, x, y, wide_in, gr, he, lm_x
     xb, yb = synth_bosch(BOSCH_ROWS, BOSCH_FEATURES, seed=BOSCH_SEED)
     bds = lgb.Dataset(xb, yb, params=dict(BOSCH_PARAMS)).construct()
     del xb, yb
@@ -6289,6 +6431,13 @@ def ab_main(argv):
     categorical (phase 37) protocols and on the max_bin=1023 root (phase
     34), and HQ (leaf_histogram_i32) at the int8 HIGGS and Bosch roots
     and on a seeded 39,589-row Bosch list, each `*_device` as above;
+    LM (leaf_feature_moments) on the HIGGS protocol's bins and raw
+    values and on its max_bin=1023 (uint16) bins, with 255 seeded leaf
+    ids of a tree's skew: `LM_*_call` (CUDA events), `LM_*_busy` (a
+    call's device busy time, torch.profiler) and `LM_*_kernels` (its
+    device events' ms a call by name), `LM_*_graph` (a CUDA
+    graph of the call, where it reads nothing back) and `LM_*_host_us`
+    (a call's host time on the first 1,000 rows);
     `--rounds` rounds of the HIGGS and the Bosch protocols in hi+lo and
     in int8 and of the categorical protocol, each
     round's seconds and their median from round 2, and one more round

@@ -1,6 +1,6 @@
-// Ranks among a warp's lanes, shared by the kernels that combine the
-// lanes holding one bin in a fixed tree over their rank (histogram.cu's
-// hist_wide_kernel, moments.cu's moment_wide_kernel).
+// Ranks among a warp's lanes, for the kernel that combines the lanes
+// holding one bin in a fixed tree over their rank (histogram.cu's
+// hist_wide_kernel).
 #pragma once
 
 #include <cuda_runtime.h>

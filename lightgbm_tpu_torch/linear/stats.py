@@ -15,7 +15,7 @@ from typing import Optional
 
 import torch
 
-from ..ops.histogram import leaf_moments
+from ..ops.histogram import leaf_moments_ids
 
 
 def leaf_feature_moments(binned: torch.Tensor, x: torch.Tensor,
@@ -27,13 +27,14 @@ def leaf_feature_moments(binned: torch.Tensor, x: torch.Tensor,
     (lightgbm_tpu/linear/stats.py:34). binned [N, F] per-feature bins,
     x [N, F] raw values aligned with them, weights [N, 3] = (g*w, h*w,
     w). `chunk` is the JAX package's schedule and is taken and ignored;
-    `n_valid` keeps the leading rows only."""
-    ids = torch.as_tensor(ids, dtype=torch.int32).to(binned.device)
+    `n_valid` keeps the leading rows only. The ids stay on the host (a
+    tensor of them is read back once), so on the card nothing is read
+    back."""
     if n_valid is not None:
         binned, x, weights, leaf_id = (t[:int(n_valid)] for t in (
             binned, x, weights, leaf_id))
-    per_bin = leaf_moments(binned.contiguous(), x.contiguous(),
-                           weights.contiguous(), num_bins,
-                           leaf_id=leaf_id.to(torch.int32).contiguous(),
-                           ids=ids.contiguous())
+    per_bin = leaf_moments_ids(binned.contiguous(), x.contiguous(),
+                               weights.contiguous(), num_bins,
+                               leaf_id=leaf_id.to(torch.int32).contiguous(),
+                               ids=ids)
     return per_bin.sum(dim=2)

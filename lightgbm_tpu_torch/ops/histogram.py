@@ -41,8 +41,8 @@ launches in `leaf_histogram.launches`, and those in hi+lo mode also in
 uint16 modes count in `leaf_histogram_i32.launches_u16` and
 `leaf_moments.launches_u16`): HQ reads the groups by its own plan
 (`i32_plan`: slices of groups at their own widths and each group's
-skipped bin, made once for a Dataset) and LM sums a warp's lanes of one
-bin in a fixed tree, as H's warp-shared groups do.
+skipped bin, made once for a Dataset) and LM adds a warp's lanes of
+one bin in lane order, by rounds of integer claims.
 
 Quantized training (`tpu_hist_quantize=int8|int16`, the JAX section at
 :60-156 and `_quant_u`/`_quant_merge` :291-330) adds two kernels:
@@ -64,7 +64,9 @@ x*g*m, sum x*h*m) of the rows whose leaf id is one of C ids: the JAX
 package's `batched_leaves_moments` (:679), the mode `linear/stats.py`
 runs and sums over bins. Its all-rows `leaf_moments` (:622) is one id
 over a constant leaf_id; its row-list `gathered_leaves_moments` (:726)
-has no caller there.
+has no caller there. One launch sequence sorts the rows by id, cuts each
+id's rows into tiles and sums them in f64 on the card (`moment_plan`,
+`moment_tiles`); `leaf_moments_order` replays its summation order.
 """
 from __future__ import annotations
 
@@ -972,6 +974,223 @@ def leaf_moments_plain(binned: torch.Tensor, x: torch.Tensor,
     return out.float().view(c_cnt, f_cnt, num_bins, 4)
 
 
+# LM's launch plan (csrc/moments.cu). The sort: tiles of
+# MOMENT_SORT_ROWS rows (a warp each), fewer and longer where C x T would
+# pass MOMENT_MAX_SORT_CELLS counters; scan blocks of MOMENT_SCAN_CHUNK
+# counters. uint8 bins (moment_lane_kernel): a warp owns gw features (a
+# power of two up to 32, so that a column's f64 words sit in bank pairs
+# of their own), each a column of its B bins and a sentinel in four f64
+# channels (MOMENT_SLOT_BYTES a slot); a warp takes fewer where two
+# warps of gw would not fit MOMENT_SMEM_BYTES, a block holds up to
+# MOMENT_MAX_WARPS such warps, and each warp adds a run of `run` rows of
+# a tile of warps x run. uint16 bins (moment_wide_kernel): a warp a
+# feature, its [4][B] f64 histogram and [B] int32 claims, beside
+# MOMENT_STAGE_ROWS staged rows (a 2-byte bin and a value a feature,
+# padded, and three channels); MOMENT_WIDE_WARPS warps a block, so that
+# two blocks share an SM and one adds while the other waits on its
+# staged rows, in tiles of `wide_tile` rows. The plan, and so the
+# summation order, depends only on the shape.
+MOMENT_SMEM_BYTES = 220 * 1024
+MOMENT_SLOT_BYTES = 32
+MOMENT_MAX_WARPS = 8
+MOMENT_RUN = 1024
+MOMENT_WIDE_WARPS = 2
+MOMENT_WIDE_TILE = 16384
+MOMENT_STAGE_ROWS = 256
+MOMENT_SORT_ROWS = 2048
+MOMENT_MAX_SORT_CELLS = 1 << 21
+MOMENT_SCAN_CHUNK = 4096
+
+
+class MomentPlan(NamedTuple):
+    """LM's launch plan: `wide` (uint16 bins, the warp-shared kernel),
+    `gw` features a warp, `warps` a block, slices of `width` features
+    (`slices` of them), tiles of `tile` rows, `smem` shared bytes a
+    block; the sort's `sort_tiles` and `scan_blocks`; the grid's
+    `max_tiles` (ceil(n / tile) + C, at least the table's count) and the
+    partials' `part_tiles` (ceil(2n / tile): a slot of two tiles or more
+    has more than `tile` rows, so its tiles number under twice its rows
+    over `tile`)."""
+    wide: bool
+    gw: int
+    warps: int
+    width: int
+    slices: int
+    tile: int
+    smem: int
+    sort_tiles: int
+    scan_blocks: int
+    max_tiles: int
+    part_tiles: int
+
+
+def _stage_bytes(warps: int, num_bins: int) -> int:
+    """moment_wide_kernel's staged rows, values [warps][R + 1] f32,
+    channels [R][3] f32 and bins [warps][R + 2] uint16, and each warp's
+    [B] int32 claims."""
+    r = MOMENT_STAGE_ROWS
+    return warps * (4 * (r + 1) + 4 * num_bins + 2 * (r + 2)) + 12 * r
+
+
+def _lane_warp_bytes(gw: int, num_bins: int) -> int:
+    return MOMENT_SLOT_BYTES * (num_bins + 1) * gw
+
+
+def moment_plan(n: int, f_cnt: int, num_bins: int, c_cnt: int, wide: bool,
+                run: int = MOMENT_RUN,
+                wide_tile: int = MOMENT_WIDE_TILE) -> MomentPlan:
+    """LM's plan (see the constants above) for n rows of f_cnt features
+    of num_bins bins and c_cnt ids; `run` and `wide_tile` as the kernel
+    takes them (other values only replay another order)."""
+    if f_cnt < 1 or not 1 <= num_bins <= MAX_GROUP_BINS or c_cnt < 0 \
+            or n < 0:
+        raise LightGBMError("moment_plan: features >= 1 and 1..%d bins"
+                            % MAX_GROUP_BINS)
+    if wide:
+        hist = MOMENT_SLOT_BYTES * num_bins
+        fits = [w for w in range(1, MOMENT_WIDE_WARPS + 1)
+                if w * hist + _stage_bytes(w, num_bins) <= MOMENT_SMEM_BYTES]
+        warps = min(max(fits, default=1), f_cnt)
+        gw, width, tile = 1, warps, int(wide_tile)
+        smem = warps * hist + _stage_bytes(warps, num_bins)
+    else:
+        gw = min(32, 1 << (int(f_cnt) - 1).bit_length())
+        while gw > 1 and 2 * _lane_warp_bytes(gw, num_bins) \
+                > MOMENT_SMEM_BYTES:
+            gw //= 2
+        wb = _lane_warp_bytes(gw, num_bins)
+        warps = max(1, min(MOMENT_MAX_WARPS, MOMENT_SMEM_BYTES // wb))
+        width, tile, smem = gw, warps * int(run), warps * wb
+    slices = -(-int(f_cnt) // width)
+    sort_tiles = scan_blocks = 0
+    if n and c_cnt:
+        sort_tiles = min(-(-int(n) // MOMENT_SORT_ROWS),
+                         max(1, MOMENT_MAX_SORT_CELLS // int(c_cnt)))
+        scan_blocks = -(-(int(c_cnt) * sort_tiles) // MOMENT_SCAN_CHUNK)
+    return MomentPlan(bool(wide), gw, warps, width, slices, tile, smem,
+                      sort_tiles, scan_blocks,
+                      -(-int(n) // tile) + int(c_cnt),
+                      max(1, -(-2 * int(n) // tile)))
+
+
+def moment_tiles(begin: np.ndarray, tile: int, max_tiles: int):
+    """LM's tile table as the last block of moment_offset_kernel builds
+    it from the slots' segment starts begin [C + 1], and each tile as a
+    block reads it (tile_of): slot c's count ceil(rows / tile), its
+    first tile (an exclusive scan of the counts) and its first partial
+    (an exclusive scan of the counts of two or more); block e < total
+    takes the largest slot whose first tile is at most e. Returns the
+    int64 arrays tiles [total, 4] (slot, first position, rows, partial or
+    -1 for a slot's only tile), first, count, pfirst [C]; blocks e of
+    total <= e < max_tiles exit."""
+    begin = np.asarray(begin, np.int64)
+    rows = np.diff(begin)
+    count = (rows + tile - 1) // tile
+    first = np.concatenate([[0], np.cumsum(count)[:-1]]).astype(np.int64)
+    multi = np.where(count >= 2, count, 0)
+    pfirst = np.concatenate([[0], np.cumsum(multi)[:-1]]).astype(np.int64)
+    total = int(count.sum())
+    if total > max_tiles:
+        raise LightGBMError("moment_tiles: %d tiles past the grid's %d"
+                            % (total, max_tiles))
+    tiles = np.zeros((total, 4), np.int64)
+    for e in range(total):
+        lo, hi = 0, len(rows) - 1
+        while lo < hi:
+            mid = (lo + hi + 1) >> 1
+            if first[mid] <= e:
+                lo = mid
+            else:
+                hi = mid - 1
+        j = e - first[lo]
+        tiles[e] = (lo, begin[lo] + j * tile, min(tile, rows[lo] - j * tile),
+                    pfirst[lo] + j if count[lo] > 1 else -1)
+    return tiles, first, count, pfirst
+
+
+def _slots(leaf_id: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
+    """[N] int64: the c with ids[c] == leaf_id[r], or -1 (ids not
+    empty)."""
+    sid, by_id = torch.sort(ids.long(), stable=True)
+    at = torch.searchsorted(sid, leaf_id.long()).clamp(max=len(sid) - 1)
+    return torch.where(sid[at] == leaf_id.long(), by_id[at], -1)
+
+
+def leaf_moments_order(binned: torch.Tensor, x: torch.Tensor,
+                       w3: torch.Tensor, num_bins: int,
+                       leaf_id: torch.Tensor, ids: torch.Tensor,
+                       plan: Optional[MomentPlan] = None) -> torch.Tensor:
+    """LM in its own summation order, replayed in torch ops on the
+    inputs' device, bit for bit the kernel's (with the kernel's plan,
+    `moment_plan`'s): the rows sorted stably by slot, each slot's
+    segment cut into tiles (`moment_tiles`), each term formed in f32
+    and summed in f64 from +0, a chain a (feature, bin) in position
+    order: uint8 bins, warp w of a tile over its run of positions, the
+    warps then added in warp order; uint16 bins, over all of the tile's
+    positions. A slot's tiles are added in tile order from +0 and
+    rounded to f32 once. [C, F, B, 4]."""
+    n, f_cnt = binned.shape
+    c_cnt = ids.shape[0]
+    dev = binned.device
+    wide = binned.dtype == torch.uint16
+    if plan is None:
+        plan = moment_plan(n, f_cnt, num_bins, c_cnt, wide)
+    out = torch.zeros((c_cnt, f_cnt, num_bins, 4), dtype=torch.float32,
+                      device=dev)
+    if n == 0 or c_cnt == 0:
+        return out
+    slot = _slots(leaf_id, ids)
+    sel = torch.nonzero(slot >= 0)[:, 0]
+    order = sel[torch.argsort(slot[sel], stable=True)]
+    begin = np.concatenate([[0], np.cumsum(torch.bincount(
+        slot[sel], minlength=c_cnt).cpu().numpy())])
+    tiles, first, count, _ = moment_tiles(begin, plan.tile, plan.max_tiles)
+    if not len(tiles):
+        return out
+    t_dev = torch.from_numpy(tiles).to(dev)
+    e_cnt = len(tiles)
+    bins_all = widen_bins(binned)
+    fr = torch.arange(f_cnt, device=dev)
+
+    def gather(pos, valid):
+        """bins (B where not valid or past B), f64 terms [.., F, 4]."""
+        r = order[(t_dev[:, 1:2] + pos).clamp(max=len(order) - 1)]
+        b = bins_all[r].long()
+        b = torch.where(valid[..., None] & (b < num_bins), b, num_bins)
+        v = x[r]
+        v = torch.where(torch.isfinite(v), v, torch.zeros_like(v))
+        w = w3[r]
+        gm, hm, m = w[..., 0:1], w[..., 1:2], w[..., 2:3]
+        t = torch.stack([v * m, (v * v) * m, v * gm, v * hm], -1)
+        return b, t.double()
+
+    # uint8: warp w of a tile adds its run of positions; uint16: one warp
+    # a feature adds all of the tile's
+    warps = 1 if wide else plan.warps
+    run = plan.tile // warps
+    acc = torch.zeros((e_cnt, warps, f_cnt, num_bins + 1, 4),
+                      dtype=torch.float64, device=dev)
+    wbase = torch.arange(warps, device=dev)[None, :] * run
+    for k in range(min(run, int(tiles[:, 2].max()))):
+        pos = wbase + k
+        b, t = gather(pos, pos < t_dev[:, 2:3])
+        acc.scatter_add_(3, b[:, :, :, None, None].expand(
+            e_cnt, warps, f_cnt, 1, 4), t[:, :, :, None, :])
+    sums = torch.zeros_like(acc[:, 0, :, :num_bins])
+    for wi in range(warps):
+        sums = sums + acc[:, wi, :, :num_bins]
+    a = torch.zeros((c_cnt, f_cnt, num_bins, 4), dtype=torch.float64,
+                    device=dev)
+    first_t = torch.from_numpy(first).to(dev)
+    count_t = torch.from_numpy(count).to(dev)
+    for j in range(int(count.max())):
+        has = count_t > j
+        at = torch.where(has, first_t + j, 0)
+        a = a + torch.where(has[:, None, None, None], sums[at],
+                            torch.zeros_like(a))
+    return a.float()
+
+
 def leaf_moments(binned: torch.Tensor, x: torch.Tensor, w3: torch.Tensor,
                  num_bins: int, leaf_id: torch.Tensor,
                  ids: torch.Tensor) -> torch.Tensor:
@@ -981,21 +1200,44 @@ def leaf_moments(binned: torch.Tensor, x: torch.Tensor, w3: torch.Tensor,
     features of more than 256 bins) and x [N, F] the raw
     values aligned with them (the caller resolves EFB); w3 [N, 3] =
     (g*m, h*m, m); a non-finite x adds nothing; the ids are distinct.
-    All rows are one id over a constant leaf_id. Counterpart of lightgbm_tpu/ops/histogram.py
-    batched_leaves_moments (:679)."""
+    All rows are one id over a constant leaf_id. Counterpart of
+    lightgbm_tpu/ops/histogram.py batched_leaves_moments (:679). The ids
+    are checked and sorted on the host, so ids on the card are read
+    back once (`leaf_moments_ids` takes them from the host)."""
+    return _leaf_moments(binned, x, w3, num_bins, leaf_id, ids)
+
+
+def leaf_moments_ids(binned: torch.Tensor, x: torch.Tensor,
+                     w3: torch.Tensor, num_bins: int, leaf_id: torch.Tensor,
+                     ids) -> torch.Tensor:
+    """`leaf_moments` with the ids as host integers (a sequence or an
+    array; a tensor of them is read back once): the same checks and
+    result, and no read back from the card; the sorted ids go up once a
+    set (`_moment_keys`). On the card the call reads nothing back, so a
+    CUDA graph can capture it."""
+    if isinstance(ids, torch.Tensor):
+        ids = ids.cpu().numpy()
+    return _leaf_moments(binned, x, w3, num_bins, leaf_id,
+                         np.asarray(ids, dtype=np.int64).reshape(-1))
+
+
+def _leaf_moments(binned, x, w3, num_bins, leaf_id, ids):
     n, f_cnt = binned.shape
+    host = isinstance(ids, np.ndarray)
     if x.shape != (n, f_cnt) or w3.shape != (n, 3) \
-            or leaf_id.shape != (n,) or ids.dim() != 1:
+            or leaf_id.shape != (n,) or ids.ndim != 1:
         raise LightGBMError("leaf_moments takes binned and x [N, F], w3 "
                             "[N, 3], leaf_id [N] and ids [C]")
-    tensors = (binned, x, w3, leaf_id, ids)
+    tensors = (binned, x, w3, leaf_id) + (() if host else (ids,))
     if any(t.device != binned.device for t in tensors):
         raise LightGBMError("leaf_moments: inputs on different devices")
-    ids_host = ids.cpu().numpy()
+    ids_host = ids if host else ids.cpu().numpy()
     if len(np.unique(ids_host)) != len(ids_host):
         raise LightGBMError("leaf_moments takes distinct ids")
     if binned.device.type == "cpu":
-        return leaf_moments_plain(binned, x, w3, num_bins, leaf_id, ids)
+        return leaf_moments_plain(binned, x, w3, num_bins, leaf_id,
+                                  torch.from_numpy(ids_host) if host
+                                  else ids)
     if binned.device.type != "cuda":
         raise LightGBMError("leaf_moments runs on cpu or cuda, not %s"
                             % binned.device)
@@ -1008,48 +1250,65 @@ def leaf_moments(binned: torch.Tensor, x: torch.Tensor, w3: torch.Tensor,
                             "and f32 w3" % MAX_GROUP_BINS)
     if not all(t.is_contiguous() for t in tensors):
         raise LightGBMError("leaf_moments takes contiguous tensors")
-    if leaf_id.dtype != torch.int32 or ids.dtype != torch.int32:
+    if leaf_id.dtype != torch.int32 or (
+            ids.dtype != torch.int32 if not host else
+            len(ids_host) and (ids_host.min() < -2 ** 31
+                               or ids_host.max() >= 2 ** 31)):
         raise LightGBMError("leaf_moments takes int32 leaf ids and ids")
     c_cnt = len(ids_host)
     dev = binned.device
-    lib = _build.load_library("moments")
+    plan = moment_plan(n, f_cnt, num_bins, c_cnt, u16)
     out = torch.empty((c_cnt, f_cnt, num_bins, 4), dtype=torch.float32,
                       device=dev)
-    # the rows sorted by slot (the c with ids[c] == leaf_id[r]), then each
-    # slot's segment cut into tiles
-    begin = np.zeros(c_cnt + 1, np.int64)
-    order = torch.empty(max(n, 1), dtype=torch.int32, device=dev)
-    with torch.cuda.device(dev):
-        stream = ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream)
-        sort_t = lib.lgbt_moment_sort_tiles(n, c_cnt)
-        if sort_t and c_cnt:
-            by_id = np.argsort(ids_host, kind="stable")
-            keys = torch.from_numpy(np.concatenate(
-                [ids_host[by_id], by_id]).astype(np.int32)).to(dev)
-            work = torch.empty(n + c_cnt * sort_t + c_cnt + 1,
-                               dtype=torch.int32, device=dev)
-            starts = work[n + c_cnt * sort_t:]
-            _moments_ok(lib.lgbt_moment_sort(
-                _ptr(leaf_id), n, _ptr(keys), _ptr(keys[c_cnt:]), c_cnt,
-                sort_t, _ptr(work), _ptr(work[n:]), _ptr(starts),
-                _ptr(order), stream), lib)
-            begin = starts.cpu().numpy().astype(np.int64)
-        meta, n_tiles = segment_tiles(begin[:-1], np.diff(begin),
-                                      lib.lgbt_moment_tile_rows(int(u16)))
-        meta = torch.from_numpy(meta).to(dev)
-        part = torch.empty(max(n_tiles, 1) * f_cnt * num_bins * 4,
-                           dtype=torch.float32, device=dev)
-        _moments_ok(lib.lgbt_leaf_moments(
-            _ptr(binned), f_cnt, int(u16), _ptr(x), _ptr(w3), _ptr(order),
-            _ptr(meta),
-            n_tiles, _ptr(meta[3 * n_tiles:]),
-            _ptr(meta[3 * n_tiles + c_cnt:]), c_cnt, num_bins, _ptr(part),
-            _ptr(out), stream), lib)
+    keys = _moment_keys(ids_host.astype(np.int32), dev) if c_cnt else None
+    iscratch = torch.empty(
+        2 + c_cnt * plan.sort_tiles + plan.scan_blocks + 4 * c_cnt + 2
+        + 2 * n, dtype=torch.int32, device=dev)
+    part = torch.empty(plan.part_tiles * f_cnt * num_bins * 4,
+                       dtype=torch.float64, device=dev)
+    lib = _build.load_library("moments")
+    args = (_ptr(binned), n, f_cnt, int(u16), _ptr(x), _ptr(w3),
+            _ptr(leaf_id), ctypes.c_void_p(None if keys is None
+                                           else keys.data_ptr()),
+            c_cnt, num_bins, plan.sort_tiles, plan.scan_blocks, plan.tile,
+            plan.gw, plan.warps, plan.slices, plan.max_tiles, plan.smem,
+            _ptr(iscratch), _ptr(part), _ptr(out))
+    # no device switch when the inputs' card is already the current one
+    if torch.cuda.current_device() == dev.index:
+        rc = lib.lgbt_leaf_moments(*args, ctypes.c_void_p(
+            torch.cuda.current_stream().cuda_stream))
+    else:
+        with torch.cuda.device(dev):
+            rc = lib.lgbt_leaf_moments(*args, ctypes.c_void_p(
+                torch.cuda.current_stream().cuda_stream))
+    _moments_ok(rc, lib)
     with _launch_lock:
         leaf_moments.launches += 1
         if u16:
             leaf_moments.launches_u16 += 1
     return out
+
+
+# the ids sorted ascending and their slots, on the card: a set uploaded
+# once (pinned, without waiting on the stream) and kept for its next call
+_MOMENT_KEYS_KEPT = 16
+_moment_key_cache: dict = {}
+
+
+def _moment_keys(ids_host: np.ndarray, dev: torch.device) -> torch.Tensor:
+    key = (dev.index, ids_host.tobytes())
+    with _launch_lock:
+        keys = _moment_key_cache.get(key)
+    if keys is None:
+        by_id = np.argsort(ids_host, kind="stable")
+        keys = torch.from_numpy(np.concatenate(
+            [ids_host[by_id], by_id]).astype(np.int32)).pin_memory().to(
+            dev, non_blocking=True)
+        with _launch_lock:
+            _moment_key_cache[key] = keys
+            while len(_moment_key_cache) > _MOMENT_KEYS_KEPT:
+                del _moment_key_cache[next(iter(_moment_key_cache))]
+    return keys
 
 
 def segment_tiles(begin: np.ndarray, rows: np.ndarray, tile: int):
