@@ -124,7 +124,7 @@ Phases, any failure raises and the script exits non-zero:
     and million row-iterations per second as bench.py reports them; per
     kernel its device time per call (torch.profiler, which leaves out the
     Python wrapper's host time; CUDA events around the call when the
-    profiler lists other than the calls' kernels; S by CUDA-graph
+    profiler lists other than the calls' kernels; H and S by CUDA-graph
     replay, the mean of 50), launches per tree, the plain version's
     CUDA-event ms and the bound, and for H the torch.bincount library
     time; R as the grower calls it at the root on row- and column-major
@@ -315,8 +315,9 @@ Phases, any failure raises and the script exits non-zero:
     feature on the max_bin=1023 root, bitwise its plain version and its
     repeat; R's partition and leaf ids on the root split
     and W's value and leaf modes (the first tree, the 100,000 valid
-    rows), exactly; the narrow (lane-private) groups of every H launch
-    bit for bit the replay of their summation order; H on 262,144 rows
+    rows), exactly; every group of every H launch (lane-private and
+    warp-shared) bit for bit the replay of its summation order; H on
+    262,144 rows
     of the uint8 HIGGS matrix (B 64) and on 65,536 rows of seeded bins at
     B 256, both modes, all rows and a row list, bit for bit the replay of
     its summation order (leaf_histogram_order);
@@ -351,12 +352,21 @@ Phases, any failure raises and the script exits non-zero:
     past 256 bins a feature, twice and byte-identical; S on its root
     against its plain version (phase 30); the card against the CPU at
     131,072 rows, 63 leaves, 3 rounds;
-35. times (CUDA events or torch.profiler, median of 12 after 0.3 s of
-    calls): H's uint16 f32 and hi+lo modes at the Bosch root (and its
-    row list) against their bound, their plain versions, torch.bincount
-    x3 (x5 for hi+lo) over group x B + bin and H's uint8 time at the
-    HIGGS root, with the tiles and partial bytes of each mode's plan;
-    both modes at the max_bin=1023 root against its bound; S on the
+35. H's warp-shared pass and its reduction, in both modes, each case
+    bitwise the replay of its summation order, repeating its bits and
+    within 1e-5 * max(1, |ref|) of plain and of the f64 oracle
+    (`hold_wide_cases`): the Bosch matrix on row lists of 0, 1 and 37
+    rows, the max_bin=1023 root, 262,144 seeded rows of groups of 2,048,
+    1,023, 631, 352, 351, 63 and 7 bins (all rows and a third) and
+    cancelling gradients on one 631-bin group (2,000,000 rows in four
+    bins), its error against the f64 sums printed beside f32 chains';
+    then times (CUDA-graph replay for H, CUDA events or torch.profiler
+    for the rest, median of 12 after 0.3 s of calls): H's uint16 f32
+    and hi+lo modes at the Bosch root (and its row list) against their
+    bound, their plain versions, torch.bincount x3 (x5 for hi+lo) over
+    group x B + bin and H's uint8 time at the HIGGS root, with the
+    blocks, tiles and partial bytes of each mode's plans; both modes at
+    the max_bin=1023 root against its bound; S on the
     Bosch leaf pair and at ~1,024 bins (by CUDA-graph replay); R (as
     in phase 12, and its device ms in the profiled Bosch round) and
     W
@@ -445,6 +455,7 @@ The line before the last is the kernels' JSON summary, the last line
 import json
 import os
 import pathlib
+import re
 import subprocess
 import sys
 import threading
@@ -917,6 +928,41 @@ def hist_oracle(binned, w3, num_bins, rows=None):
     return out.view(g_cnt, num_bins, 3)
 
 
+def hold_hist(label, binned, w, nb, bf16, layout=None, rows=None,
+              cnt=None):
+    """H on `binned` (a uint16 matrix with its `layout`) against its
+    repeat (the same bits, written into an `out` view one float off a
+    16-byte boundary, as the grower's views of its histogram pool may
+    be), the replay of its summation order (bit for bit, every group),
+    its plain version and the f64 oracle (hi+lo: the f64 sum of the
+    exact halves). Returns (H, its max abs error against plain)."""
+    from lightgbm_tpu_torch.ops import histogram
+
+    def call(out=None):
+        return histogram.leaf_histogram(binned, w, nb, rows=rows, n_rows=cnt,
+                                        out=out, bf16=bf16, layout=layout)
+    got = call()
+    shape = tuple(got.shape)
+    pool = torch.full((got.numel() + 1,), float("nan"), device=got.device)
+    check(torch.equal(got, call(pool[1:].view(shape))),
+          "%s: a second launch (into an unaligned view) gave other bits"
+          % label)
+    check(torch.equal(got, histogram.leaf_histogram_order(
+        binned, w, nb, rows, cnt, bf16, layout)),
+        "%s: not its summation order" % label)
+    sel = None if rows is None else rows[:cnt]
+    if bf16:
+        hi, lo = histogram.hi_lo(w[:, :2].contiguous())
+        oracle = hist_oracle(binned, torch.cat([hi, w[:, 2:3]], 1), nb, sel)
+        oracle[..., :2] += hist_oracle(binned, torch.cat(
+            [lo, w[:, 2:3]], 1), nb, sel)[..., :2]
+    else:
+        oracle = hist_oracle(binned, w, nb, sel)
+    err = sums_err(got, histogram.leaf_histogram_plain(
+        binned, w, nb, rows, cnt, bf16), oracle, label)
+    return got, err
+
+
 def leaf_totals(hist):
     """(g, h, count) of a leaf: its histogram's group-0 bins added in
     f32 in bin order, as the grower adds the root's."""
@@ -1349,9 +1395,9 @@ def training(name, card, dev):
     def library():
         for c in (chans[0], chans[1], ones):
             torch.bincount(flat, weights=c, minlength=g_cnt * nb)
-    h_names = ("hist_lane_kernel", "hist_lane_reduce_kernel")
+    # H's device time by CUDA-graph replay: one to three kernels a call
     times["leaf_histogram"] = (
-        device_ms(lambda: histogram.leaf_histogram(binned, w3, nb), h_names),
+        graph_ms(lambda: histogram.leaf_histogram(binned, w3, nb)),
         median_ms(lambda: histogram.leaf_histogram_plain(binned, w3, nb),
                  reps=5),
         bound(n * g_cnt + n * 12 + g_cnt * nb * 12, 3.0 * n * g_cnt),
@@ -1363,9 +1409,9 @@ def training(name, card, dev):
                        3.0 * cnt * g_cnt)
     print("time [%s | %s]: leaf_histogram row list (%d of %d rows) %.4f ms "
           "device time, plain %.3f ms, bound %.5f ms (%s)"
-          % (name, card, cnt, n, device_ms(
+          % (name, card, cnt, n, graph_ms(
               lambda: histogram.leaf_histogram(binned, w3, nb, rows=perm[b0:],
-                                               n_rows=cnt), h_names),
+                                               n_rows=cnt)),
              median_ms(lambda: histogram.leaf_histogram_plain(
                  binned, w3, nb, rows=perm[b0:], n_rows=cnt), reps=5),
              b_ms, b_by))
@@ -4074,11 +4120,9 @@ def boosting_modes(name, card, dev, ctx):
           % (name, card, gt_ms + gw_ms, n, gt_ms, gw_ms, gt_plain + gw_plain,
              kth_ms, bound(12 * n)[0], 12 * n // 10 ** 6))
     g_cnt = binned.shape[1]
-    h_names = ("hist_lane_kernel", "hist_lane_reduce_kernel")
-    hl_ms = device_ms(lambda: histogram.leaf_histogram(binned, w3, nb,
-                                                       bf16=True), h_names)
-    f32_ms = device_ms(lambda: histogram.leaf_histogram(binned, w3, nb),
-                       h_names)
+    hl_ms = graph_ms(lambda: histogram.leaf_histogram(binned, w3, nb,
+                                                      bf16=True))
+    f32_ms = graph_ms(lambda: histogram.leaf_histogram(binned, w3, nb))
     flat = ((torch.arange(g_cnt, device=dev) * nb)[None]
             + binned.long()).reshape(-1)
     hi, lo = histogram.hi_lo(w3[:, :2].contiguous())
@@ -4164,6 +4208,87 @@ BOSCH_CPU_LEAVES, BOSCH_CPU_ROUNDS = 63, 3
 WIDE_MAX_BIN, WIDE_ROUNDS = 1023, 3
 # rows of the HIGGS matrix that H's summation order is replayed on
 ORDER_ROWS = 262_144
+# H's warp-shared checks (phase 35): a seeded matrix of groups on both
+# sides of the narrow/wide edge, up to 2,048 bins, and cancelling
+# gradients on one 631-bin group
+WIDE_H_ROWS = 262_144
+WIDE_H_WIDTHS = (2048, 1023, 631, 352, 351, 63, 7)
+CANCEL_WIDE_ROWS = 2_000_000
+
+
+def hold_wide_cases(name, card, dev, bosch, w1, nb, layouts, child,
+                    wide_in, ww):
+    """Phase 35's checks of H's warp-shared pass and its reduction, each
+    in both modes through hold_hist (bitwise its replay, repeats equal,
+    within 1e-5 of plain and of the f64 oracle): the Bosch matrix on row
+    lists of 0, 1 and 37 rows (the first of the root split's smaller
+    child); the max_bin=1023 root (wide_in's matrix, its gradients ww); a
+    seeded matrix of WIDE_H_WIDTHS, all rows and a seeded third;
+    cancelling gradients on a 631-bin group (four bins of 500,000 rows,
+    g ~ N(0, 0.5) less each bin's mean), whose error against the f64 sums
+    prints beside that of f32 chains of the same values."""
+    from lightgbm_tpu_torch.ops import histogram
+    gen = np.random.RandomState(35)
+    seeded = torch.from_numpy(np.stack([gen.randint(0, w, WIDE_H_ROWS) for w
+                                        in WIDE_H_WIDTHS], 1)
+                              .astype(np.uint16)).to(dev)
+    keep = (gen.rand(WIDE_H_ROWS) < 0.9).astype(np.float32)
+    sw = torch.from_numpy(np.stack([
+        gen.randn(WIDE_H_ROWS) * 0.7 * keep,
+        (gen.rand(WIDE_H_ROWS) * 0.25 + 1e-3) * keep, keep], 1)
+        .astype(np.float32)).to(dev)
+    third = torch.from_numpy(gen.permutation(WIDE_H_ROWS)[:WIDE_H_ROWS // 3]
+                             .astype(np.int32)).to(dev)
+    bins = gen.randint(0, 4, CANCEL_WIDE_ROWS) * 157
+    x = gen.randn(CANCEL_WIDE_ROWS) * 0.5
+    x -= (np.bincount(bins, x, 631) / np.maximum(
+        np.bincount(bins, minlength=631), 1))[bins]
+    cw_host = np.stack([x, gen.rand(CANCEL_WIDE_ROWS) * 0.25,
+                        np.ones(CANCEL_WIDE_ROWS)], 1).astype(np.float32)
+    cb = torch.from_numpy(bins.astype(np.uint16)[:, None]).to(dev)
+    cw = torch.from_numpy(cw_host).to(dev)
+    wb, wnb = wide_in._binned, wide_in._grower.num_bins
+    err, cancel = 0.0, []
+    for bf16 in (True, False):
+        mode = "hi+lo" if bf16 else "f32"
+        for m in (0, 1, 37):
+            err = max(err, hold_hist("H u16 %s Bosch %d-row list" % (mode, m),
+                                     bosch, w1, nb, bf16, layouts[bf16],
+                                     child, m)[1])
+        err = max(err, hold_hist(
+            "H u16 %s max_bin=%d root" % (mode, WIDE_MAX_BIN), wb, ww, wnb,
+            bf16, histogram.hist_layout(wide_in._grower.hist_layout.widths,
+                                        bf16, dev))[1])
+        lay = histogram.hist_layout(WIDE_H_WIDTHS, bf16, dev)
+        for rows, cnt in ((None, None), (third, int(third.shape[0]))):
+            err = max(err, hold_hist(
+                "H u16 %s seeded %s bins (%s)" % (mode, WIDE_H_WIDTHS, (
+                    "all rows" if rows is None else "%d-row list" % cnt)),
+                seeded, sw, max(WIDE_H_WIDTHS), bf16, lay, rows, cnt)[1])
+        got = hold_hist("H u16 %s cancelling gradients, one 631-bin group"
+                        % mode, cb, cw, 631, bf16,
+                        histogram.hist_layout([631], bf16, dev))[0]
+        if bf16:
+            hi, lo = histogram.hi_lo(cw[:, :2].contiguous())
+            parts = [hi[:, 0].cpu().numpy(), lo[:, 0].cpu().numpy()]
+        else:
+            parts = [cw_host[:, 0]]
+        got = got[0, :, 0].double().cpu().numpy()
+        ref = sum(np.bincount(bins, p.astype(np.float64), 631) for p in parts)
+        chain = max(abs(float(np.cumsum(sum(p[bins == b] for p in parts),
+                                        dtype=np.float32)[-1]) - ref[b])
+                    for b in (0, 157, 314, 471))
+        cancel.append("%s %.3g (f32 chains %.3g)" % (mode, float(np.max(
+            np.abs(got - ref) / np.maximum(1.0, np.abs(ref)))), chain))
+    print("H u16 warp-shared checks [%s]: Bosch row lists of 0, 1 and 37 "
+          "rows, the max_bin=%d root, %d seeded rows of groups of %s bins "
+          "(all rows and a third), both modes: bitwise the replay of its "
+          "summation order, repeats equal, max abs err %.3g against plain; "
+          "cancelling gradients on a 631-bin group (%d rows), error "
+          "against the f64 sums relative to max(1, |ref|): %s"
+          % (card, WIDE_MAX_BIN, WIDE_H_ROWS, WIDE_H_WIDTHS, err,
+             CANCEL_WIDE_ROWS, "; ".join(cancel)))
+    return err
 
 
 def uint16_ops(dev):
@@ -4347,30 +4472,9 @@ def bosch(name, card, dev, ctx):
                  layout=layouts[bf16])
 
     def held(w, bf16, rows=None, cnt=None, label=""):
-        got = hist(w, bf16, rows, cnt)
-        check(torch.equal(got, hist(w, bf16, rows, cnt)),
-              "H u16 %s: a second launch gave other bits" % label)
-        # the lane-private (narrow) groups: bit for bit their order
-        lay = layouts[bf16]
-        narrow = torch.from_numpy(lay.narrow.astype(np.int64)).to(dev)
-        order = histogram.leaf_histogram_order(binned, w, nb, rows, cnt,
-                                               bf16, lay)
-        check(torch.equal(got[narrow], order[narrow]),
-              "H u16 %s: the %d narrow groups are not their summation "
-              "order" % (label, len(lay.narrow)))
-        del order
-        sel = None if rows is None else rows[:cnt]
-        if bf16:  # the f64 sum of the exact halves
-            hi, lo = histogram.hi_lo(w[:, :2].contiguous())
-            oracle = hist_oracle(binned, torch.cat([hi, w[:, 2:3]], 1), nb,
-                                 sel)
-            oracle[..., :2] += hist_oracle(binned, torch.cat(
-                [lo, w[:, 2:3]], 1), nb, sel)[..., :2]
-        else:
-            oracle = hist_oracle(binned, w, nb, sel)
-        err = sums_err(got, histogram.leaf_histogram_plain(
-            binned, w, nb, rows, cnt, bf16), oracle, "H u16 " + label)
-        return got, err
+        # every group, lane-private and warp-shared, bit for bit its order
+        return hold_hist("H u16 " + label, binned, w, nb, bf16,
+                         layouts[bf16], rows, cnt)
 
     errs["leaf_histogram_u16_f32"] = errs["leaf_histogram_u16_hilo"] = 0.0
     roots = {}
@@ -4500,8 +4604,8 @@ def bosch(name, card, dev, ctx):
           "f32 and hi+lo at the root (round-1 and round-10 gradients) and "
           "on the root split's smaller child (%d rows): counts exact, g/h "
           "within 1e-5 of plain and f64 (max abs err %.3g f32, %.3g hi+lo), "
-          "repeats equal, the narrow groups bitwise their summation "
-          "order; S root and children bitwise; R partition and "
+          "repeats equal, every group bitwise its summation order; S "
+          "root and children bitwise; R partition and "
           "leaf ids exact; W value and leaf modes exact on %d valid rows; "
           "H on %d uint8 rows (B 64, and B 256 on a quarter) bitwise its "
           "summation order in both modes, all rows and a row list; torch "
@@ -4710,8 +4814,10 @@ def bosch(name, card, dev, ctx):
           % (card, clocks()))
     g_cnt = binned.shape[1]
     times = {}
-    h_names = ("hist_lane_kernel", "hist_lane_reduce_kernel",
-               "hist_wide_kernel", "hist_reduce_kernel")
+    wide_err = hold_wide_cases(name, card, dev, binned, w1, nb, layouts,
+                               perm[b0:], wfresh, ww)
+    for key in ("leaf_histogram_u16_f32", "leaf_histogram_u16_hilo"):
+        errs[key] = max(errs[key], wide_err)
     in_bytes = n * (2 * g_cnt + 12) + g_cnt * nb * 12
     flat = ((torch.arange(g_cnt, device=dev) * nb)[None]
             + take_bins(binned)).reshape(-1)
@@ -4726,8 +4832,9 @@ def bosch(name, card, dev, ctx):
             for ch in chans:
                 torch.bincount(flat, weights=ch[:, None].expand(
                     n, g_cnt).reshape(-1), minlength=g_cnt * nb)
+        # H's device time by CUDA-graph replay: two or three kernels a call
         times[key] = (
-            device_ms(lambda: hist(w1, bf16), h_names),
+            graph_ms(lambda: hist(w1, bf16)),
             median_ms(lambda: histogram.leaf_histogram_plain(
                 binned, w1, nb, bf16=bf16), reps=3),
             bound(in_bytes, (5.0 if bf16 else 3.0) * n * g_cnt),
@@ -4737,30 +4844,30 @@ def bosch(name, card, dev, ctx):
               "torch.bincount x%d %.3f ms; row list (%d rows) %.4f ms"
               % (name, card, key, n, g_cnt, nb, times[key][0],
                  times[key][1], times[key][2][0], times[key][2][1],
-                 len(chans), times[key][3], cnt, device_ms(
-                     lambda: hist(w1, bf16, perm[b0:], cnt), h_names)))
+                 len(chans), times[key][3], cnt, graph_ms(
+                     lambda: hist(w1, bf16, perm[b0:], cnt))))
         lay = layouts[bf16]
-        tile = histogram.hist_tile_rows(lay, n)
-        tiles = -(-n // tile)
         plan = histogram.hist_plan(n, len(lay.narrow), lay.narrow_w)
+        wplan = histogram.hist_wide_plan(n, len(lay.wide), lay.wide_w)
         print("plan [%s]: %s at the Bosch root: %d lane-private groups of "
               "at most %d bins in %d slices of %d, %d blocks of %d warps, "
               "runs of %d rows, partials %.1f MB; %d warp-shared groups of "
-              "at most %d bins in tiles of %d rows, %d tiles, partials %.1f "
-              "MB (each written and read once; input %.1f MB)"
+              "at most %d bins, %d a block in %d slices, %d tiles of %d "
+              "rows, %d bytes of shared memory a block, partials %.1f MB "
+              "(f64, each written and read once; input %.1f MB)"
               % (card, key, len(lay.narrow), lay.narrow_w, plan.slices,
                  plan.gw, plan.blocks, plan.warps, plan.run,
                  plan.partial_words * 8 / 1e6, len(lay.wide), lay.wide_w,
-                 tile, tiles, tiles * lay.elems * (5 if bf16 else 3) * 4
-                 / 1e6, n * (2 * g_cnt + 12) / 1e6))
+                 wplan.warps, wplan.slices, wplan.tiles, wplan.tile_rows,
+                 wplan.smem, wplan.partial_words * 8 / 1e6,
+                 n * (2 * g_cnt + 12) / 1e6))
     del flat
     # H at the max_bin=1023 root: 28 warp-shared groups of ~1,024 bins
     wn, wgc = wfresh._binned.shape
     for bf16 in (True, False):
         w_lay = histogram.hist_layout(wg.hist_layout.widths, bf16, dev)
-        w_ms = device_ms(lambda: H(wfresh._binned, ww, wg.num_bins,
-                                   bf16=bf16, layout=w_lay),
-                         h_names)
+        w_ms = graph_ms(lambda: H(wfresh._binned, ww, wg.num_bins,
+                                  bf16=bf16, layout=w_lay))
         w_bound = bound(wn * (2 * wgc + 12) + wgc * wg.num_bins * 12,
                         (5.0 if bf16 else 3.0) * wn * wgc)
         print("time [%s | %s]: leaf_histogram_u16_%s at the max_bin=%d "
@@ -4771,11 +4878,10 @@ def bosch(name, card, dev, ctx):
     hb_dev = torch.from_numpy(np.ascontiguousarray(hb_all)).to(dev)
     hw = torch.ones((hb_all.shape[0], 3), dtype=torch.float32, device=dev)
     nb_u8 = int(ctx["data"][0]._inner.max_num_bin())
-    u8_ms = device_ms(lambda: H(hb_dev, hw, nb_u8),
-                      ("hist_lane_kernel", "hist_lane_reduce_kernel"))
+    u8_ms = graph_ms(lambda: H(hb_dev, hw, nb_u8))
     u8_bytes = hb_dev.numel() + hb_all.shape[0] * 12
     print("time [%s | %s]: H on the uint8 HIGGS root (%d rows x %d groups, "
-          "hi+lo) %.4f ms, %.0f GB/s of input; uint16 Bosch root hi+lo "
+          "f32) %.4f ms, %.0f GB/s of input; uint16 Bosch root hi+lo "
           "%.0f GB/s" % (name, card, hb_all.shape[0], hb_all.shape[1],
                          u8_ms, u8_bytes / u8_ms / 1e6,
                          in_bytes / times["leaf_histogram_u16_hilo"][0]
@@ -6047,6 +6153,9 @@ AB_LIST_ROWS = 966_119
 # the Bosch row list HQ is timed on: the size of the main path's root
 # split's smaller child (phase 41)
 AB_BOSCH_LIST_ROWS = 39_589
+# H u16's row list in the A/B: the size of the Bosch root split's smaller
+# child (phase 35)
+AB_BOSCH_H_LIST_ROWS = 21_856
 
 
 def host_us(fn, reps=200):
@@ -6081,6 +6190,13 @@ def busy_ms(fn, reps=REPS):
         k = e.name.replace("(anonymous namespace)::", "").split("(")[0]
         by_name[k] = by_name.get(k, 0.0) + e.time_range.elapsed_us() / 1e3
     return busy / 1e3 / reps, {k: v / reps for k, v in by_name.items()}
+
+
+def kernel_name(name):
+    """An H kernel's name in a profiler event's (`hist_lane_kernel`,
+    `hist_sum_kernel`), else the event's name."""
+    found = re.search(r"hist_\w+", name)
+    return found.group(0) if found else name
 
 
 def ab_child(root, rounds, cat_rounds):
@@ -6297,13 +6413,20 @@ def ab_child(root, rounds, cat_rounds):
             label + "_idle_share": 1.0 - busy / 1e6 / wall,
             label + "_H_in_round_ms": in_round(
                 lambda k: "hist_" in k and "i32" not in k),
+            label + "_H_kernels": {
+                k: in_round(lambda e, k=k: kernel_name(e) == k)
+                for k in sorted({kernel_name(e.name) for e in events
+                                 if "hist_" in e.name
+                                 and "i32" not in e.name})},
             label + "_S_in_round_ms": in_round(lambda k: "split_scan" in k),
             label + "_HQ_in_round_ms": in_round(lambda k: "hist_i32" in k),
             label + "_R_in_round_ms": in_round(lambda k: any(
                 r in k for r in ("partition_kernel", "route_kernel",
                                  "scan_tiles_kernel", "scatter_kernel"))),
             label + "_DtoD_in_round_ms": in_round(
-                lambda k: "Memcpy DtoD" in k)})
+                lambda k: "Memcpy DtoD" in k),
+            label + "_memset_in_round_ms": in_round(
+                lambda k: "Memset" in k)})
 
     # S on a leaf pair (a seeded third of the rows and the rest) and on
     # the root, and HQ at the root and on a seeded row list, each by
@@ -6357,6 +6480,32 @@ def ab_child(root, rounds, cat_rounds):
                     booster._binned, q.codes, q.w01, g.num_bins, rows=rows,
                     n_rows=list_rows, **kw))
 
+    def h_u16(label, booster, list_rows):
+        """H on a uint16 matrix at the root and on a seeded row list,
+        both modes, by CUDA-graph replay, and a 1,000-row call's host
+        time."""
+        g = booster._grower
+        gr, he = booster.objective.get_gradients(booster._score[0])
+        ww = torch.stack([gr, he, torch.ones_like(gr)], 1).contiguous()
+        n = booster._binned.shape[0]
+        rows = torch.from_numpy(np.random.RandomState(4).permutation(n)[
+            :max(list_rows, 1000)].astype(np.int32)).to(dev)
+        for mode, bf16 in (("f32", False), ("hilo", True)):
+            lay = histogram.hist_layout(g.hist_layout.widths, bf16, dev)
+            out["H_u16_%s_%s_root_device" % (label, mode)] = graph_ms(
+                lambda: leaf_histogram(booster._binned, ww, g.num_bins,
+                                       bf16=bf16, layout=lay))
+            if list_rows:
+                out["H_u16_%s_%s_list_device" % (label, mode)] = graph_ms(
+                    lambda: leaf_histogram(booster._binned, ww, g.num_bins,
+                                           rows=rows, n_rows=list_rows,
+                                           bf16=bf16, layout=lay))
+        small = rows[:1000].contiguous()
+        out["H_u16_%s_host_us" % label] = host_us(
+            lambda: leaf_histogram(booster._binned, ww, g.num_bins,
+                                   rows=small, n_rows=1000, bf16=True,
+                                   layout=g.hist_layout))
+
     s_device("higgs", inner)
     r_times("higgs", inner)
     int8 = dict(TRAIN_PARAMS, tpu_hist_quantize="int8")
@@ -6368,6 +6517,7 @@ def ab_child(root, rounds, cat_rounds):
     wds = lgb.Dataset(x, y, params=wparams).construct()
     s_device("wide", lgb.Booster(wparams, train_set=wds)._inner, pair=False)
     wide_in = lgb.Booster(wparams, train_set=wds)._inner
+    h_u16("wide", wide_in, 0)
     gr, he = wide_in.objective.get_gradients(wide_in._score[0])
     lm_ab("u16", wide_in._binned, torch.stack(
         [gr, he, torch.ones_like(gr)], 1).contiguous(),
@@ -6377,6 +6527,8 @@ def ab_child(root, rounds, cat_rounds):
     bds = lgb.Dataset(xb, yb, params=dict(BOSCH_PARAMS)).construct()
     del xb, yb
     s_device("bosch", lgb.Booster(dict(BOSCH_PARAMS), train_set=bds)._inner)
+    h_u16("bosch", lgb.Booster(dict(BOSCH_PARAMS), train_set=bds)._inner,
+          AB_BOSCH_H_LIST_ROWS)
     r_times("bosch", lgb.Booster(dict(BOSCH_PARAMS), train_set=bds)._inner)
     qparams = dict(BOSCH_PARAMS, tpu_hist_quantize="int8")
     hq_device("bosch", lgb.Booster(qparams, train_set=bds)._inner,
@@ -6430,7 +6582,10 @@ def ab_main(argv):
     third of the rows and the rest) of the HIGGS, Bosch (phase 31) and
     categorical (phase 37) protocols and on the max_bin=1023 root (phase
     34), and HQ (leaf_histogram_i32) at the int8 HIGGS and Bosch roots
-    and on a seeded 39,589-row Bosch list, each `*_device` as above;
+    and on a seeded 39,589-row Bosch list, each `*_device` as above; H
+    on uint16 bins (`H_u16_*`) at the Bosch root and on a seeded
+    21,856-row list and at the max_bin=1023 root, in both modes, each
+    `*_device` as above, and a 1,000-row call's `*_host_us`;
     LM (leaf_feature_moments) on the HIGGS protocol's bins and raw
     values and on its max_bin=1023 (uint16) bins, with 255 seeded leaf
     ids of a tree's skew: `LM_*_call` (CUDA events), `LM_*_busy` (a
@@ -6444,7 +6599,9 @@ def ab_main(argv):
     under torch.profiler: wall, device busy time (the union of the device
     events' intervals), idle share and H's, S's, HQ's and R's device
     time (and the device-to-device copies', the parent's R copy among
-    them); and
+    them), H's device time by kernel (`*_H_kernels`) and the device
+    memsets' (`*_memset_in_round_ms`: H zeroes a uint16 output with one);
+    and
     the categorical protocol's `--cat-rounds` rounds through lgb.train,
     as phase 36 times its 500 (0: none)."""
     import argparse

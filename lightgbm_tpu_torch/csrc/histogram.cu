@@ -1,8 +1,7 @@
 // Kernel H, leaf_histogram, of lightgbm_tpu_torch: per (group, bin) the
 // sums (g*w, h*w, count of rows with w > 0) over a set of rows of a
-// uint8 or uint16 binned matrix, built
-// for sm_90a by ops/_build.py and called through ctypes from
-// ops/histogram.py.
+// uint8 or uint16 binned matrix, built for sm_90a by ops/_build.py and
+// called through ctypes from ops/histogram.py.
 //
 // Replaces, in lightgbm_tpu/ops/histogram.py: leaf_histogram (:333, all
 // rows), gathered_leaves_histogram (:474, a compacted row list) and
@@ -15,82 +14,85 @@
 // shared memory without contention, so the kernel scatters.
 //
 // Design (the same bits on every run, no float atomics; ops/histogram.py
-// hist_plan computes the launch plan on the host and leaf_histogram_order
-// replays the summation order in torch ops):
-// - one pass over the rows: a block takes warps * run consecutive
-//   positions of the row sequence (0..n-1, or rows[0..n-1]) and a slice of
-//   up to 32 groups; its warp w takes a run of `run` positions, and lane l
-//   of the warp owns group l of the slice. Per 32 positions the lanes read
-//   the 32 rows' channels (12 bytes each, 4 more for a row list) once,
-//   split g and h into their hi and lo halves once (hi+lo mode), and
-//   broadcast them by shuffles; each owner lane reads its group's byte of
-//   every row (a warp reads a row's bins as one contiguous run) and adds
-//   the row into its own column of the warp's [ch][bins + 1][32 lanes]
-//   shared histogram. Columns never collide, and lane l's words sit in
-//   bank l (two banks for an f64 word). The next 32 rows' loads are in
-//   flight while these are added;
-// - so a warp holds ONE copy of each of its groups' histograms (41.6 KB
-//   for 32 groups at B = 64: 20 bytes a slot, g and h in f64 in f32 mode,
-//   the four bf16 halves in f32 in hi+lo mode, and a uint32 count), a
-//   block 5 warps, and the rows of a run are added in order: one chain a
-//   (run, group, bin) of at most HIST_MAX_RUN = 4,096 rows;
-// - the read-add-write of a shared word is a chain of latencies, so the
-//   rows go four at a time: the four words are read together, added in
-//   row order (a row whose bin an earlier one of the four holds takes
-//   that row's sum: the same adds in the same order), and written back
-//   in row order. A row a lane does not add goes to the column's extra
-//   sentinel bin, so no add is under a branch;
-// - the warps' histograms are added in warp order, in f64, into the
-//   block's partial ([blocks][ch][bins][slots] f64, written coalesced),
-//   and a second kernel adds the blocks' partials, one thread a (bin,
-//   group), in eight interleaved f64 chains and a fixed tree, and rounds
-//   each sum to f32 once. About 132 blocks at the HIGGS root: 10.8 MB of
-//   partials in hi+lo mode, 6.5 MB in f32, against 80 MB of input. f32
-//   sums of f32 values over a 2,000,000-row root of cancelling gradients
-//   miss 1e-5 * max(1, |sum|) in any order of f32 chains (the earlier
-//   2,048-row tiles' too); the f64 sums hold that input to about one
-//   rounding (chip_smoke.py phase 10's cancelling input).
-// Counts are integers throughout. At B = 256 a warp takes 16 groups (82
-// KB), so a block still holds two warps.
+// hist_plan and hist_wide_plan compute the launch plans on the host from
+// the shape alone, and leaf_histogram_order replays the summation order
+// in torch ops). Every sum is an f64 chain of the rows' values (g*w and
+// h*w in f32 mode; in hi+lo mode hi + lo, which f64 holds exactly, so one
+// chain sums both halves), rounded to f32 once; counts are integers. Two
+// passes read the rows, one a kind of group, then at most one reduction:
+// - lane-private (hist_lane_kernel; every group of a uint8 matrix, and
+//   a uint16 matrix's groups of at most 351 bins, hist_layout's
+//   `narrow`): a block takes warps * run consecutive
+//   positions of the row sequence (0..n-1, or rows[0..n-1]) and a slice
+//   of up to 32 groups; its warp w takes a run of `run` positions, and
+//   lane l of the warp owns group l of the slice. Per 32 positions the
+//   lanes read the 32 rows' channels once and broadcast them by
+//   shuffles; each owner lane reads its group's bin of every row (a warp
+//   reads a row's bins as one contiguous run) and adds the row into its
+//   own column of the warp's shared histogram ([ch][bins + 1][gw lanes],
+//   20 bytes a slot: g and h in f64, a uint32 count), four rows'
+//   read-add-writes at once in row order; a row a lane does not add goes
+//   to the column's sentinel bin. The block adds its warps in warp order.
+//   The row blocks are sized so that all slices together make about one
+//   block an SM (at the Bosch root 126 blocks and 6.1 MB of partials: as
+//   many a slice would write 57 MB);
+// - warp-shared (hist_claim_kernel; a uint16 matrix's groups too wide
+//   for 32 private columns, up to 2,048 bins: Bosch's 631, max_bin=1023):
+//   block (tile, slice) takes a tile of positions and a slice of W
+//   groups; warp w owns group w of the slice and ONE histogram of it (24
+//   bytes a bin: g and h in f64, a uint32 count and a claim word). The
+//   block stages 256 rows at a time in shared memory (the slice's bins of
+//   a row read together, and each row's two values and count flag, split
+//   and added back in f64 once a row), the next chunk's loads in flight
+//   while this one is added; per 32 staged rows the warp's lanes claim
+//   their bins in rounds (an integer atomicMin of the lane into the bin's
+//   claim word), and the lowest pending lane of each bin adds, so each
+//   (tile, group, bin) adds the tile's rows in row order. Short tiles
+//   (below 8,192 rows, hist_wide_plan) go in thread-block clusters of up
+//   to 8 tiles of a slice, which add their histograms through
+//   distributed shared memory in rank order before writing one partial.
+//   The plan gives a block as many groups as keep the most warps on an
+//   SM (two blocks an SM) and the grid to about one wave, so a tile's
+//   slices read its rows out of L2 together, and a row's sector and
+//   channels are read once a slice of groups, not once a group;
+// - a path of one row block (one cluster) writes its sums, rounded, into
+//   the output at once; otherwise the blocks (clusters) write f64
+//   partials (lane: [blocks][3][bw][slices * gw]; warp-shared:
+//   [clusters][group][3][wide_w]) and one launch of hist_sum_kernel adds
+//   both paths' partials: a warp takes four adjacent words of one path,
+//   its lane 4s + j adds blocks s, s + 8, ... of word j in order (chain
+//   s, from +0), and the chains close in the shuffle tree ((0+4)+(2+6)) +
+//   ((1+5)+(3+7)); every SM takes part. On a uint16 matrix the output is
+//   first zeroed (cudaMemsetAsync): the bins past each group's width stay
+//   0.
+// So a call is one to three kernels (and the memset on a uint16 matrix).
 //
 // Bound on an H100 SXM (3.35 TB/s): every input byte read once: the
-// group bins of the rows (G bytes a row), 12 bytes of channels a row,
-// 4 more a row for a row list, and the [G, B, 3] output.
-// At the root of the main path (2,000,000 rows x 28 groups) that is
-// 80 MB, 0.024 ms; chip_smoke.py computes the bound of each measured
-// call from its own shape. What sets the time instead (by design
-// estimate) is each column's serial chain of shared-memory read, add and
-// write, some 30 cycles a row, over the few warps whose histograms fit
-// an SM.
+// group bins of the rows (G bytes a row, 2 G on a uint16 matrix), 12
+// bytes of channels a row, 4 more a row for a row list, and the [G, B,
+// 3] output: at the HIGGS root (2,000,000 rows x 28 groups) 80 MB, 0.024
+// ms; at the Bosch root (500,000 x 338, B 631) 344 MB, 0.1035 ms; at the
+// max_bin=1023 root (2,000,000 x 28, B 1023) 136 MB, 0.0407 ms.
+// chip_smoke.py computes the bound of each measured call from its own
+// shape. What sets the time instead (PERF.md): the lane kernel's
+// serial chains of shared read-add-writes over the few warps whose f64
+// columns fit an SM; the warp-shared kernel's claim rounds, which are
+// bound by shared-memory wavefronts (random bins conflict in the banks:
+// an atomic, a claim read and write and four f64 accesses a round), and,
+// on small calls, each launch's fixed cost.
 //
 // The hi+lo mode (tpu_hist_bf16, the JAX package's default): the bf16
 // branch of the same three functions, with _hi_lo (:52). Each row's g*w
 // and h*w are split into hi = bf16(v) and lo = bf16(v - f32(hi)), rounded
-// as XLA's CPU backend rounds (ops/histogram.py hi_lo), and the four
-// halves are summed apart in f32 in the same order; the reduction adds
-// hi + lo once, after all rows (the JAX merge at :394-396). The split
-// reads no more bytes, so the bound is H's.
+// as XLA's CPU backend rounds (ops/histogram.py hi_lo); the JAX package
+// sums the halves apart in f32 and adds them after all rows (:394-396),
+// the port adds hi + lo a row in f64. The split reads no more bytes, so
+// the bound is H's.
 //
 // The uint16 modes (groups of more than 256 bins, the JAX package's
 // uint16 matrix: efb.py:96-99, ingest/build.py:116; its H functions are
 // dtype-generic and pad every group to the widest): the same sums in
-// both modes, with each group at its own width (group_num_bin), the
-// warp-shared groups' tiles' partials laid out at those widths, and
-// tiles of 2,048 << k rows, the least k that keeps the partials' traffic
-// under a quarter of the input's bytes (ops/histogram.py hist_layout,
-// hist_tile_rows: at the Bosch root 16,384 rows, 31 tiles, in both
-// modes). A group narrow enough that two warps of 16 such columns fit
-// the block's budget (at most 351 bins, 20 bytes a slot) takes
-// the lane-private scheme above, in columns as wide as the widest of
-// them; a wider one (up to 2,048 bins; Bosch's 631) goes warp-shared
-// (hist_wide_kernel): ONE histogram a warp, the
-// lanes that hold the same bin (__match_any_sync) combined in a fixed
-// tree over their rank before their lowest lane's single add. Chosen
-// over bin-range passes, which read each tile once a range: the sums
-// need one pass, and the combining costs a few shuffles a turn only
-// where lanes share a bin. Bound at the Bosch root (500,000 rows x 338
-// groups, B 631; chip_smoke.py phases 30-35): 500,000 x (676 + 12)
-// bytes in, the [338, 631, 3] histogram out, 0.1035 ms.
+// both modes, with each group at its own width (group_num_bin).
 //
 // Kernel HQ, leaf_histogram_i32, the quantized-training mode
 // (tpu_hist_quantize=int8|int16): per (group, bin) the int32 sums
@@ -145,26 +147,33 @@
 // 338 uint16, B 631) 342 MB, 0.102 ms; at the max_bin=1023 root
 // (2,000,000 x 28 uint16) 128 MB, 0.038 ms.
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include "warp_rank.cuh"
+namespace cg = cooperative_groups;
 
 namespace {
 
 constexpr int kLanes = 32;
-constexpr int kUnroll = 4;  // rows a lane of the warp-shared kernel has in flight
-// the shared memory a block of H may take (ops/histogram.py
-// HIST_SMEM_BYTES): 5 warps of the lane-private kernel at B = 64 (41.6
-// KB a warp)
+// the shared memory a block of the lane-private kernel may take
+// (ops/histogram.py HIST_SMEM_BYTES): 5 warps at B = 64 (41.6 KB a warp)
 constexpr int kHistSmem = 220 * 1024;
-// ... and of the warp-shared kernel
-constexpr int kWideSmem = 160 * 1024;
 // warps of a lane-private block at most (HIST_MAX_WARPS)
 constexpr int kMaxWarps = 8;
-// warps of a warp-shared block (uint16 groups wider than the lanes'
-// private copies allow): 8 at 1,024 bins in hi+lo mode (160 KB)
-constexpr int kWideWarps = 8;
+// the warp-shared kernel: groups (warps) a block at most, rows staged a
+// chunk and the shared memory a block may take (HIST_WIDE_WARPS,
+// HIST_STAGE_ROWS, HIST_WIDE_SMEM_BYTES: the card's 227 KB)
+constexpr int kWideWarps = 16;
+constexpr int kStageRows = 256;
+constexpr int kStageData = kStageRows / kLanes;  // rows a staging thread
+constexpr int kWideSmem = 227 * 1024;
+// tiles a cluster at most (HIST_MAX_CLUSTER)
+constexpr int kMaxCluster = 8;
+// the reduction: chains a sum (HIST_CHAINS), words a warp, threads a block
+constexpr int kChains = 8;
+constexpr int kQuad = kLanes / kChains;
+constexpr int kSumThreads = 256;
 
 constexpr float kF32MinNormal = 1.17549435e-38f;
 
@@ -191,6 +200,19 @@ __device__ __forceinline__ void hi_lo(float w, float& hi, float& lo) {
       __fsub_rn(flush_subnormal(w), flush_subnormal(hi))));
 }
 
+// a row's g*w or h*w as the sums add it: in f64, and in hi+lo mode as
+// f64(hi) + f64(lo), which is exact
+template <bool HILO>
+__device__ __forceinline__ double row_value(float v) {
+  if constexpr (HILO) {
+    float hi, lo;
+    hi_lo(v, hi, lo);
+    return (double)hi + (double)lo;
+  } else {
+    return (double)v;
+  }
+}
+
 // The lane-private scheme (every group of a uint8 matrix; a uint16
 // matrix's groups narrow enough, hist_layout's `narrow`): block (x, y)
 // takes the row positions [x * warps * run, (x + 1) * warps * run) of the
@@ -202,22 +224,21 @@ __device__ __forceinline__ void hi_lo(float w, float& hi, float& lo) {
 // in hi+lo mode), the lanes broadcast them in turn, and each owner lane
 // adds the row into its group's column of the warp's shared histogram,
 // rows in order: one f64 chain a (run, group, bin), and the lanes never
-// collide because they own different columns. The value added is g*w
-// (h*w) in f32 mode and hi + lo in hi+lo mode, which f64 holds exactly,
-// so the chain sums the hi and the lo halves at once. A warp's histogram
+// collide because they own different columns. A warp's histogram
 // is [2][words] f64 sums, then [words] uint32 counts; words = (bw + 1) *
 // gw rounded up to even, 20 bytes a slot (ops/histogram.py
 // HIST_SLOT_BYTES). Then the warps' histograms are added in warp order,
-// in f64, into the block's partial, f64 words laid out
-// [blocks][3][bw][nsp] (nsp = slices * gw, the count last) so that both
-// the writes here and the reduction's reads are coalesced.
+// in f64: with one row block (gridDim.x == 1) rounded into out at once,
+// else into the block's partial, f64 words laid out [blocks][3][bw][nsp]
+// (nsp = slices * gw, the count last) so that both the writes here and
+// the reduction's reads are coalesced.
 template <bool HILO, typename BinT>
 __global__ void __launch_bounds__(kMaxWarps * kLanes)
 hist_lane_kernel(const BinT* __restrict__ binned, int G,
                  const float* __restrict__ w3, const int* __restrict__ rows,
                  int n, const int* __restrict__ glist, int n_list,
                  const int* __restrict__ widths, int bw, int gw, int run,
-                 double* __restrict__ part) {
+                 int B, double* __restrict__ part, float* __restrict__ out) {
   constexpr int kAcc = 2;    // g and h
   constexpr int kGroup = 4;  // rows whose read-add-writes overlap
   extern __shared__ __align__(16) unsigned char smem[];
@@ -280,19 +301,10 @@ hist_lane_kernel(const BinT* __restrict__ binned, int G,
       load(r_next, wn, bn);
       r_next = row_of(base + 2 * kLanes + lane);
       const int m = (int)min((long long)kLanes, end - base);
-      // lane j's row: its g and h, in hi+lo mode split into their hi
-      // and lo halves once and added back in f64 (exactly)
+      // lane j's row: its g and h as the sums add them
       double v[kAcc];
 #pragma unroll
-      for (int c = 0; c < kAcc; ++c) {
-        if constexpr (HILO) {
-          float hi, lo;
-          hi_lo(wc[c], hi, lo);
-          v[c] = (double)hi + (double)lo;
-        } else {
-          v[c] = (double)wc[c];
-        }
-      }
+      for (int c = 0; c < kAcc; ++c) v[c] = row_value<HILO>(wc[c]);
       const uint32_t k = lane < m && wc[2] > 0.f ? 1u : 0u;
       // four rows at a time: their four words are read together, then
       // added in row order, a row whose bin an earlier one of the four
@@ -354,271 +366,315 @@ hist_lane_kernel(const BinT* __restrict__ binned, int G,
   }
   __syncthreads();
 
-  // the warps' histograms added in warp order, in f64, into the block's
-  // partial (the sentinel bins left out)
+  // the warps' histograms added in warp order, in f64 (the sentinel bins
+  // left out): into out when this is the only row block, else into the
+  // block's partial
   const int nsp = gridDim.y * gw;
   const int gshift = __ffs(gw) - 1;  // gw is a power of two
+  const bool direct = gridDim.x == 1;
   const size_t chan = (size_t)bw * nsp;
-  double* const out = part + (size_t)blockIdx.x * (kAcc + 1) * chan +
-                      blockIdx.y * gw;
+  double* const dst =
+      direct ? nullptr
+             : part + (size_t)blockIdx.x * (kAcc + 1) * chan + blockIdx.y * gw;
   for (int e = threadIdx.x; e < bw * gw; e += blockDim.x) {
-    const size_t at = (size_t)(e >> gshift) * nsp + (e & (gw - 1));
+    const int b = e >> gshift, l = e & (gw - 1);
+    double sum[kAcc];
 #pragma unroll
     for (int c = 0; c < kAcc; ++c) {
-      double sum = 0.0;
+      sum[c] = 0.0;
       for (int w = 0; w < warps; ++w) {
-        sum += reinterpret_cast<const double*>(
+        sum[c] += reinterpret_cast<const double*>(
             smem + w * warp_bytes)[c * words + e];
       }
-      out[c * chan + at] = sum;
     }
     uint32_t count = 0u;
     for (int w = 0; w < warps; ++w) {
       count += reinterpret_cast<const uint32_t*>(
           smem + w * warp_bytes + kAcc * words * 8)[e];
     }
-    out[kAcc * chan + at] = (double)count;
-  }
-}
-
-// out[g, b, :] for the lane-private groups from the blocks' f64
-// partials: one thread a (bin, slot), slots adjacent so the reads
-// coalesce; the blocks are added in eight interleaved f64 chains (chain
-// s adds blocks s, s + 8, ... in order) and the chains in the fixed tree
-// ((0+4)+(2+6)) + ((1+5)+(3+7)), and each sum is rounded to f32 once. A
-// bin at or past its group's width is written 0.
-__global__ void hist_lane_reduce_kernel(const double* __restrict__ part,
-                                        int blocks, int bw, int nsp,
-                                        const int* __restrict__ glist,
-                                        int n_list,
-                                        const int* __restrict__ widths,
-                                        int B, float* __restrict__ out) {
-  constexpr int kCh = 3;  // g, h and the count
-  constexpr int kChains = 8;
-  const int e = blockIdx.x * blockDim.x + threadIdx.x;
-  if (e >= n_list * B) return;
-  const int b = e / n_list, slot = e % n_list;
-  const int g = glist ? glist[slot] : slot;
-  const int width = widths ? widths[g] : bw;
-  float* o = out + ((size_t)g * B + b) * 3;
-  if (b >= width) {
-    o[0] = 0.f;
-    o[1] = 0.f;
-    o[2] = 0.f;
-    return;
-  }
-  double a[kChains][kCh];
-#pragma unroll
-  for (int s = 0; s < kChains; ++s) {
-#pragma unroll
-    for (int c = 0; c < kCh; ++c) a[s][c] = 0.0;
-  }
-  const size_t chan = (size_t)bw * nsp;
-  const size_t off = (size_t)b * nsp + slot;
-  // two blocks a chain a turn, all their loads in flight together; a
-  // block past the last adds +0, which leaves a chain's sum as it is
-  // (a sum from +0 is never -0)
-  for (int b0 = 0; b0 < blocks; b0 += 2 * kChains) {
-    double t[2 * kChains][kCh];
-#pragma unroll
-    for (int s = 0; s < 2 * kChains; ++s) {
-      const bool live = b0 + s < blocks;
-      const double* p =
-          part + (size_t)(live ? b0 + s : 0) * kCh * chan + off;
-#pragma unroll
-      for (int c = 0; c < kCh; ++c) {
-        const double v = p[c * chan];  // unconditional: block 0 is read
-        t[s][c] = live ? v : 0.0;
+    if (direct) {
+      const int s = blockIdx.y * gw + l;
+      if (s < n_list) {
+        float* o = out + ((size_t)(glist ? __ldg(glist + s) : s) * B + b) * 3;
+        o[0] = __double2float_rn(sum[0]);
+        o[1] = __double2float_rn(sum[1]);
+        o[2] = __uint2float_rn(count);
       }
+    } else {
+      const size_t at = (size_t)b * nsp + l;
+      dst[at] = sum[0];
+      dst[chan + at] = sum[1];
+      dst[kAcc * chan + at] = (double)count;
     }
-#pragma unroll
-    for (int s = 0; s < 2 * kChains; ++s) {
-#pragma unroll
-      for (int c = 0; c < kCh; ++c) a[s % kChains][c] += t[s][c];
-    }
-  }
-#pragma unroll
-  for (int c = 0; c < kCh; ++c) {
-    const double t0 = a[0][c] + a[4][c], t1 = a[1][c] + a[5][c];
-    const double t2 = a[2][c] + a[6][c], t3 = a[3][c] + a[7][c];
-    o[c] = __double2float_rn((t0 + t2) + (t1 + t3));
   }
 }
 
-// The warp-shared scheme, for groups too wide for 32 private copies
-// (uint16 matrices): block (tile, y) takes group glist[y]; its warps
-// take the tile's rows in turns of 32 (warp w rows begin + 32 * (w +
-// warps * k) + lane), and each warp keeps ONE [ch][W] histogram. In each
-// turn the lanes that hold the same bin (__match_any_sync) add their
-// values in a fixed tree over their rank among those lanes, and the
-// lowest of them adds the sum to the shared bin: the leaders of one turn
-// hold distinct bins, so no two lanes write one word, and no float
-// atomics are needed. The warps' histograms are then added in warp order
-// into the tile's partial. Every order depends on the rows' bins only.
+// The warp-shared scheme, for a uint16 matrix's groups too wide for 32
+// private columns: block (tile, slice y) = blockIdx, in clusters of C =
+// clusterDim.x consecutive tiles of one slice; W = blockDim.x / 32 warps,
+// and warp w owns group wide[y * W + w] and ONE histogram of it,
+// [2][wide_w] f64 sums, [wide_w] uint32 counts and [wide_w] claim words,
+// all in shared memory. The block stages the tile's positions
+// kStageRows at a time: thread t loads group t % W of rows t / W + 32k
+// (the slice's groups of a row read together), and the threads of slots
+// 0-2 (all three with fewer) also channel t % W of those rows, the value
+// as the sums add it and the count flag (w > 0); the next chunk's loads
+// are in flight while this one is added. Per 32 staged rows the lanes
+// claim their bins in rounds (an integer atomicMin of the lane into the
+// bin's claim word): the lowest pending lane of a bin adds its row and
+// frees the claim, so each (tile, group, bin) is one f64 chain in row
+// order; a round adds one row a bin. A row whose bin is at or past its
+// group's width adds nothing. Then the blocks of a cluster add their
+// histograms through distributed shared memory, word by word in rank
+// order from +0 in f64 (rank r of C takes a C-th of the words), into
+// the cluster's partial [clusters][group][3][wide_w] or, with one
+// cluster, rounded into out at once: a C-th of the partial bytes that
+// tiles of their own would write.
 template <bool HILO>
-__global__ void hist_wide_kernel(const uint16_t* __restrict__ binned, int G,
-                                 const float* __restrict__ w3,
-                                 const int* __restrict__ rows, int n,
-                                 int tile_rows,
-                                 const int* __restrict__ glist,
-                                 const int* __restrict__ widths,
-                                 const int* __restrict__ poff, int elems,
-                                 int wmax, float* __restrict__ part) {
-  constexpr int kCh = HILO ? 5 : 3;
-  extern __shared__ unsigned char smem[];
-  const int tile = blockIdx.x;
-  const int warps = blockDim.x / kLanes;
+__global__ void __launch_bounds__(kWideWarps * kLanes)
+hist_claim_kernel(const uint16_t* __restrict__ binned, int G,
+                  const float* __restrict__ w3, const int* __restrict__ rows,
+                  int n, const int* __restrict__ wide, int n_wide,
+                  const int* __restrict__ widths, int wide_w, int tile_rows,
+                  int B, double* __restrict__ part, float* __restrict__ out) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int W = blockDim.x / kLanes;
   const int warp = threadIdx.x / kLanes;
   const int lane = threadIdx.x % kLanes;
-  const int g = glist[blockIdx.y];
-  const int W = widths[g];
-  // warp w's channels: [kCh][wmax] words at w * kCh * wmax
-  float* h = reinterpret_cast<float*>(smem) + (size_t)warp * kCh * wmax;
-  for (int e = threadIdx.x; e < warps * kCh * wmax; e += blockDim.x) {
-    reinterpret_cast<float*>(smem)[e] = 0.f;
+  const int tile = blockIdx.x;
+  const int y = blockIdx.y;
+  const int hw = W * wide_w;
+  double* const hist = reinterpret_cast<double*>(smem);
+  uint32_t* const cnt = reinterpret_cast<uint32_t*>(hist + 2 * (size_t)hw);
+  int* const claims = reinterpret_cast<int*>(cnt + hw);
+  // 24 hw bytes so far, so the staged f64 values stay aligned
+  double* const sv = reinterpret_cast<double*>(claims + hw);  // [2][S]
+  uint32_t* const sk = reinterpret_cast<uint32_t*>(sv + 2 * kStageRows);
+  uint16_t* const sb = reinterpret_cast<uint16_t*>(sk + kStageRows);
+  for (int e = threadIdx.x; e < 2 * hw; e += blockDim.x) hist[e] = 0.0;
+  for (int e = threadIdx.x; e < hw; e += blockDim.x) {
+    cnt[e] = 0u;
+    claims[e] = kLanes;
   }
-  __syncthreads();
-  const int begin = tile * tile_rows;
-  const int end = min(n, begin + tile_rows);
-  const unsigned below = (1u << lane) - 1u;
-  for (int i0 = begin + warp * kLanes + lane; i0 - lane < end;
-       i0 += warps * kLanes * kUnroll) {
-    int bin[kUnroll];
-    float vg[kUnroll], vh[kUnroll];
-    uint32_t vc[kUnroll];
+  const int slot = y * W + warp;
+  const bool live = slot < n_wide;
+  const int g = live ? __ldg(wide + slot) : 0;
+  const int width = live ? __ldg(widths + g) : 0;
+  double* const h = hist + (size_t)warp * 2 * wide_w;
+  uint32_t* const hc = cnt + (size_t)warp * wide_w;
+  int* const claim = claims + (size_t)warp * wide_w;
+  const int fk = threadIdx.x % W;  // this thread's slot of the slice
+  const int p0 = threadIdx.x / W;  // and its first row of a chunk
+  const int gs = y * W + fk < n_wide ? __ldg(wide + y * W + fk) : -1;
+  const long long begin = (long long)tile * tile_rows;
+  const int m =
+      (int)max(0LL, min((long long)n, begin + tile_rows) - begin);
+  int rd[kStageData], db[kStageData];
+  float dw[kStageData][3];
+  auto load_ids = [&](int c0) {
 #pragma unroll
-    for (int u = 0; u < kUnroll; ++u) {
-      const int i = i0 + u * warps * kLanes;
-      bin[u] = W;
-      vg[u] = vh[u] = 0.f;
-      vc[u] = 0u;
-      if (i < end) {
-        const int r = rows ? __ldg(rows + i) : i;
-        bin[u] = __ldg(binned + (size_t)r * G + g);
-        const float* w = w3 + (size_t)r * 3;
-        vg[u] = __ldg(w);
-        vh[u] = __ldg(w + 1);
-        vc[u] = __ldg(w + 2) > 0.f ? 1u : 0u;
+    for (int k = 0; k < kStageData; ++k) {
+      const int p = c0 + p0 + k * kLanes;
+      rd[k] = p < m ? (rows ? __ldg(rows + begin + p) : (int)(begin + p))
+                    : -1;
+    }
+  };
+  auto load_data = [&]() {
+#pragma unroll
+    for (int k = 0; k < kStageData; ++k) {
+      const bool ok = rd[k] >= 0;
+      db[k] = ok && gs >= 0 ? (int)__ldg(binned + (size_t)rd[k] * G + gs)
+                            : 0xFFFF;
+#pragma unroll
+      for (int j = 0; j < 3; ++j) {
+        const int c = fk + j * W;
+        dw[k][j] = ok && c < 3 ? __ldg(w3 + (size_t)rd[k] * 3 + c) : 0.f;
       }
     }
+  };
+  auto store = [&]() {
 #pragma unroll
-    for (int u = 0; u < kUnroll; ++u) {
-      float v[kCh];
-      if (HILO) {
-        hi_lo(vg[u], v[0], v[3]);
-        hi_lo(vh[u], v[1], v[4]);
-      } else {
-        v[0] = vg[u];
-        v[1] = vh[u];
-      }
-      uint32_t k = vc[u];
-      const unsigned peers = __match_any_sync(~0u, bin[u]);
-      const int rank = __popc(peers & below);
-      const int cnt = __popc(peers);
-      const int most = __reduce_max_sync(~0u, cnt);
-      // pairwise by rank: at step s, rank r (a multiple of 2s) adds the
-      // sum held by rank r + s
-      for (int s = 1; s < most; s <<= 1) {
-        const bool take = (rank % (2 * s)) == 0 && rank + s < cnt;
-        const int src = take ? nth_set_lane(peers, rank + s) : lane;
+    for (int k = 0; k < kStageData; ++k) {
+      const int p = p0 + k * kLanes;
+      sb[fk * (kStageRows + 2) + p] = (uint16_t)db[k];
 #pragma unroll
-        for (int c = 0; c < kCh; ++c) {
-          if (c != 2) {
-            const float o = __shfl_sync(~0u, v[c], src);
-            if (take) v[c] += o;
-          }
+      for (int j = 0; j < 3; ++j) {
+        const int c = fk + j * W;
+        if (c < 2) {
+          sv[c * kStageRows + p] = row_value<HILO>(dw[k][j]);
+        } else if (c == 2) {
+          sk[p] = dw[k][j] > 0.f ? 1u : 0u;
         }
-        const uint32_t ko = __shfl_sync(~0u, k, src);
-        if (take) k += ko;
       }
-      if (rank == 0 && bin[u] < W) {
-#pragma unroll
-        for (int c = 0; c < kCh; ++c) {
-          if (c != 2) h[c * wmax + bin[u]] += v[c];
-        }
-        reinterpret_cast<uint32_t*>(h)[2 * wmax + bin[u]] += k;
-      }
-      __syncwarp();
     }
+  };
+  const int chunks = (m + kStageRows - 1) / kStageRows;
+  if (chunks > 0) {
+    load_ids(0);
+    load_data();
+    if (chunks > 1) load_ids(kStageRows);
   }
-  __syncthreads();
-  // the warps' histograms added in warp order into the tile's partial
-  const size_t out0 = (size_t)tile * elems + poff[g];
-  const size_t chan = (size_t)gridDim.x * elems;
-  const float* all = reinterpret_cast<const float*>(smem);
-  for (int b = threadIdx.x; b < W; b += blockDim.x) {
-#pragma unroll
-    for (int c = 0; c < kCh; ++c) {
-      if (c == 2) {
-        uint32_t k = 0u;
-        for (int w = 0; w < warps; ++w) {
-          k += reinterpret_cast<const uint32_t*>(all)[
-              ((size_t)w * kCh + 2) * wmax + b];
+  const uint16_t* const bins = sb + warp * (kStageRows + 2);
+  for (int ci = 0; ci < chunks; ++ci) {
+    __syncthreads();  // the zeroing, and the last chunk's adds, are done
+    store();
+    __syncthreads();
+    if (ci + 1 < chunks) load_data();
+    if (ci + 2 < chunks) load_ids((ci + 2) * kStageRows);
+    if (!live) continue;
+    const int np = min(kStageRows, m - ci * kStageRows);
+    for (int q = 0; q < np; q += kLanes) {
+      const int p = q + lane;
+      const int bin = p < np ? (int)bins[p] : width;
+      const double vg = sv[p], vh = sv[kStageRows + p];
+      const uint32_t k = sk[p];
+      // rounds of claims: the lowest pending lane of each bin adds its
+      // row and frees the bin's claim for the next, so the rows of one
+      // bin add in row order
+      bool pending = bin < width;
+      while (__any_sync(~0u, pending)) {
+        if (pending) atomicMin(claim + bin, lane);
+        __syncwarp();
+        const bool first = pending && claim[bin] == lane;
+        __syncwarp();
+        if (first) {
+          h[bin] += vg;
+          h[wide_w + bin] += vh;
+          hc[bin] += k;
+          claim[bin] = kLanes;
+          pending = false;
         }
-        reinterpret_cast<uint32_t*>(part)[2 * chan + out0 + b] = k;
-      } else {
-        float v = 0.f;
-        for (int w = 0; w < warps; ++w) {
-          v += all[((size_t)w * kCh + c) * wmax + b];
-        }
-        part[c * chan + out0 + b] = v;
+        __syncwarp();
       }
     }
   }
-}
-
-// out[g, b, :] of the warp-shared groups wide[0..n_wide-1] = the sum
-// over tiles of their partials, one warp per element: lane l adds tiles
-// l, l+32, ... in order, then the lanes are added in a fixed tree. Same
-// order every run. In hi+lo mode the hi and lo sums are added here, once,
-// after all rows. A bin past its group's width is written 0.
-template <bool HILO>
-__global__ void hist_reduce_kernel(const float* __restrict__ part,
-                                   int tiles, int elems, int B,
-                                   const int* __restrict__ wide, int n_wide,
-                                   const int* __restrict__ widths,
-                                   const int* __restrict__ poff,
-                                   float* __restrict__ out) {
-  constexpr int kCh = HILO ? 5 : 3;
-  const int e = blockIdx.x * (blockDim.x / kLanes) + threadIdx.x / kLanes;
-  const int lane = threadIdx.x % kLanes;
-  if (e >= n_wide * B) return;  // whole warps leave together
-  const int g = wide[e / B], b = e % B;
-  float* o = out + ((size_t)g * B + b) * 3;
-  if (b >= widths[g]) {
-    if (lane == 0) {
-      o[0] = 0.f;
-      o[1] = 0.f;
-      o[2] = 0.f;
+  cg::cluster_group cluster = cg::this_cluster();
+  const int C = (int)cluster.dim_blocks().x;
+  const int clusters = gridDim.x / C;
+  if (C == 1) {
+    // a tile alone: its warps write their own histograms
+    if (!live) return;
+    __syncwarp();
+    if (clusters == 1) {
+      for (int b = lane; b < width; b += kLanes) {
+        float* o = out + ((size_t)g * B + b) * 3;
+        o[0] = __double2float_rn(h[b]);
+        o[1] = __double2float_rn(h[wide_w + b]);
+        o[2] = __uint2float_rn(hc[b]);
+      }
+    } else {
+      double* const pw = part + ((size_t)tile * n_wide + slot) * 3 * wide_w;
+      for (int b = lane; b < wide_w; b += kLanes) {
+        pw[b] = h[b];
+        pw[wide_w + b] = h[wide_w + b];
+        pw[2 * wide_w + b] = (double)hc[b];
+      }
     }
     return;
   }
-  const int src = poff[g] + b;  // the element's word in a tile's partial
-  const size_t chan = (size_t)tiles * elems;
-  float v[kCh];
-#pragma unroll
-  for (int c = 0; c < kCh; ++c) v[c] = 0.f;
-  uint32_t k = 0u;
-  for (int t = lane; t < tiles; t += kLanes) {
-    const size_t i = (size_t)t * elems + src;
-#pragma unroll
-    for (int c = 0; c < kCh; ++c) {
-      if (c != 2) v[c] += part[c * chan + i];
+  // the cluster's histograms added rank by rank, a C-th of the (warp,
+  // bin) pairs a rank; every rank waits for the others' adds before, and
+  // for their reads after
+  cluster.sync();
+  const int rank = (int)cluster.block_rank();
+  const int pairs = W * wide_w;
+  const int share = (pairs + C - 1) / C;
+  for (int e = rank * share + threadIdx.x;
+       e < min(pairs, (rank + 1) * share); e += blockDim.x) {
+    const int wl = e / wide_w, b = e % wide_w;
+    const int s = y * W + wl;
+    if (s >= n_wide) continue;
+    double a0 = 0.0, a1 = 0.0, a2 = 0.0;
+    for (int q = 0; q < C; ++q) {
+      const unsigned char* r = cluster.map_shared_rank(smem, q);
+      const double* rh =
+          reinterpret_cast<const double*>(r) + (size_t)wl * 2 * wide_w;
+      a0 += rh[b];
+      a1 += rh[wide_w + b];
+      a2 += (double)reinterpret_cast<const uint32_t*>(
+          r + 16 * (size_t)hw)[(size_t)wl * wide_w + b];
     }
-    k += reinterpret_cast<const uint32_t*>(part)[2 * chan + i];
-  }
-  for (int o2 = kLanes / 2; o2 > 0; o2 >>= 1) {
-#pragma unroll
-    for (int c = 0; c < kCh; ++c) {
-      if (c != 2) v[c] += __shfl_down_sync(~0u, v[c], o2);
+    if (clusters == 1) {
+      const int gq = __ldg(wide + s);
+      if (b < __ldg(widths + gq)) {
+        float* o = out + ((size_t)gq * B + b) * 3;
+        o[0] = __double2float_rn(a0);
+        o[1] = __double2float_rn(a1);
+        o[2] = __double2float_rn(a2);
+      }
+    } else {
+      double* const pw =
+          part + ((size_t)(tile / C) * n_wide + s) * 3 * wide_w;
+      pw[b] = a0;
+      pw[wide_w + b] = a1;
+      pw[2 * wide_w + b] = a2;
     }
-    k += __shfl_down_sync(~0u, k, o2);
   }
-  if (lane == 0) {
-    o[0] = HILO ? __fadd_rn(v[0], v[3]) : v[0];
-    o[1] = HILO ? __fadd_rn(v[1], v[4]) : v[1];
-    o[2] = (float)k;
+  cluster.sync();
+}
+
+// out[g, b, :] from both paths' f64 partials, rounded to f32 once: a
+// warp takes kQuad adjacent words of one path (the lane-private path's
+// first), and its lane kQuad * s + j adds the blocks (clusters) s, s + 8,
+// ... of word j in order from +0 (a block past the last adds +0, which
+// leaves the chain as it is: a chain never holds -0); the eight chains
+// close in the shuffle tree ((0+4)+(2+6)) + ((1+5)+(3+7)). A word of a
+// bin at or past its group's width is not written.
+__global__ void __launch_bounds__(kSumThreads)
+hist_sum_kernel(const double* __restrict__ lpart, int l_blocks,
+                int l_words, int bw, int nsp, const int* __restrict__ lane,
+                int n_lane, const double* __restrict__ wpart, int w_parts,
+                int w_words, int wide_w, const int* __restrict__ wide,
+                const int* __restrict__ widths, int B,
+                float* __restrict__ out) {
+  const int wid = (int)((blockIdx.x * (size_t)blockDim.x + threadIdx.x)
+                        / kLanes);
+  const int j = threadIdx.x % kQuad;
+  const int s = threadIdx.x % kLanes / kQuad;
+  const int lq = lpart ? (l_words + kQuad - 1) / kQuad : 0;
+  const bool wpath = wid >= lq;
+  const int q = wpath ? wid - lq : wid;
+  const int words = wpath ? w_words : l_words;
+  // warp-uniform: whole warps leave together
+  if (wpath && (!wpart || q >= (w_words + kQuad - 1) / kQuad)) return;
+  const int P = wpath ? w_parts : l_blocks;
+  const int word = q * kQuad + j;
+  const double* const p =
+      (wpath ? wpart : lpart) + (word < words ? word : 0);
+  const int chains = (P + kChains - 1) / kChains;
+  double a = 0.0;
+  // four of a chain's loads in flight at once, added in order
+  for (int i0 = 0; i0 < chains; i0 += 4) {
+    double v[4];
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {
+      const int blk = s + kChains * (i0 + u);
+      v[u] = blk < P ? __ldg(p + (size_t)blk * words) : 0.0;
+    }
+#pragma unroll
+    for (int u = 0; u < 4; ++u) a += v[u];
   }
+  a += __shfl_down_sync(~0u, a, 4 * kQuad);
+  a += __shfl_down_sync(~0u, a, 2 * kQuad);
+  a += __shfl_down_sync(~0u, a, kQuad);
+  if (s != 0 || word >= words) return;
+  int g, b, c;
+  if (wpath) {
+    const int slot = word / (3 * wide_w), r = word % (3 * wide_w);
+    g = __ldg(wide + slot);
+    c = r / wide_w;
+    b = r % wide_w;
+    if (b >= __ldg(widths + g)) return;
+  } else {
+    const int plane = bw * nsp;
+    c = word / plane;
+    b = word % plane / nsp;
+    const int slot = word % nsp;
+    if (slot >= n_lane) return;
+    g = lane ? __ldg(lane + slot) : slot;
+    if (b >= (widths ? __ldg(widths + g) : bw)) return;
+  }
+  out[((size_t)g * B + b) * 3 + c] = __double2float_rn(a);
 }
 
 // HQ's shared int32 histogram a block at most, in words (ops/histogram.py
@@ -915,29 +971,50 @@ __global__ void hist_i32_reduce_kernel(const int* __restrict__ part,
 
 namespace {
 
+// hist_claim_kernel's shared memory: W histograms of wide_w bins (24
+// bytes a bin) and a staged chunk (20 bytes a row, 2 a bin of W groups;
+// ops/histogram.py _wide_smem)
+size_t wide_smem(int W, int wide_w) {
+  return (size_t)24 * W * wide_w + (size_t)20 * kStageRows +
+         (size_t)2 * W * (kStageRows + 2);
+}
+
 template <bool HILO>
 int launch_histogram(const void* binned, int G, int u16, const float* w3,
                      const int* rows, int n, int B, const int* lane,
                      int n_lane, const int* widths, int lane_w, int gw,
                      int warps, int run, int blocks, const int* wide,
-                     int n_wide, int wide_w, const int* poff, int elems,
-                     int tile_rows, float* scratch, float* out,
-                     cudaStream_t s) {
-  constexpr int kCh = HILO ? 5 : 3;
+                     int n_wide, int wide_w, int wwarps, int wslices,
+                     int tile_rows, int tiles, int wcluster, double* scratch,
+                     float* out, cudaStream_t s) {
+  double* lpart = nullptr;
+  double* wpart = nullptr;
+  int l_words = 0, w_words = 0, nsp = 0, clusters = 0;
+  cudaError_t err;
+  if (u16) {
+    // a uint16 matrix's groups stop at their own widths: the bins past
+    // them are 0
+    err = cudaMemsetAsync(out, 0, (size_t)G * B * 3 * sizeof(float), s);
+    if (err != cudaSuccess) return (int)err;
+  }
   if (n_lane > 0) {
     if (gw < 1 || gw > kLanes || kLanes % gw || warps < 1 ||
         warps > kMaxWarps || run < kLanes || run % kLanes || blocks < 1 ||
-        lane_w < 1 || lane_w > B) {
+        lane_w < 1 || lane_w > B || (!widths && lane_w != B)) {
       return (int)cudaErrorInvalidValue;
     }
     // 20 bytes a slot in either mode (ops/histogram.py _warp_bytes)
     const size_t smem =
         (size_t)warps * (((size_t)(lane_w + 1) * gw + 1) / 2 * 2) * 20;
     if (smem > (size_t)kHistSmem) return (int)cudaErrorInvalidValue;
-    double* const part = reinterpret_cast<double*>(scratch);
     const int slices = (n_lane + gw - 1) / gw;
+    nsp = slices * gw;
+    l_words = 3 * lane_w * nsp;
+    if (blocks > 1) {
+      lpart = scratch;
+      scratch += (size_t)blocks * l_words;
+    }
     dim3 grid(blocks, slices);
-    cudaError_t err;
     if (u16) {
       err = cudaFuncSetAttribute(hist_lane_kernel<HILO, uint16_t>,
                                  cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -945,7 +1022,7 @@ int launch_histogram(const void* binned, int G, int u16, const float* w3,
       if (err != cudaSuccess) return (int)err;
       hist_lane_kernel<HILO, uint16_t><<<grid, warps * kLanes, smem, s>>>(
           static_cast<const uint16_t*>(binned), G, w3, rows, n, lane, n_lane,
-          widths, lane_w, gw, run, part);
+          widths, lane_w, gw, run, B, lpart, out);
     } else {
       err = cudaFuncSetAttribute(hist_lane_kernel<HILO, uint8_t>,
                                  cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -953,41 +1030,59 @@ int launch_histogram(const void* binned, int G, int u16, const float* w3,
       if (err != cudaSuccess) return (int)err;
       hist_lane_kernel<HILO, uint8_t><<<grid, warps * kLanes, smem, s>>>(
           static_cast<const uint8_t*>(binned), G, w3, rows, n, lane, n_lane,
-          widths, lane_w, gw, run, part);
+          widths, lane_w, gw, run, B, lpart, out);
     }
     err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
-    const int threads = 256;
-    const int outs = n_lane * B;
-    hist_lane_reduce_kernel<<<(outs + threads - 1) / threads, threads, 0,
-                              s>>>(part, blocks, lane_w, slices * gw, lane,
-                                   n_lane, widths, B, out);
-    err = cudaGetLastError();
-    if (err != cudaSuccess) return (int)err;
-    // the f64 lane partials take two f32 words each
-    scratch += 2 * (size_t)blocks * 3 * lane_w * slices * gw;
   }
   if (n_wide > 0) {
-    const int tiles = n > 0 ? (n + tile_rows - 1) / tile_rows : 1;
-    const size_t warp_bytes = (size_t)kCh * wide_w * 4;
-    int wwarps = (int)(kWideSmem / warp_bytes);
-    wwarps = wwarps < 1 ? 1 : (wwarps > kWideWarps ? kWideWarps : wwarps);
-    const size_t smem = warp_bytes * wwarps;
-    cudaError_t err = cudaFuncSetAttribute(
-        hist_wide_kernel<HILO>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
+    if (!u16 || !widths || wwarps < 1 || wwarps > kWideWarps ||
+        wslices < 1 || (long long)wslices * wwarps < n_wide ||
+        (wslices - 1) * wwarps >= n_wide || wide_w < 1 || wide_w > B ||
+        tile_rows < kStageRows || tile_rows % kStageRows || tiles < 1 ||
+        (long long)tiles * tile_rows < n || wcluster < 1 ||
+        wcluster > kMaxCluster || (wcluster & (wcluster - 1)) ||
+        tiles % wcluster ||
+        (long long)(tiles - wcluster) * tile_rows >= (n > 0 ? n : 1)) {
+      return (int)cudaErrorInvalidValue;
+    }
+    const size_t smem = wide_smem(wwarps, wide_w);
+    if (smem > (size_t)kWideSmem) return (int)cudaErrorInvalidValue;
+    w_words = 3 * wide_w * n_wide;
+    clusters = tiles / wcluster;
+    if (clusters > 1) wpart = scratch;
+    err = cudaFuncSetAttribute(hist_claim_kernel<HILO>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               (int)smem);
     if (err != cudaSuccess) return (int)err;
-    dim3 grid(tiles, n_wide);
-    hist_wide_kernel<HILO><<<grid, wwarps * kLanes, smem, s>>>(
-        static_cast<const uint16_t*>(binned), G, w3, rows, n, tile_rows,
-        wide, widths, poff, elems, wide_w, scratch);
+    cudaLaunchConfig_t cfg = {};
+    cfg.gridDim = dim3(tiles, wslices);
+    cfg.blockDim = dim3(wwarps * kLanes);
+    cfg.dynamicSmemBytes = smem;
+    cfg.stream = s;
+    cudaLaunchAttribute attr[1];
+    attr[0].id = cudaLaunchAttributeClusterDimension;
+    attr[0].val.clusterDim.x = wcluster;
+    attr[0].val.clusterDim.y = 1;
+    attr[0].val.clusterDim.z = 1;
+    cfg.attrs = attr;
+    cfg.numAttrs = 1;
+    err = cudaLaunchKernelEx(&cfg, hist_claim_kernel<HILO>,
+                             static_cast<const uint16_t*>(binned), G, w3,
+                             rows, n, wide, n_wide, widths, wide_w, tile_rows,
+                             B, wpart, out);
+    if (err != cudaSuccess) return (int)err;
     err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
-    const int per_block = 8;  // warps, one element each
-    const size_t outs = (size_t)n_wide * B;
-    hist_reduce_kernel<HILO><<<(int)((outs + per_block - 1) / per_block),
-                               per_block * kLanes, 0, s>>>(
-        scratch, tiles, elems, B, wide, n_wide, widths, poff, out);
+  }
+  const long long quads = (lpart ? (l_words + kQuad - 1) / kQuad : 0) +
+                          (wpart ? (w_words + kQuad - 1) / kQuad : 0);
+  if (quads > 0) {
+    const long long per = kSumThreads / kLanes;
+    hist_sum_kernel<<<(unsigned)((quads + per - 1) / per), kSumThreads, 0,
+                      s>>>(lpart, blocks, l_words, lane_w, nsp, lane,
+                           n_lane, wpart, clusters, w_words, wide_w, wide,
+                           widths, B, out);
     return (int)cudaGetLastError();
   }
   return 0;
@@ -1002,30 +1097,33 @@ int launch_histogram(const void* binned, int G, int u16, const float* w3,
 // each widths[g] bins wide (NULL: lane_w = B), summed by the plan of
 // ops/histogram.py hist_plan: gw groups a warp, warps a block, runs of
 // `run` positions, `blocks` row blocks. The warp-shared groups of a u16
-// matrix (hist_layout): wide[n_wide] (at most wide_w bins), their first
-// words poff [G] in a tile's partial of elems words, tiles of tile_rows
-// rows (hist_tile_rows). scratch: the lane partials, blocks * ch * lane_w
-// * ceil(n_lane / gw) * gw f64 words, then the wide ones, ch * tiles *
-// elems f32 words (ch = 5 in hi+lo mode, else 3). Returns
-// cudaGetLastError().
+// matrix (hist_layout): wide[n_wide], at most wide_w bins, by the plan of
+// hist_wide_plan: wwarps groups a block in wslices slices, tiles of
+// tile_rows positions in clusters of wcluster. scratch: f64, the lane
+// partials (blocks * 3 * lane_w * ceil(n_lane / gw) * gw words, when
+// blocks > 1), then the warp-shared ones (tiles / wcluster * n_wide * 3 *
+// wide_w, when more than one cluster). Returns cudaGetLastError().
 extern "C" int lgbt_leaf_histogram(const void* binned, int G, int u16,
                                    const float* w3, const int* rows, int n,
                                    int B, int hilo, const int* lane,
                                    int n_lane, const int* widths, int lane_w,
                                    int gw, int warps, int run, int blocks,
                                    const int* wide, int n_wide, int wide_w,
-                                   const int* poff, int elems, int tile_rows,
-                                   void* scratch, float* out, void* stream) {
+                                   int wwarps, int wslices, int tile_rows,
+                                   int tiles, int wcluster, void* scratch,
+                                   float* out, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
-  float* part = (float*)scratch;
+  double* part = (double*)scratch;
   return hilo ? launch_histogram<true>(binned, G, u16, w3, rows, n, B, lane,
                                        n_lane, widths, lane_w, gw, warps,
                                        run, blocks, wide, n_wide, wide_w,
-                                       poff, elems, tile_rows, part, out, s)
+                                       wwarps, wslices, tile_rows, tiles,
+                                       wcluster, part, out, s)
               : launch_histogram<false>(binned, G, u16, w3, rows, n, B, lane,
                                         n_lane, widths, lane_w, gw, warps,
                                         run, blocks, wide, n_wide, wide_w,
-                                        poff, elems, tile_rows, part, out, s);
+                                        wwarps, wslices, tile_rows, tiles,
+                                        wcluster, part, out, s);
 }
 
 // binned [N, G] row-major, u8 or (u16 != 0) u16; codes [N] short2 (q_g,

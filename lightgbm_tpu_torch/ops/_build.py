@@ -57,8 +57,8 @@ LIBRARIES = {
     }, ()),
     "histogram": ("histogram.cu", {
         "lgbt_leaf_histogram": [_p, _i, _i, _p, _p, _i, _i, _i, _p, _i,
-                                _p, _i, _i, _i, _i, _i, _p, _i, _i, _p,
-                                _i, _i, _p, _p, _p],
+                                _p, _i, _i, _i, _i, _i, _p, _i, _i, _i,
+                                _i, _i, _i, _i, _p, _p, _p],
         "lgbt_leaf_histogram_i32": [_p, _i, _i, _p, _p, _p, _i, _i, _p,
                                     _i, _i, _p, _i, _p, _p, _p, _i, _i,
                                     _i, _p, _p, _p],

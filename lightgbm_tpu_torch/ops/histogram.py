@@ -28,13 +28,13 @@ histogram (`subtract`, :785).
 
 On a CUDA tensor `leaf_histogram` launches the hand-written kernel
 (`csrc/histogram.cu`) or raises; on a CPU tensor it runs the plain
-version. The kernel sums in a fixed order that depends on its launch
-plan only (`hist_plan`, computed here on the host);
-`leaf_histogram_order` replays that order in torch ops. A uint16 matrix
-(groups of more than 256 bins, up to 2,048) takes the kernel's uint16
-modes: each group at its own width (`hist_layout`, made once for a
-grower), the groups too wide for a lane-private column summed
-warp-shared in tiles sized by `hist_tile_rows`. The wrapper counts its
+version. The kernel sums in f64 in a fixed order that depends on its
+launch plans only (`hist_plan`, `hist_wide_plan`, computed here on the
+host); `leaf_histogram_order` replays that order in torch ops. A uint16
+matrix (groups of more than 256 bins, up to 2,048) takes the kernel's
+uint16 modes: each group at its own width (`hist_layout`, made once for
+a grower), the groups too wide for a lane-private column summed
+warp-shared, a warp a group, in tiles of rows. The wrapper counts its
 launches in `leaf_histogram.launches`, and those in hi+lo mode also in
 `leaf_histogram.launches_hilo`, those on uint16 bins in
 `leaf_histogram.launches_u16`. HQ and LM take uint16 bins too (their
@@ -71,6 +71,7 @@ id's rows into tiles and sums them in f64 on the card (`moment_plan`,
 from __future__ import annotations
 
 import ctypes
+import functools
 import threading
 from typing import NamedTuple, Optional
 
@@ -190,37 +191,63 @@ def leaf_histogram_plain(binned: torch.Tensor, w3: torch.Tensor,
     return h.view(g_cnt, num_bins, 3)
 
 
-# H's lane-private kernel (csrc/histogram.cu hist_lane_kernel): a warp
-# owns up to 32 groups, one shared column a group (its bins and a
-# sentinel bin), and adds a run of rows in order; a block holds up to
-# HIST_MAX_WARPS such warps in HIST_SMEM_BYTES. A (group, bin) slot takes
-# HIST_SLOT_BYTES: g and h summed in f64 (in hi+lo mode the value hi + lo,
-# which f64 holds exactly) and a uint32 count; a warp's slots are rounded
-# up to an even number so its f64 words stay aligned. A warp takes fewer
-# groups (16) where two warps of 32 would not fit, and a group is
-# lane-private while two warps of HIST_MIN_GROUPS such columns fit (at
-# most 351 bins). Runs are sized for about HIST_TARGET_BLOCKS blocks (the
-# H100's SMs) of whole warps, at least HIST_MIN_RUN rows (one turn of 32)
-# and at most HIST_MAX_RUN (past that, more blocks rather than longer
-# runs). The warps of a block and the blocks are added in f64 too, and
-# each sum is rounded to f32 once: f32 sums of f32 values over millions
+# H (csrc/histogram.cu) sums every (group, bin) in f64 chains of the rows'
+# values (g*w and h*w; in hi+lo mode hi + lo, which f64 holds exactly)
+# and rounds each sum to f32 once: f32 sums of f32 values over millions
 # of cancelling gradients miss 1e-5 * max(1, |sum|) in any order of f32
-# chains. The plan, and so the summation order, depends only on the
+# chains. Every plan, and so every summation order, depends only on the
 # shape.
+# The lane-private kernel (hist_lane_kernel): a warp owns up to 32
+# groups, one shared column a group (its bins and a sentinel bin), and
+# adds a run of rows in order; a block holds up to HIST_MAX_WARPS such
+# warps in HIST_SMEM_BYTES. A (group, bin) slot takes HIST_SLOT_BYTES (g
+# and h in f64, a uint32 count); a warp's slots are rounded up to an even
+# number so its f64 words stay aligned. A warp takes fewer groups (16)
+# where two warps of 32 would not fit, and a group is lane-private while
+# two warps of HIST_MIN_GROUPS such columns fit (at most 351 bins). The
+# row blocks are sized so that all the group slices together make about
+# HIST_TARGET_BLOCKS blocks (the H100's SMs) of whole warps, with runs of
+# at least HIST_MIN_RUN rows (one turn of 32) and at most HIST_MAX_RUN
+# (past that, more blocks rather than longer runs).
 HIST_SMEM_BYTES = 220 * 1024
 HIST_SLOT_BYTES = 20
 HIST_MAX_WARPS = 8
 HIST_MIN_GROUPS = 16
 HIST_TARGET_BLOCKS = 132
 HIST_MIN_RUN = 32
-HIST_MAX_RUN = 4096
-# the warp-shared kernel's tiles (uint16 groups too wide for the above):
-# 2048 << k rows, the least k (k <= 5) at which the tiles' partials take
-# at most 1/HIST_PARTIAL_SHARE of the input's bytes (they are written
-# once and read once)
-HIST_TILE_ROWS = 2048
-HIST_MAX_TILE_ROWS = 65536
-HIST_PARTIAL_SHARE = 4
+HIST_MAX_RUN = 8192
+# The warp-shared kernel (hist_claim_kernel; uint16 groups too wide for
+# the above): a block takes a slice of at most HIST_WIDE_WARPS groups, a
+# warp each with one histogram of HIST_WIDE_BIN_BYTES a bin (g and h in
+# f64, a uint32 count, a claim word), and stages HIST_STAGE_ROWS rows at
+# a time (HIST_STAGE_ROW_BYTES a row: the two values in f64 and a count
+# flag, and 2 bytes a group), all in HIST_WIDE_SMEM_BYTES (the card's 227
+# KB). Tiles of whole chunks, at least HIST_MIN_TILE_ROWS, sized so that
+# the slices together make about HIST_TARGET_BLOCKS blocks an SM's worth
+# (`hist_wide_plan`).
+HIST_WIDE_WARPS = 16
+HIST_WIDE_BIN_BYTES = 24
+HIST_STAGE_ROWS = 256
+HIST_STAGE_ROW_BYTES = 20
+HIST_WIDE_SMEM_BYTES = 227 * 1024
+HIST_MIN_TILE_ROWS = 256
+# an SM's shared memory (228 KB) and what each resident block reserves of
+# it, which bound the warp-shared kernel's blocks an SM, and the most of
+# them a plan counts on
+HIST_SM_SMEM_BYTES = 228 * 1024
+HIST_BLOCK_SMEM_RESERVE = 1024
+HIST_WIDE_BLOCKS_PER_SM = 2
+# Tiles of fewer than HIST_CLUSTER_TILE_ROWS rows, whose partials would
+# outweigh the rows they read, go in clusters of up to HIST_MAX_CLUSTER
+# blocks of a slice, which add their histograms in shared memory before
+# anything is written; longer tiles keep a partial each.
+HIST_MAX_CLUSTER = 8
+HIST_CLUSTER_TILE_ROWS = 8192
+# The reduction (hist_sum_kernel) of a path of more than one row block
+# (cluster): each word adds them in HIST_CHAINS interleaved chains
+# (chain s: blocks s, s + 8, ... from +0) closed in the fixed tree ((0+4)
+# + (2+6)) + ((1+5) + (3+7)).
+HIST_CHAINS = 8
 # HQ (csrc/histogram.cu hist_i32_kernel), two blocks of 8 warps an SM: a
 # block's shared int32 histogram of a slice of groups takes at most
 # HIST_I32_WORDS words. A slice is a run of consecutive groups of one
@@ -245,7 +272,8 @@ class HistPlan(NamedTuple):
     `groups` groups in columns of `width` bins: `gw` groups a warp (a
     power of two up to 32), `warps` a block, runs of `run` positions a
     warp, `blocks` row blocks by `slices` group slices, the block's
-    shared bytes `smem` and the partials' f64 words `partial_words`."""
+    shared bytes `smem` and the partials' f64 words `partial_words` (0
+    with one row block: its sums go to the output at once)."""
     gw: int
     warps: int
     run: int
@@ -266,12 +294,13 @@ def hist_plan(n: int, groups: int, width: int) -> HistPlan:
         gw //= 2
     warp_bytes = _warp_bytes(gw, width)
     warps = max(1, min(HIST_MAX_WARPS, HIST_SMEM_BYTES // warp_bytes))
-    per = -(-max(int(n), 1) // (warps * HIST_TARGET_BLOCKS))
+    slices = -(-int(groups) // gw)
+    target = max(1, HIST_TARGET_BLOCKS // slices)
+    per = -(-max(int(n), 1) // (warps * target))
     run = min(HIST_MAX_RUN, max(HIST_MIN_RUN, -(-per // 32) * 32))
     blocks = max(1, -(-int(n) // (warps * run)))
-    slices = -(-int(groups) // gw)
     return HistPlan(gw, warps, run, blocks, slices, warps * warp_bytes,
-                    blocks * 3 * width * slices * gw)
+                    blocks * 3 * width * slices * gw if blocks > 1 else 0)
 
 
 def _warp_bytes(gw: int, width: int) -> int:
@@ -280,21 +309,96 @@ def _warp_bytes(gw: int, width: int) -> int:
     return (gw * (width + 1) + 1) // 2 * 2 * HIST_SLOT_BYTES
 
 
+class WidePlan(NamedTuple):
+    """The launch plan of H's warp-shared kernel over n positions and
+    `groups` groups of at most `width` bins: `warps` groups a block (a
+    warp each) in `slices` slices, tiles of `tile_rows` positions,
+    `tiles` of them (a whole number of clusters, the last ones possibly
+    empty) in clusters of `cluster`, the block's shared bytes `smem` and
+    the partials' f64 words `partial_words` (0 with one cluster: it
+    writes the output itself)."""
+    warps: int
+    slices: int
+    tile_rows: int
+    tiles: int
+    cluster: int
+    smem: int
+    partial_words: int
+
+
+def _wide_smem(warps: int, width: int) -> int:
+    """hist_claim_kernel's shared bytes: `warps` histograms of `width`
+    bins and a staged chunk (csrc/histogram.cu wide_smem)."""
+    return (HIST_WIDE_BIN_BYTES * warps * width
+            + HIST_STAGE_ROW_BYTES * HIST_STAGE_ROWS
+            + 2 * warps * (HIST_STAGE_ROWS + 2))
+
+
+@functools.lru_cache(maxsize=None)
+def _wide_warps(groups: int, width: int, cap: int) -> tuple:
+    """(warps a block, blocks an SM) of the warp-shared kernel: the warps,
+    at most `cap`, spread evenly over the slices of `groups` groups, that
+    keep the most warps on an SM, then the most blocks (a call's host time
+    pays for this search once a shape)."""
+    best = (0, 0, 1)  # warps an SM, blocks an SM, warps a block
+    for w in range(1, cap + 1):
+        if _wide_smem(w, width) > HIST_WIDE_SMEM_BYTES:
+            break
+        even = -(-groups // -(-groups // w))
+        blocks = min(HIST_WIDE_BLOCKS_PER_SM, HIST_SM_SMEM_BYTES // (
+            _wide_smem(even, width) + HIST_BLOCK_SMEM_RESERVE))
+        best = max(best, (even * blocks, blocks, even))
+    return best[2], best[1]
+
+
+def hist_wide_plan(n: int, groups: int, width: int) -> WidePlan:
+    """H's warp-shared plan (see the constants above). Groups a block
+    (warps): at most as many as let the slices times the tiles n allows
+    (of at least HIST_MIN_TILE_ROWS) reach HIST_TARGET_BLOCKS, so a short
+    row sequence spreads its groups (whose histograms each block zeroes
+    and writes) over many blocks; among those, the count, spread evenly
+    over the slices, that keeps the most warps on an SM, then the most
+    blocks (two blocks an SM overlap each other's barriers). Tiles of
+    whole chunks for about HIST_TARGET_BLOCKS blocks an SM's worth; short
+    ones (below HIST_CLUSTER_TILE_ROWS) a whole number of clusters of up
+    to HIST_MAX_CLUSTER, the last cluster padded with empty tiles."""
+    if groups < 1 or not 1 <= width <= MAX_GROUP_BINS:
+        raise LightGBMError("hist_wide_plan: groups >= 1 and 1..%d bins"
+                            % MAX_GROUP_BINS)
+    groups = int(groups)
+    cap = min(HIST_WIDE_WARPS, groups, max(1, -(-groups * max(
+        1, -(-int(n) // HIST_MIN_TILE_ROWS)) // HIST_TARGET_BLOCKS)))
+    warps, per_sm = _wide_warps(groups, int(width), cap)
+    slices = -(-groups // warps)
+    target = max(1, HIST_TARGET_BLOCKS * per_sm // slices)
+
+    def rows_a_tile(tiles):
+        per = -(-max(int(n), 1) // tiles)
+        return max(HIST_MIN_TILE_ROWS,
+                   -(-per // HIST_STAGE_ROWS) * HIST_STAGE_ROWS)
+    tile_rows, cluster = rows_a_tile(target), 1
+    if tile_rows < HIST_CLUSTER_TILE_ROWS and target >= HIST_MAX_CLUSTER:
+        tile_rows = rows_a_tile(target - target % HIST_MAX_CLUSTER)
+    tiles = max(1, -(-int(n) // tile_rows))
+    if tile_rows < HIST_CLUSTER_TILE_ROWS:
+        cluster = min(HIST_MAX_CLUSTER, 1 << (tiles - 1).bit_length())
+    clusters = -(-tiles // cluster)
+    return WidePlan(warps, slices, tile_rows, clusters * cluster, cluster,
+                    _wide_smem(warps, width),
+                    clusters * groups * 3 * width if clusters > 1 else 0)
+
+
 class HistLayout(NamedTuple):
     """How H lays out a uint16 matrix's histogram in one mode: `widths`
-    [G] (each group's own bins), `poff` [G] (its first word in a tile's
-    partial), the lane-private groups `narrow` (at most `narrow_w` bins)
-    and the warp-shared `wide` (at most `wide_w`), all int32; `elems` (a
-    tile's words a channel), `bf16` (the mode it is for); and `dev`, the
-    four arrays on the device (each with a trailing 0, so none is
-    empty)."""
+    [G] (each group's own bins), the lane-private groups `narrow` (at most
+    `narrow_w` bins) and the warp-shared `wide` (at most `wide_w`), all
+    int32; `bf16` (the mode it is for); and `dev`, the three arrays on
+    the device (each with a trailing 0, so none is empty)."""
     widths: np.ndarray
-    poff: np.ndarray
     narrow: np.ndarray
     wide: np.ndarray
     narrow_w: int
     wide_w: int
-    elems: int
     bf16: bool
     dev: tuple
 
@@ -303,8 +407,7 @@ def hist_layout(group_bins, bf16: bool, device="cpu") -> HistLayout:
     """H's layout of a uint16 matrix whose groups have `group_bins`
     bins, made once for a grower: groups whose columns fit two warps of
     HIST_MIN_GROUPS in HIST_SMEM_BYTES stay lane-private, the others go
-    warp-shared, and the warp-shared kernel's partials are laid out at
-    each group's own width."""
+    warp-shared."""
     widths = np.asarray(group_bins, np.int32)
     if widths.ndim != 1 or widths.min(initial=1) < 1 \
             or widths.max(initial=1) > MAX_GROUP_BINS:
@@ -314,14 +417,11 @@ def hist_layout(group_bins, bf16: bool, device="cpu") -> HistLayout:
         * HIST_SLOT_BYTES <= HIST_SMEM_BYTES
     narrow = np.flatnonzero(lane).astype(np.int32)
     wide = np.flatnonzero(~lane).astype(np.int32)
-    poff = np.concatenate([[0], np.cumsum(widths, dtype=np.int64)[:-1]]
-                          ).astype(np.int32)
     dev = tuple(torch.from_numpy(np.concatenate([a, [0]]).astype(np.int32))
-                .to(device) for a in (widths, poff, narrow, wide))
-    return HistLayout(widths, poff, narrow, wide,
+                .to(device) for a in (widths, narrow, wide))
+    return HistLayout(widths, narrow, wide,
                       int(widths[narrow].max(initial=1)),
-                      int(widths[wide].max(initial=1)), int(widths.sum()),
-                      bool(bf16), dev)
+                      int(widths[wide].max(initial=1)), bool(bf16), dev)
 
 
 def check_layout(name: str, binned: torch.Tensor, num_bins: int,
@@ -343,20 +443,26 @@ def check_layout(name: str, binned: torch.Tensor, num_bins: int,
                " for bf16=%s" % bool(bf16), binned.device))
 
 
-def hist_tile_rows(layout: HistLayout, n: int,
-                   row_list: bool = False) -> int:
-    """The rows of one of H's warp-shared tiles over n rows of a uint16
-    matrix: the least 2048 << k (at most HIST_MAX_TILE_ROWS) at which the
-    tiles' partials, written once and read once, take at most
-    1/HIST_PARTIAL_SHARE of the input's bytes."""
-    ch = 5 if layout.bf16 else 3
-    in_bytes = n * (2 * len(layout.widths) + 12 + (4 if row_list else 0))
-    tile = HIST_TILE_ROWS
-    while tile < min(n, HIST_MAX_TILE_ROWS) and (
-            -(-n // tile) * layout.elems * ch * 4 * 2 * HIST_PARTIAL_SHARE
-            > in_bytes):
-        tile *= 2
-    return tile
+def _paths(binned, num_bins, n, layout):
+    """H's passes over n positions of `binned`: (groups, each one's
+    width, the pass's column width, blocks, warps, run) for the
+    lane-private pass and, on a uint16 matrix, the warp-shared one; a
+    pass of no groups is left out."""
+    if binned.dtype != torch.uint16:
+        g_all = binned.shape[1]
+        plan = hist_plan(n, g_all, num_bins)
+        return [(np.arange(g_all), np.full(g_all, num_bins), num_bins,
+                 plan.blocks, plan.warps, plan.run)]
+    out = []
+    if len(layout.narrow):
+        plan = hist_plan(n, len(layout.narrow), layout.narrow_w)
+        out.append((layout.narrow, layout.widths[layout.narrow],
+                    layout.narrow_w, plan.blocks, plan.warps, plan.run))
+    if len(layout.wide):
+        wp = hist_wide_plan(n, len(layout.wide), layout.wide_w)
+        out.append((layout.wide, layout.widths[layout.wide], layout.wide_w,
+                    wp.tiles // wp.cluster, wp.cluster, wp.tile_rows))
+    return out
 
 
 def leaf_histogram_order(binned: torch.Tensor, w3: torch.Tensor,
@@ -364,79 +470,82 @@ def leaf_histogram_order(binned: torch.Tensor, w3: torch.Tensor,
                          n_rows: Optional[int] = None, bf16: bool = False,
                          layout: Optional[HistLayout] = None
                          ) -> torch.Tensor:
-    """H's lane-private kernel in its own summation order, replayed in
-    torch ops on the inputs' device, bit for bit the kernel's: with the
-    plan of `hist_plan`, warp w of block x adds the rows' values (g*w
-    and h*w; in hi+lo mode hi + lo) of positions (x * warps + w) * run ..
-    + run - 1 in order into each (group, bin) from +0 in f64, the block
-    adds its warps in order from +0 in f64, and each output adds the
-    blocks in eight f64 chains (chain s: blocks s, s + 8, ... from +0)
-    and the tree ((0+4)+(2+6)) + ((1+5)+(3+7)), rounded to f32 once.
-    Counts exact. [G, B, 3]; on a uint16 matrix (with its
-    `layout`) only the lane-private groups `layout.narrow` hold sums,
-    the warp-shared groups' rows are 0."""
-    g_all = binned.shape[1]
+    """H in its own summation order, replayed in torch ops on the
+    inputs' device, bit for bit the kernel's, on every group. Each pass
+    cuts the positions into blocks of warps of runs: the lane-private
+    pass by `hist_plan` (warp w of block x takes positions (x * warps +
+    w) * run .. + run - 1), the warp-shared pass of a uint16 matrix (with
+    its `layout`) by `hist_wide_plan` (a "block" a cluster of tiles, a
+    "warp" a tile's warp of one group, which takes the whole tile). A
+    warp adds its positions' values (g*w and h*w; in hi+lo mode hi + lo)
+    in order into each (group, bin) from +0 in f64, a block adds its
+    warps in order from +0, and each output adds the
+    blocks in eight f64 chains (chain s: blocks s, s + 8, ... from +0) and
+    the tree ((0+4)+(2+6)) + ((1+5)+(3+7)), rounded to f32 once. Counts
+    exact; a bin at or past its group's width is 0. [G, B, 3]."""
     dev = binned.device
-    out = torch.zeros((g_all, num_bins, 3), dtype=torch.float32, device=dev)
-    if binned.dtype == torch.uint16:
-        if layout is None:
-            raise LightGBMError("leaf_histogram_order: a uint16 matrix "
-                                "takes its hist_layout")
-        groups = torch.from_numpy(layout.narrow.astype(np.int64)).to(dev)
-        widths = torch.from_numpy(layout.widths.astype(np.int64)).to(dev)
-        widths, width = widths[groups], layout.narrow_w
-    else:
-        groups = torch.arange(g_all, device=dev)
-        widths = torch.full((g_all,), num_bins, device=dev)
-        width = num_bins
+    out = torch.zeros((binned.shape[1], num_bins, 3), dtype=torch.float32,
+                      device=dev)
+    if binned.dtype == torch.uint16 and layout is None:
+        raise LightGBMError("leaf_histogram_order: a uint16 matrix takes "
+                            "its hist_layout")
     n = binned.shape[0] if rows is None else int(n_rows)
-    gl = groups.shape[0]
-    if gl == 0:
-        return out
-    plan = hist_plan(n, gl, width)
     sel = torch.arange(n, device=dev) if rows is None else rows[:n].long()
-    bins = widen_bins(binned).to(torch.int32).index_select(1, groups)
-    bins = bins.index_select(0, sel)
-    bins = torch.where(bins < widths[None, :], bins, width)
     w = w3[sel]
     if bf16:
         hi, lo = hi_lo(w[:, :2].contiguous())
         vals = hi.double() + lo.double()
     else:
         vals = w[:, :2].double()
+    wide_bins = widen_bins(binned).to(torch.int32)
+    for groups, widths, width, blocks, warps, run in _paths(
+            binned, num_bins, n, layout):
+        groups = torch.from_numpy(np.asarray(groups, np.int64)).to(dev)
+        widths = torch.from_numpy(np.asarray(widths, np.int64)).to(dev)
+        bins = wide_bins.index_select(1, groups).index_select(0, sel)
+        bins = torch.where(bins < widths[None, :], bins, width)
+        v = _ordered_sums(bins, vals, blocks, warps, run, width)
+        gl = groups.shape[0]
+        live = (bins < width) & (w[:, 2:3] > 0)
+        flat = torch.arange(gl, device=dev)[None, :] * (width + 1) \
+            + bins.long()
+        cnt = torch.zeros(gl * (width + 1), dtype=torch.int64, device=dev)
+        cnt.index_add_(0, flat[live], torch.ones_like(flat[live]))
+        cnt = cnt.view(gl, width + 1)[:, :width].to(torch.float32)
+        out[groups, :width] = torch.cat([v, cnt[..., None]], -1)
+    return out
+
+
+def _ordered_sums(bins, vals, blocks, warps, run, width):
+    """[groups, width, 2] f32: the sums of `vals` [n, 2] f64 into `bins`
+    [n, groups] (width: the sentinel) in H's order for the positions cut
+    into blocks x warps x runs."""
+    n, gl = bins.shape
     cf = vals.shape[1]
-    total = plan.blocks * plan.warps * plan.run
+    total = blocks * warps * run
     bins = torch.nn.functional.pad(bins, (0, 0, 0, total - n), value=width)
     vals = torch.nn.functional.pad(vals, (0, 0, 0, total - n))
-    bins = bins.view(plan.blocks, plan.warps, plan.run, gl)
-    vals = vals.view(plan.blocks, plan.warps, plan.run, cf)
-    acc = torch.zeros((plan.blocks, plan.warps, gl, width + 1, cf),
-                      dtype=torch.float64, device=dev)
-    shape = (plan.blocks, plan.warps, gl, 1, cf)
-    for k in range(plan.run):
+    bins = bins.view(blocks, warps, run, gl)
+    vals = vals.view(blocks, warps, run, cf)
+    acc = torch.zeros((blocks, warps, gl, width + 1, cf),
+                      dtype=torch.float64, device=bins.device)
+    shape = (blocks, warps, gl, 1, cf)
+    for k in range(run):
         acc.scatter_add_(3, bins[:, :, k, :, None, None].long().expand(shape),
                          vals[:, :, k, None, None, :].expand(shape))
     part = torch.zeros_like(acc[:, 0, :, :width])
-    for wi in range(plan.warps):
+    for wi in range(warps):
         part = part + acc[:, wi, :, :width]
     del acc
-    chains = -(-plan.blocks // 8)
+    chains = -(-blocks // HIST_CHAINS)
     part = torch.nn.functional.pad(
-        part, (0, 0, 0, 0, 0, 0, 0, chains * 8 - plan.blocks))
-    part = part.view(chains, 8, gl, width, cf)
+        part, (0, 0, 0, 0, 0, 0, 0, chains * HIST_CHAINS - blocks))
+    part = part.view(chains, HIST_CHAINS, gl, width, cf)
     a = torch.zeros_like(part[0])
     for j in range(chains):
         a = a + part[j]
-    v = ((a[0] + a[4] + (a[2] + a[6])) + (a[1] + a[5] + (a[3] + a[7]))
-         ).float()
-    live = (bins < width).view(-1, gl)[:n] & (w[:, 2:3] > 0)
-    flat = torch.arange(gl, device=dev)[None, :] * (width + 1) \
-        + bins.view(-1, gl)[:n].long()
-    cnt = torch.zeros(gl * (width + 1), dtype=torch.int64, device=dev)
-    cnt.index_add_(0, flat[live], torch.ones_like(flat[live]))
-    cnt = cnt.view(gl, width + 1)[:, :width].to(torch.float32)
-    out[groups, :width] = torch.cat([v, cnt[..., None]], -1)
-    return out
+    return ((a[0] + a[4] + (a[2] + a[6])) + (a[1] + a[5] + (a[3] + a[7]))
+            ).float()
 
 
 def leaf_histogram(binned: torch.Tensor, w3: torch.Tensor, num_bins: int,
@@ -478,24 +587,20 @@ def leaf_histogram(binned: torch.Tensor, w3: torch.Tensor, num_bins: int,
         raise LightGBMError("leaf_histogram takes int32 rows")
     n = binned.shape[0] if rows is None else int(n_rows)
     g_cnt = binned.shape[1]
-    ch = 5 if bf16 else 3
     if u16:
         check_layout("leaf_histogram", binned, num_bins, layout, bf16)
-        widths, poff, lane, wide = layout.dev[:4]
+        widths, lane, wide = layout.dev
         n_lane, lane_w = len(layout.narrow), layout.narrow_w
-        n_wide = len(layout.wide)
+        n_wide, wide_w = len(layout.wide), layout.wide_w
     else:
-        widths = poff = lane = wide = None
-        n_lane, lane_w, n_wide = g_cnt, num_bins, 0
+        widths = lane = wide = None
+        n_lane, lane_w, n_wide, wide_w = g_cnt, num_bins, 0, 0
     plan = hist_plan(n, n_lane, lane_w) if n_lane else None
-    # the lane partials' f64 words, then the wide tiles' f32 words
-    words = 2 * plan.partial_words if plan else 0
-    tile_rows = elems = 0
-    if n_wide:
-        tile_rows = hist_tile_rows(layout, n, rows is not None)
-        elems = layout.elems
-        words += ch * max(1, -(-n // tile_rows)) * elems
-    scratch = torch.empty(max(words, 1), dtype=torch.float32,
+    wplan = hist_wide_plan(n, n_wide, wide_w) if n_wide else None
+    # the lane partials' f64 words, then the warp-shared ones
+    words = (plan.partial_words if plan else 0) \
+        + (wplan.partial_words if wplan else 0)
+    scratch = torch.empty(max(words, 1), dtype=torch.float64,
                           device=binned.device)
     if out is None:
         out = torch.empty(shape, dtype=torch.float32, device=binned.device)
@@ -511,8 +616,10 @@ def leaf_histogram(binned: torch.Tensor, w3: torch.Tensor, num_bins: int,
             int(bool(bf16)), ptr(lane), n_lane, ptr(widths), lane_w,
             *((plan.gw, plan.warps, plan.run, plan.blocks) if plan
               else (0, 0, 0, 0)),
-            ptr(wide), n_wide, layout.wide_w if u16 else 0, ptr(poff), elems,
-            tile_rows, ptr(scratch), ptr(out), stream)
+            ptr(wide), n_wide, wide_w,
+            *((wplan.warps, wplan.slices, wplan.tile_rows, wplan.tiles,
+               wplan.cluster) if wplan else (0, 0, 0, 0, 0)),
+            ptr(scratch), ptr(out), stream)
     if rc != 0:
         raise LightGBMError("leaf_histogram launch failed: CUDA error %d "
                             "(%s)" % (rc, lib.lgbt_error_string(rc).decode()))

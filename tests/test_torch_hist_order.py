@@ -75,7 +75,7 @@ def test_row_lists_including_empty(m, bf16):
 @pytest.mark.parametrize("bf16", [False, True])
 def test_uint16_narrow_groups(bf16):
     """Bosch-like widths: the lane-private groups are replayed, each at
-    its own width, and the warp-shared (631-bin) groups' rows are 0."""
+    its own width, and so are the warp-shared (631-bin) groups."""
     rs = np.random.RandomState(3)
     widths = rs.randint(2, 64, 40)
     widths[[3, 17, 30]] = 631
@@ -84,15 +84,15 @@ def test_uint16_narrow_groups(bf16):
     assert sorted(lay.wide) == [3, 17, 30]
     got = leaf_histogram_order(binned, w3, 631, bf16=bf16, layout=lay)
     ref = leaf_histogram_plain(binned, w3, 631, bf16=bf16)
-    held(got[lay.narrow], ref[lay.narrow])
-    assert not got[lay.wide].any()
-    for g in lay.narrow:
+    held(got, ref)
+    assert got[lay.wide].any()
+    for g in range(40):
         assert not got[g, widths[g]:].any()
     rows = torch.from_numpy(rs.permutation(7000)[:3001].astype(np.int32))
     held(leaf_histogram_order(binned, w3, 631, rows=rows, n_rows=3001,
-                              bf16=bf16, layout=lay)[lay.narrow],
+                              bf16=bf16, layout=lay),
          leaf_histogram_plain(binned, w3, 631, rows=rows, n_rows=3001,
-                              bf16=bf16)[lay.narrow])
+                              bf16=bf16))
     with pytest.raises(LightGBMError, match="hist_layout"):
         leaf_histogram_order(binned, w3, 631, bf16=bf16)
 
@@ -165,7 +165,12 @@ def test_plan_stays_in_its_budgets(n, g, b):
     assert HIST_MIN_RUN <= plan.run <= HIST_MAX_RUN
     assert plan.blocks * plan.warps * plan.run >= n
     assert (plan.blocks - 1) * plan.warps * plan.run < max(n, 1)
-    assert plan.partial_words == plan.blocks * 3 * b * plan.slices * plan.gw
+    # one row block writes the output itself, more write f64 partials
+    assert plan.partial_words == (plan.blocks * 3 * b * plan.slices
+                                  * plan.gw if plan.blocks > 1 else 0)
+    # about one block an SM over all the slices, unless the runs are capped
+    assert plan.run == HIST_MAX_RUN or plan.blocks <= max(
+        1, -(-HIST_TARGET_BLOCKS // plan.slices))
     if n >= HIST_TARGET_BLOCKS * plan.warps * HIST_MAX_RUN:
         assert plan.run == HIST_MAX_RUN
     # two warps at the least where a warp takes its 16 groups or more
@@ -181,6 +186,9 @@ def test_the_main_path_plans():
     assert hist_plan(65_536, 28, 256)[:2] == (16, 2)
     # a small row list: runs of one turn, spread over blocks
     assert hist_plan(1000, 28, 64)[2:4] == (32, 7)
+    # the Bosch root's 268 narrow groups: 9 slices of 32, 14 row blocks
+    # of 5 warps a slice (about one block an SM over all the slices)
+    assert hist_plan(500_000, 268, 63)[:5] == (32, 5, 7168, 14, 9)
     with pytest.raises(LightGBMError):
         hist_plan(10, 0, 64)
 

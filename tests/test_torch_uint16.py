@@ -13,10 +13,10 @@ Held here:
 - H's plain version, f32 and hi+lo, against the JAX `leaf_histogram`
   and `gathered_leaves_histogram`: counts exact, g/h within 1e-5 *
   max(1, |ref|) (f32 sums in another order);
-- H's uint16 layout (`hist_layout`, `hist_tile_rows`): the narrow groups
-  keep the lane-private scheme and the tiles' partial traffic stays at
-  most a quarter of the input's bytes at the Bosch shape, in the least
-  tile that does so;
+- H's uint16 layout and plans (`hist_layout`, `hist_plan`,
+  `hist_wide_plan`): the narrow groups keep the lane-private scheme, the
+  wide ones go a warp a group, and the partials' traffic stays at most a
+  quarter of the input's bytes at the Bosch shape;
 - S's plain version at 667 bins a feature choosing the JAX split wherever
   the top two gains are further apart than the f32 tolerance;
 - R's and W's plain versions bitwise the JAX routing (each node of the
@@ -42,9 +42,9 @@ from lightgbm_tpu.ops import split as jsplit
 from lightgbm_tpu_torch.dataset import Dataset as TorchDataset
 from lightgbm_tpu_torch.learner.grow import GrowerConfig, SerialGrower
 from lightgbm_tpu_torch.log import LightGBMError
-from lightgbm_tpu_torch.ops.histogram import (HIST_PARTIAL_SHARE,
-                                              HIST_TILE_ROWS, hist_layout,
-                                              hist_tile_rows, leaf_histogram,
+from lightgbm_tpu_torch.ops.histogram import (HIST_MIN_TILE_ROWS,
+                                              hist_layout, hist_plan,
+                                              hist_wide_plan, leaf_histogram,
                                               leaf_histogram_plain)
 from lightgbm_tpu_torch.ops.predict import (binned_tree,
                                             tree_leaf_walk_binned,
@@ -176,23 +176,24 @@ def test_uint16_plan_keeps_narrow_groups_lane_private_and_partials_small():
         lay = hist_layout(widths, bf16)
         assert set(lay.wide) == set(np.flatnonzero(widths == 631))
         assert lay.narrow_w <= 64 and lay.wide_w == 631
-        assert lay.elems == widths.sum()
-        assert lay.poff[-1] + widths[-1] == lay.elems
-        # the Bosch root: 16,384 rows a tile, 31 tiles, in both modes
-        assert hist_tile_rows(lay, n) == 16384
+        assert lay.dev[0][:-1].tolist() == widths.tolist()
+        # the Bosch root: the 70 wide groups 7 a block in 10 slices, 26
+        # tiles of 19,456 rows, the same in both modes
+        wp = hist_wide_plan(n, len(lay.wide), lay.wide_w)
+        assert wp[:5] == (7, 10, 19456, 26, 1)
+        lp = hist_plan(n, len(lay.narrow), lay.narrow_w)
         for rows in (False, True):
-            tile = hist_tile_rows(lay, n, rows)
             in_bytes = n * (2 * g + 12 + 4 * rows)
-
-            def traffic(t):
-                return -(-n // t) * lay.elems * (5 if bf16 else 3) * 4 * 2
-
-            assert traffic(tile) * HIST_PARTIAL_SHARE <= in_bytes
-            assert tile == HIST_TILE_ROWS \
-                or traffic(tile // 2) * HIST_PARTIAL_SHARE > in_bytes
-        # a small leaf is one tile, no larger than it needs
-        assert hist_tile_rows(lay, 4096) == 4096
-        assert hist_tile_rows(lay, 1000) == 2048
+            # f64 partials, each written once and read once
+            traffic = (lp.partial_words + wp.partial_words) * 8 * 2
+            assert traffic * 4 <= in_bytes
+        # a small leaf is one cluster of tiles of the least size, written
+        # out at once; a larger one writes its clusters' partials
+        assert hist_wide_plan(1000, 70, 631)[2:5] == (HIST_MIN_TILE_ROWS, 4,
+                                                      4)
+        assert hist_wide_plan(1000, 70, 631).partial_words == 0
+        assert hist_wide_plan(4096, 70, 631)[2:5] == (HIST_MIN_TILE_ROWS, 16,
+                                                      8)
     # plain versions read uint16 bins as their values
     tb = torch.from_numpy(ds.binned[:512].copy())
     w3 = torch.from_numpy(channels(512, 1))
@@ -406,7 +407,8 @@ def test_grower_makes_the_uint16_layout_once_from_the_group_widths(bf16):
     lay = SerialGrower(*args, widths).hist_layout
     assert lay.bf16 == bf16 and np.array_equal(lay.widths, widths)
     assert np.array_equal(lay.dev[0].numpy()[:-1], widths)
-    assert np.array_equal(lay.dev[2].numpy()[:-1], lay.narrow)
+    assert np.array_equal(lay.dev[1].numpy()[:-1], lay.narrow)
+    assert np.array_equal(lay.dev[2].numpy()[:-1], lay.wide)
     with pytest.raises(LightGBMError, match="group_bins"):
         SerialGrower(*args)
     # a uint8 matrix keeps its path: no layout
