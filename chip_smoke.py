@@ -27,24 +27,28 @@ Phases, any failure raises and the script exits non-zero:
    full forest's (records read from device memory), on a 20-tree forest
    over 300-column rows (rows read from device memory; up to 65,536
    rows), alone and with two such large trees; K1-f16 the same way on
-   the full forest;
+   the full forest; K2 at the same row counts on the same forests and
+   rows, equal to its plain version and its repeat (hold_k2);
 3. serving main path: Booster(model_str=...) on the default device,
-   predict on 262,144 rows (value, raw_score, pred_leaf), the serving
-   Predictor (warmup, 32 predict_one, 256 submit from 8 threads, stats),
-   the model text round trip, and every serving kernel's launch count
-   over that run; the whole bulk raw_score and pred_leaf output
+   predict on 262,144 rows (value, raw_score, pred_leaf) and pred_leaf
+   on 32 of them (K2's trees mode), the serving Predictor (warmup, 32
+   predict_one, 256 submit from 8 threads, stats), the model text round
+   trip, and every serving kernel's launch count over that run, K1's
+   and K2's by mode (K2 must have launched both); the whole bulk
+   raw_score and pred_leaf output
    (launched in the engine's row chunks) must equal the plain versions
    on the same rows, and the value output must be within 2e-7 of the
    plain epilogue;
 4. serving times: K1 and K2 on all 262,144 rows, in one launch and in
    the engine's row chunks, must equal their plain versions (K1
    bitwise); then CUDA events around each kernel and its plain version
-   at 262,144 rows (median of 12 after warm-up), K1 and K1-f16 device
-   time alone (a CUDA graph of one call, replayed; the JSON row keeps
-   K1's at 262,144 rows) at 262,144 rows, the engine's 131,072-row chunk
-   (K1) and one row, and K1 on one row with CUDA events around the
-   wrapper, K1 in each of its modes at 4,096 to 131,072 rows (the
-   crossover), Booster.predict end to end, a torch.profiler breakdown of
+   at 262,144 rows (median of 12 after warm-up), K1, K1-f16 and K2
+   device time alone (a CUDA graph of one call, replayed; the JSON rows
+   keep K1's and K2's at 262,144 rows) at 262,144 rows, the engine's
+   131,072-row chunk (K1, K2) and one row, and K1 and K2 on one row with
+   CUDA events around the wrapper, K1 in each of its modes at 4,096 to
+   131,072 rows (the crossover), Booster.predict end to end (and with
+   pred_leaf=True), a torch.profiler breakdown of
    one Booster.predict (device busy time against host wall time),
    Predictor latency percentiles; the main path's K1 launches are
    counted by mode;
@@ -223,11 +227,14 @@ Phases, any failure raises and the script exits non-zero:
     their repeats and each other, and QW bitwise its plain version, its
     repeat and K1-f16 at 1, 7, 32, 256, 4,096, 32,768, 32,769 and
     262,144 rows (both of its modes) on 4,096 grid-edge rows and
-    held_rows; ES bitwise (iterations too) at freq 1
+    held_rows; ES bitwise (iterations too) and its repeat at freq 1
     and 10, margins 0, 1e30 and the median 2|raw| at half the
     iterations, with the freeze histogram (some rows freeze at the
-    first check, some never); ES on a K = 3 stack of three synthetic
-    class forests and on phase 17's linear forest; QC bitwise on
+    first check, some never), on the check rows and at K1's row counts
+    on the 262,144 grid-edge and held rows (both of its modes); ES the
+    same way on a K = 3 stack of three synthetic class forests (on those
+    262,144 rows) and on phase 17's linear forest (the 262,144 valid
+    rows with NaN and inf cells); QC bitwise on
     hand-made grids and rows (`qc_edge_cases`: subnormals, +-0, +-inf,
     NaN, values equal to a bound, both missing types, columns past the
     grid, grids of 1 and 255 bounds and of 64 features, N x F not a
@@ -237,9 +244,10 @@ Phases, any failure raises and the script exits non-zero:
     predict with pred_early_stop (freq 10, phase 21's margin) and with
     tpu_predict_quantize=f16 and int8; the gate's delta within
     tpu_predict_quantize_tol; through Predictor the gate waits out
-    warmup and measures the first real request; every count of ES, QC,
-    QW and K1-f16 set to 0 before and read after (K1-f16's and QW's by
-    mode);
+    warmup and measures the first real request; pred_early_stop on 256
+    of the rows (ES's trees mode) equal to the bulk call's; every count
+    of ES, QC, QW and K1-f16 set to 0 before and read after (K1-f16's,
+    QW's and ES's by mode; ES must have launched both);
     the bulk raw scores equal to the plain versions on the same rows;
     K1-f16 bitwise its plain version and its repeat at 1 and 262,144
     rows; pred_early_stop
@@ -259,8 +267,9 @@ Phases, any failure raises and the script exits non-zero:
     bounds (ES over the node visits of the trees each row walked), QC's
     yardstick torch.searchsorted over the [F, K] grid; QC and
     torch.searchsorted also as device time alone (a CUDA graph of one
-    call, replayed), which the JSON row keeps, and K1-f16 the same way
-    (also on one row), and QW the same way, with its two modes either
+    call, replayed), which the JSON row keeps, and K1-f16 and ES the
+    same way (also on one row; ES on one row at the main path's margin
+    and at 1e30, never frozen), and QW the same way, with its two modes either
     side of the crossover; Booster.predict end to end for f32, f16, int8
     and early stop; Predictor.predict_one p50 and p99 over 200 requests
     for f32, f16 and int8;
@@ -733,6 +742,30 @@ def hold_k1(label, walk, forest, x, ref, P):
             forest.num_features, n, forest.linear_k > 0).mode))
     print("kernels vs plain [%s]: bitwise equal to plain and its repeat at "
           "%s rows" % (label, ", ".join(modes)))
+    return err
+
+
+def hold_k2(label, forest, x, P):
+    """K2 on the first n rows of x for each k1_counts n, twice: equal to
+    the plain leaves on those rows and to its repeat. Returns the largest
+    |K2 - plain|."""
+    ref = P.forest_leaf_walk_plain(forest, x)
+    err, modes = 0, []
+    for n in k1_counts(P, x.shape[0]):
+        xn = x[:n].contiguous()
+        got, again = P.forest_leaf_walk(forest, xn), P.forest_leaf_walk(
+            forest, xn)
+        torch.cuda.synchronize()
+        check(torch.equal(got, ref[:n]) and torch.equal(got, again),
+              "%s: K2 not equal to plain and its repeat at %d rows"
+              % (label, n))
+        err = max(err, int((got - ref[:n]).abs().max()))
+        plan = P.walk_plan(forest.num_trees, forest.split_feature.shape[1],
+                           forest.num_features, n, output="leaf")
+        modes.append("%d (%s mode%s)" % (n, plan.mode, ", tile %d" % (
+            plan.tile_trees) if plan.mode == "rows" else ""))
+    print("kernels vs plain [%s]: K2 equal to plain and its repeat at %s "
+          "rows" % (label, ", ".join(modes)))
     return err
 
 
@@ -3115,6 +3148,10 @@ def ranking(name, card, dev):
 
 # the serving extras (phases 21-24)
 ES_FREQ = 10              # pred_early_stop_freq of the main path
+# the A/B's ES rows-mode variants: (iterations a round, rows its
+# trees-mode tail takes on; 0: none, and 500 iterations: one round)
+ES_VARIANTS = ((500, 0), (40, 0), (20, 32_768), (40, 32_768),
+               (80, 32_768), (40, 65_536), (80, 65_536))
 CONTRIB_ROWS, FILE_ROWS = 2_048, 4_096
 CONT_ROUNDS, CONT_CPU_ROUNDS = 10, 3
 OUT_DIR = pathlib.Path(__file__).resolve().parent / "build" / "chip_smoke"
@@ -3141,26 +3178,39 @@ def margin_median(raw, k):
 
 
 def check_early_stop(label, P, stack, x, margins, freqs, errs):
-    """ES against its plain version, bitwise, at each margin and freq,
-    and launched twice repeating its bits; returns {(margin, freq):
-    iters} of the kernel."""
+    """ES against its plain version, bitwise in its sums and `iters`, at
+    each margin and freq, on the first n rows of x for each k1_counts n
+    (both modes), launched twice repeating its bits; returns {(margin,
+    freq): iters} of the kernel on all of x."""
     out = {}
+    counts = k1_counts(P, x.shape[0])
+    if counts[-1] != x.shape[0]:
+        counts.append(x.shape[0])
     for m in margins:
         for freq in freqs:
-            got, it = P.forest_early_stop_walk(stack, x, m, freq,
-                                               return_iters=True)
-            again, it2 = P.forest_early_stop_walk(stack, x, m, freq,
-                                                  return_iters=True)
             ref, it_p = P.forest_early_stop_walk_plain(stack, x, m, freq)
-            check(bitwise(got, ref) and torch.equal(it, it_p),
-                  "ES [%s, margin %g, freq %d] not bitwise equal to plain"
-                  % (label, m, freq))
-            check(bitwise(got, again) and torch.equal(it, it2),
-                  "ES [%s]: a second launch gave other bits" % label)
-            errs["forest_early_stop_walk"] = max(
-                errs["forest_early_stop_walk"],
-                float((got - ref).abs().max()))
+            for n in counts:
+                xn = x[:n].contiguous()
+                got, it = P.forest_early_stop_walk(stack, xn, m, freq,
+                                                   return_iters=True)
+                again, it2 = P.forest_early_stop_walk(stack, xn, m, freq,
+                                                      return_iters=True)
+                check(bitwise(got, ref[:, :n]) and torch.equal(it, it_p[:n]),
+                      "ES [%s, margin %g, freq %d, %d rows] not bitwise "
+                      "equal to plain" % (label, m, freq, n))
+                check(bitwise(got, again) and torch.equal(it, it2),
+                      "ES [%s, %d rows]: a second launch gave other bits"
+                      % (label, n))
+                errs["forest_early_stop_walk"] = max(
+                    errs["forest_early_stop_walk"],
+                    float((got - ref[:, :n]).abs().max()))
             out[(m, freq)] = it
+    modes = ["%d (%s)" % (n, P.walk_plan(
+        stack.num_trees, stack.split_feature.shape[1], stack.num_features, n,
+        stack.linear_k > 0, output="early_stop",
+        classes=stack.num_classes).mode) for n in counts]
+    print("ES [%s]: bitwise equal to plain (sums and iters) and its repeat "
+          "at %s rows" % (label, ", ".join(modes)))
     return out
 
 
@@ -3313,13 +3363,16 @@ def serving_extras(name, card, dev, ctx, phase2_text):
               label + ": QC codes differ from plain at %d rows" % BULK_ROWS)
         errs["forest_quant_walk"] = max(errs["forest_quant_walk"], hold_qw(
             label + ", int8 layout", P, qf, f16, xq, cq))
-        del xq, cq
+        del cq
         t_half = len(trees) // 2
         raw_half = P.forest_value_walk(P.stack_trees(trees[:t_half], dev), x)
         med = margin_median(raw_half[None], 1)
         stack = P.stack_trees_early_stop(trees, 1, len(trees), dev)
+        # ES in both modes: the check rows, then K1's row counts on xq
         iters = check_early_stop(label, P, stack, x, (0.0, med, 1e30),
                                  (1, 10), errs)
+        check_early_stop(label + ", %d rows" % BULK_ROWS, P, stack, xq,
+                         (0.0, med, 1e30), (1, 10), errs)
         it = iters[(med, 10)]
         # rows frozen at each check (iterations 10, 20, ...; the last
         # count holds the rows that never froze)
@@ -3333,7 +3386,8 @@ def serving_extras(name, card, dev, ctx, phase2_text):
               "at checks 10, 20, ... at the median, freq 10: %s" % (label, med, t_half,
                                    " ".join(str(int(c)) for c in hist)))
         if label == "full":
-            margin, es_rows = med, x
+            margin, es_rows = med, xq
+        del xq
     # K = 3: three class forests, stored iteration-major
     t0 = time.perf_counter()
     per_class = [lgb.Booster(model_str=synthetic_forest_text(
@@ -3354,7 +3408,7 @@ def serving_extras(name, card, dev, ctx, phase2_text):
     # phase 17's linear forest, on the valid rows with NaN and inf cells
     lin_trees = lgb.Booster(model_str=ctx["linear_text"],
                             device="cpu")._inner.models
-    xl = torch.from_numpy(ctx["xv"][:CHECK_ROWS].copy()).to(dev)
+    xl = torch.from_numpy(ctx["xv"].copy()).to(dev)
     xl[::97, 0] = float("nan")
     xl[5::131, 1] = float("inf")
     stack_l = P.stack_trees_early_stop(lin_trees, 1, len(lin_trees), dev)
@@ -3375,6 +3429,7 @@ def serving_extras(name, card, dev, ctx, phase2_text):
         fn.launches = 0
     P.forest_value_walk_f16.launches_rows = 0
     P.forest_quant_walk.launches_rows = 0
+    P.forest_early_stop_walk.launches_rows = 0
     booster = lgb.Booster(model_str=text)
     check(booster.device.type == "cuda", "default device is not cuda")
     bias = booster._inner.init_score_bias
@@ -3382,6 +3437,10 @@ def serving_extras(name, card, dev, ctx, phase2_text):
                  pred_early_stop_margin=margin)
     es_value = booster.predict(bulk, **es_kw)
     es_raw = booster.predict(bulk, raw_score=True, **es_kw)
+    # a small request walks ES's trees mode
+    check(np.array_equal(booster.predict(bulk[:256], raw_score=True,
+                                         **es_kw), es_raw[:256]),
+          "early stop on 256 rows != the bulk call's rows")
     quant = {}
     for mode in ("f16", "int8"):
         params = {"tpu_predict_quantize": mode}
@@ -3417,12 +3476,18 @@ def serving_extras(name, card, dev, ctx, phase2_text):
     launches = {k: fn.launches for k, fn in kernels.items()}
     f16_rows = P.forest_value_walk_f16.launches_rows
     qw_rows = P.forest_quant_walk.launches_rows
+    es_rows_mode = P.forest_early_stop_walk.launches_rows
     print("serving extras main path launches:", launches, "(K1-f16: %d in "
           "trees mode, %d in rows mode; QW: %d in trees mode, %d in rows "
-          "mode)" % (launches["forest_value_walk_f16"] - f16_rows, f16_rows,
-                     launches["forest_quant_walk"] - qw_rows, qw_rows))
+          "mode; ES: %d in trees mode, %d in rows mode)" % (
+              launches["forest_value_walk_f16"] - f16_rows, f16_rows,
+              launches["forest_quant_walk"] - qw_rows, qw_rows,
+              launches["forest_early_stop_walk"] - es_rows_mode,
+              es_rows_mode))
     check(all(v > 0 for v in launches.values()),
           "a serving-extras kernel of the main path was never launched")
+    check(0 < es_rows_mode < launches["forest_early_stop_walk"],
+          "ES did not launch both modes on the main path")
     plain = {
         "early stop": P.forest_early_stop_walk_plain(
             P.stack_trees_early_stop(trees, 1, TREES, dev), xb, margin,
@@ -3622,6 +3687,24 @@ def serving_extras(name, card, dev, ctx, phase2_text):
               "(%s)%s" % (name, card, kname, ms, plain_ms, b_ms, b_by,
                           "" if lib_ms is None else
                           ", torch.searchsorted %.4f ms" % lib_ms))
+        if kname == "forest_early_stop_walk":
+            # device time alone at the bulk shape (the JSON row's), and on
+            # one row at the main path's margin and at one it never
+            # reaches (all 500 iterations)
+            wrapper_ms = ms
+            ms = graph_ms(kernel)
+            one = xb[:1].contiguous()
+            print("time [%s | %s]: forest_early_stop_walk device %.4f ms "
+                  "(CUDA graph replay), call %.4f ms, bound %.4f ms; 1 row "
+                  "device %.4f ms (margin %.6g), %.4f ms (margin 1e30, "
+                  "never frozen), call %.4f ms" % (
+                      name, card, ms, wrapper_ms, b_ms, graph_ms(
+                          lambda: P.forest_early_stop_walk(
+                              stack, one, margin, ES_FREQ)), margin,
+                      graph_ms(lambda: P.forest_early_stop_walk(
+                          stack, one, 1e30, ES_FREQ)),
+                      median_ms(lambda: P.forest_early_stop_walk(
+                          stack, one, 1e30, ES_FREQ))))
         if kname == "forest_value_walk_f16":
             # device time alone at the bulk shape, which the JSON row
             # keeps, and on one row
@@ -5926,6 +6009,8 @@ def main():
         errs["forest_value_walk"] = max(errs["forest_value_walk"], hold_k1(
             label, forest_value_walk, forest, x,
             forest_value_walk_plain(forest, x), P))
+        errs["forest_leaf_walk"] = max(errs["forest_leaf_walk"], hold_k2(
+            label, forest, x, P))
         if label == "full":
             f16 = to_f16(forest)
             hold_k1("full, f16 leaves", forest_value_walk_f16, f16, x,
@@ -5937,11 +6022,16 @@ def main():
     forest_value_walk.launches = 0
     forest_value_walk.launches_rows = 0
     forest_leaf_walk.launches = 0
+    forest_leaf_walk.launches_rows = 0
     booster = lgb.Booster(model_str=text)
     check(booster.device.type == "cuda", "default device is not cuda")
     value = booster.predict(bulk)
     raw = booster.predict(bulk, raw_score=True)
     leaf = booster.predict(bulk, pred_leaf=True)
+    # a small request walks K2's trees mode
+    check(np.array_equal(booster.predict(bulk[:32], pred_leaf=True),
+                         leaf[:32]), "pred_leaf on 32 rows != the bulk "
+          "call's rows")
     capped = booster.predict(bulk[:4096], num_iteration=5)
     predictor = booster.serving_predictor()
     predictor.warmup()
@@ -5964,10 +6054,15 @@ def main():
     launches = {"forest_value_walk": forest_value_walk.launches,
                 "forest_leaf_walk": forest_leaf_walk.launches}
     k1_rows = forest_value_walk.launches_rows
+    k2_rows = forest_leaf_walk.launches_rows
     print("main path launches:", launches, "(K1: %d in trees mode, %d in "
-          "rows mode)" % (launches["forest_value_walk"] - k1_rows, k1_rows))
+          "rows mode; K2: %d in trees mode, %d in rows mode)" % (
+              launches["forest_value_walk"] - k1_rows, k1_rows,
+              launches["forest_leaf_walk"] - k2_rows, k2_rows))
     check(all(v > 0 for v in launches.values()),
           "a kernel of the main path was never launched")
+    check(0 < k2_rows < launches["forest_leaf_walk"],
+          "K2 did not launch both modes on the main path")
     check(booster.model_to_string() == text, "model text round trip")
     check(value.shape == (BULK_ROWS,) and raw.shape == (BULK_ROWS,)
           and leaf.shape == (BULK_ROWS, TREES) and leaf.dtype == np.int32,
@@ -6067,13 +6162,22 @@ def main():
              "K1 1 row": lambda: forest_value_walk(forest, one_row),
              "K1-f16 %d rows" % BULK_ROWS:
                  lambda: forest_value_walk_f16(f16, x),
-             "K1-f16 1 row": lambda: forest_value_walk_f16(f16, one_row)}
+             "K1-f16 1 row": lambda: forest_value_walk_f16(f16, one_row),
+             "K2 %d rows" % BULK_ROWS: lambda: forest_leaf_walk(forest, x),
+             "K2 %d rows" % chunk: lambda: forest_leaf_walk(forest, x_chunk),
+             "K2 1 row": lambda: forest_leaf_walk(forest, one_row)}
     graph = {k: graph_ms(fn) for k, fn in graph.items()}
     times["forest_value_walk"]["ms"] = graph["K1 %d rows" % BULK_ROWS]
-    print("time [%s | %s]: device (CUDA graph replay) %s ms; K1 on 1 row "
-          "%.4f ms with CUDA events around the wrapper" % (
+    k2_call = times["forest_leaf_walk"]["ms"]
+    times["forest_leaf_walk"]["ms"] = graph["K2 %d rows" % BULK_ROWS]
+    print("time [%s | %s]: device (CUDA graph replay) %s ms; on 1 row with "
+          "CUDA events around the wrapper K1 %.4f ms, K2 %.4f ms; K2 on %d "
+          "rows %.4f ms by events, bound %.4f ms (%s)" % (
               name, card, ", ".join("%s %.4f" % kv for kv in graph.items()),
-              median_ms(lambda: forest_value_walk(forest, one_row))))
+              median_ms(lambda: forest_value_walk(forest, one_row)),
+              median_ms(lambda: forest_leaf_walk(forest, one_row)),
+              BULK_ROWS, k2_call, times["forest_leaf_walk"]["bound_ms"],
+              times["forest_leaf_walk"]["bound_by"]))
     del f16, x_chunk
     # K1's two modes either side of its crossover, each forced by moving
     # TREE_PARALLEL_MAX_ROWS (walk_plan reads it at every call)
@@ -6097,6 +6201,16 @@ def main():
     e2e_ms = float(np.median(e2e))
     print("time [%s | %s]: Booster.predict %d rows %.2f ms, %.0f rows/s"
           % (name, card, BULK_ROWS, e2e_ms, BULK_ROWS / e2e_ms * 1e3))
+    booster.predict(bulk, pred_leaf=True)
+    e2e = []
+    for _ in range(REPS):
+        t0 = time.perf_counter()
+        booster.predict(bulk, pred_leaf=True)
+        e2e.append((time.perf_counter() - t0) * 1e3)
+    e2e_ms = float(np.median(e2e))
+    print("time [%s | %s]: Booster.predict(pred_leaf=True) %d rows %.2f ms, "
+          "%.0f rows/s" % (name, card, BULK_ROWS, e2e_ms,
+                           BULK_ROWS / e2e_ms * 1e3))
     where_time_goes(booster, bulk, name, card)
     lat = []
     predictor = booster.serving_predictor()
@@ -6199,7 +6313,23 @@ def kernel_name(name):
     return found.group(0) if found else name
 
 
-def ab_child(root, rounds, cat_rounds):
+def ab_texts(seed, trees, leaves, features, **kw):
+    """synthetic_forest_text's text, made once for the A/B's children:
+    kept under OUT_DIR (the seeded text is the same in every checkout)."""
+    from lightgbm_tpu_torch.testing.synth import synthetic_forest_text
+    path = OUT_DIR / ("ab_forest_%d_%d_%d_%d_%s.txt" % (
+        seed, trees, leaves, features,
+        "_".join("%s%s" % kv for kv in sorted(kw.items()))))
+    if not path.exists():
+        OUT_DIR.mkdir(parents=True, exist_ok=True)
+        tmp = path.with_suffix(".%d.tmp" % os.getpid())
+        tmp.write_text(synthetic_forest_text(seed, trees, leaves, features,
+                                             **kw))
+        os.replace(tmp, path)
+    return path.read_text()
+
+
+def ab_child(root, rounds, cat_rounds, serving_only=False):
     """One checkout's numbers as one JSON line (see ab_main)."""
     sys.path.insert(0, os.path.abspath(root))
     import lightgbm_tpu_torch as lgb
@@ -6216,14 +6346,18 @@ def ab_child(root, rounds, cat_rounds):
         "imported %s, not %s's package" % (lgb.__file__, root))
     dev = torch.device("cuda", 0)
     out = {"root": root}
-    _build.build_all()
+    if serving_only:
+        for lib_name in ("forest", "quant"):
+            _build.build(lib_name)
+    else:
+        _build.build_all()
     leaf_histogram = histogram.leaf_histogram
 
     # K1 and K1-f16 on phase 2's forest, and K1 on its first 10 trees
     # with seeded linear leaves (k 5, phase 17's width): device time
     # (CUDA-graph replay) at 262,144 rows and on one row, and one row's
     # call time
-    trees = lgb.Booster(model_str=synthetic_forest_text(
+    trees = lgb.Booster(model_str=ab_texts(
         0, TREES, LEAVES, FEATURES), device="cpu")._inner.models
     forest = P.stack_trees(trees, dev)
     gen = np.random.RandomState(9)
@@ -6241,7 +6375,16 @@ def ab_child(root, rounds, cat_rounds):
         out["%s_bulk_device" % label] = graph_ms(lambda: walk(stack, xk))
         out["%s_1row_device" % label] = graph_ms(lambda: walk(stack, one))
         out["%s_1row_call" % label] = median_ms(lambda: walk(stack, one))
+    # K2 on the same forest and rows, and its one-row call's host time
+    out["K2_bulk_device"] = graph_ms(lambda: P.forest_leaf_walk(forest, xk))
+    out["K2_1row_device"] = graph_ms(lambda: P.forest_leaf_walk(forest, one))
+    out["K2_1row_call"] = median_ms(lambda: P.forest_leaf_walk(forest, one))
+    out["K2_1row_host_us"] = host_us(lambda: P.forest_leaf_walk(forest, one))
     del forest, trees, linear, xk, one
+    if serving_only:
+        serving_ab(out, lgb, P, dev, synthetic_rows)
+        print(json.dumps(out), flush=True)
+        return
 
     # H at the HIGGS root and on a row list, on the first gradients
     x, y = synth_higgs(TRAIN_ROWS, FEATURES, seed=0)
@@ -6315,39 +6458,7 @@ def ab_child(root, rounds, cat_rounds):
             *small, list(range(LEAVES)), width))
     lm_ab("u8", binned, w3, nb)
 
-    # QC and torch.searchsorted over the same grid (phase 24's inputs)
-    text = synthetic_forest_text(0, TREES, LEAVES, FEATURES, max_bin=255)
-    trees = lgb.Booster(model_str=text, device="cpu")._inner.models
-    qf = P.stack_trees_quant(trees, dev)
-    xb = torch.from_numpy(synthetic_rows(4, BULK_ROWS, FEATURES)).to(dev)
-    xt = xb[:, :qf.grid.shape[0]].t().contiguous()
-    out["QC_call"] = median_ms(lambda: P.quant_codes(qf, xb))
-    out["QC_device"] = graph_ms(lambda: P.quant_codes(qf, xb))
-    out["QC_host_us"] = host_us(lambda: P.quant_codes(qf, xb))
-    out["searchsorted_call"] = median_ms(
-        lambda: torch.searchsorted(qf.grid, xt))
-    out["searchsorted_device"] = graph_ms(
-        lambda: torch.searchsorted(qf.grid, xt))
-    # QW on the same rows' codes, at 262,144 rows and on one row, and a
-    # served int8 row (QC + QW + the host path)
-    codes = P.quant_codes(qf, xb)
-    one, c1 = xb[:1].contiguous(), codes[:1].contiguous()
-    out["QW_bulk_device"] = graph_ms(lambda: P.forest_quant_walk(qf, codes,
-                                                                 xb))
-    out["QW_1row_device"] = graph_ms(lambda: P.forest_quant_walk(qf, c1, one))
-    out["QW_1row_call"] = median_ms(lambda: P.forest_quant_walk(qf, c1, one))
-    predictor = lgb.Booster(model_str=text, params={
-        "tpu_predict_quantize": "int8"}).serving_predictor()
-    predictor.warmup()
-    lat = []
-    for r in xb[:200].cpu().numpy():
-        t0 = time.perf_counter()
-        predictor.predict_one(r)
-        lat.append((time.perf_counter() - t0) * 1e3)
-    predictor.close()
-    out["predict_one_int8_p50_ms"] = float(np.percentile(lat, 50))
-    out["predict_one_int8_p99_ms"] = float(np.percentile(lat, 99))
-    del codes, xb, xt
+    serving_ab(out, lgb, P, dev, synthetic_rows)
 
     # R at a root (a split on the first feature at half its bins) and on
     # a late small segment, as the checkout's grower calls it: device time
@@ -6552,6 +6663,84 @@ def ab_child(root, rounds, cat_rounds):
     print(json.dumps(out), flush=True)
 
 
+def serving_ab(out, lgb, P, dev, synthetic_rows):
+    """The A/B's serving kernels on phase 24's binned forest and rows:
+    QC and torch.searchsorted over the same grid, QW on the rows' codes,
+    a served int8 row, and ES at phase 24's kind of margin (the median
+    2|raw| of the first 250 trees on these rows) and at 1e30."""
+    text = ab_texts(0, TREES, LEAVES, FEATURES, max_bin=255)
+    trees = lgb.Booster(model_str=text, device="cpu")._inner.models
+    qf = P.stack_trees_quant(trees, dev)
+    xb = torch.from_numpy(synthetic_rows(4, BULK_ROWS, FEATURES)).to(dev)
+    xt = xb[:, :qf.grid.shape[0]].t().contiguous()
+    out["QC_call"] = median_ms(lambda: P.quant_codes(qf, xb))
+    out["QC_device"] = graph_ms(lambda: P.quant_codes(qf, xb))
+    out["QC_host_us"] = host_us(lambda: P.quant_codes(qf, xb))
+    out["searchsorted_call"] = median_ms(
+        lambda: torch.searchsorted(qf.grid, xt))
+    out["searchsorted_device"] = graph_ms(
+        lambda: torch.searchsorted(qf.grid, xt))
+    # QW on the same rows' codes, at 262,144 rows and on one row, and a
+    # served int8 row (QC + QW + the host path)
+    codes = P.quant_codes(qf, xb)
+    one, c1 = xb[:1].contiguous(), codes[:1].contiguous()
+    out["QW_bulk_device"] = graph_ms(lambda: P.forest_quant_walk(qf, codes,
+                                                                 xb))
+    out["QW_1row_device"] = graph_ms(lambda: P.forest_quant_walk(qf, c1, one))
+    out["QW_1row_call"] = median_ms(lambda: P.forest_quant_walk(qf, c1, one))
+    predictor = lgb.Booster(model_str=text, params={
+        "tpu_predict_quantize": "int8"}).serving_predictor()
+    predictor.warmup()
+    lat = []
+    for r in xb[:200].cpu().numpy():
+        t0 = time.perf_counter()
+        predictor.predict_one(r)
+        lat.append((time.perf_counter() - t0) * 1e3)
+    predictor.close()
+    out["predict_one_int8_p50_ms"] = float(np.percentile(lat, 50))
+    out["predict_one_int8_p99_ms"] = float(np.percentile(lat, 99))
+    del codes, xt
+    # ES: device at 262,144 rows (the median margin, freq 10, and a margin
+    # no row reaches), on one row (both margins) and a one-row call
+    stack = P.stack_trees_early_stop(trees, 1, TREES, dev)
+    half = P.forest_value_walk(P.stack_trees(trees[:TREES // 2], dev), xb)
+    margin = margin_median(half[None], 1)
+    out["ES_margin"] = margin
+    _, iters = P.forest_early_stop_walk(stack, xb, margin, ES_FREQ,
+                                        return_iters=True)
+    out["ES_mean_iters"] = float(iters.float().mean())
+    for label, m in (("", margin), ("_never", 1e30)):
+        out["ES_bulk%s_device" % label] = graph_ms(
+            lambda: P.forest_early_stop_walk(stack, xb, m, ES_FREQ))
+        out["ES_1row%s_device" % label] = graph_ms(
+            lambda: P.forest_early_stop_walk(stack, one, m, ES_FREQ))
+    out["ES_1row_call"] = median_ms(
+        lambda: P.forest_early_stop_walk(stack, one, 1e30, ES_FREQ))
+    out["ES_1row_host_us"] = host_us(
+        lambda: P.forest_early_stop_walk(stack, one, 1e30, ES_FREQ))
+    if hasattr(P, "ES_ROUND_ITERS"):
+        # rows mode's variants: (iterations a round, tail rows), device
+        # ms at 262,144 rows and at the engine's 131,072-row chunk, each
+        # bitwise the checkout's own plan
+        ref = P.forest_early_stop_walk(stack, xb, margin, ES_FREQ, True)
+        chunk = xb[:131_072].contiguous()
+        keep = (P.ES_ROUND_ITERS, P.ES_TAIL_ROWS)
+        variants = {}
+        for rounds, tail in ES_VARIANTS:
+            P.ES_ROUND_ITERS, P.ES_TAIL_ROWS = rounds, tail
+            got = P.forest_early_stop_walk(stack, xb, margin, ES_FREQ, True)
+            check(bitwise(got[0], ref[0]) and torch.equal(got[1], ref[1]),
+                  "ES variant %d/%d not bitwise the plan's" % (rounds, tail))
+            variants["%d/%d" % (rounds, tail)] = [
+                graph_ms(lambda: P.forest_early_stop_walk(
+                    stack, xb, margin, ES_FREQ)),
+                graph_ms(lambda: P.forest_early_stop_walk(
+                    stack, chunk, margin, ES_FREQ))]
+        P.ES_ROUND_ITERS, P.ES_TAIL_ROWS = keep
+        out["ES_variants_ms"] = variants
+    del xb, one, stack, half
+
+
 def ab_main(argv):
     """python3 chip_smoke.py --ab OLD --ab NEW --ab NEW --ab OLD
 
@@ -6562,7 +6751,12 @@ def ab_main(argv):
     f16 mode) on phase 2's 500 x 255 x 28 forest and K1 on its first 10
     trees with seeded linear leaves (k 5), `*_device` at 262,144 rows
     and on one row, `*_1row_call` the median of CUDA events around a
-    one-row call; H (leaf_histogram) at the HIGGS root (the
+    one-row call; K2 (forest_leaf_walk) on the same forest and rows the
+    same three ways and `K2_1row_host_us`; ES (forest_early_stop_walk) on
+    phase 24's binned forest and rows at the median 2|raw| of its first
+    250 trees (`ES_margin`, `ES_mean_iters`) and at 1e30 (`*_never`),
+    freq 10: `ES_bulk*_device`, `ES_1row*_device`, and a never-frozen
+    row's `ES_1row_call` and `ES_1row_host_us`; H (leaf_histogram) at the HIGGS root (the
     phase-9 protocol's data and first gradients) in f32 and hi+lo mode
     and on a 966,119-row list, `*_call` the median of CUDA events around
     a call (the wrapper's host time included) and `*_device` the mean of
@@ -6603,25 +6797,32 @@ def ab_main(argv):
     memsets' (`*_memset_in_round_ms`: H zeroes a uint16 output with one);
     and
     the categorical protocol's `--cat-rounds` rounds through lgb.train,
-    as phase 36 times its 500 (0: none)."""
+    as phase 36 times its 500 (0: none). `--serving-only` keeps the
+    serving kernels (K1, K1-f16, K1 linear, K2, QC, searchsorted, QW, the
+    int8 predict_one, ES) and builds only their libraries. The forests'
+    texts are made once, under build/chip_smoke, for all the children."""
     import argparse
     ap = argparse.ArgumentParser(usage=ab_main.__doc__.splitlines()[0])
     ap.add_argument("--ab", action="append", required=True)
     ap.add_argument("--rounds", type=int, default=6)
     ap.add_argument("--cat-rounds", type=int, default=EXPO_GATE_ROUNDS)
+    ap.add_argument("--serving-only", action="store_true")
     ap.add_argument("--child", action="store_true", help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         sys.exit(2)
     if args.child:
-        ab_child(args.ab[0], args.rounds, args.cat_rounds)
+        ab_child(args.ab[0], args.rounds, args.cat_rounds,
+                 args.serving_only)
         return
     print(card_line(), flush=True)
     for root in args.ab:
         subprocess.run([sys.executable, os.path.abspath(__file__), "--child",
                         "--ab", root, "--rounds", str(args.rounds),
-                        "--cat-rounds", str(args.cat_rounds)], check=True)
+                        "--cat-rounds", str(args.cat_rounds)]
+                       + (["--serving-only"] if args.serving_only else []),
+                       check=True)
 
 
 if __name__ == "__main__":

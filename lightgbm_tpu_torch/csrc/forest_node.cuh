@@ -1,10 +1,11 @@
-// The raw-feature tree walk shared by the forest kernels of
-// lightgbm_tpu_torch: K2 and ES (forest_walk.cu) walk the Forest's
-// [T, M] arrays (`leaf_of`); K1 and QW walk its 16-byte node records
-// (forest_records.cuh) with the same decisions (numeric_left,
+// The raw-feature decisions shared by the forest kernels of
+// lightgbm_tpu_torch: K1, K2, ES (forest_walk.cu) and QW
+// (forest_quant.cu) walk the Forest's 16-byte node records
+// (forest_records.cuh) with these decisions (numeric_left,
 // category_left) and leaf values (tree_value). The Forest struct mirrors
 // ops/predict.py's Forest (node arrays [T, M], leaf values [T, L],
-// categorical bitsets per tree).
+// categorical bitsets per tree); the walks read its num_leaves, bitsets
+// and leaves, and the records in place of its node arrays.
 
 #pragma once
 
@@ -89,28 +90,6 @@ __device__ __forceinline__ bool numeric_left(unsigned decision,
                            (nan || fabsf(x) <= kZeroThreshold));
   if (is_missing) return decision & kDefaultLeftBit;
   return (nan ? 0.f : x) <= threshold;
-}
-
-// The leaf of tree t that the row reaches over the [T, M] arrays (K2's
-// and ES's walk): _decide_raw's numeric rules on the raw f32 threshold,
-// or the bitset test. A one-leaf tree starts at node -1, i.e. leaf 0;
-// children hold ~leaf for leaves.
-__device__ __forceinline__ int leaf_of(const Forest& f, int t,
-                                       const float* __restrict__ row) {
-  if (__ldg(f.num_leaves + t) <= 1) return 0;
-  const size_t base = (size_t)t * f.max_nodes;
-  int node = 0;
-  while (node >= 0) {
-    const size_t i = base + node;
-    const unsigned decision = __ldg(f.decision + i);
-    const float threshold = __ldg(f.threshold + i);
-    const float x = flush_subnormal(__ldg(row + __ldg(f.split_feature + i)));
-    const bool left = (decision & kCategoricalBit)
-                          ? category_left(f, t, threshold, x)
-                          : numeric_left(decision, threshold, x);
-    node = left ? __ldg(f.left_child + i) : __ldg(f.right_child + i);
-  }
-  return ~node;
 }
 
 // Tree t's value for the row at `leaf`: the f32 leaf value plus, in a

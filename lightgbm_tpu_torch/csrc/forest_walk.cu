@@ -11,10 +11,8 @@
 // The TPU walks every row through every tree in lockstep ([T, N]
 // gathers) or turns each tree into three matmuls, because gathers are
 // what its hardware does worst. A GPU thread can simply chase the
-// pointers of its own row, and K2 and ES do: one thread per row, trees
-// in order 0..T-1 (forest_node.cuh's leaf_of over the [T, M] arrays). K2's
-// bytes at the chip_smoke shape are its 524 MB of leaf indices, 0.17 ms
-// at 3.35 TB/s, below the 0.262 ms of operations counted for K1 below.
+// pointers of its own row, and all three kernels do, over the Forest's
+// 16-byte node records in the two modes of forest_records.cuh.
 //
 // K1 sums a row's tree values in f32 in tree order, with the linear term
 // added at each tree's leaf and the epilogue after the last tree, so
@@ -69,23 +67,36 @@
 // row's total (`acc + vmap(one)(batch).sum(axis=0)`, a sequential reduce
 // for batches of up to 32 on XLA's CPU backend). Bound as K1.
 //
+// K2 forest_leaf_walk: the [N, T] int32 leaf of every (row, tree), the
+// same walks with a leaf output (value_*_kernel's kLeaf): in trees mode
+// each thread stores its tree's leaf at out[row * T + t], so a warp's
+// stores are consecutive words; in rows mode the block collects a
+// chunk's leaves in a shared tile and writes it out a row at a time,
+// where the thread-a-row walk of the [T, M] arrays stored a lane a
+// sector (2,000 B apart at T = 500). Bound, at the chip_smoke shape: the
+// walk's operations as K1's (0.262 ms) over its 524 MB of leaves
+// (0.157 ms at 3.35 TB/s).
+//
 // ES forest_early_stop_walk: margin-based per-row early stop over a
 // [K, T] stack (K classes, T iterations; tree (c, t) at c * T + t).
 // Replaces predict_forest_raw_early_stop (:957), a lax.while_loop that
 // walks iteration t's K trees for all rows in lockstep, freezes a row
 // whose margin exceeds `margin` after every freq-th iteration (2|raw|
 // for K = 1, top-1 minus top-2 of the K sums for K >= 2) and stops when
-// every row is frozen. Here each thread keeps its row's K sums in
-// registers (local memory past a few classes), adds iteration t's K tree
-// values in class order, checks the margin after iterations freq,
-// 2 freq, ... and returns as soon as its row is frozen: each row exits on
-// its own, and there is no global loop. A frozen row's sums are exactly
-// the JAX function's (it adds 0.0 to a frozen row, which leaves an f32
-// sum that cannot be -0 unchanged), so the two agree bitwise. Linear
-// forests add the leaf's linear term (linear_term.cuh), as
-// predict_value_raw (:193) does. Bound as K1 over the trees each row
-// actually walks (data dependent): the row's iterations until it froze
-// times K.
+// every row is frozen. Here a row adds iteration t's K tree values in
+// class order, checks the margin after iterations freq, 2 freq, ... and
+// stops at its freeze (forest_records.cuh early_stop_*_kernel: a block a
+// row with a pass of iterations walked in parallel, or a row a thread
+// over staged rows and records with the live rows compacted after every
+// chunk). A frozen row's sums are exactly the JAX function's (it adds
+// 0.0 to a frozen row, which leaves an f32 sum that cannot be -0
+// unchanged), so the two agree bitwise. Linear forests add the leaf's
+// linear term (linear_term.cuh), as predict_value_raw (:193) does, and
+// stage nothing in rows mode (K1's rule). Bound as K1 over the trees
+// each row actually walks (data dependent): the row's iterations until
+// it froze times K. The thread-a-row walk of the [T, M] arrays it
+// replaces kept a warp until its last row froze and took 4.95 ms at the
+// chip_smoke shape (31% of K1's node visits; PERF.md).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -93,69 +104,7 @@
 #include "forest_node.cuh"
 #include "forest_records.cuh"
 
-namespace {
-
 using namespace lgbt_forest;
-
-constexpr int kBlock = 128;
-// the widest [K, T] stack ES takes (its per-row class sums;
-// ops/predict.py MAX_EARLY_STOP_CLASSES)
-constexpr int kMaxClasses = 32;
-
-// K2: leaf[r, t] = leaf_t(row r), int32, [N, T] row-major.
-__global__ void __launch_bounds__(kBlock)
-leaf_walk_kernel(Forest f, const float* __restrict__ x, int n, int nf,
-                 int* __restrict__ leaf) {
-  const int r = blockIdx.x * kBlock + threadIdx.x;
-  if (r >= n) return;
-  const float* row = x + (size_t)r * nf;
-  int* out = leaf + (size_t)r * f.num_trees;
-  for (int t = 0; t < f.num_trees; ++t) out[t] = leaf_of(f, t, row);
-}
-
-// ES: out [K, N] f32, the row's class sums when it froze or after all T
-// iterations; `iters` [N] i32, the iterations the row walked.
-__global__ void __launch_bounds__(kBlock)
-early_stop_kernel(Forest f, const float* __restrict__ x, int n, int nf,
-                  int k, int t_iters, float margin, int freq,
-                  float* __restrict__ out, int* __restrict__ iters) {
-  const int r = blockIdx.x * kBlock + threadIdx.x;
-  if (r >= n) return;
-  const float* row = x + (size_t)r * nf;
-  float acc[kMaxClasses];
-  for (int c = 0; c < k; ++c) acc[c] = 0.f;
-  int t = 0;
-  while (t < t_iters) {
-    for (int c = 0; c < k; ++c) {
-      const int tree = c * t_iters + t;
-      acc[c] = __fadd_rn(acc[c], tree_value(f, tree, leaf_of(f, tree, row),
-                                            row));
-    }
-    ++t;
-    if (t % freq == 0) {
-      float m;
-      if (k == 1) {
-        m = 2.f * fabsf(acc[0]);
-      } else {
-        float top1 = -INFINITY, top2 = -INFINITY;
-        for (int c = 0; c < k; ++c) {
-          if (acc[c] > top1) {
-            top2 = top1;
-            top1 = acc[c];
-          } else if (acc[c] > top2) {
-            top2 = acc[c];
-          }
-        }
-        m = __fsub_rn(top1, top2);
-      }
-      if (!(m <= margin)) break;
-    }
-  }
-  for (int c = 0; c < k; ++c) out[(size_t)c * n + r] = acc[c];
-  iters[r] = t;
-}
-
-}  // namespace
 
 #define LGBT_FOREST_ARGS                                                    \
   const float *x, int n, int nf, const int *num_leaves,                    \
@@ -194,26 +143,53 @@ extern "C" int lgbt_forest_value_walk(LGBT_FOREST_ARGS, const void* records,
                    : launch_mode<RawDecision, false>(mode, d, f, a));
 }
 
-extern "C" int lgbt_forest_leaf_walk(LGBT_FOREST_ARGS, int* leaf,
+// K2: leaf [n, T] i32; the plan's tile_trees leaves a row a rows-mode
+// tile (ops/predict.py walk_plan(..., output="leaf")).
+extern "C" int lgbt_forest_leaf_walk(LGBT_FOREST_ARGS, const void* records,
+                                     int mode, int threads, int chunk_trees,
+                                     int staged_features, int smem,
+                                     int tile_trees, int* leaf,
                                      void* stream) {
-  const int blocks = (n + kBlock - 1) / kBlock;
-  leaf_walk_kernel<<<blocks, kBlock, 0, (cudaStream_t)stream>>>(
-      LGBT_MAKE_FOREST, x, n, nf, leaf);
-  return (int)cudaGetLastError();
+  using namespace lgbt_records;
+  const Forest f = LGBT_MAKE_FOREST;
+  WalkArgs a{static_cast<const int4*>(records), x, n, nf, threads,
+             chunk_trees, staged_features, smem, 1, kRaw, 1.f, 0.f, 1.f,
+             nullptr, (cudaStream_t)stream};
+  a.leaf = leaf;
+  a.tile_trees = tile_trees;
+  if (leaf == nullptr) return (int)cudaErrorInvalidValue;
+  const int err = plan_error<float>(f, mode, a);
+  if (err != 0) return err;
+  return (int)launch_mode<RawDecision, false, true>(mode, RawDecision{x}, f,
+                                                    a);
 }
 
-extern "C" int lgbt_forest_early_stop_walk(LGBT_FOREST_ARGS, int k,
-                                           float margin, int freq,
+// ES: out [k, n] f32, iters [n] i32 over a [k, T / k] stack; the plan's
+// chunk_trees counts iterations; in rows mode round_iters the
+// iterations of a launch and the trees-mode tail's row count, threads
+// and pass (ops/predict.py walk_plan(..., output="early_stop")), and
+// scratch 2 n + rounds ints; scratch null in trees mode.
+extern "C" int lgbt_forest_early_stop_walk(LGBT_FOREST_ARGS,
+                                           const void* records, int mode,
+                                           int threads, int chunk_trees,
+                                           int staged_features, int smem,
+                                           int round_iters, int tail_rows,
+                                           int tail_threads, int tail_chunk,
+                                           int k, float margin, int freq,
                                            float* out, int* iters,
-                                           void* stream) {
-  if (k < 1 || k > kMaxClasses || freq < 1 || num_trees % k != 0) {
-    return (int)cudaErrorInvalidValue;
-  }
-  const int blocks = (n + kBlock - 1) / kBlock;
-  early_stop_kernel<<<blocks, kBlock, 0, (cudaStream_t)stream>>>(
-      LGBT_MAKE_FOREST, x, n, nf, k, num_trees / k, margin, freq, out,
-      iters);
-  return (int)cudaGetLastError();
+                                           int* scratch, void* stream) {
+  using namespace lgbt_records;
+  const Forest f = LGBT_MAKE_FOREST;
+  const WalkArgs a{static_cast<const int4*>(records), x, n, nf, threads,
+                   chunk_trees, staged_features, smem, 1, kRaw, 1.f, 0.f,
+                   1.f, out, (cudaStream_t)stream};
+  if (k < 1 || num_trees % k != 0) return (int)cudaErrorInvalidValue;
+  const EarlyStop es{k, num_trees / k, freq, margin, out, iters};
+  const EarlyStopRounds q{round_iters, tail_rows, tail_threads, tail_chunk,
+                          scratch};
+  const int err = early_stop_plan_error(f, mode, a, es, q);
+  if (err != 0) return err;
+  return (int)launch_early_stop(mode, RawDecision{x}, f, a, es, q);
 }
 
 extern "C" const char* lgbt_error_string(int code) {

@@ -47,8 +47,9 @@ LIBRARIES = {
     "forest": ("forest_walk.cu", {
         "lgbt_forest_value_walk": _WALK_HEAD + [_p] + [_i] * 8
         + [_f, _f, _f, _p, _p],
-        "lgbt_forest_leaf_walk": _WALK_HEAD + [_p, _p],
-        "lgbt_forest_early_stop_walk": _WALK_HEAD + [_i, _f, _i, _p, _p, _p],
+        "lgbt_forest_leaf_walk": _WALK_HEAD + [_p] + [_i] * 6 + [_p, _p],
+        "lgbt_forest_early_stop_walk": _WALK_HEAD + [_p] + [_i] * 10
+        + [_f, _i, _p, _p, _p, _p],
     }, ()),
     "quant": ("forest_quant.cu", {
         "lgbt_quant_codes": [_p, _i, _i, _p, _i, _i, _p, _p, _p],

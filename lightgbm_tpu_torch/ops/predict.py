@@ -17,11 +17,16 @@ from one to the other on failure. Each wrapper counts its launches in
 a plain integer attribute (`forest_value_walk.launches`), so a run can
 show that its main path went through the kernels.
 
-K1 walks the Forest's 16-byte node records (`node_records`, built once
-a stack) in one of two modes that `walk_plan` picks by the row count: a
-block a row with its trees in parallel, or a row a thread over records
-and rows staged in shared memory (`csrc/forest_records.cuh`, shared
-with QW, says why).
+K1, K2 and ES walk the Forest's 16-byte node records (`node_records`,
+built once a stack) in one of two modes that `walk_plan` picks by the
+row count: a block a row with its trees in parallel, or a row a thread
+over records and rows staged in shared memory (`csrc/forest_records.cuh`,
+shared with QW, says why). K2 writes each row's leaves through a shared
+tile in rows mode; ES adds a row's K class values an iteration at a
+time and stops a row at its freeze; in rows mode it compacts the live
+rows after every chunk and runs in rounds, a launch each over the rows
+still live, then a trees-mode tail once few are. A forest whose feature
+index or node count does not fit the record is refused by name.
 
 W, `tree_value_walk_binned`, is the counterpart of `predict_value_binned`
 (:182) with `predict_leaf_binned` (:87) and `_decide_binned` (:75): one
@@ -42,7 +47,7 @@ The serving extras:
 
 - ES, `forest_early_stop_walk`: margin-based per-row early stop over a
   [K, T] stack (`predict_forest_raw_early_stop` :957;
-  `csrc/forest_walk.cu`);
+  `csrc/forest_walk.cu` over the records' kernels);
 - K1's f16-leaf mode, `forest_value_walk_f16` (`tpu_predict_quantize=
   f16`; `predict_forest_f16` :934): the walk over f16 leaves, summed in
   batches of QUANT_TREE_BATCH trees as the JAX function sums them;
@@ -666,7 +671,8 @@ def _launch(wrapper, entry: str, forest: Forest, x: torch.Tensor,
             forest.num_trees, forest.split_feature.shape[1],
             forest.leaf_value.shape[1], forest.cat_boundaries.shape[1],
             forest.cat_bitset.shape[1], forest.linear_k, *extra,
-            *[ctypes.c_void_p(t.data_ptr()) for t in outs])
+            *[ctypes.c_void_p(None if t is None else t.data_ptr())
+              for t in outs])
     # no device switch when x's card is already the current one (a
     # served row's launch is mostly this host path)
     if torch.cuda.current_device() == x.device.index:
@@ -687,12 +693,13 @@ def _count(wrapper, lib, entry: str, rc: int) -> None:
         wrapper.launches += 1
 
 
-# K1's and QW's launch plan (csrc/forest_records.cuh). Up to
-# TREE_PARALLEL_MAX_ROWS rows a launch walks (row, tree) pairs, a block a
-# row ("trees" mode); past it a block of ROWS_THREADS threads walks a row
-# a thread through the forest's records, staged in shared memory a chunk
-# of trees at a time ("rows" mode). The crossover, the threads and the
-# chunk are measured on the card (PERF.md; QW's crossover too).
+# The launch plan of the record walks K1, K2, ES and QW
+# (csrc/forest_records.cuh). Up to TREE_PARALLEL_MAX_ROWS rows a launch
+# walks (row, tree) pairs, a block a row ("trees" mode); past it a block
+# of ROWS_THREADS threads walks a row a thread through the forest's
+# records, staged in shared memory a chunk of trees at a time ("rows"
+# mode). The crossover, the threads and the chunk are measured on the
+# card (PERF.md; QW's crossover too).
 TREE_PARALLEL_MAX_ROWS = 32_768
 ROWS_THREADS = 512
 # one of the two record buffers of "rows" mode: 4 trees of 255 leaves
@@ -703,29 +710,62 @@ CHUNK_BYTES = 16_384
 PAIRS_CHUNK = 2048
 PAIRS_WIDE_ROWS = 512
 PAIRS_THREADS_FEW, PAIRS_THREADS_MANY = 512, 128
+# K2's rows-mode tile: leaves a row it holds before the block writes
+# them out (8 int32, a 32-byte sector), and at most this many trees a
+# record chunk in leaf mode, so the tile stays a multiple of the chunk
+LEAF_TILE_TREES = 8
+# ES's rows mode: iterations a launch (a round; the rows still live at
+# its end go on, compacted, to the next), the live rows at a round's
+# start that its trees-mode tail takes on instead (a block a row, its
+# trees in parallel, as trees mode does for as few rows), and its warp
+# totals (csrc kMaxWarps)
+ES_ROUND_ITERS = 80
+ES_TAIL_ROWS = TREE_PARALLEL_MAX_ROWS
+ES_MAX_WARPS = 16
 # shared memory one block may use on an H100 (227 KB)
 SHARED_BYTES = 232_448
 RECORD_BYTES = 16
 _MODES = {"trees": 0, "rows": 1}
+_OUTPUTS = ("value", "leaf", "early_stop")
 
 
 @dataclass(frozen=True)
 class WalkPlan:
-    """One K1 launch: its mode, threads a block, trees a chunk (rows
-    mode: a shared record buffer's trees, 0 when one tree does not fit a
-    buffer and the records are read from device memory; trees mode: the
-    trees of one pass), the row columns staged in shared memory (-1:
-    rows read from device memory) and the dynamic shared memory a block
-    takes."""
+    """One launch of a record walk: its mode, threads a block, trees a
+    chunk (rows mode: a shared record buffer's trees, 0 when one tree
+    does not fit a buffer and the records are read from device memory;
+    trees mode: the trees of one pass; ES counts iterations, K trees
+    each, instead of trees), the row columns staged in shared memory
+    (-1: rows read from device memory), the dynamic shared memory a
+    block takes; for K2 in rows mode, the leaves a row its shared tile
+    holds (0 otherwise)."""
     mode: str
     threads: int
     chunk_trees: int
     staged_features: int
     shared_bytes: int
+    tile_trees: int = 0
 
     def args(self) -> tuple:
         return (_MODES[self.mode], self.threads, self.chunk_trees,
                 self.staged_features, self.shared_bytes)
+
+
+@dataclass(frozen=True)
+class EarlyStopPlan(WalkPlan):
+    """ES's launch: a WalkPlan whose chunk_trees counts iterations and,
+    in rows mode, its rounds of round_iters iterations (a launch each)
+    and the trees-mode tail that takes a round's rows on once at most
+    tail_rows are live: tail_threads a block, tail_chunk iterations a
+    pass (all 0 in trees mode)."""
+    round_iters: int = 0
+    tail_rows: int = 0
+    tail_threads: int = 0
+    tail_chunk: int = 0
+
+    def rounds_args(self) -> tuple:
+        return (self.round_iters, self.tail_rows, self.tail_threads,
+                self.tail_chunk)
 
 
 def staged_stride(threads: int, value_bytes: int) -> int:
@@ -734,32 +774,92 @@ def staged_stride(threads: int, value_bytes: int) -> int:
     return threads + (1 if value_bytes == 4 else 2)
 
 
+def _pairs_threads(n: int) -> int:
+    """Trees mode's threads a block for n rows, at most."""
+    return PAIRS_THREADS_FEW if n <= PAIRS_WIDE_ROWS else PAIRS_THREADS_MANY
+
+
+def _trees_threads(n: int, work: int) -> int:
+    """Trees mode's threads a block for n rows and `work` trees a pass."""
+    return min(_pairs_threads(n), -(-work // 32) * 32)
+
+
 def walk_plan(num_trees: int, max_nodes: int, num_features: int, n: int,
-              linear: bool = False, value_bytes: int = 4) -> WalkPlan:
-    """The plan of K1 (f32 values) or QW (`value_bytes` 2: int16 codes)
-    for n rows of a forest of num_trees trees padded to max_nodes nodes
-    that reads num_features row columns; deterministic in its arguments,
-    within SHARED_BYTES. A linear forest's rows mode stages nothing: its
-    leaves read the row from device memory at every tree anyway, so the
-    row's line is in L1 for the walk, and staging would only cost the
-    block's occupancy (PERF.md)."""
+              linear: bool = False, value_bytes: int = 4,
+              output: str = "value", classes: int = 1) -> WalkPlan:
+    """The plan of K1 (f32 values), QW (`value_bytes` 2: int16 codes), K2
+    (`output` "leaf") or ES (`output` "early_stop" over a [classes, T /
+    classes] stack) for n rows of a forest of num_trees trees padded to
+    max_nodes nodes that reads num_features row columns; deterministic
+    in its arguments, within SHARED_BYTES. A linear forest's rows mode
+    stages nothing: its leaves read the row from device memory at every
+    tree anyway, so the row's line is in L1 for the walk, and staging
+    would only cost the block's occupancy (PERF.md). K2 reads no leaf
+    value, so `linear` does not change its plan."""
+    if output not in _OUTPUTS:
+        raise LightGBMError("walk_plan: output %r is not one of %s"
+                            % (output, _OUTPUTS))
+    if output == "early_stop":
+        return _early_stop_plan(num_trees, max_nodes, num_features, n,
+                                linear, classes)
+    leaf = output == "leaf"
     if n <= TREE_PARALLEL_MAX_ROWS:
         chunk = min(num_trees, PAIRS_CHUNK)
-        threads = (PAIRS_THREADS_FEW if n <= PAIRS_WIDE_ROWS
-                   else PAIRS_THREADS_MANY)
-        return WalkPlan("trees", min(threads, -(-chunk // 32) * 32), chunk,
-                        -1, chunk * 4)
-    if linear:
+        return WalkPlan("trees", _trees_threads(n, chunk), chunk, -1,
+                        0 if leaf else chunk * 4)
+    if linear and not leaf:
         return WalkPlan("rows", ROWS_THREADS, 0, -1, 0)
     tree_bytes = max_nodes * RECORD_BYTES
     chunk = min(num_trees, CHUNK_BYTES // tree_bytes)
-    tree_smem = 2 * chunk * tree_bytes
+    tile, tile_smem = 0, 0
+    if leaf:
+        chunk = min(chunk, LEAF_TILE_TREES)
+        tile = (chunk * (LEAF_TILE_TREES // chunk) if chunk
+                else min(num_trees, LEAF_TILE_TREES))
+        tile_smem = ROWS_THREADS * (tile + 1) * 4
+    tree_smem = 2 * chunk * tree_bytes + tile_smem
     row_smem = num_features * staged_stride(ROWS_THREADS,
                                             value_bytes) * value_bytes
     if tree_smem + row_smem <= SHARED_BYTES:
         return WalkPlan("rows", ROWS_THREADS, chunk, num_features,
-                        tree_smem + row_smem)
-    return WalkPlan("rows", ROWS_THREADS, chunk, -1, tree_smem)
+                        tree_smem + row_smem, tile)
+    return WalkPlan("rows", ROWS_THREADS, chunk, -1, tree_smem, tile)
+
+
+def _early_stop_plan(num_trees: int, max_nodes: int, num_features: int,
+                     n: int, linear: bool, k: int) -> EarlyStopPlan:
+    """ES's plan. Trees mode: a pass of as many iterations as the block
+    has threads for their K trees, their values and the K sums in shared
+    memory. Rows mode: rounds of ES_ROUND_ITERS iterations, one launch
+    each, over the rows still live; chunks of as many iterations as one
+    16 KB record buffer holds K trees of (0: the records read from device
+    memory, a chunk of freq iterations); each row's K sums, id and two
+    local list slots; the staged rows where they fit (nothing staged for
+    a linear forest, K1's rule); and a tail that walks a round's rows in
+    trees mode, with trees mode's plan for ES_TAIL_ROWS rows, once at
+    most ES_TAIL_ROWS are live."""
+    if not 1 <= k <= MAX_EARLY_STOP_CLASSES or num_trees % k:
+        raise LightGBMError("walk_plan: %d trees are no [K, T] stack of "
+                            "%d classes" % (num_trees, k))
+    t_iters = num_trees // k
+    if n <= TREE_PARALLEL_MAX_ROWS:
+        chunk = max(1, min(t_iters, _pairs_threads(n) // k))
+        return EarlyStopPlan("trees", _trees_threads(n, k * chunk), chunk,
+                             -1, (k * chunk + k) * 4)
+    tail = _early_stop_plan(num_trees, max_nodes, num_features,
+                            min(ES_TAIL_ROWS, TREE_PARALLEL_MAX_ROWS),
+                            linear, k)
+    per_iter = k * max_nodes * RECORD_BYTES
+    chunk = 0 if linear else min(t_iters, CHUNK_BYTES // per_iter)
+    state = ROWS_THREADS * (k + 3) * 4 + ES_MAX_WARPS * 4
+    tree_smem = 2 * chunk * per_iter + state
+    row_smem = num_features * staged_stride(ROWS_THREADS, 4) * 4
+    staged = not linear and tree_smem + row_smem <= SHARED_BYTES
+    return EarlyStopPlan(
+        "rows", ROWS_THREADS, chunk, num_features if staged else -1,
+        tree_smem + (row_smem if staged else 0),
+        round_iters=min(t_iters, ES_ROUND_ITERS), tail_rows=ES_TAIL_ROWS,
+        tail_threads=tail.threads, tail_chunk=tail.chunk_trees)
 
 
 def _check_records(forest: Forest, name: str) -> None:
@@ -819,20 +919,30 @@ def forest_value_walk_f16(forest: Forest, x: torch.Tensor,
 
 
 def forest_leaf_walk(forest: Forest, x: torch.Tensor) -> torch.Tensor:
-    """K2: [N, T] i32 leaf index per (row, tree)."""
+    """K2: [N, T] i32 leaf index per (row, tree), walked over the
+    forest's node records in K1's two modes (`walk_plan(...,
+    output="leaf")`); a rows-mode launch also counts in
+    `forest_leaf_walk.launches_rows`."""
+    _check_records(forest, "forest_leaf_walk")
     _check_inputs(forest, x)
     if x.device.type == "cpu":
         return forest_leaf_walk_plain(forest, x)
     out = torch.empty((x.shape[0], forest.num_trees), dtype=torch.int32,
                       device=x.device)
     if x.shape[0]:
-        _launch(forest_leaf_walk, "lgbt_forest_leaf_walk", forest, x, (),
-                (out,))
+        plan = walk_plan(forest.num_trees, forest.split_feature.shape[1],
+                         forest.num_features, x.shape[0], output="leaf")
+        _launch(forest_leaf_walk, "lgbt_forest_leaf_walk", forest, x,
+                (ctypes.c_void_p(forest.nodes.data_ptr()),) + plan.args()
+                + (plan.tile_trees,), (out,))
+        if plan.mode == "rows":
+            with _launch_lock:
+                forest_leaf_walk.launches_rows += 1
     return out
 
 
 #: the widest [K, T] stack ES takes (its per-row class sums;
-#: csrc/forest_walk.cu kMaxClasses)
+#: csrc/forest_records.cuh kMaxClasses)
 MAX_EARLY_STOP_CLASSES = 32
 
 
@@ -842,7 +952,10 @@ def forest_early_stop_walk(forest_kt: Forest, x: torch.Tensor,
     """ES: [K, N] f32 raw scores of a [K, T] stack
     (`stack_trees_early_stop`) with per-row early stop after every
     `freq`-th iteration at `margin`; with `return_iters`, also the [N]
-    i32 iterations each row walked."""
+    i32 iterations each row walked. Walked over the stack's node records
+    (`walk_plan(..., output="early_stop")`); a rows-mode launch also
+    counts in `forest_early_stop_walk.launches_rows`."""
+    _check_records(forest_kt, "forest_early_stop_walk")
     _check_inputs(forest_kt, x)
     _check_leaf_type(forest_kt, torch.float32, "forest_early_stop_walk")
     k = forest_kt.num_classes
@@ -863,9 +976,26 @@ def forest_early_stop_walk(forest_kt: Forest, x: torch.Tensor,
                           device=x.device)
         iters = torch.empty(x.shape[0], dtype=torch.int32, device=x.device)
         if x.shape[0]:
+            plan = walk_plan(forest_kt.num_trees,
+                             forest_kt.split_feature.shape[1],
+                             forest_kt.num_features, x.shape[0],
+                             forest_kt.linear_k > 0, output="early_stop",
+                             classes=k)
+            scratch = None
+            if plan.mode == "rows":
+                # two lists of row ids and a count a round
+                scratch = torch.empty(2 * x.shape[0] + -(-(
+                    forest_kt.num_trees // k) // plan.round_iters),
+                    dtype=torch.int32, device=x.device)
             _launch(forest_early_stop_walk, "lgbt_forest_early_stop_walk",
-                    forest_kt, x, (k, float(margin), int(freq)),
-                    (out, iters))
+                    forest_kt, x,
+                    (ctypes.c_void_p(forest_kt.nodes.data_ptr()),)
+                    + plan.args() + plan.rounds_args()
+                    + (k, float(margin), int(freq)),
+                    (out, iters, scratch))
+            if plan.mode == "rows":
+                with _launch_lock:
+                    forest_early_stop_walk.launches_rows += 1
     return (out, iters) if return_iters else out
 
 
@@ -936,16 +1066,13 @@ def forest_quant_walk(qf: QuantForest, codes: torch.Tensor, x: torch.Tensor,
     return out
 
 
-forest_value_walk.launches = 0
-forest_value_walk_f16.launches = 0
-# of those, the launches in "rows" mode (the rest walked trees mode)
-forest_value_walk.launches_rows = 0
-forest_value_walk_f16.launches_rows = 0
-forest_leaf_walk.launches = 0
-forest_early_stop_walk.launches = 0
 quant_codes.launches = 0
-forest_quant_walk.launches = 0
-forest_quant_walk.launches_rows = 0
+for _walk in (forest_value_walk, forest_value_walk_f16, forest_leaf_walk,
+              forest_early_stop_walk, forest_quant_walk):
+    _walk.launches = 0
+    # of those, the launches in "rows" mode (the rest walked trees mode)
+    _walk.launches_rows = 0
+del _walk
 
 
 # ----------------------------------------------------------------------
