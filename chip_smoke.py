@@ -70,17 +70,19 @@ Phases, any failure raises and the script exits non-zero:
    seeded scores and the scores after 10 rounds, on an MSLR-WEB30K-
    shaped layout (31,531 queries, 3,758,505 docs, up to 1,251 a query,
    empty and one-doc queries) and on queries longer than L stages in
-   shared memory: grad and hess within 1e-5 * max(1, A) of the plain
-   version and of a float64 oracle on the card, A a doc's sum of
-   absolute pair terms; a float64 oracle on the host for a sample of
-   queries (the 1,251-doc one among them); a second launch must repeat
-   the bits;
+   shared memory, and at seeded scores with row weights: bit for bit
+   its order replay (ops/rank.py lambdarank_grads_order), grad and hess
+   within 1e-5 * max(1, A) of the plain version and of a float64 oracle
+   on the card, A a doc's sum of absolute pair terms; a float64 oracle
+   on the host for a sample of queries (the 1,251-doc one among them); a
+   second launch must repeat the bits;
 7. the card against the CPU: the protocol at 50,000 rows (500
    queries), 63 leaves, 3 rounds: the same tree structure, leaf values
    within 1e-5 relative, valid ndcg@10 within 1e-5;
-8. ranking times: L and its plain version (CUDA events, median of 12
-   after 0.3 s of back-to-back calls) and its bound at the protocol's
-   and the MSLR-shaped layout, seconds per ranking round (median of
+8. ranking times: L (CUDA-graph replay, and CUDA events around the
+   call) and its plain version (CUDA events, median of 12 after 0.3 s of
+   back-to-back calls) and its bound at the protocol's and the
+   MSLR-shaped layout, seconds per ranking round (median of
    rounds 2-10) and million row-iterations/s, and one profiled round's
    device busy and idle share with L's part of it;
 9. training main path: the HIGGS protocol of bench.py at full width,
@@ -199,17 +201,19 @@ Phases, any failure raises and the script exits non-zero:
     oracle and bitwise the replay of its summation order
     (`ops/histogram.leaf_moments_order`), the bin-summed sum w g x of the
     first tree's largest leaf equal to LF's b; LF and LS at k = 64
-    (65,536 rows x 70 columns, 16
-    leaves, LF's sums split over three blocks a leaf) against their
-    plain versions and LF's f64 oracle; each launched twice repeating
-    its bits;
+    (65,536 rows x 70 columns, 16 leaves, LF's sums split over nine
+    blocks a tile) against their plain versions and LF's f64 oracle;
+    LF at k 5 and k 64 bit for bit the replay of its summation order
+    (`ops/linear.py linear_normal_eq_order`); each launched twice
+    repeating its bits;
 19. the card against the CPU at 131,072 rows, 63 leaves and 5 rounds,
     linear f32 and linear int8: the same tree structure and leaf
     features, leaf values and coefficients within 1e-5 relative, valid
     AUC within 2e-3;
 20. times: each new kernel's device time (torch.profiler; CUDA events
-    for LS; a CUDA graph replay for K1 and for LM on the main path's
-    call, whose call's events and host time print beside it), its plain
+    for LS; a CUDA graph replay for K1, for LF at k 5 and k 64 and for LM
+    on the main path's call, whose call's events and host time print
+    beside it; LF's host time with new segments and cached ones), its plain
     version, bound and library yardstick (index_add_ for LF and LM, with
     torch.bincount x4 beside LM's, torch.linalg.solve for LS); seconds per
     linear round against phase 12's constant round; one profiled linear
@@ -2443,8 +2447,14 @@ def linear(name, card, dev, ctx):
     a_r, b_r, c_r = lin.linear_normal_eq(*lf_args)
     a_p, b_p, c_p = lin.linear_normal_eq_plain(*lf_args)
     a64, a_abs, b64, b_abs, c64 = linear_oracle(*lf_args)
-    check(torch.equal(a_k, a_r) and torch.equal(b_k, b_r)
-          and torch.equal(c_k, c_r), "LF: a second launch gave other bits")
+    check(bitwise(a_k, a_r) and bitwise(b_k, b_r) and bitwise(c_k, c_r),
+          "LF: a second launch gave other bits")
+    order = lin.linear_normal_eq_order(*lf_args)
+    check(all(bitwise(u, v) for u, v in zip((a_k, b_k, c_k), order)),
+          "LF: not bitwise its order replay (max diff %g)" % max(
+              float((u - v).abs().max()) for u, v in zip((a_k, b_k, c_k),
+                                                         order)))
+    del order
     check(torch.equal(c_k, c_p) and torch.equal(c_k.double(), c64),
           "LF: counts differ from the plain version or the oracle")
     errs["linear_normal_eq"] = max(
@@ -2498,8 +2508,11 @@ def linear(name, card, dev, ctx):
     wide = [lin.linear_normal_eq(*lf64), lin.linear_normal_eq(*lf64),
             lin.linear_normal_eq_plain(*lf64)]
     wa64, wa_abs, wb64, wb_abs, wc64 = linear_oracle(*lf64)
-    check(all(torch.equal(p1, p2) for p1, p2 in zip(wide[0], wide[1])),
+    check(all(bitwise(p1, p2) for p1, p2 in zip(wide[0], wide[1])),
           "LF k=64: a second launch gave other bits")
+    check(all(bitwise(p1, p2) for p1, p2 in zip(
+        wide[0], lin.linear_normal_eq_order(*lf64))),
+        "LF k=64: not bitwise its order replay")
     check(torch.equal(wide[0][2], wide[2][2]), "LF k=64: counts differ")
     errs["linear_normal_eq"] = max(
         errs["linear_normal_eq"],
@@ -2517,7 +2530,8 @@ def linear(name, card, dev, ctx):
         within(ls64[0][i], ls64[2][i], ls64[2][i].abs(), "LS k=64 vs plain")
         for i in (0, 1)))
     print("LF/LS at k=64 (%d rows x 70 columns, 16 leaves): equal to the "
-          "plain versions as stated, repeat equal" % WIDE_ROWS)
+          "plain versions as stated, LF bitwise its order replay, repeat "
+          "equal" % WIDE_ROWS)
     d64 = 65
     e64 = d64 * (d64 + 1) // 2 + d64 + 1
     for kname, kernel, plain_fn, (b_ms, b_by) in (
@@ -2531,9 +2545,10 @@ def linear(name, card, dev, ctx):
              bound(wide[0][0].numel() * 4 + wide[0][1].numel() * 8,
                    16 * d64 ** 3 / 3.0 * 2))):
         print("time [%s | %s]: %s at k=64 (%d rows, 16 leaves) %.4f ms "
-              "(CUDA events around the call), plain %.3f ms, bound %.5f ms "
-              "(%s)" % (name, card, kname, WIDE_ROWS, median_ms(kernel),
-                        median_ms(plain_fn, reps=5), b_ms, b_by))
+              "device (CUDA-graph replay; CUDA events around the call %.4f "
+              "ms), plain %.3f ms, bound %.5f ms (%s)"
+              % (name, card, kname, WIDE_ROWS, graph_ms(kernel),
+                 median_ms(kernel), median_ms(plain_fn, reps=5), b_ms, b_by))
     del x64, wide, ls64
     value, coeff = ls[0][0], ls[0][1]
     x_nan = raw_x.clone()
@@ -2655,14 +2670,22 @@ def linear(name, card, dev, ctx):
         acc = torch.zeros((gb.config.tree.num_leaves, d * d),
                           dtype=torch.float32, device=dev)
         acc.index_add_(0, st.leaf_id.long(), zz)
-    lf_names = ("normal_eq_tile_kernel", "normal_eq_reduce_kernel")
     times["linear_normal_eq"] = (
-        device_ms(lambda: lin.linear_normal_eq(*lf_args), lf_names),
+        graph_ms(lambda: lin.linear_normal_eq(*lf_args)),
         median_ms(lambda: lin.linear_normal_eq(*lf_args)),
         median_ms(lambda: lin.linear_normal_eq_plain(*lf_args), reps=5),
         bound(n * (16 + 4 * k) + leaves * (d * d + d + 1) * 4,
               n * entries * 3.0), median_ms(lf_library, reps=5))
     del zz
+
+    def lf_new_segments():
+        # a tree's call: its segments are not among the cached ones
+        lin._segment_cache.clear()
+        lin.linear_normal_eq(*lf_args)
+    print("time [%s | %s]: linear_normal_eq host time %.1f us a call (%.1f "
+          "us with its segments cached)"
+          % (name, card, host_us(lf_new_segments),
+             host_us(lambda: lin.linear_normal_eq(*lf_args))))
     ls_args = (a_k, b_k, c_k, feats, const, lam)
     eye = torch.eye(d, device=dev)
     a_lib = torch.where((c_k >= 2.0 * d)[:, None, None], a_k + eye * lam,
@@ -2721,7 +2744,8 @@ def linear(name, card, dev, ctx):
               v0 * INSTR_PER_VISIT), None)
     for kk, (dev_ms, ev_ms, plain_ms, (b_ms, b_by), lib_ms) in times.items():
         print("time [%s | %s]: %s %.4f ms (CUDA events around the call; "
-              "device time %s), plain %.3f ms, bound %.5f ms (%s), library "
+              "device time %s, LF's by CUDA-graph replay), plain %.3f ms, "
+              "bound %.5f ms (%s), library "
               "%s, %s launches on the main path"
               % (name, card, kk, ev_ms, "not measured" if dev_ms is None
                  else "%.4f ms" % dev_ms, plain_ms, b_ms, b_by,
@@ -2895,20 +2919,29 @@ def rank_layout(sizes, labels, dev):
     return obj
 
 
-def check_rank_kernel(obj, score, label, sample):
-    """Phase 9 on one layout and score: L twice (same bits), against its
-    plain version and the f64 oracle on the card, then the queries of
-    `sample` against the f64 oracle on the host. Returns L's max abs
-    error against the plain version."""
+def check_rank_kernel(obj, score, label, sample, weights=None):
+    """Phase 6 on one layout and score: L twice (same bits) on the
+    objective's plan, bit for bit its order replay
+    (lambdarank_grads_order), against its plain version and the f64
+    oracle on the card, then the queries of `sample` against the f64
+    oracle on the host; with `weights`, the oracle's sums times them.
+    Returns L's max abs error against the plain version."""
     from lightgbm_tpu_torch.ops import rank
     args = (score, obj.query_boundaries, obj.label_int, obj.gain,
-            obj.inv_max_dcg, obj.sigmoid)
-    got = rank.lambdarank_grads(*args)
-    again = rank.lambdarank_grads(*args)
-    check(all(torch.equal(a, b) for a, b in zip(got, again)),
+            obj.inv_max_dcg, obj.sigmoid, weights)
+    got = rank.lambdarank_grads(*args, plan=obj.plan)
+    again = rank.lambdarank_grads(*args, plan=obj.plan)
+    check(all(bitwise(a, b) for a, b in zip(got, again)),
           label + ": a second launch of L gave other bits")
+    order = rank.lambdarank_grads_order(*args)
+    check(all(bitwise(a, b) for a, b in zip(got, order)),
+          label + ": L is not bitwise its order replay (max diff %g)"
+          % max(float((a - b).abs().max()) for a, b in zip(got, order)))
     plain = rank.lambdarank_grads_plain(*args)
-    oracle = rank_oracle(*args)
+    oracle = rank_oracle(*args[:6])
+    if weights is not None:
+        oracle = oracle * weights.double()[None]
+        oracle[2:] = oracle[2:].abs()
     err = rank_err(got, plain, oracle[2:], label + " (L vs plain)")
     rank_err(got, oracle[:2], oracle[2:], label + " (L vs f64 oracle)")
     qb = obj.query_boundaries.cpu().numpy().astype(np.int64)
@@ -2920,6 +2953,9 @@ def check_rank_kernel(obj, score, label, sample):
                        obj.gain[docs].cpu(),
                        obj.inv_max_dcg[torch.from_numpy(sample).to(
                            score.device)].cpu(), obj.sigmoid)
+    if weights is not None:
+        host = host * weights[docs].cpu().double()[None]
+        host[2:] = host[2:].abs()
     rank_err([t[docs].cpu() for t in got], host[:2], host[2:],
              label + " (L vs the host f64 oracle, %d queries of %s docs)"
              % (len(sample), sorted(set(sizes.tolist()))))
@@ -3041,6 +3077,10 @@ def ranking(name, card, dev):
         errs.append(check_rank_kernel(obj, score.contiguous(),
                                       "L protocol, %s scores" % label,
                                       proto_sample))
+    row_w = torch.rand(n, generator=gen, device=dev) * 2.5 + 0.25
+    errs.append(check_rank_kernel(obj, scores["seeded"],
+                                  "L protocol, seeded scores, row weights",
+                                  proto_sample, row_w))
     sizes, labels = mslr_like_groups(0)
     mslr = rank_layout(sizes, labels, dev)
     n_mslr = int(sizes.sum())
@@ -3049,16 +3089,17 @@ def ranking(name, card, dev):
         0).choice(np.arange(8, len(sizes)), 4, replace=False)))
     errs.append(check_rank_kernel(mslr, mslr_score, "L MSLR-shaped",
                                   mslr_sample))
-    cap = rank.stage_cap()
+    cap = rank.SORT_CAP
     long_sizes = np.array([cap + 1000, 7, cap + 1])
     long_labels = np.random.RandomState(1).randint(0, 5, long_sizes.sum())
     long = rank_layout(long_sizes, long_labels, dev)
     errs.append(check_rank_kernel(
         long, torch.randn(int(long_sizes.sum()), generator=gen, device=dev),
         "L above the %d-doc stage cap" % cap, np.arange(3)))
-    print("L vs plain [protocol %d x %d at zero, seeded and trained scores; "
-          "MSLR-shaped %d queries, %d docs, up to %d a query; queries of %s "
-          "docs above the stage cap]: grad and hess within 1e-5 * max(1, A) "
+    print("L vs plain [protocol %d x %d at zero, seeded and trained scores "
+          "and seeded scores with row weights; MSLR-shaped %d queries, %d "
+          "docs, up to %d a query; queries of %s docs above the stage cap]: "
+          "bitwise its order replay, grad and hess within 1e-5 * max(1, A) "
           "of plain (max abs err %.3g), of the f64 oracle on the card and of "
           "the f64 host oracle on sampled queries; every launch repeated "
           "its bits" % (len(gt), RANK_QLEN, len(sizes), n_mslr,
@@ -3099,13 +3140,16 @@ def ranking(name, card, dev):
         args = (score, o.query_boundaries, o.label_int, o.gain,
                 o.inv_max_dcg, o.sigmoid)
         b_ms, b_by = bound(*rank_work(o))
-        times[label] = (median_ms(lambda: rank.lambdarank_grads(*args)),
-                        median_ms(lambda: rank.lambdarank_grads_plain(*args),
-                                  reps=reps), b_ms, b_by)
+        times[label] = (graph_ms(lambda: rank.lambdarank_grads(
+            *args, plan=o.plan)),
+            median_ms(lambda: rank.lambdarank_grads_plain(*args), reps=reps),
+            b_ms, b_by, median_ms(lambda: rank.lambdarank_grads(
+                *args, plan=o.plan)))
         print("time [%s | %s]: lambdarank_grads %s (%d docs, %d queries) "
-              "%.4f ms, plain %.3f ms, bound %.5f ms (%s)"
-              % (name, card, label, score.shape[0],
-                 o.inv_max_dcg.shape[0], *times[label]))
+              "%.4f ms device (CUDA-graph replay; CUDA events around the "
+              "call %.4f ms), plain %.3f ms, bound %.5f ms (%s)"
+              % (name, card, label, score.shape[0], o.inv_max_dcg.shape[0],
+                 times[label][0], times[label][4], *times[label][1:4]))
     # L's part of the profiled round from CUDA events around its call:
     # torch.profiler left L's kernel out of some rounds (PERF.md)
     obj_grads = obj.get_gradients
@@ -3129,7 +3173,7 @@ def ranking(name, card, dev):
           "the profiled round launched L %d times"
           % (rank.lambdarank_grads.launches - before))
     l_us = spans[0][0].elapsed_time(spans[0][1]) * 1e3
-    listed = sum(v for k, v in by_kind.items() if "lambdarank_kernel" in k)
+    listed = sum(v for k, v in by_kind.items() if "rank_" in k)
     busy_all = busy + (0.0 if listed else l_us)
     print("where the time goes [%s | %s]: lambdarank_grads %.3f ms of the "
           "round (CUDA events around its call; the profiler %s), share %.3f "
@@ -3137,7 +3181,7 @@ def ranking(name, card, dev):
           % (name, card, l_us / 1e3, "listed %.3f ms" % (listed / 1e3)
              if listed else "did not list it", l_us / busy_all,
              busy_all / 1e3, 1.0 - busy_all / wall_us))
-    ms, plain_ms, b_ms, b_by = times["protocol"]
+    ms, plain_ms, b_ms, b_by = times["protocol"][:4]
     return {"name": "lambdarank_grads", "route": "cuda",
             "source": "lightgbm_tpu_torch/csrc/lambdarank.cu",
             "replaces": "lightgbm_tpu/objectives.py:438",
@@ -6457,6 +6501,8 @@ def ab_child(root, rounds, cat_rounds, serving_only=False):
         out["LM_%s_host_us" % label] = host_us(lambda: leaf_feature_moments(
             *small, list(range(LEAVES)), width))
     lm_ab("u8", binned, w3, nb)
+    linear_ab(out, dev, lm_x, grad, hess, lm_lid)
+    rank_ab(out, lgb, dev)
 
     serving_ab(out, lgb, P, dev, synthetic_rows)
 
@@ -6663,6 +6709,103 @@ def ab_child(root, rounds, cat_rounds, serving_only=False):
     print(json.dumps(out), flush=True)
 
 
+def rank_ab(out, lgb, dev):
+    """The A/B's L: through the objective (either checkout's plan), on
+    the ranking protocol's layout (rank_data's labels, 5,000 queries of
+    100 docs) and the MSLR-shaped one at seeded scores: the hash of its
+    grad and hess bits, device time (CUDA-graph replay), a call's CUDA
+    events and device busy time; then the ranking protocol's 10 rounds
+    (phase 5), the hash of its model text and of L's bits at its trained
+    scores."""
+    import hashlib
+    from lightgbm_tpu_torch.config import Config
+    from lightgbm_tpu_torch.dataset import Metadata
+    from lightgbm_tpu_torch.objectives import LambdarankNDCG
+    from lightgbm_tpu_torch.testing.synth import mslr_like_groups, rank_data
+
+    def digest(*tensors):
+        return hashlib.sha256(b"".join(t.cpu().numpy().tobytes()
+                                       for t in tensors)).hexdigest()[:16]
+    x, y = rank_data(RANK_ROWS + RANK_VALID_ROWS, qlen=RANK_QLEN,
+                     seed=RANK_SEED)[:2]
+    layouts = {"protocol": (np.full(RANK_ROWS // RANK_QLEN, RANK_QLEN),
+                            y[:RANK_ROWS].astype(np.int32)),
+               "mslr": mslr_like_groups(0)}
+    for label, (sizes, labels) in layouts.items():
+        md = Metadata(int(sizes.sum()))
+        md.set_label(labels.astype(np.float32))
+        md.set_group(sizes)
+        obj = LambdarankNDCG(Config.from_params({"objective": "lambdarank"}))
+        obj.init(md, int(sizes.sum()), dev)
+        score = torch.randn(int(sizes.sum()), device=dev,
+                            generator=torch.Generator(dev).manual_seed(3))
+        out["L_%s_hash" % label] = digest(*obj.get_gradients(score))
+        out["L_%s_graph" % label] = graph_ms(lambda: obj.get_gradients(
+            score))
+        out["L_%s_call" % label] = median_ms(lambda: obj.get_gradients(score))
+        out["L_%s_busy" % label], out["L_%s_kernels" % label] = busy_ms(
+            lambda: obj.get_gradients(score))
+    gt = [RANK_QLEN] * (RANK_ROWS // RANK_QLEN)
+    gv = [RANK_QLEN] * (RANK_VALID_ROWS // RANK_QLEN)
+    booster = train_run(lgb, x[:RANK_ROWS], y[:RANK_ROWS], x[RANK_ROWS:],
+                        y[RANK_ROWS:], RANK_PARAMS, TRAIN_ROUNDS, group=gt,
+                        group_v=gv)[0]
+    out["rank_model_text_hash"] = hashlib.sha256(
+        booster.model_to_string().encode()).hexdigest()[:16]
+    inner = booster._inner
+    out["L_protocol_trained_hash"] = digest(*inner.objective.get_gradients(
+        inner._score[0]))
+
+
+def linear_ab(out, dev, x, grad, hess, lid):
+    """The A/B's LF and LS: LF at phase 20's shape (the HIGGS protocol's
+    raw values, its first gradients, `lid`'s 255 seeded leaf segments of
+    a tree's skew, 5 seeded features a leaf) and at phase 18's k = 64
+    design: device busy time of a call whose segments are new (the
+    profiler, either checkout), a CUDA-graph replay where the
+    checkout's call copies nothing up once its segments are cached, a
+    call's CUDA events and host time; LS on the k = 5 systems by
+    CUDA-graph replay and CUDA events."""
+    from lightgbm_tpu_torch.ops import linear as lin
+    cached = hasattr(lin, "_segment_cache")
+    rs = np.random.RandomState(5)
+    feats = torch.from_numpy(np.stack([
+        rs.choice(FEATURES, 5, replace=False) for _ in range(LEAVES)])
+        .astype(np.int32)).to(dev)
+    lf5 = (x, grad, hess, torch.ones_like(grad)) + lin.segments_of(
+        lid, LEAVES) + (feats,)
+    gen = torch.Generator(device=dev).manual_seed(64)
+    x64 = torch.randn((WIDE_ROWS, 70), device=dev, generator=gen)
+    x64[::53, 3] = float("nan")
+    lid64 = torch.randint(0, 16, (WIDE_ROWS,), device=dev, generator=gen,
+                          dtype=torch.int32)
+    feats64 = torch.stack([torch.randperm(70, device=dev, generator=gen)[:64]
+                           for _ in range(16)]).to(torch.int32)
+    feats64[5, 60:] = -1
+    g64 = x64[:, 0].nan_to_num() - x64[:, 1]
+    h64 = torch.rand(WIDE_ROWS, device=dev, generator=gen) + 0.5
+    lf64 = (x64, g64, h64, torch.ones_like(h64)) + lin.segments_of(
+        lid64, 16) + (feats64,)
+    for label, args in (("k5", lf5), ("k64", lf64)):
+        def fresh(args=args):
+            if cached:
+                lin._segment_cache.clear()
+            lin.linear_normal_eq(*args)
+        out["LF_%s_busy" % label], out["LF_%s_kernels" % label] = busy_ms(
+            fresh)
+        out["LF_%s_call" % label] = median_ms(fresh)
+        out["LF_%s_host_us" % label] = host_us(fresh)
+        if cached:
+            out["LF_%s_graph" % label] = graph_ms(
+                lambda args=args: lin.linear_normal_eq(*args))
+    a5, b5, c5 = lin.linear_normal_eq(*lf5)
+    const = torch.zeros(LEAVES, device=dev)
+    out["LS_graph"] = graph_ms(lambda: lin.linear_solve(a5, b5, c5, feats,
+                                                        const, 0.01))
+    out["LS_call"] = median_ms(lambda: lin.linear_solve(a5, b5, c5, feats,
+                                                        const, 0.01))
+
+
 def serving_ab(out, lgb, P, dev, synthetic_rows):
     """The A/B's serving kernels on phase 24's binned forest and rows:
     QC and torch.searchsorted over the same grid, QW on the rows' codes,
@@ -6787,6 +6930,17 @@ def ab_main(argv):
     device events' ms a call by name), `LM_*_graph` (a CUDA
     graph of the call, where it reads nothing back) and `LM_*_host_us`
     (a call's host time on the first 1,000 rows);
+    L (lambdarank_grads, through the objective) on the ranking
+    protocol's layout and the MSLR-shaped one at seeded scores:
+    `L_*_hash` (its grad and hess bits), `L_*_graph`, `L_*_call`,
+    `L_*_busy` and `L_*_kernels`, then the ranking protocol's 10 rounds:
+    `rank_model_text_hash` and `L_protocol_trained_hash` (L at the
+    trained scores); LF (linear_normal_eq) at phase 20's shape (k 5, the
+    HIGGS raw values, 255 seeded leaf segments) and phase 18's k = 64
+    design: `LF_*_busy` and `LF_*_kernels` (a call whose segments are
+    new), `LF_*_call`, `LF_*_host_us` and, where the checkout caches
+    the segments, `LF_*_graph`; LS on the k 5 systems (`LS_graph`,
+    `LS_call`);
     `--rounds` rounds of the HIGGS and the Bosch protocols in hi+lo and
     in int8 and of the categorical protocol, each
     round's seconds and their median from round 2, and one more round

@@ -21,7 +21,7 @@ import torch
 from . import log
 from .config import Config
 from .metrics import query_layout, segment_sum
-from .ops.rank import lambdarank_grads
+from .ops.rank import lambdarank_grads, lambdarank_plan
 from .ops.route import fma_f32
 
 # XLA's f32 exp on its CPU backend (the Cephes polynomial of XLA's
@@ -241,11 +241,14 @@ class LambdarankNDCG(ObjectiveFunction):
         self.label_int = torch.from_numpy(lab.astype(np.int32)).to(device)
         self.gain = torch.from_numpy(self.label_gain.astype(np.float32)[
             np.clip(lab, 0, top)]).to(device)
+        # kernel L's plan: the queries are fixed for the whole training
+        self.plan = lambdarank_plan(qb, device) \
+            if torch.device(device).type == "cuda" else None
 
     def get_gradients(self, score):
         return lambdarank_grads(score, self.query_boundaries, self.label_int,
                                 self.gain, self.inv_max_dcg, self.sigmoid,
-                                self.weights)
+                                self.weights, plan=self.plan)
 
 
 _PORTED = {

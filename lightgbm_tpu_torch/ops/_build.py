@@ -85,17 +85,18 @@ LIBRARIES = {
         "lgbt_score_average": [_p, _p, _p, _f, _f, _i, _p],
     }, _NO_FMA),
     "rank": ("lambdarank.cu", {
-        "lgbt_lambdarank_grads": [_p, _p, _i, _p, _p, _p, _f] + [_p] * 5,
-        "lgbt_lambdarank_stage_cap": [],
+        "lgbt_lambdarank_layout": [_i],
+        "lgbt_lambdarank_grads": [_p] * 4 + [_f] + [_p] * 3 + [_i] * 5
+        + [_p, _i, _p, _i, _p, _i, _i, _i] + [_p] * 7,
     }, _NO_FMA),
     "walk": ("binned_walk.cu", {
         "lgbt_tree_value_walk_binned": [_p, _i, _i, _i, _p, _i, _p, _p, _i,
                                         _p, _p, _p, _p],
     }, _NO_FMA),
     "linear": ("linear.cu", {
-        "lgbt_linear_tile_rows": [],
-        "lgbt_linear_normal_eq": [_p, _i] + [_p] * 5 + [_i, _p, _p, _i, _p,
-                                                        _i] + [_p] * 5,
+        "lgbt_linear_normal_eq": [_p, _i] + [_p] * 5 + [_i, _p] + [_i] * 4
+        + [_p] * 6,
+        "lgbt_linear_rows_max_d": [],
         "lgbt_linear_solve": [_p] * 5 + [_f, _i, _i] + [_p] * 4,
         "lgbt_linear_addend": [_p, _i, _i] + [_p] * 4 + [_i, _f, _p, _p],
     }, _NO_FMA),

@@ -35,6 +35,7 @@ backends.
 from __future__ import annotations
 
 import ctypes
+import functools
 import threading
 from typing import Tuple
 
@@ -168,16 +169,42 @@ def linear_normal_eq_plain(x, grad, hess, weight, perm, leaf_begin,
     return (a.float().view(num_leaves, d, d), bv.float(), cnt.float())
 
 
-def linear_normal_eq(x: torch.Tensor, grad: torch.Tensor,
-                     hess: torch.Tensor, weight: torch.Tensor,
-                     perm: torch.Tensor, leaf_begin: np.ndarray,
-                     leaf_rows: np.ndarray, feats: torch.Tensor
-                     ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """LF: (A [L, d, d], b [L, d], cnt [L]) f32 of every leaf slot, from
-    x [N, F], grad/hess/weight [N] f32, the partition perm [N] i32 with
-    each leaf's segment (leaf_begin, leaf_rows: host int [L]) and the
-    leaves' feature columns feats [L, k] i32 (-1 padded)."""
-    n, nf = x.shape
+#: LF's layout (csrc/linear.cu): the rows kernel takes d = k + 1 up to
+#: LF_ROWS_MAX_D (E <= 32 sums, all in a lane's registers, a lane a row
+#: of LF_THREADS); past it the wide kernel, a lane 4, 8, 12 or up to
+#: LF_WIDE_PER sums over LF_BUFS gathered chunks in flight within
+#: LF_RING_BYTES
+LF_ROWS_MAX_D, LF_THREADS, LF_WIDE_PER, LF_BUFS = 6, 256, 16, 3
+LF_RING_BYTES = 56 * 1024
+
+
+@functools.lru_cache(maxsize=None)
+def normal_eq_plan(k: int) -> dict:
+    """LF's launch plan at k features a leaf (E = d(d+1)/2 + d + 1 sums,
+    d = k + 1). Rows kernel (d <= LF_ROWS_MAX_D): tiles of 2,048 rows,
+    row r of a tile on lane r % 256, the 8 warps' sums added in warp
+    order (`lanes` 256, `per_slice` 8). Wide kernel: a lane up to
+    LF_WIDE_PER sums, every sum over the tile's rows in order (`lanes`
+    1, `per_slice` 1), rows gathered in chunks of `chunk` (a power of
+    two); tiles of 256 rows, to fill the grid (a tile's sums take one
+    block up to LF_THREADS x LF_WIDE_PER of them)."""
+    d = k + 1
+    entries = d * (d + 1) // 2 + d + 1
+    if d <= LF_ROWS_MAX_D:
+        return {"entries": entries, "kernel": "rows", "tile_rows": 2048,
+                "lanes": LF_THREADS, "per_slice": LF_THREADS // 32,
+                "chunk": LF_THREADS}
+    stride = (d + 3) | 1
+    chunk = LF_THREADS
+    while chunk > 1 and LF_BUFS * chunk * stride * 4 > LF_RING_BYTES:
+        chunk //= 2
+    return {"entries": entries, "kernel": "wide", "tile_rows": 256,
+            "lanes": 1, "per_slice": 1, "chunk": chunk}
+
+
+def _check_normal_eq(x, grad, hess, weight, perm, leaf_begin, leaf_rows,
+                     feats):
+    n = x.shape[0]
     num_leaves, k = feats.shape
     check_linear_features(k)
     if any(t.shape != (n,) for t in (grad, hess, weight, perm)) \
@@ -187,32 +214,146 @@ def linear_normal_eq(x: torch.Tensor, grad: torch.Tensor,
                             "[L, k]")
     if any(t.device != x.device for t in (grad, hess, weight, perm, feats)):
         raise LightGBMError("linear_normal_eq: inputs on different devices")
+
+
+def linear_normal_eq_order(x, grad, hess, weight, perm, leaf_begin,
+                           leaf_rows, feats):
+    """LF's sums in torch ops on the inputs' device, in the kernel's
+    order (`normal_eq_plan`): each term formed in f32 as the JAX package
+    forms it and taken exactly into f64; within a tile of a leaf's
+    segment, lane r % lanes adds its rows r in order from 0; each sum
+    over a warp's 32 lanes by the shuffle tree (lane l takes lane l + o,
+    o = 16, 8, 4, 2, 1); the warps in warp order; a leaf's tiles in
+    order from 0; rounded once to f32. (The wide kernel's one lane a
+    sum is this with lanes = 1: the tree and the warps add zeros.)"""
+    _check_normal_eq(x, grad, hess, weight, perm, leaf_begin, leaf_rows,
+                     feats)
+    num_leaves, k = feats.shape
+    d = k + 1
+    plan = normal_eq_plan(k)
+    rows_t, lanes, per = plan["tile_rows"], plan["lanes"], plan["per_slice"]
+    dev = x.device
+    f64 = torch.float64
+    meta, n_tiles = segment_tiles(leaf_begin, leaf_rows, rows_t)
+    tiles = torch.from_numpy(meta[:3 * n_tiles].reshape(n_tiles, 3)
+                             .astype(np.int64)).to(dev)
+    first = meta[3 * n_tiles:3 * n_tiles + num_leaves].astype(np.int64)
+    count = meta[3 * n_tiles + num_leaves:].astype(np.int64)
+    offs = torch.arange(rows_t, device=dev)
+    valid = offs[None, :] < tiles[:, 2:3]                   # [T, R]
+    pos = torch.where(valid, tiles[:, 1:2] + offs[None, :], 0)
+    rows = perm[pos.reshape(-1)].long()
+    leaf = tiles[:, :1].expand(-1, rows_t).reshape(-1)
+    xv, ok = gather_values(x, rows, feats[leaf])
+    z = torch.cat([xv, torch.ones_like(xv[:, :1])], dim=1)
+    w = torch.where(ok, weight[rows], torch.zeros_like(weight[rows]))
+    w = torch.where(valid.reshape(-1), w, torch.zeros_like(w))
+    wh, wg = w * hess[rows], w * grad[rows]
+    ia, ja = np.triu_indices(d)
+    zz = z[:, torch.from_numpy(ia).to(dev)] * z[:, torch.from_numpy(ja)
+                                               .to(dev)]
+    terms = torch.cat([wh.to(f64)[:, None] * zz.to(f64),
+                       wg.to(f64)[:, None] * z.to(f64),
+                       (w > 0).to(f64)[:, None]], dim=1)
+    entries = terms.shape[1]
+    terms = torch.where(valid.reshape(-1, 1), terms,
+                        torch.zeros((), dtype=f64, device=dev))
+    terms = terms.view(n_tiles, rows_t // lanes, lanes, entries)
+    acc = torch.zeros((n_tiles, lanes, entries), dtype=f64, device=dev)
+    for i in range(rows_t // lanes):
+        acc = acc + terms[:, i]
+    warp = torch.zeros((n_tiles, 32 * per, entries), dtype=f64, device=dev)
+    warp[:, :lanes] = acc
+    warp = warp.view(n_tiles, per, 32, entries)
+    for o in (16, 8, 4, 2, 1):
+        warp = warp[:, :, :o] + warp[:, :, o:2 * o]
+    part = warp[:, 0, 0]
+    for g in range(1, per):
+        part = part + warp[:, g, 0]
+    out = torch.zeros((num_leaves, entries), dtype=f64, device=dev)
+    for j in range(int(count.max()) if num_leaves else 0):
+        has = np.nonzero(count > j)[0]
+        at = torch.from_numpy(has).to(dev)
+        out[at] = out[at] + part[torch.from_numpy(first[has] + j).to(dev)]
+    out = out.float()
+    n_a = d * (d + 1) // 2
+    a = torch.zeros((num_leaves, d, d), dtype=torch.float32, device=dev)
+    a[:, ia, ja] = out[:, :n_a]
+    a[:, ja, ia] = out[:, :n_a]
+    return a, out[:, n_a:n_a + d].contiguous(), out[:, n_a + d].contiguous()
+
+
+# the segments of the last calls on the card, by content: a call with
+# the same segments (a timing loop, a CUDA graph's capture) copies none
+_SEGMENTS_KEPT = 8
+_segment_cache: dict = {}
+
+
+def _segments(leaf_begin, leaf_rows, dev: torch.device) -> torch.Tensor:
+    """[2, L] int32 on `dev`: each leaf's first perm position and rows
+    (2L words: one small copy up); the card cuts them into tiles."""
+    host = np.concatenate([leaf_begin, leaf_rows]).astype(np.int32)
+    key = (dev.index, host.tobytes())
+    with _launch_lock:
+        seg = _segment_cache.get(key)
+    if seg is None:
+        seg = torch.from_numpy(host).to(dev)
+        with _launch_lock:
+            _segment_cache[key] = seg
+            while len(_segment_cache) > _SEGMENTS_KEPT:
+                del _segment_cache[next(iter(_segment_cache))]
+    return seg
+
+
+def linear_normal_eq(x: torch.Tensor, grad: torch.Tensor,
+                     hess: torch.Tensor, weight: torch.Tensor,
+                     perm: torch.Tensor, leaf_begin: np.ndarray,
+                     leaf_rows: np.ndarray, feats: torch.Tensor
+                     ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """LF: (A [L, d, d], b [L, d], cnt [L]) f32 of every leaf slot, from
+    x [N, F], grad/hess/weight [N] f32, the partition perm [N] i32 with
+    each leaf's segment (leaf_begin, leaf_rows: host int [L]) and the
+    leaves' feature columns feats [L, k] i32 (-1 padded)."""
+    _check_normal_eq(x, grad, hess, weight, perm, leaf_begin, leaf_rows,
+                     feats)
     if x.device.type == "cpu":
         return linear_normal_eq_plain(x, grad, hess, weight, perm,
                                       leaf_begin, leaf_rows, feats)
     _on_cuda("linear_normal_eq", (x, grad, hess, weight, perm, feats),
              (torch.float32,) * 4 + (torch.int32,) * 2)
-    lib = _build.load_library("linear")
-    tile = lib.lgbt_linear_tile_rows()
+    n, nf = x.shape
+    num_leaves, k = feats.shape
     d = k + 1
-    entries = d * (d + 1) // 2 + d + 1
-    # each leaf's segment cut into tiles of `tile` rows, leaf by leaf:
-    # (leaf, first position, rows) a tile, and each leaf's tile range
-    meta, n_tiles = segment_tiles(leaf_begin, leaf_rows, tile)
+    plan = normal_eq_plan(k)
     dev = x.device
-    meta = torch.from_numpy(meta).to(dev)
-    part = torch.empty(max(n_tiles, 1) * entries, dtype=torch.float64,
-                       device=dev)
-    a = torch.empty((num_leaves, d, d), dtype=torch.float32, device=dev)
-    bv = torch.empty((num_leaves, d), dtype=torch.float32, device=dev)
-    cnt = torch.empty(num_leaves, dtype=torch.float32, device=dev)
-    t3 = meta[:3 * n_tiles]
+    seg = _segments(leaf_begin, leaf_rows, dev)
+    max_tiles = -(-n // plan["tile_rows"]) + num_leaves
+    # scratch: the tiles' f64 sums, then each leaf's first tile and count
+    part_bytes = max_tiles * plan["entries"] * 8
+    scratch = torch.empty(part_bytes + 8 * num_leaves, dtype=torch.uint8,
+                          device=dev)
+    out = torch.empty(num_leaves * (d * d + d + 1), dtype=torch.float32,
+                      device=dev)
+    a = out[:num_leaves * d * d].view(num_leaves, d, d)
+    bv = out[num_leaves * d * d:num_leaves * (d * d + d)].view(num_leaves, d)
+    cnt = out[num_leaves * (d * d + d):]
+    _check_rows_kernel()
     _launch(linear_normal_eq, "lgbt_linear_normal_eq", dev,
             _ptr(x), nf, _ptr(grad), _ptr(hess), _ptr(weight), _ptr(perm),
-            _ptr(t3), n_tiles, _ptr(meta[3 * n_tiles:]),
-            _ptr(meta[3 * n_tiles + num_leaves:]), num_leaves, _ptr(feats),
-            k, _ptr(part), _ptr(a), _ptr(bv), _ptr(cnt))
+            _ptr(seg), num_leaves, _ptr(feats), k, plan["tile_rows"],
+            plan["chunk"], max_tiles, ctypes.c_void_p(scratch.data_ptr()
+                                                      + part_bytes),
+            _ptr(scratch), _ptr(a), _ptr(bv), _ptr(cnt))
     return a, bv, cnt
+
+
+@functools.lru_cache(maxsize=None)
+def _check_rows_kernel() -> None:
+    """The built library's rows kernel takes the d the plan gives it."""
+    if _build.load_library("linear").lgbt_linear_rows_max_d() \
+            != LF_ROWS_MAX_D:
+        raise LightGBMError("linear_normal_eq: csrc/linear.cu's rows kernel "
+                            "differs from ops/linear.py's plan")
 
 
 # ----------------------------------------------------------------------
