@@ -110,8 +110,10 @@ Phases, any failure raises and the script exits non-zero:
     into a second buffer as the grower calls it, on row- and
     column-major bins (hold_route; phases 30 and 36 the same), W
     (tree_value_walk_binned) with the trained first tree on the valid
-    set. Counts, leaf ids, the partition, the split choices and W's
-    scores must equal the plain versions exactly (S bitwise), the g/h
+    set, on the booster's bins (row-major at 28 bytes a row, checked)
+    and on the same bins column-major. Counts, leaf ids, the partition, the
+    split choices and W's scores must equal the plain versions exactly
+    (S, W bitwise), the g/h
     sums must be within 1e-5 * max(1, |plain|) of the plain version and
     of an f64 oracle, and each kernel launched twice on the same inputs
     must repeat its bits; H (f32, and hi+lo on both gradients at the
@@ -262,7 +264,8 @@ Phases, any failure raises and the script exits non-zero:
 23. continued training: phase 9's saved model continues through
     train(..., init_model=path) on phase 9's Datasets: the 0-round
     replay (W once a tree) within 1e-5 * max(1, |ref|) of phase 9's
-    final train score; 10 more rounds twice, byte-identical, H, S, R
+    final train score, W on the train bins as the replay walks them
+    (`GBDT._walk_binned`) bitwise its plain version and a repeat; 10 more rounds twice, byte-identical, H, S, R
     and W launched, valid AUC not below phase 9's; card against CPU on
     the phase-11 protocol, 3 + 3 rounds: the same structure, leaves
     within 1e-5 relative;
@@ -282,7 +285,9 @@ Phases, any failure raises and the script exits non-zero:
     0.2, other_rate 0.1, 20 rounds: it samples from round 11), GT and GW
     launched once a sampled round; boosting=dart (drop_rate 0.1,
     skip_drop 0.5, max_drop 50, drop_seed 4, 10 rounds), W launched once
-    a round for the valid set and three times a dropped tree;
+    a round for the valid set and three times a dropped tree, and W
+    taking the last dropped tree off the 2,000,000 train rows (as DART
+    walks them, sign -1) bitwise its plain version and a repeat;
     boosting=rf (bagging_fraction 0.7, bagging_freq 1, feature_fraction
     0.7, 10 rounds), R's average mode once a round for the train score
     and once for the valid set, W and M once a round; every H launch in
@@ -292,9 +297,14 @@ Phases, any failure raises and the script exits non-zero:
     the valid scores kept in training (RF through average_output);
 26. GT and GW against their plain versions on the card: on the GOSS
     run's gradients at rounds 11 and 20, on all-equal and all-zero
-    magnitudes, at top_k 1 and n - 1, and on 1,000,003 rows: weights and
-    threshold bitwise, the threshold equal to np.partition on the host, a
-    second launch repeating the bits;
+    magnitudes, ties at the k-th value (and top_k at a run of ties'
+    end), NaN and inf magnitudes (a NaN threshold too), 70% zero
+    magnitudes (a zero threshold too), subnormal products and inputs
+    (read as zero, as XLA does), at top_k 1, n - 1 and n, and on
+    1,000,003 rows: weights and threshold bitwise, the threshold bitwise
+    the replay of GT's select (ops/goss.py goss_threshold_order) and
+    equal to np.partition on the host (a NaN the smallest), a second
+    launch repeating the bits;
 27. H's hi+lo mode against its plain version on the root and a child
     (row list) at max_bin 63 (round 20's GOSS channels) and at max_bin
     255 (65,536 weighted rows): counts exact, g/h within 1e-5 * max(1,
@@ -309,7 +319,8 @@ Phases, any failure raises and the script exits non-zero:
     leaves, learning rate 0.5 (GOSS samples from round 3), 5 rounds: the
     same trees, leaves within 1e-5 relative, valid AUC within 2e-3;
 29. times (CUDA events or torch.profiler, median of 12 after 0.3 s of
-    calls): GT + GW at 2,000,000 rows against their plain versions and
+    calls; GT and GW by CUDA-graph replay): GT + GW at 2,000,000 rows
+    against their plain versions and
     torch.kthvalue (the library yardstick, checked equal), H hi+lo
     against H f32 at the root, R's average mode, seconds per round of
     goss (its sampled rounds), dart and rf, and one profiled GOSS
@@ -582,10 +593,12 @@ def median_ms(fn, reps=REPS):
     return float(np.median(times))
 
 
-def graph_ms(fn, reps=50):
+def graph_ms(fn, reps=50, calls=1):
     """Device time of one fn() call without its host time: a CUDA graph
-    captures one call and is replayed `reps` times between two events
-    after a spin-up; the mean of the replays."""
+    captures `calls` calls and is replayed `reps` times between two
+    events after a spin-up; the mean a call. A replay costs the host
+    about 8 us (PERF.md, PR 18), so a graph of one call cannot time a
+    shorter one: those take calls=20."""
     spin_up(fn)
     side = torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
@@ -594,7 +607,8 @@ def graph_ms(fn, reps=50):
     torch.cuda.current_stream().wait_stream(side)
     graph = torch.cuda.CUDAGraph()
     with torch.cuda.graph(graph, capture_error_mode="relaxed"):
-        fn()
+        for _ in range(calls):
+            fn()
     for _ in range(3):
         graph.replay()
     torch.cuda.synchronize()
@@ -605,7 +619,12 @@ def graph_ms(fn, reps=50):
         graph.replay()
     end.record()
     end.synchronize()
-    return start.elapsed_time(end) / reps
+    return start.elapsed_time(end) / reps / calls
+
+
+# the calls a CUDA graph captures to time a call shorter than a replay's
+# host cost
+SHORT_CALLS = 20
 
 
 def device_busy(prof):
@@ -718,6 +737,38 @@ def bound(bytes_moved, ops=0.0):
     ops_ms = ops / INSTR_PER_S * 1e3
     return max(bytes_ms, ops_ms), ("operations" if ops_ms > bytes_ms
                                    else "bytes")
+
+
+def tree_bytes(bt):
+    """The bytes of W's packed tree: its 16-byte records and bitsets."""
+    return 4 * (bt.recs.numel() + bt.bits.numel())
+
+
+def hold_w_train(label, gbdt, tree, sign):
+    """W on the train bins as DART's drops, rollback and the continued-
+    training replay walk them (`GBDT._walk_binned`: the grower's
+    column-major copy where rows are wide, else the matrix): sign times
+    the tree's values added to the train score, bitwise the plain
+    version and a repeat."""
+    from lightgbm_tpu_torch.ops import predict
+    bins = gbdt._walk_binned
+    n = bins.shape[0]
+    by_columns = predict.walk_by_columns(gbdt._binned)
+    check(bins.stride() == ((1, n) if by_columns else (bins.shape[1], 1)),
+          "%s: W's train bins have strides %s" % (label, bins.stride()))
+    bt = predict.binned_tree(tree, bins.device, tree.leaf_value * sign)
+    outs = []
+    for fn in (predict.tree_value_walk_binned, predict.tree_value_walk_binned,
+               predict.tree_value_walk_binned_plain):
+        sc = gbdt._score[0].clone()
+        fn(bt, bins, sc)
+        outs.append(sc)
+    check(all(bitwise(outs[0], o) for o in outs[1:]),
+          "W on the train bins (%s): not bitwise its repeat and plain"
+          % label)
+    print("W vs plain [%s, %d train rows x %d groups, %s-major, sign %+g]: "
+          "bitwise, repeats equal" % (label, n, bins.shape[1], "column"
+                                      if by_columns else "row", sign))
 
 
 def k1_counts(P, n_max):
@@ -1373,21 +1424,28 @@ def training(name, card, dev):
     tree0 = booster._inner.models[0]
     bt = predict.binned_tree(tree0, dev)
     vb = booster._inner._valid_binned[0]
+    check(vb.is_contiguous() and not predict.walk_by_columns(vb),
+          "the narrow valid bins W walks are not row-major (strides %s)"
+          % (vb.stride(),))
     walked = []
-    for fn in (predict.tree_value_walk_binned, predict.tree_value_walk_binned,
-               predict.tree_value_walk_binned_plain):
-        sc = torch.zeros(VALID_ROWS, dtype=torch.float32, device=dev)
-        fn(bt, vb, sc)
-        walked.append(sc)
-    check(all(torch.equal(walked[0], sc) for sc in walked[1:]),
-          "W differs between launches or from plain")
+    # the booster's row-major bins, and the same bins column-major
+    for bins in (vb, vb.t().contiguous().t()):
+        for fn in (predict.tree_value_walk_binned,
+                   predict.tree_value_walk_binned,
+                   predict.tree_value_walk_binned_plain):
+            sc = torch.zeros(VALID_ROWS, dtype=torch.float32, device=dev)
+            fn(bt, bins, sc)
+            walked.append(sc)
+    check(all(bitwise(walked[0], sc) for sc in walked[1:]),
+          "W differs between launches, layouts or from plain")
     errs["tree_value_walk_binned"] = 0.0
     print("training kernels vs plain [first tree, %d rows]: H all rows "
           "and row list (%d rows), on the first tree's gradients and on "
           "those after %d rounds, within 1e-5 of plain and f64 (max abs "
           "err %.3g), counts exact; S root and children (both gradients) "
-          "bitwise; R partition, leaf ids and score update exact; W exact "
-          "on %d valid rows; every kernel repeated its bits"
+          "bitwise; R partition, leaf ids and score update exact; W bitwise "
+          "on %d valid rows, row- and column-major; every kernel repeated "
+          "its bits"
           % (TRAIN_ROWS, cnt, TRAIN_ROUNDS, errs["leaf_histogram"],
              VALID_ROWS))
 
@@ -1484,11 +1542,11 @@ def training(name, card, dev):
     visits = int(depth[leaf].sum())
     sc = torch.zeros(VALID_ROWS, dtype=torch.float32, device=dev)
     times["tree_value_walk_binned"] = (
-        device_ms(lambda: predict.tree_value_walk_binned(bt, vb, sc),
-                  ("walk_kernel",)),
+        graph_ms(lambda: predict.tree_value_walk_binned(bt, vb, sc),
+                 calls=SHORT_CALLS),
         median_ms(lambda: predict.tree_value_walk_binned_plain(bt, vb, sc),
                  reps=5),
-        bound(visits + 8 * VALID_ROWS + bt.nodes.numel() * 4,
+        bound(visits + 8 * VALID_ROWS + tree_bytes(bt),
               visits * INSTR_PER_VISIT), None)
     # H's row is its f32 mode, launched by the tpu_hist_bf16=false run
     launches["leaf_histogram"] = f32_launches["leaf_histogram"]
@@ -2735,12 +2793,12 @@ def linear(name, card, dev, ctx):
     dep0 = torch.from_numpy(leaf_depths(booster._inner.models[:1])[0]).to(dev)
     v0 = int(dep0[vleaf].sum())
     times["tree_leaf_walk_binned"] = (
-        device_ms(lambda: predict.tree_leaf_walk_binned(bt, vb),
-                  ("walk_kernel",)),
+        graph_ms(lambda: predict.tree_leaf_walk_binned(bt, vb),
+                 calls=SHORT_CALLS),
         median_ms(lambda: predict.tree_leaf_walk_binned(bt, vb)),
         median_ms(lambda: predict.tree_leaf_walk_binned_plain(bt, vb),
                   reps=5),
-        bound(v0 + 4 * VALID_ROWS + bt.nodes.numel() * 4,
+        bound(v0 + 4 * VALID_ROWS + tree_bytes(bt),
               v0 * INSTR_PER_VISIT), None)
     for kk, (dev_ms, ev_ms, plain_ms, (b_ms, b_by), lib_ms) in times.items():
         print("time [%s | %s]: %s %.4f ms (CUDA events around the call; "
@@ -3625,6 +3683,8 @@ def serving_extras(name, card, dev, ctx, phase2_text):
     check(w_replay == split_trees, "the replay launched W %d times for %d "
           "trees" % (w_replay, split_trees))
     check(rel <= 1e-5, "replayed train score off phase 9's by %g" % rel)
+    hold_w_train("the continued-training replay", replay._inner,
+                 replay._inner.models[-1], 1.0)
     del replay
     for fn in counted.values():
         fn.launches = 0
@@ -3884,8 +3944,10 @@ def hilo_oracle(binned, w3, num_bins, rows=None):
 
 def goss_case(g, h, top_k, other_k, key, label):
     """GT and GW against their plain versions on the card (weights and
-    threshold bitwise, a second launch repeating the bits) and the
-    threshold against np.partition on the host."""
+    threshold bitwise, a second launch repeating the bits), GT against the
+    replay of its select (`goss_threshold_order`, bitwise) and the
+    threshold against np.partition on the host (a NaN mag the smallest,
+    as the JAX sort has it)."""
     from lightgbm_tpu_torch.ops import goss
     n = g.shape[0]
     rest_p, mult = goss.goss_rates(n, top_k, other_k)
@@ -3908,13 +3970,18 @@ def goss_case(g, h, top_k, other_k, key, label):
           "GT (%s): mag or threshold not bitwise its plain version" % label)
     check(same(w, w_p), "GW (%s): weights not bitwise the plain version "
           "(%d differ)" % (label, int((w != w_p).sum())))
+    check(same(thr, goss.goss_threshold_order(g, h, top_k)),
+          "GT (%s): threshold not bitwise the replay of its select" % label)
     host = mag.cpu().numpy()
-    part = np.partition(host, n - top_k)[n - top_k]
-    check(np.float32(thr.item()) == part,
+    part = np.partition(np.where(np.isnan(host), -np.inf, host),
+                        n - top_k)[n - top_k]
+    check(np.isnan(thr.item()) if part == -np.inf
+          else np.float32(thr.item()) == part,
           "GT (%s): threshold %r, np.partition %r" % (label, thr.item(),
                                                       part))
     top = int((w == 1.0).sum())
-    check(top >= top_k, "GW (%s): %d top rows of %d" % (label, top, top_k))
+    check(np.isnan(thr.item()) or top >= top_k,
+          "GW (%s): %d top rows of %d" % (label, top, top_k))
     return top
 
 
@@ -4023,6 +4090,9 @@ def boosting_modes(name, card, dev, ctx):
                     launches["tree_value_walk_binned"], drops))
             check(len(gb.tree_weight) == rounds,
                   "dart: ledger of %d weights" % len(gb.tree_weight))
+            # the last round's last dropped tree, taken off the score
+            hold_w_train("a DART drop", gb,
+                         gb.models[(gb.drop_index or [0])[-1]], -1.0)
         auc = evals["valid"]["auc"]
         check(len(auc) == rounds and np.isfinite(auc).all()
               and auc[-1] > 0.7, "%s: valid AUC %s" % (mode, auc))
@@ -4073,19 +4143,47 @@ def boosting_modes(name, card, dev, ctx):
     gen = torch.Generator(device="cpu").manual_seed(26)
     odd_g = torch.randn(ODD_ROWS, generator=gen).to(dev)
     odd_h = torch.rand(ODD_ROWS, generator=gen).to(dev)
+    # ties at the k-th value, NaN (and inf x 0), zero and subnormal mags
+    # (subnormal products and inputs, which GT reads as zero as XLA does)
+    tie_g = torch.round(g19 * 2) / 2
+    nan_g, nan_h = g19.clone(), h19.clone()
+    nan_g[::7] = float("nan")
+    nan_h[::11] = float("inf")
+    nan_g[::13] = 0.0
+    zero_g = torch.where(torch.arange(n, device=dev) % 10 < 7,
+                         torch.zeros_like(g19), g19)
+    tiny = float(np.finfo(np.float32).tiny)
+    sub_g = torch.where(torch.arange(n, device=dev) % 2 == 0, g19 * 1e-20,
+                        g19)
+    sub_h = torch.where(torch.arange(n, device=dev) % 3 == 0, h19 * 1e-19,
+                        h19)
+    sub_h[::5] = tiny / 4
+    n_nan = int(torch.isnan(goss.goss_threshold_plain(
+        nan_g, nan_h, 1)[0]).sum())
     cases = [
         ("all-equal mags", torch.full_like(g19, -0.5),
          torch.full_like(h19, 0.125), top_k),
         ("all-zero mags", torch.zeros_like(g19), h19, top_k),
+        ("ties at the k-th", tie_g, torch.full_like(h19, 0.25), top_k),
+        ("ties, top_k at the tie's end", tie_g, torch.full_like(h19, 0.25),
+         int((goss.goss_magnitude(tie_g, torch.full_like(h19, 0.25))
+              >= goss.goss_threshold_plain(
+                  tie_g, torch.full_like(h19, 0.25), top_k)[1]).sum())),
+        ("NaN and inf mags", nan_g, nan_h, top_k),
+        ("NaN mags, a NaN threshold", nan_g, nan_h, n - n_nan // 2),
+        ("70% zero mags", zero_g, h19, top_k),
+        ("70% zero mags, a zero threshold", zero_g, h19, n // 2),
+        ("subnormal products and inputs", sub_g, sub_h, n // 2),
         ("top_k 1", g19, h19, 1),
         ("top_k n-1", g19, h19, n - 1),
+        ("top_k n", g19, h19, n),
         ("%d rows" % ODD_ROWS, odd_g, odd_h, int(ODD_ROWS * 0.2))]
     for label, g, h, k in cases:
         m = g.shape[0]
         goss_case(g, h, k, max(1, int(m * 0.1)), key, label)
-    print("GT/GW vs plain: all-equal and all-zero mags, top_k 1 and n-1, "
-          "%d rows: weights and threshold bitwise, threshold = "
-          "np.partition, repeats equal" % ODD_ROWS)
+    print("GT/GW vs plain: %s: weights and threshold bitwise, the "
+          "threshold bitwise the replay of GT's select and = np.partition, "
+          "repeats equal" % ", ".join(c[0] for c in cases))
 
     # --------------------------------------------------------------- 27
     hl_err = 0.0
@@ -4221,12 +4319,12 @@ def boosting_modes(name, card, dev, ctx):
     print("clocks [%s]: SM clock, max SM clock: %s (before the timings)"
           % (card, clocks()))
     times = {}
-    gt_ms = device_ms(lambda: goss.goss_threshold(g19, h19, top_k),
-                      ("gt_count_kernel", "gt_pick_kernel", "Memset"))
+    gt_ms = graph_ms(lambda: goss.goss_threshold(g19, h19, top_k),
+                     calls=SHORT_CALLS)
     wbuf = torch.empty(n, device=dev)
     key19 = rng.fold_in(rng.prng_key(seed), 19)
-    gw_ms = device_ms(lambda: goss.goss_weights(mag, thr, key19, rest_p,
-                                                mult, wbuf), ("gw_kernel",))
+    gw_ms = graph_ms(lambda: goss.goss_weights(mag, thr, key19, rest_p,
+                                               mult, wbuf), calls=SHORT_CALLS)
     gt_plain = median_ms(lambda: goss.goss_threshold_plain(g19, h19, top_k),
                          reps=5)
     gw_plain = median_ms(lambda: goss.goss_weights_plain(
@@ -4687,17 +4785,24 @@ def bosch(name, card, dev, ctx):
     bt = predict.binned_tree(tree0, dev)
     vb = booster._inner._valid_binned[0]
     check(vb.dtype == torch.uint16, "the Bosch valid bins are not uint16")
+    check(vb.stride() == (1, BOSCH_VALID_ROWS),
+          "the wide Bosch valid bins W walks are not column-major (strides "
+          "%s)" % (vb.stride(),))
     walked, leaves = [], []
-    for fn in (predict.tree_value_walk_binned,
-               predict.tree_value_walk_binned,
-               predict.tree_value_walk_binned_plain):
-        sc = torch.zeros(BOSCH_VALID_ROWS, dtype=torch.float32, device=dev)
-        fn(bt, vb, sc)
-        walked.append(sc)
-    for fn in (predict.tree_leaf_walk_binned, predict.tree_leaf_walk_binned,
-               predict.tree_leaf_walk_binned_plain):
-        leaves.append(fn(bt, vb))
-    check(all(torch.equal(walked[0], s) for s in walked[1:])
+    # the booster's column-major bins, and the same bins row-major
+    for bins in (vb, vb.contiguous()):
+        for fn in (predict.tree_value_walk_binned,
+                   predict.tree_value_walk_binned,
+                   predict.tree_value_walk_binned_plain):
+            sc = torch.zeros(BOSCH_VALID_ROWS, dtype=torch.float32,
+                             device=dev)
+            fn(bt, bins, sc)
+            walked.append(sc)
+        for fn in (predict.tree_leaf_walk_binned,
+                   predict.tree_leaf_walk_binned,
+                   predict.tree_leaf_walk_binned_plain):
+            leaves.append(fn(bt, bins))
+    check(all(bitwise(walked[0], s) for s in walked[1:])
           and all(torch.equal(leaves[0], v) for v in leaves[1:]),
           "W u16 (value or leaf mode) differs between launches or from "
           "plain")
@@ -5041,18 +5146,18 @@ def bosch(name, card, dev, ctx):
     visits = int(depth[leaf].sum())
     sc = torch.zeros(BOSCH_VALID_ROWS, dtype=torch.float32, device=dev)
     times["tree_value_walk_binned_u16"] = (
-        device_ms(lambda: predict.tree_value_walk_binned(bt, vb, sc),
-                  ("walk_kernel",)),
+        graph_ms(lambda: predict.tree_value_walk_binned(bt, vb, sc),
+                 calls=SHORT_CALLS),
         median_ms(lambda: predict.tree_value_walk_binned_plain(bt, vb, sc),
                   reps=3),
-        bound(2 * visits + 8 * BOSCH_VALID_ROWS + bt.nodes.numel() * 4,
+        bound(2 * visits + 8 * BOSCH_VALID_ROWS + tree_bytes(bt),
               visits * INSTR_PER_VISIT), None)
     times["tree_leaf_walk_binned_u16"] = (
-        device_ms(lambda: predict.tree_leaf_walk_binned(bt, vb),
-                  ("walk_kernel",)),
+        graph_ms(lambda: predict.tree_leaf_walk_binned(bt, vb),
+                 calls=SHORT_CALLS),
         median_ms(lambda: predict.tree_leaf_walk_binned_plain(bt, vb),
                   reps=3),
-        bound(2 * visits + 4 * BOSCH_VALID_ROWS + bt.nodes.numel() * 4,
+        bound(2 * visits + 4 * BOSCH_VALID_ROWS + tree_bytes(bt),
               visits * INSTR_PER_VISIT), None)
     for k in ("split_scan_u16", "split_scan_wide", "route_partition_u16",
               "tree_value_walk_binned_u16", "tree_leaf_walk_binned_u16"):
@@ -5364,7 +5469,7 @@ def categorical(name, card, dev):
     for fn in (predict.tree_leaf_walk_binned, predict.tree_leaf_walk_binned,
                predict.tree_leaf_walk_binned_plain):
         leaves.append(fn(bt, vb))
-    check(all(torch.equal(walked[0], s) for s in walked[1:])
+    check(all(bitwise(walked[0], s) for s in walked[1:])
           and all(torch.equal(leaves[0], v) for v in leaves[1:]),
           "W (categorical; value or leaf mode) differs between launches or "
           "from plain")
@@ -5873,12 +5978,12 @@ def times_41(name, card, dev, cat, q):
     visits = int(depth[cat["leaves"].long()].sum())
     sc = torch.zeros(vb.shape[0], dtype=torch.float32, device=dev)
     times["tree_value_walk_binned_cat"] = (
-        device_ms(lambda: predict.tree_value_walk_binned(bt, vb, sc),
-                  ("walk_kernel",)),
+        graph_ms(lambda: predict.tree_value_walk_binned(bt, vb, sc),
+                 calls=SHORT_CALLS),
         median_ms(lambda: predict.tree_value_walk_binned_plain(bt, vb, sc),
                   reps=3),
-        bound(visits + 8 * vb.shape[0] + bt.nodes.numel() * 4
-              + bt.cat_bits.numel() * 4, visits * INSTR_PER_VISIT), None)
+        bound(visits + 8 * vb.shape[0] + tree_bytes(bt),
+              visits * INSTR_PER_VISIT), None)
     for k in ("split_scan_cat", "route_partition_cat",
               "tree_value_walk_binned_cat"):
         ms, plain_ms, (b_ms, b_by), _ = times[k]
@@ -6583,7 +6688,8 @@ def ab_child(root, rounds, cat_rounds, serving_only=False):
             label + "_DtoD_in_round_ms": in_round(
                 lambda k: "Memcpy DtoD" in k),
             label + "_memset_in_round_ms": in_round(
-                lambda k: "Memset" in k)})
+                lambda k: "Memset" in k),
+            label + "_text_sha": text_sha(booster.model_to_string())})
 
     # S on a leaf pair (a seeded third of the rows and the rest) and on
     # the root, and HQ at the root and on a seeded row list, each by
@@ -6665,6 +6771,7 @@ def ab_child(root, rounds, cat_rounds, serving_only=False):
 
     s_device("higgs", inner)
     r_times("higgs", inner)
+    queue_ab(out, lgb, dev, ds, x, y, grad, hess, lm_x, lm_lid)
     int8 = dict(TRAIN_PARAMS, tpu_hist_quantize="int8")
     hq_device("higgs_u8", lgb.Booster(int8, train_set=ds)._inner, 0)
     rounds_of(lgb.Booster(dict(TRAIN_PARAMS), train_set=ds), rounds, "higgs")
@@ -6680,9 +6787,19 @@ def ab_child(root, rounds, cat_rounds, serving_only=False):
         [gr, he, torch.ones_like(gr)], 1).contiguous(),
         wide_in._grower.num_bins)
     del wds, x, y, wide_in, gr, he, lm_x
-    xb, yb = synth_bosch(BOSCH_ROWS, BOSCH_FEATURES, seed=BOSCH_SEED)
-    bds = lgb.Dataset(xb, yb, params=dict(BOSCH_PARAMS)).construct()
+    xb, yb = synth_bosch(BOSCH_ROWS + BOSCH_VALID_ROWS, BOSCH_FEATURES,
+                         seed=BOSCH_SEED)
+    bds = lgb.Dataset(xb[:BOSCH_ROWS], yb[:BOSCH_ROWS],
+                      params=dict(BOSCH_PARAMS)).construct()
+    # W u16 (PR 18): the first tree on the Bosch valid set, both modes
+    wb = lgb.train(dict(BOSCH_PARAMS), bds, 1, valid_sets=[lgb.Dataset(
+        xb[BOSCH_ROWS:], yb[BOSCH_ROWS:], reference=bds)],
+        verbose_eval=False)
     del xb, yb
+    w_ab(out, "u16", P, wb._inner.models[0], wb._inner._valid_binned[0])
+    w_ab(out, "u16_leaf", P, wb._inner.models[0],
+         wb._inner._valid_binned[0], leaf_mode=True)
+    del wb
     s_device("bosch", lgb.Booster(dict(BOSCH_PARAMS), train_set=bds)._inner)
     h_u16("bosch", lgb.Booster(dict(BOSCH_PARAMS), train_set=bds)._inner,
           AB_BOSCH_H_LIST_ROWS)
@@ -6699,6 +6816,11 @@ def ab_child(root, rounds, cat_rounds, serving_only=False):
     xa, ya, _ = synth_expo(EXPO_ROWS + EXPO_TEST_ROWS, seed=EXPO_SEED)
     cds = lgb.Dataset(xa[:EXPO_ROWS], ya[:EXPO_ROWS],
                       params=dict(EXPO_PARAMS)).construct()
+    # W categorical (PR 18): the first tree on the protocol's test rows
+    wc = lgb.train(dict(EXPO_PARAMS), cds, 1, valid_sets=[lgb.Dataset(
+        xa[EXPO_ROWS:], ya[EXPO_ROWS:], reference=cds)], verbose_eval=False)
+    w_ab(out, "cat", P, wc._inner.models[0], wc._inner._valid_binned[0])
+    del wc
     s_device("cat", lgb.Booster(dict(EXPO_PARAMS), train_set=cds)._inner)
     rounds_of(lgb.Booster(dict(EXPO_PARAMS), train_set=cds), rounds, "cat")
     if cat_rounds:
@@ -6707,6 +6829,112 @@ def ab_child(root, rounds, cat_rounds, serving_only=False):
         torch.cuda.synchronize()
         out["cat_train_%d_s" % cat_rounds] = time.perf_counter() - t0
     print(json.dumps(out), flush=True)
+
+
+def text_sha(text):
+    import hashlib
+    return hashlib.sha256(text.encode()).hexdigest()[:16]
+
+
+def w_ab(out, label, P, tree, bins, leaf_mode=False, sign=1.0):
+    """The A/B's W (PR 18): one tree on `bins` as the checkout's main path
+    hands them (its valid set's, or the train matrix W walks), by CUDA-
+    graph replay, and the hash of one call's output bits."""
+    bt = P.binned_tree(tree, bins.device, tree.leaf_value * sign)
+    if leaf_mode:
+        def call():
+            return P.tree_leaf_walk_binned(bt, bins)
+        bits = call()
+    else:
+        sc = torch.zeros(bins.shape[0], dtype=torch.float32,
+                         device=bins.device)
+
+        def call():
+            P.tree_value_walk_binned(bt, bins, sc)
+        call()
+        bits = sc.view(torch.int32).clone()
+    out["W_%s_sha" % label] = text_sha(
+        bits.cpu().numpy().tobytes().hex())
+    out["W_%s_graph" % label] = graph_ms(call, calls=SHORT_CALLS)
+    out["W_%s_strides" % label] = list(bins.stride())
+
+
+def queue_ab(out, lgb, dev, ds, x, y, grad, hess, lm_x, lm_lid):
+    """The A/B's GT and W on the HIGGS protocol (PR 18), and the kernels
+    no PR has redesigned (LA, R average, Q, GW, M), each by CUDA-graph
+    replay at the main path's shapes; GOSS, DART and linear runs' model
+    text hashes."""
+    from lightgbm_tpu_torch.ops import goss, histogram, route, rng
+    from lightgbm_tpu_torch.ops import linear as lin
+    from lightgbm_tpu_torch.ops import predict as P
+    from lightgbm_tpu_torch.testing.synth import synth_higgs
+    n = grad.shape[0]
+    top_k, other_k = int(n * 0.2), int(n * 0.1)
+    mag, thr = goss.goss_threshold(grad, hess, top_k)
+    out["GT_bits"] = int(thr.view(torch.int32).item())
+    out["GT_graph"] = graph_ms(lambda: goss.goss_threshold(grad, hess,
+                                                           top_k),
+                               calls=SHORT_CALLS)
+    rest_p, mult = goss.goss_rates(n, top_k, other_k)
+    key = rng.fold_in(rng.prng_key(3), 11)
+    wbuf = torch.empty(n, device=dev)
+    out["GW_graph"] = graph_ms(lambda: goss.goss_weights(
+        mag, thr, key, rest_p, mult, wbuf), calls=SHORT_CALLS)
+    out["M_graph"] = graph_ms(lambda: rng.bagging_mask(key, 0.8, wbuf),
+                              calls=SHORT_CALLS)
+    ones = torch.ones_like(grad)
+    out["Q_graph"] = graph_ms(lambda: histogram.quantize_gradients(
+        grad, hess, ones, qmax=127, key_g=(0, 1), key_h=(0, 2),
+        reciprocal_scale=True), calls=SHORT_CALLS)
+    xv, yv = synth_higgs(VALID_ROWS, FEATURES, seed=1)
+    gen = torch.Generator(device=dev).manual_seed(18)
+    values = torch.randn(LEAVES, device=dev, generator=gen)
+    sc = torch.zeros(n, device=dev)
+    out["R_average_train_graph"] = graph_ms(
+        lambda: route.score_average(sc, lm_lid, values, 3),
+        calls=SHORT_CALLS)
+    vadd = torch.randn(VALID_ROWS, device=dev, generator=gen)
+    vsc = torch.zeros(VALID_ROWS, device=dev)
+    out["R_average_valid_graph"] = graph_ms(
+        lambda: route.score_average(vsc, None, vadd, 3), calls=SHORT_CALLS)
+    coeff = torch.randn((LEAVES, 5), device=dev, generator=gen) * 0.1
+    feats = torch.randint(0, FEATURES, (LEAVES, 5), device=dev,
+                          generator=gen, dtype=torch.int32)
+    out["LA_train_graph"] = graph_ms(lambda: lin.linear_addend(
+        lm_x, lm_lid, values, coeff, feats, sc, 1.0), calls=SHORT_CALLS)
+    # the bytes LA's row-major gather must move: the distinct 32-byte
+    # sectors of each row's k values, its leaf id, its score read and
+    # written (the leaves' coefficients stay in cache)
+    row_bytes = lm_x.shape[1] * 4
+    addr = (torch.arange(n, device=dev)[:, None] * row_bytes
+            + feats[lm_lid.long()].long() * 4) // 32
+    addr = addr.sort(1).values
+    sectors = int(n + (addr[:, 1:] != addr[:, :-1]).sum())
+    out["LA_train_gather_bytes"] = 32 * sectors + 12 * n
+    xvd = torch.from_numpy(np.ascontiguousarray(xv, np.float32)).to(dev)
+    vlid = torch.randint(0, LEAVES, (VALID_ROWS,), device=dev,
+                         generator=gen, dtype=torch.int32)
+    out["LA_valid_graph"] = graph_ms(lambda: lin.linear_addend(
+        xvd, vlid, values, coeff, feats, vsc, 1.0), calls=SHORT_CALLS)
+    # W: the first tree of the protocol on its valid set (value and leaf
+    # mode) and on the train matrix as DART's drops walk it (sign -1)
+    hb = lgb.train(dict(TRAIN_PARAMS), ds, 1, valid_sets=[
+        lgb.Dataset(xv, yv, reference=ds)], verbose_eval=False)
+    tree = hb._inner.models[0]
+    vb = hb._inner._valid_binned[0]
+    w_ab(out, "u8", P, tree, vb)
+    w_ab(out, "u8_leaf", P, tree, vb, leaf_mode=True)
+    w_ab(out, "u8_train", P, tree,
+         getattr(hb._inner, "_walk_binned", hb._inner._binned), sign=-1.0)
+    del hb, vb, xvd
+    for mode in ("goss", "dart"):
+        b = lgb.train(dict(MODE_PARAMS[mode]), ds, MODE_ROUNDS[mode],
+                      verbose_eval=False)
+        out["%s_text_sha" % mode] = text_sha(b.model_to_string())
+    lds = lgb.Dataset(x, y, params=dict(LINEAR_PARAMS)).construct()
+    out["linear_text_sha"] = text_sha(lgb.train(
+        dict(LINEAR_PARAMS), lds, TRAIN_ROUNDS,
+        verbose_eval=False).model_to_string())
 
 
 def rank_ab(out, lgb, dev):
@@ -6800,10 +7028,14 @@ def linear_ab(out, dev, x, grad, hess, lid):
                 lambda args=args: lin.linear_normal_eq(*args))
     a5, b5, c5 = lin.linear_normal_eq(*lf5)
     const = torch.zeros(LEAVES, device=dev)
-    out["LS_graph"] = graph_ms(lambda: lin.linear_solve(a5, b5, c5, feats,
-                                                        const, 0.01))
+    out["LS_graph"] = graph_ms(lambda: lin.linear_solve(
+        a5, b5, c5, feats, const, 0.01), calls=SHORT_CALLS)
     out["LS_call"] = median_ms(lambda: lin.linear_solve(a5, b5, c5, feats,
                                                         const, 0.01))
+    a64, b64, c64 = lin.linear_normal_eq(*lf64)
+    const16 = torch.zeros(16, device=dev)
+    out["LS_k64_graph"] = graph_ms(lambda: lin.linear_solve(
+        a64, b64, c64, feats64, const16, 0.01), calls=SHORT_CALLS)
 
 
 def serving_ab(out, lgb, P, dev, synthetic_rows):
@@ -6940,7 +7172,22 @@ def ab_main(argv):
     design: `LF_*_busy` and `LF_*_kernels` (a call whose segments are
     new), `LF_*_call`, `LF_*_host_us` and, where the checkout caches
     the segments, `LF_*_graph`; LS on the k 5 systems (`LS_graph`,
-    `LS_call`);
+    `LS_call`) and at k 64 (`LS_k64_graph`);
+    W (the binned tree walk, PR 18) with the first tree of the HIGGS,
+    Bosch and categorical protocols on each one's valid set as the
+    checkout's booster keeps it (`W_u8`, `W_u8_leaf`, `W_u16`,
+    `W_u16_leaf`, `W_cat`) and on the HIGGS train matrix as DART's drops
+    walk it (`W_u8_train`, sign -1): `W_*_graph`, `W_*_sha` (a call's
+    output bits) and `W_*_strides`; GT (`GT_graph`, `GT_bits`), GW, M,
+    Q (int8), R's average mode on the train rows (255 seeded leaf ids)
+    and the valid rows, and LA on the train and valid rows (k 5), all by
+    CUDA-graph replay at the HIGGS protocol's shapes (`*_graph`: these,
+    W's and LS's a graph of 20 calls, the mean a call), and the
+    bytes LA's row-major gather must move (`LA_train_gather_bytes`: the
+    distinct 32-byte sectors of each row's k values, 12 bytes more a
+    row); the
+    model text hashes of GOSS (20 rounds), DART (10) and linear trees
+    (10) on the HIGGS protocol and of each run below (`*_text_sha`);
     `--rounds` rounds of the HIGGS and the Bosch protocols in hi+lo and
     in int8 and of the categorical protocol, each
     round's seconds and their median from round 2, and one more round

@@ -77,8 +77,8 @@ class DART(GBDT):
         if tree.num_leaves <= 1:
             return
         if not on_valid:
-            self._add_tree_values(tree, self._binned, None, self._score[0],
-                                  sign)
+            self._add_tree_values(tree, self._walk_binned, None,
+                                  self._score[0], sign)
             return
         for vi, vb in enumerate(self._valid_binned):
             self._add_tree_values(tree, vb, None, self._valid_score[vi][0],

@@ -76,7 +76,8 @@ from ..ops.predict import (OutputTransform, QuantRefused, binned_tree,
                            forest_early_stop_walk, forest_leaf_walk,
                            forest_quant_walk, forest_value_walk,
                            forest_value_walk_f16, quant_codes,
-                           tree_leaf_walk_binned, tree_value_walk_binned)
+                           tree_leaf_walk_binned, tree_value_walk_binned,
+                           walk_by_columns, walk_layout)
 from ..ops.rng import bagging_mask, fold_in, prng_key
 from ..ops.route import score_update
 from ..serving.forest import QUANTIZE_MODES, CompiledForest
@@ -397,7 +398,8 @@ class GBDT:
                 m.init(valid_data.metadata, valid_data.num_data)
                 ms.append(m)
         self.valid_metrics.append(ms)
-        vb = self._device_bins(valid_data.binned)
+        # W walks wide valid bins column-major on the card (walk_layout)
+        vb = walk_layout(self._device_bins(valid_data.binned))
         self._valid_binned.append(vb)
         # linear trees score a valid set from its raw values (inner space,
         # gbdt.py:1074-1085)
@@ -544,6 +546,14 @@ class GBDT:
         fitted.leaf_features_inner = feats
         return Tree.from_grower_state(fitted, self.train_data)
 
+    @property
+    def _walk_binned(self) -> torch.Tensor:
+        """The train bins as W walks them (`walk_layout`'s rule): the
+        grower's column-major copy, the one R reads, where rows are wide
+        on the card; else the matrix itself."""
+        return self._grower._route_bins if walk_by_columns(self._binned) \
+            else self._binned
+
     def _add_tree_values(self, tree: Tree, binned: torch.Tensor,
                          raw: Optional[torch.Tensor], score: torch.Tensor,
                          sign: float = 1.0) -> None:
@@ -596,7 +606,7 @@ class GBDT:
             return
         tree = self.models.pop()
         if tree.num_leaves > 1:
-            self._add_tree_values(tree, self._binned, self._raw,
+            self._add_tree_values(tree, self._walk_binned, self._raw,
                                   self._score[0], -1.0)
             for vi, vb in enumerate(self._valid_binned):
                 self._add_tree_values(tree, vb, self._valid_raw[vi],

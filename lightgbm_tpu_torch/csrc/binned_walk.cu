@@ -1,97 +1,127 @@
 // Kernel W, tree_value_walk_binned, of lightgbm_tpu_torch: add one
-// tree's value to every row's score, walking the tree in bin space,
-// built for sm_90a by ops/_build.py and called through ctypes from
-// ops/predict.py.
+// tree's value to every row's score, or write every row's leaf, walking
+// the tree in the stored-group bin space of a binned matrix; built for
+// sm_90a by ops/_build.py and called through ctypes from ops/predict.py.
 //
-// Replaces lightgbm_tpu/ops/predict.py predict_value_binned (:182) with
-// predict_leaf_binned (:87) and _decide_binned (:75), which the JAX
-// trainer runs once per tree on every valid set (and on the train set
-// to roll a tree back). The TPU walks all rows in lockstep, one gather
-// per level; here one thread walks its row down the tree, reading the
-// row's group bin at each node, decoding the feature's bin out of its
-// EFB group, and deciding as _decide_binned does (NaN / zero missing to
-// default_left, categorical bitsets in bin space, else bin <=
-// threshold). It then adds the leaf's f32 value to the row's score: one
-// add, the same the plain version makes, so the two agree exactly.
+// Replaces lightgbm_tpu/ops/predict.py predict_value_binned (:182) and
+// predict_leaf_binned (:87) with _decide_binned (:75) and _in_bitset
+// (:63), which the JAX trainer runs once per tree on every valid set
+// (boosting/gbdt.py:1563-1581), and on the train set to drop, re-weigh
+// or roll back a tree and to replay a loaded model.
 //
-// Bound on an H100 (3.35 TB/s): read G bytes of bins a row (only the
-// depth-many the walk touches, one 32-byte sector each), read and write
-// the f32 score; the tree itself (a few KB) stays in L1. For the
-// 262,144-row valid set of the main path: 262,144 x (28 + 8) bytes,
-// 9.4 MB, 0.003 ms.
+// A node is one 16-byte record (ops/predict.py walk_records), its EFB
+// decode folded into group-bin space when the tree is packed on the
+// host: x the group | flags << 28, y the node's bin range lo | span <<
+// 16, z its test, w the children (int16 each, ~leaf below 0). A group
+// bin b is in range when r = b - lo, unsigned, is at most span: a
+// bundled feature's slice [offset, offset + num_bin), all of it for an
+// unbundled numeric one. Out of range the node sends b where
+// _decide_binned sends the feature's default bin (kOutLeft). In range, a
+// numeric node (z = t | s << 16) sends r to default_left when r is its
+// missing bin s, else left when r <= t (kNoneLeft: no bin goes left); a
+// categorical one reads bit r of its own bitset (z its first word), a
+// copy of the tree's bin-space bitset re-based to the range and padded
+// with zeros, or of z itself where the range holds at most 32 bins
+// (kInline, the bit kNoneLeft is on a numeric node). So each decision is
+// the JAX function's for every group bin (tests/test_torch_walk_plan.py
+// pins it over all of them) with one 16-byte load a level, where the
+// record of eleven int32 fields cost eleven scattered loads and the
+// decode a level.
 //
-// Leaf mode (leaf_out not NULL): the same walk writes each row's leaf
-// index instead of adding a value, for linear trees, whose valid-set
-// value LA then computes from the leaf and the row's raw values
-// (lightgbm_tpu/boosting/gbdt.py:1563-1581: predict_leaf_binned, then
-// linear_leaf_addend). Bound: G bytes of bins read, 4 written a row.
+// Each block first copies the tree's records and bitsets into shared
+// memory (4 KB for 255 leaves), so a level's record load is one
+// ld.shared.v4 whatever node each lane is at; a tree past the plan's
+// budget is read from device memory (ld.global.nc.v4) instead. A thread
+// walks one row. The bins come row-major or column-major (group g of row
+// r at r * row_stride + g * group_stride). Where rows are wide the
+// callers hand W a column-major copy (ops/predict.py walk_layout: the
+// booster's of each valid set, the grower's of the train matrix), where
+// the lanes of a warp at the same node read one group's bins of 32
+// consecutive rows, a sector or two, instead of a sector a row: on the
+// Bosch valid set (676-byte rows, a 255-leaf tree 48 levels deep, 23 on
+// average) that halves the time. A narrow row (HIGGS' 28 bytes) stays
+// row-major: its sector stays in L1 for the whole walk, where a column
+// costs a sector a level. Speculating a level ahead (both children's
+// bins loaded before the decision), staging the rows in shared memory
+// and two rows a thread were timed on the card too, and were slower or
+// no faster (PERF.md, PR 18).
 //
-// A uint16 matrix (groups past 256 bins) takes the same walk on two-byte
-// bins (walk_kernel<uint16_t>), in both modes. For the Bosch valid set
-// (100,000 rows x 338 groups) the bound counts the bins the walk reads
-// (depth-many a row), the score read and written, or the leaf written:
-// chip_smoke.py computes it from the run's own trees.
+// The value is added as the plain version adds it, score[r] +=
+// leaf_value[leaf], one f32 add, so the two agree bitwise; leaf mode
+// writes the leaf.
+//
+// Bound on an H100 (3.35 TB/s): the bins the walk must read (one group
+// bin a level of each row's path) and the f32 score read and written
+// (value mode) or the int32 leaf written (leaf mode); chip_smoke.py
+// counts it from the run's trees and rows. For the HIGGS valid set
+// (262,144 rows x 28 uint8 groups, 9.1 levels a row): 262,144 x (9.1 +
+// 8) bytes, 4.5 MB, 0.0013 ms.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
-constexpr int kBlock = 256;
-constexpr int kMissingZero = 1;
-constexpr int kMissingNan = 2;
-// node record fields (int32, kFields a node)
-enum {
-  kGroup, kOffset, kNumBin, kBundled, kDefaultBin, kNanBin, kMissing,
-  kThreshold, kFlags, kLeft, kRight, kFields
-};
-constexpr int kDefaultLeftFlag = 1;
-constexpr int kCategoricalFlag = 2;
+constexpr int kThreads = 256;
+constexpr uint32_t kGroupMask = (1u << 28) - 1;
+constexpr uint32_t kCat = 1u << 31;
+constexpr uint32_t kDefaultLeft = 1u << 30;
+constexpr uint32_t kOutLeft = 1u << 29;
+constexpr uint32_t kNoneLeft = 1u << 28;
+constexpr uint32_t kInline = kNoneLeft;  // on a categorical node
 
-template <typename BinT>
-__global__ void walk_kernel(const BinT* __restrict__ binned, int G, int n,
-                            const int* __restrict__ nodes, int num_leaves,
-                            const int* __restrict__ cat_bounds,
-                            const uint32_t* __restrict__ cat_bits,
-                            int cat_words,
-                            const float* __restrict__ leaf_value,
-                            float* __restrict__ score,
-                            int* __restrict__ leaf_out) {
-  const int r = blockIdx.x * kBlock + threadIdx.x;
+// which way record rec sends group bin b (the words of the node's
+// bitsets from `bits`)
+__device__ __forceinline__ bool goes_left(const uint4 rec, int b,
+                                          const uint32_t* bits) {
+  const uint32_t r = (uint32_t)b - (rec.y & 0xFFFFu);
+  if (r > (rec.y >> 16)) return (rec.x & kOutLeft) != 0;
+  if (rec.x & kCat) {
+    const uint32_t word =
+        (rec.x & kInline) ? rec.z : bits[rec.z + (r >> 5)];
+    return (word >> (r & 31)) & 1u;
+  }
+  if (r == (rec.z >> 16)) return (rec.x & kDefaultLeft) != 0;
+  return r <= (rec.z & 0xFFFFu) && !(rec.x & kNoneLeft);
+}
+
+__device__ __forceinline__ int child(const uint4 rec, bool left) {
+  return left ? (int)(int16_t)(rec.w & 0xFFFFu)
+              : (int)(int16_t)(rec.w >> 16);
+}
+
+// kShared: the tree's records and bitsets staged in shared memory
+template <typename BinT, bool kShared>
+__global__ void __launch_bounds__(kThreads)
+walk_kernel(const BinT* __restrict__ binned, long long row_stride,
+            long long group_stride, int n, const uint4* __restrict__ recs,
+            int num_rec, const uint32_t* __restrict__ bits, int num_bits,
+            const float* __restrict__ leaf_value, float* __restrict__ score,
+            int* __restrict__ leaf_out) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  uint4* s_rec = reinterpret_cast<uint4*>(smem);
+  uint32_t* s_bits = reinterpret_cast<uint32_t*>(s_rec + num_rec);
+  if (kShared) {
+    for (int i = threadIdx.x; i < num_rec; i += kThreads)
+      s_rec[i] = __ldg(recs + i);
+    for (int i = threadIdx.x; i < num_bits; i += kThreads)
+      s_bits[i] = __ldg(bits + i);
+    __syncthreads();
+  }
+  const uint4* rec_at = kShared ? s_rec : recs;
+  const uint32_t* bits_at = kShared ? s_bits : bits;
+  const long long r = (long long)blockIdx.x * kThreads + threadIdx.x;
   if (r >= n) return;
-  const BinT* row = binned + (size_t)r * G;
-  int node = num_leaves > 1 ? 0 : -1;
-  while (node >= 0) {
-    const int* nd = nodes + node * kFields;
-    int bin = __ldg(row + __ldg(nd + kGroup));
-    if (__ldg(nd + kBundled)) {
-      const int off = __ldg(nd + kOffset);
-      bin = (bin >= off && bin < off + __ldg(nd + kNumBin))
-                ? bin - off
-                : __ldg(nd + kDefaultBin);
+  const BinT* row = binned + r * row_stride;
+  int node = num_rec > 0 ? 0 : -1;
+  if (node == 0) {
+    uint4 rec = rec_at[0];
+    while (true) {
+      const int b = (int)__ldg(row + (rec.x & kGroupMask) * group_stride);
+      node = child(rec, goes_left(rec, b, bits_at));
+      if (node < 0) break;
+      rec = rec_at[node];
     }
-    const int flags = __ldg(nd + kFlags);
-    const int thr = __ldg(nd + kThreshold);
-    bool left;
-    if (flags & kCategoricalFlag) {
-      const int idx = thr > 0 ? thr : 0;
-      const int lo = __ldg(cat_bounds + idx);
-      const int words = __ldg(cat_bounds + idx + 1) - lo;
-      const int w = bin >> 5;
-      left = false;
-      if (w < words) {
-        int at = lo + w;
-        at = at < 0 ? 0 : (at >= cat_words ? cat_words - 1 : at);
-        left = (__ldg(cat_bits + at) >> (bin & 31)) & 1u;
-      }
-    } else {
-      const int missing = __ldg(nd + kMissing);
-      const bool is_missing =
-          (missing == kMissingNan && bin == __ldg(nd + kNanBin)) ||
-          (missing == kMissingZero && bin == __ldg(nd + kDefaultBin));
-      left = is_missing ? (flags & kDefaultLeftFlag) != 0 : bin <= thr;
-    }
-    node = left ? __ldg(nd + kLeft) : __ldg(nd + kRight);
   }
   if (leaf_out) {
     leaf_out[r] = ~node;
@@ -100,31 +130,63 @@ __global__ void walk_kernel(const BinT* __restrict__ binned, int G, int n,
   }
 }
 
+template <typename BinT, bool kShared>
+int launch(const void* binned, long long row_stride, long long group_stride,
+           int n, const uint4* recs, int num_rec, const uint32_t* bits,
+           int num_bits, int smem_bytes, const float* leaf_value,
+           float* score, int* leaf_out, cudaStream_t s) {
+  auto kernel = walk_kernel<BinT, kShared>;
+  if (smem_bytes > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
+    if (err != cudaSuccess) return (int)err;
+  }
+  const int blocks = (int)(((long long)n + kThreads - 1) / kThreads);
+  kernel<<<blocks, kThreads, smem_bytes, s>>>(
+      static_cast<const BinT*>(binned), row_stride, group_stride, n, recs,
+      num_rec, bits, num_bits, leaf_value, score, leaf_out);
+  return (int)cudaGetLastError();
+}
+
+template <typename BinT>
+int launch_any(const void* binned, long long row_stride,
+               long long group_stride, int n, const uint4* recs, int num_rec,
+               const uint32_t* bits, int num_bits, int smem_bytes,
+               const float* leaf_value, float* score, int* leaf_out,
+               cudaStream_t s) {
+  return smem_bytes > 0
+             ? launch<BinT, true>(binned, row_stride, group_stride, n, recs,
+                                  num_rec, bits, num_bits, smem_bytes,
+                                  leaf_value, score, leaf_out, s)
+             : launch<BinT, false>(binned, row_stride, group_stride, n, recs,
+                                   num_rec, bits, num_bits, 0, leaf_value,
+                                   score, leaf_out, s);
+}
+
 }  // namespace
 
-// binned [n, G] u8, or u16 when u16 != 0; nodes [max(num_leaves-1, 1), 11] int32 records;
-// cat_bounds [C+2] / cat_bits [W] the bin-space bitsets; leaf_value
-// [num_leaves] f32; score [n] f32, added to in place; or, when
-// leaf_out [n] i32 is not NULL, the rows' leaves written there and
-// score untouched.
+// binned: u8, or u16 when u16 != 0, group g of row r at r * row_stride +
+// g * group_stride (elements); recs [num_rec] 16-byte records (num_rec
+// 0: a one-leaf tree); bits [num_bits] the nodes' re-based bitsets;
+// smem_bytes: the records and bitsets staged in that much dynamic
+// shared memory, or read from device memory when 0 (ops/predict.py
+// binned_walk_plan); leaf_value [L] f32; score [n] f32, added to in
+// place; or, when leaf_out [n] i32 is not NULL, the rows' leaves written
+// there and score untouched. Returns cudaGetLastError().
 extern "C" int lgbt_tree_value_walk_binned(
-    const void* binned, int G, int u16, int n, const int* nodes,
-    int num_leaves, const int* cat_bounds, const uint32_t* cat_bits,
-    int cat_words, const float* leaf_value, float* score, int* leaf_out,
-    void* stream) {
+    const void* binned, long long row_stride, long long group_stride,
+    int u16, int n, const int* recs, int num_rec, const uint32_t* bits,
+    int num_bits, int smem_bytes, const float* leaf_value, float* score,
+    int* leaf_out, void* stream) {
   if (n <= 0) return 0;
-  const int blocks = (n + kBlock - 1) / kBlock;
+  const uint4* r4 = reinterpret_cast<const uint4*>(recs);
   cudaStream_t s = (cudaStream_t)stream;
-  if (u16) {
-    walk_kernel<uint16_t><<<blocks, kBlock, 0, s>>>(
-        static_cast<const uint16_t*>(binned), G, n, nodes, num_leaves,
-        cat_bounds, cat_bits, cat_words, leaf_value, score, leaf_out);
-  } else {
-    walk_kernel<uint8_t><<<blocks, kBlock, 0, s>>>(
-        static_cast<const uint8_t*>(binned), G, n, nodes, num_leaves,
-        cat_bounds, cat_bits, cat_words, leaf_value, score, leaf_out);
-  }
-  return (int)cudaGetLastError();
+  return u16 ? launch_any<uint16_t>(binned, row_stride, group_stride, n, r4,
+                                    num_rec, bits, num_bits, smem_bytes,
+                                    leaf_value, score, leaf_out, s)
+             : launch_any<uint8_t>(binned, row_stride, group_stride, n, r4,
+                                   num_rec, bits, num_bits, smem_bytes,
+                                   leaf_value, score, leaf_out, s);
 }
 
 extern "C" const char* lgbt_error_string(int code) {

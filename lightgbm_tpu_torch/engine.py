@@ -133,8 +133,8 @@ def _replay_sum(gbdt, trees, score: torch.Tensor) -> None:
             return total(block[:half]) + total(block[half:])
         buf = torch.zeros_like(score)
         for t in block:
-            tree_value_walk_binned(binned_tree(t, gbdt.device), gbdt._binned,
-                                   buf)
+            tree_value_walk_binned(binned_tree(t, gbdt.device),
+                                   gbdt._walk_binned, buf)
         return buf
     score += total(trees)
 
@@ -180,7 +180,7 @@ def _continue_from(booster: Booster, init_booster: Booster) -> None:
                     "requires linear_tree=true in the continuing params "
                     "(the score replay needs the raw feature matrix)")
             for t in class_trees:
-                inner._add_tree_values(t, inner._binned, inner._raw,
+                inner._add_tree_values(t, inner._walk_binned, inner._raw,
                                        inner._score[cls])
         else:
             _replay_sum(inner, class_trees, inner._score[cls])

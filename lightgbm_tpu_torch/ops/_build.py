@@ -70,6 +70,7 @@ LIBRARIES = {
         + [_i, _i] + [_p] * 5,
     }, _NO_FMA),
     "goss": ("goss.cu", {
+        "lgbt_goss_scratch_ints": [],
         "lgbt_goss_threshold": [_p, _p, _i, _i, _p, _p, _p, _p],
         "lgbt_goss_weights": [_p, _p, _i, _u, _u, _f, _f, _p, _p],
     }, _NO_FMA),
@@ -90,8 +91,8 @@ LIBRARIES = {
         + [_p, _i, _p, _i, _p, _i, _i, _i] + [_p] * 7,
     }, _NO_FMA),
     "walk": ("binned_walk.cu", {
-        "lgbt_tree_value_walk_binned": [_p, _i, _i, _i, _p, _i, _p, _p, _i,
-                                        _p, _p, _p, _p],
+        "lgbt_tree_value_walk_binned": [_p, _ll, _ll, _i, _i, _p, _i, _p,
+                                        _i, _i, _p, _p, _p, _p],
     }, _NO_FMA),
     "linear": ("linear.cu", {
         "lgbt_linear_normal_eq": [_p, _i] + [_p] * 5 + [_i, _p] + [_i] * 4

@@ -1077,67 +1077,255 @@ del _walk
 
 # ----------------------------------------------------------------------
 # W: one tree in bin space
-# node record fields of csrc/binned_walk.cu, int32 each
+# the tree's own bin-space fields, int32 each, as the plain version reads
+# them (_decide_binned's inputs)
 _NODE_FIELDS = ("node_group", "node_offset", "node_num_bin", "node_bundled",
                 "node_default_bin", "node_nan_bin", "node_missing",
                 "threshold_in_bin", "flags", "left_child", "right_child")
 
+# csrc/binned_walk.cu's 16-byte record (walk_records): x the group and
+# four flags, y lo | span << 16, z the test, w the children as int16
+WALK_GROUP_BITS = 28
+WALK_CAT = 1 << 31
+WALK_DEFAULT_LEFT = 1 << 30
+WALK_OUT_LEFT = 1 << 29
+WALK_NONE_LEFT = 1 << 28
+# the same bit on a categorical node: its bitset word is z itself
+WALK_INLINE = WALK_NONE_LEFT
+# children are int16: nodes 0..32766, leaves ~0..~32767
+WALK_MAX_NODES = 32767
+# a tree's records and bitsets up to this many bytes are staged in each
+# block's shared memory (255 leaves: 4 KB); larger trees are read from
+# device memory
+WALK_TREE_SMEM_BYTES = 64 * 1024
+# rows wider than this are walked column-major on the card (walk_layout):
+# Bosch's 676 bytes; HIGGS' 28 and the categorical protocol's 40 stay
+# row-major
+WALK_COLUMN_ROW_BYTES = 64
+
 
 @dataclass
 class BinnedTree:
-    """One tree as the bin-space walk reads it: node records [M, 11]
-    int32 (see _NODE_FIELDS; flags = default_left | categorical << 1),
-    bin-space categorical bitsets and f32 leaf values."""
+    """One tree as the bin-space walk reads it: the kernel's 16-byte
+    records [max(L-1, 0), 4] and their re-based bitsets (`walk_records`),
+    and beside them the tree's own fields for the plain version: [max(L-1,
+    1), 11] int32 (see _NODE_FIELDS; flags = default_left | categorical
+    << 1) and its bin-space bitsets; f32 leaf values. All are views of one
+    device buffer, uploaded in one copy (`binned_tree`)."""
+    recs: torch.Tensor          # [max(L-1, 0), 4] i32
+    bits: torch.Tensor          # [B] i32 holding u32 words
     nodes: torch.Tensor         # [max(L-1, 1), 11] i32
     cat_bounds: torch.Tensor    # [C+2] i32
     cat_bits: torch.Tensor      # [W] i32 holding u32 words
     leaf_value: torch.Tensor    # [L] f32
     num_leaves: int
-    max_depth: int
     categorical: bool = False   # a node splits on a categorical feature
+
+
+def _tree_fields(tree) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """The plain version's inputs: the [max(L-1, 1), 11] fields, the
+    bitset bounds padded by two copies of the last, and the bitset words
+    (one zero word where there are none)."""
+    m = max(tree.num_leaves - 1, 0)
+    rec = np.zeros((max(m, 1), len(_NODE_FIELDS)), np.int32)
+    dt = np.asarray(tree.decision_type[:m], np.int64)
+    for j, name in enumerate(_NODE_FIELDS):
+        if name == "flags":
+            col = ((dt & _DEFAULT_LEFT_BIT) != 0) | (((dt & _CAT_BIT) != 0)
+                                                     << 1)
+        elif name == "node_missing":
+            col = (dt >> 2) & 3
+        else:
+            col = np.asarray(getattr(tree, name))[:m]
+        rec[:m, j] = np.asarray(col, np.int64)
+    bounds = np.asarray(tree.cat_boundaries_inner, np.int32)
+    bounds = np.concatenate([bounds, np.full(2, bounds[-1], np.int32)])
+    bits = np.asarray(tree.cat_threshold_inner, np.uint32)
+    if bits.size == 0:
+        bits = np.zeros(1, np.uint32)
+    return rec, bounds, bits
+
+
+def walk_records(tree) -> Tuple[np.ndarray, np.ndarray]:
+    """W's records of a tree with bin metadata: ([max(L-1, 0), 4] int32,
+    [B] uint32 bitset words), each node's EFB decode and decision folded
+    into group-bin space (csrc/binned_walk.cu says how a record decides;
+    `walk_decide` replays it). A tree of more than WALK_MAX_NODES nodes
+    or a group index past 2^28 is refused by name."""
+    m = max(tree.num_leaves - 1, 0)
+    if m > WALK_MAX_NODES:
+        raise LightGBMError(
+            "the binned walk takes trees of at most %d leaves (got %d)"
+            % (WALK_MAX_NODES + 1, tree.num_leaves))
+    i64 = lambda a: np.asarray(a, np.int64)[:m]  # noqa: E731
+    group, off, nb = (i64(tree.node_group), i64(tree.node_offset),
+                      i64(tree.node_num_bin))
+    dflt, nanb, thr = (i64(tree.node_default_bin), i64(tree.node_nan_bin),
+                       i64(tree.threshold_in_bin))
+    bundled = np.asarray(tree.node_bundled, bool)[:m]
+    dt = i64(tree.decision_type)
+    cat = (dt & _CAT_BIT) != 0
+    dl = (dt & _DEFAULT_LEFT_BIT) != 0
+    miss = (dt >> 2) & 3
+    if m and (group.min() < 0 or group.max() >= 1 << WALK_GROUP_BITS):
+        raise LightGBMError("the binned walk takes group indices below 2^%d"
+                            % WALK_GROUP_BITS)
+    lo = np.where(bundled, off, 0)
+    # the decision at the feature's default bin: out of a bundled node's
+    # range the decode gives that bin
+    _, bounds, cbits = _tree_fields(tree)
+    idx = np.clip(np.maximum(thr, 0), 0, bounds.shape[0] - 2)
+    wlo = bounds[idx].astype(np.int64)
+    nwords = bounds[idx + 1].astype(np.int64) - wlo
+    dw = dflt >> 5
+    dword = cbits[np.clip(wlo + dw, 0, cbits.shape[0] - 1)].astype(np.int64)
+    cat_at_default = ((dflt >= 0) & (dw < nwords)
+                      & (((dword >> (dflt & 31)) & 1) == 1))
+    missing_at_default = (((miss == MISSING_NAN) & (dflt == nanb))
+                          | (miss == MISSING_ZERO))
+    num_at_default = np.where(missing_at_default, dl, dflt <= thr)
+    out_left = bundled & np.where(cat, cat_at_default, num_at_default)
+    # in range: a bundled feature's slice; all of an unbundled numeric
+    # one; an unbundled categorical one's words (no bin past them is in
+    # its set)
+    span = np.where(bundled, np.maximum(nb - 1, 0),
+                    np.where(cat, np.minimum(32 * np.maximum(nwords, 1),
+                                             1 << 16) - 1, 0xFFFF))
+    # numeric: the missing bin s, and left when r <= t
+    s = np.where(miss == MISSING_NAN, nanb, dflt)
+    has_s = (((miss == MISSING_NAN) | (miss == MISSING_ZERO))
+             & (s >= 0) & (s <= span))
+    none_left = ~cat & (thr < 0)
+    t = np.clip(thr, 0, 0xFFFF)
+    dl_eff = np.where(has_s, dl, ~none_left)   # the normal decision at r 0
+    z = np.where(has_s, s, 0) << 16 | t
+    # categorical: the node's words re-based to its range, zero-padded;
+    # a range of at most 32 bins keeps its one word in z (WALK_INLINE)
+    def word(at, j):
+        w = cbits[np.clip(wlo[at] + j, 0, cbits.shape[0] - 1)]
+        return np.where(j < nwords[at], w.astype(np.int64), 0)
+
+    inline = cat & (span < 32)
+    at = np.flatnonzero(inline)
+    z[at] = word(at, 0)
+    at = np.flatnonzero(cat & ~inline)
+    need = (span[at] >> 5) + 1
+    start = np.cumsum(need) - need
+    z[at] = start
+    owner = np.repeat(at, need)
+    bits = word(owner, np.arange(int(need.sum())) - np.repeat(start, need))
+    bits = bits.astype(np.uint32) if bits.size else np.zeros(1, np.uint32)
+    x = (group | cat.astype(np.int64) << 31
+         | (~cat & dl_eff).astype(np.int64) << 30
+         | out_left.astype(np.int64) << 29
+         | (none_left | inline).astype(np.int64) << 28)
+    y = lo | span << 16
+    lc, rc = i64(tree.left_child), i64(tree.right_child)
+    w = (lc & 0xFFFF) | (rc & 0xFFFF) << 16
+    recs = np.stack([x, y, z, w], 1).astype(np.uint32).view(np.int32)
+    return recs.reshape(m, 4), bits.astype(np.uint32)
+
+
+def walk_decide(recs: np.ndarray, bits: np.ndarray, node: np.ndarray,
+                b: np.ndarray) -> np.ndarray:
+    """[K] bool: which way record `node` sends group bin `b`, replayed in
+    numpy as csrc/binned_walk.cu's goes_left decides."""
+    rec = recs.view(np.uint32).astype(np.int64)[node]
+    x, y, z = rec[..., 0], rec[..., 1], rec[..., 2]
+    r = (np.asarray(b, np.int64) - (y & 0xFFFF)) & 0xFFFFFFFF
+    at = np.clip(z + (r >> 5), 0, bits.shape[0] - 1)
+    word = np.where((x & WALK_INLINE) != 0, z, bits.astype(np.int64)[at])
+    cat = ((word >> (r & 31)) & 1) == 1
+    num = np.where(r == z >> 16, (x & WALK_DEFAULT_LEFT) != 0,
+                   (r <= (z & 0xFFFF)) & ((x & WALK_NONE_LEFT) == 0))
+    inside = np.where((x & WALK_CAT) != 0, cat, num)
+    return np.where(r > y >> 16, (x & WALK_OUT_LEFT) != 0, inside)
+
+
+def walk_leaves_replay(recs: np.ndarray, bits: np.ndarray,
+                       binned: np.ndarray) -> np.ndarray:
+    """[N] int32 leaf of each row of binned [N, G], replaying W's walk
+    over its records in numpy, a level of all rows a step."""
+    n = binned.shape[0]
+    node = np.full(n, 0 if recs.shape[0] else -1, np.int64)
+    rows = np.arange(n)
+    kids = recs.view(np.uint32)[:, 3].astype(np.uint32)
+    left_of = kids.astype(np.uint16).view(np.int16).astype(np.int64)
+    right_of = (kids >> 16).astype(np.uint16).view(np.int16).astype(
+        np.int64)
+    groups = recs.view(np.uint32)[:, 0].astype(np.int64) & (
+        (1 << WALK_GROUP_BITS) - 1)
+    while (node >= 0).any():
+        live = np.flatnonzero(node >= 0)
+        nd = node[live]
+        b = binned[rows[live], groups[nd]].astype(np.int64)
+        left = walk_decide(recs, bits, nd, b)
+        node[live] = np.where(left, left_of[nd], right_of[nd])
+    return (~node).astype(np.int32)
 
 
 def binned_tree(tree, device: torch.device,
                 leaf_value: Optional[np.ndarray] = None) -> BinnedTree:
     """A host Tree (with bin metadata) laid out for W; `leaf_value`
     overrides the tree's own (rollback adds the negated values). A
-    linear tree's values are its intercepts: W's leaf mode serves it."""
+    linear tree's values are its intercepts: W's leaf mode serves it.
+    The records, the plain version's fields and the values go up in one
+    copy."""
     if not tree.has_bin_metadata:
         raise LightGBMError("the binned walk needs a tree with bin "
                             "metadata (Tree.attach_bin_metadata)")
-    m = max(tree.num_leaves - 1, 1)
-    rec = np.zeros((m, len(_NODE_FIELDS)), np.int32)
-    nodes = max(tree.num_leaves - 1, 0)
-    for j, name in enumerate(_NODE_FIELDS):
-        if name == "flags":
-            col = [(1 if tree.default_left_node(i) else 0)
-                   | (2 if tree.is_categorical_node(i) else 0)
-                   for i in range(nodes)]
-        elif name == "node_missing":
-            col = [tree.missing_type_node(i) for i in range(nodes)]
-        else:
-            col = np.asarray(getattr(tree, name))[:nodes]
-        rec[:nodes, j] = np.asarray(col, np.int64)
-    values = tree.leaf_value if leaf_value is None else leaf_value
-    bounds = np.asarray(tree.cat_boundaries_inner, np.int32)
-    bounds = np.concatenate([bounds, np.full(2, bounds[-1], np.int32)])
-    bits = np.asarray(tree.cat_threshold_inner, np.uint32)
-    if bits.size == 0:
-        bits = np.zeros(1, np.uint32)
-    return BinnedTree(
-        nodes=torch.from_numpy(rec).to(device),
-        cat_bounds=torch.from_numpy(bounds).to(device),
-        cat_bits=torch.from_numpy(bits.view(np.int32)).to(device),
-        leaf_value=torch.from_numpy(
-            np.asarray(values, np.float32).copy()).to(device),
-        num_leaves=int(tree.num_leaves), max_depth=_tree_depth(tree),
-        categorical=any(tree.is_categorical_node(i) for i in range(nodes)))
+    values = np.ascontiguousarray(tree.leaf_value if leaf_value is None
+                                  else leaf_value, np.float32)
+    m = max(tree.num_leaves - 1, 0)
+    recs, bits = walk_records(tree)
+    fields_, bounds, cbits = _tree_fields(tree)
+    parts = [recs.ravel(), bits.view(np.int32), fields_.ravel(), bounds,
+             cbits.view(np.int32), values.view(np.int32)]
+    buf = torch.from_numpy(np.concatenate(parts)).to(device)
+    views, at = [], 0
+    for p in parts:
+        views.append(buf[at:at + p.size])
+        at += p.size
+    out = BinnedTree(
+        recs=views[0].view(m, 4), bits=views[1],
+        nodes=views[2].view(fields_.shape), cat_bounds=views[3],
+        cat_bits=views[4], leaf_value=views[5].view(torch.float32),
+        num_leaves=int(tree.num_leaves),
+        categorical=bool(((np.asarray(tree.decision_type[:m]) & _CAT_BIT)
+                          != 0).any()))
+    return out
+
+
+def binned_walk_smem(num_rec: int, num_bits: int) -> int:
+    """W's dynamic shared memory for a tree of `num_rec` records and
+    `num_bits` bitset words: the tree staged in each block, or 0 (read
+    from device memory) past WALK_TREE_SMEM_BYTES."""
+    tree_bytes = -(-(num_rec * 16 + num_bits * 4) // 16) * 16
+    return tree_bytes if tree_bytes <= WALK_TREE_SMEM_BYTES else 0
+
+
+def walk_by_columns(binned: torch.Tensor) -> bool:
+    """Whether W walks `binned` [N, G] best column-major: on the card,
+    rows wider than WALK_COLUMN_ROW_BYTES. There the lanes of a warp at
+    one node read one group's bins of consecutive rows, where a row-major
+    row costs a sector a level; a narrower row is one or two sectors that
+    stay in L1 for the whole walk (csrc/binned_walk.cu)."""
+    return (binned.device.type == "cuda" and binned.shape[1]
+            * binned.element_size() > WALK_COLUMN_ROW_BYTES)
+
+
+def walk_layout(binned: torch.Tensor) -> torch.Tensor:
+    """A matrix of bins [N, G] as W walks it best: a column-major copy
+    (the [N, G] view of a contiguous [G, N] tensor) where
+    `walk_by_columns`, else the matrix as it is."""
+    return binned.t().contiguous().t() if walk_by_columns(binned) \
+        else binned
 
 
 def tree_leaf_binned_plain(tree: BinnedTree,
                            binned: torch.Tensor) -> torch.Tensor:
-    """[N] int64 leaf of each row: every row descends one level a step,
-    for the tree's depth (`predict_leaf_binned`)."""
+    """[N] int64 leaf of each row: every row descends one level a step
+    while any row is at a node (`predict_leaf_binned`)."""
     n = binned.shape[0]
     node = torch.full((n,), 0 if tree.num_leaves > 1 else -1,
                       dtype=torch.long, device=binned.device)
@@ -1146,7 +1334,7 @@ def tree_leaf_binned_plain(tree: BinnedTree,
     rows = torch.arange(n, device=binned.device)
     # the card indexes no uint16 tensor
     wide = widen_bins(binned) if binned.is_cuda else binned
-    for _ in range(tree.max_depth):
+    while bool((node >= 0).any()):
         nd = node.clamp(min=0)
         b = wide[rows, f["node_group"][nd]].long()
         off, nb = f["node_offset"][nd], f["node_num_bin"][nd]
@@ -1187,7 +1375,8 @@ def tree_leaf_walk_binned_plain(tree: BinnedTree,
 def tree_value_walk_binned(tree: BinnedTree, binned: torch.Tensor,
                            score: torch.Tensor) -> None:
     """W: score[r] += leaf_value[leaf of row r] for the binned rows
-    [N, G], in place."""
+    [N, G] (any strides: row-major, or column-major as `walk_layout`
+    lays it out), in place."""
     if binned.dim() != 2 or score.shape != (binned.shape[0],) \
             or score.dtype != torch.float32:
         raise LightGBMError("tree_value_walk_binned takes binned [N, G] and "
@@ -1212,7 +1401,7 @@ def _walk_binned(tree: BinnedTree, binned: torch.Tensor,
     """Launch W adding values to `score`, or writing leaves to `leaf`."""
     out = score if leaf is None else leaf
     if any(t.device != binned.device for t in (
-            out, tree.nodes, tree.leaf_value)):
+            out, tree.recs, tree.leaf_value)):
         raise LightGBMError("tree_value_walk_binned: inputs on different "
                             "devices")
     if binned.device.type == "cpu":
@@ -1224,19 +1413,20 @@ def _walk_binned(tree: BinnedTree, binned: torch.Tensor,
         raise LightGBMError("tree_value_walk_binned runs on cpu or cuda, "
                             "not %s" % binned.device)
     u16 = binned.dtype == torch.uint16
-    if binned.dtype not in (torch.uint8, torch.uint16) or not (
-            binned.is_contiguous() and out.is_contiguous()):
-        raise LightGBMError("tree_value_walk_binned takes contiguous uint8 "
-                            "or uint16 bins and score")
+    if binned.dtype not in (torch.uint8, torch.uint16) or min(
+            binned.stride()) < 0 or not out.is_contiguous():
+        raise LightGBMError("tree_value_walk_binned takes uint8 or uint16 "
+                            "bins and a contiguous score")
     lib = _build.load_library("walk")
     p = ctypes.c_void_p
     with torch.cuda.device(binned.device):
         stream = torch.cuda.current_stream(binned.device).cuda_stream
         rc = lib.lgbt_tree_value_walk_binned(
-            p(binned.data_ptr()), binned.shape[1], int(u16), binned.shape[0],
-            p(tree.nodes.data_ptr()), tree.num_leaves,
-            p(tree.cat_bounds.data_ptr()), p(tree.cat_bits.data_ptr()),
-            tree.cat_bits.shape[0], p(tree.leaf_value.data_ptr()),
+            p(binned.data_ptr()), binned.stride(0), binned.stride(1),
+            int(u16), binned.shape[0], p(tree.recs.data_ptr()),
+            tree.recs.shape[0], p(tree.bits.data_ptr()), tree.bits.shape[0],
+            binned_walk_smem(tree.recs.shape[0], tree.bits.shape[0]),
+            p(tree.leaf_value.data_ptr()),
             p(None if score is None else score.data_ptr()),
             p(None if leaf is None else leaf.data_ptr()), p(stream))
     if rc != 0:
