@@ -63,7 +63,10 @@ Phases, any failure raises and the script exits non-zero:
    rising from round 1 to 10; the saved model reloaded into a Booster
    and served through K1, its raw scores within 1e-5 * max(1, |ref|) of
    the valid scores W kept; LGBMRanker fitting 2 rounds on the card to
-   the model text train gives with the same params;
+   the model text train gives with the same params; int8 lambdarank 3
+   rounds on 49,997 of the rows (not a multiple of 4, so L's hessian row
+   does not start on 16 bytes), Q held bitwise its plain version and its
+   repeat on those gradients;
 6. L (lambdarank_grads) against its plain version on the card: on the
    ranking protocol's 5,000 x 100-doc layout (its objective's labels,
    gains and inverse max DCGs) at all-zero scores (the first round),
@@ -125,7 +128,7 @@ Phases, any failure raises and the script exits non-zero:
     its order, a repeat of its bits, within 1e-5 * max(1, |ref|) of plain
     and of the f64 oracle (f32 chains of f32 values miss that here);
 11. the card against the CPU: the same protocol at 131,072 rows, 63
-    leaves and 5 rounds on the card and with device="cpu" (the plain
+    leaves and 3 rounds on the card and with device="cpu" (the plain
     versions), under tpu_hist_bf16=true and false: the same tree
     structure, leaf values within 1e-5 relative, valid AUC within 2e-3;
 12. training times: seconds per boosting round (median of rounds 2-10)
@@ -155,13 +158,20 @@ Phases, any failure raises and the script exits non-zero:
     round-10 binary gradients, a constant-hessian L2 vector and a bag
     mask, each in both scale modes (a training iteration's max * f32(1 /
     qmax), which GBDT._quantize runs every round, and the gate's max /
-    qmax); HQ exactly at the root (all rows, and bagged) and on the root
+    qmax); Q on inputs that do not start on 16 bytes (rows of a [2, m]
+    tensor, m 1, 3, 1,001 and n - 3) bitwise its plain version and its
+    repeat; Q with a NaN or an inf in a gradient or an inf in a hessian
+    (all rows and a bag mask, both modes): scales and w01 bitwise its
+    plain version and its repeat (a NaN scale where the plain version's
+    is NaN), the codes where the plain version defines them (gw / scale
+    a number); Q one kernel node and no memset in a CUDA graph of one
+    call; HQ exactly at the root (all rows, and bagged) and on the root
     split's smaller child as a row list; parent == left + right in int32;
     S in XLA's cumsum order (the order quantized growth scans in) with
     the int8 grower's params on the dequantized root and on its two
     children, bitwise against its plain version; each kernel launched
     twice repeating its bits;
-15. the card against the CPU at 131,072 rows, 63 leaves and 5 rounds for
+15. the card against the CPU at 131,072 rows, 63 leaves and 3 rounds for
     int8, int16, int8 + bagging and f32 + bagging: the same tree
     structure, leaf values within 1e-5 relative, valid AUC within 2e-3;
     Q in the training scale mode on the card and on the CPU from the
@@ -208,12 +218,13 @@ Phases, any failure raises and the script exits non-zero:
     LF at k 5 and k 64 bit for bit the replay of its summation order
     (`ops/linear.py linear_normal_eq_order`); each launched twice
     repeating its bits;
-19. the card against the CPU at 131,072 rows, 63 leaves and 5 rounds,
+19. the card against the CPU at 131,072 rows, 63 leaves and 3 rounds,
     linear f32 and linear int8: the same tree structure and leaf
     features, leaf values and coefficients within 1e-5 relative, valid
     AUC within 2e-3;
 20. times: each new kernel's device time (torch.profiler; CUDA events
-    for LS; a CUDA graph replay for K1, for LF at k 5 and k 64 and for LM
+    for LS; a CUDA graph replay for K1, for LF at k 5 and k 64, for LA
+    (graphs of 20 calls) and for LM
     on the main path's call, whose call's events and host time print
     beside it; LF's host time with new segments and cached ones), its plain
     version, bound and library yardstick (index_add_ for LF and LM, with
@@ -316,7 +327,7 @@ Phases, any failure raises and the script exits non-zero:
     bitwise against its plain version on the train score (leaf ids) and
     a valid score (per-row values);
 28. the card against the CPU for goss, dart and rf at 131,072 rows, 63
-    leaves, learning rate 0.5 (GOSS samples from round 3), 5 rounds: the
+    leaves, learning rate 0.5 (GOSS samples from round 3), 3 rounds: the
     same trees, leaves within 1e-5 relative, valid AUC within 2e-3;
 29. times (CUDA events or torch.profiler, median of 12 after 0.3 s of
     calls; GT and GW by CUDA-graph replay): GT + GW at 2,000,000 rows
@@ -422,7 +433,7 @@ Phases, any failure raises and the script exits non-zero:
     statistic) must lie within 2e-3 of reference LightGBM's 0.815114,
     printed beside the JAX package's 0.815474;
 38. categorical, the card against the CPU: the protocol at 131,072
-    rows, 63 leaves, 5 rounds: the same trees, leaves within 1e-5
+    rows, 63 leaves, 3 rounds: the same trees, leaves within 1e-5
     relative, valid AUC within 2e-3; 50,000 rows written as a TSV (label
     first), Dataset(path, params={"categorical_column": "0,...,7"}) (the
     indices count features, not the label column) bitwise the array
@@ -476,6 +487,7 @@ path of its f32 mode, and phase 10 holds that mode to its plain version
 The line before the last is the kernels' JSON summary, the last line
 `{"ok": true, "device": {...}}`.
 """
+import ctypes
 import json
 import os
 import pathlib
@@ -515,7 +527,7 @@ INSTR_PER_S = 67e12 / 2
 INSTR_PER_VISIT = 8
 # the training protocol (bench.py run_amortized, at its 2,000,000 rows)
 TRAIN_ROWS, VALID_ROWS, TRAIN_ROUNDS = 2_000_000, 262_144, 10
-CPU_ROWS, CPU_VALID_ROWS, CPU_LEAVES, CPU_ROUNDS = 131_072, 32_768, 63, 5
+CPU_ROWS, CPU_VALID_ROWS, CPU_LEAVES, CPU_ROUNDS = 131_072, 32_768, 63, 3
 # rounds of the protocol with tpu_hist_bf16=false, the path of H's f32
 # mode (every other training run takes the hi+lo default)
 F32_ROUNDS = 3
@@ -1606,6 +1618,57 @@ def q_equal(a, b):
                             b.qscale.view(torch.int32)))
 
 
+def q_defined(q, g, h, w, hess_const):
+    """The rows where Q's plain version defines each code: gw / scale (hw
+    / scale) a number. A NaN there is cast to int16 by the plain version,
+    which C leaves undefined; the kernel's clip gives -qmax."""
+    dg = ~torch.isnan((g * w) / q.qscale[0])
+    dh = torch.ones_like(dg) if hess_const else ~torch.isnan(
+        (h * w) / q.qscale[1])
+    return dg, dh
+
+
+def q_held(a, b, g, h, w, hess_const):
+    """Q's scales and w01 bit for bit, and the codes where both are
+    defined (`q_defined`); returns the rows of each channel left out."""
+    dg, dh = q_defined(b, g, h, w, hess_const)
+    ok = (torch.equal(a.w01, b.w01)
+          and torch.equal(a.qscale.view(torch.int32),
+                          b.qscale.view(torch.int32))
+          and torch.equal(a.codes[:, 0][dg], b.codes[:, 0][dg])
+          and torch.equal(a.codes[:, 1][dh], b.codes[:, 1][dh]))
+    return ok, int((~dg).sum()), int((~dh).sum())
+
+
+def graph_node_types(fn):
+    """The node types (CUgraphNodeType: 0 kernel, 2 memset) of a CUDA
+    graph that captured one fn() call, on a stream where fn() ran once
+    before, so no first call's set-up is captured."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph(keep_graph=True)
+    with torch.cuda.graph(graph, stream=side):
+        fn()
+    cu = ctypes.CDLL("libcuda.so.1")
+    handle = ctypes.c_void_p(graph.raw_cuda_graph())
+    count = ctypes.c_size_t(0)
+    check(cu.cuGraphGetNodes(handle, None, ctypes.byref(count)) == 0,
+          "cuGraphGetNodes failed")
+    nodes = (ctypes.c_void_p * count.value)()
+    check(cu.cuGraphGetNodes(handle, nodes, ctypes.byref(count)) == 0,
+          "cuGraphGetNodes failed")
+    types = []
+    for node in nodes:
+        kind = ctypes.c_int(-1)
+        cu.cuGraphNodeGetType(ctypes.c_void_p(node), ctypes.byref(kind))
+        types.append(kind.value)
+    del graph
+    return types
+
+
 def s_held(label, args):
     """S on args = (hist, sums, depth, fmeta, mask, params, fb), bitwise
     its repeat and its plain version; returns its outputs."""
@@ -1856,6 +1919,79 @@ def quantized(name, card, dev, ctx):
                           .sum())
         qs[label] = modes["training"]
     check(scale_diff > 0, "Q: no case held the two scale modes apart")
+    # non-finite gradients: a NaN and an inf in gw and an inf in
+    # hw; the scales propagate them as the plain version (and jnp.max /
+    # jnp.maximum) do, and the codes are held where the plain version
+    # defines them
+    nonfin = {}
+    bad = int(torch.nonzero(masks[0])[17])
+    for label, (chan, val) in (("NaN gradient", (0, float("nan"))),
+                               ("inf gradient", (0, float("inf"))),
+                               ("inf hessian", (1, float("inf")))):
+        gh = [g1.clone(), h1.clone()]
+        gh[chan][bad] = val
+        for recip, mode in ((True, "training"), (False, "gate")):
+            for w, wl in ((ones, ""), (masks[0], ", bag mask")):
+                args = (gh[0], gh[1], w)
+                got = histogram.quantize_gradients(
+                    *args, qmax=qmax, key_g=keys[0], key_h=keys[1],
+                    reciprocal_scale=recip)
+                again = histogram.quantize_gradients(
+                    *args, qmax=qmax, key_g=keys[0], key_h=keys[1],
+                    reciprocal_scale=recip)
+                plain = histogram.quantize_gradients_plain(
+                    *args, qmax, keys[0], keys[1], reciprocal_scale=recip)
+                ok, out_g, out_h = q_held(got, plain, *args, False)
+                check(q_equal(got, again) and ok,
+                      "Q (%s, %s mode%s): not bitwise its repeat, or its "
+                      "scales, w01 or defined codes not its plain version's"
+                      % (label, mode, wl))
+                nonfin["%s (%s%s)" % (label, mode, wl)] = (
+                    got.qscale[:2].tolist(), out_g, out_h,
+                    got.codes[bad].tolist(), plain.codes[bad].tolist())
+    print("Q with non-finite rows [%d rows, row %d]: scales, w01 and the "
+          "defined codes bitwise its plain version and its repeat; (scales, "
+          "rows left out of the g / h codes, the bad row's codes kernel vs "
+          "plain): %s" % (n, bad, "; ".join(
+              "%s: %s" % kv for kv in nonfin.items())))
+    # inputs that do not start on 16 bytes (gradients and hessians as the
+    # rows of one [2, m] tensor, the weight a view one float in) at row
+    # counts that are not multiples of 4: Q reads a row at a time there
+    for m in (1, 3, 1001, n - 3):
+        gh = torch.stack([g1[:m], h1[:m]])
+        wb = torch.cat([ones[:1], masks[0][:m]])[1:]
+        for hc in (False, True):
+            for recip in (True, False):
+                args = (gh[0], gh[1], wb)
+                got, again = (histogram.quantize_gradients(
+                    *args, qmax=qmax, key_g=keys[0], key_h=keys[1],
+                    hess_const=hc, reciprocal_scale=recip)
+                    for _ in range(2))
+                plain = histogram.quantize_gradients_plain(
+                    *args, qmax, keys[0], keys[1], hc,
+                    reciprocal_scale=recip)
+                check(q_equal(got, again) and q_equal(got, plain),
+                      "Q (%d rows off 16 bytes, hess_const %s, reciprocal "
+                      "%s): not bitwise its repeat and plain"
+                      % (m, hc, recip))
+    # the row-at-a-time reads against the 16-byte ones, at n - 3 rows
+    off_ms, on_ms = (graph_ms(lambda a=a: histogram.quantize_gradients(
+        *a, qmax=qmax, key_g=keys[0], key_h=keys[1],
+        reciprocal_scale=True), calls=SHORT_CALLS) for a in (
+            (gh[0], gh[1], wb), tuple(t.clone() for t in (gh[0], gh[1],
+                                                          wb))))
+    print("Q on inputs off 16 bytes [1, 3, 1001 and %d rows, bag mask]: "
+          "bitwise its repeat and plain, both hessian and scale modes; "
+          "%.5f ms at %d rows off 16 bytes against %.5f on 16 (CUDA graphs "
+          "of %d calls)" % (n - 3, off_ms, n - 3, on_ms, SHORT_CALLS))
+    # Q is one cooperative launch: a CUDA graph of one call holds one
+    # kernel node and no memset
+    q_nodes = graph_node_types(lambda: histogram.quantize_gradients(
+        g1, h1, ones, qmax=qmax, key_g=keys[0], key_h=keys[1],
+        reciprocal_scale=True))
+    check(q_nodes == [0], "Q: a call's CUDA graph holds nodes %s, not one "
+          "kernel" % q_nodes)
+    print("Q: a call's CUDA graph holds one kernel node and no memset")
     print("Q [%d rows, qmax %d]: codes, w01 and scales bitwise its repeat "
           "and plain in %s; the two modes' scales differ in %d of %d words "
           "(max |g| %r in the scales-apart case)"
@@ -2023,7 +2159,7 @@ def quantized(name, card, dev, ctx):
             lambda: histogram.quantize_gradients(g10, h10, ones, qmax=qmax,
                                                  key_g=kg, key_h=kh,
                                                  reciprocal_scale=True),
-            ("absmax_kernel", "quantize_kernel", "Memset")),
+            ("quantize_kernel",)),
         "leaf_histogram_i32": device_ms(
             lambda: histogram.leaf_histogram_i32(binned, q10.codes, q10.w01,
                                                  nb, plan=plan),
@@ -2053,8 +2189,7 @@ def quantized(name, card, dev, ctx):
           % (name, card, med8, med_bag, ctx["rounds_s"], TRAIN_ROUNDS))
     wall_us, busy, by_kind = profile_round(b8, name, card)
     hq_us = sum(v for k, v in by_kind.items() if "hist_i32" in k)
-    q_us = sum(v for k, v in by_kind.items()
-               if "absmax_kernel" in k or "quantize_kernel" in k)
+    q_us = sum(v for k, v in by_kind.items() if "quantize_kernel" in k)
     print("where the time goes [%s | %s]: int8 round: HQ %.3f ms (share "
           "%.3f of device busy), Q %.3f ms%s, idle share %.3f"
           % (name, card, hq_us / 1e3, hq_us / busy, q_us / 1e3,
@@ -2756,8 +2891,10 @@ def linear(name, card, dev, ctx):
         median_ms(lambda: torch.linalg.solve_ex(a_lib, -b_k), reps=5))
     sc = gb._score[0].clone()
     la_args = (raw_x, st.leaf_id, value, coeff, feats, sc, 0.1)
+    # LA on the main path's first tree as the trainer calls it, 12 + 4k
+    # bytes a row its bound
     times["linear_addend"] = (
-        device_ms(lambda: lin.linear_addend(*la_args), ("addend_kernel",)),
+        graph_ms(lambda: lin.linear_addend(*la_args), calls=SHORT_CALLS),
         median_ms(lambda: lin.linear_addend(*la_args)),
         median_ms(lambda: lin.linear_addend_plain(*la_args), reps=5),
         bound(n * (12 + 4 * k), n * (3.0 * k + 4)), None)
@@ -2800,16 +2937,17 @@ def linear(name, card, dev, ctx):
                   reps=5),
         bound(v0 + 4 * VALID_ROWS + tree_bytes(bt),
               v0 * INSTR_PER_VISIT), None)
+    main = dict(launches, forest_value_walk_linear=k1_launches,
+                leaf_moments=lm_launches)
     for kk, (dev_ms, ev_ms, plain_ms, (b_ms, b_by), lib_ms) in times.items():
         print("time [%s | %s]: %s %.4f ms (CUDA events around the call; "
-              "device time %s, LF's by CUDA-graph replay), plain %.3f ms, "
-              "bound %.5f ms (%s), library "
+              "device time %s, LF's and LA's by CUDA-graph replay), plain "
+              "%.3f ms, bound %.5f ms (%s), library "
               "%s, %s launches on the main path"
               % (name, card, kk, ev_ms, "not measured" if dev_ms is None
                  else "%.4f ms" % dev_ms, plain_ms, b_ms, b_by,
                  "none" if lib_ms is None else "%.4f ms" % lib_ms,
-                 {"forest_value_walk_linear": k1_launches,
-                  "leaf_moments": lm_launches}.get(kk, launches.get(kk))))
+                 main.get(kk)))
     print("time [%s | %s]: rounds linear %.4f s, linear int8 %.4f s, linear "
           "int8 + bagging %.4f s, constant f32 (phase 12) %.4f s (medians of "
           "rounds 2-%d)" % (name, card, med, med8, med_bag, ctx["rounds_s"],
@@ -2838,8 +2976,6 @@ def linear(name, card, dev, ctx):
         "leaf_moments": "lightgbm_tpu_torch/csrc/moments.cu",
         "forest_value_walk_linear": "lightgbm_tpu_torch/csrc/forest_walk.cu",
         "tree_leaf_walk_binned": "lightgbm_tpu_torch/csrc/binned_walk.cu"}
-    main = dict(launches, forest_value_walk_linear=k1_launches,
-                leaf_moments=lm_launches)
     rows = []
     for kk, (dev_ms, ev_ms, plain_ms, (b_ms, b_by), lib_ms) in times.items():
         rows.append({"name": kk, "route": "cuda", "source": sources[kk],
@@ -3121,6 +3257,43 @@ def ranking(name, card, dev):
     print("ranking main path: LGBMRanker fit 2 rounds on the card, the "
           "model text of train with the same params; its valid ndcg@10 %s"
           % ranker.evals_result_["valid_0"]["ndcg@10"])
+    # quantized lambdarank on a doc count that is not a multiple of 4:
+    # L's gradients come as the rows of one [2, n] tensor, so the
+    # hessian does not start on 16 bytes and Q reads a row at a time
+    sizes = [int(v) for v in gt[:500]]
+    sizes[-1] -= 3
+    nq8 = sum(sizes)
+    q8 = dict(RANK_PARAMS, tpu_hist_quantize="int8")
+    before = histogram.quantize_gradients.launches
+    qb = lgb.train(dict(q8), lgb.Dataset(xt[:nq8], yt[:nq8], group=sizes,
+                                         params=dict(q8)), 3,
+                   verbose_eval=False)
+    q_launches = histogram.quantize_gradients.launches - before
+    check(q_launches >= 3, "quantized lambdarank: Q launched %d times in 3 "
+          "rounds" % q_launches)
+    lg, lh = qb._inner.objective.get_gradients(qb._inner._score[0])
+    check(lh.data_ptr() % 16 != 0, "quantized lambdarank: the hessian "
+          "starts on 16 bytes, the case is not held")
+    q_ones = torch.ones(nq8, device=dev)
+    for hc in (False, True):
+        for recip in (True, False):
+            got, again = (histogram.quantize_gradients(
+                lg, lh, q_ones, qmax=127, key_g=(0, 1), key_h=(0, 2),
+                hess_const=hc, reciprocal_scale=recip) for _ in range(2))
+            plain = histogram.quantize_gradients_plain(
+                lg, lh, q_ones, 127, (0, 1), (0, 2), hc,
+                reciprocal_scale=recip)
+            check(q_equal(got, again) and q_equal(got, plain),
+                  "Q on lambdarank's gradients (%d docs, hess_const %s, "
+                  "reciprocal %s): not bitwise its repeat and plain"
+                  % (nq8, hc, recip))
+    check(qb.num_trees() == 3 and bool(torch.isfinite(
+        qb._inner._score[0]).all()), "quantized lambdarank: %d trees, or "
+          "a score not finite" % qb.num_trees())
+    print("ranking, int8: %d docs (not a multiple of 4), 3 rounds on the "
+          "card, Q launched %d times; Q on its gradients (the hessian %d "
+          "bytes past 16) bitwise its repeat and plain, both hessian and "
+          "scale modes" % (nq8, q_launches, lh.data_ptr() % 16))
 
     # ---------------------------------------------------------------- 6
     errs = []
@@ -6419,6 +6592,8 @@ AB_BOSCH_LIST_ROWS = 39_589
 # H u16's row list in the A/B: the size of the Bosch root split's smaller
 # child (phase 35)
 AB_BOSCH_H_LIST_ROWS = 21_856
+# Q's second size in the A/B: the Bosch int8 path's training rows
+AB_Q_ROWS = 500_000
 
 
 def host_us(fn, reps=200):
@@ -6886,6 +7061,20 @@ def queue_ab(out, lgb, dev, ds, x, y, grad, hess, lm_x, lm_lid):
     out["Q_graph"] = graph_ms(lambda: histogram.quantize_gradients(
         grad, hess, ones, qmax=127, key_g=(0, 1), key_h=(0, 2),
         reciprocal_scale=True), calls=SHORT_CALLS)
+    # Q's bits at 2,000,000 rows (codes, w01, scales, both modes), and Q
+    # at the Bosch int8 path's 500,000 rows
+    q_bits = [histogram.quantize_gradients(
+        grad, hess, wt, qmax=127, key_g=(0, 1), key_h=(0, 2),
+        reciprocal_scale=recip) for wt in (ones, wbuf) for recip in (True,
+                                                                 False)]
+    out["Q_sha"] = text_sha(b"".join(
+        t.cpu().numpy().tobytes() for q in q_bits for t in q).hex())
+    del q_bits
+    g5, h5, o5 = (t[:AB_Q_ROWS].contiguous() for t in (grad, hess, ones))
+    out["Q_500k_graph"] = graph_ms(lambda: histogram.quantize_gradients(
+        g5, h5, o5, qmax=127, key_g=(0, 1), key_h=(0, 2),
+        reciprocal_scale=True), calls=SHORT_CALLS)
+    del g5, h5, o5
     xv, yv = synth_higgs(VALID_ROWS, FEATURES, seed=1)
     gen = torch.Generator(device=dev).manual_seed(18)
     values = torch.randn(LEAVES, device=dev, generator=gen)
@@ -6902,6 +7091,9 @@ def queue_ab(out, lgb, dev, ds, x, y, grad, hess, lm_x, lm_lid):
                           generator=gen, dtype=torch.int32)
     out["LA_train_graph"] = graph_ms(lambda: lin.linear_addend(
         lm_x, lm_lid, values, coeff, feats, sc, 1.0), calls=SHORT_CALLS)
+    sc.zero_()
+    lin.linear_addend(lm_x, lm_lid, values, coeff, feats, sc, 1.0)
+    out["LA_train_sha"] = text_sha(sc.cpu().numpy().tobytes().hex())
     # the bytes LA's row-major gather must move: the distinct 32-byte
     # sectors of each row's k values, its leaf id, its score read and
     # written (the leaves' coefficients stay in cache)
@@ -6916,6 +7108,9 @@ def queue_ab(out, lgb, dev, ds, x, y, grad, hess, lm_x, lm_lid):
                          generator=gen, dtype=torch.int32)
     out["LA_valid_graph"] = graph_ms(lambda: lin.linear_addend(
         xvd, vlid, values, coeff, feats, vsc, 1.0), calls=SHORT_CALLS)
+    vsc.zero_()
+    lin.linear_addend(xvd, vlid, values, coeff, feats, vsc, 1.0)
+    out["LA_valid_sha"] = text_sha(vsc.cpu().numpy().tobytes().hex())
     # W: the first tree of the protocol on its valid set (value and leaf
     # mode) and on the train matrix as DART's drops walk it (sign -1)
     hb = lgb.train(dict(TRAIN_PARAMS), ds, 1, valid_sets=[
@@ -6932,9 +7127,13 @@ def queue_ab(out, lgb, dev, ds, x, y, grad, hess, lm_x, lm_lid):
                       verbose_eval=False)
         out["%s_text_sha" % mode] = text_sha(b.model_to_string())
     lds = lgb.Dataset(x, y, params=dict(LINEAR_PARAMS)).construct()
-    out["linear_text_sha"] = text_sha(lgb.train(
-        dict(LINEAR_PARAMS), lds, TRAIN_ROUNDS,
-        verbose_eval=False).model_to_string())
+    int8 = dict(LINEAR_PARAMS, tpu_hist_quantize="int8")
+    for label, params in (("linear", LINEAR_PARAMS), ("linear_int8", int8),
+                          ("linear_int8_bag", dict(
+                              int8, bagging_fraction=0.8, bagging_freq=1))):
+        out["%s_text_sha" % label] = text_sha(lgb.train(
+            dict(params), lds, TRAIN_ROUNDS,
+            verbose_eval=False).model_to_string())
 
 
 def rank_ab(out, lgb, dev):
@@ -7027,6 +7226,22 @@ def linear_ab(out, dev, x, grad, hess, lid):
             out["LF_%s_graph" % label] = graph_ms(
                 lambda args=args: lin.linear_normal_eq(*args))
     a5, b5, c5 = lin.linear_normal_eq(*lf5)
+    # LF + LA for a tree: LF at k 5 then LA's train update on the
+    # same rows and leaves, as one CUDA graph, as the trainer runs them;
+    # the bits of LF's sums and of LA's update
+    gen = torch.Generator(device=dev).manual_seed(19)
+    value = torch.randn(LEAVES, device=dev, generator=gen)
+    coeff = torch.randn((LEAVES, 5), device=dev, generator=gen) * 0.1
+    sc = torch.zeros(x.shape[0], device=dev)
+
+    def pair():
+        lin.linear_normal_eq(*lf5)
+        lin.linear_addend(x, lid, value, coeff, feats, sc, 1.0)
+    out["LF_k5_sha"] = text_sha(b"".join(
+        t.cpu().numpy().tobytes() for t in (a5, b5, c5)).hex())
+    lin.linear_addend(x, lid, value, coeff, feats, sc, 1.0)
+    out["LA_pair_sha"] = text_sha(sc.cpu().numpy().tobytes().hex())
+    out["LFLA_pair_graph"] = graph_ms(pair)
     const = torch.zeros(LEAVES, device=dev)
     out["LS_graph"] = graph_ms(lambda: lin.linear_solve(
         a5, b5, c5, feats, const, 0.01), calls=SHORT_CALLS)
@@ -7185,9 +7400,17 @@ def ab_main(argv):
     W's and LS's a graph of 20 calls, the mean a call), and the
     bytes LA's row-major gather must move (`LA_train_gather_bytes`: the
     distinct 32-byte sectors of each row's k values, 12 bytes more a
-    row); the
+    row); Q at the Bosch int8 path's 500,000 rows
+    (`Q_500k_graph`) and the hash of Q's bits at 2,000,000 rows in both
+    scale modes, all rows and a bag mask (`Q_sha`), the hashes of LA's
+    train and valid updates (`LA_train_sha`, `LA_valid_sha`), LF + LA
+    for a tree (LF at k 5 on the 255 seeded segments, then LA's train
+    update on them) as one CUDA graph (`LFLA_pair_graph`) with the
+    hashes of LF's sums and LA's update (`LF_k5_sha`, `LA_pair_sha`);
+    the
     model text hashes of GOSS (20 rounds), DART (10) and linear trees
-    (10) on the HIGGS protocol and of each run below (`*_text_sha`);
+    (10; f32, int8 and int8 + bagging) on the HIGGS protocol and of each
+    run below (`*_text_sha`);
     `--rounds` rounds of the HIGGS and the Bosch protocols in hi+lo and
     in int8 and of the categorical protocol, each
     round's seconds and their median from round 2, and one more round

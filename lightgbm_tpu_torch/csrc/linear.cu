@@ -57,8 +57,22 @@
 // linear/solver.py linear_row_values (:143) and ops/predict.py
 // linear_leaf_addend (:163): the train-score update (s = shrinkage,
 // unshrunk fit, gbdt.py:1297-1301), the valid-set update (s = 1,
-// shrunk tables) and rollback (s = -1). One thread a row. Bound: leaf
-// id, score in and out and k gathered values a row (12 + 4k bytes).
+// shrunk tables) and rollback (s = -1). A grid of at most kBlocksLA
+// blocks an SM walks the rows, a row a thread and two rows in flight;
+// each block first stages the leaves' values, coefficients and features
+// in shared memory, so a row's only dependent global read is its leaf
+// id. The k slots are unrolled (templated up to kMaxKLA) so that a row's
+// k loads, and the next row's, are all in flight before the first add.
+// Tables past kTableBytes, or k past the unrolled widths, take one kernel
+// that reads them from global memory in the same order.
+// Bound: leaf id 4 B, k values 4k B, score in and out 8 B; at k 5 32
+// bytes a row, 64 MB at 2,000,000 rows, 0.0191 ms at 3.35 TB/s. But a
+// row's k scattered features touch about 3 of its 32-byte sectors of the
+// row-major x [n, F] (at F = 28 and k = 5, 105 bytes a row, 0.063 ms at
+// 2,000,000 rows): the sector floor of row-major x, which LF shares. LF
+// storing each row's k values for LA to read in row order (32 bytes a
+// row) was measured slower for the pair: LF's scattered store costs more
+// than the gather saves (PERF.md §6).
 //
 // Everything is f32 (f64 sums in LF) with -fmad=false, so each kernel is
 // bitwise equal to its plain version in ops/linear.py, except LF's f64
@@ -73,7 +87,6 @@
 
 namespace {
 
-using lgbt_linear::flush_subnormal;
 using lgbt_linear::linear_term;
 
 constexpr int kThreadsLF = 256;
@@ -81,7 +94,11 @@ constexpr int kWarpsLF = kThreadsLF / 32;
 constexpr int kRowsMaxD = 6;     // the rows kernel up to d = 6 (E = 28)
 constexpr int kWidePer = 16;     // most sums a lane holds (wide kernel)
 constexpr int kBufs = 3;         // gathered chunks in flight (wide kernel)
-constexpr int kThreadsLA = 256;
+constexpr int kThreadsLA = 512;
+constexpr int kBlocksLA = 2;        // LA blocks an SM (its launch bounds)
+constexpr int kRowsLA = 2;          // rows a thread has in flight (LA)
+constexpr int kMaxKLA = 8;          // slots LA unrolls
+constexpr size_t kTableBytes = 48 * 1024;  // LA's staged leaf tables
 // an entry's kind and columns: (kind << 24) | (j << 12) | i
 constexpr int kEntryA = 0, kEntryB = 1, kEntryCnt = 2, kEntryNone = 3;
 
@@ -182,14 +199,8 @@ __device__ __forceinline__ void find_tile(const int* __restrict__ seg, int L,
 
 // A row's design values as the JAX package takes them: a non-finite live
 // value drops the row (w = 0), subnormals count as signed zeros, padded
-// slots (feature < 0) are 0.
-__device__ __forceinline__ float live_value(float v, bool& ok) {
-  if (!isfinite(v)) {
-    ok = false;
-    v = 0.f;
-  }
-  return flush_subnormal(v);
-}
+// slots (feature < 0) are 0 (linear_term.cuh slot_value).
+using lgbt_linear::slot_value;
 
 // E <= 32: a lane a row, all D(D+1)/2 + D + 1 sums in registers. Grid
 // (max tiles); part [T, E].
@@ -241,7 +252,7 @@ __global__ void __launch_bounds__(kThreadsLF, 2) normal_eq_rows_kernel(
       float z[D];
       bool ok = true;
 #pragma unroll
-      for (int j = 0; j < K; ++j) z[j] = lf[j] >= 0 ? live_value(v[u][j], ok) : 0.f;
+      for (int j = 0; j < K; ++j) z[j] = lf[j] >= 0 ? slot_value(v[u][j], ok) : 0.f;
       z[K] = 1.f;
       const float wt = ok ? wv[u] : 0.f;
       const double wh = (double)__fmul_rn(wt, hv[u]);
@@ -380,7 +391,7 @@ __global__ void __launch_bounds__(kThreadsLF, 2) normal_eq_wide_kernel(
       const int row = cell / k, j = cell - row * k;
       float* z = zc + (size_t)row * stride;
       bool ok = true;
-      z[j] = live_value(z[j], ok);
+      z[j] = slot_value(z[j], ok);
       if (!ok) row_ok[base + row] = 0;
     }
     __syncthreads();
@@ -535,12 +546,70 @@ __global__ void solve_kernel(const float* __restrict__ A,
   }
 }
 
-__global__ void __launch_bounds__(kThreadsLA) addend_kernel(
-    const float* __restrict__ x, int n, int F,
+// LA over staged tables: K slots a row unrolled, gathered from x [n, F]
+// by the leaf's features; rows r = block * threads + t + i * grid
+// threads, kRowsLA of them in flight a thread. Dynamic shared memory:
+// value [L], coeff [L, K] and feats [L, K].
+template <int K>
+__global__ void __launch_bounds__(kThreadsLA, kBlocksLA) addend_kernel(
+    const float* __restrict__ x, int F, int n,
+    const int* __restrict__ leaf_id, const float* __restrict__ value,
+    const float* __restrict__ coeff, const int* __restrict__ feats, int L,
+    float scale, float* __restrict__ score) {
+  extern __shared__ __align__(16) float tab[];
+  float* s_value = tab;
+  float* s_coeff = tab + L;
+  int* s_feat = reinterpret_cast<int*>(tab + L + L * K);
+  for (int i = threadIdx.x; i < L; i += kThreadsLA) {
+    s_value[i] = __ldg(value + i);
+  }
+  for (int i = threadIdx.x; i < L * K; i += kThreadsLA) {
+    s_coeff[i] = __ldg(coeff + i);
+    s_feat[i] = __ldg(feats + i);
+  }
+  __syncthreads();
+  const long long step = (long long)gridDim.x * kThreadsLA;
+  for (long long r0 = (long long)blockIdx.x * kThreadsLA + threadIdx.x;
+       r0 < n; r0 += kRowsLA * step) {
+    int l[kRowsLA];
+    float sc[kRowsLA], v[kRowsLA][K];
+#pragma unroll
+    for (int u = 0; u < kRowsLA; ++u) {
+      const long long r = r0 + u * step;
+      l[u] = r < n ? __ldg(leaf_id + r) : 0;
+      sc[u] = r < n ? score[r] : 0.f;
+    }
+#pragma unroll
+    for (int u = 0; u < kRowsLA; ++u) {
+      const long long r = r0 + u * step;
+      const float* row = x + (size_t)(r < n ? r : 0) * F;
+#pragma unroll
+      for (int j = 0; j < K; ++j) {
+        const int f = s_feat[l[u] * K + j];
+        v[u][j] = (r < n && f >= 0) ? __ldg(row + f) : 0.f;
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < kRowsLA; ++u) {
+      const long long r = r0 + u * step;
+      if (r >= n) continue;
+      bool ok;
+      const float lin =
+          lgbt_linear::linear_term_values<K>(v[u], s_coeff + l[u] * K, ok);
+      const float t = __fadd_rn(s_value[l[u]], ok ? lin : 0.f);
+      score[r] = __fadd_rn(sc[u], __fmul_rn(scale, t));
+    }
+  }
+}
+
+// LA at any k and table size: a row a thread, tables from global memory,
+// the same order (linear_term.cuh).
+__global__ void __launch_bounds__(kThreadsLA) addend_any_kernel(
+    const float* __restrict__ x, int F, int n,
     const int* __restrict__ leaf_id, const float* __restrict__ value,
     const float* __restrict__ coeff, const int* __restrict__ feats, int k,
     float scale, float* __restrict__ score) {
-  const int r = blockIdx.x * kThreadsLA + threadIdx.x;
+  const long long r = (long long)blockIdx.x * kThreadsLA + threadIdx.x;
   if (r >= n) return;
   const int l = __ldg(leaf_id + r);
   bool ok;
@@ -548,6 +617,65 @@ __global__ void __launch_bounds__(kThreadsLA) addend_kernel(
                                 feats + (size_t)l * k, k, ok);
   const float t = __fadd_rn(__ldg(value + l), ok ? lin : 0.f);
   score[r] = __fadd_rn(score[r], __fmul_rn(scale, t));
+}
+
+// the SM count of the current card, read once
+int sm_count() {
+  static int sms = -1;
+  if (sms < 0) {
+    int dev = 0, v = 0;
+    if (cudaGetDevice(&dev) != cudaSuccess ||
+        cudaDeviceGetAttribute(&v, cudaDevAttrMultiProcessorCount, dev) !=
+            cudaSuccess)
+      return 0;
+    sms = v;
+  }
+  return sms;
+}
+
+template <int K>
+cudaError_t launch_addend(const float* x, int F, int n,
+                          const int* leaf_id, const float* value,
+                          const float* coeff, const int* feats, int L,
+                          float scale, float* score, size_t smem,
+                          cudaStream_t s) {
+  const long long want =
+      ((long long)n + kThreadsLA * kRowsLA - 1) / (kThreadsLA * kRowsLA);
+  const long long cap = (long long)kBlocksLA * sm_count();
+  const int blocks = (int)(want < cap ? want : (cap > 0 ? cap : want));
+  addend_kernel<K><<<blocks, kThreadsLA, smem, s>>>(
+      x, F, n, leaf_id, value, coeff, feats, L, scale, score);
+  return cudaGetLastError();
+}
+
+cudaError_t launch_addend_k(int k, const float* x, int F, int n,
+                            const int* leaf_id, const float* value,
+                            const float* coeff, const int* feats, int L,
+                            float scale, float* score, cudaStream_t s) {
+  const size_t smem = (size_t)L * (1 + 2 * k) * sizeof(float);
+  if (k <= kMaxKLA && smem <= kTableBytes) {
+#define LGBT_ADDEND_K(KK)                                             \
+  case KK:                                                            \
+    return launch_addend<KK>(x, F, n, leaf_id, value, coeff, feats, L, \
+                             scale, score, smem, s);
+    switch (k) {
+      LGBT_ADDEND_K(1)
+      LGBT_ADDEND_K(2)
+      LGBT_ADDEND_K(3)
+      LGBT_ADDEND_K(4)
+      LGBT_ADDEND_K(5)
+      LGBT_ADDEND_K(6)
+      LGBT_ADDEND_K(7)
+      LGBT_ADDEND_K(8)
+      default:
+        break;
+    }
+#undef LGBT_ADDEND_K
+  }
+  const int blocks = (int)(((long long)n + kThreadsLA - 1) / kThreadsLA);
+  addend_any_kernel<<<blocks, kThreadsLA, 0, s>>>(
+      x, F, n, leaf_id, value, coeff, feats, k, scale, score);
+  return cudaGetLastError();
 }
 
 template <int P>
@@ -670,17 +798,16 @@ extern "C" int lgbt_linear_solve(const float* A, const float* b,
 }
 
 // x [n, F] f32; leaf_id [n] i32; value [L], coeff [L, k] f32; feats [L,
-// k] i32 columns of x; score [n] f32, added to in place.
+// k] i32 columns of x, -1 padded; score [n] f32, added to in place.
 extern "C" int lgbt_linear_addend(const float* x, int n, int F,
                                   const int* leaf_id, const float* value,
                                   const float* coeff, const int* feats,
-                                  int k, float scale, float* score,
+                                  int L, int k, float scale, float* score,
                                   void* stream) {
   if (n <= 0) return 0;
-  addend_kernel<<<(n + kThreadsLA - 1) / kThreadsLA, kThreadsLA, 0,
-                  (cudaStream_t)stream>>>(x, n, F, leaf_id, value, coeff,
-                                          feats, k, scale, score);
-  return (int)cudaGetLastError();
+  if (L < 1 || k < 1) return (int)cudaErrorInvalidValue;
+  return (int)launch_addend_k(k, x, F, n, leaf_id, value, coeff, feats, L,
+                              scale, score, (cudaStream_t)stream);
 }
 
 extern "C" const char* lgbt_error_string(int code) {

@@ -29,6 +29,32 @@ __device__ __forceinline__ float flush_subnormal(float x) {
   return fabsf(x) < kF32Tiny ? copysignf(0.f, x) : x;
 }
 
+// a live slot's value as the dot takes it: 0 (and ok = false) when it
+// is not finite, subnormals flushed
+__device__ __forceinline__ float slot_value(float v, bool& ok) {
+  if (!isfinite(v)) {
+    ok = false;
+    return 0.f;
+  }
+  return flush_subnormal(v);
+}
+
+// slot j of k added to the running sum in XLA's order
+__device__ __forceinline__ void add_slot(float& acc, float& first, float c,
+                                         float x, int j, int k) {
+  if (k == 2) {
+    if (j == 0) {
+      first = __fmul_rn(c, x);
+    } else {
+      acc = __fmaf_rn(c, x, first);
+    }
+  } else if (j < kUnfusedSlots) {
+    acc = __fadd_rn(acc, __fmul_rn(c, x));
+  } else {
+    acc = __fmaf_rn(c, x, acc);
+  }
+}
+
 __device__ __forceinline__ float linear_term(const float* __restrict__ row,
                                              const float* __restrict__ coeff,
                                              const int* __restrict__ feat,
@@ -37,27 +63,23 @@ __device__ __forceinline__ float linear_term(const float* __restrict__ row,
   float acc = 0.f, first = 0.f;
   for (int j = 0; j < k; ++j) {
     const int f = __ldg(feat + j);
-    float x = 0.f;
-    if (f >= 0) {
-      const float v = __ldg(row + f);
-      if (isfinite(v)) {
-        x = flush_subnormal(v);
-      } else {
-        ok = false;
-      }
-    }
-    const float c = __ldg(coeff + j);
-    if (k == 2) {
-      if (j == 0) {
-        first = __fmul_rn(c, x);
-      } else {
-        acc = __fmaf_rn(c, x, first);
-      }
-    } else if (j < kUnfusedSlots) {
-      acc = __fadd_rn(acc, __fmul_rn(c, x));
-    } else {
-      acc = __fmaf_rn(c, x, acc);
-    }
+    const float x = f >= 0 ? slot_value(__ldg(row + f), ok) : 0.f;
+    add_slot(acc, first, __ldg(coeff + j), x, j, k);
+  }
+  return acc;
+}
+
+// The same sum over K values already in registers, a padded slot's
+// value being 0 (so every slot is taken as live); c may be shared memory.
+template <int K>
+__device__ __forceinline__ float linear_term_values(const float (&v)[K],
+                                                    const float* c,
+                                                    bool& ok) {
+  ok = true;
+  float acc = 0.f, first = 0.f;
+#pragma unroll
+  for (int j = 0; j < K; ++j) {
+    add_slot(acc, first, c[j], slot_value(v[j], ok), j, K);
   }
   return acc;
 }

@@ -66,8 +66,10 @@ LIBRARIES = {
     }, _NO_FMA),
     "quantize": ("quantize.cu", {
         "lgbt_bagging_mask": [_u, _u, _f, _i, _p, _p],
+        "lgbt_quantize_scratch_ints": [],
+        "lgbt_quantize_resident_blocks": [],
         "lgbt_quantize_gradients": [_p, _p, _p, _i, _i] + [_u] * 4
-        + [_i, _i] + [_p] * 5,
+        + [_i, _i, _i] + [_p] * 5,
     }, _NO_FMA),
     "goss": ("goss.cu", {
         "lgbt_goss_scratch_ints": [],
@@ -99,7 +101,8 @@ LIBRARIES = {
         + [_p] * 6,
         "lgbt_linear_rows_max_d": [],
         "lgbt_linear_solve": [_p] * 5 + [_f, _i, _i] + [_p] * 4,
-        "lgbt_linear_addend": [_p, _i, _i] + [_p] * 4 + [_i, _f, _p, _p],
+        "lgbt_linear_addend": [_p, _i, _i] + [_p] * 4 + [_i, _i, _f, _p,
+                                                          _p],
     }, _NO_FMA),
     "moments": ("moments.cu", {
         "lgbt_leaf_moments": [_p, _i, _i, _i] + [_p] * 4 + [_i] * 10

@@ -50,7 +50,9 @@ Quantized training (`tpu_hist_quantize=int8|int16`, the JAX section at
 - Q, `quantize_gradients` (`csrc/quantize.cu`): the gradients and
   hessians, scaled by their absolute maxima and stochastically rounded
   with JAX's threefry stream (`ops/rng.py`) to integer codes in
-  [-qmax, qmax], the 0/1 in-bag weight and the [3] dequantization scale;
+  [-qmax, qmax], the 0/1 in-bag weight and the [3] dequantization scale,
+  in one cooperative launch (`quantize_plan`) over a scratch zeroed once
+  a device and stream;
 - HQ, `leaf_histogram_i32` (`csrc/histogram.cu`): the [G, B, 3] int32
   histogram (sum q_g*w01, sum q_h*w01, sum w01) of those codes. The TPU
   splits int16 codes into base-256 bf16 digits so its matrix unit sums
@@ -763,19 +765,16 @@ def quantize_gradients(grad: torch.Tensor, hess: torch.Tensor,
     codes = torch.empty((n, 2), dtype=torch.int16, device=dev)
     w01 = torch.empty(n, dtype=torch.float32, device=dev)
     qscale = torch.empty(3, dtype=torch.float32, device=dev)
-    scratch = torch.empty(2, dtype=torch.int32, device=dev)
     lib = _build.load_library("quantize")
-
-    def ptr(t):
-        return ctypes.c_void_p(t.data_ptr())
-
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
+        plan = quantize_plan(n, _q_resident(lib, dev))
         rc = lib.lgbt_quantize_gradients(
-            ptr(grad), ptr(hess), ptr(row_weight), n, qmax, key_g[0],
+            _ptr(grad), _ptr(hess), _ptr(row_weight), n, qmax, key_g[0],
             key_g[1], key_h[0], key_h[1], int(bool(hess_const)),
-            int(bool(reciprocal_scale)), ptr(scratch), ptr(codes), ptr(w01),
-            ptr(qscale), ctypes.c_void_p(stream))
+            int(bool(reciprocal_scale)), plan["blocks"],
+            _ptr(_q_scratch(lib, dev, stream)), _ptr(codes), _ptr(w01),
+            _ptr(qscale), ctypes.c_void_p(stream))
     if rc != 0:
         raise LightGBMError("quantize_gradients launch failed: CUDA error "
                             "%d (%s)" % (rc, lib.lgbt_error_string(rc)
@@ -783,6 +782,56 @@ def quantize_gradients(grad: torch.Tensor, hess: torch.Tensor,
     with _launch_lock:
         quantize_gradients.launches += 1
     return QuantGradients(codes, w01, qscale)
+
+
+#: Q's launch (csrc/quantize.cu): blocks of Q_THREADS, a thread taking
+#: groups of Q_GROUP consecutive rows, its first group's products and
+#: draws kept in registers across the grid barrier
+Q_THREADS, Q_GROUP = 1024, 4
+
+
+def quantize_plan(n: int, resident: int) -> dict:
+    """Q's grid at n rows when `resident` blocks fit on the card at once
+    (a cooperative launch takes no more): a block per Q_THREADS groups of
+    Q_GROUP rows up to that, at least one. Group g (rows Q_GROUP g ..
+    Q_GROUP g + Q_GROUP - 1) belongs to thread g % (blocks x Q_THREADS);
+    each thread's first group (`kept` rows in all) stays in registers
+    across the barrier, the rest (`reread`) are read again after it."""
+    if resident < 1:
+        raise LightGBMError("quantize_gradients: the card cannot launch Q "
+                            "cooperatively")
+    groups = -(-n // Q_GROUP)
+    blocks = max(1, min(resident, -(-groups // Q_THREADS)))
+    kept = min(n, blocks * Q_THREADS * Q_GROUP)
+    return {"blocks": blocks, "kept": kept, "reread": n - kept}
+
+
+_q_residents: dict = {}
+_q_scratches: dict = {}
+
+
+def _q_resident(lib, dev: torch.device) -> int:
+    with _launch_lock:
+        got = _q_residents.get(dev.index)
+    if got is None:
+        got = int(lib.lgbt_quantize_resident_blocks())
+        with _launch_lock:
+            _q_residents[dev.index] = got
+    return got
+
+
+def _q_scratch(lib, dev: torch.device, stream: int) -> torch.Tensor:
+    """Q's scratch for one device and stream: its barrier word and two
+    pairs of maxima, zeroed once here; each launch leaves them fit for
+    the next (csrc/quantize.cu), so no call zeroes them again."""
+    key = (dev.index, stream)
+    with _launch_lock:
+        t = _q_scratches.get(key)
+        if t is None:
+            t = torch.zeros(lib.lgbt_quantize_scratch_ints(),
+                            dtype=torch.int32, device=dev)
+            _q_scratches[key] = t
+    return t
 
 
 quantize_gradients.launches = 0

@@ -469,8 +469,8 @@ def linear_addend(x: torch.Tensor, leaf_id: torch.Tensor,
     if n == 0:
         return None
     _launch(linear_addend, "lgbt_linear_addend", x.device, _ptr(x), n, nf,
-            _ptr(leaf_id), _ptr(value), _ptr(coeff), _ptr(feats), k,
-            float(scale), _ptr(score))
+            _ptr(leaf_id), _ptr(value), _ptr(coeff), _ptr(feats), num_leaves,
+            k, float(scale), _ptr(score))
     return None
 
 
