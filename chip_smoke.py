@@ -509,6 +509,9 @@ LM_HOST_ROWS = 1000
 # rows of the k = 64 linear design (phase 18): its f64 oracle holds
 # [rows, 65 x 65] products
 WIDE_ROWS = 65_536
+# the A/B's LS widths on seeded systems (k, leaves): the register mode's
+# last k and the block mode's first (k 16), then k 120
+LS_AB_WIDTHS = ((15, 255), (16, 255), (120, 4))
 # K1's rows read from device memory (phase 2): 300-column rows, whose
 # staged block would pass the card's shared memory
 K1_WIDE_FEATURES, K1_WIDE_ROWS = 300, 65_536
@@ -1547,6 +1550,17 @@ def training(name, card, dev):
     print("time [%s | %s]: R score update (%d rows) %.4f ms device time"
           % (name, card, n, device_ms(lambda: route.score_update(
               sc, lid, values, 0.1), ("score_kernel",))))
+    # score_update as the trainer calls it once a tree: a graph of 20
+    # calls; its bound reads a leaf id and a score and writes the score,
+    # 12 bytes a row
+    score_row = (graph_ms(lambda: route.score_update(sc, lid, values, 0.1),
+                          calls=SHORT_CALLS),
+                 median_ms(lambda: route.score_update_plain(
+                     sc, lid, values, 0.1), reps=5), bound(12 * n))
+    print("time [%s | %s]: score_update (%d rows) %.5f ms (CUDA graph of "
+          "%d calls), plain %.3f ms, bound %.5f ms (%s)"
+          % (name, card, n, score_row[0], SHORT_CALLS, score_row[1],
+             score_row[2][0], score_row[2][1]))
     # W: the first tree on the valid set; a row reads one bin a node it
     # visits
     leaf = predict.tree_leaf_binned_plain(bt, vb)
@@ -1596,6 +1610,13 @@ def training(name, card, dev):
         if k == "route_partition":
             row["score_update_launches"] = launches["score_update"]
         rows.append(row)
+    rows.append({"name": "score_update", "route": "cuda",
+                 "source": "lightgbm_tpu_torch/csrc/route_partition.cu",
+                 "replaces": "lightgbm_tpu/boosting/gbdt.py:185",
+                 "launches": launches["score_update"], "max_abs_err": 0.0,
+                 "ms": score_row[0], "plain_ms": score_row[1],
+                 "bound_ms": score_row[2][0], "bound_by": score_row[2][1],
+                 "library_ms": None})
     ctx = {"x": x, "y": y, "xv": xv, "yv": yv, "data": (ds, valid),
            "auc": auc, "perm": perm, "n_left": n_left, "rounds_s": med,
            "text": text, "train_score": train_score,
@@ -2222,6 +2243,89 @@ LINEAR_PARAMS = dict(TRAIN_PARAMS, linear_tree=True, linear_lambda=0.01,
 LINEAR_GATE_ROWS, LINEAR_GATE_ITERS, LINEAR_GATE_CEILING = 20_000, 60, 0.7
 
 
+def ls_systems(k, leaves, seed, dev, edges=False):
+    """Seeded LS inputs built directly (no LF, no training): each leaf's
+    normal equations of 3d rows (f32), b, cnt, features (a fifth of the
+    leaves with their upper slots padded) and constants. `edges` puts
+    the odd leaves in the first ten: a pivot column with two rows of
+    equal |a| (and of opposite signs), a NaN and an inf entry in A, an
+    all-zero slope row and column, two NaN in a pivot column, a NaN in
+    b, an under-populated and a padded leaf."""
+    rs = np.random.RandomState(seed)
+    d = k + 1
+    n = 3 * d
+    z = rs.randn(leaves, n, d).astype(np.float32)
+    z[:, :, k] = 1.0
+    h = (rs.rand(leaves, n) + 0.5).astype(np.float32)
+    a = np.einsum("lni,lnj->lij", z * h[:, :, None], z).astype(np.float32)
+    b = np.einsum("lni,ln->li", z, rs.randn(leaves, n)).astype(np.float32)
+    cnt = np.full(leaves, float(n), np.float32)
+    feats = rs.randint(0, 70, (leaves, k)).astype(np.int32)
+    feats[1::5, k // 2 + 1:] = -1
+    const = rs.randn(leaves).astype(np.float32)
+    if edges:
+        top = float(np.abs(a).max()) * 4
+        a[0, 1, 0] = a[0, 2, 0] = top
+        a[1, 1, 0], a[1, 2, 0] = -top, top
+        a[2, 1, 1] = np.nan
+        a[3, 0, 0] = np.inf
+        a[4, 2, :] = 0.0
+        a[4, :, 2] = 0.0
+        a[5, 0, 0] = a[5, 2, 0] = np.nan
+        b[6, 1] = np.nan
+        cnt[7] = float(2 * d - 1)
+        feats[8, :] = -1
+    return tuple(torch.from_numpy(v).to(dev)
+                 for v in (a, b, cnt, feats, const))
+
+
+def hold_ls(label, args, lam):
+    """LS bitwise its plain version (value, coeff) and equal in fitted,
+    and the same bits over two launches; returns the plain outputs."""
+    from lightgbm_tpu_torch.ops import linear as lin
+    got = [lin.linear_solve(*args, lam) for _ in range(2)]
+    ref = lin.linear_solve_plain(*args, lam)
+    for g in got:
+        check(bitwise(g[0], ref[0]) and bitwise(g[1], ref[1])
+              and g[2].dtype == torch.bool and torch.equal(g[2], ref[2]),
+              "LS (%s): not bitwise its plain version or its repeat (max "
+              "diff %g, fitted %d vs %d)" % (
+                  label, max(float((g[i] - ref[i]).abs().nan_to_num(
+                      float("inf")).max()) for i in (0, 1)),
+                  int(g[2].sum()), int(ref[2].sum())))
+    return ref
+
+
+def ls_cases(dev):
+    """Phase 18's seeded LS systems: the A/B's widths (the register
+    mode's largest k and the next, 255 leaves at k 16, 4 at k 120, past
+    48 KB of shared memory), 2 leaves at k 250 (the system in a global
+    scratch), and the edge cases in both modes at linear_lambda 0.01 and
+    0; each held by hold_ls. Returns the cases' labels."""
+    from lightgbm_tpu_torch.ops import linear as lin
+    (top, _), (nxt, _) = LS_AB_WIDTHS[:2]
+    check(lin.solve_plan(top)["mode"] == "regs"
+          and lin.solve_plan(nxt)["mode"] == "block",
+          "LS_AB_WIDTHS do not straddle LS's mode boundary")
+    labels = []
+    for k, leaves in LS_AB_WIDTHS + ((250, 2),):
+        label = "k %d, %d leaves, %s mode" % (k, leaves,
+                                              lin.solve_plan(k)["mode"])
+        hold_ls(label, ls_systems(k, leaves, k, dev, edges=leaves > 8),
+                0.01)
+        labels.append(label)
+    for k in (5, 16):
+        for lam in (0.01, 0.0):
+            label = "edge cases, k %d, linear_lambda %g" % (k, lam)
+            ref = hold_ls(label, ls_systems(k, 64, 100 + k, dev, True), lam)
+            fitted = ref[2][:9].tolist()
+            check(fitted == [True, True, False, True, lam > 0, False, False,
+                             False, True],
+                  "LS (%s): fitted flags %s" % (label, fitted))
+            labels.append(label)
+    return labels
+
+
 def linear_oracle(x, grad, hess, weight, perm, begin, rows, feats):
     """LF's sums in f64 on the card, with the sums of the terms'
     absolute values (the tolerance's scale)."""
@@ -2657,31 +2761,41 @@ def linear(name, card, dev, ctx):
     within(b_k, b64, b_abs, "LF b vs f64 oracle")
     const = torch.from_numpy(st.leaf_value).to(dev)
     lam = LINEAR_PARAMS["linear_lambda"]
-    ls = [fn(a_k, b_k, c_k, feats, const, lam) for fn in (
-        lin.linear_solve, lin.linear_solve, lin.linear_solve_plain)]
-    check(all(torch.equal(x1, x2) for x1, x2 in zip(ls[0], ls[1])),
-          "LS: a second launch gave other bits")
-    check(torch.equal(ls[0][2], ls[2][2]), "LS: fitted differs from plain")
-    ls_err = max(within(ls[0][i], ls[2][i], ls[2][i].abs(), "LS vs plain")
-                 for i in (0, 1))
+    # LS bitwise its plain version on the main path's first tree, and on
     # singular (a slope column equal to the intercept's), under-populated
-    # and padded-slot leaves, at linear_lambda 0
+    # and padded-slot leaves at linear_lambda 0
+    ls = [lin.linear_solve(a_k, b_k, c_k, feats, const, lam)]
+    hold_ls("the main path's first tree", (a_k, b_k, c_k, feats, const), lam)
     a_s, c_s, f_s = a_k.clone(), c_k.clone(), feats.clone()
     a_s[0, 0, :] = a_s[0, k, :]
     a_s[0, :, 0] = a_s[0, :, k]
     c_s[1] = 5.0
     f_s[2, 3:] = -1
-    odd = [fn(a_s, b_k, c_s, f_s, const, 0.0) for fn in (
-        lin.linear_solve, lin.linear_solve_plain)]
-    check(torch.equal(odd[0][2], odd[1][2]) and not bool(odd[0][2][0])
-          and not bool(odd[0][2][1]) and bool(odd[0][2][2]),
-          "LS: singular / under-populated / padded leaves: fitted %s, "
-          "plain %s" % (odd[0][2][:3].tolist(), odd[1][2][:3].tolist()))
-    check(bool((odd[0][1][2, 3:] == 0).all()), "LS: a padded slot got a "
+    odd = hold_ls("singular, under-populated and padded leaves",
+                  (a_s, b_k, c_s, f_s, const), 0.0)
+    check(not bool(odd[2][0]) and not bool(odd[2][1]) and bool(odd[2][2]),
+          "LS: singular / under-populated / padded leaves: fitted %s"
+          % odd[2][:3].tolist())
+    check(bool((odd[1][2, 3:] == 0).all()), "LS: a padded slot got a "
           "coefficient")
-    errs["linear_solve"] = max(ls_err, max(
-        within(odd[0][i], odd[1][i], odd[1][i].abs(), "LS odd vs plain")
-        for i in (0, 1)))
+    errs["linear_solve"] = 0.0
+    # both modes on seeded systems; one CUDA graph node a call
+    lin.linear_solve.launches = lin.linear_solve.launches_block = 0
+    ls_labels = ls_cases(dev)
+    ls_modes = (lin.linear_solve.launches - lin.linear_solve.launches_block,
+                lin.linear_solve.launches_block)
+    check(min(ls_modes) > 0, "LS: a mode never launched (register %d, "
+          "block %d)" % ls_modes)
+    for kk, args in ((k, (a_k, b_k, c_k, feats, const)),
+                     (64, ls_systems(64, 16, 64, dev))):
+        nodes = graph_node_types(lambda: lin.linear_solve(*args, lam))
+        check(nodes == [0], "LS at k %d: a call's CUDA graph holds nodes %s, "
+              "not one kernel" % (kk, nodes))
+    print("LS bitwise its plain version and its repeat, value, coeff and "
+          "fitted, on the main path's first tree, its odd leaves and: %s; "
+          "register mode %d launches, block mode %d; one kernel node a "
+          "call at k %d and k 64" % ("; ".join(ls_labels), ls_modes[0],
+                                     ls_modes[1], k))
     # a wide design, k = 64 of 70 columns (LF's sums split over 3 blocks
     # a leaf; LS's 65 x 65 system in shared memory), 65,536 rows in 16
     # leaves with NaN rows left out and padded slots
@@ -2714,17 +2828,11 @@ def linear(name, card, dev, ctx):
     within(wide[0][0], wa64, wa_abs, "LF k=64 A vs feats64 oracle")
     within(wide[0][1], wb64, wb_abs, "LF k=64 b vs feats64 oracle")
     c64k = torch.zeros(16, device=dev)
-    ls64 = [fn(*wide[0], feats64, c64k, lam) for fn in (
-        lin.linear_solve, lin.linear_solve, lin.linear_solve_plain)]
-    check(all(torch.equal(p1, p2) for p1, p2 in zip(ls64[0], ls64[1]))
-          and torch.equal(ls64[0][2], ls64[2][2]) and bool(ls64[0][2].all()),
-          "LS k=64: repeat or fitted flags differ")
-    errs["linear_solve"] = max(errs["linear_solve"], max(
-        within(ls64[0][i], ls64[2][i], ls64[2][i].abs(), "LS k=64 vs plain")
-        for i in (0, 1)))
+    ls64 = hold_ls("k 64 on LF's sums", (*wide[0], feats64, c64k), lam)
+    check(bool(ls64[2].all()), "LS k=64: a leaf was not fitted")
     print("LF/LS at k=64 (%d rows x 70 columns, 16 leaves): equal to the "
-          "plain versions as stated, LF bitwise its order replay, repeat "
-          "equal" % WIDE_ROWS)
+          "plain versions as stated (LS bitwise), LF bitwise its order "
+          "replay, repeat equal" % WIDE_ROWS)
     d64 = 65
     e64 = d64 * (d64 + 1) // 2 + d64 + 1
     for kname, kernel, plain_fn, (b_ms, b_by) in (
@@ -2738,10 +2846,18 @@ def linear(name, card, dev, ctx):
              bound(wide[0][0].numel() * 4 + wide[0][1].numel() * 8,
                    16 * d64 ** 3 / 3.0 * 2))):
         print("time [%s | %s]: %s at k=64 (%d rows, 16 leaves) %.4f ms "
-              "device (CUDA-graph replay; CUDA events around the call %.4f "
-              "ms), plain %.3f ms, bound %.5f ms (%s)"
-              % (name, card, kname, WIDE_ROWS, graph_ms(kernel),
-                 median_ms(kernel), median_ms(plain_fn, reps=5), b_ms, b_by))
+              "device (CUDA-graph replay of %d calls; CUDA events around the "
+              "call %.4f ms), plain %.3f ms, bound %.5f ms (%s)"
+              % (name, card, kname, WIDE_ROWS, graph_ms(
+                  kernel, calls=SHORT_CALLS), SHORT_CALLS, median_ms(kernel),
+                 median_ms(plain_fn, reps=5), b_ms, b_by))
+    eye64 = torch.eye(d64, device=dev)
+    a_lib64 = torch.where((wide[0][2] >= 2.0 * d64)[:, None, None],
+                          wide[0][0] + eye64 * lam, eye64)
+    print("time [%s | %s]: torch.linalg.solve_ex on the same k=64 systems "
+          "%.4f ms (CUDA events around the call)" % (name, card, median_ms(
+              lambda: torch.linalg.solve_ex(a_lib64, -wide[0][1]), reps=5)))
+    del a_lib64
     del x64, wide, ls64
     value, coeff = ls[0][0], ls[0][1]
     x_nan = raw_x.clone()
@@ -2808,7 +2924,7 @@ def linear(name, card, dev, ctx):
             within(sums[f, 2], b_k[big, j], b_scale[j],
                    "LM sum w g x vs LF b (leaf %d, feature %d)" % (big, f))
     print("linear kernels vs plain [%d rows, %d leaves, k %d]: LF A/b within "
-          "%.3g (counts exact), LS fitted exact (singular, under-populated "
+          "%.3g (counts exact), LS bitwise (singular, under-populated "
           "and padded leaves fall back or pin as plain), LA bitwise with "
           "NaN/inf rows, K1 linear bitwise at 1 to %d rows, W leaf mode equal, "
           "LM's four channels within %.3g on the main path's call (%d leaf "
@@ -2884,11 +3000,17 @@ def linear(name, card, dev, ctx):
     a_lib = torch.where((c_k >= 2.0 * d)[:, None, None], a_k + eye * lam,
                         eye)
     times["linear_solve"] = (
-        None, median_ms(lambda: lin.linear_solve(*ls_args)),
+        graph_ms(lambda: lin.linear_solve(*ls_args), calls=SHORT_CALLS),
+        median_ms(lambda: lin.linear_solve(*ls_args)),
         median_ms(lambda: lin.linear_solve_plain(*ls_args), reps=5),
         bound(a_k.numel() * 4 + b_k.numel() * 8,
               leaves * d ** 3 / 3.0 * 2),
         median_ms(lambda: torch.linalg.solve_ex(a_lib, -b_k), reps=5))
+    print("time [%s | %s]: an empty kernel (torch.cuda._sleep(0), one "
+          "thread) %.5f ms a call in a CUDA graph of %d calls: the floor "
+          "under LS's %d leaves at k %d" % (name, card, graph_ms(
+              lambda: torch.cuda._sleep(0), calls=SHORT_CALLS), SHORT_CALLS,
+              leaves, k))
     sc = gb._score[0].clone()
     la_args = (raw_x, st.leaf_id, value, coeff, feats, sc, 0.1)
     # LA on the main path's first tree as the trainer calls it, 12 + 4k
@@ -2941,7 +3063,8 @@ def linear(name, card, dev, ctx):
                 leaf_moments=lm_launches)
     for kk, (dev_ms, ev_ms, plain_ms, (b_ms, b_by), lib_ms) in times.items():
         print("time [%s | %s]: %s %.4f ms (CUDA events around the call; "
-              "device time %s, LF's and LA's by CUDA-graph replay), plain "
+              "device time %s, LF's, LS's and LA's by CUDA-graph replay), "
+              "plain "
               "%.3f ms, bound %.5f ms (%s), library "
               "%s, %s launches on the main path"
               % (name, card, kk, ev_ms, "not measured" if dev_ms is None
@@ -2954,11 +3077,11 @@ def linear(name, card, dev, ctx):
                             TRAIN_ROUNDS))
     wall_us, busy, by_kind = profile_round(booster, name, card)
     lin_us = {kk: sum(v for n_, v in by_kind.items() if kk in n_)
-              for kk in ("normal_eq", "solve_kernel", "addend_kernel")}
+              for kk in ("normal_eq", "solve_", "addend_kernel")}
     print("where the time goes [%s | %s]: linear round: LF %.3f ms, LS %.3f "
           "ms, LA %.3f ms of %.3f ms device busy, idle share %.3f"
           % (name, card, lin_us["normal_eq"] / 1e3,
-             lin_us["solve_kernel"] / 1e3, lin_us["addend_kernel"] / 1e3,
+             lin_us["solve_"] / 1e3, lin_us["addend_kernel"] / 1e3,
              busy / 1e3, 1.0 - busy / wall_us))
     linear_gate(lgb, name, card)
 
@@ -6970,6 +7093,13 @@ def ab_child(root, rounds, cat_rounds, serving_only=False):
     wb = lgb.train(dict(BOSCH_PARAMS), bds, 1, valid_sets=[lgb.Dataset(
         xb[BOSCH_ROWS:], yb[BOSCH_ROWS:], reference=bds)],
         verbose_eval=False)
+    # phase 33's linear run on uint16 bins: its model text hash
+    lparams = dict(BOSCH_PARAMS, num_leaves=BOSCH_CPU_LEAVES,
+                   linear_tree=True, linear_lambda=0.01)
+    out["bosch_linear_text_sha"] = text_sha(lgb.train(
+        dict(lparams), lgb.Dataset(xb[:BOSCH_CPU_ROWS], yb[:BOSCH_CPU_ROWS],
+                                   params=dict(lparams)),
+        BOSCH_CPU_ROUNDS, verbose_eval=False).model_to_string())
     del xb, yb
     w_ab(out, "u16", P, wb._inner.models[0], wb._inner._valid_binned[0])
     w_ab(out, "u16_leaf", P, wb._inner.models[0],
@@ -7251,6 +7381,30 @@ def linear_ab(out, dev, x, grad, hess, lid):
     const16 = torch.zeros(16, device=dev)
     out["LS_k64_graph"] = graph_ms(lambda: lin.linear_solve(
         a64, b64, c64, feats64, const16, 0.01), calls=SHORT_CALLS)
+    # LS at k 64 and torch.linalg.solve_ex on the same systems (ridge and
+    # identity applied), both by CUDA events around the call; LS at the
+    # register mode's last k and the block mode's first, at k 16 and
+    # k 120 on seeded systems; the hash of LS's outputs at each width;
+    # the floor: a one-thread kernel that does no work, a graph of 20
+    out["LS_k64_call"] = median_ms(lambda: lin.linear_solve(
+        a64, b64, c64, feats64, const16, 0.01))
+    eye = torch.eye(65, device=dev)
+    a_lib = torch.where((c64 >= 130.0)[:, None, None], a64 + eye * 0.01, eye)
+    out["LS_k64_solve_ex_call"] = median_ms(
+        lambda: torch.linalg.solve_ex(a_lib, -b64))
+
+    def ls_sha(*args):
+        return text_sha(b"".join(t.cpu().numpy().tobytes() for t in
+                                 lin.linear_solve(*args, 0.01)).hex())
+    out["LS_k5_sha"] = ls_sha(a5, b5, c5, feats, const)
+    out["LS_k64_sha"] = ls_sha(a64, b64, c64, feats64, const16)
+    for k, leaves in LS_AB_WIDTHS:
+        args = ls_systems(k, leaves, k, dev, edges=leaves > 8)
+        out["LS_k%d_graph" % k] = graph_ms(
+            lambda: lin.linear_solve(*args, 0.01), calls=SHORT_CALLS)
+        out["LS_k%d_sha" % k] = ls_sha(*args)
+    out["empty_kernel_graph"] = graph_ms(lambda: torch.cuda._sleep(0),
+                                         calls=SHORT_CALLS)
 
 
 def serving_ab(out, lgb, P, dev, synthetic_rows):
@@ -7387,7 +7541,13 @@ def ab_main(argv):
     design: `LF_*_busy` and `LF_*_kernels` (a call whose segments are
     new), `LF_*_call`, `LF_*_host_us` and, where the checkout caches
     the segments, `LF_*_graph`; LS on the k 5 systems (`LS_graph`,
-    `LS_call`) and at k 64 (`LS_k64_graph`);
+    `LS_call`) and at k 64 (`LS_k64_graph`, `LS_k64_call`) beside
+    `torch.linalg.solve_ex` on the same systems (`LS_k64_solve_ex_call`,
+    CUDA events), on seeded systems with the edge cases at
+    `LS_AB_WIDTHS` (`LS_k*_graph`: the register mode's last k, the block
+    mode's first, k 16 and k 120), the hash of its outputs at each width
+    (`LS_k*_sha`), and an empty kernel's graph of 20 calls
+    (`empty_kernel_graph`, `torch.cuda._sleep(0)`: the launch floor);
     W (the binned tree walk, PR 18) with the first tree of the HIGGS,
     Bosch and categorical protocols on each one's valid set as the
     checkout's booster keeps it (`W_u8`, `W_u8_leaf`, `W_u16`,
@@ -7409,8 +7569,9 @@ def ab_main(argv):
     hashes of LF's sums and LA's update (`LF_k5_sha`, `LA_pair_sha`);
     the
     model text hashes of GOSS (20 rounds), DART (10) and linear trees
-    (10; f32, int8 and int8 + bagging) on the HIGGS protocol and of each
-    run below (`*_text_sha`);
+    (10; f32, int8 and int8 + bagging) on the HIGGS protocol, of phase
+    33's linear run on the Bosch uint16 bins (`bosch_linear_text_sha`)
+    and of each run below (`*_text_sha`);
     `--rounds` rounds of the HIGGS and the Bosch protocols in hi+lo and
     in int8 and of the categorical protocol, each
     round's seconds and their median from round 2, and one more round

@@ -48,9 +48,41 @@
 // solver.py:122-140: a leaf whose solution is not finite (an exactly
 // singular system gives 0 pivots and so inf or NaN) keeps its constant
 // with zero slopes. Replaces the batched jnp.linalg.solve of
-// fit_leaves. One block (a warp) per leaf, A in shared memory; the lanes
-// update the rows below the pivot. Launch-bound: 255 leaves x d^3/3
-// multiply-adds is 18,360 operations at d = 6.
+// fit_leaves. Every element goes through the plain version's operations
+// in its order (a rounded multiply, then a rounded subtract; a correctly
+// rounded division), so LS is bitwise its plain version; the pivot is
+// the first NaN, else the first largest |a|, as torch.argmax picks it
+// (pivot_key). One launch, in one of two modes by d alone (ops/linear.py
+// solve_plan):
+// - d <= kSolveRegsMaxD (16; the main path's k 5): solve_regs_kernel<D>,
+//   a lane a row of [A | rhs] with the row in registers, d rounded up to
+//   a power of two lanes a leaf (8 at d = 6: four leaves a warp). A
+//   column costs a shuffle max of (|a|'s bits, ~row) over the leaf's
+//   lanes, rows c and p exchanged and the pivot row broadcast by
+//   shuffles, one division a lane and the row's update; the back-
+//   substitution one broadcast and one division a column. (A thread a
+//   leaf, the whole system in one thread's registers and the swap by
+//   selects, is slower: its chain of about d^3/3 dependent operations
+//   sits on one lane.)
+// - past it: solve_block_kernel<kShared, R>, a block a leaf, [A | rhs]
+//   in shared memory at an odd row stride (in a global scratch past
+//   227 KB, any k). The rows are pivoted through a permutation of row
+//   slots, so no row moves and a column costs one barrier: warp 0, its
+//   lane holding positions lane + 32q (q < R) with their slots, column
+//   values and multipliers in registers, updates the next column, finds
+//   its pivot by two warp max-reductions, swaps two slots and divides,
+//   and writes the slots and multipliers into second buffers, while the
+//   other warps update the rest of the trailing matrix (a warp two rows
+//   at a time, a lane a column, the pivot row in registers). Warp 0 then
+//   back-substitutes, a column's rhs and diagonal broadcast and one
+//   division a column.
+// Every lane divides (a division under a divergent branch costs several
+// uniform ones), and div_rn answers a zero dividend without the
+// division's slow path. Bound: 255 leaves x d^3/3 multiply-adds is
+// 18,360 operations at d = 6, under a microsecond: LS is launch-bound at
+// the main path's width (the floor of an empty kernel in a CUDA graph:
+// PERF.md §6), and past 16 bound by the d dependent pivot steps of one
+// leaf, not by its operations.
 //
 // LA linear_addend: score[r] += s * (value[l] + row_ok * lin), l =
 // leaf_id[r], lin the linear term of linear_term.cuh. Replaces
@@ -98,6 +130,9 @@ constexpr int kThreadsLA = 512;
 constexpr int kBlocksLA = 2;        // LA blocks an SM (its launch bounds)
 constexpr int kRowsLA = 2;          // rows a thread has in flight (LA)
 constexpr int kMaxKLA = 8;          // slots LA unrolls
+constexpr int kSolveRegsMaxD = 16;  // LS's register mode up to this d
+constexpr int kSolveRegsThreads = 64;  // its threads a block
+constexpr int kSolveMaxThreads = 512;  // LS's block mode, at most
 constexpr size_t kTableBytes = 48 * 1024;  // LA's staged leaf tables
 // an entry's kind and columns: (kind << 24) | (j << 12) | i
 constexpr int kEntryA = 0, kEntryB = 1, kEntryCnt = 2, kEntryNone = 3;
@@ -461,88 +496,321 @@ __global__ void normal_eq_reduce_kernel(const double* __restrict__ part,
   }
 }
 
-// One warp per leaf; a [d, d] and rhs [d] in shared memory.
-__global__ void solve_kernel(const float* __restrict__ A,
-                             const float* __restrict__ b,
-                             const float* __restrict__ cnt,
-                             const int* __restrict__ feats,
-                             const float* __restrict__ leaf_const, float lam,
-                             int k, float* __restrict__ value,
-                             float* __restrict__ coeff,
-                             uint8_t* __restrict__ fitted) {
-  extern __shared__ float sm[];
-  __shared__ int pivot;
-  const int l = blockIdx.x, lane = threadIdx.x;
-  const int d = k + 1;
-  float* a = sm;
-  float* rhs = sm + d * d;
+// LS's pivot key: |v|'s bits, which order |v|, with every NaN as one
+// value above +inf; a larger key is a better pivot. With ~row in the low
+// word, the largest key of a column is torch.argmax's pick: the first
+// NaN, else the first largest |a|.
+__device__ __forceinline__ unsigned long long pivot_key(float v, int row) {
+  const float a = fabsf(v);
+  const uint32_t hi = isnan(a) ? 0x7FC00000u : __float_as_uint(a);
+  return ((unsigned long long)hi << 32) | (uint32_t)~row;
+}
+
+// __fdiv_rn(a, b), but a zero dividend over a finite nonzero divisor is
+// answered as the product a * b (the same signed zero) without the
+// division's slow path, which a zero dividend takes at several times a
+// division's cost: padded slots and under-populated leaves divide zeros
+// in every column. Every other case is __fdiv_rn's.
+__device__ __forceinline__ float div_rn(float a, float b) {
+  const bool zero = a == 0.f && b != 0.f && isfinite(b);
+  const float q = __fdiv_rn(zero ? 1.f : a, b);
+  return zero ? __fmul_rn(a, b) : q;
+}
+
+// v[q] for a q known only at run time, by selects (v stays in registers)
+template <int R, typename T>
+__device__ __forceinline__ T pick(const T (&v)[R], int q) {
+  T out = v[0];
+#pragma unroll
+  for (int s = 1; s < R; ++s) out = q == s ? v[s] : out;
+  return out;
+}
+
+// The lanes a leaf takes in the register mode: d rounded up to a power
+// of two.
+__host__ __device__ constexpr int solve_lanes(int d) {
+  return d <= 2 ? 2 : d <= 4 ? 4 : d <= 8 ? 8 : d <= 16 ? 16 : 32;
+}
+
+// LS, register mode: a lane a row of [A | rhs], solve_lanes(D) lanes a
+// leaf, the row in registers. A column: its pivot by a shuffle max over
+// the leaf's lanes, rows c and p exchanged by shuffles, the pivot row
+// broadcast by shuffles, one division a lane and the row's update; the
+// back-substitution one division and one shuffle a column.
+template <int D>
+__global__ void __launch_bounds__(kSolveRegsThreads) solve_regs_kernel(
+    const float* __restrict__ A, const float* __restrict__ b,
+    const float* __restrict__ cnt, const int* __restrict__ feats,
+    const float* __restrict__ leaf_const, float lam, int L,
+    float* __restrict__ value, float* __restrict__ coeff,
+    uint8_t* __restrict__ fitted) {
+  constexpr int K = D - 1;
+  constexpr int W = solve_lanes(D);
+  const int lane = threadIdx.x & 31;
+  const int r = lane & (W - 1);           // this lane's row of its leaf
+  const int base = lane & ~(W - 1);       // the leaf's first lane
+  const int l = (blockIdx.x * kSolveRegsThreads + threadIdx.x) / W;
+  const bool live = l < L && r < D;
+  // lanes of no row (and of leaves past L) read row 0 of the last leaf
+  const int lr = l < L ? l : L - 1, rr = r < D ? r : 0;
+  float row[D + 1];
+  const float* ar = A + ((size_t)lr * D + rr) * D;
+#pragma unroll
+  for (int j = 0; j < D; ++j) row[j] = ar[j];
+  row[D] = -b[(size_t)lr * D + rr];
+  const int f = r < K ? feats[(size_t)lr * K + r] : 0;
+  const bool enough = cnt[lr] >= 2.f * (float)D;
+  const float konst = leaf_const[lr];
+#pragma unroll
+  for (int j = 0; j < D; ++j) {
+    float v = row[j];
+    if (j == r && r < K) v = __fadd_rn(v, f < 0 ? 1.f : lam);
+    row[j] = enough ? v : (j == r ? 1.f : 0.f);
+  }
+#pragma unroll
+  for (int c = 0; c < D; ++c) {
+    unsigned long long key =
+        live && r >= c ? pivot_key(row[c], r) : 0ull;
+#pragma unroll
+    for (int o = W / 2; o > 0; o >>= 1) {
+      const unsigned long long other = __shfl_xor_sync(0xffffffffu, key, o);
+      key = other > key ? other : key;
+    }
+    const int p = (int)~(uint32_t)key;
+    // rows c and p exchange; the pivot row, old row p, to every lane
+    const int src = base + (r == c ? p : (r == p ? c : r));
+    float u[D + 1];
+#pragma unroll
+    for (int j = c; j <= D; ++j) {
+      u[j] = __shfl_sync(0xffffffffu, row[j], base + p);
+      row[j] = __shfl_sync(0xffffffffu, row[j], src);
+    }
+    // every lane divides (a division under a divergent branch costs
+    // several uniform ones); the rows below the pivot keep it
+    const float m = div_rn(row[c], u[c]);
+    if (r > c) {
+#pragma unroll
+      for (int j = c + 1; j <= D; ++j)
+        row[j] = __fsub_rn(row[j], __fmul_rn(m, u[j]));
+    }
+  }
+  // back-substitution: row j's rhs and diagonal to every lane, which
+  // all divide
+#pragma unroll
+  for (int j = D - 1; j >= 0; --j) {
+    const float xr = __shfl_sync(0xffffffffu, row[D], base + j);
+    const float ujj = __shfl_sync(0xffffffffu, row[j], base + j);
+    const float xj = div_rn(xr, ujj);
+    if (r == j) row[D] = xj;
+    if (r < j) row[D] = __fsub_rn(row[D], __fmul_rn(xj, row[j]));
+  }
+  const uint32_t bad =
+      __ballot_sync(0xffffffffu, live && !isfinite(row[D]));
+  const uint32_t mine = W == 32 ? 0xffffffffu : ((1u << W) - 1) << base;
+  const bool fin = enough && (bad & mine) == 0;
+  if (!live) return;
+  if (r < K) coeff[(size_t)l * K + r] = (fin && f >= 0) ? row[D] : 0.f;
+  if (r == K) {
+    value[l] = fin ? row[D] : konst;
+    fitted[l] = fin ? 1 : 0;
+  }
+}
+
+// LS, block mode: a block a leaf. Logical row i of [A | rhs] (d rows of
+// d + 1 words at the odd stride S) lives in row slot[i]. Warp 0's lane
+// holds positions lane + 32q (q < R, d <= 32R): their slots, column
+// values and multipliers in registers; the other warps read the slots
+// and multipliers from double-buffered shared tables ([2][d] each),
+// which warp 0 writes for the next column while they update this one.
+// kShared: the system in dynamic shared memory, else in `sys` (d x S
+// words a leaf); the tables are in shared memory either way.
+template <bool kShared, int R>
+__global__ void __launch_bounds__(kSolveMaxThreads) solve_block_kernel(
+    const float* __restrict__ A, const float* __restrict__ b,
+    const float* __restrict__ cnt, const int* __restrict__ feats,
+    const float* __restrict__ leaf_const, float lam, int k,
+    float* __restrict__ sys, float* __restrict__ value,
+    float* __restrict__ coeff, uint8_t* __restrict__ fitted) {
+  extern __shared__ __align__(16) float sm[];
+  const int l = blockIdx.x, d = k + 1, S = (d + 1) | 1;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int bulk = (blockDim.x >> 5) - 1;  // the warps of the update
+  float* const M = kShared ? sm : sys + (size_t)l * d * S;
+  float* const mult = kShared ? sm + (size_t)d * S : sm;
+  int* const slot = reinterpret_cast<int*>(mult + 2 * d);
   const int* lf = feats + (size_t)l * k;
   const bool enough = cnt[l] >= 2.f * (float)d;
-  for (int e = lane; e < d * d; e += 32) {
-    const int i = e / d, j = e % d;
-    float v = A[(size_t)l * d * d + e];
+  const float* al = A + (size_t)l * d * d;
+  for (int e = tid; e < d * d; e += blockDim.x) {
+    const int i = e / d, j = e - i * d;
+    float v = al[e];
     if (i == j && i < k) v = __fadd_rn(v, lf[i] < 0 ? 1.f : lam);
-    if (!enough) v = i == j ? 1.f : 0.f;
-    a[e] = v;
+    M[i * S + j] = enough ? v : (i == j ? 1.f : 0.f);
   }
-  for (int i = lane; i < d; i += 32) rhs[i] = -b[(size_t)l * d + i];
-  __syncwarp();
-  for (int c = 0; c < d; ++c) {
-    if (lane == 0) {
-      // the first largest |a|, NaN counting as largest (torch.argmax)
-      int p = c;
-      float best = fabsf(a[c * d + c]);
-      for (int i = c + 1; i < d; ++i) {
-        const float v = fabsf(a[i * d + c]);
-        if (!isnan(best) && (isnan(v) || v > best)) {
-          best = v;
-          p = i;
+  for (int i = tid; i < d; i += blockDim.x) M[i * S + d] = -b[(size_t)l * d + i];
+  __syncthreads();
+  int rs[R];           // warp 0: the slots of positions lane + 32q
+  float m[R];          // and their multipliers for the current column
+#pragma unroll
+  for (int q = 0; q < R; ++q) {
+    rs[q] = lane + 32 * q < d ? lane + 32 * q : 0;
+    m[q] = 0.f;
+  }
+  int prow = 0;        // warp 0: the slot of the pivot row, position c
+  int cur = 0;
+  // step c eliminates column c (c >= 0) and pivots column col = c + 1
+  for (int c = -1; c < d - 1; ++c) {
+    const int col = c + 1;
+    if (warp == 0) {
+      int* sn = slot + (cur ^ 1) * d;
+      float* mn = mult + (cur ^ 1) * d;
+      // column col for positions >= col: every load, then the updates
+      // and keys, then the stores, so the positions' chains overlap (a
+      // store could alias a later load); the branches on q are the
+      // warp's (positions lane + 32q past d are skipped whole), the rest
+      // is predicated
+      const float u = c >= 0 ? M[prow * S + col] : 0.f;
+      float v[R];
+#pragma unroll
+      for (int q = 0; q < R; ++q)
+        v[q] = 32 * q < d ? M[rs[q] * S + col] : 0.f;
+      unsigned long long best = 0ull;
+#pragma unroll
+      for (int q = 0; q < R; ++q) {
+        if (32 * q >= d) continue;
+        const int i = lane + 32 * q;
+        if (c >= 0) v[q] = __fsub_rn(v[q], __fmul_rn(m[q], u));
+        const unsigned long long key =
+            i >= col && i < d ? pivot_key(v[q], i) : 0ull;
+        best = key > best ? key : best;
+      }
+      if (c >= 0) {
+#pragma unroll
+        for (int q = 0; q < R; ++q) {
+          const int i = lane + 32 * q;
+          if (32 * q < d && i >= col && i < d) M[rs[q] * S + col] = v[q];
         }
       }
-      pivot = p;
-    }
-    __syncwarp();
-    const int p = pivot;
-    if (p != c) {
-      for (int j = lane; j < d; j += 32) {
-        const float t = a[c * d + j];
-        a[c * d + j] = a[p * d + j];
-        a[p * d + j] = t;
+      const uint32_t hi =
+          __reduce_max_sync(0xffffffffu, (uint32_t)(best >> 32));
+      const uint32_t lo = __reduce_max_sync(
+          0xffffffffu, (uint32_t)(best >> 32) == hi ? (uint32_t)best : 0u);
+      const int p = (int)~lo;
+      const float piv = __shfl_sync(0xffffffffu, pick(v, p >> 5), p & 31);
+      const int slot_p = __shfl_sync(0xffffffffu, pick(rs, p >> 5), p & 31);
+      const float v_col = __shfl_sync(0xffffffffu, pick(v, col >> 5),
+                                      col & 31);
+      const int slot_col = __shfl_sync(0xffffffffu, pick(rs, col >> 5),
+                                       col & 31);
+#pragma unroll
+      for (int q = 0; q < R; ++q) {
+        const int i = lane + 32 * q;
+        if (i == p) {
+          rs[q] = slot_col;
+          v[q] = v_col;
+        }
+        if (i == col) rs[q] = slot_p;
       }
-      if (lane == 0) {
-        const float t = rhs[c];
-        rhs[c] = rhs[p];
-        rhs[p] = t;
+      // every lane divides (a division under a divergent branch costs
+      // several uniform ones); the positions below the pivot keep it
+      float mq[R];
+#pragma unroll
+      for (int q = 0; q < R; ++q)
+        mq[q] = 32 * q < d ? div_rn(v[q], piv) : 0.f;
+#pragma unroll
+      for (int q = 0; q < R; ++q)
+        if (lane + 32 * q > col) m[q] = mq[q];
+#pragma unroll
+      for (int q = 0; q < R; ++q) {
+        const int i = lane + 32 * q;
+        if (32 * q < d && i >= col && i < d) {
+          sn[i] = rs[q];
+          if (i > col) mn[i] = m[q];
+        }
+      }
+      prow = slot_p;
+    } else if (c >= 0) {
+      // rows col.. (a warp a row) minus their multiple of the pivot row,
+      // columns col + 1..d (a lane a column); the pivot row's values
+      // stay in registers, the next row's slot and multiplier are read
+      // before this row's stores
+      const int* sc = slot + cur * d;
+      const float* mc = mult + cur * d;
+      const float* pr = M + sc[c] * S;
+      const int width = d - col;   // columns col + 1..d
+      float pu[R + 1];
+#pragma unroll
+      for (int s = 0; s <= R; ++s) {
+        const int j = col + 1 + lane + 32 * s;
+        pu[s] = 32 * s < width && j <= d ? pr[j] : 0.f;
+      }
+      for (int i = col + warp - 1; i < d; i += 2 * bulk) {
+        const int i2 = i + bulk;
+        const bool two = i2 < d;
+        float* row1 = M + sc[i] * S;
+        float* row2 = M + (two ? sc[i2] : sc[i]) * S;
+        const float m1 = mc[i], m2 = two ? mc[i2] : 0.f;
+        float a1[R + 1], a2[R + 1];
+#pragma unroll
+        for (int s = 0; s <= R; ++s) {
+          if (32 * s >= width) continue;
+          const int j = col + 1 + lane + 32 * s;
+          a1[s] = j <= d ? row1[j] : 0.f;
+          a2[s] = j <= d ? row2[j] : 0.f;
+        }
+#pragma unroll
+        for (int s = 0; s <= R; ++s) {
+          if (32 * s >= width) continue;
+          const int j = col + 1 + lane + 32 * s;
+          if (j <= d) {
+            row1[j] = __fsub_rn(a1[s], __fmul_rn(m1, pu[s]));
+            if (two) row2[j] = __fsub_rn(a2[s], __fmul_rn(m2, pu[s]));
+          }
+        }
       }
     }
-    __syncwarp();
-    const float piv = a[c * d + c];
-    for (int i = c + 1 + lane; i < d; i += 32) {
-      const float m = __fdiv_rn(a[i * d + c], piv);
-      a[i * d + c] = m;
-      for (int j = c + 1; j < d; ++j) {
-        a[i * d + j] = __fsub_rn(a[i * d + j], __fmul_rn(m, a[c * d + j]));
-      }
-      rhs[i] = __fsub_rn(rhs[i], __fmul_rn(m, rhs[c]));
-    }
-    __syncwarp();
+    __syncthreads();
+    cur ^= 1;
+  }
+  if (warp != 0) return;
+  // back-substitution: lane i % 32 holds position i's rhs and diagonal;
+  // a column's rhs and diagonal go to every lane, which all divide
+  float x[R], diag[R];
+#pragma unroll
+  for (int q = 0; q < R; ++q) {
+    const int i = lane + 32 * q;
+    x[q] = i < d ? M[rs[q] * S + d] : 0.f;
+    diag[q] = i < d ? M[rs[q] * S + i] : 1.f;
   }
   for (int j = d - 1; j >= 0; --j) {
-    if (lane == 0) rhs[j] = __fdiv_rn(rhs[j], a[j * d + j]);
-    __syncwarp();
-    for (int i = lane; i < j; i += 32) {
-      rhs[i] = __fsub_rn(rhs[i], __fmul_rn(rhs[j], a[i * d + j]));
+    const int qj = j >> 5, lj = j & 31;
+    float uij[R];
+#pragma unroll
+    for (int q = 0; q < R; ++q)
+      uij[q] = 32 * q < d ? M[rs[q] * S + j] : 0.f;
+    const float xr = __shfl_sync(0xffffffffu, pick(x, qj), lj);
+    const float ujj = __shfl_sync(0xffffffffu, pick(diag, qj), lj);
+    const float xj = div_rn(xr, ujj);
+#pragma unroll
+    for (int q = 0; q < R; ++q) {
+      const int i = lane + 32 * q;
+      if (i == j) x[q] = xj;
+      if (i < j) x[q] = __fsub_rn(x[q], __fmul_rn(xj, uij[q]));
     }
-    __syncwarp();
   }
-  if (lane == 0) {
-    bool fin = enough;
-    for (int j = 0; j < d; ++j) fin = fin && isfinite(rhs[j]);
-    value[l] = fin ? rhs[k] : leaf_const[l];
-    for (int j = 0; j < k; ++j) {
-      coeff[(size_t)l * k + j] = (fin && lf[j] >= 0) ? rhs[j] : 0.f;
+  bool fin = enough;
+#pragma unroll
+  for (int q = 0; q < R; ++q)
+    if (lane + 32 * q < d) fin = fin && isfinite(x[q]);
+  fin = __all_sync(0xffffffffu, fin);
+#pragma unroll
+  for (int q = 0; q < R; ++q) {
+    const int i = lane + 32 * q;
+    if (i < k) coeff[(size_t)l * k + i] = (fin && lf[i] >= 0) ? x[q] : 0.f;
+    if (i == k) {
+      value[l] = fin ? x[q] : leaf_const[l];
+      fitted[l] = fin ? 1 : 0;
     }
-    fitted[l] = fin ? 1 : 0;
   }
 }
 
@@ -777,24 +1045,114 @@ extern "C" int lgbt_linear_normal_eq(
 // The rows kernel takes d up to this (the wide kernel past it).
 extern "C" int lgbt_linear_rows_max_d() { return kRowsMaxD; }
 
+// LS's register mode takes d up to this (the block mode past it).
+extern "C" int lgbt_linear_solve_regs_max_d() { return kSolveRegsMaxD; }
+
+template <int D>
+static cudaError_t launch_solve_regs(int L, int threads, int smem,
+                                    cudaStream_t s, const float* A,
+                                    const float* b, const float* cnt,
+                                    const int* feats, const float* leaf_const,
+                                    float lam, float* value, float* coeff,
+                                    uint8_t* fitted) {
+  if (threads != kSolveRegsThreads || smem != 0) return cudaErrorInvalidValue;
+  const long long lanes = (long long)L * solve_lanes(D);
+  solve_regs_kernel<D>
+      <<<(int)((lanes + threads - 1) / threads), threads, 0, s>>>(
+          A, b, cnt, feats, leaf_const, lam, L, value, coeff, fitted);
+  return cudaGetLastError();
+}
+
+template <bool kShared, int R>
+static cudaError_t launch_solve_block(int L, int k, int threads, size_t smem,
+                                     cudaStream_t s, const float* A,
+                                     const float* b, const float* cnt,
+                                     const int* feats,
+                                     const float* leaf_const, float lam,
+                                     float* sys, float* value, float* coeff,
+                                     uint8_t* fitted) {
+  if (smem > 48 * 1024) {
+    cudaError_t err = cudaFuncSetAttribute(
+        solve_block_kernel<kShared, R>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return err;
+  }
+  solve_block_kernel<kShared, R><<<L, threads, smem, s>>>(
+      A, b, cnt, feats, leaf_const, lam, k, sys, value, coeff, fitted);
+  return cudaGetLastError();
+}
+
 // A [L, d, d], b [L, d], cnt [L] f32; feats [L, k] i32; leaf_const [L]
-// f32; value [L], coeff [L, k] f32 and fitted [L] u8 out.
+// f32; the plan of ops/linear.py solve_plan: mode (0 registers, 1 a
+// block a leaf), threads and dynamic shared bytes; sys: L x d x ((d + 1)
+// | 1) f32 of scratch where the block mode's system does not fit in
+// shared memory, else null; value [L], coeff [L, k] f32 and fitted [L]
+// (one byte, 0 or 1: a torch.bool tensor) out.
 extern "C" int lgbt_linear_solve(const float* A, const float* b,
                                  const float* cnt, const int* feats,
                                  const float* leaf_const, float lam, int L,
-                                 int k, float* value, float* coeff,
+                                 int k, int mode, int threads, int smem,
+                                 float* sys, float* value, float* coeff,
                                  uint8_t* fitted, void* stream) {
   if (L <= 0) return 0;
+  cudaStream_t s = (cudaStream_t)stream;
   const int d = k + 1;
-  const size_t smem = (size_t)(d * d + d) * sizeof(float);
-  if (smem > 48 * 1024) {  // k > 109
-    cudaError_t err = cudaFuncSetAttribute(
-        solve_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return (int)err;
+  if (k < 1 || threads < 32 || threads % 32 || smem < 0)
+    return (int)cudaErrorInvalidValue;
+  if (mode == 0) {
+    cudaError_t err = cudaErrorInvalidValue;
+#define LGBT_SOLVE_D(DD)                                                  \
+  case DD:                                                                \
+    err = launch_solve_regs<DD>(L, threads, smem, s, A, b, cnt, feats,    \
+                                leaf_const, lam, value, coeff, fitted);   \
+    break;
+    switch (d) {
+      LGBT_SOLVE_D(2)
+      LGBT_SOLVE_D(3)
+      LGBT_SOLVE_D(4)
+      LGBT_SOLVE_D(5)
+      LGBT_SOLVE_D(6)
+      LGBT_SOLVE_D(7)
+      LGBT_SOLVE_D(8)
+      LGBT_SOLVE_D(9)
+      LGBT_SOLVE_D(10)
+      LGBT_SOLVE_D(11)
+      LGBT_SOLVE_D(12)
+      LGBT_SOLVE_D(13)
+      LGBT_SOLVE_D(14)
+      LGBT_SOLVE_D(15)
+      LGBT_SOLVE_D(16)
+      default:
+        break;
+    }
+#undef LGBT_SOLVE_D
+    static_assert(kSolveRegsMaxD == 16, "the cases run to kSolveRegsMaxD");
+    return (int)err;
   }
-  solve_kernel<<<L, 32, smem, (cudaStream_t)stream>>>(
-      A, b, cnt, feats, leaf_const, lam, k, value, coeff, fitted);
-  return (int)cudaGetLastError();
+  if (mode != 1 || threads < 128 || threads > kSolveMaxThreads ||
+      d > 32 * 128)
+    return (int)cudaErrorInvalidValue;
+  const size_t system = (size_t)d * ((d + 1) | 1) * sizeof(float);
+  const size_t buffers = (size_t)4 * d * sizeof(float);
+  if (smem != (int)(buffers + (sys == nullptr ? system : 0)))
+    return (int)cudaErrorInvalidValue;
+  cudaError_t err;
+#define LGBT_SOLVE_BLOCK(SH, RR)                                          \
+  err = launch_solve_block<SH, RR>(L, k, threads, smem, s, A, b, cnt,     \
+                                   feats, leaf_const, lam, sys, value,    \
+                                   coeff, fitted)
+  if (sys == nullptr) {
+    if (d <= 32) LGBT_SOLVE_BLOCK(true, 1);
+    else if (d <= 64) LGBT_SOLVE_BLOCK(true, 2);
+    else if (d <= 128) LGBT_SOLVE_BLOCK(true, 4);
+    else LGBT_SOLVE_BLOCK(true, 8);
+  } else {
+    if (d <= 256) LGBT_SOLVE_BLOCK(false, 8);
+    else if (d <= 1024) LGBT_SOLVE_BLOCK(false, 32);
+    else LGBT_SOLVE_BLOCK(false, 128);
+  }
+#undef LGBT_SOLVE_BLOCK
+  return (int)err;
 }
 
 // x [n, F] f32; leaf_id [n] i32; value [L], coeff [L, k] f32; feats [L,

@@ -100,7 +100,8 @@ LIBRARIES = {
         "lgbt_linear_normal_eq": [_p, _i] + [_p] * 5 + [_i, _p] + [_i] * 4
         + [_p] * 6,
         "lgbt_linear_rows_max_d": [],
-        "lgbt_linear_solve": [_p] * 5 + [_f, _i, _i] + [_p] * 4,
+        "lgbt_linear_solve_regs_max_d": [],
+        "lgbt_linear_solve": [_p] * 5 + [_f] + [_i] * 5 + [_p] * 5,
         "lgbt_linear_addend": [_p, _i, _i] + [_p] * 4 + [_i, _i, _f, _p,
                                                           _p],
     }, _NO_FMA),

@@ -13,7 +13,14 @@ Counterpart of `lightgbm_tpu/linear/solver.py` `fit_leaves` (:54, with
   intercept), 1 on the diagonal of a padded slot, the identity for a
   leaf with cnt < 2(k+1), A beta = -b by LU with partial pivoting, and
   the fallback to the grower's constant with zero slopes when the leaf
-  is not fitted or its solution is not finite;
+  is not fitted or its solution is not finite; one launch, in one of two
+  modes by d = k + 1 alone (`solve_plan`): up to d = LS_REGS_MAX_D (16;
+  the main path's k 5) a lane a row with the system in registers, d
+  rounded up to a power of two lanes a leaf; past it a block a leaf, the
+  system in shared memory (in a global scratch past 227 KB) and warp 0
+  pivoting through row slots. At the main path's width LS is
+  launch-bound: its 18,360 operations take far less than the launch of
+  an empty kernel (PERF.md §6);
 - LA `linear_addend`: score[r] += s * (value[l] + row_ok * lin) with l =
   leaf_id[r] and lin the leaf's coefficients times the row's values
   (`linear_dot_plain`), for the train score (s = shrinkage), valid sets
@@ -24,7 +31,8 @@ raises; on a CPU tensor it runs the plain version. LS and LA equal their
 plain versions bitwise; LF forms each term in f32 as the JAX package
 does and sums it in f64 (kernel and plain alike), rounding once to f32,
 so the two agree up to the last f32 bit. Launches are counted in
-`linear_normal_eq.launches`, `linear_solve.launches` and
+`linear_normal_eq.launches`, `linear_solve.launches` (of them, the
+block mode's in `linear_solve.launches_block`) and
 `linear_addend.launches`.
 
 Feature columns: `feats` index the columns of `x`, whatever space that
@@ -55,8 +63,10 @@ XLA_UNFUSED_SLOTS = 8
 
 def check_linear_features(k: int) -> None:
     """LF splits a leaf's d(d+1)/2 + d + 1 sums (d = k + 1) over as many
-    blocks as they need and LS keeps the d x d system in shared memory,
-    so any k >= 1 is taken, as the JAX package takes it."""
+    blocks as they need and LS keeps the d x d system in registers, in
+    shared memory or, past its 227 KB, in a global scratch
+    (`solve_plan`), so any k >= 1 is taken, as the JAX package takes
+    it."""
     if k < 1:
         raise LightGBMError(
             "tpu_linear_max_features=%d: the linear-leaf kernels take 1 or "
@@ -358,6 +368,51 @@ def _check_rows_kernel() -> None:
 
 # ----------------------------------------------------------------------
 # LS
+#: LS's layout (csrc/linear.cu): up to d = k + 1 = LS_REGS_MAX_D a lane a
+#: row of [A | rhs] in registers, d rounded up to a power of two lanes a
+#: leaf, LS_REGS_THREADS threads a block; past it a block a leaf of 32 x
+#: (1 + bulk) threads, bulk warps (LS_BULK_WARPS) updating the trailing
+#: matrix a row each, the system in shared memory up to LS_SMEM_MAX
+#: bytes, else in a global scratch
+LS_REGS_MAX_D, LS_REGS_THREADS = 16, 64
+LS_BULK_WARPS = (3, 15)
+LS_SMEM_MAX = 227 * 1024
+
+
+@functools.lru_cache(maxsize=None)
+def solve_plan(k: int) -> dict:
+    """LS's launch plan at k features a leaf (d = k + 1): `mode` "regs"
+    (a lane a row, `lanes` lanes a leaf, `threads` a block, no shared
+    memory) or "block" (a block of `threads` threads a leaf; [A | rhs]
+    in rows of `stride` words, odd, in shared memory or, where
+    `sys_words` > 0, that many words a leaf of global scratch; two
+    buffers of d multipliers and two of d row slots); `smem` the dynamic
+    shared bytes."""
+    d = k + 1
+    if d <= LS_REGS_MAX_D:
+        lanes = 1 << (d - 1).bit_length()
+        return {"mode": "regs", "threads": LS_REGS_THREADS,
+                "lanes": max(lanes, 2), "smem": 0, "sys_words": 0}
+    lo, hi = LS_BULK_WARPS
+    bulk = min(hi, max(lo, -(-(d - 1) // 4)))
+    stride = (d + 1) | 1
+    buffers = 4 * d * 4
+    system = d * stride * 4
+    in_smem = system + buffers <= LS_SMEM_MAX
+    return {"mode": "block", "threads": 32 * (1 + bulk), "stride": stride,
+            "smem": buffers + (system if in_smem else 0),
+            "sys_words": 0 if in_smem else d * stride}
+
+
+@functools.lru_cache(maxsize=None)
+def _check_solve_kernel() -> None:
+    """The built library's register mode takes the d the plan gives it."""
+    if _build.load_library("linear").lgbt_linear_solve_regs_max_d() \
+            != LS_REGS_MAX_D:
+        raise LightGBMError("linear_solve: csrc/linear.cu's register mode "
+                            "differs from ops/linear.py's plan")
+
+
 def linear_solve_plain(a_sum, b_sum, cnt, feats, leaf_const, linear_lambda):
     num_leaves, d = b_sum.shape
     k = d - 1
@@ -402,7 +457,9 @@ def linear_solve(a_sum: torch.Tensor, b_sum: torch.Tensor, cnt: torch.Tensor,
                  ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """LS: (leaf_value [L] f32, leaf_coeff [L, k] f32, fitted [L] bool)
     from LF's sums, the leaves' feature slots feats [L, k] (-1: padded)
-    and the grower's constants leaf_const [L] f32."""
+    and the grower's constants leaf_const [L] f32. On the card one
+    launch, which writes all three (fitted as bytes 0 or 1 of the bool
+    tensor), bitwise the plain version."""
     num_leaves, d = b_sum.shape
     k = d - 1
     check_linear_features(k)
@@ -420,14 +477,22 @@ def linear_solve(a_sum: torch.Tensor, b_sum: torch.Tensor, cnt: torch.Tensor,
     _on_cuda("linear_solve", (a_sum, b_sum, cnt, feats, leaf_const),
              (torch.float32,) * 3 + (torch.int32, torch.float32))
     dev = a_sum.device
+    plan = solve_plan(k)
     value = torch.empty(num_leaves, dtype=torch.float32, device=dev)
     coeff = torch.empty((num_leaves, k), dtype=torch.float32, device=dev)
-    fitted = torch.empty(num_leaves, dtype=torch.uint8, device=dev)
+    fitted = torch.empty(num_leaves, dtype=torch.bool, device=dev)
+    sys = (torch.empty(num_leaves * plan["sys_words"], dtype=torch.float32,
+                       device=dev) if plan["sys_words"] else None)
+    _check_solve_kernel()
     _launch(linear_solve, "lgbt_linear_solve", dev, _ptr(a_sum),
             _ptr(b_sum), _ptr(cnt), _ptr(feats), _ptr(leaf_const),
-            float(linear_lambda), num_leaves, k, _ptr(value), _ptr(coeff),
-            _ptr(fitted))
-    return value, coeff, fitted.bool()
+            float(linear_lambda), num_leaves, k,
+            0 if plan["mode"] == "regs" else 1, plan["threads"],
+            plan["smem"], _ptr(sys), _ptr(value), _ptr(coeff), _ptr(fitted))
+    if plan["mode"] == "block":
+        with _launch_lock:
+            linear_solve.launches_block += 1
+    return value, coeff, fitted
 
 
 # ----------------------------------------------------------------------
@@ -476,4 +541,5 @@ def linear_addend(x: torch.Tensor, leaf_id: torch.Tensor,
 
 linear_normal_eq.launches = 0
 linear_solve.launches = 0
+linear_solve.launches_block = 0   # of them, the block mode's
 linear_addend.launches = 0
